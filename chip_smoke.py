@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the port's serving path on one NVIDIA card and hold its kernel to
-its plain PyTorch version.
+"""Drive the port's paths on one NVIDIA card and hold its kernels to
+their plain PyTorch versions.
 
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # device, build and kernel-vs-plain only
+    python3 chip_smoke.py --quick    # device, builds and kernel-vs-plain only
 
 Phases, each of which fails the run when it fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles ``cornac_tpu_torch/csrc/fused_topk.cu`` with nvcc;
-3. kernel vs plain: the fused score + top-k kernel against
+2. build: compiles ``cornac_tpu_torch/csrc/fused_topk.cu`` and
+   ``cosine_topk.cu`` with nvcc, one process each, in parallel, and
+   prints ptxas's registers and spills;
+3. fused_topk vs plain: the fused score + top-k kernel against
    ``fused_topk_torch`` on the card, with and without bias, for k in
    {1, 100, 128, 1000, N} and k > N, ties across distant chunks, and the
    full serving shape;
-4. slice: a BPR model (k=50 + item bias, so d=51) over 480,000 users and
-   17,700 items, random factors from the seed, wrapped in TPUExactANN,
-   saved, loaded by ``load_model`` and served by the standalone HTTP
-   server on localhost (/recommend, /feedback, /evaluate), then
-   ``recommend_batch`` for 8,192 users; every answer is checked against
-   lists computed from the same vectors with the plain version;
-5. times: kernel, plain version, ``torch.matmul`` + ``torch.topk`` as the
-   library yardstick, and the bound, at B in {1, 256, 8192}.
+4. cosine_topk vs plain: the co-support cosine + top-k kernel against
+   ``cosine_topk_torch`` on binary, integer and half-star data (exact,
+   index for index), mean-centred data with negative similarities (within
+   rtol 1e-5 / atol 1e-6, indices up to near-ties), k = n - 1 and k past
+   n, ragged tiles and slabs, m = 1, all-zero rows, n below one tile;
+5. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
+   480,000 users and 17,700 items, random factors from the seed, wrapped
+   in TPUExactANN, saved, loaded by ``load_model`` and served by the
+   standalone HTTP server on localhost (/recommend, /feedback, /evaluate),
+   then ``recommend_batch`` for 8,192 users; every answer is checked
+   against lists computed from the same vectors with the plain version;
+6. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
+   1,000,209 seeded whole-star ratings): RatioSplit -> Experiment with
+   ItemKNN(k=50) and UserKNN(k=50) on Recall@10, NDCG@10 and AUC ->
+   nearest_items / nearest_users (kernel launches, held exactly to the
+   plain version) -> the ItemKNN saved and served by the standalone server;
+7. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
+   10,000,054 seeded half-star ratings): ItemKNN(k=50).fit and
+   nearest_items(50), held exactly to the plain version;
+8. times: each kernel, its plain version and a library yardstick
+   (``torch.matmul`` + ``torch.topk``) with CUDA events, beside the bound.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernel's numbers, and ``{"ok": true, "device": {...}}``. The
+with the kernels' numbers, and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
 
@@ -66,20 +81,36 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+class Clock:
+    """Host-clock seconds of named steps, each ending in a synchronise."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn):
+        import torch
+
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t
+        return out
+
+    def report(self, what):
+        for name, sec in self.seconds.items():
+            log(f"  {what}, host clock: {name}: {sec:.3f} s")
+
+
 def plain_scores(U, V, bias=None):
     """Full float32 (B, N) scores, TF32 off."""
-    import torch
+    from cornac_tpu_torch.ops.dispatch import full_f32
 
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32():
         s = U @ V.T
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     return s if bias is None else s + bias
 
 
-def compare_topk(ks, ki, ps, pi, S, what, exact=False):
+def compare_topk(ks, ki, ps, pi, S, what, exact=False, rtol=RTOL, atol=ATOL):
     """Hold the kernel's (scores, items) to the plain version's. Unless
     ``exact``, index equality is relaxed only where the plain scores next
     to the position lie within the score tolerance of each other and the
@@ -91,7 +122,10 @@ def compare_topk(ks, ki, ps, pi, S, what, exact=False):
     if ks.shape != ps[:, :k].shape or not torch.isfinite(ks).all():
         raise AssertionError(f"{what}: bad kernel output {tuple(ks.shape)}")
     err = (ks - ps[:, :k]).abs()
-    if not torch.all(err <= ATOL + RTOL * ps[:, :k].abs()):
+    if exact and not (torch.equal(ks, ps[:, :k]) and torch.equal(ki, pi[:, :k])):
+        raise AssertionError(f"{what}: kernel differs from the plain version on exact data "
+                             f"(max |err| {err.max().item():.3e})")
+    if not torch.all(err <= atol + rtol * ps[:, :k].abs()):
         raise AssertionError(f"{what}: scores differ by up to {err.max().item():.3e}")
     if (torch.sort(ki.long(), dim=1).values.diff(dim=1) == 0).any():
         raise AssertionError(f"{what}: an item appears twice in a row")
@@ -100,7 +134,7 @@ def compare_topk(ks, ki, ps, pi, S, what, exact=False):
     if n_bad and exact:
         raise AssertionError(f"{what}: {n_bad} item mismatches where scores tie exactly")
     if n_bad:
-        tol = ATOL + RTOL * ps.abs()
+        tol = atol + rtol * ps.abs()
         near = torch.zeros_like(bad)
         near[:, 1:] |= (ps[:, 1:k] - ps[:, : k - 1]).abs() <= tol[:, 1:k]
         if ps.shape[1] > k:
@@ -172,6 +206,92 @@ def phase_kernel(gen):
         del U, V, b, ks, ki, ps, pi, S
     log(f"kernel vs plain: ok, {len(cases)} cases, max |err| {max_err:.3e}, "
         f"positions relaxed as near-ties: {relaxed} (tolerance rtol={RTOL} atol={ATOL})")
+    return max_err
+
+
+SIM_RTOL, SIM_ATOL = 1e-5, 1e-6  # similarities on inexact data: f32 sums in another order
+
+
+def star_weights(n, m, density, kind, gen):
+    """(n, m) sparse weights on the card: ``binary`` (every co-rated pair
+    has similarity 1.0), ``integer`` 1-5 or ``half_star`` 0.5-5.0, on
+    which every sum of the cosine is exact in float32; ``centred``: random
+    normals, mean-centred per row, so negative similarities occur."""
+    import torch
+
+    mask = torch.rand(n, m, generator=gen, device=DEV) < density
+    if kind == "binary":
+        vals = torch.ones(n, m, device=DEV)
+    elif kind == "integer":
+        vals = torch.randint(1, 6, (n, m), generator=gen, device=DEV).float()
+    elif kind == "half_star":
+        vals = torch.randint(1, 11, (n, m), generator=gen, device=DEV).float() / 2
+    else:
+        vals = torch.randn(n, m, generator=gen, device=DEV)
+    W = torch.where(mask, vals, 0.0)
+    if kind == "centred":
+        cnt = mask.sum(1, keepdim=True).clamp_min(1)
+        W = torch.where(mask, W - (W.sum(1, keepdim=True) / cnt - 1e-4), 0.0)
+    return W.contiguous()
+
+
+def check_cosine(W, k, exclude_self, what, exact):
+    """One kernel launch on W against the plain version; returns
+    (max abs error, positions relaxed as near-ties)."""
+    import torch
+
+    from cornac_tpu_torch.ops.cosine_topk import (
+        COSINE_TOPK, all_pairs_cosine, cosine_topk, cosine_topk_torch)
+
+    n = W.shape[0]
+    cap = n - 1 if exclude_self else n
+    before = COSINE_TOPK.launches
+    ks, ki = cosine_topk(W, k, exclude_self=exclude_self, force="kernel")
+    torch.cuda.synchronize()
+    if COSINE_TOPK.launches != before + 1:
+        raise AssertionError(f"{what}: the kernel was not launched")
+    k_eff = min(k, cap)
+    if ks.shape != (n, k_eff):
+        raise AssertionError(f"{what}: kernel gave {tuple(ks.shape)}, want {(n, k_eff)}")
+    if exclude_self and (ki == torch.arange(n, device=DEV)[:, None]).any():
+        raise AssertionError(f"{what}: a row is its own neighbour")
+    ps, pi = cosine_topk_torch(W, min(k_eff + 1, cap), exclude_self)
+    return compare_topk(ks, ki, ps, pi, all_pairs_cosine(W, exclude_self), what, exact=exact,
+                        rtol=SIM_RTOL, atol=SIM_ATOL)
+
+
+def phase_cosine(gen):
+    import torch
+
+    # (label, n, m, density, kind, k, exclude_self); tiles: 32 rows x 128
+    # columns, slabs of 32 entries of m
+    cases = [
+        ("binary, sims mostly 1.0", 1000, 700, 0.05, "binary", 50, True),
+        ("integer 1-5", 1000, 700, 0.05, "integer", 50, True),
+        ("half-star", 1000, 700, 0.05, "half_star", 50, True),
+        ("integer, exclude_self=False", 1000, 700, 0.05, "integer", 50, False),
+        ("centred, negatives, exclude_self=True", 777, 300, 0.2, "centred", 776, True),
+        ("centred, negatives, exclude_self=False", 777, 300, 0.2, "centred", 777, False),
+        ("k = n - 1", 300, 200, 0.1, "half_star", 299, True),
+        ("k past n (capped)", 300, 200, 0.1, "integer", 1000, True),
+        ("n = 161, not a multiple of either tile", 161, 97, 0.1, "integer", 40, True),
+        ("m = 45, not a multiple of the slab", 500, 45, 0.1, "integer", 30, True),
+        ("m = 1", 400, 1, 0.5, "integer", 20, True),
+        ("n = 20, below one tile", 20, 64, 0.2, "integer", 8, True),
+        ("ML-1M item side 3706 x 6040, k=50", 3706, 6040, 0.045, "integer", 50, True),
+    ]
+    max_err, relaxed = 0.0, 0
+    for what, n, m, density, kind, k, excl in cases:
+        W = star_weights(n, m, density, kind, gen)
+        W[min(5, n - 1)] = 0.0  # an all-zero row: the first k other rows, similarity 0
+        err, n_rel = check_cosine(W, k, excl, what, exact=kind != "centred")
+        max_err, relaxed = max(max_err, err), relaxed + n_rel
+        log(f"  {what} (n={n} m={m} k={k}): ok (max |err| {err:.3e}, near-tie index swaps {n_rel})")
+        del W
+    torch.cuda.empty_cache()
+    log(f"cosine kernel vs plain: ok, {len(cases)} cases, max |err| {max_err:.3e}, exact index "
+        f"for index on star data, near-tie swaps elsewhere: {relaxed} "
+        f"(tolerance rtol={SIM_RTOL} atol={SIM_ATOL})")
     return max_err
 
 
@@ -316,15 +436,7 @@ def phase_slice(seed, work):
     batch_users = [train.user_ids[u] for u in rng.choice(N_USERS, SERVE_BATCH, replace=False)]
     try:
         # ---- the main path, counted ----
-        seconds = {}
-
-        def timed(name, fn):
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            seconds[name] = time.perf_counter() - t
-            return out
-
+        timed = Clock()
         FUSED_TOPK.launches = 0
         answers = {
             "k100": timed("ANN /recommend k=100",
@@ -343,9 +455,8 @@ def phase_slice(seed, work):
         batch_recs = timed(f"BPR.recommend_batch {SERVE_BATCH} users k={TOPK}",
                            lambda: bpr.recommend_batch(batch_users, k=TOPK))
         launches = FUSED_TOPK.launches
-        for name, sec in seconds.items():
-            log(f"  main path, host clock: {name}: {1e3 * sec:.1f} ms")
-        log(f"  main path: {sum(seconds.values()):.2f} s, fused_topk launches {launches}")
+        timed.report("main path")
+        log(f"  main path: {sum(timed.seconds.values()):.2f} s, fused_topk launches {launches}")
         if launches <= 0:
             raise AssertionError("the main path never launched the fused_topk kernel")
     finally:
@@ -384,32 +495,37 @@ def phase_slice(seed, work):
     log(f"  /evaluate: RMSE {rmse:.4f}, Recall@10 {recall:.6f} (plain {want_recall:.6f}) "
         f"over {len(evaluated['user_result']['RMSE'])} users")
     log(f"slice: ok, answers match the plain version (positions relaxed as near-ties: {relaxed})")
-    device_share(bpr, batch_users)
+    device_share(f"recommend_batch {SERVE_BATCH} users",
+                 lambda: bpr.recommend_batch(batch_users, k=TOPK))
     return launches, bpr, users
 
 
-def device_share(bpr, batch_users):
-    """Device-busy share of one recommend_batch call, from torch.profiler's
-    kernel times over the call's host-clock duration."""
+def device_share(label, fn):
+    """Device-busy share of one warm call of ``fn``: the summed time of the
+    device-side events (kernels, copies) torch.profiler saw, over the
+    call's host-clock duration. Host-side ops (``aten::topk``) are left
+    out, since their device time is that of the kernels they launched."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bpr.recommend_batch(batch_users, k=TOPK)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        bpr.recommend_batch(batch_users, k=TOPK)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
-        log("  profile: the profiler saw no device time (device share not measured)")
+        log(f"  profile, {label}: the profiler saw no device time (device share not measured)")
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
-    log(f"  profile, recommend_batch {SERVE_BATCH} users: {wall_ms:.1f} ms host clock, "
+    log(f"  profile, {label}: {wall_ms:.1f} ms host clock, "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%); top device ops: "
-        + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+        + ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
 
 
 def reference_recall(bpr, csr, test, train, k):
@@ -431,10 +547,198 @@ def reference_recall(bpr, csr, test, train, k):
                           for b, u in enumerate(users)]))
 
 
-def time_ms(fn, reps):
+# MovieLens 1M and 10M widths; the ratings are generated from the seed
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS, ML1M_MAX_DEGREE = 6_040, 3_706, 1_000_209, 2_314
+ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
+KNN_K = 50
+
+
+def ml1m_triples(seed):
+    """(user, item, whole-star rating) triples at the MovieLens 1M widths:
+    every user rates at least 20 items (heavy-tailed activity, at most
+    2,314 as in ML-1M), items are drawn by a Zipf-like popularity without
+    replacement per user (Gumbel top-k), ratings 1-5 from user and item
+    offsets plus noise."""
+    rng = np.random.RandomState(seed)
+    n_u, n_i, total = ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS
+    weights = rng.lognormal(0.0, 1.2, n_u)
+    deg = 20 + np.floor(weights / weights.sum() * (total - 20 * n_u)).astype(np.int64)
+    deg = np.minimum(deg, ML1M_MAX_DEGREE)
+    while deg.sum() < total:
+        room = np.flatnonzero(deg < ML1M_MAX_DEGREE)
+        deg[rng.choice(room, size=min(total - deg.sum(), len(room)), replace=False)] += 1
+    logp = -0.8 * np.log(np.arange(1, n_i + 1))
+    users, items = [], []
+    for s0 in range(0, n_u, 512):
+        block = np.arange(s0, min(s0 + 512, n_u))
+        order = np.argsort(-(logp[None, :] + rng.gumbel(size=(len(block), n_i))), axis=1)
+        for b, u in enumerate(block):
+            items.append(order[b, : deg[u]])
+            users.append(np.full(deg[u], u))
+    users, items = np.concatenate(users), np.concatenate(items)
+    ub, ib = rng.normal(0, 0.5, n_u), rng.normal(0, 0.6, n_i)
+    r = np.clip(np.rint(3.6 + ub[users] + ib[items] + rng.normal(0, 0.9, total)), 1, 5)
+    perm = rng.permutation(total)
+    uids = [f"u{u}" for u in range(n_u)]
+    iids = [f"i{i}" for i in range(n_i)]
+    return [(uids[u], iids[i], float(x)) for u, i, x in zip(users[perm], items[perm], r[perm])]
+
+
+def ml10m_dataset(seed):
+    """A ``Dataset`` at the MovieLens 10M widths straight from seeded numpy
+    arrays: 10,000,054 distinct (user, item) pairs (duplicates dropped
+    in draw order), heavy-tailed user activity, Zipf-like item popularity,
+    half-star ratings 0.5-5.0."""
+    from collections import OrderedDict
+
+    from cornac_tpu_torch.data import Dataset
+
+    rng = np.random.RandomState(seed + 10)
+    n_u, n_i, n_r = ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS
+    act = rng.lognormal(0.0, 1.0, n_u)
+    pop = np.arange(1, n_i + 1) ** -0.8
+    draw = int(n_r * 1.4)  # about 1 in 6 of the first draws repeats a pair
+    u = rng.choice(n_u, size=draw, p=act / act.sum())
+    i = rng.choice(n_i, size=draw, p=pop / pop.sum())
+    _, first = np.unique(u.astype(np.int64) * n_i + i, return_index=True)
+    if len(first) < n_r:
+        raise AssertionError(f"only {len(first)} distinct pairs drawn")
+    keep = np.sort(first)[:n_r]
+    return Dataset(
+        num_users=n_u, num_items=n_i,
+        uid_map=OrderedDict((x, x) for x in range(n_u)),
+        iid_map=OrderedDict((x, x) for x in range(n_i)),
+        uir_tuple=(u[keep].astype(np.int64), i[keep].astype(np.int64),
+                   rng.randint(1, 11, size=n_r) / 2.0),
+        seed=seed,
+    )
+
+
+def check_neighbours(model, ids, sims, what):
+    """A model's neighbour table (from the kernel) equal, index for index
+    and bit for bit, to the plain version on the same weight matrix;
+    returns that matrix, on the card."""
     import torch
 
-    for _ in range(3):
+    from cornac_tpu_torch.models.knn import dense_f32
+    from cornac_tpu_torch.ops.cosine_topk import cosine_topk_torch
+
+    W = dense_f32(model._weight_mat, torch.device(DEV))
+    ps, pi = cosine_topk_torch(W, ids.shape[1])
+    if not np.array_equal(ids, pi.cpu().numpy()):
+        raise AssertionError(f"{what}: {int((ids != pi.cpu().numpy()).sum())} neighbour "
+                             "indices differ from the plain version")
+    if not np.array_equal(sims, ps.cpu().numpy().astype(np.float64)):
+        raise AssertionError(f"{what}: neighbour similarities differ from the plain version")
+    log(f"  {what}: {ids.shape[0]} x {ids.shape[1]} table equal to the plain version, "
+        f"index for index")
+    return W
+
+
+def phase_knn_ml1m(seed, work):
+    """RatioSplit -> Experiment(ItemKNN, UserKNN) -> nearest_items /
+    nearest_users -> save -> the standalone server, at the ML-1M widths."""
+    import torch
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import AUC, NDCG, Recall
+    from cornac_tpu_torch.models import ItemKNN, UserKNN
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    data = clock("generate 1,000,209 ratings (set-up)", lambda: ml1m_triples(seed))
+    iknn, uknn = ItemKNN(k=KNN_K, verbose=False), UserKNN(k=KNN_K, verbose=False)
+
+    # ---- the main path, counted ----
+    COSINE_TOPK.launches = FUSED_TOPK.launches = 0
+    split = clock("RatioSplit", lambda: RatioSplit(
+        data, test_size=0.2, rating_threshold=4.0, exclude_unknowns=True, seed=123))
+    exp = Experiment(split, [iknn, uknn], [Recall(k=10), NDCG(k=10), AUC()])
+    clock("Experiment.run (fit + ranking eval, both models)", exp.run)
+    item_nn = clock("ItemKNN.nearest_items(50)", lambda: iknn.nearest_items(num_neighbors=KNN_K))
+    user_nn = clock("UserKNN.nearest_users(50)", lambda: uknn.nearest_users(num_neighbors=KNN_K))
+    path = clock("ItemKNN.save", lambda: iknn.save(str(work / "knn")))
+    rng = np.random.RandomState(seed + 2)
+    ask = [iknn.user_ids[u] for u in rng.choice(iknn.num_users, 4, replace=False)]
+    srv = clock("load_model + start the server", lambda: Served(path, "cornac_tpu_torch.models.ItemKNN"))
+    try:
+        answers = [clock(f"ItemKNN /recommend uid={uid} k=10",
+                         lambda uid=uid: srv.get(f"/recommend?uid={uid}&k=10")) for uid in ask]
+    finally:
+        srv.close()
+    launches, fused = COSINE_TOPK.launches, FUSED_TOPK.launches
+    clock.report("KNN main path")
+    log(f"  KNN main path (ML-1M): {sum(clock.seconds.values()):.2f} s, cosine_topk launches "
+        f"{launches}, fused_topk launches {fused}")
+    if launches < 2:
+        raise AssertionError("nearest_items / nearest_users did not launch the cosine kernel")
+
+    # ---- check what came out ----
+    for res in exp.result:
+        vals = [v for k, v in res.metric_avg_results.items() if "(s)" not in k]
+        if len(vals) != 3 or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f"{res.model_name}: bad metrics {res.metric_avg_results}")
+    log("  metric table (ML-1M widths, seeded ratings):\n" + str(exp.result).rstrip())
+    W_items = check_neighbours(iknn, *item_nn, "ItemKNN.nearest_items")
+    W_users = check_neighbours(uknn, *user_nn, "UserKNN.nearest_users")
+    inv = {v: k for k, v in iknn.iid_map.items()}
+    for uid, ans in zip(ask, answers):
+        scores = iknn.score_batch(np.array([iknn.uid_map[uid]]))[0]
+        got = np.array([iknn.iid_map[i] for i in ans["recommendations"]])
+        want = np.argsort(-scores, kind="stable")[:10]
+        # np.argsort in rank() is not stable: equal scores may come in any order
+        if len(set(got.tolist())) != 10 or not np.array_equal(scores[got], scores[want]):
+            raise AssertionError(f"/recommend uid={uid}: {[inv[i] for i in got]} is not a "
+                                 f"best-10 ranking of score_batch")
+    log(f"  served ItemKNN: {len(ask)} /recommend answers equal to a stable ranking of score_batch")
+    batch = np.arange(256)  # one eval batch scores users like this, 16 per device call
+    for model in (iknn, uknn):
+        device_share(f"{model.name}.score_batch of 256 users", lambda m=model: m.score_batch(batch))
+    log(f"KNN slice (ML-1M): ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, W_items, W_users
+
+
+def phase_knn_ml10m(seed):
+    """ItemKNN(k=50).fit + nearest_items(50) at the ML-10M widths."""
+    import torch
+
+    from cornac_tpu_torch.models import ItemKNN
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
+
+    clock = Clock()
+    train = clock("Dataset from numpy (set-up)", lambda: ml10m_dataset(seed))
+    model = ItemKNN(k=KNN_K, verbose=False)
+
+    # ---- the main path, counted ----
+    COSINE_TOPK.launches = 0
+    clock("ItemKNN.fit", lambda: model.fit(train))
+    ids, sims = clock("ItemKNN.nearest_items(50)", lambda: model.nearest_items(num_neighbors=KNN_K))
+    launches = COSINE_TOPK.launches
+    clock.report("related items")
+    log(f"  related items (ML-10M): {train.num_ratings} ratings, {train.num_users} users x "
+        f"{train.num_items} items, ui_centered {model.ui_centered.nbytes / 1e9:.2f} GB and "
+        f"sim_mat {model.sim_mat.nbytes / 1e9:.2f} GB float64 on the host; cosine_topk launches "
+        f"{launches}")
+    if launches < 1:
+        raise AssertionError("nearest_items did not launch the cosine kernel")
+    W = check_neighbours(model, ids, sims, "ItemKNN.nearest_items (ML-10M)")
+    log(f"related items (ML-10M): ok in {sum(clock.seconds.values()):.1f} s")
+    from cornac_tpu_torch.models.knn import compute_similarity
+
+    part = Clock()  # where the fit's time goes: the similarity matrix alone
+    part("compute_similarity (dense W on the card, 6 x 3 products, to host f64)",
+         lambda: compute_similarity(model._weight_mat))
+    part.report("ItemKNN.fit part")
+    return launches, W
+
+
+def time_ms(fn, reps, warm=3):
+    import torch
+
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -474,11 +778,85 @@ def phase_times(bpr, users):
     return rows
 
 
+def library_cosine_topk(W, k):
+    """The library yardstick: two ``torch.matmul`` (TF32 off), the
+    elementwise step and ``torch.topk``. Timed only; the port never calls
+    it. It is not ``co_support_cosine``: that follows the JAX formula with
+    three products, where ``d2 = B·(W∘W)ᵀ`` is just ``d1ᵀ``, and the
+    yardstick should be the least library work for the same function."""
+    import torch
+
+    from cornac_tpu_torch.ops.dispatch import full_f32
+
+    with full_f32():
+        num, d1 = torch.matmul(W, W.T), torch.matmul(W * W, (W != 0).float().T)
+    sim = torch.where(num != 0, num / torch.clamp_min(torch.sqrt(d1) * torch.sqrt(d1.T), 1e-12), 0.0)
+    sim.fill_diagonal_(-3e38)
+    return torch.topk(sim, k, dim=1)
+
+
+def phase_cosine_times(shapes):
+    """CUDA-event times of the cosine kernel, its plain version and the
+    library yardstick, beside the dense bound and the work the data needs.
+
+    The function needs ``3·n²·m`` operations: ``num = W·Wᵀ`` is symmetric
+    (half of its ``2·n²·m``), ``d1 = (W∘W)·Bᵀ`` takes ``2·n²·m`` and
+    ``d2 = d1ᵀ`` none. Over the data, a column with ``c`` nonzeros gives
+    ``c²`` pairs, so ``3·Σ c²`` operations."""
+    import torch
+
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk_torch
+
+    rows = {}
+    for label, W in shapes:
+        n, m = W.shape
+        k = KNN_K
+        flops = 3.0 * n * n * m
+        reps, warm = (3, 1) if flops > 5e12 else (10, 2)
+        ms = time_ms(lambda: COSINE_TOPK(W, k), reps, warm)
+        plain_ms = time_ms(lambda: cosine_topk_torch(W, k), reps, warm)
+        library_ms = time_ms(lambda: library_cosine_topk(W, k), reps, warm)
+        nbytes = 4.0 * n * m + 8.0 * n * k
+        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        col_nnz = (W != 0).sum(dim=0).double()
+        data_flops = 3.0 * float((col_nnz * col_nnz).sum())
+        data_bound_ms = 1e3 * max(data_flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, data_bound_ms=data_bound_ms)
+        log(f"  times {label} n={n} m={m} k={k} (reps {reps}): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, 2 matmul + topk {library_ms:.3f} ms, dense bound {bound_ms:.3f} ms "
+            f"({bound_by}, {flops:.3e} FLOP, {100 * bound_ms / ms:.1f}% of bound, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s of needed work); the data's own work "
+            f"{data_flops:.3e} FLOP (3 x sum of squared column counts), bound {data_bound_ms:.3f} ms")
+    return rows
+
+
+def build_all():
+    """Build both kernel libraries at once: one nvcc per source, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    libs = [FUSED_TOPK.library, COSINE_TOPK.library]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for future in [pool.submit(lib.build) for lib in libs]:
+            future.result()
+    for lib in libs:
+        log(f"build: ok, {lib.path().name} in {lib.build_seconds or 0.0:.1f} s")
+        for line in lib.compiler_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  ptxas: {line.strip()}")
+    log(f"build: both libraries in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quick", action="store_true",
-                        help="stop after the kernel-vs-plain phase")
+                        help="stop after the kernel-vs-plain phases")
     args = parser.parse_args()
 
     if not (ROOT / "cornac_tpu_torch").is_dir():
@@ -493,19 +871,11 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
-
-    lib = FUSED_TOPK.library
-    t0 = time.perf_counter()
-    lib.build()
-    log(f"build: ok, {lib.path().name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.compiler_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
-
+    build_all()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     max_err = phase_kernel(gen)
+    cos_err = phase_cosine(gen)
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s")
         return
@@ -513,8 +883,15 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     launches, bpr, users = phase_slice(args.seed, work)
+    knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
+    ml10m_launches, W10 = phase_knn_ml10m(args.seed)
     rows = phase_times(bpr, users)
-    top = rows[SERVE_BATCH]
+    cos_rows = phase_cosine_times([
+        ("ML-1M item side", W_items),
+        ("ML-1M user side", W_users),
+        ("ML-10M item side", W10),
+    ])
+    top, cos = rows[SERVE_BATCH], cos_rows["ML-10M item side"]
     kernels = [{
         "name": "fused_topk",
         "route": "cuda",
@@ -527,6 +904,19 @@ def main():
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
+    }, {
+        "name": "cosine_topk",
+        "route": "cuda",
+        "source": "cornac_tpu_torch/csrc/cosine_topk.cu",
+        "replaces": "cornac_tpu/ops/pallas_similarity.py:43",
+        "launches": knn_launches + ml10m_launches,
+        "max_abs_err": cos_err,
+        "ms": cos["ms"],
+        "plain_ms": cos["plain_ms"],
+        "bound_ms": cos["bound_ms"],
+        "bound_by": cos["bound_by"],
+        "library_ms": cos["library_ms"],
+        "data_bound_ms": cos["data_bound_ms"],
     }]
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -13,10 +13,12 @@ without one, unless the caller passes ``device="cpu"`` or calls
 
 from .device import default_device, set_default_device
 from . import data, eval_methods, experiment, metrics, models
+from .experiment import Experiment
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Experiment",
     "data",
     "default_device",
     "eval_methods",

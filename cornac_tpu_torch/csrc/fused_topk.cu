@@ -23,7 +23,8 @@
 //    shared-memory read feeds several FMAs;
 //  * a (score, item) pair is packed into one 64-bit key whose unsigned
 //    order is "score descending, then item ascending", which makes the
-//    tie rule a plain integer compare;
+//    tie rule a plain integer compare (topk_keys.cuh, shared with
+//    cosine_topk.cu);
 //  * each row keeps its running top-k, sorted, in a global scratch buffer
 //    (two halves used in turn) so every 1 <= k <= N works; a chunk's keys
 //    below the row's current k-th key are dropped by a warp ballot, the
@@ -35,9 +36,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_keys.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using cornac_topk::u64;
+using cornac_topk::fold_topk;
+using cornac_topk::key_index;
+using cornac_topk::key_score;
+using cornac_topk::make_key;
 
 constexpr int kThreads = 256;                        // 8 warps
 constexpr int kWarps = kThreads / 32;
@@ -58,35 +65,7 @@ static_assert((kChunk & (kChunk - 1)) == 0, "bitonic sort needs a power of two")
 static_assert(kChunk % kThreads == 0 && kRows % kWarps == 0 && kRows % 4 == 0, "tiling");
 static_assert(kUTileBytes % 16 == 0, "key tile must stay 16-byte aligned");
 
-// -0.0 is folded into +0.0 first, so the two tie on the item index as they
-// do under a float comparison
-__device__ __forceinline__ u64 make_key(float s, int item) {
-  uint32_t u = __float_as_uint(s + 0.0f);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((u64)u << 32) | (u64)(0xFFFFFFFFu - (uint32_t)item);
-}
-
-__device__ __forceinline__ float key_score(u64 key) {
-  uint32_t u = (uint32_t)(key >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ int key_item(u64 key) {
-  return (int)(0xFFFFFFFFu - (uint32_t)key);
-}
-
-// number of entries greater than x in a descending array
-__device__ __forceinline__ int count_greater(const u64* a, int n, u64 x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] > x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Key 0 marks an empty slot: no real key is 0, because item < 2^32 - 1.
+// Key 0 marks an empty slot (topk_keys.cuh).
 __global__ void __launch_bounds__(kThreads)
 fused_topk_kernel(const float* __restrict__ U, const float* __restrict__ V,
                   const float* __restrict__ bias, int B, int N, int d, int k,
@@ -162,51 +141,10 @@ fused_topk_kernel(const float* __restrict__ U, const float* __restrict__ V,
       u64* K = Ks + lr * kChunk;
       const u64* run = scratch + cur[r] * half + (size_t)row * k;
       u64* next = scratch + (cur[r] ^ 1) * half + (size_t)row * k;
-      const int m = count[r];
-      const u64 theta = (m == k) ? run[k - 1] : 0ull;
-
-      // keep the keys that beat the current k-th; compaction in place is
-      // safe because every write lands at or before the slots just read
-      int S = 0;
-      for (int base = 0; base < kChunk; base += 32) {
-        const u64 x = K[base + lane];
-        const bool keep = x > theta;
-        const unsigned ballot = __ballot_sync(0xFFFFFFFFu, keep);
-        if (keep) K[S + __popc(ballot & ((1u << lane) - 1u))] = x;
-        S += __popc(ballot);
-      }
-      if (S == 0) continue;
-
-      int P = 1;
-      while (P < S) P <<= 1;
-      for (int i = S + lane; i < P; i += 32) K[i] = 0ull;
-      __syncwarp();
-      for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          for (int t = lane; t < (P >> 1); t += 32) {
-            const int i = 2 * t - (t & (stride - 1)), j = i + stride;
-            const u64 a = K[i], b = K[j];
-            const bool desc = (i & size) == 0;
-            if ((a < b) == desc) { K[i] = b; K[j] = a; }
-          }
-          __syncwarp();
-        }
-      }
-
-      // merge by rank: keys are unique, so the positions are a bijection
-      for (int i = lane; i < S && i < k; i += 32) {
-        const u64 x = K[i];
-        const int pos = i + count_greater(run, m, x);
-        if (pos < k) next[pos] = x;
-      }
-      for (int j = lane; j < m; j += 32) {
-        const u64 y = run[j];
-        const int pos = j + count_greater(K, S, y);
-        if (pos < k) next[pos] = y;
-      }
-      count[r] = min(m + S, k);
+      const int merged = fold_topk(K, kChunk, run, next, count[r], k, lane);
+      if (merged < 0) continue;
+      count[r] = merged;
       cur[r] ^= 1;
-      __syncwarp();
     }
     __syncthreads();  // the next chunk's V tile overwrites Ks
   }
@@ -219,7 +157,7 @@ fused_topk_kernel(const float* __restrict__ U, const float* __restrict__ V,
     for (int p = lane; p < k; p += 32) {
       const u64 x = run[p];
       out_s[(size_t)row * k + p] = key_score(x);
-      out_i[(size_t)row * k + p] = key_item(x);
+      out_i[(size_t)row * k + p] = key_index(x);
     }
   }
 }

@@ -4,9 +4,10 @@ A copy of ``cornac_tpu/data/dataset.py::Dataset`` with the same ID-mapping
 invariant: raw IDs map to dense indices through shared global maps,
 train-set entities occupy the prefix ``[0, num_users)`` and entities first
 seen in a later split take the tail indices. Every model and the eval loop
-rely on this to detect cold-start entities. The batch iterators and the
-basket, sequential and purchase-view datasets come with the models that
-use them.
+rely on this to detect cold-start entities. The CSR, CSC and DOK views and
+the modality slots are the JAX package's; the per-entity views
+(``user_data``, ...), the batch iterators and the basket, sequential and
+purchase-view datasets come with the models that use them.
 """
 
 import copy
@@ -16,7 +17,7 @@ import warnings
 from collections import OrderedDict
 
 import numpy as np
-from scipy.sparse import csr_matrix
+from scipy.sparse import csc_matrix, csr_matrix
 
 from ..utils import get_rng, validate_format
 
@@ -74,12 +75,29 @@ class Dataset:
         return self._cached("item_ids", lambda: list(self.iid_map.keys()))
 
     @property
+    def matrix(self):
+        return self.csr_matrix
+
+    @property
     def csr_matrix(self):
         def build():
             u, i, r = self.uir_tuple
             return csr_matrix((r, (u, i)), shape=(self.num_users, self.num_items))
 
         return self._cached("csr", build)
+
+    @property
+    def csc_matrix(self):
+        def build():
+            u, i, r = self.uir_tuple
+            return csc_matrix((r, (u, i)), shape=(self.num_users, self.num_items))
+
+        return self._cached("csc", build)
+
+    @property
+    def dok_matrix(self):
+        # cheapest DOK construction: convert the (deduplicated) CSR view
+        return self._cached("dok", lambda: self.csr_matrix.todok())
 
     @classmethod
     def build(
@@ -152,6 +170,17 @@ class Dataset:
         """Re-seed the iterator RNG for reproducible epochs."""
         self.rng = get_rng(self.seed)
         return self
+
+    _MODALITY_ATTRS = (
+        "user_feature", "item_feature", "user_text", "item_text",
+        "user_image", "item_image", "user_graph", "item_graph",
+        "sentiment", "review_text",
+    )
+
+    def add_modalities(self, **kwargs):
+        """Attach modalities by slot name; a slot not given is set to None."""
+        for attr in self._MODALITY_ATTRS:
+            setattr(self, attr, kwargs.get(attr, None))
 
     def __deepcopy__(self, memo):
         cls = self.__class__

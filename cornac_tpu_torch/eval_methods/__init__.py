@@ -1,3 +1,4 @@
 from .base_method import BaseMethod, ranking_eval, rating_eval
+from .ratio_split import RatioSplit
 
-__all__ = ["BaseMethod", "ranking_eval", "rating_eval"]
+__all__ = ["BaseMethod", "RatioSplit", "ranking_eval", "rating_eval"]

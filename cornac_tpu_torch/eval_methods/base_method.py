@@ -1,5 +1,4 @@
-"""Evaluation engine: ``rating_eval``, ``ranking_eval`` and the two
-``BaseMethod`` entry points the server calls.
+"""Evaluation engine + BaseMethod.
 
 Port of ``cornac_tpu/eval_methods/base_method.py`` with the same masking
 semantics (global-ID prefix ordering, exclude_unknowns truncation,
@@ -7,14 +6,18 @@ rating_threshold binarization, per-user averaging). Ranking evaluation
 scores batches of users: a model with a device batch scorer hands a (B, N)
 tensor on the card to the fused metric program
 (``metrics.ranking.batch_eval_device``), others go through the host
-``RankingContext``. Split construction, modalities and the multi-device
-``mesh`` branch come with the eval-methods slice.
+``RankingContext``. ``BaseMethod`` builds train/test/val datasets over
+shared global ID maps and runs timed fit + eval. The modalities (text,
+images, graphs, ...) and the multi-device ``mesh`` branch are not ported
+yet (ROADMAP.md A12, A8): their arguments raise on anything but None.
 """
 
+import time
 from collections import OrderedDict
 
 import numpy as np
 
+from ..data import Dataset
 from ..experiment.result import Result
 from ..metrics import RankingContext, RankingMetric, RatingMetric
 from ..metrics.ranking import (
@@ -23,6 +26,7 @@ from ..metrics.ranking import (
     batch_eval_device,
     metric_device_specs,
 )
+from ..utils import get_rng
 
 
 def _csr_row_masks(mat, users, n_items, threshold):
@@ -184,9 +188,61 @@ def ranking_eval(
 
 
 class BaseMethod:
-    """Evaluation protocol. This slice ports its two static entry points,
-    ``organize_metrics`` and ``eval``, which the server calls on a model and
-    its train set; building splits comes with the eval-methods slice."""
+    """Base evaluation protocol: builds train/test/val datasets over shared
+    global ID maps, attaches modalities, and runs timed fit + eval."""
+
+    _MODALITY_SLOTS = (
+        "user_feature", "item_feature", "user_text", "item_text",
+        "user_image", "item_image", "user_graph", "item_graph",
+        "sentiment", "review_text",
+    )
+
+    def __init__(
+        self,
+        data=None,
+        fmt="UIR",
+        rating_threshold=1.0,
+        seed=None,
+        exclude_unknowns=True,
+        verbose=False,
+        **kwargs,
+    ):
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError(
+                "BaseMethod(mesh=...) is not ported yet (ROADMAP.md A8)"
+            )
+        self.data = data
+        self.fmt = fmt
+        self.train_set = None
+        self.test_set = None
+        self.val_set = None
+        self.rating_threshold = rating_threshold
+        self.exclude_unknowns = exclude_unknowns
+        self.verbose = verbose
+        self.seed = seed
+        self.rng = get_rng(seed)
+        self.global_uid_map = kwargs.get("global_uid_map", OrderedDict())
+        self.global_iid_map = kwargs.get("global_iid_map", OrderedDict())
+
+        for attr in self._MODALITY_SLOTS:
+            setattr(self, attr, kwargs.get(attr, None))
+
+        if verbose:
+            print("rating_threshold = {:.1f}".format(rating_threshold))
+            print("exclude_unknowns = {}".format(exclude_unknowns))
+
+    @property
+    def total_users(self):
+        return len(self.global_uid_map)
+
+    @property
+    def total_items(self):
+        return len(self.global_iid_map)
+
+    def _reset(self):
+        """Re-seed the protocol RNG and test-set iterator RNG."""
+        self.rng = get_rng(self.seed)
+        self.test_set = self.test_set.reset()
 
     @staticmethod
     def organize_metrics(metrics):
@@ -212,6 +268,86 @@ class BaseMethod:
         rating_metrics = sorted(rating_metrics, key=lambda mt: mt.name)
         ranking_metrics = sorted(ranking_metrics, key=lambda mt: mt.name)
         return rating_metrics, ranking_metrics
+
+    def _build_datasets(self, train_data, test_data, val_data=None):
+        # train first: train entities take the dense-index prefix
+        def build_split(split_data, exclude_unknowns):
+            # every split shares the global id maps; train keeps all rows
+            return Dataset.build(
+                data=split_data,
+                fmt=self.fmt,
+                global_uid_map=self.global_uid_map,
+                global_iid_map=self.global_iid_map,
+                seed=self.seed,
+                exclude_unknowns=exclude_unknowns,
+            )
+
+        self.train_set = build_split(train_data, False)
+        self.test_set = build_split(test_data, self.exclude_unknowns)
+        if val_data:
+            self.val_set = build_split(val_data, self.exclude_unknowns)
+
+        if self.verbose:
+            tr, te, va = self.train_set, self.test_set, self.val_set
+            lines = [
+                "---", "Training data:",
+                f"Number of users = {tr.num_users}",
+                f"Number of items = {tr.num_items}",
+                f"Number of ratings = {tr.num_ratings}",
+                f"Max rating = {tr.max_rating:.1f}",
+                f"Min rating = {tr.min_rating:.1f}",
+                f"Global mean = {tr.global_mean:.1f}",
+                "---", "Test data:",
+                f"Number of users = {len(te.uid_map)}",
+                f"Number of items = {len(te.iid_map)}",
+                f"Number of ratings = {te.num_ratings}",
+                f"Number of unknown users = {te.num_users - tr.num_users}",
+                f"Number of unknown items = {te.num_items - tr.num_items}",
+            ]
+            if va is not None:
+                lines += [
+                    "---", "Validation data:",
+                    f"Number of users = {len(va.uid_map)}",
+                    f"Number of items = {len(va.iid_map)}",
+                    f"Number of ratings = {va.num_ratings}",
+                ]
+            lines += [
+                "---",
+                f"Total users = {self.total_users}",
+                f"Total items = {self.total_items}",
+            ]
+            print("\n".join(lines))
+
+    def _build_modalities(self):
+        # every slot holds None (the setters refuse anything else), so
+        # there is nothing to build against the ID maps: attach the slots
+        self.add_modalities(
+            **{attr: getattr(self, attr) for attr in self._MODALITY_SLOTS}
+        )
+
+    def add_modalities(self, **kwargs):
+        """Attach modalities to every dataset."""
+        for attr in self._MODALITY_SLOTS:
+            setattr(self, attr, kwargs.get(attr, None))
+        slots = {attr: getattr(self, attr) for attr in self._MODALITY_SLOTS}
+        for data_set in (self.train_set, self.test_set, self.val_set):
+            if data_set is not None:
+                data_set.add_modalities(**slots)
+
+    def build(self, train_data, test_data, val_data=None):
+        """Build datasets over fresh global ID maps, then modalities."""
+        if train_data is None or len(train_data) == 0:
+            raise ValueError("train_data must be a non-empty collection")
+        if test_data is None or len(test_data) == 0:
+            raise ValueError("test_data must be a non-empty collection")
+
+        self.global_uid_map.clear()
+        self.global_iid_map.clear()
+
+        self._build_datasets(train_data, test_data, val_data)
+        self._build_modalities()
+
+        return self
 
     @staticmethod
     def eval(
@@ -250,3 +386,107 @@ class BaseMethod:
             OrderedDict(zip(names, rat_avg + rank_avg)),
             OrderedDict(zip(names, rat_user + rank_user)),
         )
+
+    def _score_split(self, model, split, heldout_val, metric_pair, user_based):
+        """transform + eval one held-out split; returns (Result, seconds)."""
+        rating_metrics, ranking_metrics = metric_pair
+        start = time.time()
+        model.transform(split)
+        result = self.eval(
+            model=model,
+            train_set=self.train_set,
+            test_set=split,
+            val_set=heldout_val,
+            rating_threshold=self.rating_threshold,
+            exclude_unknowns=self.exclude_unknowns,
+            rating_metrics=rating_metrics,
+            ranking_metrics=ranking_metrics,
+            user_based=user_based,
+            verbose=self.verbose,
+        )
+        return result, time.time() - start
+
+    def evaluate(self, model, metrics, user_based, show_validation=True):
+        """Timed fit + eval of one model; returns (test_result, val_result)."""
+        for attr in ("train_set", "test_set"):
+            if getattr(self, attr) is None:
+                raise ValueError(
+                    f"no {attr} available — build/split the data first"
+                )
+
+        self._reset()
+
+        if self.verbose:
+            print("\n[{}] Training started!".format(model.name))
+        start = time.time()
+        model.fit(self.train_set, self.val_set)
+        train_time = time.time() - start
+
+        if self.verbose:
+            print("\n[{}] evaluating...".format(model.name))
+        metric_pair = self.organize_metrics(metrics)
+
+        test_result, test_time = self._score_split(
+            model, self.test_set, self.val_set, metric_pair, user_based
+        )
+        test_result.metric_avg_results["Train (s)"] = train_time
+        test_result.metric_avg_results["Test (s)"] = test_time
+
+        val_result = None
+        if show_validation and self.val_set is not None:
+            val_result, val_time = self._score_split(
+                model, self.val_set, None, metric_pair, user_based
+            )
+            val_result.metric_avg_results["Time (s)"] = val_time
+
+        return test_result, val_result
+
+    @classmethod
+    def from_splits(
+        cls,
+        train_data,
+        test_data,
+        val_data=None,
+        fmt="UIR",
+        rating_threshold=1.0,
+        exclude_unknowns=False,
+        seed=None,
+        verbose=False,
+        **kwargs,
+    ):
+        """Build an evaluation method from pre-split data."""
+        method = cls(
+            fmt=fmt,
+            rating_threshold=rating_threshold,
+            exclude_unknowns=exclude_unknowns,
+            seed=seed,
+            verbose=verbose,
+            **kwargs,
+        )
+        return method.build(
+            train_data=train_data, test_data=test_data, val_data=val_data
+        )
+
+
+def _modality_slot(attr):
+    """One modality property: it holds None, the only value the port
+    takes until the modalities are ported (ROADMAP.md A12)."""
+    storage = "_" + attr
+
+    def fget(self):
+        return getattr(self, storage, None)
+
+    def fset(self, value):
+        if value is not None:
+            raise NotImplementedError(
+                f"the {attr} modality is not ported yet (ROADMAP.md A12); "
+                "only None is accepted"
+            )
+        setattr(self, storage, value)
+
+    return property(fget, fset)
+
+
+for _attr in BaseMethod._MODALITY_SLOTS:
+    setattr(BaseMethod, _attr, _modality_slot(_attr))
+del _attr

@@ -1,3 +1,4 @@
-from .result import Result
+from .experiment import Experiment
+from .result import ExperimentResult, Result
 
-__all__ = ["Result"]
+__all__ = ["Experiment", "ExperimentResult", "Result"]

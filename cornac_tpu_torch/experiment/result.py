@@ -1,7 +1,8 @@
-"""Evaluation result of one model on one split, rendered as the JAX
-package's ``cornac_tpu/experiment/result.py`` renders it (byte-identical
-tables). The cross-validation, propensity-stratified and experiment
-containers come with the eval-methods slice.
+"""Evaluation results rendered as the JAX package's
+``cornac_tpu/experiment/result.py`` renders them (byte-identical tables):
+one model on one split (``Result``) and one table per experiment
+(``ExperimentResult``). The cross-validation and propensity-stratified
+containers come with their eval methods (ROADMAP.md A6).
 """
 
 from collections import OrderedDict
@@ -66,3 +67,13 @@ class Result:
             _fmt_row(self.metric_avg_results.values()),
         ]
         return _render_grid(grid, labels=[self.model_name], rules=(1,))
+
+
+class ExperimentResult(list):
+    """One :class:`Result` per model, rendered as a single comparison table."""
+
+    def __str__(self):
+        metrics = list(self[0].metric_avg_results.keys())
+        grid = [metrics]
+        grid += [_fmt_row(res.metric_avg_results[m] for m in metrics) for res in self]
+        return _render_grid(grid, [res.model_name for res in self], rules=(1,))

@@ -17,8 +17,8 @@ import ctypes
 import torch
 
 from ..device import default_device
-from .dispatch import resolve_path
-from .native import CudaLibrary
+from .dispatch import full_f32, resolve_path
+from .native import CudaLibrary, check_tensor
 
 
 class FusedTopkKernel:
@@ -39,11 +39,11 @@ class FusedTopkKernel:
     def __call__(self, U, V, k, bias=None):
         """Launch on the current stream. U (B, d), V (N, d), bias (N,) or
         None: float32, contiguous, on one CUDA device; 1 <= k <= N."""
-        B, d = _check(U, "U", 2)
-        N, d_v = _check(V, "V", 2)
+        B, d = check_tensor(U, "U", 2)
+        N, d_v = check_tensor(V, "V", 2)
         if d_v != d:
             raise ValueError(f"U has {d} features but V has {d_v}")
-        if bias is not None and _check(bias, "bias", 1)[0] != N:
+        if bias is not None and check_tensor(bias, "bias", 1)[0] != N:
             raise ValueError(f"bias has {bias.shape[0]} entries for {N} items")
         for t in (V, bias):
             if t is not None and t.device != U.device:
@@ -69,30 +69,14 @@ class FusedTopkKernel:
         return scores, items
 
 
-def _check(t, name, ndim):
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dimensions, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return tuple(t.shape)
-
-
 FUSED_TOPK = FusedTopkKernel()
 
 
 def fused_topk_torch(U, V, k, bias=None):
     """Plain version: full float32 product, bias, stable descending sort
     (smaller item index first among equal scores), first ``k`` columns."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_f32():
         scores = U @ V.T
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     if bias is not None:
         scores = scores + bias
     s, i = torch.sort(scores, dim=1, descending=True, stable=True)

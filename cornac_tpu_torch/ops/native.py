@@ -3,7 +3,8 @@
 Each ``.cu`` source has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/cornac_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, and loaded with ``ctypes``. Nothing here runs
+the source, every header in ``csrc/`` and the flags (so a changed shared
+header rebuilds every library), and loaded with ``ctypes``. Nothing here runs
 when the module is imported: the CPU tests import it on machines without
 ``nvcc``.
 """
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cornac_tpu_torch"
@@ -54,10 +57,11 @@ class CudaLibrary:
         return CSRC / f"{self.name}.cu"
 
     def path(self):
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def build(self):
         """Compile the source unless a library of the same hash exists."""
@@ -93,3 +97,17 @@ class CudaLibrary:
         if err != 0:
             msg = self.load().cornac_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} ({msg})")
+
+
+def check_tensor(t, name, ndim):
+    """Shape of ``t`` after checking that it is a contiguous float32 CUDA
+    tensor of ``ndim`` dimensions; raises ``ValueError`` otherwise."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dimensions, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return tuple(t.shape)

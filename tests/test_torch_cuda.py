@@ -7,12 +7,16 @@ without the suite's ``conftest.py``:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import BPR, TPUExactANN
+from cornac_tpu_torch.models import ItemKNN, UserKNN
+from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk, cosine_topk_torch
 from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk, fused_topk_torch
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +93,79 @@ def test_serving_answers_match_the_cpu(card):
             for model in (bpr, ann) for seen in (False, True)
         ] + [ann.recommend(uids[0], train_set=train)])
     assert answers[0] == answers[1]
+
+
+def _star_weights(n, m, density, seed, half=False):
+    rng = np.random.RandomState(seed)
+    values = rng.randint(1, 11, (n, m)) / 2.0 if half else rng.randint(1, 6, (n, m))
+    return np.where(rng.rand(n, m) < density, values, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,m,k,exclude_self,half", [
+    (300, 500, 20, True, False),    # n not a multiple of the row or column tile
+    (300, 500, 299, True, True),    # k = n - 1
+    (129, 33, 200, False, False),   # k past n: capped at n; m not a multiple of the slab
+    (20, 1, 5, True, True),         # m = 1, n below one tile
+])
+def test_cosine_kernel_exact_on_star_ratings(card, n, m, k, exclude_self, half):
+    # star ratings: every sum is exact, so the neighbour tables must agree
+    # index for index, ties (1.0 and 0.0 are everywhere) included
+    W = torch.from_numpy(_star_weights(n, m, 0.1, seed=n + m, half=half)).to(card)
+    W[7] = 0.0  # an all-zero row
+    before = COSINE_TOPK.launches
+    s, i = cosine_topk(W, k, exclude_self=exclude_self)
+    s_ref, i_ref = cosine_topk_torch(W, min(k, n - 1 if exclude_self else n), exclude_self)
+    torch.cuda.synchronize()
+    assert COSINE_TOPK.launches == before + 1
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("exclude_self", [True, False])
+def test_cosine_kernel_near_plain_on_centred_data(card, exclude_self):
+    rng = np.random.RandomState(4)
+    W = rng.randn(260, 90).astype(np.float32)
+    W[rng.rand(260, 90) >= 0.25] = 0.0
+    for r in range(260):
+        nz = W[r] != 0
+        if nz.any():
+            W[r, nz] -= W[r, nz].mean() - 1e-4
+    W = torch.from_numpy(W).to(card)
+    s, i = cosine_topk(W, 259, exclude_self=exclude_self)
+    s_ref, i_ref = cosine_topk_torch(W, 259, exclude_self)
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-6)
+    assert (s < 0).any()
+    # an index may differ only where the plain similarities tie within tolerance
+    bad = i != i_ref
+    near = torch.zeros_like(bad)
+    tol = 1e-6 + 1e-5 * s_ref.abs()
+    near[:, 1:] |= (s_ref[:, 1:] - s_ref[:, :-1]).abs() <= tol[:, 1:]
+    near[:, :-1] |= (s_ref[:, :-1] - s_ref[:, 1:]).abs() <= tol[:, :-1]
+    assert bool(near[bad].all())
+
+
+def test_cosine_kernel_refuses_bad_inputs(card):
+    W = torch.zeros(10, 4, device=card)
+    for args in ((W.double(), 3), (W.T, 3), (W, 10), (W, 0)):
+        with pytest.raises(ValueError):
+            COSINE_TOPK(*args)
+
+
+def test_knn_neighbours_on_the_card_match_the_cpu(card):
+    rng = np.random.RandomState(6)
+    rows = [(f"u{rng.randint(200)}", f"i{rng.randint(150)}", float(rng.randint(1, 6)))
+            for _ in range(3000)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        train = Dataset.from_uir(rows, seed=1)
+    for cls in (UserKNN, ItemKNN):
+        on_card = cls(k=10, verbose=False, device=card).fit(train)
+        on_cpu = cls(k=10, verbose=False, device="cpu").fit(train)
+        np.testing.assert_array_equal(on_card.sim_mat, on_cpu.sim_mat)
+        before = COSINE_TOPK.launches
+        ids, sims = on_card.neighbors(num_neighbors=12)
+        assert COSINE_TOPK.launches == before + 1
+        cpu_ids, cpu_sims = on_cpu.neighbors(num_neighbors=12)
+        np.testing.assert_array_equal(ids, cpu_ids)
+        np.testing.assert_array_equal(sims, cpu_sims)
+        np.testing.assert_allclose(on_card.score_batch(np.arange(20)),
+                                   on_cpu.score_batch(np.arange(20)), rtol=1e-5, atol=1e-6)
