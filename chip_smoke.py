@@ -15,13 +15,17 @@ Phases, each of which fails the run when it fails:
    prints ptxas's registers and spills;
 3. fused_topk vs plain: the fused score + top-k kernel against
    ``fused_topk_torch`` on the card, with and without bias, for k in
-   {1, 100, 128, 1000, N} and k > N, ties across distant chunks, and the
-   full serving shape;
-4. cosine_topk vs plain: the co-support cosine + top-k kernel against
-   ``cosine_topk_torch`` on binary, integer and half-star data (exact,
-   index for index), mean-centred data with negative similarities (within
-   rtol 1e-5 / atol 1e-6, indices up to near-ties), k = n - 1 and k past
-   n, ragged tiles and slabs, m = 1, all-zero rows, n below one tile;
+   {1, 100, 128, 1000, N} and k > N, ties across distant chunks, the
+   full serving shape, and small batches whose catalog is split across
+   blocks and merged (k above a slice's items, integer ties across
+   slices);
+4. cosine_topk vs plain: the sparse co-support cosine + top-k kernel
+   against ``cosine_topk_torch`` on binary, integer and half-star data
+   (exact, index for index), mean-centred data with negative similarities
+   (within rtol 1e-5 / atol 1e-6, indices up to near-ties), k = n - 1 and
+   k past n, m = 1, all-zero rows, a scipy matrix with explicit zeros and
+   duplicates, n above one shared-memory range, and a half-dense matrix
+   at the ML-1M widths;
 5. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
    480,000 users and 17,700 items, random factors from the seed, wrapped
    in TPUExactANN, saved, loaded by ``load_model`` and served by the
@@ -35,12 +39,18 @@ Phases, each of which fails the run when it fails:
    plain version) -> the ItemKNN saved and served by the standalone server;
 7. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
    10,000,054 seeded half-star ratings): ItemKNN(k=50).fit and
-   nearest_items(50), held exactly to the plain version;
-8. times: each kernel, its plain version and a library yardstick
-   (``torch.matmul`` + ``torch.topk``) with CUDA events, beside the bound.
+   nearest_items(50) (which builds no dense W: its peak device memory is
+   checked), held exactly to the plain version;
+8. times: each kernel, its plain version and library yardsticks
+   (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
+   products through ``torch.sparse``) with CUDA events, beside the bound;
+   fused_topk at B = 1, 256 and 8192, cosine_topk at both ML-1M shapes,
+   a half-dense ML-1M-wide matrix and ML-10M, where two launches must
+   give the same bits.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernels' numbers, and ``{"ok": true, "device": {...}}``. The
+with the kernels' numbers (fused_topk once per batch size, B = 8192 first),
+and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
 
@@ -176,6 +186,12 @@ def phase_kernel(gen):
         ("d=300 B=40 k=64", 40, N, 300, 64, False, False, False),
         ("B=1 k=100", 1, N, d, TOPK, False, False, False),
         (f"serving shape B={SERVE_BATCH} k={TOPK}", SERVE_BATCH, N, d, TOPK, False, False, False),
+        # split across blocks, then merged: one-chunk slices hold 512 items
+        ("split B=1 k=600, k above a slice", 1, N, d, 600, True, False, False),
+        ("split B=5 integer ties across slices d=4 k=600", 5, N, 4, 600, False, False, True),
+        ("split B=17 duplicated vectors k=300", 17, N, d, 300, True, True, False),
+        ("split B=16 N=3000 k=N//5, last slice short", 16, 3000, d, 600, False, False, False),
+        ("split B=256 k=100", 256, N, d, TOPK, True, False, False),
     ]
 
     max_err, relaxed = 0.0, 0
@@ -196,13 +212,17 @@ def phase_kernel(gen):
         ps, pi = fused_topk_torch(U, V, min(k_eff + 1, n), b)
         S = plain_scores(U, V, b)
         err, n_rel = compare_topk(ks, ki, ps, pi, S, what, exact=ints)
+        slices = FUSED_TOPK.plan(U, n, k_eff)
+        if what.startswith("split") and slices < 2:
+            raise AssertionError(f"{what}: split_plan did not split the catalog")
         if dup and k_eff == n:
             row = ki[0].tolist()
             order = [row.index(i) for i in sorted((70, n // 2 + 3, n - 100))]
             if order != sorted(order):
                 raise AssertionError(f"{what}: tied items out of index order")
         max_err, relaxed = max(max_err, err), relaxed + n_rel
-        log(f"  {what}: ok (max |err| {err:.3e}, near-tie index swaps {n_rel})")
+        log(f"  {what}: ok (S={slices}, max |err| {err:.3e}, "
+            f"near-tie index swaps {n_rel})")
         del U, V, b, ks, ki, ps, pi, S
     log(f"kernel vs plain: ok, {len(cases)} cases, max |err| {max_err:.3e}, "
         f"positions relaxed as near-ties: {relaxed} (tolerance rtol={RTOL} atol={ATOL})")
@@ -260,11 +280,93 @@ def check_cosine(W, k, exclude_self, what, exact):
                         rtol=SIM_RTOL, atol=SIM_ATOL)
 
 
+def check_cosine_entries(gen):
+    """The sparse entry point on a scipy matrix with explicit zeros,
+    duplicates (some summing to 0) and a value that rounds to 0 in
+    float32, held exactly to the plain version on the dense float32 W."""
+    import torch
+    from scipy.sparse import coo_matrix
+
+    from cornac_tpu_torch.models.knn import dense_f32
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk_sparse, cosine_topk_torch
+
+    rng = np.random.RandomState(int(torch.randint(2**31 - 1, (1,), generator=gen, device=DEV)))
+    n, m, nnz = 2000, 1500, 150_000
+    rows, cols = rng.randint(n, size=nnz), rng.randint(m, size=nnz)
+    vals = rng.randint(0, 6, size=nnz).astype(np.float64)  # a sixth are explicit zeros
+    rows = np.concatenate([rows, [1, 1, 2]])
+    cols = np.concatenate([cols, [m - 1, m - 1, m - 1]])
+    vals = np.concatenate([vals, [2.0, -2.0, 1e-50]])
+    mat = coo_matrix((vals, (rows, cols)), shape=(n, m))
+    before = COSINE_TOPK.launches
+    ks, ki = cosine_topk_sparse(mat, KNN_K, device=DEV)
+    torch.cuda.synchronize()
+    if COSINE_TOPK.launches != before + 1:
+        raise AssertionError("explicit zeros: the kernel was not launched")
+    ps, pi = cosine_topk_torch(dense_f32(mat, torch.device(DEV)), KNN_K)
+    if not (torch.equal(ks, ps) and torch.equal(ki, pi)):
+        raise AssertionError("explicit zeros and duplicates: kernel differs from the plain version")
+    log(f"  scipy entries with explicit zeros and duplicates (n={n} m={m} k={KNN_K}): ok, "
+        "exact index for index")
+    return (ks - ps).abs().max().item()
+
+
+def plain_topk_by_rows(W, k, block=2048):
+    """``cosine_topk_torch(W, k)`` a block of rows at a time, for an n
+    whose (n, n) similarity matrix is too large to sort whole: the same
+    co-support cosine, diagonal and stable descending sort per row."""
+    import torch
+
+    from cornac_tpu_torch.ops.cosine_topk import NEG_INF, co_support_cosine
+
+    n = W.shape[0]
+    parts_s, parts_i = [], []
+    for s in range(0, n, block):
+        rows = torch.arange(s, min(s + block, n), device=W.device)
+        sim = co_support_cosine(W[rows], W)
+        sim[rows - s, rows] = NEG_INF
+        v, i = torch.sort(sim, dim=1, descending=True, stable=True)
+        parts_s.append(v[:, :k])
+        parts_i.append(i[:, :k].to(torch.int32))
+    return torch.cat(parts_s), torch.cat(parts_i)
+
+
+def check_cosine_ranges(gen):
+    """n = 40,000 candidate rows, more than one pass of shared memory
+    holds, so the kernel walks each row's support once per range. The
+    density rises across one range and falls across the next, so the warps'
+    spans (cut by work) do not line up from one range to the next. Held
+    exactly to the plain version."""
+    import torch
+
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk
+
+    n, m, k = 40_000, 32, 12
+    C, _ = COSINE_TOPK.plan(n, DEV)
+    ranges = -(-n // C)
+    if ranges < 2:
+        raise AssertionError(f"n={n} fits one range of C={C} rows: the case tests nothing")
+    r = torch.arange(n, device=DEV)
+    starts = torch.arange(ranges + 1, device=DEV) * n // ranges  # as ops.cosine_topk.partition cuts
+    q = torch.searchsorted(starts, r, right=True) - 1  # the range of row r
+    t = (r - starts[q]).float() / (starts[q + 1] - starts[q]).float()
+    density = 0.02 + 0.4 * torch.where(q % 2 == 0, t, 1.0 - t)
+    mask = torch.rand(n, m, generator=gen, device=DEV) < density[:, None]
+    W = torch.where(mask, torch.randint(1, 6, (n, m), generator=gen, device=DEV).float(), 0.0)
+    ks, ki = cosine_topk(W, k, force="kernel")
+    ps, pi = plain_topk_by_rows(W, k)
+    if not (torch.equal(ks, ps) and torch.equal(ki, pi)):
+        bad = int((ki != pi).any(1).sum())
+        raise AssertionError(f"{ranges} ranges: {bad} rows differ from the plain version")
+    log(f"  n={n} m={m} k={k} over {ranges} shared-memory ranges of at most {C} rows, spans "
+        "misaligned between ranges: ok, exact index for index")
+    return (ks - ps).abs().max().item()
+
+
 def phase_cosine(gen):
     import torch
 
-    # (label, n, m, density, kind, k, exclude_self); tiles: 32 rows x 128
-    # columns, slabs of 32 entries of m
+    # (label, n, m, density, kind, k, exclude_self)
     cases = [
         ("binary, sims mostly 1.0", 1000, 700, 0.05, "binary", 50, True),
         ("integer 1-5", 1000, 700, 0.05, "integer", 50, True),
@@ -274,11 +376,12 @@ def phase_cosine(gen):
         ("centred, negatives, exclude_self=False", 777, 300, 0.2, "centred", 777, False),
         ("k = n - 1", 300, 200, 0.1, "half_star", 299, True),
         ("k past n (capped)", 300, 200, 0.1, "integer", 1000, True),
-        ("n = 161, not a multiple of either tile", 161, 97, 0.1, "integer", 40, True),
-        ("m = 45, not a multiple of the slab", 500, 45, 0.1, "integer", 30, True),
+        ("n = 161", 161, 97, 0.1, "integer", 40, True),
+        ("m = 45", 500, 45, 0.1, "integer", 30, True),
         ("m = 1", 400, 1, 0.5, "integer", 20, True),
-        ("n = 20, below one tile", 20, 64, 0.2, "integer", 8, True),
+        ("n = 20, fewer rows than a block has warps x 3", 20, 64, 0.2, "integer", 8, True),
         ("ML-1M item side 3706 x 6040, k=50", 3706, 6040, 0.045, "integer", 50, True),
+        ("half dense at the ML-1M item widths", 3706, 6040, 0.5, "integer", 50, True),
     ]
     max_err, relaxed = 0.0, 0
     for what, n, m, density, kind, k, excl in cases:
@@ -288,8 +391,9 @@ def phase_cosine(gen):
         max_err, relaxed = max(max_err, err), relaxed + n_rel
         log(f"  {what} (n={n} m={m} k={k}): ok (max |err| {err:.3e}, near-tie index swaps {n_rel})")
         del W
+    max_err = max(max_err, check_cosine_entries(gen), check_cosine_ranges(gen))
     torch.cuda.empty_cache()
-    log(f"cosine kernel vs plain: ok, {len(cases)} cases, max |err| {max_err:.3e}, exact index "
+    log(f"cosine kernel vs plain: ok, {len(cases) + 2} cases, max |err| {max_err:.3e}, exact index "
         f"for index on star data, near-tie swaps elsewhere: {relaxed} "
         f"(tolerance rtol={SIM_RTOL} atol={SIM_ATOL})")
     return max_err
@@ -715,9 +819,18 @@ def phase_knn_ml10m(seed):
     # ---- the main path, counted ----
     COSINE_TOPK.launches = 0
     clock("ItemKNN.fit", lambda: model.fit(train))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ids, sims = clock("ItemKNN.nearest_items(50)", lambda: model.nearest_items(num_neighbors=KNN_K))
+    peak = torch.cuda.max_memory_allocated() - held
     launches = COSINE_TOPK.launches
     clock.report("related items")
+    dense_bytes = 4 * train.num_items * train.num_users
+    log(f"  nearest_items(50): peak device memory {peak / 1e9:.3f} GB above what the fit left, "
+        f"against {dense_bytes / 1e9:.3f} GB for a dense float32 W")
+    if peak >= dense_bytes:
+        raise AssertionError("nearest_items built a dense W on the card")
     log(f"  related items (ML-10M): {train.num_ratings} ratings, {train.num_users} users x "
         f"{train.num_items} items, ui_centered {model.ui_centered.nbytes / 1e9:.2f} GB and "
         f"sim_mat {model.sim_mat.nbytes / 1e9:.2f} GB float64 on the host; cosine_topk launches "
@@ -751,6 +864,9 @@ def time_ms(fn, reps, warm=3):
 
 
 def phase_times(bpr, users):
+    """CUDA-event times of fused_topk at B = 1, 256 and 8192 users, each
+    with its split S, against its plain version and ``matmul`` + ``topk``
+    timed in turn (plain, kernel, library), beside the bound."""
     import torch
 
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk_torch
@@ -762,24 +878,26 @@ def phase_times(bpr, users):
     rows = {}
     for B in (1, 256, SERVE_BATCH):
         U = Ud[:B].contiguous()
-        reps = 20 if B == SERVE_BATCH else 100
-        ms = time_ms(lambda: FUSED_TOPK(U, Vd, TOPK), reps)
+        reps = 20 if B == SERVE_BATCH else 200
         plain_ms = time_ms(lambda: fused_topk_torch(U, Vd, TOPK), reps)
+        ms = time_ms(lambda: FUSED_TOPK(U, Vd, TOPK), reps)
         library_ms = time_ms(lambda: torch.topk(torch.matmul(U, Vd.T), TOPK, dim=1), reps)
         flops = 2.0 * B * N * d
         nbytes = 4.0 * (B * d + N * d) + 8.0 * B * TOPK
         bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        S = FUSED_TOPK.plan(U, N, TOPK)
         rows[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-        log(f"  times B={B} N={N} d={d} k={TOPK}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"matmul+topk {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{B / ms * 1e3:,.0f} users/s, {100 * bound_ms / ms:.1f}% of bound")
+                       bound_ms=bound_ms, bound_by=bound_by, slices=S)
+        log(f"  times B={B} N={N} d={d} k={TOPK} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"matmul+topk {library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {B / ms * 1e3:,.0f} users/s, "
+            f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
 
 
 def library_cosine_topk(W, k):
-    """The library yardstick: two ``torch.matmul`` (TF32 off), the
+    """The dense library yardstick: two ``torch.matmul`` (TF32 off), the
     elementwise step and ``torch.topk``. Timed only; the port never calls
     it. It is not ``co_support_cosine``: that follows the JAX formula with
     three products, where ``d2 = B·(W∘W)ᵀ`` is just ``d1ᵀ``, and the
@@ -795,40 +913,84 @@ def library_cosine_topk(W, k):
     return torch.topk(sim, k, dim=1)
 
 
-def phase_cosine_times(shapes):
-    """CUDA-event times of the cosine kernel, its plain version and the
-    library yardstick, beside the dense bound and the work the data needs.
-
-    The function needs ``3·n²·m`` operations: ``num = W·Wᵀ`` is symmetric
-    (half of its ``2·n²·m``), ``d1 = (W∘W)·Bᵀ`` takes ``2·n²·m`` and
-    ``d2 = d1ᵀ`` none. Over the data, a column with ``c`` nonzeros gives
-    ``c²`` pairs, so ``3·Σ c²`` operations."""
+def sparse_library_cosine_topk(A, A2, Wt, Bt, k):
+    """The sparse library yardstick: ``num = A·Wᵀ`` and ``d1 = (A∘A)·Bᵀ``
+    as CSR x dense products (cuSPARSE SpMM through ``torch.sparse``), then
+    the elementwise step and ``torch.topk``. ``A`` and ``A2`` are CSR
+    tensors, ``Wt`` and ``Bt`` (``[W ≠ 0]ᵀ``) dense, all built once outside
+    the time. CSR x CSR (SpGEMM) ran out of cuSPARSE's resources on the
+    half-dense matrix, so it is not the yardstick. Timed only; the port
+    never calls it."""
     import torch
 
-    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk_torch
+    num = torch.sparse.mm(A, Wt)
+    d1 = torch.sparse.mm(A2, Bt)
+    sim = torch.where(num != 0, num / torch.clamp_min(torch.sqrt(d1) * torch.sqrt(d1.T), 1e-12), 0.0)
+    sim.fill_diagonal_(-3e38)
+    return torch.topk(sim, k, dim=1)
+
+
+def phase_cosine_times(shapes):
+    """CUDA-event times of the sparse cosine kernel (on views built once),
+    its plain version and the dense and sparse library yardsticks, beside
+    the bound; two launches on one input must give the same bits.
+
+    The bound counts what these inputs need, as for a sparse product: each
+    co-rated pair of rows in a column is one update of three sums, so
+    ``3·Σ_j c_j²`` operations for column counts ``c_j`` over 67 TFLOP/s,
+    against the bytes the kernel reads once (the CSR: row pointers and 8
+    bytes an entry; the CSC's 8 bytes an entry; the warps' split of every
+    column, ``ops.cosine_topk.partition``) and the (n, k) table it writes
+    (8 bytes an entry) over 3.35 TB/s; the larger of the two. The kernel's
+    time includes building that split. Beside it, what a dense kernel
+    would need: ``3·n²·m`` operations (``num = W·Wᵀ`` is symmetric,
+    ``d2 = d1ᵀ``) and the dense W's bytes."""
+    import torch
+
+    from cornac_tpu_torch.ops.cosine_topk import (
+        COSINE_TOPK, cosine_topk_torch, dense_views, partition)
 
     rows = {}
     for label, W in shapes:
         n, m = W.shape
         k = KNN_K
-        flops = 3.0 * n * n * m
-        reps, warm = (3, 1) if flops > 5e12 else (10, 2)
-        ms = time_ms(lambda: COSINE_TOPK(W, k), reps, warm)
+        t = time.perf_counter()
+        views = dense_views(W)
+        torch.cuda.synchronize()
+        views_s = time.perf_counter() - t
+        nnz = views.row_val.numel()
+        dense_flops = 3.0 * n * n * m
+        reps, warm = (3, 1) if dense_flops > 5e12 else (10, 2)
+        first, second = COSINE_TOPK(views, k), COSINE_TOPK(views, k)
+        if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+            raise AssertionError(f"{label}: two launches of the cosine kernel differ")
+        del first, second
         plain_ms = time_ms(lambda: cosine_topk_torch(W, k), reps, warm)
+        ms = time_ms(lambda: COSINE_TOPK(views, k), reps, warm)
         library_ms = time_ms(lambda: library_cosine_topk(W, k), reps, warm)
-        nbytes = 4.0 * n * m + 8.0 * n * k
+        A, A2 = W.to_sparse_csr(), (W * W).to_sparse_csr()
+        Wt, Bt = W.T.contiguous(), (W != 0).float().T.contiguous()
+        sparse_ms = time_ms(lambda: sparse_library_cosine_topk(A, A2, Wt, Bt, k), reps, warm)
+        del A, A2, Wt, Bt
+        torch.cuda.empty_cache()
+        col_nnz = torch.diff(views.col_ptr.long()).double()
+        flops = 3.0 * float((col_nnz * col_nnz).sum())
+        bounds, split = partition(views, COSINE_TOPK.plan(n, W.device)[0])
+        nbytes = 4.0 * (n + 1 + bounds.numel() + split.numel()) + 16.0 * nnz + 8.0 * n * k
         bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        col_nnz = (W != 0).sum(dim=0).double()
-        data_flops = 3.0 * float((col_nnz * col_nnz).sum())
-        data_bound_ms = 1e3 * max(data_flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        dense_bytes = 4.0 * n * m + 8.0 * n * k
+        dense_bound_ms = 1e3 * max(dense_flops / PEAK_F32_FLOPS, dense_bytes / PEAK_BYTES)
         rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, data_bound_ms=data_bound_ms)
-        log(f"  times {label} n={n} m={m} k={k} (reps {reps}): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, 2 matmul + topk {library_ms:.3f} ms, dense bound {bound_ms:.3f} ms "
-            f"({bound_by}, {flops:.3e} FLOP, {100 * bound_ms / ms:.1f}% of bound, "
-            f"{flops / ms / 1e9:.2f} TFLOP/s of needed work); the data's own work "
-            f"{data_flops:.3e} FLOP (3 x sum of squared column counts), bound {data_bound_ms:.3f} ms")
+                           bound_by=bound_by, dense_bound_ms=dense_bound_ms,
+                           sparse_library_ms=sparse_ms)
+        log(f"  times {label} n={n} m={m} nnz={nnz} k={k} (reps {reps}): kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, 2 matmul + topk {library_ms:.3f} ms, 2 cuSPARSE CSR x dense "
+            f"products + topk {sparse_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{flops:.3e} FLOP = 3 x sum of squared column counts, {nbytes / 1e6:.1f} MB), "
+            f"{100 * bound_ms / ms:.2f}% of bound; a dense kernel's bound {dense_bound_ms:.3f} ms "
+            f"({dense_flops:.3e} FLOP); views built from dense W in {views_s:.3f} s (host "
+            f"clock); two launches bit-identical")
     return rows
 
 
@@ -889,22 +1051,26 @@ def main():
     cos_rows = phase_cosine_times([
         ("ML-1M item side", W_items),
         ("ML-1M user side", W_users),
+        ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
         ("ML-10M item side", W10),
     ])
-    top, cos = rows[SERVE_BATCH], cos_rows["ML-10M item side"]
     kernels = [{
         "name": "fused_topk",
+        "batch": B,
+        "slices": row["slices"],
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-    }, {
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for B, row in sorted(rows.items(), reverse=True)]
+    cos = cos_rows["ML-10M item side"]
+    kernels.append({
         "name": "cosine_topk",
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/cosine_topk.cu",
@@ -916,8 +1082,9 @@ def main():
         "bound_ms": cos["bound_ms"],
         "bound_by": cos["bound_by"],
         "library_ms": cos["library_ms"],
-        "data_bound_ms": cos["data_bound_ms"],
-    }]
+        "dense_bound_ms": cos["dense_bound_ms"],
+        "sparse_library_ms": cos["sparse_library_ms"],
+    })
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-// All-pairs co-support cosine similarity + exact streaming top-k, for
-// Hopper (sm_90a).
+// All-pairs co-support cosine similarity + exact streaming top-k over the
+// nonzeros of W, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel cornac_tpu/ops/pallas_similarity.py::_sim_topk_kernel:
 // for every row r of W (n, m) it returns the k rows c with the largest
@@ -12,41 +12,53 @@
 // the diagonal is -3e38. The (n, n) similarity matrix never reaches device
 // memory.
 //
-// What bounds it on an H100: the function needs 3*n*n*m float32
-// operations, since num is symmetric (half of its 2*n*n*m) and d2 is d1
-// transposed (d2[r,c] = d1[c,r]), against 4*n*m bytes in and 8*n*k bytes
-// out. At the ML-10M item side (n = 10,677, m = 69,878) that is 2.4e13
-// operations, 0.36 s at 67 TFLOP/s, against 3.0 GB, 0.9 ms at 3.35 TB/s:
-// operation-bound by about 400x. This kernel does twice that work: every
-// (rows, columns) tile computes all three accumulators, and the (C, R)
-// tile repeats the (R, C) one transposed. The contract is exact float32
-// (on star ratings the sums are exact, and the neighbour tables must equal
-// the plain version's index for index), so the tensor cores (TF32 at
-// best) are out of reach; the design keeps the CUDA cores fed:
+// What bounds it on an H100: every term of the three sums is zero unless
+// both W[r,j] and W[c,j] are nonzero, so the function needs one update of
+// (num, d1, d2) per co-rated pair and column: 3 * sum_j c_j^2 operations
+// for column counts c_j, against the bytes of two compressed views of W
+// (CSR and CSC, 8 bytes an entry each) in and 8*n*k bytes out. At the
+// ML-10M item side (n = 10,677, m = 69,878, 10M entries) that is 9.5e9
+// operations (0.14 ms at the H100 SXM's published 67 TFLOP/s) against
+// 0.17 GB (0.05 ms at 3.35 TB/s), where the dense form needs 2.4e13
+// operations: no dense kernel can come near. What bounds this kernel in practice is latency: r's support
+// is visited column by column, each visit a few hundred entries. The
+// design:
 //
-//  * a block owns kRows = 32 rows of W and walks every column tile of
-//    kCols = 128 other rows itself (the loop takes the place of the TPU
-//    grid's sequential column-tile axis, since CUDA blocks run in no
-//    order);
-//  * one TPU block held whole rows of W in VMEM; here one row of W alone
-//    (273 KB at m = 69,878) exceeds the 227 KB of shared memory, so each
-//    tile loops over m in slabs of kDepth entries, as a tiled GEMM does.
-//    Each slab is staged in shared memory as three arrays (w, w^2,
-//    [w != 0]) and every thread accumulates 2 x 8 pairs with three fmaf
-//    each, so one shared-memory read feeds several FMAs;
-//  * W is read from device memory once per row block, so arithmetic
-//    intensity is 1.5 * kRows = 48 FLOP/byte, above the card's FP32 ridge
-//    of 67e12 / 3.35e12 = 20; at n = 10,677 there are 334 blocks, two per
-//    SM at this register count, so 1.27 waves over the 132 SMs;
-//  * the running top-k is fused_topk.cu's (topk_keys.cuh): 64-bit keys,
-//    a warp-ballot filter against the row's current k-th key, a bitonic
-//    sort of the survivors and a rank merge into a double-buffered list
-//    in global scratch. Columns at or past n never enter the list: their
-//    key is 0, the empty slot, which no ballot lets through.
+//  * a block owns one row r at a time: persistent blocks take rows from a
+//    global counter, so a block that drew a short row takes the next at
+//    once, however unevenly the rows' supports are spread; shared memory
+//    holds the float32 accumulators num, d1 and d2 for a range of C
+//    candidate rows (12*C bytes; C up to 16,632, so the ML-1M and ML-10M
+//    shapes need one range, a larger n walks r's support once per range);
+//  * each of the block's 8 warps owns a span of consecutive candidate
+//    rows, cut so the spans carry about equal work, and `split` gives the
+//    span's share of every column (a column's entries are sorted by row).
+//    For each column j of r's support, in ascending j, with a = W[r,j],
+//    the warp's lanes take its share of column j's entries (c, b) and
+//    update num[c] = fmaf(a, b, num[c]), d1[c] += a*a, d2[c] += b*b. One
+//    column's entries have distinct c and every c belongs to one warp, so
+//    no two threads ever touch one accumulator at once, with no float
+//    atomics and no barrier across the block inside a range (one between
+//    ranges, whose spans do not line up); a __syncwarp between columns
+//    keeps every sum in ascending j. The kernel is deterministic
+//    (two launches give the same bits) and, on star ratings, exact;
+//  * a warp hides the loads' latency itself: it reads the spans of 32
+//    support columns in one step, then the first 64 entries of 8 columns'
+//    spans before it accumulates the first of them (a longer span's rest
+//    four loads a lane deep), so one memory round trip serves 8 column
+//    visits, and no warp waits for another: sharing each column among all
+//    256 threads would cost a block barrier per column visit;
+//  * the epilogue of a range computes sqrtf(d1) * sqrtf(d2), fmaxf(.,
+//    1e-12f) and an IEEE division (no fast-math), 0 where num == 0, -3e38
+//    on the diagonal, and every candidate enters the top-k, zeros
+//    included: each warp folds its span into its own running list with
+//    fold_topk (topk_keys.cuh, shared with fused_topk.cu: a ballot filter,
+//    a bitonic sort in registers, a rank merge), then one warp merges the
+//    eight lists.
 //
-// Arithmetic, in this order, as the TPU kernel: fmaf accumulation of num,
-// d1 and d2 over m; then sqrtf(d1) * sqrtf(d2), fmaxf(., 1e-12f) and an
-// IEEE division (no fast-math: -prec-div and -prec-sqrt stay on).
+// Where W is dense the sparse form loses: a dense product's cost does not
+// depend on the density, and on a half-dense matrix at the ML-1M widths
+// two cuBLAS SGEMMs beat this kernel (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,148 +73,183 @@ using cornac_topk::key_index;
 using cornac_topk::key_score;
 using cornac_topk::make_key;
 
-constexpr int kThreads = 256;                  // 8 warps
+constexpr int kThreads = 256;                 // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;                      // rows of W per block
-constexpr int kCols = 128;                     // column tile: other rows of W, power of two
-constexpr int kDepth = 32;                     // entries of m per slab
-constexpr int kRowsPerWarp = kRows / kWarps;   // rows each warp selects for
-constexpr int kTR = 2;                         // rows per thread
-constexpr int kTC = 8;                         // columns per thread, two groups of 4
-constexpr int kRPitch = kRows + 4;             // padding spreads the transposed stores
-constexpr int kCPitch = kCols + 4;
-constexpr int kRTile = kDepth * kRPitch;       // floats per staged row array
-constexpr int kCTile = kDepth * kCPitch;       // floats per staged column array
-
-constexpr int kStageBytes = 3 * (kRTile + kCTile) * (int)sizeof(float);
-constexpr int kKeyBytes = kRows * kCols * (int)sizeof(u64);
-constexpr int kSmemBytes = kStageBytes > kKeyBytes ? kStageBytes : kKeyBytes;
+constexpr int kGroup = 8;                     // columns whose entries a warp loads before using them
+constexpr int kTile = 512;                    // keys per warp in the epilogue
+constexpr int kFixedBytes = kWarps * kTile * 8 + (1 + 2 * kWarps) * 4;
 
 constexpr float kNegInf = -3.0e38f;
 
-static_assert((kCols & (kCols - 1)) == 0 && kCols % 32 == 0, "bitonic sort needs a power of two");
-static_assert((kRows / kTR) * (kCols / kTC) == kThreads, "one thread per 2 x 8 pairs");
-static_assert(kCols / kTC == 16 && kCols == 128, "thread columns: tx*4 and 64 + tx*4");
-static_assert(kRows % kWarps == 0, "rows split evenly over the warps");
-static_assert((kRTile * 4) % 16 == 0 && (kCTile * 4) % 16 == 0, "vector loads stay aligned");
+// Accumulator floats per array for a range of C rows, kept a multiple of 4
+// so the key tiles behind them stay 16-byte aligned.
+__host__ __device__ __forceinline__ int padded(int C) { return (C + 3) & ~3; }
 
-__global__ void __launch_bounds__(kThreads, 2)
-cosine_topk_kernel(const float* __restrict__ W, int n, int m, int k, int exclude_self,
-                   float* __restrict__ out_s, int* __restrict__ out_i, u64* scratch) {
+__host__ __device__ __forceinline__ int smem_bytes(int C) { return 12 * padded(C) + kFixedBytes; }
+
+__device__ __forceinline__ void accumulate(float* num, float* d1, float* d2, int c, float a,
+                                           float a2, float b) {
+  num[c] = fmaf(a, b, num[c]);
+  d1[c] = __fadd_rn(d1[c], a2);
+  d2[c] = __fadd_rn(d2[c], __fmul_rn(b, b));
+}
+
+// Candidate rows come in `ranges` ranges of at most C rows, range q from
+// bounds[q * kWarps] to bounds[(q + 1) * kWarps], and warp w owns rows
+// bounds[q * kWarps + w] up to the next bound. split[j * T + t], for
+// T = ranges * kWarps + 1, is the index of column j's first CSC entry
+// whose row is at or past bounds[t], so warp w's share of column j in
+// range q is split[j*T + q*kWarps + w] up to the next. Scratch: per block,
+// (kWarps + 1) lists of two halves of k keys: each warp's running list,
+// then the row's merged list.
+__global__ void __launch_bounds__(kThreads)
+cosine_topk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col_idx,
+                   const float* __restrict__ row_val, const int* __restrict__ split,
+                   const int* __restrict__ row_idx, const float* __restrict__ col_val,
+                   const int* __restrict__ bounds, int n, int ranges, int C, int k,
+                   int exclude_self, float* __restrict__ out_s, int* __restrict__ out_i,
+                   u64* scratch, int* next_row) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Rv = reinterpret_cast<float*>(smem);  // [kDepth][kRPitch]: w, w^2, [w != 0]
-  float* Rs = Rv + kRTile;
-  float* Rz = Rs + kRTile;
-  float* Cv = Rz + kRTile;                     // [kDepth][kCPitch]: the same for the columns
-  float* Cs = Cv + kCTile;
-  float* Cz = Cs + kCTile;
-  u64* Ks = reinterpret_cast<u64*>(smem);      // [kRows][kCols] keys, aliases the slabs
+  const int Cp = padded(C);
+  float* num = reinterpret_cast<float*>(smem);
+  float* d1 = num + Cp;
+  float* d2 = d1 + Cp;
+  u64* keys = reinterpret_cast<u64*>(d2 + Cp);  // kWarps tiles of kTile keys
+  int* misc = reinterpret_cast<int*>(keys + kWarps * kTile);  // [0] row; [1 + w] count, [1 + kWarps + w] half
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid / (kCols / kTC), tx = tid % (kCols / kTC);
-  const int row0 = blockIdx.x * kRows;
-  const size_t half = (size_t)n * k;  // offset of the scratch's second half
+  const int T = ranges * kWarps + 1;
+  u64* lists = scratch + (size_t)blockIdx.x * (kWarps + 1) * 2 * k;
+  u64* mine = lists + (size_t)warp * 2 * k;
+  u64* K = keys + warp * kTile;
 
-  int count[kRowsPerWarp], cur[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) { count[r] = 0; cur[r] = 0; }
-
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    float num[kTR][kTC], d1[kTR][kTC], d2[kTR][kTC];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) { num[i][j] = 0.f; d1[i][j] = 0.f; d2[i][j] = 0.f; }
-
-    for (int k0 = 0; k0 < m; k0 += kDepth) {
-      // stage: consecutive threads read consecutive entries of one row
-      for (int e = tid; e < kRows * kDepth; e += kThreads) {
-        const int r = e / kDepth, j = e % kDepth;
-        const int row = row0 + r, col = k0 + j;
-        const float a = (row < n && col < m) ? W[(size_t)row * m + col] : 0.f;
-        Rv[j * kRPitch + r] = a;
-        Rs[j * kRPitch + r] = a * a;
-        Rz[j * kRPitch + r] = a != 0.f ? 1.f : 0.f;
-      }
-      for (int e = tid; e < kCols * kDepth; e += kThreads) {
-        const int c = e / kDepth, j = e % kDepth;
-        const int row = c0 + c, col = k0 + j;
-        const float b = (row < n && col < m) ? W[(size_t)row * m + col] : 0.f;
-        Cv[j * kCPitch + c] = b;
-        Cs[j * kCPitch + c] = b * b;
-        Cz[j * kCPitch + c] = b != 0.f ? 1.f : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < kDepth; ++j) {
-        const float2 av = *reinterpret_cast<const float2*>(Rv + j * kRPitch + ty * kTR);
-        const float2 as = *reinterpret_cast<const float2*>(Rs + j * kRPitch + ty * kTR);
-        const float2 az = *reinterpret_cast<const float2*>(Rz + j * kRPitch + ty * kTR);
-        const float a_v[kTR] = {av.x, av.y}, a_s[kTR] = {as.x, as.y}, a_z[kTR] = {az.x, az.y};
-        float b_v[kTC], b_s[kTC], b_z[kTC];
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const int off = j * kCPitch + g * (kCols / 2) + tx * 4;
-          const float4 v = *reinterpret_cast<const float4*>(Cv + off);
-          const float4 s = *reinterpret_cast<const float4*>(Cs + off);
-          const float4 z = *reinterpret_cast<const float4*>(Cz + off);
-          b_v[4 * g + 0] = v.x; b_v[4 * g + 1] = v.y; b_v[4 * g + 2] = v.z; b_v[4 * g + 3] = v.w;
-          b_s[4 * g + 0] = s.x; b_s[4 * g + 1] = s.y; b_s[4 * g + 2] = s.z; b_s[4 * g + 3] = s.w;
-          b_z[4 * g + 0] = z.x; b_z[4 * g + 1] = z.y; b_z[4 * g + 2] = z.z; b_z[4 * g + 3] = z.w;
-        }
-#pragma unroll
-        for (int i = 0; i < kTR; ++i)
-#pragma unroll
-          for (int c = 0; c < kTC; ++c) {
-            num[i][c] = fmaf(a_v[i], b_v[c], num[i][c]);
-            d1[i][c] = fmaf(a_s[i], b_z[c], d1[i][c]);
-            d2[i][c] = fmaf(a_z[i], b_s[c], d2[i][c]);
-          }
-      }
-      __syncthreads();  // the next slab, or the keys, overwrite the slabs
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const int lr = ty * kTR + i, row = row0 + lr;
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        const int lc = (c / 4) * (kCols / 2) + tx * 4 + (c % 4), col = c0 + lc;
-        float sim = 0.f;
-        if (num[i][c] != 0.f) {
-          const float denom = sqrtf(d1[i][c]) * sqrtf(d2[i][c]);
-          sim = num[i][c] / fmaxf(denom, 1e-12f);
-        }
-        if (exclude_self && row == col) sim = kNegInf;
-        Ks[lr * kCols + lc] = col < n ? make_key(sim, col) : 0ull;
-      }
-    }
+  for (;;) {
+    if (tid == 0) misc[0] = atomicAdd(next_row, 1);
     __syncthreads();
+    const int r = misc[0];
+    if (r >= n) break;
+    const int s0 = row_ptr[r], deg = row_ptr[r + 1] - s0;
+    int count = 0, cur = 0;  // this warp's running list
 
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int lr = warp + kWarps * r, row = row0 + lr;
-      if (row >= n) continue;
-      const u64* run = scratch + cur[r] * half + (size_t)row * k;
-      u64* next = scratch + (cur[r] ^ 1) * half + (size_t)row * k;
-      const int merged = fold_topk(Ks + lr * kCols, kCols, run, next, count[r], k, lane);
-      if (merged < 0) continue;
-      count[r] = merged;
-      cur[r] ^= 1;
-    }
-    __syncthreads();  // the next tile's slabs overwrite Ks
-  }
+    for (int q = 0; q < ranges; ++q) {
+      // the spans are cut by work, so this range's span of a warp overlaps
+      // other warps' spans of the last range: wait until every warp is done
+      // with those before any zeroes its own
+      if (q > 0) __syncthreads();
+      const int t0 = q * kWarps + warp, base = bounds[q * kWarps];
+      const int lo = bounds[t0] - base, hi = bounds[t0 + 1] - base;  // this warp's rows
+      for (int c = lo + lane; c < hi; c += 32) { num[c] = 0.f; d1[c] = 0.f; d2[c] = 0.f; }
+      __syncwarp();
 
+      // r's support, 32 columns at a time: lane l holds column l's value and
+      // this warp's span of it; the spans' entries are loaded kGroup
+      // columns at a time, then accumulated column by column, ascending j
+      for (int w0 = 0; w0 < deg; w0 += 32) {
+        int e0 = 0, e1 = 0;
+        float a_l = 0.f;
+        if (w0 + lane < deg) {
+          const int j = col_idx[s0 + w0 + lane];
+          a_l = row_val[s0 + w0 + lane];
+          e0 = split[(size_t)j * T + t0];
+          e1 = split[(size_t)j * T + t0 + 1];
+        }
+        const int cols = min(32, deg - w0);
+        for (int g0 = 0; g0 < cols; g0 += kGroup) {
+          int ci[kGroup][2];
+          float cv[kGroup][2];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + warp + kWarps * r;
-    if (row >= n) continue;
-    const u64* run = scratch + cur[r] * half + (size_t)row * k;
-    for (int p = lane; p < k; p += 32) {
-      const u64 x = run[p];
-      out_s[(size_t)row * k + p] = key_score(x);
-      out_i[(size_t)row * k + p] = key_index(x);
+          for (int g = 0; g < kGroup; ++g) {
+            const int b0 = __shfl_sync(0xFFFFFFFFu, e0, (g0 + g) & 31);
+            const int b1 = __shfl_sync(0xFFFFFFFFu, e1, (g0 + g) & 31);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int e = b0 + lane + 32 * h;
+              const bool ok = g0 + g < cols && e < b1;
+              ci[g][h] = ok ? row_idx[e] : -1;
+              cv[g][h] = ok ? col_val[e] : 0.f;
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            const float a = __shfl_sync(0xFFFFFFFFu, a_l, (g0 + g) & 31), a2 = __fmul_rn(a, a);
+            const int b0 = __shfl_sync(0xFFFFFFFFu, e0, (g0 + g) & 31);
+            const int b1 = __shfl_sync(0xFFFFFFFFu, e1, (g0 + g) & 31);
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (ci[g][h] >= 0) accumulate(num, d1, d2, ci[g][h] - base, a, a2, cv[g][h]);
+            // a span longer than 64 entries: the rest from memory, four
+            // loads a lane in flight at a time
+            for (int e0 = b0 + 64; g0 + g < cols && e0 < b1; e0 += 4 * 32) {
+              int ti[4];
+              float tv[4];
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                const int e = e0 + lane + 32 * h;
+                ti[h] = e < b1 ? row_idx[e] : -1;
+                tv[h] = e < b1 ? col_val[e] : 0.f;
+              }
+#pragma unroll
+              for (int h = 0; h < 4; ++h)
+                if (ti[h] >= 0) accumulate(num, d1, d2, ti[h] - base, a, a2, tv[h]);
+            }
+            __syncwarp();  // the next column may touch the same rows
+          }
+        }
+      }
+
+      for (int t = lo; t < hi; t += kTile) {
+        for (int i = lane; i < kTile; i += 32) {
+          const int c = t + i;
+          u64 key = 0ull;
+          if (c < hi) {
+            const float nm = num[c];
+            float sim = 0.f;
+            if (nm != 0.f) sim = nm / fmaxf(sqrtf(d1[c]) * sqrtf(d2[c]), 1e-12f);
+            if (exclude_self && base + c == r) sim = kNegInf;
+            key = make_key(sim, base + c);
+          }
+          K[i] = key;
+        }
+        __syncwarp();
+        const int merged = fold_topk(K, kTile, mine + cur * k, mine + (cur ^ 1) * k, count, k, lane);
+        if (merged >= 0) { count = merged; cur ^= 1; }
+      }
     }
+
+    if (lane == 0) { misc[1 + warp] = count; misc[1 + kWarps + warp] = cur; }
+    __syncthreads();
+    if (warp == 0) {  // merge the warps' lists, packed into whole tiles
+      u64* row_list = lists + (size_t)kWarps * 2 * k;
+      int fcount = 0, fcur = 0, fill = 0;
+      auto fold = [&]() {
+        for (int t = fill + lane; t < kTile; t += 32) K[t] = 0ull;
+        __syncwarp();
+        const int merged = fold_topk(K, kTile, row_list + fcur * k, row_list + (fcur ^ 1) * k,
+                                     fcount, k, lane);
+        if (merged >= 0) { fcount = merged; fcur ^= 1; }
+        fill = 0;
+      };
+      for (int w = 0; w < kWarps; ++w) {
+        const u64* L = lists + ((size_t)w * 2 + misc[1 + kWarps + w]) * k;
+        const int cnt = misc[1 + w];
+        for (int p = 0; p < cnt;) {
+          const int take = min(cnt - p, kTile - fill);
+          for (int t = lane; t < take; t += 32) K[fill + t] = L[p + t];
+          fill += take;
+          p += take;
+          __syncwarp();
+          if (fill == kTile) fold();
+        }
+      }
+      if (fill > 0) fold();
+      const u64* run = row_list + fcur * k;
+      for (int p = lane; p < k; p += 32) {
+        const u64 x = run[p];
+        out_s[(size_t)r * k + p] = key_score(x);
+        out_i[(size_t)r * k + p] = key_index(x);
+      }
+    }
+    __syncthreads();  // misc and warp 0's tile are reused by the next row
   }
 }
 
@@ -210,18 +257,54 @@ cosine_topk_kernel(const float* __restrict__ W, int n, int m, int k, int exclude
 
 extern "C" {
 
-// Launches on `stream`; `scratch` holds 2*n*k 64-bit words. Requires
-// 1 <= k <= n - 1 with exclude_self (else k <= n) and a row-major
-// contiguous W (n, m); offsets into W are 64-bit. Returns the launch's
-// cudaError_t (0 on success).
-int cornac_cosine_topk(const float* W, int n, int m, int k, int exclude_self,
-                       float* out_s, int* out_i, void* scratch, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// For n rows on the current device: the candidate rows one range holds (C)
+// and the number of persistent blocks a launch uses, which sizes its
+// scratch. Returns a cudaError_t (0 on success).
+int cornac_cosine_topk_plan(int n, int* C, int* blocks) {
+  int dev, smem_limit, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kRows - 1) / kRows);
-  cosine_topk_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      W, n, m, k, exclude_self, out_s, out_i, static_cast<u64*>(scratch));
+  // as many candidate rows per range as shared memory holds, spread evenly
+  // over the ranges n needs
+  const int cap = ((smem_limit - kFixedBytes) / 12) & ~3;
+  const int ranges = (n + cap - 1) / cap;
+  *C = (n + ranges - 1) / ranges;
+  err = cudaFuncSetAttribute(cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes(*C));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cosine_topk_kernel, kThreads,
+                                                        smem_bytes(*C));
+  if (err != cudaSuccess) return (int)err;
+  const int resident = per_sm * sms;
+  *blocks = n < resident ? (n > 0 ? n : 1) : resident;
+  return (int)cudaSuccess;
+}
+
+// Launches on `stream`. W (n, m) comes as its CSR (row_ptr n + 1, col_idx,
+// row_val) and its CSC entries (row_idx, col_val), indices ascending
+// within each row and column, no explicit zeros; `bounds` (ranges * 8 + 1
+// ints: range q of at most C rows is bounds[8q] to bounds[8q + 8], split
+// among the 8 warps) and `split` (m x (ranges * 8 + 1) ints) as described
+// at cosine_topk_kernel. `scratch` holds blocks * (8 + 1) * 2 * k 64-bit
+// words, for the C and blocks that cornac_cosine_topk_plan gave for n on
+// this device, `next_row` one int set to 0. Requires 1 <= k <= n - 1 with
+// exclude_self (else k <= n). Returns the launch's cudaError_t (0 on
+// success).
+int cornac_cosine_topk(const int* row_ptr, const int* col_idx, const float* row_val,
+                       const int* split, const int* row_idx, const float* col_val,
+                       const int* bounds, int n, int ranges, int C, int k, int exclude_self,
+                       int blocks, float* out_s, int* out_i, void* scratch, int* next_row,
+                       void* stream) {
+  if (C < 1 || blocks < 1 || ranges != (n + C - 1) / C) return (int)cudaErrorInvalidValue;
+  // refuses a C whose accumulators shared memory cannot hold
+  cudaError_t err = cudaFuncSetAttribute(
+      cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(C));
+  if (err != cudaSuccess) return (int)err;
+  cosine_topk_kernel<<<blocks, kThreads, smem_bytes(C), (cudaStream_t)stream>>>(
+      row_ptr, col_idx, row_val, split, row_idx, col_val, bounds, n, ranges, C, k, exclude_self,
+      out_s, out_i, static_cast<u64*>(scratch), next_row);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,9 @@ Port of ``cornac_tpu/models/knn.py`` with the same semantics:
   ratings such ties are common, and they decide which neighbours' ratings
   enter the score.
 - ``neighbors`` / ``nearest_users`` / ``nearest_items`` (the related-items
-  serving surface) build their table with ``ops.cosine_topk``, the
-  hand-written kernel on the card, which never forms the (n, n) matrix.
+  serving surface) build their table with ``ops.cosine_topk_sparse``, the
+  hand-written kernel on the card, which walks the weight matrix's
+  nonzeros and forms neither the dense weights nor the (n, n) matrix.
 
 Unlike the JAX package, which uploads ``ui_centered`` (UserKNN) or
 ``sim_mat`` (ItemKNN) on every ``score`` call, the port keeps a float32
@@ -32,7 +33,7 @@ from scipy.sparse import coo_matrix
 
 from ..device import resolve_device
 from ..exception import ScoreException
-from ..ops.cosine_topk import co_support_cosine, cosine_topk
+from ..ops.cosine_topk import co_support_cosine, cosine_topk_sparse
 from ..utils import get_rng
 from .recommender import Recommender
 
@@ -243,14 +244,16 @@ class _KNNBase(Recommender):
 
     def _build_neighbor_index(self, num_neighbors, force=None):
         """Precompute the (n, k) neighbour table with the fused similarity
-        top-k (``ops.cosine_topk``): on the card, the hand-written kernel,
-        which never materialises the (n, n) similarity matrix."""
-        W = dense_f32(self._weight_mat, self._device())
-        sims, ids = cosine_topk(W, num_neighbors, exclude_self=True, force=force)
+        top-k over the weight matrix's entries (``ops.cosine_topk_sparse``):
+        on the card, the hand-written kernel, which builds neither the
+        dense weights nor the (n, n) similarity matrix."""
+        sims, ids = cosine_topk_sparse(
+            self._weight_mat, num_neighbors, exclude_self=True, force=force,
+            device=self._device())
         sims = sims.cpu().numpy().astype(np.float64)
         if self.amplify != 1.0:  # monotone per sign: order is unchanged
             sims = _amplify_dense(sims, self.amplify)
-        self._nn_k = int(min(num_neighbors, W.shape[0] - 1))
+        self._nn_k = int(min(num_neighbors, self._weight_mat.shape[0] - 1))
         self._nn_sims, self._nn_ids = sims, ids.cpu().numpy()
 
     def neighbors(self, indices=None, num_neighbors=None, force=None):
@@ -260,7 +263,7 @@ class _KNNBase(Recommender):
 
         Returns (neighbor_ids (n, k), similarities (n, k)); with
         ``indices`` only those rows. The table is computed once and cached.
-        ``force``: None, ``"kernel"`` or ``"torch"`` (``ops.cosine_topk``).
+        ``force``: None, ``"kernel"`` or ``"torch"`` (``ops.cosine_topk_sparse``).
         """
         kk = int(num_neighbors if num_neighbors is not None else self.k)
         if (

@@ -3,7 +3,10 @@
 Port of ``cornac_tpu/ops/pallas_ranking.py::fused_topk``. For a tensor on
 the card the hand-written kernel ``csrc/fused_topk.cu`` scores each chunk
 of the catalog and folds it into a running top-k, so the (B, N) score
-matrix is never written to device memory. For a tensor on the CPU the
+matrix is never written to device memory. The catalog is split into
+``S`` slices scored by separate blocks and merged by a second kernel
+(``split_plan`` picks ``S`` so that the grid fills the card; ``S = 1``,
+no merge, at large batches). For a tensor on the CPU the
 plain version ``fused_topk_torch`` runs instead; on the card only the tests
 and ``chip_smoke.py`` call it, as the reference the kernel is held to.
 
@@ -20,21 +23,57 @@ from ..device import default_device
 from .dispatch import full_f32, resolve_path
 from .native import CudaLibrary, check_tensor
 
+CHUNK = 512  # items per chunk of the kernel (kChunk in csrc/fused_topk.cu)
+ROWS = 16  # user rows per block (kRows)
+
+
+def split_plan(B, N, k, sms, per_sm):
+    """How many catalog slices S the kernel scores in separate blocks for
+    B users, N items and top-k on a card of ``sms`` SMs that each hold
+    ``per_sm`` blocks of it at once. Slice s is made of chunks ``s*C//S``
+    up to ``(s+1)*C//S`` of the ``C = ceil(N / CHUNK)`` chunks.
+
+    S is the most slices whose grid, ``ceil(B / ROWS) * S`` blocks, still
+    runs in one wave of ``per_sm * sms`` (S = 1 when the row blocks alone
+    fill the card), with at most one slice per chunk and ``N // k``
+    slices, so that the merge never takes more candidates per row (S * k)
+    than the catalog has. A slice may still hold fewer than k items: the
+    kernel pads each slice's list with empty keys, so the lists are
+    count-aware."""
+    row_blocks = -(-B // ROWS)
+    chunks = -(-N // CHUNK)
+    return max(1, min(per_sm * sms // row_blocks, chunks, N // k))
+
 
 class FusedTopkKernel:
     """ctypes binding of ``cornac_fused_topk``; ``launches`` counts the
-    kernel launches, and nothing else adds to it."""
+    calls that launch it (one call, whether it runs one kernel or the
+    scoring kernel and the merge), and nothing else adds to it."""
 
     def __init__(self):
         self.library = CudaLibrary("fused_topk")
         self.launches = 0
+        self._fn = None
+        self._slots = {}
 
-    def _fn(self):
-        lib = self.library.load()
-        fn = lib.cornac_fused_topk
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-        return fn
+    def slots(self, device, k):
+        """(SMs, blocks of the scoring kernel per SM) on ``device`` for
+        this k, asked of the CUDA runtime once per pair."""
+        key = (device.index, k)
+        if key not in self._slots:
+            fn = self.library.load().cornac_fused_topk_blocks_per_sm
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            per_sm = ctypes.c_int()
+            with torch.cuda.device(device):
+                self.library.check(fn(k, ctypes.byref(per_sm)))
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            self._slots[key] = (sms, per_sm.value)
+        return self._slots[key]
+
+    def plan(self, U, N, k):
+        """The number of catalog slices a launch for U (B, d) uses."""
+        return split_plan(max(U.shape[0], 1), N, k, *self.slots(U.device, k))
 
     def __call__(self, U, V, k, bias=None):
         """Launch on the current stream. U (B, d), V (N, d), bias (N,) or
@@ -50,19 +89,24 @@ class FusedTopkKernel:
                 raise ValueError("U, V and bias must be on the same device")
         if not 1 <= k <= N:
             raise ValueError(f"k={k} must lie in [1, {N}]")
-        if max(B * d, N * d, 2 * B * k) >= 2**31:
+        S = self.plan(U, N, k)
+        if max(B * d, N * d, 2 * S * B * k) >= 2**31:
             raise ValueError("the kernel indexes rows with 32-bit ints")
         scores = torch.empty((B, k), dtype=torch.float32, device=U.device)
         items = torch.empty((B, k), dtype=torch.int32, device=U.device)
-        scratch = torch.empty((2, B, k), dtype=torch.int64, device=U.device)
         if B == 0:
             return scores, items
-        fn = self._fn()
+        scratch = torch.empty((2, B, S, k), dtype=torch.int64, device=U.device)
+        if self._fn is None:
+            fn = self.library.load().cornac_fused_topk
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            self._fn = fn
         with torch.cuda.device(U.device):  # the C side launches on the current device
-            err = fn(
+            err = self._fn(
                 U.data_ptr(), V.data_ptr(), 0 if bias is None else bias.data_ptr(),
-                B, N, d, k, scores.data_ptr(), items.data_ptr(), scratch.data_ptr(),
-                torch.cuda.current_stream(U.device).cuda_stream,
+                B, N, d, k, S, scores.data_ptr(), items.data_ptr(),
+                scratch.data_ptr(), torch.cuda.current_stream(U.device).cuda_stream,
             )
         self.library.check(err)
         self.launches += 1
@@ -92,14 +136,20 @@ def fused_topk(U, V, k, bias=None, force=None, precision="f32",
     inputs go to the default device. ``force``: None (the kernel on the
     card, the plain version on the CPU), ``"kernel"`` or ``"torch"``.
 
-    ``precision="bf16"``, ``recall_target`` and ``partitions`` select the
-    JAX package's XLA-only variants, which the port does not have yet:
-    they raise rather than answer with the exact path.
+    ``partitions``: the JAX package's exact two-stage selection (top-k in
+    each of P catalog blocks, then over the P*k survivors), whose answer
+    equals the one-stage answer. The port accepts any P and gives that
+    same exact answer: the kernel splits the catalog itself, into as many
+    slices as fill the card (``split_plan``), whatever P asks for.
+
+    ``precision="bf16"`` and ``recall_target`` select the JAX package's
+    XLA-only inexact variants, which the port does not have yet: they raise
+    rather than answer with the exact path.
     """
-    if precision != "f32" or recall_target is not None or partitions is not None:
+    if precision != "f32" or recall_target is not None:
         raise NotImplementedError(
-            "fused_topk's bf16, recall_target and partitions variants are not "
-            "ported yet (ROADMAP.md); only the exact f32 path exists"
+            "fused_topk's bf16 and recall_target variants are not ported yet "
+            "(ROADMAP.md); only the exact f32 path exists"
         )
     device = U.device if isinstance(U, torch.Tensor) else default_device()
     U = torch.as_tensor(U, dtype=torch.float32, device=device).contiguous()

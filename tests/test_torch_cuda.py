@@ -16,7 +16,11 @@ import torch
 from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import BPR, TPUExactANN
 from cornac_tpu_torch.models import ItemKNN, UserKNN
-from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk, cosine_topk_torch
+from scipy.sparse import coo_matrix
+
+from cornac_tpu_torch.ops.cosine_topk import (
+    COSINE_TOPK, NEG_INF, co_support_cosine, cosine_topk, cosine_topk_sparse, cosine_topk_torch,
+    dense_views, scipy_views)
 from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk, fused_topk_torch
 
 pytestmark = pytest.mark.cuda
@@ -59,6 +63,31 @@ def test_exact_ties_in_index_order(card, k):
     s, i = fused_topk(U, V, k)
     s_ref, i_ref = fused_topk_torch(U, V, k)
     assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("B", [1, 5, 17])
+@pytest.mark.parametrize("ints", [False, True])
+def test_split_kernel_matches_plain(card, B, ints):
+    # a catalog of 6 chunks split over 5 slices: the one-chunk slices hold
+    # 512 items, fewer than k = 600, so the merge relies on the lists'
+    # empty-key padding; integer scores tie across slices
+    rng = np.random.RandomState(B)
+    if ints:
+        U, V = rng.randint(-1, 2, (B, 4)), rng.randint(-1, 2, (3000, 4))
+    else:
+        U, V = rng.randn(B, 51), rng.randn(3000, 51)
+    U, V = _on(card, U.astype(np.float32), V.astype(np.float32))
+    assert FUSED_TOPK.plan(U, 3000, 600) == 5
+    before = FUSED_TOPK.launches
+    s, i = fused_topk(U, V, 600)
+    s_ref, i_ref = fused_topk_torch(U, V, 600)
+    torch.cuda.synchronize()
+    assert FUSED_TOPK.launches == before + 1  # one call, scoring and merge
+    assert torch.equal(i, i_ref)
+    if ints:
+        assert torch.equal(s, s_ref)
+    else:
+        torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_refuses_bad_inputs(card):
@@ -145,9 +174,66 @@ def test_cosine_kernel_near_plain_on_centred_data(card, exclude_self):
 
 def test_cosine_kernel_refuses_bad_inputs(card):
     W = torch.zeros(10, 4, device=card)
-    for args in ((W.double(), 3), (W.T, 3), (W, 10), (W, 0)):
+    views = dense_views(W)
+    for args in ((W, 3), (views._replace(row_val=views.row_val.double()), 3),
+                 (views._replace(row_ptr=views.row_ptr[:-1]), 3),
+                 (dense_views(W.cpu()), 3), (views, 10), (views, 0)):
         with pytest.raises(ValueError):
             COSINE_TOPK(*args)
+
+
+def test_cosine_kernel_explicit_zeros_and_duplicates(card):
+    # explicit zeros, duplicates summing to zero and a value that rounds to
+    # 0 in float32 leave the support: the kernel on the scipy matrix's
+    # entries equals the plain version on the dense float32 W
+    rng = np.random.RandomState(8)
+    rows, cols = rng.randint(400, size=6000), rng.randint(300, size=6000)
+    vals = rng.randint(0, 6, size=6000).astype(np.float64)  # a sixth are explicit zeros
+    rows = np.concatenate([rows, [1, 1, 2]])
+    cols = np.concatenate([cols, [299, 299, 299]])
+    vals = np.concatenate([vals, [2.0, -2.0, 1e-50]])
+    mat = coo_matrix((vals, (rows, cols)), shape=(400, 300))
+    before = COSINE_TOPK.launches
+    s, i = cosine_topk_sparse(mat, 30, device=card)
+    assert COSINE_TOPK.launches == before + 1
+    s_ref, i_ref = cosine_topk_torch(scipy_views(mat, card).dense(), 30)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+
+
+def test_cosine_kernel_many_ranges(card):
+    # n above the rows one pass of shared memory holds: the kernel walks
+    # each row's support once per range of candidate rows. The density
+    # rises across one range and falls across the next, so the warps' spans
+    # (cut by work) do not line up from one range to the next
+    n, m, k = 40_000, 32, 12
+    C, _ = COSINE_TOPK.plan(n, card)
+    ranges = -(-n // C)
+    assert ranges >= 2
+    starts = np.arange(ranges + 1) * n // ranges  # as ops.cosine_topk.partition cuts
+    q = np.searchsorted(starts, np.arange(n), side="right") - 1
+    t = (np.arange(n) - starts[q]) / (starts[q + 1] - starts[q])
+    density = 0.02 + 0.4 * np.where(q % 2 == 0, t, 1.0 - t)
+    W = torch.from_numpy(_star_weights(n, m, density[:, None], seed=5)).to(card)
+    s, i = cosine_topk(W, k)
+    # the plain version a block of rows at a time: (n, n) is too large to sort whole
+    for r0 in range(0, n, 4096):
+        rows = torch.arange(r0, min(r0 + 4096, n), device=card)
+        sim = co_support_cosine(W[rows], W)
+        sim[rows - r0, rows] = NEG_INF
+        s_ref, i_ref = torch.sort(sim, dim=1, descending=True, stable=True)
+        assert torch.equal(i[rows], i_ref[:, :k].int()) and torch.equal(s[rows], s_ref[:, :k])
+
+
+def test_cosine_kernel_is_deterministic(card):
+    # centred data, where the float32 sums are inexact: the order of the
+    # sums is fixed (ascending column), so two launches give the same bits
+    rng = np.random.RandomState(9)
+    W = rng.randn(700, 900).astype(np.float32)
+    W[rng.rand(700, 900) >= 0.2] = 0.0
+    views = dense_views(torch.from_numpy(W).to(card))
+    first = COSINE_TOPK(views, 50)
+    second = COSINE_TOPK(views, 50)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_knn_neighbours_on_the_card_match_the_cpu(card):

@@ -13,7 +13,8 @@ import torch
 
 import cornac_tpu_torch
 from cornac_tpu.ops.pallas_ranking import fused_topk as jax_fused_topk
-from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk, fused_topk_torch
+from cornac_tpu_torch.ops.fused_topk import (
+    CHUNK, FUSED_TOPK, ROWS, fused_topk, fused_topk_torch, split_plan)
 
 cornac_tpu_torch.set_default_device("cpu")
 
@@ -102,6 +103,63 @@ def test_kernel_refuses_cpu_tensors_and_unported_variants():
         fused_topk(U, V, 5, force="kernel")
     with pytest.raises(ValueError):
         FUSED_TOPK(torch.from_numpy(U), torch.from_numpy(V), 5)
-    for kwargs in ({"precision": "bf16"}, {"recall_target": 0.95}, {"partitions": 4}):
+    for kwargs in ({"precision": "bf16"}, {"recall_target": 0.95}):
         with pytest.raises(NotImplementedError):
             fused_topk(U, V, 5, **kwargs)
+    # partitions is ported: the exact answer, whatever P
+    s, i = fused_topk(U, V, 5, partitions=4)
+    assert torch.equal(i, fused_topk(U, V, 5)[1])
+
+
+@pytest.mark.parametrize("P", [2, 3, 7, 400])
+@pytest.mark.parametrize("ints", [False, True])
+def test_partitions_match_jax(P, ints):
+    # the JAX function's two-stage selection (P catalog blocks, then the
+    # P*k survivors) is exact; with integer scores ties span the blocks
+    rng = np.random.RandomState(P)
+    if ints:
+        U = rng.randint(-1, 2, (9, 4)).astype(np.float32)
+        V = rng.randint(-1, 2, (1000, 4)).astype(np.float32)
+    else:
+        U, V, _ = _data(B=9, N=1000)
+    port = fused_topk(U, V, 40, partitions=P)
+    _assert_same(port, jax_fused_topk(U, V, 40, force="xla", partitions=P))
+    _assert_same(port, jax_fused_topk(U, V, 40, force="xla"))
+
+
+@pytest.mark.parametrize("B,N,k,sms,per_sm", [
+    (1, 17_700, 100, 132, 2),      # /recommend: one user
+    (5, 17_700, 17_700, 132, 3),   # k = N: one slice
+    (17, 17_700, 400, 132, 1),     # k above a chunk
+    (256, 17_700, 100, 132, 2),
+    (8192, 17_700, 100, 132, 2),   # recommend_batch: the row blocks fill the card
+    (3, 50, 200, 132, 3),          # k past N (the wrapper caps k first)
+    (40, 1_000_000, 10, 16, 2),
+    (2, 513, 1, 132, 3),
+])
+def test_split_plan_invariants(B, N, k, sms, per_sm):
+    k = min(k, N)
+    S = split_plan(B, N, k, sms, per_sm)
+    chunks = -(-N // CHUNK)
+    row_blocks = -(-B // ROWS)
+    slots = per_sm * sms  # resident blocks of one wave
+    assert 1 <= S <= chunks  # every slice holds at least one chunk
+    # the merge takes no more candidates per row than the catalog has
+    assert S == 1 or S * k <= N
+    # one wave: a split grid never queues blocks behind others
+    assert S == 1 or S * row_blocks <= slots
+    # and it fills the card, unless one slice per chunk or per k items is the limit
+    assert (S + 1) * row_blocks > slots or S in (chunks, max(1, N // k))
+    if row_blocks >= slots:
+        assert S == 1
+
+
+def test_split_plan_counts_on_count_aware_lists():
+    # k above one slice's items: N = 17,700 in 35 chunks over S slices,
+    # with k = 400 the slices of one chunk hold 512 items, the last one
+    # 292, fewer than k; the kernel pads each slice's list with empty
+    # keys, so the merge still finds k items
+    S = split_plan(1, 17_700, 400, 132, 2)
+    chunks = -(-17_700 // CHUNK)
+    last = 17_700 - ((S - 1) * chunks // S) * CHUNK
+    assert S == chunks and last < 400

@@ -13,8 +13,13 @@ Tolerances:
   index may differ only where the similarity it carries agrees within
   that tolerance with the one it displaced (a near-tie).
 
-The CUDA kernel itself is held to the plain version on the card by
-``chip_smoke.py`` and ``test_torch_cuda.py``.
+The CUDA kernel reads W as two compressed views (CSR and CSC) built on
+the device; on the CPU the sparse entry point densifies those views and
+runs the plain version, so the tests below hold the views to scipy (their
+support is ``float32(W) != 0``, duplicates summed first, as the dense
+``[W != 0]`` of the JAX kernel means) and the answers built on them to the
+JAX function. The CUDA kernel itself is held to the plain version on the
+card by ``chip_smoke.py`` and ``test_torch_cuda.py``.
 """
 
 import warnings
@@ -22,6 +27,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from scipy.sparse import coo_matrix, csr_matrix
 
 import cornac_tpu_torch
 from cornac_tpu.data import Dataset as JDataset
@@ -31,8 +37,10 @@ from cornac_tpu.ops.pallas_similarity import cosine_topk as j_cosine_topk
 from cornac_tpu_torch.convert import knn_from_arrays
 from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import ItemKNN, Recommender, UserKNN
-from cornac_tpu_torch.models.knn import _topk_lower_index, compute_similarity
-from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK, cosine_topk, cosine_topk_torch
+from cornac_tpu_torch.models.knn import _topk_lower_index, compute_similarity, dense_f32
+from cornac_tpu_torch.ops.cosine_topk import (
+    COSINE_TOPK, SparseViews, cosine_topk, cosine_topk_sparse, cosine_topk_torch, dense_views,
+    scipy_views)
 
 cornac_tpu_torch.set_default_device("cpu")
 
@@ -405,3 +413,215 @@ def test_invalid_options_raise():
         UserKNN(similarity="jaccard")
     with pytest.raises(ValueError):
         ItemKNN(weighting="tfidf")
+
+
+# ------------------------------------------------- sparse views of W
+
+CPU = torch.device("cpu")
+
+
+def _awkward(n=40, m=30, seed=0):
+    """A COO matrix with every case the views must get right: explicit
+    zeros, duplicates (some summing to 0), a value that rounds to 0 in
+    float32, an all-zero row and an all-zero column."""
+    rng = np.random.RandomState(seed)
+    rows, cols = rng.randint(n, size=300), rng.randint(m, size=300)
+    keep = (rows != 5) & (cols != 7)  # row 5 and column 7 stay empty
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.randint(1, 6, size=len(rows)).astype(np.float64)
+    rows = np.concatenate([rows, [0, 1, 2, 2, 3, 3, 4]])
+    cols = np.concatenate([cols, [1, 2, 3, 3, 4, 4, 8]])
+    vals = np.concatenate([vals, [0.0, 0.0, 2.5, -2.5, 1.5, 1.0, 1e-50]])
+    return coo_matrix((vals, (rows, cols)), shape=(n, m))
+
+
+def _scipy_reference(mat):
+    """What the views must hold, by scipy alone: duplicates summed in
+    float64, cast to float32, zeros dropped, indices sorted."""
+    coo = coo_matrix(mat, copy=True)
+    coo.sum_duplicates()
+    csr = csr_matrix((coo.data.astype(np.float32), (coo.row, coo.col)), shape=coo.shape)
+    csr.eliminate_zeros()
+    csr.sort_indices()
+    csc = csr.tocsc()
+    csc.sort_indices()
+    return csr, csc
+
+
+def _assert_views(views, mat):
+    csr, csc = _scipy_reference(mat)
+    assert isinstance(views, SparseViews) and views.shape == csr.shape
+    for got, want in ((views.row_ptr, csr.indptr), (views.col_idx, csr.indices),
+                      (views.col_ptr, csc.indptr), (views.row_idx, csc.indices)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    for got, want in ((views.row_val, csr.data), (views.col_val, csc.data)):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scipy_views_match_scipy(seed):
+    mat = _awkward(seed=seed)
+    views = scipy_views(mat, CPU)
+    _assert_views(views, mat)
+    assert views.row_ptr[5] == views.row_ptr[6]  # the empty row
+    assert views.col_ptr[7] == views.col_ptr[8]  # the empty column
+    assert 1e-50 not in views.row_val.tolist()  # rounded to 0, dropped
+    # the same matrix as the dense float32 W the models used to build
+    np.testing.assert_array_equal(views.dense().numpy(), dense_f32(mat, CPU).numpy())
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc", "coo"])
+def test_scipy_views_take_every_format(fmt):
+    mat = _awkward(seed=2)
+    _assert_views(scipy_views(mat.asformat(fmt), CPU), mat)
+
+
+def test_dense_views_match_scipy():
+    W = _W(n=50, m=35, density=0.3, centered=True)
+    views = dense_views(torch.from_numpy(W))
+    _assert_views(views, coo_matrix(W))
+    np.testing.assert_array_equal(views.dense().numpy(), W)
+
+
+def test_views_of_an_empty_matrix():
+    views = scipy_views(coo_matrix((4, 3)), CPU)
+    assert views.row_ptr.tolist() == [0] * 5 and views.col_ptr.tolist() == [0] * 4
+    assert views.col_idx.numel() == views.row_idx.numel() == 0
+
+
+@pytest.mark.parametrize("kind", ["binary", "integer", "half_star"])
+@pytest.mark.parametrize("exclude_self", [True, False])
+def test_sparse_entry_exact_on_star_ratings(kind, exclude_self):
+    W = _W_exact(kind)
+    s, i = cosine_topk_sparse(csr_matrix(W), 25, exclude_self=exclude_self)
+    s_ref, i_ref = j_cosine_topk(W, 25, exclude_self=exclude_self, force="xla")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+
+
+def test_sparse_entry_exact_with_explicit_zeros_and_duplicates():
+    mat = _awkward(seed=3)
+    W = dense_f32(mat, CPU).numpy()  # what the JAX models densify the same entries to
+    s, i = cosine_topk_sparse(mat, 12)
+    s_ref, i_ref = j_cosine_topk(W, 12, force="xla")
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    # row 5 has no entry: its neighbours are the first 12 other rows, at 0
+    np.testing.assert_array_equal(i.numpy()[5], [r for r in range(13) if r != 5])
+
+
+@pytest.mark.parametrize("exclude_self", [True, False])
+def test_sparse_entry_near_jax_on_centred_data(exclude_self):
+    W = _W(centered=True)
+    s, i = cosine_topk_sparse(csr_matrix(W), 200, exclude_self=exclude_self)
+    s_ref, i_ref = j_cosine_topk(W, 200, exclude_self=exclude_self, force="xla")
+    sim = _j_cosine(W)
+    if exclude_self:
+        np.fill_diagonal(sim, -3e38)
+    assert_topk_near(s, i, s_ref, i_ref, sim)
+    assert (s.numpy() < 0).any()
+
+
+def test_sparse_and_dense_entries_agree():
+    W = _W(n=70, m=50)
+    s, i = cosine_topk_sparse(csr_matrix(W), 9)
+    s_d, i_d = cosine_topk(W, 9)
+    assert torch.equal(s, s_d) and torch.equal(i, i_d)
+
+
+@pytest.mark.parametrize("exclude_self,n,want", [(True, 1, 0), (False, 3, 3)])
+def test_sparse_entry_caps_k(exclude_self, n, want):
+    s, i = cosine_topk_sparse(csr_matrix(_W(n=n, m=10)), 50, exclude_self=exclude_self)
+    assert s.shape == i.shape == (n, want)
+
+
+def test_sparse_entry_on_cpu_takes_the_plain_version():
+    before = COSINE_TOPK.launches
+    cosine_topk_sparse(csr_matrix(_W(n=30, m=20)), 4)
+    assert COSINE_TOPK.launches == before
+    with pytest.raises(ValueError):
+        cosine_topk_sparse(csr_matrix(_W(n=30, m=20)), 4, force="kernel")
+    with pytest.raises(ValueError):  # views on the CPU never reach the kernel
+        COSINE_TOPK(scipy_views(csr_matrix(_W(n=30, m=20)), CPU), 4)
+
+
+@pytest.mark.parametrize("cls,jcls,half", [
+    (UserKNN, JUserKNN, False), (ItemKNN, JItemKNN, False),
+    (UserKNN, JUserKNN, True), (ItemKNN, JItemKNN, True)])
+def test_nearest_through_the_sparse_path_match_jax(cls, jcls, half):
+    # mean-centred star ratings hold exact zeros as EPS = 1e-8, which
+    # float32 keeps nonzero: the views keep them in the support too
+    train, jtrain = _both(_star_triples(seed=11, half=half))
+    port = cls(k=3, mean_centered=False, verbose=False).fit(train)
+    jmodel = jcls(k=3, mean_centered=False, verbose=False).fit(jtrain)
+    attr = "nearest_users" if cls is UserKNN else "nearest_items"
+    ids, sims = getattr(port, attr)(num_neighbors=7)
+    j_ids, j_sims = getattr(jmodel, attr)(num_neighbors=7, force="xla")
+    np.testing.assert_array_equal(ids, np.asarray(j_ids))
+    np.testing.assert_array_equal(sims, np.asarray(j_sims))
+
+
+def test_eps_entries_stay_in_the_support():
+    # UserKNN(mean_centered=True) weighs by ui_centered, where a rating
+    # equal to its user's mean is stored as EPS = 1e-8
+    rows = [("u0", "i0", 3.0), ("u0", "i1", 3.0), ("u1", "i0", 2.0), ("u1", "i1", 4.0),
+            ("u2", "i1", 5.0), ("u2", "i2", 1.0)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        train, jtrain = _both(rows)
+    port = UserKNN(k=2, mean_centered=True, verbose=False).fit(train)
+    assert (port._weight_mat.data == 1e-8).any()
+    views = scipy_views(port._weight_mat, CPU)
+    assert views.row_val.numel() == port._weight_mat.nnz
+    jmodel = JUserKNN(k=2, mean_centered=True, verbose=False).fit(jtrain)
+    ids, sims = port.nearest_users(num_neighbors=2)
+    j_ids, j_sims = jmodel.nearest_users(num_neighbors=2, force="xla")
+    np.testing.assert_array_equal(ids, np.asarray(j_ids))
+    np.testing.assert_allclose(sims, np.asarray(j_sims), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,C", [(40, 30, 40), (40, 30, 15), (7, 3, 100), (300, 1, 64)])
+def test_partition_gives_each_warp_its_rows(n, m, C):
+    # the kernel's warps own spans of consecutive candidate rows; split
+    # must hand each warp exactly the CSC entries of its span, in every
+    # column, and the ranges must fit one pass of shared memory (C rows)
+    from cornac_tpu_torch.ops.cosine_topk import WARPS, partition
+
+    views = dense_views(torch.from_numpy(_W(n=n, m=m, density=0.3, seed=n + m)))
+    bounds, split = partition(views, C)
+    b = bounds.long().tolist()
+    ranges = len(b) // WARPS
+    assert len(b) == ranges * WARPS + 1 and ranges == -(-n // C)
+    assert b[0] == 0 and b[-1] == n and b == sorted(b)
+    for q in range(ranges):
+        assert b[(q + 1) * WARPS] - b[q * WARPS] <= C
+    col_ptr, row_idx = views.col_ptr.tolist(), views.row_idx.tolist()
+    assert split.shape == (m, len(b)) and split.dtype == torch.int32
+    for j in range(m):
+        for t, bound in enumerate(b):
+            lo, hi = col_ptr[j], col_ptr[j + 1]
+            want = lo + sum(1 for e in range(lo, hi) if row_idx[e] < bound)
+            assert split[j, t] == want
+
+
+def test_partition_balances_the_work():
+    # a skewed matrix: low row indices are rated far more often; each warp's
+    # share of the pair updates stays within one row's work of an equal share
+    from cornac_tpu_torch.ops.cosine_topk import WARPS, partition
+
+    rng = np.random.RandomState(0)
+    n, m = 400, 300
+    p_row = np.arange(1, n + 1) ** -1.0
+    rows = rng.choice(n, size=8000, p=p_row / p_row.sum())
+    mat = coo_matrix((np.ones(8000), (rows, rng.randint(m, size=8000))), shape=(n, m))
+    views = scipy_views(mat, CPU)
+    bounds, _ = partition(views, n)
+    counts = torch.diff(views.col_ptr.long())
+    row_of = torch.repeat_interleave(torch.arange(n), torch.diff(views.row_ptr.long()))
+    work = torch.zeros(n, dtype=torch.float64).index_add_(
+        0, row_of, counts[views.col_idx.long()].double())
+    b = bounds.long().tolist()
+    shares = [float(work[b[w]:b[w + 1]].sum()) for w in range(WARPS)]
+    assert max(shares) <= sum(shares) / WARPS + float(work.max())
