@@ -5,14 +5,14 @@ their plain PyTorch versions.
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # device, builds and kernel-vs-plain only
+    python3 chip_smoke.py --quick    # device, builds and kernel-vs-plain only (1-5)
 
 Phases, each of which fails the run when it fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles ``cornac_tpu_torch/csrc/fused_topk.cu`` and
-   ``cosine_topk.cu`` with nvcc, one process each, in parallel, and
-   prints ptxas's registers and spills;
+2. build: compiles ``cornac_tpu_torch/csrc/fused_topk.cu``,
+   ``cosine_topk.cu`` and ``accumulate_rows.cu`` with nvcc, one process
+   each, in parallel, and prints ptxas's registers and spills;
 3. fused_topk vs plain: the fused score + top-k kernel against
    ``fused_topk_torch`` on the card, with and without bias, for k in
    {1, 100, 128, 1000, N} and k > N, ties across distant chunks, the
@@ -26,27 +26,52 @@ Phases, each of which fails the run when it fails:
    k past n, m = 1, all-zero rows, a scipy matrix with explicit zeros and
    duplicates, n above one shared-memory range, and a half-dense matrix
    at the ML-1M widths;
-5. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
+5. accumulate_rows vs plain: the deterministic row-accumulation kernel
+   against ``accumulate_rows_torch`` on the card, on duplicate-heavy
+   batches (16,384 ids into 17,700 and into 480,000 rows, 4,096 ids into
+   943 rows, at d = 11, 33 and 51) and at the four shapes the trainers
+   hand it (the U and V updates at the bench shape and at full width),
+   within a float32 bound of a float64 sum; two launches must give the
+   same bits;
+6. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
    480,000 users and 17,700 items, random factors from the seed, wrapped
    in TPUExactANN, saved, loaded by ``load_model`` and served by the
    standalone HTTP server on localhost (/recommend, /feedback, /evaluate),
    then ``recommend_batch`` for 8,192 users; every answer is checked
    against lists computed from the same vectors with the plain version;
-6. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
+7. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
    1,000,209 seeded whole-star ratings): RatioSplit -> Experiment with
    ItemKNN(k=50) and UserKNN(k=50) on Recall@10, NDCG@10 and AUC ->
    nearest_items / nearest_users (kernel launches, held exactly to the
    plain version) -> the ItemKNN saved and served by the standalone server;
-7. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
+8. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
    10,000,054 seeded half-star ratings): ItemKNN(k=50).fit and
    nearest_items(50) (which builds no dense W: its peak device memory is
    checked), held exactly to the plain version;
-8. times: each kernel, its plain version and library yardsticks
+9. trainers at the bench.py shape (``make_ml100k_like(seed=7)``, 943 users
+   x 1,682 items, 100,000 ratings): RatioSplit(0.2, 4.0, seed=123) ->
+   BPR(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01,
+   seed=123, batch_size=4096).fit -> ranking_eval (AUC, MAP, NDCG@10, P@10,
+   R@10), timed after a one-epoch warm-up; AUC and NDCG@10 must fall in the
+   band of the JAX package's CPU runs (``tools/bpr_quality_band.py``); a
+   second fit with the same seed and verbose=True must give the same
+   factors, bit for bit; then one Experiment with BPR, MMMF, WBPR,
+   MF(k=10, max_iter=20), BaselineOnly, GlobalAvg and MostPop on those
+   metrics and RMSE, MAE;
+10. trainer at full width (``benchmarks/scale_10m.py``'s configuration:
+   100,000 users x 10,000 items, about 10M unique seeded pairs, so the
+   membership test is the CSR binary search): BPR(k=32, batch_size=16384,
+   seed=123), one warm epoch, then 10 timed epochs; samples/s beside the
+   byte bound of a sample, launches per minibatch and the device-busy
+   share; then ``recommend_batch`` for 8,192 users at k=100 through
+   fused_topk, every list held to the plain version;
+11. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
-   products through ``torch.sparse``) with CUDA events, beside the bound;
-   fused_topk at B = 1, 256 and 8192, cosine_topk at both ML-1M shapes,
-   a half-dense ML-1M-wide matrix and ML-10M, where two launches must
-   give the same bits.
+   products through ``torch.sparse``; ``index_add_`` for accumulate_rows)
+   with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
+   cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
+   ML-10M, where two launches must give the same bits; accumulate_rows at
+   the trainers' four shapes, on the inputs phase 5 checked.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first),
@@ -56,12 +81,14 @@ script imports nothing of JAX or of the JAX package.
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -77,10 +104,45 @@ N_USERS, N_ITEMS, FACTORS, TOPK, SERVE_BATCH = 480_000, 17_700, 50, 100, 8192
 N_INTERACTIONS = 1_000_000  # Netflix has ~100M; cut so Dataset.build stays quick
 RTOL = ATOL = 1e-5
 DEV = "cuda"
+# benchmarks/scale_10m.py's configuration, the full-width trainer phase
+FULL_USERS, FULL_ITEMS, FULL_DRAWS, FULL_K, FULL_BATCH = 100_000, 10_000, 10_000_000, 32, 16_384
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+# a copy of bench.py's generator (tests/test_torch_bpr_train.py holds the two
+# byte-identical): the script imports nothing of the JAX package's tree
+def make_ml100k_like(seed=7):
+    """Seeded implicit-feedback data, ML-100K shape, with popularity and
+    preference structure (exposure correlates with preference so ranking
+    models have signal)."""
+    rng = np.random.RandomState(seed)
+    n_users, n_items, n_ratings = 943, 1682, 100_000
+
+    item_pop = rng.zipf(1.3, size=n_items).astype(np.float64)
+    item_pop /= item_pop.sum()
+    u_f = rng.normal(0, 1.0, (n_users, 6))
+    i_f = rng.normal(0, 1.0, (n_items, 6))
+
+    data = []
+    seen = set()
+    while len(data) < n_ratings:
+        m = (n_ratings - len(data)) * 2
+        users = rng.randint(n_users, size=m)
+        items = rng.choice(n_items, size=m, p=item_pop)
+        affinity = np.einsum("ij,ij->i", u_f[users], i_f[items])
+        keep = rng.rand(m) < 1.0 / (1.0 + np.exp(-affinity))  # exposure ~ preference
+        for u, i, a in zip(users[keep], items[keep], affinity[keep]):
+            if len(data) == n_ratings:
+                break
+            if (u, i) in seen:
+                continue
+            seen.add((u, i))
+            r = float(np.clip(np.round(3.5 + a + rng.normal(0, 0.8)), 1, 5))
+            data.append((f"u{u}", f"i{i}", r))
+    return data
 
 
 def card_line():
@@ -399,6 +461,89 @@ def phase_cosine(gen):
     return max_err
 
 
+def popular_ids(R, B, gen):
+    """B row ids in [0, R), duplicate-heavy: rank r comes with probability
+    proportional to 1 / (r + 1) (a Zipf-like popularity, as item ids of
+    the negatives and positives are), the ranks scattered over the rows."""
+    import torch
+
+    p = 1.0 / torch.arange(1, R + 1, device=DEV, dtype=torch.float64)
+    ranks = torch.multinomial(p, B, replacement=True, generator=gen)
+    return torch.randperm(R, generator=gen, device=DEV)[ranks]
+
+
+def float32_bound(table, ids, updates):
+    """(exact sums in float64, per-entry bound): summing a row's n updates
+    in float32 in any order and adding the sum to the table entry t errs by
+    at most (n + 1) * 2^-24 * (|t| + sum |u|) (the standard bound of
+    recursive summation, with 1% to spare for its second-order term)."""
+    import torch
+
+    R = table.shape[0]
+    exact = table.double().index_add_(0, ids, updates.double())
+    count = torch.zeros(R, dtype=torch.float64, device=DEV).index_add_(
+        0, ids, torch.ones(ids.shape[0], dtype=torch.float64, device=DEV))
+    mag = table.double().abs().index_add_(0, ids, updates.double().abs())
+    return exact, 1.01 * (count + 1)[:, None] * 2.0**-24 * mag
+
+
+# label (the trainers' shapes, timed later on the same inputs), rows, ids,
+# d, the ids' distribution
+ACC_CASES = [
+    *((None, R, B, d, "popular") for R, B in ((17_700, 16_384), (480_000, 16_384))
+      for d in (11, 33, 51)),
+    (None, 943, 4_096, 33, "popular"),
+    (None, 943, 4_096, 51, "popular"),
+    ("full width, V update (positives + negatives)", FULL_ITEMS, 2 * FULL_BATCH, FULL_K + 1,
+     "uniform"),
+    ("full width, U update", FULL_USERS, FULL_BATCH, FULL_K + 1, "uniform"),
+    ("bench shape, V update", 1_682, 2 * 4_096, 11, "popular"),
+    ("bench shape, U update", 943, 4_096, 11, "popular"),
+]
+
+
+def phase_accumulate(gen):
+    """The row-accumulation kernel against its plain version, both within
+    the float32 bound of a float64 sum, on duplicate-heavy batches and at
+    the trainers' shapes; two launches must give the same bits. Returns the
+    largest |kernel - plain| and the labelled cases' inputs, for timing."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
+
+    max_err = 0.0
+    timed = {}
+    for label, R, B, d, kind in ACC_CASES:
+        what = f"{B} ids into {R} rows, d={d}" + (f" ({label})" if label else "")
+        table = torch.randn(R, d, generator=gen, device=DEV)
+        ids = (torch.randint(R, (B,), generator=gen, device=DEV) if kind == "uniform"
+               else popular_ids(R, B, gen))
+        upd = torch.randn(B, d, generator=gen, device=DEV)
+        before = ACCUMULATE_ROWS.launches
+        got = [accumulate_rows(table.clone(), ids, upd) for _ in range(2)]
+        torch.cuda.synchronize()
+        if ACCUMULATE_ROWS.launches != before + 2:
+            raise AssertionError(f"{what}: the kernel was not launched")
+        if not torch.equal(got[0], got[1]):
+            raise AssertionError(f"{what}: two launches of the kernel differ")
+        plain = accumulate_rows(table.clone(), ids, upd, force="torch")
+        exact, bound = float32_bound(table, ids, upd)
+        for name, out in (("kernel", got[0]), ("plain version", plain)):
+            over = ((out.double() - exact).abs() - bound).max().item()
+            if over > 0:
+                raise AssertionError(f"{what}: the {name} is {over:.3e} beyond the float32 bound")
+        err = (got[0] - plain).abs().max().item()
+        max_err = max(max_err, err)
+        runs = torch.unique(ids, return_counts=True)[1]
+        log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids; max |kernel - "
+            f"plain| {err:.3e}, both within the float32 bound; two launches bit-identical)")
+        if label:
+            timed[label] = (table, ids, upd)
+        del got, plain, exact, bound
+    log(f"accumulate_rows vs plain: ok, {len(ACC_CASES)} cases, max |err| {max_err:.3e}")
+    return max_err, timed
+
+
 def make_slice(seed, work):
     """Seeded BPR factors at the serving width and a train set that holds
     every user and item, then both models saved under ``work``."""
@@ -604,16 +749,15 @@ def phase_slice(seed, work):
     return launches, bpr, users
 
 
-def device_share(label, fn):
-    """Device-busy share of one warm call of ``fn``: the summed time of the
-    device-side events (kernels, copies) torch.profiler saw, over the
-    call's host-clock duration. Host-side ops (``aten::topk``) are left
-    out, since their device time is that of the kernels they launched."""
+def profile_call(fn):
+    """One call of ``fn`` under torch.profiler: (host-clock ms, summed time
+    of the device-side events (kernels, copies) in ms, their count, the
+    events). Host-side ops (``aten::topk``) are left out, since their
+    device time is that of the kernels they launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -623,13 +767,25 @@ def device_share(label, fn):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return wall_ms, busy_ms, sum(e.count for e in events), events
+
+
+def top_ops(events, n=4):
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:n]
+    return ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top)
+
+
+def device_share(label, fn):
+    """Device-busy share of one warm call of ``fn``: the device-side time
+    the profiler saw over the call's host-clock duration."""
+    fn()  # warm
+    wall_ms, busy_ms, _, events = profile_call(fn)
     if not events:
         log(f"  profile, {label}: the profiler saw no device time (device share not measured)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     log(f"  profile, {label}: {wall_ms:.1f} ms host clock, "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%); top device ops: "
-        + ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+        + top_ops(events))
 
 
 def reference_recall(bpr, csr, test, train, k):
@@ -848,6 +1004,220 @@ def phase_knn_ml10m(seed):
     return launches, W
 
 
+# tools/bpr_quality_band.py on a CPU: the JAX package's fits of bench.py's
+# configuration with BPR seeds 123-127, the mean and spread (sample
+# standard deviation) of each metric. The port's fit must land within three
+# spreads of the mean.
+QUALITY_BAND = {"AUC": (0.9336642863641741, 5.575300253011466e-05),
+                "NDCG@10": (0.1627065971857164, 0.0029556236688647887)}
+BENCH_R05 = {"AUC": 0.9331, "NDCG@10": 0.1694}  # BENCH_r05.json: the TPU run, its W16 path
+BENCH_BPR = dict(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01, seed=123,
+                 batch_size=4096)
+
+
+def ranking_quality(model, split):
+    """bench.py's metrics of ``model`` on the split's test users."""
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
+    from cornac_tpu_torch.metrics import AUC, MAP, NDCG, Precision, Recall
+
+    metrics = [AUC(), MAP(), NDCG(k=10), Precision(k=10), Recall(k=10)]
+    avg, _ = ranking_eval(model, metrics, split.train_set, split.test_set,
+                          rating_threshold=4.0, exclude_unknowns=True)
+    return {m.name: float(a) for m, a in zip(metrics, avg)}
+
+
+def epoch_profile(fit, n_batches, epochs):
+    """Device-busy share and device events per minibatch of ``epochs``
+    epochs: profiles of a fit of ``epochs`` epochs and of one of none
+    (the fit's set-up alone), differenced."""
+    one = profile_call(lambda: fit(0))
+    more = profile_call(lambda: fit(epochs))
+    wall, busy = more[0] - one[0], more[1] - one[1]
+    return dict(wall_ms=wall, busy_ms=busy, share=busy / wall,
+                launches_per_minibatch=(more[2] - one[2]) / (epochs * n_batches),
+                top=top_ops(more[3]))
+
+
+def phase_trainer_bench(bench_data):
+    """RatioSplit -> BPR.fit -> ranking_eval at the bench.py shape, the
+    quality band, a verbose refit bit for bit, then an Experiment with the
+    other trainers and the baselines. ``bench_data()`` gives
+    ``make_ml100k_like(seed=7)``'s triples."""
+    import contextlib
+    import io
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import AUC, MAE, MAP, NDCG, RMSE, Precision, Recall
+    from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, GlobalAvg, MostPop
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    clock = Clock()
+    data = clock("make_ml100k_like(seed=7) (set-up; what is left of it, made in a second "
+                 "process)", bench_data)
+    split = clock("RatioSplit(0.2, 4.0, seed=123)", lambda: RatioSplit(
+        data, test_size=0.2, rating_threshold=4.0, seed=123, verbose=False))
+    train = split.train_set
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    clock("BPR.fit, 1 epoch (warm-up)", lambda: BPR(**{**BENCH_BPR, "max_iter": 1}).fit(train))
+    bpr = clock("BPR.fit", lambda: BPR(**BENCH_BPR).fit(train))
+    quality = clock("ranking_eval (AUC, MAP, NDCG@10, P@10, R@10)",
+                    lambda: ranking_quality(bpr, split))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        again = clock("BPR.fit, verbose=True",
+                      lambda: BPR(**BENCH_BPR, verbose=True).fit(train))
+    exp = Experiment(split, [
+        BPR(**BENCH_BPR), MMMF(**{**BENCH_BPR, "lambda_reg": 0.001}), WBPR(**BENCH_BPR),
+        MF(k=10, max_iter=20, seed=123),
+        BaselineOnly(seed=123), GlobalAvg(), MostPop(),
+    ], [AUC(), MAP(), NDCG(k=10), Precision(k=10), Recall(k=10), RMSE(), MAE()])
+    clock("Experiment.run (7 models)", exp.run)
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("trainers at the bench shape")
+    train_s = clock.seconds["BPR.fit"]
+    test_s = clock.seconds["ranking_eval (AUC, MAP, NDCG@10, P@10, R@10)"]
+    log(f"  BPR at the bench shape: train {train_s:.3f} s, test {test_s:.3f} s (host clock, after "
+        f"a 1-epoch warm-up); " + ", ".join(f"{k} {v:.4f}" for k, v in quality.items())
+        + f"; accumulate_rows launches {launches}")
+    if launches <= 0:
+        raise AssertionError("the trainers never launched the accumulate_rows kernel")
+
+    # ---- check what came out ----
+    for name in ("AUC", "NDCG@10"):
+        mean, spread = QUALITY_BAND[name]
+        lo, hi = mean - 3 * spread, mean + 3 * spread
+        log(f"  {name} {quality[name]:.6f}: band [{lo:.6f}, {hi:.6f}] (JAX package on a CPU, "
+            f"mean {mean:.6f} +/- 3 x {spread:.3e}); BENCH_r05.json (TPU) {BENCH_R05[name]} is "
+            + ("inside" if lo <= BENCH_R05[name] <= hi else "outside") + " the band")
+        if not lo <= quality[name] <= hi:
+            raise AssertionError(f"bench-shape {name} {quality[name]:.6f} is outside its band")
+    for name in ("u_factors", "i_factors", "i_biases"):
+        if not np.array_equal(getattr(bpr, name), getattr(again, name)):
+            raise AssertionError(f"two seeded fits differ in {name} (one verbose)")
+    lines = out.getvalue().strip().splitlines()
+    epochs = BENCH_BPR["max_iter"]
+    if len(lines) != epochs + 1 or not lines[-2].startswith(f"Epoch {epochs}/{epochs}, correct: "):
+        raise AssertionError(f"verbose fit printed {len(lines)} lines, the last {lines[-2:]}")
+    log(f"  two seeded fits, one verbose (chunks of one epoch): factors identical, bit for bit; "
+        f"its last report: {lines[-2]}")
+    for res in exp.result:
+        vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
+        bad = [k for k, v in vals.items() if not np.isfinite(v)
+               or (k not in ("RMSE", "MAE") and not 0.0 <= v <= 1.0)]
+        if len(vals) != 7 or bad:
+            raise AssertionError(f"{res.model_name}: bad metrics {res.metric_avg_results}")
+    n_batches = -(-train.num_ratings // BENCH_BPR["batch_size"])
+    prof = epoch_profile(lambda e: BPR(**{**BENCH_BPR, "max_iter": e}).fit(train), n_batches, 10)
+    log(f"  profile, 10 BPR epochs at the bench shape (a 10-epoch fit minus a 0-epoch fit): "
+        f"{prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events per "
+        f"minibatch; top device ops: {prof['top']}")
+    log(f"trainers at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
+    return launches, dict(quality=quality, train_s=train_s, test_s=test_s, **prof)
+
+
+def scale_10m_dataset():
+    """``benchmarks/scale_10m.py``'s data: 10M uniform (user, item) draws
+    from RandomState(0) over 100,000 x 10,000, duplicates dropped."""
+    from collections import OrderedDict
+
+    from cornac_tpu_torch.data import Dataset
+
+    rng = np.random.RandomState(0)
+    u = rng.randint(FULL_USERS, size=FULL_DRAWS)
+    i = rng.randint(FULL_ITEMS, size=FULL_DRAWS)
+    _, first = np.unique(u.astype(np.int64) * FULL_ITEMS + i, return_index=True)
+    u, i = u[first], i[first]
+    return Dataset(
+        num_users=FULL_USERS, num_items=FULL_ITEMS,
+        uid_map=OrderedDict((x, x) for x in range(FULL_USERS)),
+        iid_map=OrderedDict((x, x) for x in range(FULL_ITEMS)),
+        uir_tuple=(u.astype(np.int64), i.astype(np.int64), np.ones(len(u))),
+        seed=0,
+    )
+
+
+def sample_bytes(csr, k):
+    """The least bytes one BPR sample moves: the (user, item) pair (8), the
+    membership probe (the user's row bounds, 8, and one 4-byte index per
+    step of a binary search over the row, averaged over samples, which
+    pick users in proportion to their degree), and the three factor rows
+    (k + 1 floats with the bias) read and written once each."""
+    deg = np.diff(csr.indptr).astype(np.float64)
+    steps = np.ceil(np.log2(deg + 1))
+    probe = 8.0 + 4.0 * float((deg * steps).sum() / deg.sum())
+    return 8.0 + probe + 3 * 2 * (k + 1) * 4.0, probe
+
+
+def phase_trainer_full(seed):
+    """BPR at benchmarks/scale_10m.py's configuration: one warm epoch, ten
+    timed, samples/s beside the byte bound, the busy share of an epoch;
+    then recommend_batch for 8,192 users through fused_topk, held to the
+    plain version."""
+    import torch
+
+    from cornac_tpu_torch.models import BPR
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    ds = clock("scale_10m data (set-up)", scale_10m_dataset)
+    n = ds.num_ratings
+    kw = dict(k=FULL_K, batch_size=FULL_BATCH, seed=123)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    clock("BPR.fit, 1 epoch (warm)", lambda: BPR(max_iter=1, **kw).fit(ds))
+    clock("BPR.fit, 1 epoch", lambda: BPR(max_iter=1, **kw).fit(ds))
+    model = clock("BPR.fit, 11 epochs", lambda: BPR(max_iter=11, **kw).fit(ds))
+    rng = np.random.RandomState(seed + 3)
+    users = rng.choice(FULL_USERS, SERVE_BATCH, replace=False)
+    recs = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                 lambda: model.recommend_batch(list(users), k=TOPK))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("trainer at full width")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError("the full-width path did not launch accumulate_rows and fused_topk")
+
+    # ---- check and measure ----
+    epoch_s = (clock.seconds["BPR.fit, 11 epochs"] - clock.seconds["BPR.fit, 1 epoch"]) / 10
+    n_batches = -(-n // FULL_BATCH)
+    per_sample, probe = sample_bytes(ds.csr_matrix, FULL_K)
+    bound_s = n_batches * FULL_BATCH * per_sample / PEAK_BYTES
+    if not all(np.isfinite(getattr(model, a)).all() for a in ("u_factors", "i_factors", "i_biases")):
+        raise AssertionError("the full-width fit has non-finite factors")
+    prof = epoch_profile(lambda e: BPR(max_iter=e, **kw).fit(ds), n_batches, 1)
+    stats = dict(samples_per_s=n / epoch_s, epoch_s=epoch_s, bound_s=bound_s,
+                 bytes_per_sample=per_sample, setup_s=clock.seconds["BPR.fit, 1 epoch"] - epoch_s,
+                 **prof)
+    log(f"  BPR k={FULL_K} batch {FULL_BATCH} over {n:,} pairs ({FULL_USERS:,} users x "
+        f"{FULL_ITEMS:,} items, membership by binary search): {epoch_s:.3f} s per epoch (10 "
+        f"epochs: an 11-epoch fit minus a 1-epoch fit), {n / epoch_s / 1e6:.3f} M samples/s; "
+        f"fit set-up {stats['setup_s']:.3f} s")
+    log(f"  byte bound: {per_sample:.1f} B per sample (8 pair + {probe:.1f} probe + 3 x 2 x "
+        f"{FULL_K + 1} x 4 rows) over {PEAK_BYTES / 1e12:.2f} TB/s = {bound_s * 1e3:.3f} ms per "
+        f"epoch ({PEAK_BYTES / per_sample / 1e6:,.0f} M samples/s): "
+        f"{100 * bound_s / epoch_s:.3f}% of it")
+    log(f"  profile, one epoch (a 1-epoch fit minus a 0-epoch fit): {prof['wall_ms']:.1f} ms host "
+        f"clock, device busy {prof['busy_ms']:.3f} ms ({100 * prof['share']:.2f}%), "
+        f"{prof['launches_per_minibatch']:.1f} device events per minibatch; top device ops: "
+        f"{prof['top']}")
+    dev = torch.device(DEV)
+    Ud = torch.as_tensor(np.asarray(model.get_user_vectors(), np.float32), device=dev)
+    Vd = torch.as_tensor(np.asarray(model.get_item_vectors(), np.float32), device=dev)
+    want = reference_lists(Ud[users], Vd, TOPK, [set()] * len(users))
+    got = [[model.iid_map[i] for i in row] for row in recs]
+    relaxed = check_lists(got, want, plain_scores(Ud[users], Vd).cpu().numpy(), "trained recommend_batch")
+    log(f"  recommend_batch of the trained model ({SERVE_BATCH} users, k={TOPK}): equal to the plain "
+        f"version (positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}")
+    log(f"trainer at full width: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, stats
+
+
 def time_ms(fn, reps, warm=3):
     import torch
 
@@ -994,14 +1364,51 @@ def phase_cosine_times(shapes):
     return rows
 
 
+def phase_accumulate_times(cases):
+    """CUDA-event times of accumulate_rows at the trainers' shapes, on the
+    inputs ``phase_accumulate`` checked: the wrapper (stable sort + kernel),
+    the kernel alone on sorted ids, the plain version and ``index_add_``
+    (one library call, atomics), timed in turn, beside the bound. The bound
+    counts what the function must move: the ids (8 bytes each) and the
+    updates read once, each touched table row read and written once; its
+    B * d additions are far below the float32 peak."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
+
+    rows = {}
+    for label, (table, ids, upd) in cases.items():
+        (R, d), B = table.shape, ids.shape[0]
+        ids_sorted, order = torch.sort(ids.to(torch.int32), stable=True)
+        reps = 200
+        plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
+        ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
+        kernel_ms = time_ms(lambda: ACCUMULATE_ROWS(table, ids_sorted, order, upd), reps)
+        library_ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
+        touched = torch.unique(ids).numel()
+        nbytes = 8.0 * B + 4.0 * B * d + 8.0 * touched * d
+        flops = float(B * d)
+        bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        rows[label] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, shape=f"{B} ids into {R} x {d}")
+        log(f"  times accumulate_rows, {label}: {B} ids into {R} rows x {d} ({touched} touched): "
+            f"sort + kernel {ms:.4f} ms (kernel alone {kernel_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"index_add_ {library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.3f} MB), {100 * bound_ms / ms:.2f}% of bound")
+        del ids_sorted, order
+    return rows
+
+
 def build_all():
-    """Build both kernel libraries at once: one nvcc per source, in parallel."""
+    """Build every kernel library at once: one nvcc per source, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
     from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
 
-    libs = [FUSED_TOPK.library, COSINE_TOPK.library]
+    libs = [FUSED_TOPK.library, COSINE_TOPK.library, ACCUMULATE_ROWS.library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for future in [pool.submit(lib.build) for lib in libs]:
@@ -1011,7 +1418,7 @@ def build_all():
         for line in lib.compiler_log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas: {line.strip()}")
-    log(f"build: both libraries in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1038,15 +1445,34 @@ def main():
     gen.manual_seed(args.seed)
     max_err = phase_kernel(gen)
     cos_err = phase_cosine(gen)
+    acc_err, acc_cases = phase_accumulate(gen)
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s")
         return
 
+    def lap(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what}: done")
+
+    lap("device, build and kernel-vs-plain phases")
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    launches, bpr, users = phase_slice(args.seed, work)
-    knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
-    ml10m_launches, W10 = phase_knn_ml10m(args.seed)
+    # bench.py's generator is pure Python (about 15 s): a second process
+    # makes the data while the earlier paths run
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        bench_data = pool.submit(make_ml100k_like)
+        launches, bpr, users = phase_slice(args.seed, work)
+        lap("BPR serving slice")
+        knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
+        lap("KNN slice")
+        ml10m_launches, W10 = phase_knn_ml10m(args.seed)
+        lap("related items")
+        bench_launches, bench = phase_trainer_bench(bench_data.result)
+        lap("trainers at the bench shape")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    full_launches, full_fused, full = phase_trainer_full(args.seed)
+    lap("trainer at full width")
     rows = phase_times(bpr, users)
     cos_rows = phase_cosine_times([
         ("ML-1M item side", W_items),
@@ -1054,6 +1480,8 @@ def main():
         ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
         ("ML-10M item side", W10),
     ])
+    acc_rows = phase_accumulate_times(acc_cases)
+    lap("times")
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -1061,7 +1489,7 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
-        "launches": launches,
+        "launches": launches + full_fused,
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1085,6 +1513,27 @@ def main():
         "dense_bound_ms": cos["dense_bound_ms"],
         "sparse_library_ms": cos["sparse_library_ms"],
     })
+    acc = acc_rows["full width, V update (positives + negatives)"]
+    kernels.append({
+        "name": "accumulate_rows",
+        "shape": acc["shape"],
+        "route": "cuda",
+        "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
+        "replaces": "cornac_tpu/ops/accumulate.py:26",
+        "launches": bench_launches + full_launches,
+        "max_abs_err": acc_err,
+        "ms": acc["ms"],
+        "plain_ms": acc["plain_ms"],
+        "bound_ms": acc["bound_ms"],
+        "bound_by": acc["bound_by"],
+        "library_ms": acc["library_ms"],
+        "kernel_only_ms": acc["kernel_ms"],
+    })
+    log(f"trainers: bench shape AUC {bench['quality']['AUC']:.4f} NDCG@10 "
+        f"{bench['quality']['NDCG@10']:.4f}, train {bench['train_s']:.3f} s, test "
+        f"{bench['test_s']:.3f} s, busy {100 * bench['share']:.2f}%; full width "
+        f"{full['samples_per_s'] / 1e6:.3f} M samples/s, {100 * full['bound_s'] / full['epoch_s']:.3f}% "
+        f"of the byte bound, busy {100 * full['share']:.2f}%")
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,14 +10,17 @@ from collections import OrderedDict
 import numpy as np
 from scipy.sparse import csr_matrix
 
+from .models.baseline import BaselineOnly
 from .models.bpr import BPR
 from .models.knn import ItemKNN, UserKNN
+from .models.mf import MF
 
 _SNAPSHOT = (
     "num_users", "num_items", "uid_map", "iid_map",
     "min_rating", "max_rating", "global_mean",
 )
 _BPR_META = ("k", "use_bias") + _SNAPSHOT
+_MF_META = ("k", "use_bias") + _SNAPSHOT
 _KNN_OPTIONS = ("k", "similarity", "mean_centered", "weighting", "amplify")
 _KNN_CLASSES = {"UserKNN": UserKNN, "ItemKNN": ItemKNN}
 
@@ -56,6 +59,45 @@ def bpr_from_arrays(arrays, meta, device=None, train_set=None):
     )
     _snapshot(model, meta)
     model.train_set, model.val_set = train_set, None
+    model.is_fitted = True
+    return model
+
+
+def mf_from_arrays(arrays, meta, device=None):
+    """A fitted port ``MF`` from ``arrays`` (``u_factors``, ``i_factors``,
+    ``u_biases``, ``i_biases`` as numpy) and ``meta`` (``k``, ``use_bias``,
+    ``num_users``, ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
+    ``max_rating``, ``global_mean``). ``global_mean`` is the fitted model's
+    (0 without the biases). ``device``: where the model scores (default:
+    the card)."""
+    _require(meta, _MF_META)
+    model = MF(
+        k=meta["k"], use_bias=meta["use_bias"], trainable=False,
+        init_params={name: np.asarray(arrays[key], np.float32) for name, key in (
+            ("U", "u_factors"), ("V", "i_factors"), ("Bu", "u_biases"), ("Bi", "i_biases"))},
+        device=device,
+    )
+    _snapshot(model, meta)
+    model.global_mean = np.float32(meta["global_mean"])
+    model.train_set = model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def baseline_from_arrays(arrays, meta, device=None):
+    """A fitted port ``BaselineOnly`` from ``arrays`` (``u_biases``,
+    ``i_biases`` as numpy) and ``meta`` (``num_users``, ``num_items``,
+    ``uid_map``, ``iid_map``, ``min_rating``, ``max_rating``,
+    ``global_mean``). ``device``: where the model scores (default: the
+    card)."""
+    _require(meta, _SNAPSHOT)
+    model = BaselineOnly(
+        trainable=False, device=device,
+        init_params={"Bu": np.asarray(arrays["u_biases"], np.float32),
+                     "Bi": np.asarray(arrays["i_biases"], np.float32)},
+    )
+    _snapshot(model, meta)
+    model.train_set = model.val_set = None
     model.is_fitted = True
     return model
 

@@ -197,6 +197,14 @@ class Recommender:
     # ------------------------------------------------------------------ #
     # training
     # ------------------------------------------------------------------ #
+    def enable_checkpointing(self, directory, every=10, resume=True, max_to_keep=3):
+        """Periodic training checkpoints and mid-training resume: not ported
+        yet (the JAX package saves through Orbax)."""
+        raise NotImplementedError(
+            "checkpointed training (enable_checkpointing, resume) is not ported yet "
+            "(ROADMAP.md A12)"
+        )
+
     _DATASET_SNAPSHOT = (
         "num_users", "num_items", "uid_map", "iid_map",
         "min_rating", "max_rating", "global_mean",

@@ -15,3 +15,7 @@ def zeros(shape, dtype=np.float32):
 
 def uniform(shape=None, low=0.0, high=1.0, random_state=None, dtype=np.float32):
     return get_rng(random_state).uniform(low, high, shape).astype(dtype)
+
+
+def normal(shape=None, mean=0.0, std=1.0, random_state=None, dtype=np.float32):
+    return get_rng(random_state).normal(mean, std, shape).astype(dtype)

@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from cornac_tpu_torch.data import Dataset
-from cornac_tpu_torch.models import BPR, TPUExactANN
+from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, TPUExactANN
 from cornac_tpu_torch.models import ItemKNN, UserKNN
 from scipy.sparse import coo_matrix
 
+from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
 from cornac_tpu_torch.ops.cosine_topk import (
     COSINE_TOPK, NEG_INF, co_support_cosine, cosine_topk, cosine_topk_sparse, cosine_topk_torch,
     dense_views, scipy_views)
@@ -255,3 +256,112 @@ def test_knn_neighbours_on_the_card_match_the_cpu(card):
         np.testing.assert_array_equal(sims, cpu_sims)
         np.testing.assert_allclose(on_card.score_batch(np.arange(20)),
                                    on_cpu.score_batch(np.arange(20)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("R,B,d", [
+    (17_700, 16_384, 33), (480_000, 16_384, 51), (943, 4_096, 11),
+    (300, 20_000, 200),  # long runs, columns past one pass of a warp
+    (50, 3_000, None),   # a 1-D table
+])
+def test_accumulate_kernel_matches_plain(card, R, B, d):
+    # the kernel sums each run in batch order and adds the sum once, the
+    # plain version's arithmetic on the CPU: the same bits; index_add_ on
+    # the card sums with atomics, so there only within the float32 bound of
+    # recursive summation, (n + 1) * 2^-24 * (|t| + sum |u|) for n updates
+    rng = np.random.RandomState(R + B)
+    shape = (R,) if d is None else (R, d)
+    table = rng.randn(*shape).astype(np.float32)
+    ids = np.where(rng.rand(B) < 0.3, rng.randint(20, size=B), rng.randint(R, size=B))
+    updates = rng.randn(B, *shape[1:]).astype(np.float32)
+    want = accumulate_rows_torch(torch.from_numpy(table.copy()), torch.from_numpy(ids),
+                                 torch.from_numpy(updates))
+    got = []
+    for _ in range(2):
+        t, i, u = _on(card, table.copy(), ids, updates)
+        before = ACCUMULATE_ROWS.launches
+        got.append(accumulate_rows(t, i, u).cpu())
+        assert ACCUMULATE_ROWS.launches == before + 1
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], want)
+    t, i, u = _on(card, table.copy(), ids, updates)
+    plain = accumulate_rows(t, i, u, force="torch").cpu().numpy().astype(np.float64)
+    exact = table.astype(np.float64)
+    np.add.at(exact, ids, updates.astype(np.float64))
+    count = np.bincount(ids, minlength=R).astype(np.float64)
+    mag = np.abs(table).astype(np.float64)
+    np.add.at(mag, ids, np.abs(updates).astype(np.float64))
+    count = count if d is None else count[:, None]
+    assert np.all(np.abs(plain - exact) <= 1.01 * (count + 1) * 2.0**-24 * mag)
+
+
+def test_accumulate_kernel_refuses_bad_inputs(card):
+    table = torch.zeros(10, 4, device=card)
+    ids = torch.zeros(3, dtype=torch.int32, device=card)
+    order = torch.arange(3, device=card)
+    upd = torch.zeros(3, 4, device=card)
+    for args in ((table.double(), ids, order, upd.double()), (table, ids.long(), order, upd),
+                 (table, ids, order.int(), upd), (table, ids, order, upd[:, :2]),
+                 (table.cpu(), ids, order, upd), (table, ids[:2], order, upd)):
+        with pytest.raises(ValueError):
+            ACCUMULATE_ROWS(*args)
+
+
+@pytest.mark.parametrize("cls", [BPR, WBPR, MMMF, MF, BaselineOnly])
+def test_seeded_fits_on_the_card_are_identical(card, cls):
+    rng = np.random.RandomState(2)
+    pairs = sorted({(rng.randint(300), rng.randint(200)) for _ in range(6000)})
+    train = Dataset.from_uir([(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs],
+                             seed=1)
+    fits = []
+    for verbose in (False, True):
+        before = ACCUMULATE_ROWS.launches
+        fits.append(cls(max_iter=5, batch_size=512, seed=4, verbose=verbose,
+                        device=card).fit(train))
+        assert ACCUMULATE_ROWS.launches > before
+    for name in ("u_factors", "i_factors", "u_biases", "i_biases"):
+        if hasattr(fits[0], name):
+            np.testing.assert_array_equal(getattr(fits[0], name), getattr(fits[1], name))
+
+
+def test_epochs_never_sync_with_the_host(card):
+    # torch raises on any operation that waits for the card while the sync
+    # debug mode is "error": one BPR epoch (bulk and per-minibatch draws,
+    # the binary-search membership) and one MF epoch run without one
+    from scipy.sparse import csr_matrix
+
+    from cornac_tpu_torch.models import bpr as bpr_mod, mf as mf_mod
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    rng = np.random.RandomState(1)
+    n_users, n_items, n, k = 500, 300, 20_000, 8
+    rid, cid = rng.randint(n_users, size=n), rng.randint(n_items, size=n)
+    csr = csr_matrix((np.ones(n), (rid, cid)), shape=(n_users, n_items))
+    pairs = torch.as_tensor(np.stack([rid, cid], 1), device=card)
+    val = torch.as_tensor(rng.randint(1, 6, size=n).astype(np.float32), device=card)
+    U, V = rng.randn(n_users, k) * 0.1, rng.randn(n_items, k) * 0.1
+    Bu, Bi = np.zeros(n_users), np.zeros(n_items)
+    for bitmap_max_bytes, bulk_max in ((None, 1 << 24), (0, 1)):
+        membership = build_membership(csr, bitmap_max_bytes=bitmap_max_bytes, device=card)
+        tU, tV, gate = bpr_mod._extended_tables(U, V, Bi, True, card)
+        old, bpr_mod._BULK_SAMPLING_MAX = bpr_mod._BULK_SAMPLING_MAX, bulk_max
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            draws = bpr_mod._bpr_draws(epoch_generator(5, 0, card), n, 20_480, 1024, n_items, None)
+            correct, skipped = bpr_mod._bpr_epoch(tU, tV, draws, pairs, membership, n, 0.01,
+                                                  0.01, 1024, gate, "bpr")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            bpr_mod._BULK_SAMPLING_MAX = old
+        assert 0 < int(correct) and 480 <= int(skipped)
+    mU, mV, u_gate, v_gate = mf_mod._extended_tables(U, V, Bu, Bi, True, card)
+    mask = torch.ones(n, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        perm = mf_mod._epoch_permutation(n, epoch_generator(5, 0, card))
+        loss = mf_mod._mf_epoch(mU, mV, perm, mask, pairs, val, 0.01, 0.02, 3.0, 1000,
+                                u_gate, v_gate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss))

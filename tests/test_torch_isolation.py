@@ -28,9 +28,12 @@ out = {"modules": names, "leaked": leaked}
 torch.cuda.is_available = lambda: False  # no card, whatever this host has
 from cornac_tpu_torch.ops.fused_topk import fused_topk
 from cornac_tpu_torch.ops.cosine_topk import cosine_topk
+from cornac_tpu_torch.ops.membership import build_membership
+from scipy.sparse import csr_matrix
 for name, call in (("default_device", cornac_tpu_torch.default_device),
                    ("fused_topk", lambda: fused_topk([[1.0]], [[1.0]], 1)),
-                   ("cosine_topk", lambda: cosine_topk([[1.0], [2.0]], 1))):
+                   ("cosine_topk", lambda: cosine_topk([[1.0], [2.0]], 1)),
+                   ("build_membership", lambda: build_membership(csr_matrix((2, 2))))):
     try:
         out[name] = str(call())
     except RuntimeError as e:
@@ -55,7 +58,9 @@ def probe():
 
 def test_port_imports_no_jax_and_no_jax_package(probe):
     for name in ("serving.standalone", "ops.fused_topk", "ops.cosine_topk", "models.knn",
-                 "eval_methods.ratio_split", "experiment.experiment"):
+                 "eval_methods.ratio_split", "experiment.experiment", "ops.accumulate",
+                 "ops.membership", "utils.checkpoint", "models.mf", "models.mmmf",
+                 "models.baseline"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 
@@ -64,4 +69,5 @@ def test_no_card_means_raise_unless_cpu_requested(probe):
     assert probe["default_device"].startswith("raised:")
     assert probe["fused_topk"].startswith("raised:")
     assert probe["cosine_topk"].startswith("raised:")
+    assert probe["build_membership"].startswith("raised:")
     assert probe["after_set"] == "cpu"

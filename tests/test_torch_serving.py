@@ -218,8 +218,14 @@ def test_metric_sandbox(world):
 
 
 def test_trainer_not_ported():
+    # the trainer itself is ported (tests/test_torch_bpr_train.py); the
+    # parts of it still to port raise, naming their ROADMAP item
+    train = Dataset.from_uir([("u", "i", 1.0)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BPR(k=4).fit(Dataset.from_uir([("u", "i", 1.0)]))
+        BPR(k=4, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BPR(k=4, max_iter=1).enable_checkpointing("ckpt", every=1)
+    assert BPR(k=4, max_iter=1).fit(train).u_factors.shape == (1, 4)
 
 
 def test_standalone_server_roundtrip(world, tmp_path, monkeypatch):
