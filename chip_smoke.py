@@ -29,10 +29,13 @@ Phases, each of which fails the run when it fails:
 5. accumulate_rows vs plain: the deterministic row-accumulation kernel
    against ``accumulate_rows_torch`` on the card, on duplicate-heavy
    batches (16,384 ids into 17,700 and into 480,000 rows, 4,096 ids into
-   943 rows, at d = 11, 33 and 51) and at the four shapes the trainers
-   hand it (the U and V updates at the bench shape and at full width),
-   within a float32 bound of a float64 sum; two launches must give the
-   same bits;
+   943 rows, at d = 11, 33 and 51), a 1-D table, d = 200 (column blocks),
+   R < B with a run longer than a round of ids, R >> B (over a thousand
+   row ranges), ids outside [0, R) (dropped) and strided ids, and at the
+   four shapes the trainers hand it (the U and V updates at the bench
+   shape and at full width), within a float32 bound of a float64 sum; two
+   launches must give the same bits, and the profiler must see one kernel
+   per call and nothing else;
 6. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
    480,000 users and 17,700 items, random factors from the seed, wrapped
    in TPUExactANN, saved, loaded by ``load_model`` and served by the
@@ -67,7 +70,9 @@ Phases, each of which fails the run when it fails:
    fused_topk, every list held to the plain version;
 11. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
-   products through ``torch.sparse``; ``index_add_`` for accumulate_rows)
+   products through ``torch.sparse``; for accumulate_rows ``index_add_``,
+   atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
+   over two launches and whether it runs without a sync are recorded)
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
@@ -484,41 +489,89 @@ def float32_bound(table, ids, updates):
     count = torch.zeros(R, dtype=torch.float64, device=DEV).index_add_(
         0, ids, torch.ones(ids.shape[0], dtype=torch.float64, device=DEV))
     mag = table.double().abs().index_add_(0, ids, updates.double().abs())
-    return exact, 1.01 * (count + 1)[:, None] * 2.0**-24 * mag
+    count = count.view((R,) + (1,) * (table.dim() - 1))
+    return exact, 1.01 * (count + 1) * 2.0**-24 * mag
+
+
+def launches_per_call(fn, calls=4):
+    """What the profiler sees per call of ``fn`` (warmed once): the host's
+    launches of device work (the CUDA runtime's kernel launches, memsets
+    and copies), the device-side events, and the device events' names.
+    The host count is the exact one: the device side has been seen to miss
+    an event of a short kernel."""
+    from torch.autograd import DeviceType
+
+    fn()
+    _, _, count, events, prof = profile_call(lambda: [fn() for _ in range(calls)],
+                                             with_prof=True)
+    host = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU
+               and e.key.startswith("cu") and any(w in e.key for w in ("Launch", "Memset", "Memcpy")))
+    return host / calls, count / calls, sorted({e.key for e in events})
 
 
 # label (the trainers' shapes, timed later on the same inputs), rows, ids,
-# d, the ids' distribution
+# d (None: a 1-D table), the ids' distribution, their stride (2: a column
+# of (user, item) pairs, as the trainers' user ids are)
 ACC_CASES = [
-    *((None, R, B, d, "popular") for R, B in ((17_700, 16_384), (480_000, 16_384))
+    *((None, R, B, d, "popular", 1) for R, B in ((17_700, 16_384), (480_000, 16_384))
       for d in (11, 33, 51)),
-    (None, 943, 4_096, 33, "popular"),
-    (None, 943, 4_096, 51, "popular"),
+    (None, 943, 4_096, 33, "popular", 1),
+    (None, 943, 4_096, 51, "popular", 1),
+    (None, 50, 3_000, None, "popular", 1),  # a 1-D table, as the baselines' biases
+    (None, 5_000, 16_384, 200, "popular", 2),  # four column blocks
+    (None, 64, 32_768, 11, "popular", 1),  # R < B: a run longer than a round and the stage
+    (None, 2_000_000, 4_096, 33, "uniform", 1),  # R >> B: over a thousand row ranges
+    (None, 100_000, 16_384, 33, "out of range", 2),  # 5% of the ids outside [0, R)
     ("full width, V update (positives + negatives)", FULL_ITEMS, 2 * FULL_BATCH, FULL_K + 1,
-     "uniform"),
-    ("full width, U update", FULL_USERS, FULL_BATCH, FULL_K + 1, "uniform"),
-    ("bench shape, V update", 1_682, 2 * 4_096, 11, "popular"),
-    ("bench shape, U update", 943, 4_096, 11, "popular"),
+     "uniform", 1),
+    ("full width, U update", FULL_USERS, FULL_BATCH, FULL_K + 1, "uniform", 2),
+    ("bench shape, V update", 1_682, 2 * 4_096, 11, "popular", 1),
+    ("bench shape, U update", 943, 4_096, 11, "popular", 2),
 ]
+
+
+def accumulate_inputs(R, B, d, kind, stride, gen):
+    """A seeded (table, ids, updates) of one ``ACC_CASES`` case; ids with
+    ``stride`` 2 are the first column of a (B, 2) tensor."""
+    import torch
+
+    shape = (R,) if d is None else (R, d)
+    table = torch.randn(*shape, generator=gen, device=DEV)
+    ids = (popular_ids(R, B, gen) if kind == "popular"
+           else torch.randint(R, (B,), generator=gen, device=DEV))
+    if kind == "out of range":
+        bad = torch.tensor([-1, -7, R, R + 3, 2**40], device=DEV)
+        pick = torch.rand(B, generator=gen, device=DEV) < 0.05
+        ids = torch.where(pick, bad[torch.randint(5, (B,), generator=gen, device=DEV)], ids)
+    if stride == 2:
+        ids = torch.stack([ids, torch.zeros_like(ids)], 1)[:, 0]
+    upd = torch.randn(B, *shape[1:], generator=gen, device=DEV)
+    return table, ids, upd
 
 
 def phase_accumulate(gen):
     """The row-accumulation kernel against its plain version, both within
-    the float32 bound of a float64 sum, on duplicate-heavy batches and at
-    the trainers' shapes; two launches must give the same bits. Returns the
-    largest |kernel - plain| and the labelled cases' inputs, for timing."""
+    the float32 bound of a float64 sum, on duplicate-heavy batches, a 1-D
+    table, column blocks, R below and far above B, strided and out-of-range
+    ids (held to the plain version on the in-range ids) and the trainers'
+    shapes; two launches must give the same bits, and the profiler must see
+    one kernel and nothing else per call. Returns the largest |kernel -
+    plain| and the labelled cases' inputs and device events per call, for
+    timing."""
     import torch
 
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
 
-    max_err = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_err, most_ranges = 0.0, 0
     timed = {}
-    for label, R, B, d, kind in ACC_CASES:
-        what = f"{B} ids into {R} rows, d={d}" + (f" ({label})" if label else "")
-        table = torch.randn(R, d, generator=gen, device=DEV)
-        ids = (torch.randint(R, (B,), generator=gen, device=DEV) if kind == "uniform"
-               else popular_ids(R, B, gen))
-        upd = torch.randn(B, d, generator=gen, device=DEV)
+    for label, R, B, d, kind, stride in ACC_CASES:
+        table, ids, upd = accumulate_inputs(R, B, d, kind, stride, gen)
+        plan = ACCUMULATE_ROWS.plan(R, B, 1 if d is None else d, table.device)
+        most_ranges = max(most_ranges, plan.grid[0])
+        what = (f"{B} ids into {R} rows, d={d}, {kind}, id stride {stride}"
+                + (f" ({label})" if label else "")
+                + f", grid {plan.grid[0]} x {plan.grid[1]} of {plan.rows} rows x {plan.cols}")
         before = ACCUMULATE_ROWS.launches
         got = [accumulate_rows(table.clone(), ids, upd) for _ in range(2)]
         torch.cuda.synchronize()
@@ -526,21 +579,39 @@ def phase_accumulate(gen):
             raise AssertionError(f"{what}: the kernel was not launched")
         if not torch.equal(got[0], got[1]):
             raise AssertionError(f"{what}: two launches of the kernel differ")
-        plain = accumulate_rows(table.clone(), ids, upd, force="torch")
-        exact, bound = float32_bound(table, ids, upd)
+        scratch = table.clone()
+        per_call, device_per_call, names = launches_per_call(
+            lambda: accumulate_rows(scratch, ids, upd))
+        if (per_call != 1 or not 0 < device_per_call <= 1
+                or not all("accumulate_rows_kernel" in k for k in names)):
+            raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
+                                 f"events per call ({names}), not one kernel")
+        del scratch
+        keep = (ids >= 0) & (ids < R)  # the plain version refuses the others: the kernel drops them
+        ok_ids, ok_upd = (ids[keep], upd[keep]) if kind == "out of range" else (ids, upd)
+        plain = accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
+        exact, bound = float32_bound(table, ok_ids, ok_upd)
         for name, out in (("kernel", got[0]), ("plain version", plain)):
             over = ((out.double() - exact).abs() - bound).max().item()
             if over > 0:
                 raise AssertionError(f"{what}: the {name} is {over:.3e} beyond the float32 bound")
         err = (got[0] - plain).abs().max().item()
         max_err = max(max_err, err)
-        runs = torch.unique(ids, return_counts=True)[1]
-        log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids; max |kernel - "
-            f"plain| {err:.3e}, both within the float32 bound; two launches bit-identical)")
+        runs = torch.unique(ok_ids, return_counts=True)[1]
+        log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids"
+            + (f"; {B - ok_ids.numel()} ids outside [0, R) dropped" if kind == "out of range"
+               else "")
+            + f"; max |kernel - plain| {err:.3e}, both within the float32 bound; two launches "
+            f"bit-identical; per call {per_call:g} launch, {device_per_call:g} device event, "
+            f"the kernel)")
         if label:
-            timed[label] = (table, ids, upd)
+            timed[label] = (table, ids, upd, per_call)
         del got, plain, exact, bound
-    log(f"accumulate_rows vs plain: ok, {len(ACC_CASES)} cases, max |err| {max_err:.3e}")
+    if most_ranges <= 4 * sms:
+        raise AssertionError(f"no case planned more than {4 * sms} row ranges")
+    torch.cuda.empty_cache()
+    log(f"accumulate_rows vs plain: ok, {len(ACC_CASES)} cases, max |err| {max_err:.3e}, up to "
+        f"{most_ranges} row ranges, one kernel per call")
     return max_err, timed
 
 
@@ -749,11 +820,12 @@ def phase_slice(seed, work):
     return launches, bpr, users
 
 
-def profile_call(fn):
+def profile_call(fn, with_prof=False):
     """One call of ``fn`` under torch.profiler: (host-clock ms, summed time
     of the device-side events (kernels, copies) in ms, their count, the
-    events). Host-side ops (``aten::topk``) are left out, since their
-    device time is that of the kernels they launched."""
+    events, and the profiler itself if ``with_prof``). Host-side ops
+    (``aten::topk``) are left out, since their device time is that of the
+    kernels they launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -767,7 +839,8 @@ def profile_call(fn):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return wall_ms, busy_ms, sum(e.count for e in events), events
+    out = wall_ms, busy_ms, sum(e.count for e in events), events
+    return (*out, prof) if with_prof else out
 
 
 def top_ops(events, n=4):
@@ -1364,39 +1437,87 @@ def phase_cosine_times(shapes):
     return rows
 
 
-def phase_accumulate_times(cases):
-    """CUDA-event times of accumulate_rows at the trainers' shapes, on the
-    inputs ``phase_accumulate`` checked: the wrapper (stable sort + kernel),
-    the kernel alone on sorted ids, the plain version and ``index_add_``
-    (one library call, atomics), timed in turn, beside the bound. The bound
-    counts what the function must move: the ids (8 bytes each) and the
-    updates read once, each touched table row read and written once; its
-    B * d additions are far below the float32 peak."""
+def deterministic_index_add(table, ids, upd, reps):
+    """``index_add_`` under ``torch.use_deterministic_algorithms(True)``:
+    its CUDA-event ms, whether two launches give the same bits, whether
+    those are the kernel's (the plain version's sums in batch order) and
+    whether it runs under ``torch.cuda.set_sync_debug_mode("error")`` (no
+    wait for the card). Both modes are restored; the port calls neither."""
     import torch
 
-    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
+        a, b = (table.clone().index_add_(0, ids, upd) for _ in range(2))
+        same_bits = torch.equal(a, b)
+        as_kernel = torch.equal(a, accumulate_rows(table.clone(), ids, upd))
+        t = table.clone()
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t.index_add_(0, ids, upd)
+            no_sync = True
+        except RuntimeError:
+            no_sync = False
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    return ms, same_bits, as_kernel, no_sync
+
+
+def phase_accumulate_times(cases):
+    """CUDA-event times of accumulate_rows at the trainers' shapes, on the
+    inputs ``phase_accumulate`` checked: the wrapper (one kernel), the plain
+    version, ``index_add_`` (one library call, atomics) and ``index_add_``
+    in PyTorch's deterministic mode, timed in turn, beside the bound; and
+    the kernel's own device time per launch from the profiler (the events'
+    time includes the wrapper's host time where that is longer). The
+    bound counts what the function must move: the ids (8 bytes each) and
+    the updates read once, each touched table row read and written once;
+    its B * d additions are far below the float32 peak."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch
 
     rows = {}
-    for label, (table, ids, upd) in cases.items():
+    for label, (table, ids, upd, per_call) in cases.items():
         (R, d), B = table.shape, ids.shape[0]
-        ids_sorted, order = torch.sort(ids.to(torch.int32), stable=True)
         reps = 200
         plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
         ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
-        kernel_ms = time_ms(lambda: ACCUMULATE_ROWS(table, ids_sorted, order, upd), reps)
+        # per device event the profiler kept: it has been seen to drop events
+        # of short kernels
+        _, busy_ms, kept, _ = profile_call(lambda: [accumulate_rows(table, ids, upd) for _ in range(20)])
+        device_ms = busy_ms / max(kept, 1)
         library_ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
+        det_ms, det_bits, det_as_kernel, det_no_sync = deterministic_index_add(table, ids, upd, reps)
         touched = torch.unique(ids).numel()
         nbytes = 8.0 * B + 4.0 * B * d + 8.0 * touched * d
         flops = float(B * d)
         bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        rows[label] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        rows[label] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           deterministic_library_ms=det_ms, deterministic_same_bits=det_bits,
+                           deterministic_bits_as_kernel=det_as_kernel,
+                           deterministic_no_sync=det_no_sync, launches_per_call=per_call,
                            bound_ms=bound_ms, bound_by=bound_by, shape=f"{B} ids into {R} x {d}")
+        as_kernel = "the kernel's bits" if det_as_kernel else "not the kernel's bits"
         log(f"  times accumulate_rows, {label}: {B} ids into {R} rows x {d} ({touched} touched): "
-            f"sort + kernel {ms:.4f} ms (kernel alone {kernel_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"index_add_ {library_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, "
-            f"{nbytes / 1e6:.3f} MB), {100 * bound_ms / ms:.2f}% of bound")
-        del ids_sorted, order
+            f"kernel {ms:.4f} ms (device {device_ms:.4f} over {kept} events of 20 calls; "
+            f"{per_call:g} launch per call), plain {plain_ms:.4f} ms, "
+            f"index_add_ {library_ms:.4f} ms, deterministic index_add_ {det_ms:.4f} ms (two "
+            f"launches {'bit-identical' if det_bits else 'DIFFER'}, "
+            f"{as_kernel}; "
+            f"{'runs' if det_no_sync else 'does NOT run'} without a sync); bound "
+            f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB), "
+            f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
 
 
@@ -1523,11 +1644,13 @@ def main():
         "launches": bench_launches + full_launches,
         "max_abs_err": acc_err,
         "ms": acc["ms"],
+        "device_ms": acc["device_ms"],
         "plain_ms": acc["plain_ms"],
         "bound_ms": acc["bound_ms"],
         "bound_by": acc["bound_by"],
         "library_ms": acc["library_ms"],
-        "kernel_only_ms": acc["kernel_ms"],
+        "deterministic_library_ms": acc["deterministic_library_ms"],
+        "launches_per_call": acc["launches_per_call"],
     })
     log(f"trainers: bench shape AUC {bench['quality']['AUC']:.4f} NDCG@10 "
         f"{bench['quality']['NDCG@10']:.4f}, train {bench['train_s']:.3f} s, test "

@@ -258,20 +258,29 @@ def test_knn_neighbours_on_the_card_match_the_cpu(card):
                                    on_cpu.score_batch(np.arange(20)), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("R,B,d", [
-    (17_700, 16_384, 33), (480_000, 16_384, 51), (943, 4_096, 11),
-    (300, 20_000, 200),  # long runs, columns past one pass of a warp
-    (50, 3_000, None),   # a 1-D table
+@pytest.mark.parametrize("R,B,d,kind", [
+    (17_700, 16_384, 33, "dup"), (480_000, 16_384, 51, "dup"), (943, 4_096, 11, "dup"),
+    (300, 20_000, 200, "dup"),  # long runs, four column blocks
+    (50, 3_000, None, "dup"),   # a 1-D table
+    (64, 40_000, 11, "zipf"),   # a run of ~10,000 ids: longer than a round and the stage
+    (1_000_000, 4_096, 33, "dup"),  # hundreds of row ranges
 ])
-def test_accumulate_kernel_matches_plain(card, R, B, d):
-    # the kernel sums each run in batch order and adds the sum once, the
-    # plain version's arithmetic on the CPU: the same bits; index_add_ on
-    # the card sums with atomics, so there only within the float32 bound of
-    # recursive summation, (n + 1) * 2^-24 * (|t| + sum |u|) for n updates
+def test_accumulate_kernel_matches_plain(card, R, B, d, kind):
+    # the kernel sums each row's updates in batch order and adds the sum
+    # once, the plain version's arithmetic on the CPU: the same bits;
+    # index_add_ on the card sums with atomics, so there only within the
+    # float32 bound of recursive summation, (n + 1) * 2^-24 * (|t| + sum |u|)
+    # for n updates
     rng = np.random.RandomState(R + B)
     shape = (R,) if d is None else (R, d)
     table = rng.randn(*shape).astype(np.float32)
-    ids = np.where(rng.rand(B) < 0.3, rng.randint(20, size=B), rng.randint(R, size=B))
+    if kind == "zipf":
+        ids = rng.permutation(R)[np.minimum(rng.zipf(1.3, size=B) - 1, R - 1)]
+    else:
+        ids = np.where(rng.rand(B) < 0.3, rng.randint(20, size=B), rng.randint(R, size=B))
+    if R >= 1_000_000:
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert ACCUMULATE_ROWS.plan(R, B, d, card).grid[0] > 4 * sms
     updates = rng.randn(B, *shape[1:]).astype(np.float32)
     want = accumulate_rows_torch(torch.from_numpy(table.copy()), torch.from_numpy(ids),
                                  torch.from_numpy(updates))
@@ -293,14 +302,36 @@ def test_accumulate_kernel_matches_plain(card, R, B, d):
     assert np.all(np.abs(plain - exact) <= 1.01 * (count + 1) * 2.0**-24 * mag)
 
 
+def test_accumulate_kernel_strided_and_out_of_range_ids(card):
+    # a column of (user, item) pairs, as the trainers hand the user ids, with
+    # ids outside [0, R) among them: those are dropped, the rest summed as
+    # the plain version sums them
+    rng = np.random.RandomState(7)
+    R, B, d = 5_000, 9_000, 33
+    table = rng.randn(R, d).astype(np.float32)
+    pairs = np.stack([rng.randint(R, size=B), rng.randint(R, size=B)], 1)
+    bad = rng.rand(B) < 0.05
+    pairs[bad, 0] = rng.choice([-1, -9, R, R + 5, 2**40], size=int(bad.sum()))
+    updates = rng.randn(B, d).astype(np.float32)
+    keep = (pairs[:, 0] >= 0) & (pairs[:, 0] < R)
+    want = accumulate_rows_torch(torch.from_numpy(table.copy()), torch.from_numpy(pairs[keep, 0]),
+                                 torch.from_numpy(updates[keep]))
+    t, p, u = _on(card, table.copy(), pairs, updates)
+    ids = p[:, 0]
+    assert ids.stride(0) == 2
+    before = ACCUMULATE_ROWS.launches
+    got = accumulate_rows(t, ids, u).cpu()
+    assert ACCUMULATE_ROWS.launches == before + 1
+    assert torch.equal(got, want)
+
+
 def test_accumulate_kernel_refuses_bad_inputs(card):
     table = torch.zeros(10, 4, device=card)
-    ids = torch.zeros(3, dtype=torch.int32, device=card)
-    order = torch.arange(3, device=card)
+    ids = torch.zeros(3, dtype=torch.int64, device=card)
     upd = torch.zeros(3, 4, device=card)
-    for args in ((table.double(), ids, order, upd.double()), (table, ids.long(), order, upd),
-                 (table, ids, order.int(), upd), (table, ids, order, upd[:, :2]),
-                 (table.cpu(), ids, order, upd), (table, ids[:2], order, upd)):
+    for args in ((table.double(), ids, upd.double()), (table, ids.int(), upd),
+                 (table, ids, upd[:, :2]), (table.cpu(), ids, upd), (table, ids.cpu(), upd),
+                 (table, ids[:2], upd), (table[:, ::2], ids, upd[:, :2])):
         with pytest.raises(ValueError):
             ACCUMULATE_ROWS(*args)
 
