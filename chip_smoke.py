@@ -5,14 +5,14 @@ their plain PyTorch versions.
 Run from the root of a checkout:
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # device, builds and kernel-vs-plain only (1-5)
+    python3 chip_smoke.py --quick    # device, builds and kernel-vs-plain only (1-6)
 
 Phases, each of which fails the run when it fails:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles ``cornac_tpu_torch/csrc/fused_topk.cu``,
-   ``cosine_topk.cu`` and ``accumulate_rows.cu`` with nvcc, one process
-   each, in parallel, and prints ptxas's registers and spills;
+   ``cosine_topk.cu``, ``accumulate_rows.cu`` and ``canary.cu`` with nvcc,
+   one process each, in parallel, and prints ptxas's registers and spills;
 3. fused_topk vs plain: the fused score + top-k kernel against
    ``fused_topk_torch`` on the card, with and without bias, for k in
    {1, 100, 128, 1000, N} and k > N, ties across distant chunks, the
@@ -31,27 +31,36 @@ Phases, each of which fails the run when it fails:
    batches (16,384 ids into 17,700 and into 480,000 rows, 4,096 ids into
    943 rows, at d = 11, 33 and 51), a 1-D table, d = 200 (column blocks),
    R < B with a run longer than a round of ids, R >> B (over a thousand
-   row ranges), ids outside [0, R) (dropped) and strided ids, and at the
-   four shapes the trainers hand it (the U and V updates at the bench
-   shape and at full width), within a float32 bound of a float64 sum; two
-   launches must give the same bits, and the profiler must see one kernel
-   per call and nothing else;
-6. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
+   row ranges), ids outside [0, R) (dropped) and strided ids, at the
+   four shapes the BPR trainers hand it (the U and V updates at the bench
+   shape and at full width) and at the factor family's (NMF's 80,000 ids
+   into 943 and 789 rows at d = 15 and 1-D, PMF's 1,024, IBPR's 100 and
+   200, COE's 1,000 and 2,000, MF-adam's 256 at d = 10 and 1-D), within a float32
+   bound of a float64 sum; two launches must give the same bits, and the
+   profiler must see one kernel per call and nothing else (its device
+   time per launch, at the four BPR shapes, is taken here, early: late in
+   the process the profiler loses a short kernel's events);
+6. canary vs plain: ``csrc/canary.cu`` against ``x * 2``, bit for bit, at
+   (128, 128) and at sizes that end inside a block or span 64M elements;
+7. on-silicon probe (the canary's path): ``tools/cuda_on_silicon.py``'s
+   three steps, canary, fused_topk and cosine_topk, each cold and warm
+   under its own timeout and held to its plain version;
+8. BPR serving slice: a BPR model (k=50 + item bias, so d=51) over
    480,000 users and 17,700 items, random factors from the seed, wrapped
    in TPUExactANN, saved, loaded by ``load_model`` and served by the
    standalone HTTP server on localhost (/recommend, /feedback, /evaluate),
    then ``recommend_batch`` for 8,192 users; every answer is checked
    against lists computed from the same vectors with the plain version;
-7. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
+9. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
    1,000,209 seeded whole-star ratings): RatioSplit -> Experiment with
    ItemKNN(k=50) and UserKNN(k=50) on Recall@10, NDCG@10 and AUC ->
    nearest_items / nearest_users (kernel launches, held exactly to the
    plain version) -> the ItemKNN saved and served by the standalone server;
-8. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
+10. related items at the MovieLens 10M widths (69,878 users x 10,677 items,
    10,000,054 seeded half-star ratings): ItemKNN(k=50).fit and
    nearest_items(50) (which builds no dense W: its peak device memory is
    checked), held exactly to the plain version;
-9. trainers at the bench.py shape (``make_ml100k_like(seed=7)``, 943 users
+11. trainers at the bench.py shape (``make_ml100k_like(seed=7)``, 943 users
    x 1,682 items, 100,000 ratings): RatioSplit(0.2, 4.0, seed=123) ->
    BPR(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01,
    seed=123, batch_size=4096).fit -> ranking_eval (AUC, MAP, NDCG@10, P@10,
@@ -61,14 +70,29 @@ Phases, each of which fails the run when it fails:
    factors, bit for bit; then one Experiment with BPR, MMMF, WBPR,
    MF(k=10, max_iter=20), BaselineOnly, GlobalAvg and MostPop on those
    metrics and RMSE, MAE;
-10. trainer at full width (``benchmarks/scale_10m.py``'s configuration:
+12. factor family at the bench shape: one Experiment with
+   ``benchmarks/model_sweep.py``'s PMF, NMF, WMF, EASE, IBPR, COE and
+   MF(optimizer="adam", dropout=0.1) on AUC, NDCG@10, Recall@10, RMSE and
+   MAE: each model's AUC and NDCG@10 in the band of the JAX package's CPU
+   fits (``tools/bpr_quality_band.py --model``), fit seconds per model,
+   fused_topk behind each model's serving entry point held to the plain
+   version, a second seeded fit of each (verbose) bit for bit, whose
+   accumulate_rows inputs (the first at each shape) are held to the plain
+   version within the float32 bound; the profile of one IBPR epoch over
+   the first 5,000 ratings;
+13. trainer at full width (``benchmarks/scale_10m.py``'s configuration:
    100,000 users x 10,000 items, about 10M unique seeded pairs, so the
    membership test is the CSR binary search): BPR(k=32, batch_size=16384,
    seed=123), one warm epoch, then 10 timed epochs; samples/s beside the
    byte bound of a sample, launches per minibatch and the device-busy
    share; then ``recommend_batch`` for 8,192 users at k=100 through
    fused_topk, every list held to the plain version;
-11. times: each kernel, its plain version and library yardsticks
+14. WMF at the Netflix widths (``benchmarks/scale_netflix.py:130-157``:
+   480,000 x 17,700, k=64, cut to 20M seeded pairs): a 3-sweep fit, then
+   one warm and two timed sweeps beside the FLOP bound, peak device
+   memory, recommend_batch of 8,192 users at k=100, TPUExactANN with
+   recall_target=0.95 and the bf16 route, each held to the plain version;
+15. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
@@ -76,7 +100,8 @@ Phases, each of which fails the run when it fails:
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
-   the trainers' four shapes, on the inputs phase 5 checked.
+   the trainers' four shapes, on the inputs phase 5 checked; the canary
+   at (128, 128) beside ``torch.mul``.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first),
@@ -85,10 +110,10 @@ script imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -99,11 +124,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-
-# published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+sys.path.insert(0, str(ROOT / "tools"))
+try:
+    from card_measure import (PEAK_BYTES, PEAK_F32_FLOPS, card_line, compare_topk,
+                              plain_scores, time_ms)
+    from quality_bands import band
+except ImportError:
+    sys.exit("chip_smoke: run it from a checkout that holds tools/ and cornac_tpu_torch/")
 
 N_USERS, N_ITEMS, FACTORS, TOPK, SERVE_BATCH = 480_000, 17_700, 50, 100, 8192
 N_INTERACTIONS = 1_000_000  # Netflix has ~100M; cut so Dataset.build stays quick
@@ -150,14 +177,6 @@ def make_ml100k_like(seed=7):
     return data
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 class Clock:
     """Host-clock seconds of named steps, each ending in a synchronise."""
 
@@ -176,53 +195,6 @@ class Clock:
     def report(self, what):
         for name, sec in self.seconds.items():
             log(f"  {what}, host clock: {name}: {sec:.3f} s")
-
-
-def plain_scores(U, V, bias=None):
-    """Full float32 (B, N) scores, TF32 off."""
-    from cornac_tpu_torch.ops.dispatch import full_f32
-
-    with full_f32():
-        s = U @ V.T
-    return s if bias is None else s + bias
-
-
-def compare_topk(ks, ki, ps, pi, S, what, exact=False, rtol=RTOL, atol=ATOL):
-    """Hold the kernel's (scores, items) to the plain version's. Unless
-    ``exact``, index equality is relaxed only where the plain scores next
-    to the position lie within the score tolerance of each other and the
-    kernel's item scores (by the plain product ``S``) within it of the
-    plain item's. Returns (max abs score error, relaxed positions)."""
-    import torch
-
-    k = ki.shape[1]
-    if ks.shape != ps[:, :k].shape or not torch.isfinite(ks).all():
-        raise AssertionError(f"{what}: bad kernel output {tuple(ks.shape)}")
-    err = (ks - ps[:, :k]).abs()
-    if exact and not (torch.equal(ks, ps[:, :k]) and torch.equal(ki, pi[:, :k])):
-        raise AssertionError(f"{what}: kernel differs from the plain version on exact data "
-                             f"(max |err| {err.max().item():.3e})")
-    if not torch.all(err <= atol + rtol * ps[:, :k].abs()):
-        raise AssertionError(f"{what}: scores differ by up to {err.max().item():.3e}")
-    if (torch.sort(ki.long(), dim=1).values.diff(dim=1) == 0).any():
-        raise AssertionError(f"{what}: an item appears twice in a row")
-    bad = ki != pi[:, :k]
-    n_bad = int(bad.sum())
-    if n_bad and exact:
-        raise AssertionError(f"{what}: {n_bad} item mismatches where scores tie exactly")
-    if n_bad:
-        tol = atol + rtol * ps.abs()
-        near = torch.zeros_like(bad)
-        near[:, 1:] |= (ps[:, 1:k] - ps[:, : k - 1]).abs() <= tol[:, 1:k]
-        if ps.shape[1] > k:
-            near |= (ps[:, : k] - ps[:, 1 : k + 1]).abs() <= tol[:, :k]
-        else:
-            near[:, : k - 1] |= (ps[:, : k - 1] - ps[:, 1:k]).abs() <= tol[:, : k - 1]
-        true_s = S.gather(1, ki.long())
-        same = (true_s - ps[:, :k]).abs() <= tol[:, :k]
-        if not torch.all(near[bad] & same[bad]):
-            raise AssertionError(f"{what}: {n_bad} item mismatches beyond near-ties")
-    return err.max().item(), n_bad
 
 
 def phase_kernel(gen):
@@ -496,17 +468,19 @@ def float32_bound(table, ids, updates):
 def launches_per_call(fn, calls=4):
     """What the profiler sees per call of ``fn`` (warmed once): the host's
     launches of device work (the CUDA runtime's kernel launches, memsets
-    and copies), the device-side events, and the device events' names.
-    The host count is the exact one: the device side has been seen to miss
-    an event of a short kernel."""
+    and copies), the device-side events, the device events' names, and
+    their mean device time in ms (None if it kept none). The host count is
+    the exact one: the device side has been seen to miss an event of a
+    short kernel."""
     from torch.autograd import DeviceType
 
     fn()
-    _, _, count, events, prof = profile_call(lambda: [fn() for _ in range(calls)],
-                                             with_prof=True)
+    _, busy_ms, count, events, prof = profile_call(lambda: [fn() for _ in range(calls)],
+                                                   with_prof=True)
     host = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU
                and e.key.startswith("cu") and any(w in e.key for w in ("Launch", "Memset", "Memcpy")))
-    return host / calls, count / calls, sorted({e.key for e in events})
+    return host / calls, count / calls, sorted({e.key for e in events}), (
+        busy_ms / count if count else None)
 
 
 # label (the trainers' shapes, timed later on the same inputs), rows, ids,
@@ -527,6 +501,20 @@ ACC_CASES = [
     ("full width, U update", FULL_USERS, FULL_BATCH, FULL_K + 1, "uniform", 2),
     ("bench shape, V update", 1_682, 2 * 4_096, 11, "popular", 1),
     ("bench shape, U update", 943, 4_096, 11, "popular", 2),
+    # the factor family's shapes at the bench shape, whose train set holds
+    # 943 users and 789 items (phase 12 also holds the kernel to the plain
+    # version on the inputs the trainers hand it)
+    (None, 943, 80_000, 15, "popular", 1),  # NMF's U numerator and denominator
+    (None, 789, 80_000, 15, "popular", 1),  # NMF's V sums
+    (None, 789, 80_000, None, "popular", 1),  # NMF's item biases (use_bias)
+    (None, 943, 1_024, 10, "popular", 2),  # PMF's U update
+    (None, 789, 1_024, 10, "popular", 2),  # PMF's V update
+    (None, 943, 100, 10, "popular", 2),  # IBPR's U gradient
+    (None, 789, 200, 10, "popular", 1),  # IBPR's V gradient (positives + negatives)
+    (None, 943, 1_000, 10, "popular", 2),  # COE's U gradient
+    (None, 789, 2_000, 10, "popular", 1),  # COE's V gradient
+    (None, 943, 256, 10, "popular", 2),  # MF-adam's U gradient
+    (None, 789, 256, None, "popular", 2),  # MF-adam's item-bias gradient
 ]
 
 
@@ -549,6 +537,56 @@ def accumulate_inputs(R, B, d, kind, stride, gen):
     return table, ids, upd
 
 
+def check_accumulate(what, table, ids, upd, calls=4):
+    """Hold one accumulate_rows call to its plain version: two launches
+    give the same bits, the profiler sees one kernel and nothing else per
+    call over ``calls`` calls (none: not profiled), and the kernel and the
+    plain version both lie within the float32 bound of a float64 sum (ids
+    outside [0, R), which the kernel drops and the plain version refuses,
+    left out of the latter). ``table`` is left as it was. Returns (max
+    |kernel - plain|, launches per call, the kernel's mean device ms per
+    event the profiler kept, kept per call; the last two None unprofiled)."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
+
+    R = table.shape[0]
+    before = ACCUMULATE_ROWS.launches
+    got = [accumulate_rows(table.clone(), ids, upd) for _ in range(2)]
+    torch.cuda.synchronize()
+    if ACCUMULATE_ROWS.launches != before + 2:
+        raise AssertionError(f"{what}: the kernel was not launched")
+    if not torch.equal(got[0], got[1]):
+        raise AssertionError(f"{what}: two launches of the kernel differ")
+    per_call, device_per_call, device_ms = 1, None, None
+    if calls:
+        scratch = table.clone()
+        per_call, device_per_call, names, device_ms = launches_per_call(
+            lambda: accumulate_rows(scratch, ids, upd), calls)
+        if (per_call != 1 or not 0 < device_per_call <= 1
+                or not all("accumulate_rows_kernel" in k for k in names)):
+            raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
+                                 f"events per call ({names}), not one kernel")
+        del scratch
+    keep = (ids >= 0) & (ids < R)
+    ok_ids, ok_upd = (ids, upd) if bool(keep.all()) else (ids[keep], upd[keep])
+    plain = accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
+    exact, bound = float32_bound(table, ok_ids, ok_upd)
+    for name, out in (("kernel", got[0]), ("plain version", plain)):
+        over = ((out.double() - exact).abs() - bound).max().item()
+        if over > 0:
+            raise AssertionError(f"{what}: the {name} is {over:.3e} beyond the float32 bound")
+    err = (got[0] - plain).abs().max().item()
+    runs = torch.unique(ok_ids, return_counts=True)[1]
+    log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids"
+        + (f"; {ids.numel() - ok_ids.numel()} ids outside [0, R) dropped"
+           if ok_ids.numel() < ids.numel() else "")
+        + f"; max |kernel - plain| {err:.3e}, both within the float32 bound; two launches "
+        + ("bit-identical)" if not calls else f"bit-identical; per call {per_call:g} launch, "
+           f"{device_per_call:g} device event, the kernel)"))
+    return err, per_call, device_ms, device_per_call
+
+
 def phase_accumulate(gen):
     """The row-accumulation kernel against its plain version, both within
     the float32 bound of a float64 sum, on duplicate-heavy batches, a 1-D
@@ -556,11 +594,12 @@ def phase_accumulate(gen):
     ids (held to the plain version on the in-range ids) and the trainers'
     shapes; two launches must give the same bits, and the profiler must see
     one kernel and nothing else per call. Returns the largest |kernel -
-    plain| and the labelled cases' inputs and device events per call, for
-    timing."""
+    plain| and, for the labelled cases, their inputs, launches per call and
+    the kernel's device time per launch (profiled over 20 calls here, before
+    the later phases' long profiles), for timing."""
     import torch
 
-    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_err, most_ranges = 0.0, 0
@@ -572,41 +611,11 @@ def phase_accumulate(gen):
         what = (f"{B} ids into {R} rows, d={d}, {kind}, id stride {stride}"
                 + (f" ({label})" if label else "")
                 + f", grid {plan.grid[0]} x {plan.grid[1]} of {plan.rows} rows x {plan.cols}")
-        before = ACCUMULATE_ROWS.launches
-        got = [accumulate_rows(table.clone(), ids, upd) for _ in range(2)]
-        torch.cuda.synchronize()
-        if ACCUMULATE_ROWS.launches != before + 2:
-            raise AssertionError(f"{what}: the kernel was not launched")
-        if not torch.equal(got[0], got[1]):
-            raise AssertionError(f"{what}: two launches of the kernel differ")
-        scratch = table.clone()
-        per_call, device_per_call, names = launches_per_call(
-            lambda: accumulate_rows(scratch, ids, upd))
-        if (per_call != 1 or not 0 < device_per_call <= 1
-                or not all("accumulate_rows_kernel" in k for k in names)):
-            raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
-                                 f"events per call ({names}), not one kernel")
-        del scratch
-        keep = (ids >= 0) & (ids < R)  # the plain version refuses the others: the kernel drops them
-        ok_ids, ok_upd = (ids[keep], upd[keep]) if kind == "out of range" else (ids, upd)
-        plain = accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
-        exact, bound = float32_bound(table, ok_ids, ok_upd)
-        for name, out in (("kernel", got[0]), ("plain version", plain)):
-            over = ((out.double() - exact).abs() - bound).max().item()
-            if over > 0:
-                raise AssertionError(f"{what}: the {name} is {over:.3e} beyond the float32 bound")
-        err = (got[0] - plain).abs().max().item()
+        err, per_call, device_ms, kept = check_accumulate(what, table, ids, upd,
+                                                          calls=20 if label else 4)
         max_err = max(max_err, err)
-        runs = torch.unique(ok_ids, return_counts=True)[1]
-        log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids"
-            + (f"; {B - ok_ids.numel()} ids outside [0, R) dropped" if kind == "out of range"
-               else "")
-            + f"; max |kernel - plain| {err:.3e}, both within the float32 bound; two launches "
-            f"bit-identical; per call {per_call:g} launch, {device_per_call:g} device event, "
-            f"the kernel)")
         if label:
-            timed[label] = (table, ids, upd, per_call)
-        del got, plain, exact, bound
+            timed[label] = (table, ids, upd, per_call, device_ms, kept)
     if most_ranges <= 4 * sms:
         raise AssertionError(f"no case planned more than {4 * sms} row ranges")
     torch.cuda.empty_cache()
@@ -1077,12 +1086,6 @@ def phase_knn_ml10m(seed):
     return launches, W
 
 
-# tools/bpr_quality_band.py on a CPU: the JAX package's fits of bench.py's
-# configuration with BPR seeds 123-127, the mean and spread (sample
-# standard deviation) of each metric. The port's fit must land within three
-# spreads of the mean.
-QUALITY_BAND = {"AUC": (0.9336642863641741, 5.575300253011466e-05),
-                "NDCG@10": (0.1627065971857164, 0.0029556236688647887)}
 BENCH_R05 = {"AUC": 0.9331, "NDCG@10": 0.1694}  # BENCH_r05.json: the TPU run, its W16 path
 BENCH_BPR = dict(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01, seed=123,
                  batch_size=4096)
@@ -1116,7 +1119,6 @@ def phase_trainer_bench(bench_data):
     quality band, a verbose refit bit for bit, then an Experiment with the
     other trainers and the baselines. ``bench_data()`` gives
     ``make_ml100k_like(seed=7)``'s triples."""
-    import contextlib
     import io
 
     from cornac_tpu_torch import Experiment
@@ -1160,8 +1162,7 @@ def phase_trainer_bench(bench_data):
 
     # ---- check what came out ----
     for name in ("AUC", "NDCG@10"):
-        mean, spread = QUALITY_BAND[name]
-        lo, hi = mean - 3 * spread, mean + 3 * spread
+        lo, hi, mean, spread = band("BPR", name)
         log(f"  {name} {quality[name]:.6f}: band [{lo:.6f}, {hi:.6f}] (JAX package on a CPU, "
             f"mean {mean:.6f} +/- 3 x {spread:.3e}); BENCH_r05.json (TPU) {BENCH_R05[name]} is "
             + ("inside" if lo <= BENCH_R05[name] <= hi else "outside") + " the band")
@@ -1190,6 +1191,391 @@ def phase_trainer_bench(bench_data):
         f"minibatch; top device ops: {prof['top']}")
     log(f"trainers at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
     return launches, dict(quality=quality, train_s=train_s, test_s=test_s, **prof)
+
+
+def phase_canary(gen):
+    """The canary kernel against ``x * 2`` on the card, bit for bit, at the
+    probe's (128, 128) and at sizes that end inside a block or span many."""
+    import torch
+
+    from cornac_tpu_torch.ops.canary import CANARY, scale2, scale2_torch
+
+    shapes = [(128, 128), (1,), (255,), (257,), (3, 1000, 7), (64 * 1024 * 1024 + 3,)]
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device=DEV)
+        before = CANARY.launches
+        y = scale2(x, force="kernel")
+        torch.cuda.synchronize()
+        if CANARY.launches != before + 1:
+            raise AssertionError(f"canary {shape}: the kernel was not launched")
+        if not torch.equal(y, scale2_torch(x)):
+            raise AssertionError(f"canary {shape}: differs from x * 2")
+        del x, y
+    log(f"canary vs plain: ok, {len(shapes)} shapes up to {shapes[-1][0]:,} elements, "
+        f"bit for bit x * 2")
+    return 0.0
+
+
+def load_probe():
+    """``tools/cuda_on_silicon.py`` as a module (``tools/`` is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("cuda_on_silicon",
+                                                  ROOT / "tools" / "cuda_on_silicon.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_probe():
+    """The canary's path: the on-silicon probe (``tools/cuda_on_silicon.py``),
+    canary, fused_topk and cosine_topk, each cold and warm under its own
+    timeout, held to their plain versions; it writes
+    ``build/cuda_silicon.json``."""
+    from cornac_tpu_torch.ops.canary import CANARY
+    from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    probe = load_probe()
+    # ---- the main path, counted ----
+    CANARY.launches = FUSED_TOPK.launches = COSINE_TOPK.launches = 0
+    record = probe.probe(timeout=240)
+    launches = dict(canary=CANARY.launches, fused_topk=FUSED_TOPK.launches,
+                    cosine_topk=COSINE_TOPK.launches)
+    for name, step in record["steps"].items():
+        log(f"  probe {name}: cold {step.get('cold_s', float('nan')):.4f} s (host clock: load "
+            f"or build, first launch, synchronise), warm {step.get('ms', float('nan')):.4f} ms "
+            f"(CUDA events), plain {step.get('plain_ms', float('nan')):.4f} ms; error "
+            f"{step['error']}")
+    if not record["ok"]:
+        raise AssertionError(f"the on-silicon probe failed: {record['steps']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the probe did not launch every kernel: {launches}")
+    log(f"on-silicon probe: ok, launches {launches}, wrote build/cuda_silicon.json")
+    return launches, record
+
+
+def phase_canary_times():
+    """CUDA-event times of the canary at the probe's (128, 128), its plain
+    version and ``torch.mul``, beside its bound: 64 KiB read and 64 KiB
+    written over 3.35 TB/s (a launch takes far longer)."""
+    import torch
+
+    from cornac_tpu_torch.ops.canary import CANARY, scale2_torch
+
+    x = torch.randn(128, 128, device=DEV)
+    reps = 500
+    plain_ms = time_ms(lambda: scale2_torch(x), reps)
+    ms = time_ms(lambda: CANARY(x), reps)
+    library_ms = time_ms(lambda: torch.mul(x, 2), reps)
+    bound_ms = 1e3 * 2 * 4.0 * x.numel() / PEAK_BYTES
+    log(f"  times canary (128, 128): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
+        f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms (bytes), {100 * bound_ms / ms:.3f}% of "
+        f"bound: launch-bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by="bytes")
+
+
+def factor_configs():
+    """(band name, maker, fitted attributes) of ``benchmarks/model_sweep.py``'s
+    configurations of the factor family, and MF with adam and dropout."""
+    from cornac_tpu_torch import models as M
+
+    return [
+        ("PMF", lambda **kw: M.PMF(k=10, max_iter=100, seed=123, **kw), ("U", "V")),
+        ("NMF", lambda **kw: M.NMF(k=15, max_iter=50, seed=123, **kw),
+         ("u_factors", "i_factors")),
+        ("WMF", lambda **kw: M.WMF(k=50, max_iter=30, seed=123, **kw), ("U", "V")),
+        ("EASE", lambda **kw: M.EASE(lamb=500, **kw), ("B",)),
+        ("IBPR", lambda **kw: M.IBPR(k=10, max_iter=20, seed=123, **kw), ("U", "V")),
+        ("COE", lambda **kw: M.COE(k=10, max_iter=20, seed=123, **kw), ("U", "V")),
+        ("MF-adam", lambda **kw: M.MF(k=10, max_iter=20, optimizer="adam", dropout=0.1,
+                                      seed=123, **kw),
+         ("u_factors", "i_factors", "u_biases", "i_biases")),
+    ]
+
+
+def serve_factor_model(model, train, users, k=10):
+    """B1 behind the model's serving entry point, held to the plain
+    version: ``recommend_batch`` for a dot-measure model, else
+    ``TPUExactANN(recall_target=0.95).knn_query`` (COE's L2). Returns the
+    positions relaxed as near-ties."""
+    import torch
+
+    from cornac_tpu_torch.models import MEASURE_DOT, TPUExactANN
+
+    dev = torch.device(DEV)
+    U = torch.as_tensor(np.asarray(model.get_user_vectors(), np.float32)[users], device=dev)
+    V = torch.as_tensor(np.asarray(model.get_item_vectors(), np.float32), device=dev)
+    if model.get_vector_measure() == MEASURE_DOT:
+        recs = model.recommend_batch([train.user_ids[u] for u in users], k=k)
+        got = [[model.iid_map[i] for i in row] for row in recs]
+        S = plain_scores(U, V)
+    else:
+        ann = TPUExactANN(model, recall_target=0.95)
+        ann.build_index()
+        got, _ = ann.knn_query(U.cpu().numpy(), k)
+        S = -((U[:, None, :] - V[None, :, :]) ** 2).sum(-1)
+    _, want = torch.sort(S, dim=1, descending=True, stable=True)
+    return check_lists(got, want[:, :k].cpu().numpy(), S.cpu().numpy(),
+                       f"{model.name} serving")
+
+
+@contextlib.contextmanager
+def recording_accumulate(store):
+    """While open, the accumulate_rows wrapper keeps in ``store`` a copy of
+    the inputs of its first call at each (table shape, ids, id stride) --
+    the table as it was before the call -- and then launches as always."""
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, AccumulateRowsKernel
+
+    class Recording(AccumulateRowsKernel):
+        def __call__(self, table, ids, updates):
+            key = (tuple(table.shape), ids.shape[0], ids.stride(0))
+            if key not in store:
+                store[key] = (table.clone(), ids.clone(), updates.clone())
+            return super().__call__(table, ids, updates)
+
+    ACCUMULATE_ROWS.__class__ = Recording
+    try:
+        yield store
+    finally:
+        ACCUMULATE_ROWS.__class__ = AccumulateRowsKernel
+
+
+def check_recorded_accumulate(name, store):
+    """Hold accumulate_rows to its plain version on the inputs a trainer
+    handed it (``recording_accumulate``), with the ids at the stride the
+    trainer gave them; not profiled (phase 5 sees one kernel a call at
+    these shapes, and this late in the process the profiler loses a short
+    kernel's events). Returns the largest |kernel - plain|."""
+    import torch
+
+    max_err = 0.0
+    for (shape, B, stride), (table, ids, upd) in store.items():
+        if stride != 1:  # the first column of a (B, stride) tensor
+            ids = torch.stack([ids, *[torch.zeros_like(ids)] * (stride - 1)], 1)[:, 0]
+        err = check_accumulate(f"{name}'s own input, {B} ids into {shape}, id stride {stride}",
+                               table, ids, upd, calls=0)[0]
+        max_err = max(max_err, err)
+    return max_err
+
+
+def phase_factor_bench(bench_data):
+    """RatioSplit -> Experiment with the factor family at the bench shape:
+    each model's AUC and NDCG@10 in its band, fit seconds per model, B1
+    behind each model's serving entry point, then a second seeded fit of
+    each (verbose: one epoch or sweep a chunk) bit for bit, whose
+    accumulate_rows inputs (the first at each shape) are held to the plain
+    version."""
+    import io
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    split = clock("RatioSplit(0.2, 4.0, seed=123)", lambda: RatioSplit(
+        bench_data(), test_size=0.2, rating_threshold=4.0, seed=123, verbose=False))
+    train = split.train_set
+    configs = factor_configs()
+    users = np.random.RandomState(5).choice(train.num_users, 512, replace=False)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    exp = Experiment(split, [make(verbose=False) for _, make, _ in configs],
+                     [AUC(), NDCG(k=10), Recall(k=10), RMSE(), MAE()])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        clock("Experiment.run (7 factor models)", exp.run)
+    relaxed = clock("B1 behind each model's serving entry point", lambda: [
+        serve_factor_model(m, train, users) for m in exp.models if m.name != "EASEᴿ"])
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("factor family at the bench shape")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"the factor family launched accumulate_rows {launches} and "
+                             f"fused_topk {fused} times")
+
+    # ---- check what came out ----
+    fit_s = {}
+    for (name, _, _), res in zip(configs, exp.result):
+        vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{res.model_name}: non-finite metrics {vals}")
+        fit_s[name] = res.metric_avg_results["Train (s)"]
+        checks = []
+        for metric in ("AUC", "NDCG@10"):
+            lo, hi, _, spread = band(name, metric)
+            value = vals[metric]
+            inside = lo <= value <= hi
+            checks.append(inside)
+            log(f"  {name}: {metric} {value:.6f}, band [{lo:.6f}, {hi:.6f}] "
+                f"({'one deterministic JAX fit +/- 1e-3' if spread is None else '5 JAX seeds'})"
+                f" {'inside' if inside else 'OUTSIDE'}")
+        log(f"  {name}: fit {fit_s[name]:.3f} s, test {res.metric_avg_results['Test (s)']:.3f} s "
+            f"(host clock); " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+        if not all(checks):
+            raise AssertionError(f"{name}: outside its quality band")
+    acc_err, recorded = 0.0, 0
+    refits = Clock()
+    for (name, make, attrs), model in zip(configs, exp.models):
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = refits(f"{name}.fit, verbose=True", lambda: make(verbose=True).fit(train))
+        for attr in attrs:
+            if not np.array_equal(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr} (one verbose)")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    refits.report("factor family, second fits")
+    if recorded == 0:
+        raise AssertionError("no trainer of the factor family handed accumulate_rows an input")
+    from cornac_tpu_torch.data import Dataset
+    from cornac_tpu_torch.models import IBPR
+
+    # a whole epoch of 800 minibatches would give the profiler about 160,000
+    # device events, which costs a minute and makes later profiles in this
+    # process lose events: one epoch over the first 5,000 ratings instead
+    part = Dataset.from_uir(bench_data()[:5_000], seed=123)
+    n_batches = -(-part.num_ratings // 100)
+    prof = epoch_profile(lambda e: IBPR(k=10, max_iter=e, seed=123).fit(part), n_batches, 1)
+    log(f"  profile, one IBPR epoch over the first {part.num_ratings} ratings ({n_batches} "
+        f"minibatches of 100; a 1-epoch fit minus a 0-epoch fit): {prof['wall_ms']:.1f} ms host "
+        f"clock, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events per "
+        f"minibatch; top device ops: {prof['top']}")
+    log(f"  every model: two seeded fits (the second verbose, in chunks of one epoch or sweep) "
+        f"identical, bit for bit; accumulate_rows on the trainers' own inputs ({recorded} "
+        f"shapes) equal to the plain version within the float32 bound (max |err| "
+        f"{acc_err:.3e}); serving lists equal to the plain version (positions relaxed as "
+        f"near-ties: {sum(relaxed)}); accumulate_rows launches {launches}, fused_topk "
+        f"launches {fused}")
+    log(f"factor family at the bench shape: ok, main path {sum(clock.seconds.values()):.1f} s, "
+        f"second fits {sum(refits.seconds.values()):.1f} s")
+    return launches, fused, fit_s, acc_err
+
+
+# benchmarks/scale_netflix.py:130-157, WMF at the Netflix widths: the
+# interactions cut from ~100M to 20M seeded uniform pairs (item degrees
+# about 1,130 instead of 5,650) so that the host build fits the run
+WMF_PAIRS, WMF_K, WMF_CHUNK = 20_000_000, 64, 256
+
+
+def netflix_dataset():
+    """20M uniform (user, item) draws from RandomState(0) over 480,000 x
+    17,700, duplicates dropped, ratings 1, as ``scale_netflix.build_dataset``
+    makes its data."""
+    from collections import OrderedDict
+
+    from cornac_tpu_torch.data import Dataset
+
+    rng = np.random.RandomState(0)
+    u = rng.randint(N_USERS, size=WMF_PAIRS).astype(np.int64)
+    i = rng.randint(N_ITEMS, size=WMF_PAIRS).astype(np.int64)
+    _, first = np.unique(u * N_ITEMS + i, return_index=True)
+    u, i = u[first], i[first]
+    return Dataset(
+        num_users=N_USERS, num_items=N_ITEMS,
+        uid_map=OrderedDict((x, x) for x in range(N_USERS)),
+        iid_map=OrderedDict((x, x) for x in range(N_ITEMS)),
+        uir_tuple=(u, i, np.ones(len(u))), seed=0,
+    )
+
+
+def phase_wmf_full(seed):
+    """WMF(k=64, batch_size=256) at 480,000 x 17,700: a 3-sweep fit (set-up
+    included), then one warm and two timed sweeps of the fit's own sweep
+    function on its buckets, beside the FLOP bound; peak device memory;
+    then recommend_batch of 8,192 users at k=100 through fused_topk, the
+    recall_target and bf16 routes, each held to the plain version."""
+    import torch
+
+    from cornac_tpu_torch.models import WMF, TPUExactANN
+    from cornac_tpu_torch.models import wmf as wmf_mod
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk, fused_topk_torch
+
+    clock = Clock()
+    ds = clock(f"{WMF_PAIRS:,} seeded pairs (set-up)", netflix_dataset)
+    nnz = ds.num_ratings
+    dev = torch.device(DEV)
+
+    # ---- the main path, counted ----
+    FUSED_TOPK.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    model = clock("WMF.fit, 3 sweeps (set-up included)", lambda: WMF(
+        k=WMF_K, batch_size=WMF_CHUNK, max_iter=3, seed=123, verbose=False).fit(ds))
+    peak_fit = torch.cuda.max_memory_allocated()
+    users = np.random.RandomState(seed + 5).choice(N_USERS, SERVE_BATCH, replace=False)
+    recs = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                 lambda: model.recommend_batch(list(users), k=TOPK))
+    Ud = torch.as_tensor(model.U[users], device=dev)
+    Vd = torch.as_tensor(model.V, device=dev)
+    ann = TPUExactANN(model, recall_target=0.95)
+    ann.build_index()
+    ann_ids, _ = clock("TPUExactANN(recall_target=0.95).knn_query", lambda: ann.knn_query(
+        model.U[users], TOPK))
+    bf16 = clock("fused_topk(precision='bf16')", lambda: fused_topk(Ud, Vd, TOPK,
+                                                                   precision="bf16"))
+    fused = FUSED_TOPK.launches
+    if fused < 3:
+        raise AssertionError(f"the WMF path launched fused_topk {fused} times, want 3")
+
+    # ---- check and measure ----
+    if not (np.isfinite(model.U).all() and np.isfinite(model.V).all()):
+        raise AssertionError("the full-width WMF fit has non-finite factors")
+    S = plain_scores(Ud, Vd)
+    want = reference_lists(Ud, Vd, TOPK, [set()] * len(users))
+    relaxed = check_lists([[model.iid_map[i] for i in row] for row in recs], want,
+                          S.cpu().numpy(), "WMF recommend_batch")
+    relaxed += check_lists(ann_ids, want, S.cpu().numpy(), "WMF TPUExactANN(recall_target=0.95)")
+    rU, rV = (t.to(torch.bfloat16).float() for t in (Ud, Vd))
+    ps, pi = fused_topk_torch(rU, rV, TOPK + 1)
+    _, bf_rel = compare_topk(*bf16, ps, pi, plain_scores(rU, rV), "WMF bf16 route")
+    del S, ps, pi
+    csr = ds.csr_matrix
+    groups = clock("the fit's buckets again (host)", lambda: [
+        wmf_mod._bucketed_csr(m, WMF_K, dev) for m in (csr, csr.T.tocsr())])
+    consts = tuple(float(np.float32(x)) for x in (model.a, model.b, model.lambda_u,
+                                                  model.lambda_v))
+    U, V = torch.as_tensor(model.U, device=dev), torch.as_tensor(model.V, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    U, V = clock("one warm sweep", lambda: wmf_mod._als_sweeps_bucketed(U, V, *groups,
+                                                                          *consts, 1))
+    sweep_s = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        U, V = wmf_mod._als_sweeps_bucketed(U, V, *groups, *consts, 1)
+        end.record()
+        torch.cuda.synchronize()
+        sweep_s.append(start.elapsed_time(end) / 1e3)
+    peak_sweep = torch.cuda.max_memory_allocated()
+    wall_ms, busy_ms, events, ops = profile_call(
+        lambda: wmf_mod._als_sweeps_bucketed(U, V, *groups, *consts, 1))
+    flops = 2 * 2 * nnz * WMF_K**2 + (N_USERS + N_ITEMS) * WMF_K**3 / 3
+    bound_s = flops / PEAK_F32_FLOPS
+    clock.report("WMF at the Netflix widths")
+    deg_items = np.diff(csr.tocsc().indptr)
+    log(f"  WMF k={WMF_K} over {nnz:,} pairs ({N_USERS:,} users x {N_ITEMS:,} items, cut from "
+        f"~100M; item degrees {deg_items.min()}-{deg_items.max()}): seconds per sweep "
+        f"{sweep_s[0]:.4f}, {sweep_s[1]:.4f} (CUDA events); FLOP bound {flops:.4e} FLOP = "
+        f"2*2*nnz*k^2 + (users + items)*k^3/3 over {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{bound_s:.5f} s, {100 * bound_s / min(sweep_s):.2f}% of it; "
+        f"{len(groups[0])} user and {len(groups[1])} item buckets")
+    log(f"  profile, one sweep: {wall_ms:.1f} ms host clock, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.2f}%), {events} device events; top device ops: "
+        f"{top_ops(ops, 6)}")
+    log(f"  peak device memory: the 3-sweep fit {peak_fit / 2**30:.3f} GiB, the timed sweeps "
+        f"{peak_sweep / 2**30:.3f} GiB")
+    log(f"  recommend_batch ({SERVE_BATCH} users, k={TOPK}) and TPUExactANN(recall_target=0.95):"
+        f" the exact lists of the plain version (positions relaxed as near-ties: {relaxed}); "
+        f"bf16 route equal to the plain version on rounded operands (relaxed {bf_rel}); "
+        f"fused_topk launches {fused}")
+    log(f"WMF at the Netflix widths: ok in {sum(clock.seconds.values()):.1f} s")
+    del groups, U, V, Ud, Vd, ann
+    torch.cuda.empty_cache()
+    return fused, dict(sweep_s=sweep_s, bound_s=bound_s, peak_fit=peak_fit,
+                       peak_sweep=peak_sweep, nnz=nnz)
 
 
 def scale_10m_dataset():
@@ -1289,21 +1675,6 @@ def phase_trainer_full(seed):
     log(f"trainer at full width: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
     return launches, fused, stats
-
-
-def time_ms(fn, reps, warm=3):
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def phase_times(bpr, users):
@@ -1477,8 +1848,8 @@ def phase_accumulate_times(cases):
     inputs ``phase_accumulate`` checked: the wrapper (one kernel), the plain
     version, ``index_add_`` (one library call, atomics) and ``index_add_``
     in PyTorch's deterministic mode, timed in turn, beside the bound; and
-    the kernel's own device time per launch from the profiler (the events'
-    time includes the wrapper's host time where that is longer). The
+    the kernel's own device time per launch, which ``phase_accumulate``
+    took from the profiler's events (None where it kept none). The
     bound counts what the function must move: the ids (8 bytes each) and
     the updates read once, each touched table row read and written once;
     its B * d additions are far below the float32 peak."""
@@ -1487,17 +1858,16 @@ def phase_accumulate_times(cases):
     from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch
 
     rows = {}
-    for label, (table, ids, upd, per_call) in cases.items():
+    for label, (table, ids, upd, per_call, device_ms, kept) in cases.items():
         (R, d), B = table.shape, ids.shape[0]
         reps = 200
         plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
         ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
-        # per device event the profiler kept: it has been seen to drop events
-        # of short kernels
-        _, busy_ms, kept, _ = profile_call(lambda: [accumulate_rows(table, ids, upd) for _ in range(20)])
-        device_ms = busy_ms / max(kept, 1)
         library_ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
         det_ms, det_bits, det_as_kernel, det_no_sync = deterministic_index_add(table, ids, upd, reps)
+        # the profiler again, after the run's long profiles: it has been seen
+        # to keep fewer of a short kernel's events late in the process
+        late = profile_call(lambda: [accumulate_rows(table, ids, upd) for _ in range(20)])[2]
         touched = torch.unique(ids).numel()
         nbytes = 8.0 * B + 4.0 * B * d + 8.0 * touched * d
         flops = float(B * d)
@@ -1510,8 +1880,11 @@ def phase_accumulate_times(cases):
                            bound_ms=bound_ms, bound_by=bound_by, shape=f"{B} ids into {R} x {d}")
         as_kernel = "the kernel's bits" if det_as_kernel else "not the kernel's bits"
         log(f"  times accumulate_rows, {label}: {B} ids into {R} rows x {d} ({touched} touched): "
-            f"kernel {ms:.4f} ms (device {device_ms:.4f} over {kept} events of 20 calls; "
-            f"{per_call:g} launch per call), plain {plain_ms:.4f} ms, "
+            f"kernel {ms:.4f} ms (device "
+            + ("not measured" if device_ms is None else
+               f"{device_ms:.4f} ms, mean of the {20 * kept:g} events the profiler kept of 20 "
+               f"calls in phase 5; it keeps {late} of 20 here")
+            + f"; {per_call:g} launch per call), plain {plain_ms:.4f} ms, "
             f"index_add_ {library_ms:.4f} ms, deterministic index_add_ {det_ms:.4f} ms (two "
             f"launches {'bit-identical' if det_bits else 'DIFFER'}, "
             f"{as_kernel}; "
@@ -1526,10 +1899,11 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.canary import CANARY
     from cornac_tpu_torch.ops.cosine_topk import COSINE_TOPK
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
 
-    libs = [FUSED_TOPK.library, COSINE_TOPK.library, ACCUMULATE_ROWS.library]
+    libs = [FUSED_TOPK.library, COSINE_TOPK.library, ACCUMULATE_ROWS.library, CANARY.library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for future in [pool.submit(lib.build) for lib in libs]:
@@ -1567,6 +1941,7 @@ def main():
     max_err = phase_kernel(gen)
     cos_err = phase_cosine(gen)
     acc_err, acc_cases = phase_accumulate(gen)
+    canary_err = phase_canary(gen)
     if args.quick:
         log(f"quick run done in {time.perf_counter() - t_start:.1f} s")
         return
@@ -1575,6 +1950,8 @@ def main():
         log(f"[{time.perf_counter() - t_start:.1f} s] {what}: done")
 
     lap("device, build and kernel-vs-plain phases")
+    probe_launches, _ = phase_probe()
+    lap("on-silicon probe")
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
@@ -1590,10 +1967,15 @@ def main():
         lap("related items")
         bench_launches, bench = phase_trainer_bench(bench_data.result)
         lap("trainers at the bench shape")
+        factor_launches, factor_fused, factor_fit, factor_acc_err = phase_factor_bench(
+            bench_data.result)
+        lap("factor family at the bench shape")
     finally:
         pool.shutdown(cancel_futures=True)
     full_launches, full_fused, full = phase_trainer_full(args.seed)
     lap("trainer at full width")
+    wmf_fused, wmf = phase_wmf_full(args.seed)
+    lap("WMF at the Netflix widths")
     rows = phase_times(bpr, users)
     cos_rows = phase_cosine_times([
         ("ML-1M item side", W_items),
@@ -1602,6 +1984,7 @@ def main():
         ("ML-10M item side", W10),
     ])
     acc_rows = phase_accumulate_times(acc_cases)
+    canary_row = phase_canary_times()
     lap("times")
     kernels = [{
         "name": "fused_topk",
@@ -1610,7 +1993,7 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
-        "launches": launches + full_fused,
+        "launches": launches + full_fused + factor_fused + wmf_fused + probe_launches["fused_topk"],
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1624,7 +2007,7 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/cosine_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_similarity.py:43",
-        "launches": knn_launches + ml10m_launches,
+        "launches": knn_launches + ml10m_launches + probe_launches["cosine_topk"],
         "max_abs_err": cos_err,
         "ms": cos["ms"],
         "plain_ms": cos["plain_ms"],
@@ -1641,8 +2024,8 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
         "replaces": "cornac_tpu/ops/accumulate.py:26",
-        "launches": bench_launches + full_launches,
-        "max_abs_err": acc_err,
+        "launches": bench_launches + full_launches + factor_launches,
+        "max_abs_err": max(acc_err, factor_acc_err),
         "ms": acc["ms"],
         "device_ms": acc["device_ms"],
         "plain_ms": acc["plain_ms"],
@@ -1652,6 +2035,21 @@ def main():
         "deterministic_library_ms": acc["deterministic_library_ms"],
         "launches_per_call": acc["launches_per_call"],
     })
+    kernels.append({
+        "name": "canary",
+        "shape": [128, 128],
+        "route": "cuda",
+        "source": "cornac_tpu_torch/csrc/canary.cu",
+        "replaces": "benchmarks/pallas_on_silicon.py:74",
+        "launches": probe_launches["canary"],
+        "max_abs_err": canary_err,
+        **canary_row,
+    })
+    log("factor family, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in factor_fit.items()))
+    log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
+        f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
+        f"{wmf['peak_fit'] / 2**30:.3f} GiB")
     log(f"trainers: bench shape AUC {bench['quality']['AUC']:.4f} NDCG@10 "
         f"{bench['quality']['NDCG@10']:.4f}, train {bench['train_s']:.3f} s, test "
         f"{bench['test_s']:.3f} s, busy {100 * bench['share']:.2f}%; full width "

@@ -8,12 +8,19 @@ and plain values, and the port rebuilds its own model from them.
 from collections import OrderedDict
 
 import numpy as np
+import torch
 from scipy.sparse import csr_matrix
 
+from .device import resolve_device
 from .models.baseline import BaselineOnly
 from .models.bpr import BPR
+from .models.ease import EASE
+from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
 from .models.mf import MF
+from .models.nmf import NMF
+from .models.pmf import PMF
+from .models.wmf import WMF
 
 _SNAPSHOT = (
     "num_users", "num_items", "uid_map", "iid_map",
@@ -129,3 +136,60 @@ def knn_from_arrays(cls_name, arrays, meta, device=None):
     model.train_set = model.val_set = None
     model.is_fitted = True
     return model
+
+
+# class name -> (class, the fitted arrays it keeps, the options it is built with)
+_FACTOR_MODELS = {
+    "PMF": (PMF, ("U", "V"), ("k", "variant")),
+    "WMF": (WMF, ("U", "V"), ("k",)),
+    "IBPR": (IBPR, ("U", "V"), ("k",)),
+    "OnlineIBPR": (OnlineIBPR, ("U", "V"), ("k",)),
+    "COE": (COE, ("U", "V"), ("k",)),
+    "NMF": (NMF, ("u_factors", "i_factors", "u_biases", "i_biases"), ("k", "use_bias")),
+    "EASE": (EASE, ("B",), ("lamb", "posB")),
+}
+
+
+def factor_model_from_arrays(cls_name, arrays, meta, device=None):
+    """A fitted port ``PMF``, ``NMF``, ``WMF``, ``EASE``, ``IBPR``,
+    ``OnlineIBPR`` or ``COE`` (``cls_name``) from ``arrays`` (numpy, under
+    the model's own attribute names: ``U``, ``V`` for PMF, WMF and the
+    triplet models; ``u_factors``, ``i_factors``, ``u_biases``,
+    ``i_biases`` for NMF; ``B`` for EASE, with its user rows as CSR
+    ``data``, ``indices``, ``indptr``, ``shape``) and ``meta`` (the options
+    ``k`` and ``variant`` (PMF), ``k`` and ``use_bias`` (NMF), ``lamb`` and
+    ``posB`` (EASE), ``k`` (the others), then ``num_users``, ``num_items``,
+    ``uid_map``, ``iid_map``, ``min_rating``, ``max_rating``,
+    ``global_mean``, the fitted model's). It scores as the model it was read
+    from. ``device``: where the model scores (default: the card)."""
+    if cls_name not in _FACTOR_MODELS:
+        raise ValueError(f"cls_name must be one of {sorted(_FACTOR_MODELS)}, got {cls_name!r}")
+    cls, names, options = _FACTOR_MODELS[cls_name]
+    _require(meta, options + _SNAPSHOT)
+    model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
+    _snapshot(model, meta)
+    for name in names:
+        setattr(model, name, np.asarray(arrays[name]))
+    if cls_name == "EASE":
+        model.U = csr_matrix(
+            (np.asarray(arrays["data"]), np.asarray(arrays["indices"]),
+             np.asarray(arrays["indptr"])), shape=tuple(arrays["shape"]))
+    model.train_set = model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def optimizer_state_from_arrays(state, device=None):
+    """The state of an ``ops.optim`` optimizer from an optax state given as
+    nested dicts of numpy arrays under optax's field names: ``{"count",
+    "mu", "nu"}`` (adam), ``{"nu"}`` (rmsprop), ``{"sum_of_squares"}``
+    (adagrad), ``{}`` (sgd); each moment a dict keyed as the parameters.
+    ``device``: where the tensors go (default: the card)."""
+    dev = resolve_device(device)
+
+    def convert(value):
+        if isinstance(value, dict):
+            return {key: convert(v) for key, v in value.items()}
+        return torch.as_tensor(np.array(value), device=dev)
+
+    return convert(state)

@@ -5,21 +5,24 @@ invariant: raw IDs map to dense indices through shared global maps,
 train-set entities occupy the prefix ``[0, num_users)`` and entities first
 seen in a later split take the tail indices. Every model and the eval loop
 rely on this to detect cold-start entities. The CSR, CSC and DOK views and
-the modality slots are the JAX package's; the per-entity views
-(``user_data``, ...), the batch iterators and the basket, sequential and
-purchase-view datasets come with the models that use them.
+the modality slots, the per-entity views (``user_data``, ...), the
+vectorised lookups (``lookup_ratings``, ``is_observed``) and the batch
+iterators are the JAX package's: they draw from the dataset's numpy ``rng``
+in the same order, so a seed gives byte-identical batches in both packages.
+The basket, sequential and purchase-view datasets come with the models
+that use them.
 """
 
 import copy
 import os
 import pickle
 import warnings
-from collections import OrderedDict
+from collections import OrderedDict, defaultdict
 
 import numpy as np
 from scipy.sparse import csc_matrix, csr_matrix
 
-from ..utils import get_rng, validate_format
+from ..utils import estimate_batches, get_rng, validate_format
 
 
 class Dataset:
@@ -74,6 +77,52 @@ class Dataset:
         """Raw item IDs ordered by dense index."""
         return self._cached("item_ids", lambda: list(self.iid_map.keys()))
 
+    def _group_by(self, key_arr, with_time=False):
+        """Group (items|users, ratings[, ts]) lists by the entities in
+        ``key_arr`` with one stable argsort (no Python loop per row)."""
+        u, i, r = self.uir_tuple
+        val_arr = i if key_arr is u else u
+        out = defaultdict()
+        order = np.argsort(key_arr, kind="stable")
+        keys_sorted = key_arr[order]
+        boundaries = np.flatnonzero(np.diff(keys_sorted)) + 1
+        starts = np.concatenate(([0], boundaries))
+        ends = np.concatenate((boundaries, [len(keys_sorted)]))
+        for s, e in zip(starts, ends):
+            idx = order[s:e]
+            if with_time:
+                idx = idx[np.argsort(self.timestamps[idx], kind="stable")]
+                out[keys_sorted[s]] = (
+                    list(val_arr[idx]), list(r[idx]), list(self.timestamps[idx]))
+            else:
+                out[keys_sorted[s]] = (list(val_arr[idx]), list(r[idx]))
+        return out
+
+    @property
+    def user_data(self):
+        """Dict: user index -> ([items], [ratings])."""
+        return self._cached("user_data", lambda: self._group_by(self.uir_tuple[0]))
+
+    @property
+    def item_data(self):
+        """Dict: item index -> ([users], [ratings])."""
+        return self._cached("item_data", lambda: self._group_by(self.uir_tuple[1]))
+
+    def _chrono(self, key, axis):
+        if self.timestamps is None:
+            raise ValueError("this view needs timestamps, but the data has none")
+        return self._cached(key, lambda: self._group_by(self.uir_tuple[axis], with_time=True))
+
+    @property
+    def chrono_user_data(self):
+        """Dict: user -> ([items], [ratings], [timestamps]) sorted by time."""
+        return self._chrono("chrono_user_data", 0)
+
+    @property
+    def chrono_item_data(self):
+        """Dict: item -> ([users], [ratings], [timestamps]) sorted by time."""
+        return self._chrono("chrono_item_data", 1)
+
     @property
     def matrix(self):
         return self.csr_matrix
@@ -98,6 +147,37 @@ class Dataset:
     def dok_matrix(self):
         # cheapest DOK construction: convert the (deduplicated) CSR view
         return self._cached("dok", lambda: self.csr_matrix.todok())
+
+    @property
+    def _sorted_keys(self):
+        """The interactions' keys ``u * num_items + i``, sorted, and the
+        order that sorts them: host lookups by binary search."""
+        def build():
+            u, i, _ = self.uir_tuple
+            keys = u.astype(np.int64) * self.num_items + i.astype(np.int64)
+            order = np.argsort(keys)
+            return keys[order], order
+
+        return self._cached("sorted_keys", build)
+
+    def _find(self, users, items):
+        """(position in the sorted keys, found) of each (user, item) pair."""
+        sorted_keys, _ = self._sorted_keys
+        keys = (np.asarray(users, dtype=np.int64) * self.num_items
+                + np.asarray(items, dtype=np.int64))
+        pos = np.minimum(np.searchsorted(sorted_keys, keys), len(sorted_keys) - 1)
+        return pos, sorted_keys[pos] == keys
+
+    def lookup_ratings(self, users, items):
+        """Vectorized rating lookup; 0.0 for unobserved pairs."""
+        pos, found = self._find(users, items)
+        out = np.zeros(len(found), dtype=np.float64)
+        out[found] = self.uir_tuple[2][self._sorted_keys[1][pos[found]]]
+        return out
+
+    def is_observed(self, users, items):
+        """Vectorized membership test for (user, item) pairs."""
+        return self._find(users, items)[1]
 
     @classmethod
     def build(
@@ -166,10 +246,105 @@ class Dataset:
         """Build from (user, item, rating) triplets."""
         return cls.build(data, "UIR", seed=seed)
 
+    @classmethod
+    def from_uirt(cls, data, seed=None):
+        """Build from (user, item, rating, timestamp) quadruplets."""
+        return cls.build(data, "UIRT", seed=seed)
+
     def reset(self):
         """Re-seed the iterator RNG for reproducible epochs."""
         self.rng = get_rng(self.seed)
         return self
+
+    def num_batches(self, batch_size):
+        return estimate_batches(len(self.uir_tuple[0]), batch_size)
+
+    def num_user_batches(self, batch_size):
+        return estimate_batches(self.num_users, batch_size)
+
+    def num_item_batches(self, batch_size):
+        return estimate_batches(self.num_items, batch_size)
+
+    def idx_iter(self, idx_range, batch_size=1, shuffle=False):
+        """Yield batches of indices over ``range(idx_range)``."""
+        order = np.arange(idx_range)
+        if shuffle:
+            self.rng.shuffle(order)
+        for start in range(0, len(order), batch_size):
+            yield order[start : start + batch_size]
+
+    def _sample_negatives(self, users, reject_fn, population=None, max_rounds=100):
+        """Vectorized rejection sampling of negative items: draw one per
+        user, then redraw only the entries ``reject_fn(users, items)``
+        rejects, for at most ``max_rounds`` rounds."""
+        def draw(size):
+            if population is None:
+                return self.rng.randint(0, self.num_items, size=size)
+            return population[self.rng.randint(0, len(population), size=size)]
+
+        neg = draw(len(users))
+        bad = reject_fn(users, neg)
+        rounds = 0
+        while bad.any() and rounds < max_rounds:
+            neg[bad] = draw(int(bad.sum()))
+            bad = reject_fn(users, neg) & bad
+            rounds += 1
+        return neg
+
+    def uir_iter(self, batch_size=1, shuffle=False, binary=False, num_zeros=0):
+        """Yield (users, items, ratings) batches, optionally with sampled
+        unobserved (zero-rating) pairs appended."""
+        u_arr, i_arr, r_arr = self.uir_tuple
+        for batch_ids in self.idx_iter(len(u_arr), batch_size, shuffle):
+            batch_users = u_arr[batch_ids]
+            batch_items = i_arr[batch_ids]
+            batch_ratings = np.ones_like(batch_items) if binary else r_arr[batch_ids]
+            if num_zeros > 0:
+                repeated_users = batch_users.repeat(num_zeros)
+                neg_items = self._sample_negatives(
+                    repeated_users, reject_fn=lambda us, its: self.lookup_ratings(us, its) > 0)
+                batch_users = np.concatenate((batch_users, repeated_users))
+                batch_items = np.concatenate((batch_items, neg_items))
+                batch_ratings = np.concatenate((batch_ratings, np.zeros_like(neg_items)))
+            yield batch_users, batch_items, batch_ratings
+
+    def uij_iter(self, batch_size=1, shuffle=False, neg_sampling="uniform"):
+        """Yield (users, pos_items, neg_items) BPR triplets. A negative j is
+        redrawn while the user rated it at least as high as the positive.
+        ``neg_sampling='popularity'`` draws negatives in proportion to item
+        frequency (from the interaction item array)."""
+        if neg_sampling.lower() == "uniform":
+            population = None
+        elif neg_sampling.lower() == "popularity":
+            population = self.uir_tuple[1]
+        else:
+            raise ValueError("Unsupported negative sampling option: {}".format(neg_sampling))
+
+        u_arr, i_arr, r_arr = self.uir_tuple
+        for batch_ids in self.idx_iter(len(u_arr), batch_size, shuffle):
+            batch_users = u_arr[batch_ids]
+            pos_ratings = r_arr[batch_ids]
+            batch_neg = self._sample_negatives(
+                batch_users,
+                reject_fn=lambda us, its, pr=pos_ratings: (
+                    (self.lookup_ratings(us, its) >= pr) & self.is_observed(us, its)),
+                population=population,
+            )
+            yield batch_users, i_arr[batch_ids], batch_neg
+
+    def _entity_iter(self, axis, batch_size, shuffle):
+        """Batches of the distinct entity ids on one side of the data."""
+        distinct = np.unique(self.uir_tuple[axis])
+        for batch_ids in self.idx_iter(len(distinct), batch_size, shuffle):
+            yield distinct[batch_ids]
+
+    def user_iter(self, batch_size=1, shuffle=False):
+        """Yield batches of distinct user indices present in the data."""
+        return self._entity_iter(0, batch_size, shuffle)
+
+    def item_iter(self, batch_size=1, shuffle=False):
+        """Yield batches of distinct item indices present in the data."""
+        return self._entity_iter(1, batch_size, shuffle)
 
     _MODALITY_ATTRS = (
         "user_feature", "item_feature", "user_text", "item_text",

@@ -134,7 +134,8 @@ class TPUExactANN(BaseANN):
 
     ``device``: where the index lives (default: the base model's device,
     else the card). ``recall_target`` selects the JAX package's approximate
-    mode, which is not ported yet: a query with it set raises.
+    mode; the port answers it with the same exact lists (recall 1.0, which
+    meets every target; ``ops.fused_topk.fused_topk``).
     """
 
     def __init__(self, model, name="TPUExactANN", verbose=False,

@@ -15,7 +15,7 @@ from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_broadcast_row
 from ..utils import get_rng
 from ..utils.init_utils import zeros
-from .recommender import Recommender
+from .recommender import Recommender, pad_to_catalog
 
 
 class GlobalAvg(Recommender):
@@ -204,14 +204,7 @@ class BaselineOnly(Recommender):
         known = (users >= 0) & (users < self.num_users)
         bu = np.where(known, self.u_biases[np.where(known, users, 0)], 0.0)
         scores = self.global_mean + bu[:, None] + self.i_biases[None, :]
-        total = self.total_items
-        if scores.shape[1] < total:
-            out = np.broadcast_to(
-                scores.min(axis=1, keepdims=True), (scores.shape[0], total)
-            ).copy()
-            out[:, : scores.shape[1]] = scores
-            return out
-        return scores
+        return pad_to_catalog(scores, self.total_items)
 
     def score_pairs(self, user_indices, item_indices):
         users = np.asarray(user_indices)

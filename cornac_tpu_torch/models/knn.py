@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..exception import ScoreException
 from ..ops.cosine_topk import co_support_cosine, cosine_topk_sparse
 from ..utils import get_rng
-from .recommender import Recommender
+from .recommender import Recommender, pad_to_catalog
 
 EPS = 1e-8
 
@@ -283,14 +283,7 @@ class _KNNBase(Recommender):
         """Unknown users get ``default_score()``; items past the train set
         the row's minimum, as in the JAX package."""
         scores[~known] = self.default_score()
-        total = self.total_items
-        if scores.shape[1] < total:
-            out = np.broadcast_to(
-                scores.min(axis=1, keepdims=True), (scores.shape[0], total)
-            ).copy()
-            out[:, : scores.shape[1]] = scores
-            return out
-        return scores
+        return pad_to_catalog(scores, self.total_items)
 
 
 class UserKNN(_KNNBase):

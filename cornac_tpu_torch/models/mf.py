@@ -8,8 +8,15 @@ minibatches of gather -> error -> deterministic row updates
 (``ops.accumulate.accumulate_rows``). The biases ride as extra factor
 columns (U gains [Bu, 1], V gains [1, Bi]), so each step updates two tables.
 ``early_stop`` compares each epoch's loss on the host, through
-``epoch_loop(max_chunk=1)``. The general-optimizer path with embedding
-dropout (``_fit_optax``) is not ported yet (ROADMAP.md A5).
+``epoch_loop(max_chunk=1)``.
+
+Another ``optimizer`` (``adam``, ``rmsprop``, ``adagrad``) or ``dropout > 0``
+takes the general-optimizer path, ``_mf_optax_epoch``: per minibatch, autograd
+through the gathered rows (``ops.accumulate.gather_rows``, whose gradient is
+the deterministic ``accumulate_rows``), then the optax update rule written out
+in ``ops.optim``, dense over the whole tables. The dropout masks come from the
+epoch's generator, one pair per minibatch after the permutation, as the JAX
+package folds the minibatch index into the epoch's key.
 
 SVD is MF with the biases on, as in the JAX package.
 """
@@ -18,12 +25,13 @@ import numpy as np
 import torch
 
 from ..exception import ScoreException
-from ..ops.accumulate import accumulate_rows
+from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.dispatch import full_f32
+from ..ops.optim import apply_updates, make_optimizer
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import normal, zeros
-from .recommender import ANNMixin, MEASURE_DOT, Recommender
+from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
 
 DTYPE = np.float32
 
@@ -77,6 +85,52 @@ def _mf_epoch(U, V, perm, mask, pairs, val, lr, reg, mu, batch_size, u_gate, v_g
     return 0.5 * loss
 
 
+def _mf_optax_loss(params, u, i, r, m, reg, mu, use_bias, keep_u=None, keep_i=None):
+    """Half the squared error plus half the L2 term of one minibatch, as
+    ``cornac_tpu/models/mf.py::_mf_optax_epochs``'s ``loss_fn``: ``keep_u``
+    and ``keep_i`` are the dropout masks already divided by the keep rate
+    (None without dropout); the L2 term reads the rows before dropout."""
+    pu_raw, qi_raw = gather_rows(params["U"], u), gather_rows(params["V"], i)
+    pu = pu_raw if keep_u is None else pu_raw * keep_u
+    qi = qi_raw if keep_i is None else qi_raw * keep_i
+    pred = (pu * qi).sum(1)
+    if use_bias:
+        pred = pred + mu + gather_rows(params["Bu"], u) + gather_rows(params["Bi"], i)
+    err = (r - pred) * m
+    mm = m[:, None]
+    reg_term = reg * ((pu_raw * pu_raw * mm).sum() + (qi_raw * qi_raw * mm).sum())
+    return 0.5 * (err * err).sum() + 0.5 * reg_term
+
+
+def _mf_optax_epoch(params, opt, opt_state, perm, mask, pairs, val, reg, mu, batch_size,
+                    use_bias, dropout, gen):
+    """One epoch of the general-optimizer path over the ratings in the order
+    ``perm`` (padded to whole minibatches; ``mask`` 0 on the padding).
+    ``params``: {"U", "V", "Bu", "Bi"} float32 tensors that require grad,
+    updated in place by ``opt`` (``ops.optim``). With ``dropout`` > 0 each
+    minibatch draws its user and item masks from ``gen``. Returns (the new
+    optimizer state, the epoch's summed loss as a device scalar)."""
+    names = ("U", "V", "Bu", "Bi")
+    keep = 1.0 - dropout
+    loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
+    for s in range(0, perm.shape[0], batch_size):
+        idx, m = perm[s:s + batch_size], mask[s:s + batch_size]
+        u, i = pairs[idx].unbind(1)
+        keep_u = keep_i = None
+        if dropout > 0.0:
+            shape = (idx.shape[0], params["U"].shape[1])
+            keep_u = (torch.rand(shape, generator=gen, device=gen.device) < keep) / keep
+            keep_i = (torch.rand(shape, generator=gen, device=gen.device) < keep) / keep
+        loss = _mf_optax_loss(params, u, i, val[idx], m, reg, mu, use_bias, keep_u, keep_i)
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+        grads = {n: torch.zeros_like(params[n]) if g is None else g
+                 for n, g in zip(names, grads)}
+        updates, opt_state = opt.update(grads, opt_state)
+        apply_updates(params, updates)
+        loss_sum += loss.detach()
+    return opt_state, loss_sum
+
+
 def _mf_scores(U, V, Bu, Bi, mu, users, known):
     """(B, num_items) scores mu + Bu + Bi + U Vᵀ; unknown users (``known``
     0) get no personal term, as in the JAX package."""
@@ -93,8 +147,10 @@ class MF(Recommender, ANNMixin):
     ``learning_rate``, ``lambda_reg``, ``use_bias``, ``early_stop`` (stop on
     a small change of the loss), ``init_params`` ({'U','V','Bu','Bi'}),
     ``seed``, ``batch_size``. ``device``: where the model trains and scores
-    (default: the card). ``optimizer`` other than ``"sgd"``, ``dropout`` and
-    ``mesh`` are not ported yet.
+    (default: the card). ``optimizer``: ``"sgd"``, ``"adam"``,
+    ``"rmsprop"`` or ``"adagrad"`` (optax's rules and defaults); with
+    ``dropout`` > 0 the factors of each minibatch are dropped out at that
+    rate. ``mesh`` is not ported yet.
     """
 
     def __init__(
@@ -168,15 +224,11 @@ class MF(Recommender, ANNMixin):
         Recommender.fit(self, train_set, val_set)
         self._init()
         if self.trainable:
-            self._fit_sgd(train_set)
+            self._fit(train_set)
         return self
 
-    def _fit_sgd(self, train_set):
-        if self.optimizer != "sgd" or self.dropout > 0.0:
-            raise NotImplementedError(
-                "MF with optimizer other than 'sgd' or dropout > 0 (the JAX package's "
-                "optax path) is not ported yet (ROADMAP.md A5)"
-            )
+    def _fit(self, train_set):
+        opt = make_optimizer(self.optimizer, self.learning_rate)  # raises on an unknown name
         dev = self._device()
         rng = get_rng(self.seed)
         rid, cid, val = train_set.uir_tuple
@@ -187,22 +239,48 @@ class MF(Recommender, ANNMixin):
         val_d = torch.as_tensor(np.asarray(val, np.float32), device=dev)
         mask = torch.cat([torch.ones(n, device=dev), torch.zeros(n_pad, device=dev)])
         pad = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        seed = rng.randint(2**31)
+        last = {"loss": None}
+        max_chunk = 1 if self.early_stop else None
+
+        def permutation(epoch):
+            gen = epoch_generator(seed, epoch, dev)
+            return gen, torch.cat([_epoch_permutation(n, gen), pad])
+
+        if self.optimizer != "sgd" or self.dropout > 0.0:
+            params = {name: torch.tensor(np.asarray(a, np.float32), device=dev,
+                                         requires_grad=True)
+                      for name, a in (("U", self.u_factors), ("V", self.i_factors),
+                                      ("Bu", self.u_biases), ("Bi", self.i_biases))}
+
+            def run_optax(opt_state, start, e):
+                for epoch in range(start, start + e):
+                    gen, perm = permutation(epoch)
+                    opt_state, loss = _mf_optax_epoch(
+                        params, opt, opt_state, perm, mask, pairs, val_d, self.lambda_reg,
+                        float(self.global_mean), bsz, self.use_bias, float(self.dropout), gen)
+                return opt_state, self._epoch_info(loss, last)
+
+            epoch_loop(self, self.max_iter, run_optax, opt.init(params),
+                       on_report=self._report, max_chunk=max_chunk)
+            for attr, name in (("u_factors", "U"), ("i_factors", "V"), ("u_biases", "Bu"),
+                               ("i_biases", "Bi")):
+                setattr(self, attr, params[name].detach().cpu().numpy())
+            return
+
         U, V, u_gate, v_gate = _extended_tables(
             self.u_factors, self.i_factors, self.u_biases, self.i_biases, self.use_bias, dev)
         mu = float(self.global_mean) if self.use_bias else None
-        seed = rng.randint(2**31)
-        last = {"loss": None}
 
         def run_chunk(state, start, e):
             U, V = state
             for epoch in range(start, start + e):
-                perm = _epoch_permutation(n, epoch_generator(seed, epoch, dev))
-                loss = _mf_epoch(U, V, torch.cat([perm, pad]), mask, pairs, val_d,
+                loss = _mf_epoch(U, V, permutation(epoch)[1], mask, pairs, val_d,
                                  self.learning_rate, self.lambda_reg, mu, bsz, u_gate, v_gate)
             return state, self._epoch_info(loss, last)
 
         epoch_loop(self, self.max_iter, run_chunk, (U, V), on_report=self._report,
-                   max_chunk=1 if self.early_stop else None)
+                   max_chunk=max_chunk)
 
         k = self.k
         self.u_factors = U[:, :k].cpu().numpy()
@@ -252,14 +330,7 @@ class MF(Recommender, ANNMixin):
 
     def score_batch(self, user_indices):
         scores = self.score_batch_device(user_indices).cpu().numpy().astype(np.float64)
-        total = self.total_items
-        if scores.shape[1] < total:
-            out = np.broadcast_to(
-                scores.min(axis=1, keepdims=True), (scores.shape[0], total)
-            ).copy()
-            out[:, : scores.shape[1]] = scores
-            return out
-        return scores
+        return pad_to_catalog(scores, self.total_items)
 
     def score_batch_device(self, user_indices):
         dev = self._device()

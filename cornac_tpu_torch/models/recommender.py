@@ -60,6 +60,17 @@ class ANNMixin:
         raise NotImplementedError("ANN-capable models expose item vectors")
 
 
+def pad_to_catalog(scores, total):
+    """(B, total) host scores: the columns past the trained items (entities
+    first seen in a later split) take each row's minimum, as the JAX
+    package's factor models' ``score_batch`` gives them."""
+    if scores.shape[1] >= total:
+        return scores
+    out = np.broadcast_to(scores.min(axis=1, keepdims=True), (scores.shape[0], total)).copy()
+    out[:, : scores.shape[1]] = scores
+    return out
+
+
 class Recommender:
     """Generic recommender. Subclasses implement ``fit`` and ``score`` (and
     ideally ``score_batch``/``score_pairs`` for fast device evaluation)."""

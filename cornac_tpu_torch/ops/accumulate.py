@@ -195,3 +195,28 @@ def accumulate_rows(table, ids, updates, force=None):
     if not updates.is_contiguous():
         updates = updates.contiguous()
     return ACCUMULATE_ROWS(table, ids, updates)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose gradient is a scatter-add through
+    ``accumulate_rows``: duplicate ids sum in batch order, the same bits on
+    every run (autograd's own backward of a gather is atomic on the card)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        table_grad = grad.new_zeros(ctx.table_shape)
+        return accumulate_rows(table_grad, ids, grad.contiguous()), None
+
+
+def gather_rows(table, ids):
+    """``table[ids]`` for the trainers' autodiff losses: ids (B,) int64 into
+    the first dimension of a float32 table; the gradient with respect to
+    ``table`` is summed deterministically (``accumulate_rows``)."""
+    return _GatherRows.apply(table, ids)

@@ -142,21 +142,32 @@ def fused_topk(U, V, k, bias=None, force=None, precision="f32",
     same exact answer: the kernel splits the catalog itself, into as many
     slices as fill the card (``split_plan``), whatever P asks for.
 
-    ``precision="bf16"`` and ``recall_target`` select the JAX package's
-    XLA-only inexact variants, which the port does not have yet: they raise
-    rather than answer with the exact path.
+    ``recall_target``: the JAX package's approximate mode
+    (``jax.lax.approx_max_k``), a float in (0, 1]. The port answers it with
+    the exact selection: recall 1.0, which meets every target, and the same
+    ties to the smaller index. It is checked before ``precision``, as the
+    JAX function checks it, so its scores are float32 products even when
+    ``precision="bf16"``.
+
+    ``precision="bf16"``: bf16 operands, float32 accumulation, as the JAX
+    package's XLA variant computes them. U and V are rounded to bfloat16
+    (round to nearest even) and back to float32 on their device, and the
+    exact path runs on the rounded operands with the bias in float32: the
+    product of two bf16 values is exact in float32, so only the order of the
+    sums differs from JAX's, and the tie rule is the exact path's.
     """
-    if precision != "f32" or recall_target is not None:
-        raise NotImplementedError(
-            "fused_topk's bf16 and recall_target variants are not ported yet "
-            "(ROADMAP.md); only the exact f32 path exists"
-        )
+    if recall_target is not None and not 0.0 < float(recall_target) <= 1.0:
+        raise ValueError(f"recall_target must lie in (0, 1], got {recall_target}")
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
     device = U.device if isinstance(U, torch.Tensor) else default_device()
     U = torch.as_tensor(U, dtype=torch.float32, device=device).contiguous()
     V = torch.as_tensor(V, dtype=torch.float32, device=device).contiguous()
     if bias is not None:
         bias = torch.as_tensor(bias, dtype=torch.float32, device=device).contiguous()
     k = int(min(k, V.shape[0]))
+    if precision == "bf16" and recall_target is None:
+        U, V = (t.to(torch.bfloat16).to(torch.float32) for t in (U, V))
     if resolve_path(force, device) == "torch":
         return fused_topk_torch(U, V, k, bias)
     return FUSED_TOPK(U, V, k, bias)

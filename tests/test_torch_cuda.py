@@ -15,10 +15,11 @@ import torch
 
 from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, TPUExactANN
-from cornac_tpu_torch.models import ItemKNN, UserKNN
+from cornac_tpu_torch.models import COE, EASE, IBPR, NMF, PMF, WMF, ItemKNN, OnlineIBPR, UserKNN
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
+from cornac_tpu_torch.ops.canary import CANARY, scale2, scale2_torch
 from cornac_tpu_torch.ops.cosine_topk import (
     COSINE_TOPK, NEG_INF, co_support_cosine, cosine_topk, cosine_topk_sparse, cosine_topk_torch,
     dense_views, scipy_views)
@@ -396,3 +397,138 @@ def test_epochs_never_sync_with_the_host(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(loss))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (1,), (257,), (3, 1000, 7)])
+def test_canary_is_x_times_two(card, shape):
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(1), device=card)
+    before = CANARY.launches
+    y = scale2(x)
+    torch.cuda.synchronize()
+    assert CANARY.launches == before + 1
+    assert y.device == x.device and torch.equal(y, scale2_torch(x))
+    with pytest.raises(ValueError):
+        CANARY(x.double())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_inexact_variants_run_the_kernel(card, bias):
+    # bf16: the kernel on rounded operands; recall_target: the exact kernel
+    rng = np.random.RandomState(4)
+    U, V, b = _on(card, rng.randn(33, 40).astype(np.float32), rng.randn(2500, 40).astype(np.float32),
+                  rng.randn(2500).astype(np.float32) if bias else None)
+    rU, rV = (t.to(torch.bfloat16).float() for t in (U, V))
+    before = FUSED_TOPK.launches
+    s, i = fused_topk(U, V, 50, bias=b, precision="bf16")
+    s_ref, i_ref = fused_topk_torch(rU, rV, 50, b)
+    assert FUSED_TOPK.launches == before + 1
+    torch.testing.assert_close(s, s_ref, rtol=1e-5, atol=1e-5)
+    assert (i != i_ref).float().mean() < 0.01
+    for precision in ("f32", "bf16"):  # the variant's launch and the exact one's
+        s, i = fused_topk(U, V, 50, bias=b, recall_target=0.95, precision=precision)
+        assert torch.equal(i, fused_topk(U, V, 50, bias=b)[1])
+    assert FUSED_TOPK.launches == before + 5
+
+
+def _star_train(seed=2, n_users=300, n_items=200, n=6000):
+    rng = np.random.RandomState(seed)
+    pairs = sorted({(rng.randint(n_users), rng.randint(n_items)) for _ in range(n)})
+    return Dataset.from_uir([(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs],
+                            seed=1)
+
+
+@pytest.mark.parametrize("make,attrs", [
+    (lambda **kw: PMF(max_iter=5, batch_size=512, **kw), ("U", "V")),
+    (lambda **kw: NMF(max_iter=5, **kw), ("u_factors", "i_factors", "u_biases", "i_biases")),
+    (lambda **kw: WMF(k=8, max_iter=3, **kw), ("U", "V")),
+    (lambda **kw: IBPR(k=8, max_iter=3, batch_size=512, **kw), ("U", "V")),
+    (lambda **kw: OnlineIBPR(k=8, max_iter=3, batch_size=512, **kw), ("U", "V")),
+    (lambda **kw: COE(k=8, max_iter=3, **kw), ("U", "V")),
+    (lambda **kw: MF(max_iter=3, optimizer="adam", dropout=0.1, **kw),
+     ("u_factors", "i_factors", "u_biases", "i_biases")),
+    (lambda **kw: MF(max_iter=3, optimizer="rmsprop", **kw), ("u_factors", "i_factors")),
+    (lambda **kw: MF(max_iter=3, optimizer="adagrad", use_bias=False, **kw),
+     ("u_factors", "i_factors")),
+])
+def test_new_seeded_fits_on_the_card_are_identical(card, make, attrs):
+    # one chunk, then one-epoch chunks (verbose): the same bits; the
+    # gathers' gradients and the SGD updates go through the kernel
+    train = _star_train()
+    fits = []
+    for verbose in (False, True):
+        before = ACCUMULATE_ROWS.launches
+        fits.append(make(seed=4, verbose=verbose, device=card).fit(train))
+        if not isinstance(fits[-1], WMF):
+            assert ACCUMULATE_ROWS.launches > before
+    for name in attrs:
+        assert np.isfinite(getattr(fits[0], name)).all()
+        np.testing.assert_array_equal(getattr(fits[0], name), getattr(fits[1], name))
+
+
+def test_ease_on_the_card_matches_the_cpu(card):
+    train = _star_train()
+    on_card = EASE(lamb=50, verbose=False, device=card).fit(train)
+    again = EASE(lamb=50, verbose=False, device=card).fit(train)
+    on_cpu = EASE(lamb=50, verbose=False, device="cpu").fit(train)
+    np.testing.assert_array_equal(on_card.B, again.B)
+    np.testing.assert_allclose(on_card.B, on_cpu.B, rtol=1e-4, atol=1e-6)
+    users = np.arange(0, 300, 7)
+    np.testing.assert_allclose(on_card.score_batch(users), on_cpu.score_batch(users),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_new_epochs_never_sync_with_the_host(card):
+    # PMF, MF's optax path with dropout, the triplet models' steps, NMF and
+    # the WMF sweeps run under the sync debug mode "error"
+    from scipy.sparse import csr_matrix
+
+    from cornac_tpu_torch.models import ibpr as ibpr_mod, mf as mf_mod, nmf as nmf_mod
+    from cornac_tpu_torch.models import pmf as pmf_mod, wmf as wmf_mod
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.ops.optim import adam
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    rng = np.random.RandomState(1)
+    n_users, n_items, n, k = 500, 300, 20_000, 8
+    rid, cid = rng.randint(n_users, size=n), rng.randint(n_items, size=n)
+    csr = csr_matrix((np.ones(n, np.float32), (rid, cid)), shape=(n_users, n_items))
+    csr.sum_duplicates()
+    pairs = torch.as_tensor(np.stack([rid, cid], 1), device=card)
+    val = torch.as_tensor(rng.randint(1, 6, size=n).astype(np.float32), device=card)
+    mask = torch.ones(n, device=card)
+    U = torch.as_tensor(rng.randn(n_users, k).astype(np.float32) * 0.1, device=card)
+    V = torch.as_tensor(rng.randn(n_items, k).astype(np.float32) * 0.1, device=card)
+    membership = build_membership(csr, device=card)
+    groups = [wmf_mod._bucketed_csr(m, k, card) for m in (csr, csr.T.tocsr())]
+    counts = [torch.as_tensor(np.bincount(a, minlength=m).astype(np.float32), device=card)
+              for a, m in ((rid, n_users), (cid, n_items))]
+    params = {name: t.clone().requires_grad_(True) for name, t in (
+        ("U", U), ("V", V), ("Bu", torch.zeros(n_users, device=card)),
+        ("Bi", torch.zeros(n_items, device=card)))}
+    opt = adam(0.01)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen = epoch_generator(5, 0, card)
+        perm = mf_mod._epoch_permutation(n, gen)
+        pmf_loss = pmf_mod._pmf_epoch(U.clone(), V.clone(), torch.zeros_like(U),
+                                      torch.zeros_like(V), perm, mask, pairs, val / 5, 0.01,
+                                      0.01, 0.9, 1000, True)
+        state, mf_loss = mf_mod._mf_optax_epoch(params, opt, opt.init(params), perm, mask,
+                                                pairs, val, 0.02, 3.0, 1000, True, 0.1, gen)
+        tparams = {"U": params["U"], "V": params["V"]}
+        tstate = opt.init(tparams)
+        m = (~membership.query(pairs[:1000, 0], pairs[1000:2000, 1])).float()
+        for distance in ("angular", "euclidean"):
+            tstate, tloss = ibpr_mod._triplet_step(tparams, opt, tstate, pairs[:1000, 0],
+                                                   pairs[:1000, 1], pairs[1000:2000, 1], m,
+                                                   0.001, distance, True)
+        nmf_out = nmf_mod._nmf_epochs(U.abs(), V.abs(), torch.zeros(n_users, device=card),
+                                      torch.zeros(n_items, device=card), pairs[:, 0],
+                                      pairs[:, 1], val, *counts, 0.005, 0.06, 0.06, 0.02, 0.02,
+                                      3.0, 2, True)
+        wU, wV = wmf_mod._als_sweeps_bucketed(U, V, *groups, 1.0, 0.01, 0.01, 0.01, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t in (pmf_loss, mf_loss, tloss, *nmf_out, wU, wV):
+        assert torch.isfinite(t).all()

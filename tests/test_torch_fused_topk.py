@@ -103,8 +103,9 @@ def test_kernel_refuses_cpu_tensors_and_unported_variants():
         fused_topk(U, V, 5, force="kernel")
     with pytest.raises(ValueError):
         FUSED_TOPK(torch.from_numpy(U), torch.from_numpy(V), 5)
-    for kwargs in ({"precision": "bf16"}, {"recall_target": 0.95}):
-        with pytest.raises(NotImplementedError):
+    # the variants are ported (tests below); what is not a variant raises
+    for kwargs in ({"precision": "f16"}, {"recall_target": 0.0}, {"recall_target": 1.5}):
+        with pytest.raises(ValueError):
             fused_topk(U, V, 5, **kwargs)
     # partitions is ported: the exact answer, whatever P
     s, i = fused_topk(U, V, 5, partitions=4)
@@ -163,3 +164,101 @@ def test_split_plan_counts_on_count_aware_lists():
     chunks = -(-17_700 // CHUNK)
     last = 17_700 - ((S - 1) * chunks // S) * CHUNK
     assert S == chunks and last < 400
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 300])
+def test_bf16_matches_jax(bias, k):
+    # JAX: bf16 operands, float32 accumulation (_fused_topk_xla_bf16). The
+    # port rounds the operands to bf16 and runs the exact path: their
+    # products are exact in float32, so only the order of the sums differs.
+    # Scores within rtol 1e-5 / atol 1e-5; ids equal, except swaps of items
+    # whose bf16 scores lie within that tolerance of each other.
+    from cornac_tpu.ops.pallas_ranking import _fused_topk_xla_bf16
+
+    U, V, b = _data(B=17, N=2000, d=33, bias=bias, seed=k)
+    s, i = fused_topk(U, V, k, bias=b, precision="bf16")
+    bj = np.zeros(2000, np.float32) if b is None else b
+    s_ref, i_ref = (np.asarray(a) for a in _fused_topk_xla_bf16(U, V, bj, k))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), s_ref, **tol)
+    exact = _bf16(U).astype(np.float64) @ _bf16(V).astype(np.float64).T + bj
+    rows, cols = np.nonzero(i.numpy() != i_ref)
+    np.testing.assert_allclose(exact[rows, i.numpy()[rows, cols]],
+                               exact[rows, i_ref[rows, cols]], **tol)
+    assert len(rows) <= 2
+    # the rounding is real: the f32 path gives other scores
+    assert not np.array_equal(s.numpy(), fused_topk(U, V, k, bias=b)[0].numpy())
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 64, 199, 200])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_recall_target_matches_jax_on_ties(k, precision):
+    # integer scores tie everywhere. The port answers every recall_target
+    # with the exact selection, ties to the smaller index, as lax.top_k;
+    # recall_target is checked first, so precision does not change the
+    # answer (as in JAX). Off the TPU jax.lax.approx_max_k gives lax.top_k's
+    # answer, ties included, for 2 <= k < N: there the lists are equal. At
+    # k = 1 it keeps the last of the tied items and at k = N it orders ties
+    # arbitrarily (ROADMAP.md C): there the scores are equal and each list
+    # holds the same items in each run of equal scores.
+    from cornac_tpu.ops.pallas_ranking import _fused_topk_xla, _fused_topk_xla_approx
+
+    rng = np.random.RandomState(k)
+    N = 200
+    U = rng.randint(-1, 2, (9, 5)).astype(np.float32)
+    V = rng.randint(-1, 2, (N, 5)).astype(np.float32)
+    b = rng.randint(-1, 2, N).astype(np.float32)
+    _, i_top = _fused_topk_xla(U, V, b, k)
+    for target in (0.5, 0.95):
+        s, i = fused_topk(U, V, k, bias=b, recall_target=target, precision=precision)
+        s_ref, i_ref = (np.asarray(a) for a in _fused_topk_xla_approx(U, V, b, k, target))
+        np.testing.assert_array_equal(s.numpy(), s_ref)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_top))
+        if 2 <= k < N:
+            np.testing.assert_array_equal(i.numpy(), i_ref)
+        else:
+            full = U @ V.T + b
+            for row in range(U.shape[0]):
+                for score in np.unique(s_ref[row]):
+                    at = s_ref[row] == score
+                    assert set(i.numpy()[row][at]) <= set(np.flatnonzero(full[row] == score))
+                    assert set(i_ref[row][at]) <= set(np.flatnonzero(full[row] == score))
+                    assert at.sum() == len(set(i.numpy()[row][at]))
+        j_s, j_i = jax_fused_topk(U, V, k, bias=b, recall_target=target, precision=precision)
+        np.testing.assert_array_equal(np.asarray(j_i), i_ref)
+
+
+@pytest.mark.parametrize("measure_model", ["BPR", "COE"])
+def test_exact_ann_with_recall_target_matches_jax(measure_model):
+    # TPUExactANN(recall_target=0.95): the JAX class answers through
+    # approx_max_k (exact off the TPU), the port through its exact path;
+    # dot measure (BPR) and L2 (COE)
+    from cornac_tpu.data import Dataset as JDataset
+    from cornac_tpu.models import BPR as JBPR, COE as JCOE, TPUExactANN as JANN
+    from cornac_tpu_torch.data import Dataset
+    from cornac_tpu_torch.models import BPR, COE, TPUExactANN
+
+    rng = np.random.RandomState(5)
+    data = [(f"u{u}", f"i{i}", 1.0) for u, i in
+            sorted({(rng.randint(60), rng.randint(90)) for _ in range(900)})]
+    cls, j_cls = (BPR, JBPR) if measure_model == "BPR" else (COE, JCOE)
+    init = {"U": rng.randn(60, 6).astype(np.float32), "V": rng.randn(90, 6).astype(np.float32)}
+    if measure_model == "BPR":
+        init["Bi"] = rng.randn(90).astype(np.float32)
+    jm = j_cls(k=6, trainable=False, init_params=dict(init)).fit(JDataset.from_uir(data, seed=1))
+    pm = cls(k=6, trainable=False, init_params=dict(init)).fit(Dataset.from_uir(data, seed=1))
+    jann, pann = JANN(jm, recall_target=0.95), TPUExactANN(pm, recall_target=0.95)
+    jann.build_index()
+    pann.build_index()
+    q = np.asarray(jm.get_user_vectors(), np.float32)[:20]
+    # k < N: at k = N approx_max_k orders ties arbitrarily (see above)
+    for k in (5, 89):
+        ji, jd = jann.knn_query(q, k)
+        pi, pd = pann.knn_query(q, k)
+        np.testing.assert_array_equal(pi, ji)
+        np.testing.assert_allclose(pd, jd, rtol=1e-5, atol=1e-5)

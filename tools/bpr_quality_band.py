@@ -1,20 +1,28 @@
-"""The quality band of ``bench.py``'s BPR configuration, from the JAX package.
+"""The quality bands of ``chip_smoke.py``'s trainers, from the JAX package.
 
-Fits the JAX package's ``BPR(k=10, max_iter=200, learning_rate=0.001,
-lambda_reg=0.01, batch_size=4096)`` on ``bench.make_ml100k_like(seed=7)``
-split by ``RatioSplit(0.2, 4.0, seed=123)`` once per BPR seed, on the CPU,
-and ranks the test users as ``bench.py`` does. Prints one JSON line per
-seed, then one with the mean, the spread (sample standard deviation) and
-the band ``mean +/- 3 x spread`` of AUC and NDCG@10, the band that
-``chip_smoke.py`` holds the port's fit to. ``--package torch`` fits the
-port instead, on the CPU, to see where its fits fall. ``--bf16-products``
-rounds both operands of every float32 matrix product of the JAX package to
-bfloat16 and sums in float32: one bf16 pass, what a TPU's matrix unit does
-at JAX's default precision, which the CPU ignores (it computes such
-products in float32 whatever the precision asked for).
+Fits the JAX package's model on ``bench.make_ml100k_like(seed=7)`` split by
+``RatioSplit(0.2, 4.0, seed=123)`` once per seed, on the CPU, and ranks the
+test users as ``bench.py`` does (AUC, NDCG@10, Recall@10; RMSE and MAE for
+the rating models). Prints one JSON line per seed, then one with the mean,
+the spread (sample standard deviation) and the band of AUC and NDCG@10 that
+``chip_smoke.py`` holds the port's fit to: ``mean +/- 3 x spread``. The
+deterministic models (NMF, WMF, EASE: no sampling, the same fit on every
+run from one seed) are fitted once, with the first seed, and their band is
+``value +/- DETERMINISTIC_TOL``. ``tools/quality_bands.py`` keeps the
+bands it printed, which ``chip_smoke.py`` reads.
 
-    python tools/bpr_quality_band.py [--seeds 123 124 125 126 127] [--package torch]
-                                     [--bf16-products]
+``--model`` picks the configuration (``benchmarks/model_sweep.py``'s, or
+the ones named below): ``BPR`` (``bench.py``'s, the default), ``PMF``,
+``MF-adam`` (adam with embedding dropout 0.1), ``IBPR``, ``COE``, ``NMF``,
+``WMF``, ``EASE``. ``--package torch`` fits the port instead, on the CPU,
+to see where its fits fall. ``--bf16-products`` rounds both operands of
+every float32 matrix product of the JAX package to bfloat16 and sums in
+float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
+precision, which the CPU ignores (it computes such products in float32
+whatever the precision asked for).
+
+    python tools/bpr_quality_band.py [--model BPR] [--seeds 123 124 125 126 127]
+                                     [--package torch] [--bf16-products]
 """
 
 import argparse
@@ -23,6 +31,8 @@ import os
 import sys
 
 import numpy as np
+
+from quality_bands import DETERMINISTIC_TOL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -47,8 +57,33 @@ def one_bf16_pass():
     lax.dot_general = bf16_dot_general
 
 
+# name -> (class name, constructor arguments without the seed, seeded,
+# rating model)
+CONFIGS = {
+    "BPR": ("BPR", dict(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01,
+                        batch_size=4096), True, False),
+    "PMF": ("PMF", dict(k=10, max_iter=100), True, True),
+    "MF-adam": ("MF", dict(k=10, max_iter=20, optimizer="adam", dropout=0.1), True, True),
+    "IBPR": ("IBPR", dict(k=10, max_iter=20), True, False),
+    "COE": ("COE", dict(k=10, max_iter=20), True, False),
+    "NMF": ("NMF", dict(k=15, max_iter=50), False, True),
+    "WMF": ("WMF", dict(k=50, max_iter=30, verbose=False), False, False),
+    "EASE": ("EASE", dict(lamb=500, verbose=False), None, False),
+}
+
+
+def make_model(models, name, seed):
+    """The configuration ``name`` of the package ``models`` with ``seed``
+    (EASE takes none)."""
+    cls, kwargs, seeded, _ = CONFIGS[name]
+    if seeded is not None:
+        kwargs = {**kwargs, "seed": seed}
+    return getattr(models, cls)(**kwargs)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=sorted(CONFIGS), default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=[123, 124, 125, 126, 127])
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
     parser.add_argument("--bf16-products", action="store_true",
@@ -65,35 +100,42 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         if args.bf16_products:
             one_bf16_pass()
+        from cornac_tpu import models
         from cornac_tpu.eval_methods import RatioSplit
-        from cornac_tpu.eval_methods.base_method import ranking_eval
-        from cornac_tpu.metrics import AUC, NDCG
-        from cornac_tpu.models import BPR
+        from cornac_tpu.eval_methods.base_method import ranking_eval, rating_eval
+        from cornac_tpu.metrics import AUC, MAE, NDCG, RMSE, Recall
     else:
         import cornac_tpu_torch
 
         cornac_tpu_torch.set_default_device("cpu")
+        from cornac_tpu_torch import models
         from cornac_tpu_torch.eval_methods import RatioSplit
-        from cornac_tpu_torch.eval_methods.base_method import ranking_eval
-        from cornac_tpu_torch.metrics import AUC, NDCG
-        from cornac_tpu_torch.models import BPR
+        from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
+        from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
 
     rs = RatioSplit(data=bench.make_ml100k_like(), test_size=0.2, rating_threshold=4.0,
                     seed=123, verbose=False)
+    seeded, rating = CONFIGS[args.model][2:]
+    seeds = args.seeds if seeded else args.seeds[:1]
     runs = []
-    for seed in args.seeds:
-        model = BPR(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01, seed=seed,
-                    batch_size=4096).fit(rs.train_set)
-        (auc, ndcg), _ = ranking_eval(model, [AUC(), NDCG(k=10)], rs.train_set, rs.test_set,
-                                      rating_threshold=4.0, exclude_unknowns=True)
-        runs.append((float(auc), float(ndcg)))
-        print(json.dumps({"seed": seed, "AUC": runs[-1][0], "NDCG@10": runs[-1][1]}), flush=True)
-    summary = {"package": args.package, "device": "cpu", "seeds": args.seeds,
+    for seed in seeds:
+        model = make_model(models, args.model, seed).fit(rs.train_set)
+        ranking, _ = ranking_eval(model, [AUC(), NDCG(k=10), Recall(k=10)], rs.train_set,
+                                  rs.test_set, rating_threshold=4.0, exclude_unknowns=True)
+        row = dict(zip(("AUC", "NDCG@10", "Recall@10"), map(float, ranking)))
+        if rating:
+            errors, _ = rating_eval(model, [RMSE(), MAE()], rs.test_set)
+            row.update(zip(("RMSE", "MAE"), map(float, errors)))
+        runs.append(row)
+        print(json.dumps({"model": args.model, "seed": seed, **row}), flush=True)
+    summary = {"model": args.model, "package": args.package, "device": "cpu", "seeds": seeds,
                "bf16_products": args.bf16_products}
-    for name, values in zip(("AUC", "NDCG@10"), np.asarray(runs).T):
-        mean, spread = float(values.mean()), float(values.std(ddof=1))
-        summary[name] = {"mean": mean, "spread": spread,
-                         "band": [mean - 3 * spread, mean + 3 * spread]}
+    for name in ("AUC", "NDCG@10"):
+        values = np.asarray([run[name] for run in runs])
+        mean = float(values.mean())
+        spread = float(values.std(ddof=1)) if len(values) > 1 else None
+        half = 3 * spread if spread is not None else DETERMINISTIC_TOL
+        summary[name] = {"mean": mean, "spread": spread, "band": [mean - half, mean + half]}
     print(json.dumps(summary))
 
 
