@@ -27,7 +27,7 @@ Phases, each of which fails the run when it fails:
    duplicates, n above one shared-memory range, and a half-dense matrix
    at the ML-1M widths;
 5. accumulate_rows vs plain: the deterministic row-accumulation kernel
-   against ``accumulate_rows_torch`` on the card, on duplicate-heavy
+   against ``accumulate_rows_torch`` on the CPU, on duplicate-heavy
    batches (16,384 ids into 17,700 and into 480,000 rows, 4,096 ids into
    943 rows, at d = 11, 33 and 51), a 1-D table, d = 200 (column blocks),
    R < B with a run longer than a round of ids, R >> B (over a thousand
@@ -35,8 +35,14 @@ Phases, each of which fails the run when it fails:
    four shapes the BPR trainers hand it (the U and V updates at the bench
    shape and at full width) and at the factor family's (NMF's 80,000 ids
    into 943 and 789 rows at d = 15 and 1-D, PMF's 1,024, IBPR's 100 and
-   200, COE's 1,000 and 2,000, MF-adam's 256 at d = 10 and 1-D), within a float32
-   bound of a float64 sum; two launches must give the same bits, and the
+   200, COE's 1,000 and 2,000, MF-adam's 256 at d = 10 and 1-D), at the
+   neural family's (NeuMF's 256 ids at d = 16 and 8, LightGCN's 1,024 at
+   d = 64) and at LightGCN's edge form at the ML-10M widths (10,000,054
+   ids into 69,878 and into 10,677 rows at d = 64), bit for bit (on the
+   CPU, ``index_add_`` sums each row's updates in batch order and adds
+   the sum once, as the kernel does; the gap to the plain version on the
+   card, whose ``index_add_`` is atomic, is printed); two launches must
+   give the same bits, and the
    profiler must see one kernel per call and nothing else (its device
    time per launch, at the four BPR shapes, is taken here, early: late in
    the process the profiler loses a short kernel's events);
@@ -60,6 +66,13 @@ Phases, each of which fails the run when it fails:
    10,000,054 seeded half-star ratings): ItemKNN(k=50).fit and
    nearest_items(50) (which builds no dense W: its peak device memory is
    checked), held exactly to the plain version;
+10b. LightGCN's edge form at those widths (``NormAdjacency`` of that train
+   set, 10,000,054 edges, d = 64): one propagation step forward and
+   backward (4 accumulate_rows launches) and the 3-layer mean forward and
+   backward; the step's four outputs held bit for bit to the same step on
+   the CPU (where accumulate_rows is its plain version), two calls bit for
+   bit; times beside the plain version on the card (``index_add_``), four
+   cuSPARSE products and the bound;
 11. trainers at the bench.py shape (``make_ml100k_like(seed=7)``, 943 users
    x 1,682 items, 100,000 ratings): RatioSplit(0.2, 4.0, seed=123) ->
    BPR(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01,
@@ -78,8 +91,19 @@ Phases, each of which fails the run when it fails:
    fused_topk behind each model's serving entry point held to the plain
    version, a second seeded fit of each (verbose) bit for bit, whose
    accumulate_rows inputs (the first at each shape) are held to the plain
-   version within the float32 bound; the profile of one IBPR epoch over
-   the first 5,000 ratings;
+   version on the CPU, bit for bit (IBPR's and MF-adam's second fits, and
+   the first they are held to, run 2 epochs); the profile of one IBPR
+   epoch over the first 5,000 ratings;
+12b. neural family at the bench shape: one Experiment with
+   ``benchmarks/model_sweep.py``'s VAECF, RecVAE, BiVAECF and NeuMF, GMF
+   and MLP at NeuMF's depth, LightGCN, and NGCF at LightGCN's, on AUC,
+   NDCG@10 and Recall@10, each AUC and NDCG@10 in the band of the JAX
+   package's CPU fits, fit seconds per model, fused_topk behind
+   BiVAECF's recommend_batch held to the plain version, VAECF's
+   recommend_batch(k > 0) refused as the JAX package refuses it; two
+   seeded fits of each at 2 epochs (the second verbose) bit for bit,
+   whose accumulate_rows inputs are held to the plain version on the CPU; the
+   profile of one NeuMF epoch over the first 5,000 ratings;
 13. trainer at full width (``benchmarks/scale_10m.py``'s configuration:
    100,000 users x 10,000 items, about 10M unique seeded pairs, so the
    membership test is the CSR binary search): BPR(k=32, batch_size=16384,
@@ -92,6 +116,12 @@ Phases, each of which fails the run when it fails:
    one warm and two timed sweeps beside the FLOP bound, peak device
    memory, recommend_batch of 8,192 users at k=100, TPUExactANN with
    recall_target=0.95 and the bf16 route, each held to the plain version;
+14b. VAECF at the Netflix widths (``benchmarks/vaecf_sparse_stream.py:38-39``:
+   k=32, [100], batch 1,024, lr 0.001, seed 1) on phase 14's 20M pairs, in
+   the index-resident mode: fits of 1 and of 4 epochs, seconds per steady
+   epoch ((4 - 1) / 3) beside the FP32 FLOP bound, peak device memory;
+   score_batch of 8,192 users, their top-100 held to a float64 scoring of
+   the same parameters, and recommend for one user;
 15. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
@@ -100,17 +130,27 @@ Phases, each of which fails the run when it fails:
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
-   the trainers' four shapes, on the inputs phase 5 checked; the canary
-   at (128, 128) beside ``torch.mul``.
+   the labelled shapes of phase 5 (the BPR trainers' four, NeuMF's and
+   LightGCN's at the bench shape, LightGCN's two at ML-10M), on the inputs
+   phase 5 checked; the canary at (128, 128) beside ``torch.mul``.
+
+Phases 12 and 12b run last, after 15, in four spawned processes at once
+(the factor family and three groups of the neural family): the card
+time-slices between processes and they share the host's cores, so no
+time this process takes is taken beside them, while their own fit seconds
+and busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernels' numbers (fused_topk once per batch size, B = 8192 first),
+with the kernels' numbers (fused_topk once per batch size, B = 8192 first;
+accumulate_rows at the full-width V update and LightGCN's two ML-10M shapes),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
 
 import argparse
 import contextlib
+import copy
+import functools
 import json
 import multiprocessing
 import os
@@ -118,7 +158,6 @@ import sys
 import threading
 import time
 import urllib.request
-from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -127,7 +166,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tools"))
 try:
     from card_measure import (PEAK_BYTES, PEAK_F32_FLOPS, card_line, compare_topk,
-                              plain_scores, time_ms)
+                              library_cosine_topk, plain_scores, time_ms)
     from quality_bands import band
 except ImportError:
     sys.exit("chip_smoke: run it from a checkout that holds tools/ and cornac_tpu_torch/")
@@ -138,6 +177,7 @@ RTOL = ATOL = 1e-5
 DEV = "cuda"
 # benchmarks/scale_10m.py's configuration, the full-width trainer phase
 FULL_USERS, FULL_ITEMS, FULL_DRAWS, FULL_K, FULL_BATCH = 100_000, 10_000, 10_000_000, 32, 16_384
+ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
 
 
 def log(msg):
@@ -449,22 +489,6 @@ def popular_ids(R, B, gen):
     return torch.randperm(R, generator=gen, device=DEV)[ranks]
 
 
-def float32_bound(table, ids, updates):
-    """(exact sums in float64, per-entry bound): summing a row's n updates
-    in float32 in any order and adding the sum to the table entry t errs by
-    at most (n + 1) * 2^-24 * (|t| + sum |u|) (the standard bound of
-    recursive summation, with 1% to spare for its second-order term)."""
-    import torch
-
-    R = table.shape[0]
-    exact = table.double().index_add_(0, ids, updates.double())
-    count = torch.zeros(R, dtype=torch.float64, device=DEV).index_add_(
-        0, ids, torch.ones(ids.shape[0], dtype=torch.float64, device=DEV))
-    mag = table.double().abs().index_add_(0, ids, updates.double().abs())
-    count = count.view((R,) + (1,) * (table.dim() - 1))
-    return exact, 1.01 * (count + 1) * 2.0**-24 * mag
-
-
 def launches_per_call(fn, calls=4):
     """What the profiler sees per call of ``fn`` (warmed once): the host's
     launches of device work (the CUDA runtime's kernel launches, memsets
@@ -515,6 +539,17 @@ ACC_CASES = [
     (None, 789, 2_000, 10, "popular", 1),  # COE's V gradient
     (None, 943, 256, 10, "popular", 2),  # MF-adam's U gradient
     (None, 789, 256, None, "popular", 2),  # MF-adam's item-bias gradient
+    # the neural family (phase 12b also holds the kernel to the plain
+    # version on the inputs its trainers hand it): the embedding gradients
+    # of a NeuMF minibatch (256 ids, the MLP tower's 16 columns; GMF's 8)
+    # and of LightGCN's gathers from its propagated tables (1,024 ids at
+    # d = 64), then LightGCN's edge-form propagation at the ML-10M widths,
+    # every edge into the user rows and into the item rows (phase 10b)
+    ("NeuMF, bench shape, MLP user embeddings", 943, 256, 16, "popular", 1),
+    (None, 1_682, 256, 8, "popular", 1),  # NeuMF's GMF item embeddings
+    ("LightGCN, bench shape, propagated item rows", 1_682, 1_024, 64, "popular", 1),
+    ("LightGCN edge form, ML-10M, into user rows", ML10M_USERS, ML10M_RATINGS, 64, "popular", 1),
+    ("LightGCN edge form, ML-10M, into item rows", ML10M_ITEMS, ML10M_RATINGS, 64, "popular", 1),
 ]
 
 
@@ -539,13 +574,16 @@ def accumulate_inputs(R, B, d, kind, stride, gen):
 
 def check_accumulate(what, table, ids, upd, calls=4):
     """Hold one accumulate_rows call to its plain version: two launches
-    give the same bits, the profiler sees one kernel and nothing else per
-    call over ``calls`` calls (none: not profiled), and the kernel and the
-    plain version both lie within the float32 bound of a float64 sum (ids
-    outside [0, R), which the kernel drops and the plain version refuses,
-    left out of the latter). ``table`` is left as it was. Returns (max
-    |kernel - plain|, launches per call, the kernel's mean device ms per
-    event the profiler kept, kept per call; the last two None unprofiled)."""
+    give the same bits, and those are the bits of the plain version on the
+    CPU, whose ``index_add_`` sums each row's updates in batch order and
+    adds the sum once, as the kernel does (ids outside [0, R), which the
+    kernel drops and the plain version refuses, left out of the latter);
+    the profiler sees one kernel and nothing else per call over ``calls``
+    calls (none: not profiled). ``table`` is left as it was. Returns (max
+    |kernel - plain on the CPU|, 0 when it passes; max |kernel - plain on
+    the card|, where ``index_add_`` sums with atomics in no fixed order;
+    launches per call; the kernel's mean device ms per event the profiler
+    kept, and kept per call, both None unprofiled)."""
     import torch
 
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
@@ -570,39 +608,43 @@ def check_accumulate(what, table, ids, upd, calls=4):
         del scratch
     keep = (ids >= 0) & (ids < R)
     ok_ids, ok_upd = (ids, upd) if bool(keep.all()) else (ids[keep], upd[keep])
-    plain = accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
-    exact, bound = float32_bound(table, ok_ids, ok_upd)
-    for name, out in (("kernel", got[0]), ("plain version", plain)):
-        over = ((out.double() - exact).abs() - bound).max().item()
-        if over > 0:
-            raise AssertionError(f"{what}: the {name} is {over:.3e} beyond the float32 bound")
-    err = (got[0] - plain).abs().max().item()
+    want = accumulate_rows(table.to("cpu", copy=True), ok_ids.cpu(), ok_upd.cpu())
+    kernel = got[0].cpu()
+    err = (kernel - want).abs().max().item()
+    if not torch.equal(kernel, want):
+        raise AssertionError(f"{what}: the kernel differs from the plain version on the CPU, "
+                             f"max |kernel - plain| {err:.3e}")
+    del want, kernel
+    card_err = (got[0] - accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
+                ).abs().max().item()
     runs = torch.unique(ok_ids, return_counts=True)[1]
     log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids"
         + (f"; {ids.numel() - ok_ids.numel()} ids outside [0, R) dropped"
            if ok_ids.numel() < ids.numel() else "")
-        + f"; max |kernel - plain| {err:.3e}, both within the float32 bound; two launches "
+        + f"; the plain version's bits on the CPU; max |kernel - plain on the card| "
+        f"{card_err:.3e}; two launches "
         + ("bit-identical)" if not calls else f"bit-identical; per call {per_call:g} launch, "
            f"{device_per_call:g} device event, the kernel)"))
-    return err, per_call, device_ms, device_per_call
+    return err, card_err, per_call, device_ms, device_per_call
 
 
 def phase_accumulate(gen):
-    """The row-accumulation kernel against its plain version, both within
-    the float32 bound of a float64 sum, on duplicate-heavy batches, a 1-D
-    table, column blocks, R below and far above B, strided and out-of-range
-    ids (held to the plain version on the in-range ids) and the trainers'
-    shapes; two launches must give the same bits, and the profiler must see
-    one kernel and nothing else per call. Returns the largest |kernel -
-    plain| and, for the labelled cases, their inputs, launches per call and
-    the kernel's device time per launch (profiled over 20 calls here, before
-    the later phases' long profiles), for timing."""
+    """The row-accumulation kernel against its plain version on the CPU,
+    bit for bit, on duplicate-heavy batches, a 1-D table, column blocks, R
+    below and far above B, strided and out-of-range ids (held to the plain
+    version on the in-range ids) and the trainers' shapes; two launches
+    must give the same bits, and the profiler must see one kernel and
+    nothing else per call. Returns the largest |kernel - plain on the CPU|
+    and, for the labelled cases, their inputs, launches per call, the
+    kernel's device time per launch (profiled over 20 calls here, before
+    the later phases' long profiles) and their own max |kernel - plain|
+    on the CPU and on the card, for timing."""
     import torch
 
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_err, most_ranges = 0.0, 0
+    max_err, max_card_err, most_ranges = 0.0, 0.0, 0
     timed = {}
     for label, R, B, d, kind, stride in ACC_CASES:
         table, ids, upd = accumulate_inputs(R, B, d, kind, stride, gen)
@@ -611,16 +653,17 @@ def phase_accumulate(gen):
         what = (f"{B} ids into {R} rows, d={d}, {kind}, id stride {stride}"
                 + (f" ({label})" if label else "")
                 + f", grid {plan.grid[0]} x {plan.grid[1]} of {plan.rows} rows x {plan.cols}")
-        err, per_call, device_ms, kept = check_accumulate(what, table, ids, upd,
-                                                          calls=20 if label else 4)
-        max_err = max(max_err, err)
+        err, card_err, per_call, device_ms, kept = check_accumulate(
+            what, table, ids, upd, calls=20 if label else 4)
+        max_err, max_card_err = max(max_err, err), max(max_card_err, card_err)
         if label:
-            timed[label] = (table, ids, upd, per_call, device_ms, kept)
+            timed[label] = (table, ids, upd, per_call, device_ms, kept, err, card_err)
     if most_ranges <= 4 * sms:
         raise AssertionError(f"no case planned more than {4 * sms} row ranges")
     torch.cuda.empty_cache()
-    log(f"accumulate_rows vs plain: ok, {len(ACC_CASES)} cases, max |err| {max_err:.3e}, up to "
-        f"{most_ranges} row ranges, one kernel per call")
+    log(f"accumulate_rows vs plain: ok, {len(ACC_CASES)} cases, the plain version's bits on the "
+        f"CPU (max |err| {max_err:.3e}; against the plain version on the card, atomic, "
+        f"{max_card_err:.3e}), up to {most_ranges} row ranges, one kernel per call")
     return max_err, timed
 
 
@@ -891,7 +934,6 @@ def reference_recall(bpr, csr, test, train, k):
 
 # MovieLens 1M and 10M widths; the ratings are generated from the seed
 ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS, ML1M_MAX_DEGREE = 6_040, 3_706, 1_000_209, 2_314
-ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
 KNN_K = 50
 
 
@@ -1083,7 +1125,7 @@ def phase_knn_ml10m(seed):
     part("compute_similarity (dense W on the card, 6 x 3 products, to host f64)",
          lambda: compute_similarity(model._weight_mat))
     part.report("ItemKNN.fit part")
-    return launches, W
+    return launches, W, train
 
 
 BENCH_R05 = {"AUC": 0.9331, "NDCG@10": 0.1694}  # BENCH_r05.json: the TPU run, its W16 path
@@ -1245,8 +1287,8 @@ def phase_probe():
     for name, step in record["steps"].items():
         log(f"  probe {name}: cold {step.get('cold_s', float('nan')):.4f} s (host clock: load "
             f"or build, first launch, synchronise), warm {step.get('ms', float('nan')):.4f} ms "
-            f"(CUDA events), plain {step.get('plain_ms', float('nan')):.4f} ms; error "
-            f"{step['error']}")
+            f"(CUDA events), plain {step.get('plain_ms', float('nan')):.4f} ms, library "
+            f"{step.get('library_ms', float('nan')):.4f} ms; error {step['error']}")
     if not record["ok"]:
         raise AssertionError(f"the on-silicon probe failed: {record['steps']}")
     if min(launches.values()) <= 0:
@@ -1287,12 +1329,18 @@ def factor_configs():
          ("u_factors", "i_factors")),
         ("WMF", lambda **kw: M.WMF(k=50, max_iter=30, seed=123, **kw), ("U", "V")),
         ("EASE", lambda **kw: M.EASE(lamb=500, **kw), ("B",)),
-        ("IBPR", lambda **kw: M.IBPR(k=10, max_iter=20, seed=123, **kw), ("U", "V")),
+        ("IBPR", lambda **kw: M.IBPR(**{"k": 10, "max_iter": 20, "seed": 123, **kw}), ("U", "V")),
         ("COE", lambda **kw: M.COE(k=10, max_iter=20, seed=123, **kw), ("U", "V")),
-        ("MF-adam", lambda **kw: M.MF(k=10, max_iter=20, optimizer="adam", dropout=0.1,
-                                      seed=123, **kw),
+        ("MF-adam", lambda **kw: M.MF(**{"k": 10, "max_iter": 20, "optimizer": "adam",
+                                         "dropout": 0.1, "seed": 123, **kw}),
          ("u_factors", "i_factors", "u_biases", "i_biases")),
     ]
+
+
+# the second seeded fits that hold a trainer's bits run this many epochs
+# (or sweeps) where a whole fit's eager steps take tens of seconds
+SHORT_DEPTH = 2
+SHORT_REFITS = ("IBPR", "MF-adam")
 
 
 def serve_factor_model(model, train, users, k=10):
@@ -1347,7 +1395,7 @@ def check_recorded_accumulate(name, store):
     handed it (``recording_accumulate``), with the ids at the stride the
     trainer gave them; not profiled (phase 5 sees one kernel a call at
     these shapes, and this late in the process the profiler loses a short
-    kernel's events). Returns the largest |kernel - plain|."""
+    kernel's events). Returns the largest |kernel - plain on the CPU|."""
     import torch
 
     max_err = 0.0
@@ -1420,8 +1468,15 @@ def phase_factor_bench(bench_data):
     acc_err, recorded = 0.0, 0
     refits = Clock()
     for (name, make, attrs), model in zip(configs, exp.models):
+        # IBPR's and MF-adam's eager steps took 40.8 and 42.4 s a fit: their
+        # bits are held at a depth of 2 epochs, two fits of it
+        short = {"max_iter": SHORT_DEPTH} if name in SHORT_REFITS else {}
+        if short:
+            model = refits(f"{name}.fit, {SHORT_DEPTH} epochs", lambda: make(**short).fit(train))
         with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
-            again = refits(f"{name}.fit, verbose=True", lambda: make(verbose=True).fit(train))
+            again = refits(f"{name}.fit, verbose=True" + (f", {SHORT_DEPTH} epochs" if short
+                                                            else ""),
+                           lambda: make(verbose=True, **short).fit(train))
         for attr in attrs:
             if not np.array_equal(getattr(model, attr), getattr(again, attr)):
                 raise AssertionError(f"{name}: two seeded fits differ in {attr} (one verbose)")
@@ -1446,7 +1501,7 @@ def phase_factor_bench(bench_data):
         f"minibatch; top device ops: {prof['top']}")
     log(f"  every model: two seeded fits (the second verbose, in chunks of one epoch or sweep) "
         f"identical, bit for bit; accumulate_rows on the trainers' own inputs ({recorded} "
-        f"shapes) equal to the plain version within the float32 bound (max |err| "
+        f"shapes) equal to the plain version on the CPU, bit for bit (max |err| "
         f"{acc_err:.3e}); serving lists equal to the plain version (positions relaxed as "
         f"near-ties: {sum(relaxed)}); accumulate_rows launches {launches}, fused_topk "
         f"launches {fused}")
@@ -1482,7 +1537,7 @@ def netflix_dataset():
     )
 
 
-def phase_wmf_full(seed):
+def phase_wmf_full(seed, ds):
     """WMF(k=64, batch_size=256) at 480,000 x 17,700: a 3-sweep fit (set-up
     included), then one warm and two timed sweeps of the fit's own sweep
     function on its buckets, beside the FLOP bound; peak device memory;
@@ -1495,7 +1550,6 @@ def phase_wmf_full(seed):
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk, fused_topk_torch
 
     clock = Clock()
-    ds = clock(f"{WMF_PAIRS:,} seeded pairs (set-up)", netflix_dataset)
     nnz = ds.num_ratings
     dev = torch.device(DEV)
 
@@ -1677,6 +1731,381 @@ def phase_trainer_full(seed):
     return launches, fused, stats
 
 
+def neural_configs():
+    """(band name, the depth's keyword, maker) of ``benchmarks/model_sweep.py``'s
+    configurations of the neural family, with GMF and MLP at NeuMF's depth
+    and NGCF at LightGCN's."""
+    from cornac_tpu_torch import models as M
+
+    def make(cls, **fixed):
+        return lambda **kw: cls(**{**fixed, **kw})
+
+    return [
+        ("VAECF", "n_epochs", make(M.VAECF, k=10, n_epochs=100, seed=123)),
+        ("RecVAE", "n_epochs", make(M.RecVAE, n_epochs=20, seed=123)),
+        ("BiVAECF", "n_epochs", make(M.BiVAECF, k=10, n_epochs=100, seed=123)),
+        ("GMF", "num_epochs", make(M.GMF, num_factors=8, num_epochs=10, seed=123)),
+        ("MLP", "num_epochs", make(M.MLP, layers=(32, 16, 8), num_epochs=10, seed=123)),
+        ("NeuMF", "num_epochs", make(M.NeuMF, num_factors=8, layers=(32, 16, 8),
+                                     num_epochs=10, seed=123)),
+        ("LightGCN", "num_epochs", make(M.LightGCN, emb_size=64, num_layers=3, num_epochs=40,
+                                        seed=2020)),
+        ("NGCF", "num_epochs", make(M.NGCF, emb_size=64, num_epochs=40, seed=2020)),
+    ]
+
+
+def fitted_arrays(model):
+    """A neural model's fitted state as {name: numpy array}: its modules'
+    parameters (``params``, or RecVAE's ``enc`` and ``dec``) and its
+    scoring tables (BiVAECF's means, LightGCN's propagated ``U``, ``V``)."""
+    import torch
+
+    out = {}
+    for attr in ("params", "enc", "dec"):
+        module = getattr(model, attr, None)
+        if isinstance(module, torch.nn.Module):
+            out.update({f"{attr}.{n}": p.detach().cpu().numpy()
+                        for n, p in module.named_parameters()})
+    for attr in ("mu_theta", "mu_beta", "U", "V"):
+        if hasattr(model, attr):
+            out[attr] = np.asarray(getattr(model, attr))
+    return out
+
+
+def phase_neural_bench(bench_data, names):
+    """RatioSplit -> Experiment with the neural family's configurations
+    ``names`` at the bench shape: each model's AUC and NDCG@10 in its band,
+    fit seconds per model, B1 behind BiVAECF's recommend_batch, VAECF's
+    recommend_batch(k > 0) refused as in the JAX package; then two seeded
+    fits of each at a depth of 2 epochs (the second verbose) bit for bit,
+    whose accumulate_rows inputs (the first at each shape) are held to the
+    plain version; the profile of one NeuMF epoch over the first 5,000
+    ratings. Returns (accumulate_rows launches, fused_topk launches, fit
+    seconds by name, max |kernel - plain| of the recorded inputs, the
+    profile or None)."""
+    import io
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.data import Dataset
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import AUC, NDCG, Recall
+    from cornac_tpu_torch.models import NeuMF
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    split = clock("RatioSplit(0.2, 4.0, seed=123)", lambda: RatioSplit(
+        bench_data(), test_size=0.2, rating_threshold=4.0, seed=123, verbose=False))
+    train = split.train_set
+    configs = [c for c in neural_configs() if c[0] in names]
+    users = np.random.RandomState(5).choice(train.num_users, 512, replace=False)
+    gathers = set(names) & {"GMF", "MLP", "NeuMF", "LightGCN", "NGCF"}  # via gather_rows
+    what = "neural family (" + ", ".join(names) + ")"
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    exp = Experiment(split, [make(verbose=False) for _, _, make in configs],
+                     [AUC(), NDCG(k=10), Recall(k=10)])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        clock(f"Experiment.run ({len(configs)} neural models)", exp.run)
+    models = dict(zip((name for name, _, _ in configs), exp.models))
+    relaxed = 0
+    if "BiVAECF" in models:
+        relaxed = clock("B1 behind BiVAECF.recommend_batch",
+                        lambda: serve_factor_model(models["BiVAECF"], train, users))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report(what)
+    if (gathers and launches <= 0) or ("BiVAECF" in models and fused <= 0):
+        raise AssertionError(f"{what} launched accumulate_rows {launches} and fused_topk "
+                             f"{fused} times")
+
+    # ---- check what came out ----
+    if "VAECF" in models:
+        try:  # the JAX package raises TypeError here: k=10 means against 20-wide item rows
+            models["VAECF"].recommend_batch([train.user_ids[u] for u in users[:4]], k=10)
+            raise AssertionError("VAECF.recommend_batch(k=10) with a 20-wide decoder answered")
+        except ValueError as err:
+            log(f"  VAECF.recommend_batch(k=10): refused as in the JAX package ({err})")
+    fit_s = {}
+    for (name, _, _), res in zip(configs, exp.result):
+        vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{res.model_name}: non-finite metrics {vals}")
+        fit_s[name] = res.metric_avg_results["Train (s)"]
+        checks = []
+        for metric in ("AUC", "NDCG@10"):
+            lo, hi, _, _ = band(name, metric)
+            inside = lo <= vals[metric] <= hi
+            checks.append(inside)
+            log(f"  {name}: {metric} {vals[metric]:.6f}, band [{lo:.6f}, {hi:.6f}] (5 JAX "
+                f"seeds) {'inside' if inside else 'OUTSIDE'}")
+        log(f"  {name}: fit {fit_s[name]:.3f} s, test {res.metric_avg_results['Test (s)']:.3f} s "
+            f"(host clock); " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+        if not all(checks):
+            raise AssertionError(f"{name}: outside its quality band")
+    acc_err, recorded = 0.0, 0
+    refits = Clock()
+    for name, depth, make in configs:
+        short = {depth: SHORT_DEPTH}
+        first = refits(f"{name}.fit, {SHORT_DEPTH} epochs", lambda: make(**short).fit(train))
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = refits(f"{name}.fit, verbose=True, {SHORT_DEPTH} epochs",
+                           lambda: make(verbose=True, **short).fit(train))
+        want, got = fitted_arrays(first), fitted_arrays(again)
+        if not want or want.keys() != got.keys():
+            raise AssertionError(f"{name}: fitted state {sorted(want)} vs {sorted(got)}")
+        for key in want:
+            if not np.array_equal(want[key], got[key]):
+                raise AssertionError(f"{name}: two seeded fits differ in {key} (one verbose)")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    refits.report(f"{what}, second fits")
+    if gathers and recorded == 0:
+        raise AssertionError(f"no trainer of the {what} handed accumulate_rows an input")
+    prof = None
+    if "NeuMF" in models:
+        part = Dataset.from_uir(bench_data()[:5_000], seed=123)
+        n_batches = -(-part.num_ratings * 5 // 256)
+        prof = epoch_profile(lambda e: NeuMF(num_factors=8, layers=(32, 16, 8), num_epochs=e,
+                                             seed=123, verbose=False).fit(part), n_batches, 1)
+        log(f"  profile, one NeuMF epoch over the first {part.num_ratings} ratings ({n_batches} "
+            f"minibatches of 256; a 1-epoch fit minus a 0-epoch fit): {prof['wall_ms']:.1f} ms "
+            f"host clock, device busy {prof['busy_ms']:.3f} ms ({100 * prof['share']:.2f}%), "
+            f"{prof['launches_per_minibatch']:.1f} device events per minibatch; top device ops: "
+            f"{prof['top']}")
+    log(f"  every model: two seeded fits of {SHORT_DEPTH} epochs (the second verbose, in chunks "
+        f"of one epoch) identical, bit for bit; accumulate_rows on the trainers' own inputs "
+        f"({recorded} shapes) equal to the plain version on the CPU, bit for bit (max |err| "
+        f"{acc_err:.3e}); BiVAECF's serving lists equal to the plain version (positions relaxed "
+        f"as near-ties: {relaxed}); accumulate_rows launches {launches}, fused_topk launches "
+        f"{fused}")
+    log(f"{what} at the bench shape: ok, main path {sum(clock.seconds.values()):.1f} s, "
+        f"second fits {sum(refits.seconds.values()):.1f} s")
+    return launches, fused, fit_s, acc_err, prof
+
+
+def phase_lightgcn_ml10m(train, gen):
+    """LightGCN's edge-form propagation at the ML-10M widths (69,878 users x
+    10,677 items, 10,000,054 edges, d = 64), the adjacency as LightGCN.fit
+    builds it (far past the dense budget): one step forward and backward
+    through gather_rows and accumulate_rows, then LightGCN's 3-layer mean
+    forward and backward, counted; the step's four outputs held bit for bit
+    to the same step on the CPU, where ``accumulate_rows`` is its plain
+    version (``index_add_`` in edge order), two calls bit for bit; times of
+    the step and the 3 layers beside the plain version on the card
+    (``index_add_``, atomic), four cuSPARSE products (the same function's
+    forward and backward as CSR x dense) and the bound."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.graph import NormAdjacency, layer_mean, propagate, propagate_torch
+
+    clock = Clock()
+    adj = clock("NormAdjacency (set-up)", lambda: NormAdjacency(train))
+    if adj.dense is not None:
+        raise AssertionError("the ML-10M adjacency took the dense form")
+    nu, ni, E, d = train.num_users, train.num_items, adj.edge_u.numel(), 64
+    ue, ie, gu, gi = (torch.randn(n, d, generator=gen, device=DEV) for n in (nu, ni, nu, ni))
+    eu, ei, w = adj.edge_u, adj.edge_i, adj.edge_norm
+
+    def fwd_bwd(fn, x=(ue, ie, gu, gi)):
+        u, i = x[0].clone().requires_grad_(True), x[1].clone().requires_grad_(True)
+        a, b = fn(u, i)
+        return (a.detach(), b.detach(), *torch.autograd.grad([a, b], [u, i], x[2:]))
+
+    def layers(u, i):
+        return adj.lightgcn(u, i, 3)
+
+    def plain(u, i):
+        return propagate_torch(u, i, eu, ei, w)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    got = clock("one step, forward and backward", lambda: fwd_bwd(adj.propagate))
+    step_launches = ACCUMULATE_ROWS.launches
+    clock("3 layers, forward and backward", lambda: fwd_bwd(layers))
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("LightGCN edge form at ML-10M")
+    if step_launches != 4 or launches != 4 + 12:
+        raise AssertionError(f"{step_launches} and {launches} accumulate_rows launches, want 4 "
+                             f"and 16")
+
+    # ---- check and measure ----
+    again = fwd_bwd(adj.propagate)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("two calls of the edge-form step differ")
+    names = ("messages to users", "messages to items", "gradient of users", "gradient of items")
+    on_cpu = [t.cpu() for t in (eu, ei, w)]
+    want = fwd_bwd(lambda u, i: propagate(u, i, *on_cpu), tuple(t.cpu() for t in (ue, ie, gu, gi)))
+    max_err = 0.0
+    for name, k_out, c_out in zip(names, got, want):
+        k_out = k_out.cpu()
+        max_err = max(max_err, (k_out - c_out).abs().max().item())
+        if not torch.equal(k_out, c_out):
+            raise AssertionError(f"ML-10M {name}: the kernel differs from the plain version on "
+                                 f"the CPU, max |kernel - plain| {max_err:.3e}")
+    del want, on_cpu
+    ref = fwd_bwd(plain)
+    card_err = max((k_out - p_out).abs().max().item() for k_out, p_out in zip(got, ref))
+    del ref, again
+    torch.cuda.empty_cache()
+    rows_u = torch.sparse_coo_tensor(torch.stack([eu, ei]), w, (nu, ni)).coalesce().to_sparse_csr()
+    rows_i = torch.sparse_coo_tensor(torch.stack([ei, eu]), w, (ni, nu)).coalesce().to_sparse_csr()
+
+    def library():  # A·ie, Aᵀ·ue forward; Aᵀ·gu, A·gi backward
+        return (torch.sparse.mm(rows_u, ie), torch.sparse.mm(rows_i, ue),
+                torch.sparse.mm(rows_i, gu), torch.sparse.mm(rows_u, gi))
+
+    ms = time_ms(lambda: fwd_bwd(adj.propagate), 5, 1)
+    plain_ms = time_ms(lambda: fwd_bwd(plain), 5, 1)
+    library_ms = time_ms(library, 5, 1)
+    layers_ms = time_ms(lambda: fwd_bwd(layers), 3, 1)
+    layers_plain_ms = time_ms(lambda: fwd_bwd(lambda u, i: layer_mean(plain, u, i, 3)), 3, 1)
+    nbytes = 4.0 * 2 * 2 * (nu + ni) * d + 20.0 * E
+    flops = 2.0 * 4 * E * d
+    bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    log(f"  LightGCN edge form, ML-10M ({nu:,} users x {ni:,} items, {E:,} edges, d={d}): one "
+        f"step forward and backward (4 accumulate_rows launches) {ms:.3f} ms, plain "
+        f"(index_add_ and autograd's gather) {plain_ms:.3f} ms, 4 cuSPARSE CSR x dense "
+        f"products {library_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} FLOP, "
+        f"{nbytes / 1e6:.1f} MB), {100 * bound_ms / ms:.3f}% of it; 3 layers forward and "
+        f"backward {layers_ms:.3f} ms, plain {layers_plain_ms:.3f} ms (CUDA events)")
+    log(f"  the step's four outputs equal to the step on the CPU (accumulate_rows' plain "
+        f"version), bit for bit; max |kernel - plain on the card (index_add_, atomic)| "
+        f"{card_err:.3e}; two calls bit-identical; accumulate_rows launches {launches}")
+    log(f"LightGCN edge form at ML-10M: ok in {sum(clock.seconds.values()):.1f} s")
+    del rows_u, rows_i
+    torch.cuda.empty_cache()
+    return launches, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, layers_ms=layers_ms,
+                          layers_plain_ms=layers_plain_ms, max_abs_err=max_err,
+                          card_plain_max_abs_err=card_err)
+
+
+# benchmarks/vaecf_sparse_stream.py:38-39, VAECF at the Netflix widths
+VAECF_FULL = dict(k=32, autoencoder_structure=[100], batch_size=1024, learning_rate=0.001, seed=1)
+
+
+def phase_vaecf_full(ds, seed):
+    """VAECF at 480,000 x 17,700 on the WMF phase's 20M pairs: fits of 1 and
+    of 1 + 3 epochs (the index-resident mode: 34 GB dense, 160 MB of
+    coordinates), seconds per steady epoch beside the FP32 FLOP bound, peak
+    device memory; the fit's input and progress (three batches' blocks
+    densified on the card equal to the binarized rows of the train matrix,
+    every parameter tensor moved from its initial value, a 0-epoch fit's,
+    by the first epoch and again by the next three); score_batch of 8,192
+    users, their top-100 held to a float64 scoring of the same parameters;
+    recommend for one user."""
+    import torch
+
+    from cornac_tpu_torch.engine.nn import ACTIVATIONS
+    from cornac_tpu_torch.models import VAECF
+    from cornac_tpu_torch.models.vaecf import _decode, _encode, batch_source
+
+    clock = Clock()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors the times phase reuses
+    fit1 = clock("VAECF.fit, 1 epoch", lambda: VAECF(n_epochs=1, **VAECF_FULL).fit(ds))
+    model = clock("VAECF.fit, 4 epochs", lambda: VAECF(n_epochs=4, **VAECF_FULL).fit(ds))
+    peak = torch.cuda.max_memory_allocated()
+    users = np.random.RandomState(seed + 7).choice(N_USERS, SERVE_BATCH, replace=False)
+    scores = clock(f"score_batch {SERVE_BATCH} users", lambda: model.score_batch(users))
+    uid = ds.user_ids[int(users[0])]
+    rec = clock("recommend (one user, k=100)", lambda: model.recommend(uid, k=TOPK))
+    clock.report("VAECF at the Netflix widths")
+    if model.data_mode != "index-resident":
+        raise AssertionError(f"the full-width VAECF fit took the {model.data_mode} mode")
+    if not all(torch.isfinite(p).all() for p in model.params.parameters()):
+        raise AssertionError("the full-width VAECF fit has non-finite parameters")
+    if scores.shape != (SERVE_BATCH, N_ITEMS) or not np.isfinite(scores).all():
+        raise AssertionError(f"score_batch gave {scores.shape}")
+
+    # what the fit trained on: the index-resident blocks of the first, a
+    # middle and the last (padded) batch are the binarized rows
+    dev, bsz = torch.device(DEV), VAECF_FULL["batch_size"]
+    n_rows = model.r_mat.shape[0]
+    n_batches = -(-n_rows // bsz)
+    mode, fetch = batch_source(model.r_mat, bsz, dev)
+    if mode != "index-resident":
+        raise AssertionError(f"the batch source took the {mode} mode")
+    for b in (0, n_batches // 2, n_batches - 1):
+        rows = model._rows(np.arange(b * bsz, min((b + 1) * bsz, n_rows)))
+        want = torch.zeros((bsz, N_ITEMS))
+        want[:rows.shape[0]] = torch.from_numpy(rows)
+        if not torch.equal(fetch(b).cpu(), want):
+            raise AssertionError(f"batch {b}'s densified block differs from the train rows")
+    del fetch
+    # and that it trained: every tensor moved, the decoder's too (it has no
+    # gradient where the blocks are zeros)
+    init = VAECF(n_epochs=0, **VAECF_FULL).fit(ds).params
+    stages = [dict(m.named_parameters()) for m in (init, fit1.params, model.params)]
+    steps = (("epoch 1", stages[0], stages[1]), ("epochs 2-4", stages[1], stages[2]))
+    still = [f"{name} ({when})" for name in stages[0] for when, a, b in steps
+             if torch.equal(a[name], b[name])]
+    if still:
+        raise AssertionError(f"VAECF parameters that did not move: {still}")
+    del init, stages, fit1
+
+    # the plain scoring: the same parameters and rows in float64
+    vae64, act = copy.deepcopy(model.params).double(), ACTIVATIONS[model.act_fn]
+    S = torch.empty((SERVE_BATCH, N_ITEMS), dtype=torch.float64)
+    with torch.no_grad():
+        for s in range(0, SERVE_BATCH, 1024):
+            x = torch.as_tensor(model._rows(users[s:s + 1024]), device=dev).double()
+            S[s:s + 1024] = _decode(vae64, _encode(vae64, x, act)[0], act, model.likelihood).cpu()
+    want = torch.sort(S, dim=1, descending=True, stable=True)[1][:, :TOPK].numpy()
+    got = np.argsort(-scores, axis=1, kind="stable")[:, :TOPK]
+    relaxed = check_lists(got, want, S.numpy(), "VAECF score_batch top-100")
+    if [model.iid_map[i] for i in rec] != [ds.item_ids[i] for i in got[0]]:
+        raise AssertionError("recommend for one user differs from its score_batch row")
+    epoch_s = (clock.seconds["VAECF.fit, 4 epochs"] - clock.seconds["VAECF.fit, 1 epoch"]) / 3
+    # where a batch's time goes: an epoch over the first 50 batches' users
+    # (the same shapes a batch; a whole epoch would give the profiler some
+    # 50,000 events), a 1-epoch fit minus a 0-epoch fit
+    from collections import OrderedDict
+
+    from cornac_tpu_torch.data import Dataset
+
+    n_part = 50 * VAECF_FULL["batch_size"]
+    u, i, r = ds.uir_tuple
+    keep = u < n_part
+    part = Dataset(num_users=n_part, num_items=N_ITEMS,
+                   uid_map=OrderedDict((x, x) for x in range(n_part)),
+                   iid_map=OrderedDict((x, x) for x in range(N_ITEMS)),
+                   uir_tuple=(u[keep], i[keep], r[keep]), seed=0)
+    prof = epoch_profile(lambda e: VAECF(n_epochs=e, **VAECF_FULL).fit(part), 50, 1)
+    h, z = VAECF_FULL["autoencoder_structure"][0], VAECF_FULL["k"]
+    row_flops = 2.0 * (N_ITEMS * h + 2 * h * z + z * h + h * N_ITEMS)
+    flops = 3 * row_flops * n_batches * VAECF_FULL["batch_size"]
+    bound_s = flops / PEAK_F32_FLOPS
+    log(f"  VAECF k={z} [{h}] batch {VAECF_FULL['batch_size']} over {ds.num_ratings:,} pairs "
+        f"({N_USERS:,} users x {N_ITEMS:,} items, {model.data_mode}): {epoch_s:.3f} s per steady "
+        f"epoch ((fit of 4 epochs - fit of 1) / 3, host clock); FP32 FLOP bound {flops:.4e} FLOP "
+        f"= 3 x {row_flops / 1e6:.3f} MFLOP x {n_batches} x {VAECF_FULL['batch_size']} rows over "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s = {bound_s:.4f} s, {100 * bound_s / epoch_s:.2f}% "
+        f"of it; peak device memory {peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} GiB "
+        f"above the {held / 2**30:.3f} GiB the run held before the fits")
+    log(f"  profile, one epoch over the first {n_part:,} users (50 batches; a 1-epoch fit minus "
+        f"a 0-epoch fit): {prof['wall_ms']:.1f} ms host clock, device busy "
+        f"{prof['busy_ms']:.3f} ms ({100 * prof['share']:.2f}%), "
+        f"{prof['launches_per_minibatch']:.1f} device events per batch; top device ops: "
+        f"{prof['top']}")
+    log(f"  the fit's input: batches 0, {n_batches // 2} and {n_batches - 1} densified on the "
+        f"card equal to the train rows; all {len(dict(model.params.named_parameters()))} "
+        f"parameter tensors moved in epoch 1 and again in epochs 2-4")
+    log(f"  score_batch ({SERVE_BATCH} users): top-{TOPK} equal to a float64 scoring of the same "
+        f"parameters (positions relaxed as near-ties: {relaxed}); recommend for one user equal "
+        f"to its row")
+    log(f"VAECF at the Netflix widths: ok in {sum(clock.seconds.values()):.1f} s")
+    del model, vae64, scores, S
+    torch.cuda.empty_cache()
+    return dict(epoch_s=epoch_s, bound_s=bound_s, peak=peak - held, share=prof["share"],
+                fit1_s=clock.seconds["VAECF.fit, 1 epoch"],
+                fit4_s=clock.seconds["VAECF.fit, 4 epochs"])
+
+
 def phase_times(bpr, users):
     """CUDA-event times of fused_topk at B = 1, 256 and 8192 users, each
     with its split S, against its plain version and ``matmul`` + ``topk``
@@ -1708,23 +2137,6 @@ def phase_times(bpr, users):
             f"{bound_ms:.4f} ms ({bound_by}), {B / ms * 1e3:,.0f} users/s, "
             f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
-
-
-def library_cosine_topk(W, k):
-    """The dense library yardstick: two ``torch.matmul`` (TF32 off), the
-    elementwise step and ``torch.topk``. Timed only; the port never calls
-    it. It is not ``co_support_cosine``: that follows the JAX formula with
-    three products, where ``d2 = B·(W∘W)ᵀ`` is just ``d1ᵀ``, and the
-    yardstick should be the least library work for the same function."""
-    import torch
-
-    from cornac_tpu_torch.ops.dispatch import full_f32
-
-    with full_f32():
-        num, d1 = torch.matmul(W, W.T), torch.matmul(W * W, (W != 0).float().T)
-    sim = torch.where(num != 0, num / torch.clamp_min(torch.sqrt(d1) * torch.sqrt(d1.T), 1e-12), 0.0)
-    sim.fill_diagonal_(-3e38)
-    return torch.topk(sim, k, dim=1)
 
 
 def sparse_library_cosine_topk(A, A2, Wt, Bt, k):
@@ -1858,13 +2270,15 @@ def phase_accumulate_times(cases):
     from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch
 
     rows = {}
-    for label, (table, ids, upd, per_call, device_ms, kept) in cases.items():
+    for label, (table, ids, upd, per_call, device_ms, kept, err, card_err) in cases.items():
         (R, d), B = table.shape, ids.shape[0]
-        reps = 200
+        reps = 200 if B < 1_000_000 else 10
         plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
         ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
         library_ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
-        det_ms, det_bits, det_as_kernel, det_no_sync = deterministic_index_add(table, ids, upd, reps)
+        # deterministic index_add_ sorts: 0.6-0.7 s a call at 10M ids
+        det_ms, det_bits, det_as_kernel, det_no_sync = deterministic_index_add(
+            table, ids, upd, reps if B < 1_000_000 else 3)
         # the profiler again, after the run's long profiles: it has been seen
         # to keep fewer of a short kernel's events late in the process
         late = profile_call(lambda: [accumulate_rows(table, ids, upd) for _ in range(20)])[2]
@@ -1877,7 +2291,8 @@ def phase_accumulate_times(cases):
                            deterministic_library_ms=det_ms, deterministic_same_bits=det_bits,
                            deterministic_bits_as_kernel=det_as_kernel,
                            deterministic_no_sync=det_no_sync, launches_per_call=per_call,
-                           bound_ms=bound_ms, bound_by=bound_by, shape=f"{B} ids into {R} x {d}")
+                           bound_ms=bound_ms, bound_by=bound_by, shape=f"{B} ids into {R} x {d}",
+                           max_abs_err=err, card_plain_max_abs_err=card_err)
         as_kernel = "the kernel's bits" if det_as_kernel else "not the kernel's bits"
         log(f"  times accumulate_rows, {label}: {B} ids into {R} rows x {d} ({touched} touched): "
             f"kernel {ms:.4f} ms (device "
@@ -1892,6 +2307,36 @@ def phase_accumulate_times(cases):
             f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB), "
             f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
+
+
+# the families at the bench shape run in processes of their own, at once,
+# after the timed phases: their eager steps are bound by the host, one core
+# each
+NEURAL_GROUPS = (("GMF", "MLP"), ("NeuMF", "LightGCN", "NGCF"), ("VAECF", "RecVAE", "BiVAECF"))
+FAMILY_TIMEOUT = 900  # seconds a family's process may take
+
+
+@functools.lru_cache(maxsize=1)
+def _bench_data():
+    return make_ml100k_like()
+
+
+def run_captured(phase, *args):
+    """In a spawned process: the phase function ``phase`` of this script
+    on ``make_ml100k_like(7)`` and ``args``, its log captured. Returns
+    (log, result); a failure raises with the log and the traceback."""
+    import io
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = globals()[phase](_bench_data, *args)
+    except Exception:
+        raise RuntimeError(f"{phase}{args} failed:\n{out.getvalue()}{traceback.format_exc()}"
+                           ) from None
+    return out.getvalue(), result
 
 
 def build_all():
@@ -1955,37 +2400,66 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the earlier paths run
-    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    # makes the data while the serving slice runs. The factor and neural
+    # families at the bench shape run last, in four processes of their own
+    # at once (their logs printed when each ends), after every phase this
+    # process times: the card time-slices between processes and they share
+    # the host's cores, so a time taken beside them would carry their load
+    # (their own times carry each other's)
+    pool = multiprocessing.get_context("spawn").Pool(1 + len(NEURAL_GROUPS))
     try:
-        bench_data = pool.submit(make_ml100k_like)
+        bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
         lap("BPR serving slice")
         knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
         lap("KNN slice")
-        ml10m_launches, W10 = phase_knn_ml10m(args.seed)
+        ml10m_launches, W10, train10m = phase_knn_ml10m(args.seed)
         lap("related items")
-        bench_launches, bench = phase_trainer_bench(bench_data.result)
+        lgcn_launches, lgcn = phase_lightgcn_ml10m(train10m, gen)
+        del train10m
+        lap("LightGCN edge form at ML-10M")
+        bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
-        factor_launches, factor_fused, factor_fit, factor_acc_err = phase_factor_bench(
-            bench_data.result)
-        lap("factor family at the bench shape")
+        full_launches, full_fused, full = phase_trainer_full(args.seed)
+        lap("trainer at full width")
+        t = time.perf_counter()
+        netflix = netflix_dataset()
+        log(f"  {WMF_PAIRS:,} seeded pairs at the Netflix widths (set-up, host clock): "
+            f"{time.perf_counter() - t:.3f} s")
+        wmf_fused, wmf = phase_wmf_full(args.seed, netflix)
+        lap("WMF at the Netflix widths")
+        vaecf = phase_vaecf_full(netflix, args.seed)
+        del netflix
+        lap("VAECF at the Netflix widths")
+        rows = phase_times(bpr, users)
+        cos_rows = phase_cosine_times([
+            ("ML-1M item side", W_items),
+            ("ML-1M user side", W_users),
+            ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
+            ("ML-10M item side", W10),
+        ])
+        acc_rows = phase_accumulate_times(acc_cases)
+        canary_row = phase_canary_times()
+        lap("times")
+        families = [("factor family", pool.apply_async(run_captured, ("phase_factor_bench",)))]
+        families += [(f"neural family ({', '.join(names)})",
+                      pool.apply_async(run_captured, ("phase_neural_bench", names)))
+                     for names in NEURAL_GROUPS]
+        done = []
+        for what, job in families:
+            text, result = job.get(timeout=FAMILY_TIMEOUT)
+            log(text.rstrip())
+            lap(f"{what} at the bench shape, in its own process")
+            done.append(result)
     finally:
-        pool.shutdown(cancel_futures=True)
-    full_launches, full_fused, full = phase_trainer_full(args.seed)
-    lap("trainer at full width")
-    wmf_fused, wmf = phase_wmf_full(args.seed)
-    lap("WMF at the Netflix widths")
-    rows = phase_times(bpr, users)
-    cos_rows = phase_cosine_times([
-        ("ML-1M item side", W_items),
-        ("ML-1M user side", W_users),
-        ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
-        ("ML-10M item side", W10),
-    ])
-    acc_rows = phase_accumulate_times(acc_cases)
-    canary_row = phase_canary_times()
-    lap("times")
+        pool.terminate()
+        pool.join()
+    factor_launches, factor_fused, factor_fit, factor_acc_err = done[0]
+    neural_launches = sum(r[0] for r in done[1:])
+    neural_fused = sum(r[1] for r in done[1:])
+    neural_fit = {name: sec for r in done[1:] for name, sec in r[2].items()}
+    neural_acc_err = max(r[3] for r in done[1:])
+    neural_prof = next(r[4] for r in done[1:] if r[4] is not None)
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -1993,7 +2467,8 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
-        "launches": launches + full_fused + factor_fused + wmf_fused + probe_launches["fused_topk"],
+        "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
+                     + probe_launches["fused_topk"]),
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2017,24 +2492,36 @@ def main():
         "dense_bound_ms": cos["dense_bound_ms"],
         "sparse_library_ms": cos["sparse_library_ms"],
     })
-    acc = acc_rows["full width, V update (positives + negatives)"]
-    kernels.append({
-        "name": "accumulate_rows",
-        "shape": acc["shape"],
-        "route": "cuda",
-        "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
-        "replaces": "cornac_tpu/ops/accumulate.py:26",
-        "launches": bench_launches + full_launches + factor_launches,
-        "max_abs_err": max(acc_err, factor_acc_err),
-        "ms": acc["ms"],
-        "device_ms": acc["device_ms"],
-        "plain_ms": acc["plain_ms"],
-        "bound_ms": acc["bound_ms"],
-        "bound_by": acc["bound_by"],
-        "library_ms": acc["library_ms"],
-        "deterministic_library_ms": acc["deterministic_library_ms"],
-        "launches_per_call": acc["launches_per_call"],
-    })
+    # accumulate_rows at the BPR trainer's full-width V update (the row
+    # earlier runs report) and at LightGCN's edge form at the ML-10M widths,
+    # each with its own max |kernel - plain| (the plain version on the CPU,
+    # whose bits the kernel must give, and on the card, atomic); the largest
+    # |kernel - plain on the CPU| over every check of every path besides
+    acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"])
+    for label in ("full width, V update (positives + negatives)",
+                  "LightGCN edge form, ML-10M, into user rows",
+                  "LightGCN edge form, ML-10M, into item rows"):
+        acc = acc_rows[label]
+        kernels.append({
+            "name": "accumulate_rows",
+            "shape": acc["shape"],
+            "route": "cuda",
+            "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
+            "replaces": "cornac_tpu/ops/accumulate.py:26",
+            "launches": (bench_launches + full_launches + factor_launches + neural_launches
+                         + lgcn_launches),
+            "max_abs_err": acc["max_abs_err"],
+            "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
+            "max_abs_err_all_paths": acc_all_err,
+            "ms": acc["ms"],
+            "device_ms": acc["device_ms"],
+            "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"],
+            "bound_by": acc["bound_by"],
+            "library_ms": acc["library_ms"],
+            "deterministic_library_ms": acc["deterministic_library_ms"],
+            "launches_per_call": acc["launches_per_call"],
+        })
     kernels.append({
         "name": "canary",
         "shape": [128, 128],
@@ -2050,6 +2537,15 @@ def main():
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")
+    log("neural family, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in neural_fit.items())
+        + f"; NeuMF epoch busy {100 * neural_prof['share']:.2f}%")
+    log(f"LightGCN edge form at ML-10M: one step forward and backward {lgcn['ms']:.3f} ms "
+        f"(plain {lgcn['plain_ms']:.3f}, cuSPARSE {lgcn['library_ms']:.3f}, bound "
+        f"{lgcn['bound_ms']:.4f} ms); 3 layers {lgcn['layers_ms']:.3f} ms")
+    log(f"VAECF at the Netflix widths: {vaecf['epoch_s']:.3f} s per steady epoch, "
+        f"{100 * vaecf['bound_s'] / vaecf['epoch_s']:.2f}% of the {vaecf['bound_s']:.4f} s FP32 "
+        f"bound, peak {vaecf['peak'] / 2**30:.3f} GiB above what the run held")
     log(f"trainers: bench shape AUC {bench['quality']['AUC']:.4f} NDCG@10 "
         f"{bench['quality']['NDCG@10']:.4f}, train {bench['train_s']:.3f} s, test "
         f"{bench['test_s']:.3f} s, busy {100 * bench['share']:.2f}%; full width "

@@ -12,6 +12,7 @@ import torch
 from scipy.sparse import csr_matrix
 
 from .device import resolve_device
+from .engine.nn import Dense, Tree
 from .models.baseline import BaselineOnly
 from .models.bpr import BPR
 from .models.ease import EASE
@@ -193,3 +194,39 @@ def optimizer_state_from_arrays(state, device=None):
         return torch.as_tensor(np.array(value), device=dev)
 
     return convert(state)
+
+
+def params_to_module(tree, device=None):
+    """The port's module for a neural model's JAX parameters given as
+    nested dicts and lists of numpy arrays (``VAECF.params``,
+    ``RecVAE.enc`` and ``.dec``, ``BiVAECF``'s sides, the NCF family's and
+    LightGCN/NGCF's ``params``): a ``{"w", "b"}`` dict becomes a ``Dense``
+    layer, another dict a ``Tree`` of its entries, a list of layers a
+    ``ModuleList``, a list of arrays a ``ParameterList``, an array a
+    parameter; so ``encoder.0.w`` names ``tree["encoder"][0]["w"]``, as in
+    the modules the port's models build. ``device``: where the parameters
+    go (default: the card)."""
+    dev = resolve_device(device)
+    return _module_of(tree).to(dev)
+
+
+def _module_of(tree):
+    if isinstance(tree, dict):
+        if set(tree) == {"w", "b"}:
+            return Dense(np.asarray(tree["w"]), np.asarray(tree["b"]))
+        return Tree(**{name: _child(v) for name, v in tree.items()})
+    if _is_layer_list(tree):
+        return torch.nn.ModuleList(_module_of(v) for v in tree)
+    raise TypeError(f"expected nested dicts and lists of arrays, got {type(tree).__name__}")
+
+
+def _is_layer_list(value):
+    return isinstance(value, (list, tuple)) and all(isinstance(v, dict) for v in value)
+
+
+def _child(value):
+    if isinstance(value, dict) or _is_layer_list(value):
+        return _module_of(value)
+    if isinstance(value, (list, tuple)):
+        return [np.asarray(a) for a in value]
+    return np.asarray(value)

@@ -68,6 +68,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -398,23 +400,6 @@ accumulate_rows_kernel(float* __restrict__ table, const float* __restrict__ upda
     }
   }
 }
-
-// Runs on `device`, restoring the caller's current device after.
-struct OnDevice {
-  int prev = -1;
-  bool changed = false;
-  cudaError_t err;
-  explicit OnDevice(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-      changed = err == cudaSuccess;
-    }
-  }
-  ~OnDevice() {
-    if (changed) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 

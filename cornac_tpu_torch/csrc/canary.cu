@@ -14,6 +14,8 @@
 
 #include <cuda_runtime.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -27,12 +29,14 @@ __global__ void scale2_kernel(const float* __restrict__ x, float* __restrict__ o
 
 extern "C" {
 
-// Launches on `stream`: o[i] = 2 * x[i] for 0 <= i < n, x and o float32 on
-// the current device. Returns the launch's cudaError_t (0 on success).
-int cornac_scale2(const float* x, float* o, long long n, void* stream) {
+// Launches on `stream` of `device`: o[i] = 2 * x[i] for 0 <= i < n, x and o
+// float32 on that device. Returns the launch's cudaError_t (0 on success).
+int cornac_scale2(int device, const float* x, float* o, long long n, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   scale2_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(x, o, n);
   return (int)cudaGetLastError();
 }

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
 #include "topk_keys.cuh"
 
 namespace {
@@ -257,14 +258,15 @@ cosine_topk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col_
 
 extern "C" {
 
-// For n rows on the current device: the candidate rows one range holds (C)
-// and the number of persistent blocks a launch uses, which sizes its
-// scratch. Returns a cudaError_t (0 on success).
-int cornac_cosine_topk_plan(int n, int* C, int* blocks) {
-  int dev, smem_limit, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// For n rows on `device`: the candidate rows one range holds (C) and the
+// number of persistent blocks a launch uses, which sizes its scratch.
+// Returns a cudaError_t (0 on success).
+int cornac_cosine_topk_plan(int device, int n, int* C, int* blocks) {
+  int smem_limit, sms, per_sm;
+  OnDevice on(device);
+  cudaError_t err = on.err;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   // as many candidate rows per range as shared memory holds, spread evenly
   // over the ranges n needs
@@ -282,7 +284,7 @@ int cornac_cosine_topk_plan(int n, int* C, int* blocks) {
   return (int)cudaSuccess;
 }
 
-// Launches on `stream`. W (n, m) comes as its CSR (row_ptr n + 1, col_idx,
+// Launches on `stream` of `device`. W (n, m) comes as its CSR (row_ptr n + 1, col_idx,
 // row_val) and its CSC entries (row_idx, col_val), indices ascending
 // within each row and column, no explicit zeros; `bounds` (ranges * 8 + 1
 // ints: range q of at most C rows is bounds[8q] to bounds[8q + 8], split
@@ -292,12 +294,14 @@ int cornac_cosine_topk_plan(int n, int* C, int* blocks) {
 // this device, `next_row` one int set to 0. Requires 1 <= k <= n - 1 with
 // exclude_self (else k <= n). Returns the launch's cudaError_t (0 on
 // success).
-int cornac_cosine_topk(const int* row_ptr, const int* col_idx, const float* row_val,
+int cornac_cosine_topk(int device, const int* row_ptr, const int* col_idx, const float* row_val,
                        const int* split, const int* row_idx, const float* col_val,
                        const int* bounds, int n, int ranges, int C, int k, int exclude_self,
                        int blocks, float* out_s, int* out_i, void* scratch, int* next_row,
                        void* stream) {
   if (C < 1 || blocks < 1 || ranges != (n + C - 1) / C) return (int)cudaErrorInvalidValue;
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   // refuses a C whose accumulators shared memory cannot hold
   cudaError_t err = cudaFuncSetAttribute(
       cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(C));

@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
 #include "topk_keys.cuh"
 
 namespace {
@@ -282,15 +283,17 @@ merge_topk_kernel(int B, int S, int k, float* __restrict__ out_s, int* __restric
 
 extern "C" {
 
-// Launches on `stream`: the scoring kernel over S catalog slices (1 <= S
-// <= the number of 512-item chunks), then, when S > 1, the merge.
-// `scratch` holds 2*S*B*k 64-bit words. Requires
-// 1 <= k <= N and row-major contiguous U (B, d), V (N, d), bias (N,) or
-// NULL. Returns the first launch error's cudaError_t (0 on success).
-int cornac_fused_topk(const float* U, const float* V, const float* bias, int B, int N,
-                      int d, int k, int S, float* out_s, int* out_i, void* scratch,
+// Launches on `stream` of `device`: the scoring kernel over S catalog
+// slices (1 <= S <= the number of 512-item chunks), then, when S > 1, the
+// merge. `scratch` holds 2*S*B*k 64-bit words. Requires 1 <= k <= N and
+// row-major contiguous U (B, d), V (N, d), bias (N,) or NULL on that
+// device. Returns the first launch error's cudaError_t (0 on success).
+int cornac_fused_topk(int device, const float* U, const float* V, const float* bias, int B,
+                      int N, int d, int k, int S, float* out_s, int* out_i, void* scratch,
                       void* stream) {
   if (S < 1 || S > (N + kChunk - 1) / kChunk) return (int)cudaErrorInvalidValue;
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const auto kernel = lists_in_smem(k) ? fused_topk_kernel<true> : fused_topk_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, scoring_smem(k));
@@ -305,10 +308,12 @@ int cornac_fused_topk(const float* U, const float* V, const float* bias, int B, 
   return (int)cudaGetLastError();
 }
 
-// How many blocks of the scoring kernel one SM holds at once for this k
-// (its registers and shared memory decide), which split_plan needs.
-// Returns a cudaError_t (0 on success).
-int cornac_fused_topk_blocks_per_sm(int k, int* blocks) {
+// How many blocks of the scoring kernel one SM of `device` holds at once
+// for this k (its registers and shared memory decide), which split_plan
+// needs. Returns a cudaError_t (0 on success).
+int cornac_fused_topk_blocks_per_sm(int device, int k, int* blocks) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const auto kernel = lists_in_smem(k) ? fused_topk_kernel<true> : fused_topk_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, scoring_smem(k));

@@ -323,6 +323,26 @@ class Recommender:
                 out[i] = self.default_score()
         return out
 
+    def _score_pairs_from_rows(self, user_indices, item_indices, transform=None):
+        """``score_pairs`` through ``score_batch`` of the unique users: one
+        batch of rows instead of a call per pair. Only for models whose
+        pointwise ``score(u, i)`` equals ``score(u)[i]`` (``transform``
+        applies a pointwise-only mapping afterwards, e.g. BiVAECF's scaling
+        to the rating range)."""
+        users = np.asarray(user_indices)
+        items = np.asarray(item_indices)
+        uniq, inv = np.unique(users, return_inverse=True)
+        rows = np.asarray(self.score_batch(uniq), dtype=np.float64)
+        out = rows[inv, np.minimum(items, rows.shape[1] - 1)]
+        if transform is not None:
+            out = transform(out)
+        # unknown users/items fall back to the same (untransformed) default
+        # as the score() loop's ScoreException path
+        unknown = (items < 0) | (items >= self.num_items) | (users < 0) | (users >= self.num_users)
+        if unknown.any():
+            out = np.where(unknown, self.default_score(), out)
+        return out
+
     def rate(self, user_idx, item_idx, clipping=True):
         """Pointwise rating prediction with optional clipping."""
         try:

@@ -37,13 +37,16 @@ class CanaryKernel:
         out = torch.empty_like(x)
         if self._fn is None:
             fn = self.library.load().cornac_scale2
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(x.device):
-            err = self._fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                           torch.cuda.current_stream(x.device).cuda_stream)
-        self.library.check(err)
+        # the C side launches on this device and restores the caller's
+        index = x.get_device()
+        err = self._fn(index, x.data_ptr(), out.data_ptr(), x.numel(),
+                       torch._C._cuda_getCurrentRawStream(index))
+        if err:
+            self.library.check(err)
         self.launches += 1
         return out
 

@@ -179,6 +179,7 @@ class CosineTopkKernel:
         self.library = CudaLibrary("cosine_topk")
         self.launches = 0
         self._plans = {}
+        self._bound = None
 
     def plan(self, n, device):
         """(rows a range holds, persistent blocks) for n rows on the CUDA
@@ -187,20 +188,21 @@ class CosineTopkKernel:
         key = (torch.cuda.current_device() if device.index is None else device.index, n)
         if key not in self._plans:
             fn = self.library.load().cornac_cosine_topk_plan
-            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
             fn.restype = ctypes.c_int
             C, blocks = ctypes.c_int(), ctypes.c_int()
-            with torch.cuda.device(key[0]):
-                self.library.check(fn(n, ctypes.byref(C), ctypes.byref(blocks)))
+            self.library.check(fn(key[0], n, ctypes.byref(C), ctypes.byref(blocks)))
             self._plans[key] = (C.value, blocks.value)
         return self._plans[key]
 
     def _fn(self):
-        fn = self.library.load().cornac_cosine_topk
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        return fn
+        if self._bound is None:
+            fn = self.library.load().cornac_cosine_topk
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 5)
+            fn.restype = ctypes.c_int
+            self._bound = fn
+        return self._bound
 
     def __call__(self, views, k, exclude_self=True):
         """Launch on the current stream. ``views``: ``SparseViews`` on a
@@ -232,20 +234,22 @@ class CosineTopkKernel:
         if n * k >= 2**31:
             raise ValueError("the kernel takes n*k as a 32-bit int")
         C, blocks = self.plan(n, dev)
-        with torch.cuda.device(dev):  # the C side launches on the current device
-            bounds, split = partition(views, C)
-            sims = torch.empty((n, k), dtype=torch.float32, device=dev)
-            ids = torch.empty((n, k), dtype=torch.int32, device=dev)
-            scratch = torch.empty((blocks, WARPS + 1, 2, k), dtype=torch.int64, device=dev)
-            next_row = torch.zeros(1, dtype=torch.int32, device=dev)
-            err = self._fn()(
-                views.row_ptr.data_ptr(), views.col_idx.data_ptr(), views.row_val.data_ptr(),
-                split.data_ptr(), views.row_idx.data_ptr(), views.col_val.data_ptr(),
-                bounds.data_ptr(), n, (len(bounds) - 1) // WARPS, C, k, int(bool(exclude_self)),
-                blocks, sims.data_ptr(), ids.data_ptr(), scratch.data_ptr(), next_row.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        self.library.check(err)
+        bounds, split = partition(views, C)
+        sims = torch.empty((n, k), dtype=torch.float32, device=dev)
+        ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+        scratch = torch.empty((blocks, WARPS + 1, 2, k), dtype=torch.int64, device=dev)
+        next_row = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the C side launches on this device and restores the caller's
+        index = dev.index
+        err = self._fn()(
+            index, views.row_ptr.data_ptr(), views.col_idx.data_ptr(), views.row_val.data_ptr(),
+            split.data_ptr(), views.row_idx.data_ptr(), views.col_val.data_ptr(),
+            bounds.data_ptr(), n, (len(bounds) - 1) // WARPS, C, k, int(bool(exclude_self)),
+            blocks, sims.data_ptr(), ids.data_ptr(), scratch.data_ptr(), next_row.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index),
+        )
+        if err:
+            self.library.check(err)
         self.launches += 1
         return sims, ids
 

@@ -59,14 +59,13 @@ class FusedTopkKernel:
     def slots(self, device, k):
         """(SMs, blocks of the scoring kernel per SM) on ``device`` for
         this k, asked of the CUDA runtime once per pair."""
-        key = (device.index, k)
+        key = (torch.cuda.current_device() if device.index is None else device.index, k)
         if key not in self._slots:
             fn = self.library.load().cornac_fused_topk_blocks_per_sm
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             per_sm = ctypes.c_int()
-            with torch.cuda.device(device):
-                self.library.check(fn(k, ctypes.byref(per_sm)))
+            self.library.check(fn(key[0], k, ctypes.byref(per_sm)))
             sms = torch.cuda.get_device_properties(device).multi_processor_count
             self._slots[key] = (sms, per_sm.value)
         return self._slots[key]
@@ -99,16 +98,19 @@ class FusedTopkKernel:
         scratch = torch.empty((2, B, S, k), dtype=torch.int64, device=U.device)
         if self._fn is None:
             fn = self.library.load().cornac_fused_topk
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] * 4)
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(U.device):  # the C side launches on the current device
-            err = self._fn(
-                U.data_ptr(), V.data_ptr(), 0 if bias is None else bias.data_ptr(),
-                B, N, d, k, S, scores.data_ptr(), items.data_ptr(),
-                scratch.data_ptr(), torch.cuda.current_stream(U.device).cuda_stream,
-            )
-        self.library.check(err)
+        # the C side launches on this device and restores the caller's
+        index = U.get_device()
+        err = self._fn(
+            index, U.data_ptr(), V.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            B, N, d, k, S, scores.data_ptr(), items.data_ptr(),
+            scratch.data_ptr(), torch._C._cuda_getCurrentRawStream(index),
+        )
+        if err:
+            self.library.check(err)
         self.launches += 1
         return scores, items
 
@@ -165,6 +167,8 @@ def fused_topk(U, V, k, bias=None, force=None, precision="f32",
     V = torch.as_tensor(V, dtype=torch.float32, device=device).contiguous()
     if bias is not None:
         bias = torch.as_tensor(bias, dtype=torch.float32, device=device).contiguous()
+    if U.dim() != 2 or V.dim() != 2 or U.shape[1] != V.shape[1]:
+        raise ValueError(f"U {tuple(U.shape)} and V {tuple(V.shape)} must be (B, d) and (N, d)")
     k = int(min(k, V.shape[0]))
     if precision == "bf16" and recall_target is None:
         U, V = (t.to(torch.bfloat16).to(torch.float32) for t in (U, V))

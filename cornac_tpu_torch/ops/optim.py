@@ -19,7 +19,8 @@ optax's own update rules (``optax/_src/transform.py``: ``scale_by_adam``,
 The updates are dense, as optax's are: every entry's moments decay at every
 step, whether or not its row was in the minibatch (``torch.optim.SparseAdam``
 is another algorithm). The step count is a device tensor, so no step waits
-for the host.
+for the host. Adam updates all tensors at once with ``torch._foreach_*``
+operations, the same arithmetic in a few launches.
 
 Each maker returns an ``Optimizer(init, update)``: ``init(params)`` gives
 the state, ``update(grads, state)`` gives (updates, new state), both dicts
@@ -39,10 +40,10 @@ def _count(params):
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def _bias_correction(moment, decay, count):
-    """``moment / (1 - decay ** count)``, the power taken in float32 as
-    optax takes it, on the count's device (no copy from the host)."""
-    return moment / (1 - torch.pow(decay, count.to(torch.float32)))
+def _correction(decay, count):
+    """``1 - decay ** count``, the power taken in float32 as optax takes
+    it, on the count's device (no copy from the host)."""
+    return 1 - torch.pow(decay, count.to(torch.float32))
 
 
 def sgd(learning_rate):
@@ -64,15 +65,22 @@ def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def update(grads, state):
+        # every tensor at once (torch._foreach_*: a few launches for the
+        # whole model, not some twenty per tensor), each operation the one
+        # a tensor at a time would do, so the same bits
         count = state["count"] + 1
-        mu, nu, updates = {}, {}, {}
-        for name, g in grads.items():
-            mu[name] = (1 - b1) * g + b1 * state["mu"][name]
-            nu[name] = (1 - b2) * (g * g) + b2 * state["nu"][name]
-            m_hat = _bias_correction(mu[name], b1, count)
-            v_hat = _bias_correction(nu[name], b2, count)
-            updates[name] = m_hat / (torch.sqrt(v_hat + eps_root) + eps) * -learning_rate
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        names = list(grads)
+        g = [grads[n] for n in names]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                                torch._foreach_mul([state["mu"][n] for n in names], b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+                                torch._foreach_mul([state["nu"][n] for n in names], b2))
+        m_hat = torch._foreach_div(mu, _correction(b1, count))
+        v_hat = torch._foreach_div(nu, _correction(b2, count))
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_add(v_hat, eps_root)), eps)
+        updates = torch._foreach_mul(torch._foreach_div(m_hat, denom), -learning_rate)
+        return dict(zip(names, updates)), {"count": count, "mu": dict(zip(names, mu)),
+                                           "nu": dict(zip(names, nu))}
 
     return Optimizer(init, update)
 
@@ -122,8 +130,18 @@ def make_optimizer(name, learning_rate):
 
 
 def apply_updates(params, updates):
-    """``params[name] += updates[name]`` in place, for every update."""
+    """``params[name] += updates[name]`` in place, for every update (one
+    ``torch._foreach_add_``)."""
     with torch.no_grad():
-        for name, u in updates.items():
-            params[name].add_(u)
+        torch._foreach_add_([params[name] for name in updates], list(updates.values()))
     return params
+
+
+def step(params, opt, state, loss):
+    """One step of ``opt`` on ``loss``: its gradients with respect to every
+    tensor of ``params`` (a dict), the optimizer's update, applied in place.
+    Returns the new state."""
+    grads = torch.autograd.grad(loss, list(params.values()))
+    updates, state = opt.update(dict(zip(params, grads)), state)
+    apply_updates(params, updates)
+    return state

@@ -12,12 +12,16 @@ import numpy as np
 import torch
 
 
-def epoch_generator(seed, epoch, device):
+def epoch_generator(seed, epoch, device, *more):
     """A ``torch.Generator`` on ``device`` for one epoch of a fit whose
     draws come from ``seed``, seeded from (seed, global epoch index): the
-    stream of any epoch is the same however the host chunks the fit."""
+    stream of any epoch is the same however the host chunks the fit.
+    ``more`` (non-negative ints, e.g. a minibatch index) names a stream
+    within the epoch, as the JAX package's ``fold_in`` of the epoch key
+    does."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]))
+    state = np.random.SeedSequence([seed, epoch, *more]).generate_state(1, np.uint64)[0]
+    gen.manual_seed(int(state))
     return gen
 
 

@@ -16,6 +16,7 @@ import torch
 from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, TPUExactANN
 from cornac_tpu_torch.models import COE, EASE, IBPR, NMF, PMF, WMF, ItemKNN, OnlineIBPR, UserKNN
+from cornac_tpu_torch.models import GMF, MLP, NGCF, BiVAECF, LightGCN, NeuMF, RecVAE, VAECF
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -95,7 +96,8 @@ def test_split_kernel_matches_plain(card, B, ints):
 def test_kernel_refuses_bad_inputs(card):
     U = torch.zeros(4, 8, device=card)
     V = torch.zeros(16, 8, device=card)
-    for args in ((U.double(), V.double(), 3), (U, V[:, :4], 3), (U, V, 17), (U, V.T, 3)):
+    for args in ((U.double(), V.double(), 3), (U, V[:, :4], 3), (U, V, 17), (U, V.T, 3),
+                 (U.cpu(), V, 3), (U, V.cpu(), 3), (U, V, 3, torch.zeros(16))):
         with pytest.raises(ValueError):
             FUSED_TOPK(*args)
 
@@ -407,8 +409,33 @@ def test_canary_is_x_times_two(card, shape):
     torch.cuda.synchronize()
     assert CANARY.launches == before + 1
     assert y.device == x.device and torch.equal(y, scale2_torch(x))
-    with pytest.raises(ValueError):
-        CANARY(x.double())
+    for bad in (x.double(), x.cpu(), torch.randn(4, 6, device=card).T):
+        with pytest.raises(ValueError):
+            CANARY(bad)
+
+
+def test_kernels_launch_on_the_current_stream(card):
+    # the wrappers hand C the device index and the current raw stream: on a
+    # side stream, each kernel's answer is there once that stream is done
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(300, 70, generator=gen, device=card)
+    V = torch.randn(2000, 70, generator=gen, device=card)
+    W = (torch.rand(64, 40, generator=gen, device=card) < 0.3).float()
+    table = torch.randn(50, 70, generator=gen, device=card)
+    ids = torch.randint(50, (300,), generator=gen, device=card)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        doubled = scale2(x)
+        top = fused_topk(x, V, 10)
+        near = cosine_topk(W, 5)
+        summed = accumulate_rows(table.clone(), ids, x)
+    side.synchronize()
+    assert torch.equal(doubled, scale2_torch(x))
+    ref = fused_topk_torch(x, V, 10)
+    torch.testing.assert_close(top[0], ref[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(near[1], cosine_topk_torch(W, 5)[1])
+    assert torch.equal(summed, accumulate_rows(table.clone(), ids, x))
 
 
 @pytest.mark.parametrize("bias", [False, True])
@@ -532,3 +559,83 @@ def test_new_epochs_never_sync_with_the_host(card):
         torch.cuda.set_sync_debug_mode("default")
     for t in (pmf_loss, mf_loss, tloss, *nmf_out, wU, wV):
         assert torch.isfinite(t).all()
+
+
+NEURAL = [
+    (lambda **kw: VAECF(k=8, autoencoder_structure=[32], n_epochs=3, batch_size=64, **kw),
+     lambda m: [p for p in m.params.parameters()]),
+    (lambda **kw: RecVAE(hidden_dim=32, latent_dim=8, n_epochs=2, batch_size=64, **kw),
+     lambda m: [*m.enc.parameters(), *m.dec.parameters()]),
+    (lambda **kw: BiVAECF(k=8, n_epochs=3, batch_size=64, **kw),
+     lambda m: [torch.as_tensor(m.mu_theta), torch.as_tensor(m.mu_beta)]),
+    (lambda **kw: GMF(num_factors=8, num_epochs=2, batch_size=512, **kw),
+     lambda m: list(m.params.parameters())),
+    (lambda **kw: MLP(layers=(16, 8), num_epochs=2, batch_size=512, **kw),
+     lambda m: list(m.params.parameters())),
+    (lambda **kw: NeuMF(num_factors=8, layers=(16, 8), num_epochs=2, batch_size=512, **kw),
+     lambda m: list(m.params.parameters())),
+    (lambda **kw: LightGCN(emb_size=16, num_epochs=2, batch_size=512, **kw),
+     lambda m: list(m.params.parameters())),
+    (lambda **kw: NGCF(emb_size=16, layer_sizes=[16, 16], num_epochs=2, batch_size=512, **kw),
+     lambda m: list(m.params.parameters())),
+]
+
+
+@pytest.mark.parametrize("make,params", NEURAL)
+def test_neural_seeded_fits_on_the_card_are_identical(card, make, params):
+    # one chunk, then one-epoch chunks (verbose): the same bits; the
+    # embedding gathers' gradients go through accumulate_rows
+    train = _star_train()
+    fits = []
+    for verbose in (False, True):
+        before = ACCUMULATE_ROWS.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fits.append(make(seed=4, verbose=verbose, device=card).fit(train))
+        if isinstance(fits[-1], (GMF, MLP, NeuMF, LightGCN)):
+            assert ACCUMULATE_ROWS.launches > before
+    for a, b in zip(params(fits[0]), params(fits[1])):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+def test_vaecf_data_modes_on_the_card_are_identical(card, monkeypatch):
+    from cornac_tpu_torch.models import vaecf as vaecf_mod
+
+    train = _star_train()
+    kw = dict(k=8, autoencoder_structure=[32], n_epochs=2, batch_size=64, seed=4, device=card)
+    fits = [VAECF(**kw).fit(train)]
+    monkeypatch.setattr(vaecf_mod, "_RESIDENT_BYTES", 0)
+    fits.append(VAECF(**kw).fit(train))
+    monkeypatch.setattr(vaecf_mod, "_SPARSE_RESIDENT_BYTES", 0)
+    fits.append(VAECF(**kw).fit(train))
+    assert [f.data_mode for f in fits] == ["resident", "index-resident", "streamed"]
+    for other in fits[1:]:
+        for a, b in zip(fits[0].params.parameters(), other.params.parameters()):
+            assert torch.equal(a, b)
+
+
+def test_edge_propagation_on_the_card_matches_plain(card):
+    # the edge form's forward and backward through gather_rows and
+    # accumulate_rows, twice the same bits, within float32 rounding of the
+    # plain version (index_add_ and autograd's gather, atomic on the card)
+    from cornac_tpu_torch.ops.graph import NormAdjacency, propagate_torch
+
+    train = _star_train()
+    adj = NormAdjacency(train, budget_elems=0, device=card)
+    gen = torch.Generator(device=card).manual_seed(2)
+    ue = torch.randn(train.num_users, 64, generator=gen, device=card)
+    ie = torch.randn(train.num_items, 64, generator=gen, device=card)
+    outs = []
+    for fn in (adj.propagate, adj.propagate,
+               lambda u, i: propagate_torch(u, i, adj.edge_u, adj.edge_i, adj.edge_norm)):
+        u, i = ue.clone().requires_grad_(True), ie.clone().requires_grad_(True)
+        before = ACCUMULATE_ROWS.launches
+        a, b = fn(u, i)
+        grads = torch.autograd.grad((a * a).sum() + (b * 3).sum(), [u, i])
+        outs.append((a.detach(), b.detach(), *grads, ACCUMULATE_ROWS.launches - before))
+    assert outs[0][4] == 4 and outs[2][4] == 0
+    for x, y in zip(outs[0][:4], outs[1][:4]):
+        assert torch.equal(x, y)
+    for x, y in zip(outs[0][:4], outs[2][:4]):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)

@@ -64,7 +64,8 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "ops.membership", "utils.checkpoint", "models.mf", "models.mmmf",
                  "models.baseline", "ops.canary", "ops.optim", "ops.dense_scores",
                  "models.pmf", "models.nmf", "models.ease", "models.wmf", "models.ibpr",
-                 "convert", "data.dataset"):
+                 "convert", "data.dataset", "engine.nn", "models.vaecf", "models.recvae",
+                 "models.bivaecf", "models.ncf", "models.lightgcn", "ops.graph"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 
@@ -91,7 +92,7 @@ print(json.dumps(sorted(m for m in sys.modules
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/card_measure.py",
                                     "tools/quality_bands.py", "tools/cuda_on_silicon.py",
-                                    "tools/profiler_loss_probe.py"])
+                                    "tools/profiler_loss_probe.py", "tools/wrapper_bench.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card load as modules (tools/ on the
     path, as when they run) without JAX or the JAX package."""

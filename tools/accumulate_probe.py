@@ -106,7 +106,8 @@ def build(name, text):
 
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
     cu.write_text(text)
-    proc = subprocess.run([native.find_nvcc(), *native.NVCC_FLAGS, "-o", str(so), str(cu)],
+    proc = subprocess.run([native.find_nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC),
+                           "-o", str(so), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {cu}:\n{proc.stdout + proc.stderr}")

@@ -14,7 +14,9 @@ bands it printed, which ``chip_smoke.py`` reads.
 ``--model`` picks the configuration (``benchmarks/model_sweep.py``'s, or
 the ones named below): ``BPR`` (``bench.py``'s, the default), ``PMF``,
 ``MF-adam`` (adam with embedding dropout 0.1), ``IBPR``, ``COE``, ``NMF``,
-``WMF``, ``EASE``. ``--package torch`` fits the port instead, on the CPU,
+``WMF``, ``EASE``, and the neural family's ``VAECF``, ``RecVAE``, ``BiVAECF``,
+``NeuMF``, ``LightGCN``, with ``GMF`` and ``MLP`` at NeuMF's depth and ``NGCF``
+at LightGCN's. ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
 every float32 matrix product of the JAX package to bfloat16 and sums in
 float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
@@ -69,6 +71,15 @@ CONFIGS = {
     "NMF": ("NMF", dict(k=15, max_iter=50), False, True),
     "WMF": ("WMF", dict(k=50, max_iter=30, verbose=False), False, False),
     "EASE": ("EASE", dict(lamb=500, verbose=False), None, False),
+    "VAECF": ("VAECF", dict(k=10, n_epochs=100), True, False),
+    "RecVAE": ("RecVAE", dict(n_epochs=20, verbose=False), True, False),
+    "BiVAECF": ("BiVAECF", dict(k=10, n_epochs=100), True, False),
+    "GMF": ("GMF", dict(num_factors=8, num_epochs=10, verbose=False), True, False),
+    "MLP": ("MLP", dict(layers=(32, 16, 8), num_epochs=10, verbose=False), True, False),
+    "NeuMF": ("NeuMF", dict(num_factors=8, layers=(32, 16, 8), num_epochs=10, verbose=False),
+              True, False),
+    "LightGCN": ("LightGCN", dict(emb_size=64, num_layers=3, num_epochs=40), True, False),
+    "NGCF": ("NGCF", dict(emb_size=64, num_epochs=40), True, False),
 }
 
 

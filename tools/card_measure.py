@@ -1,7 +1,8 @@
 """Measurement helpers shared by ``chip_smoke.py`` and
 ``tools/cuda_on_silicon.py``: the card's peak rates, its name and power
 limit, CUDA-event timing, and the check of a top-k kernel's lists against
-its plain version's. Imports torch only inside its functions."""
+its plain version's, and the dense library yardstick of the cosine kernel.
+Imports torch only inside its functions."""
 
 import subprocess
 
@@ -82,3 +83,20 @@ def compare_topk(ks, ki, ps, pi, S, what, exact=False, rtol=1e-5, atol=1e-5):
         if not torch.all(near[bad] & same[bad]):
             raise AssertionError(f"{what}: {n_bad} item mismatches beyond near-ties")
     return err.max().item(), n_bad
+
+
+def library_cosine_topk(W, k):
+    """The dense library yardstick: two ``torch.matmul`` (TF32 off), the
+    elementwise step and ``torch.topk``. Timed only; the port never calls
+    it. It is not ``co_support_cosine``: that follows the JAX formula with
+    three products, where ``d2 = B·(W∘W)ᵀ`` is just ``d1ᵀ``, and the
+    yardstick should be the least library work for the same function."""
+    import torch
+
+    from cornac_tpu_torch.ops.dispatch import full_f32
+
+    with full_f32():
+        num, d1 = torch.matmul(W, W.T), torch.matmul(W * W, (W != 0).float().T)
+    sim = torch.where(num != 0, num / torch.clamp_min(torch.sqrt(d1) * torch.sqrt(d1.T), 1e-12), 0.0)
+    sim.fill_diagonal_(-3e38)
+    return torch.topk(sim, k, dim=1)

@@ -17,7 +17,7 @@ and runs:
 Each step is timed cold (build or load of the library, first launch and a
 synchronise, host clock) and warm (CUDA events over repeated launches), with
 its plain version and the library yardstick (``torch.mul``; ``matmul`` +
-``topk``) warm beside it. A step that fails or times out is recorded with its
+``topk``; two ``matmul`` + ``topk``) warm beside it. A step that fails or times out is recorded with its
 error; nothing falls back, and the script then exits non-zero. It writes
 ``build/cuda_silicon.json`` with the card's name and power limit.
 
@@ -33,8 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
-from card_measure import (PEAK_BYTES, PEAK_F32_FLOPS, card_line, compare_topk, plain_scores,
-                          time_ms)
+from card_measure import (PEAK_BYTES, PEAK_F32_FLOPS, card_line, compare_topk,
+                          library_cosine_topk, plain_scores, time_ms)
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -139,7 +139,7 @@ def step_cosine_topk():
                 build_s=COSINE_TOPK.library.build_seconds, relaxed=relaxed, max_abs_err=max_err,
                 ms=time_ms(lambda: cosine_topk(W, k), 10),
                 plain_ms=time_ms(lambda: cosine_topk_torch(W, k), 10),
-                library_ms=None,
+                library_ms=time_ms(lambda: library_cosine_topk(W, k), 10),
                 bound_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES),
                 bound_by="operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes")
 

@@ -28,6 +28,22 @@ BANDS = {
             (0.18800781878029427, 0.0037357126626665084)),
     "MF-adam": ((0.6446108506630992, 0.0019435939338328962),
                 (0.03160898657802054, 0.0024221526956530654)),
+    "VAECF": ((0.9336208911108945, 3.922454413960078e-05),
+             (0.16372374304405324, 0.0025435135610025472)),
+    "RecVAE": ((0.9343017741579519, 0.00020291588864249432),
+              (0.11944712108417888, 0.0036133350688882333)),
+    "BiVAECF": ((0.9314102263743905, 0.00039250351566921755),
+               (0.1720670542892065, 0.0030637735423902526)),
+    "GMF": ((0.9338737448351507, 0.00019642024641436975),
+           (0.16919348157412933, 0.004201389376582616)),
+    "MLP": ((0.9335706869466179, 0.00023623657314098098),
+           (0.1666291310482541, 0.004741205404178555)),
+    "NeuMF": ((0.9413218358667885, 0.0009719574460930232),
+             (0.2754008581472733, 0.013069269129053316)),
+    "LightGCN": ((0.93370604357057, 0.00010424082574821262),
+                (0.17045347762006718, 0.004557508809276959)),
+    "NGCF": ((0.9376181031335322, 0.0006383643274234236),
+            (0.20914533125633655, 0.011723150635304316)),
 }
 
 
