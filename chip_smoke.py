@@ -37,8 +37,11 @@ Phases, each of which fails the run when it fails:
    into 943 and 789 rows at d = 15 and 1-D, PMF's 1,024, IBPR's 100 and
    200, COE's 1,000 and 2,000, MF-adam's 256 at d = 10 and 1-D), at the
    neural family's (NeuMF's 256 ids at d = 16 and 8, LightGCN's 1,024 at
-   d = 64) and at LightGCN's edge form at the ML-10M widths (10,000,054
-   ids into 69,878 and into 10,677 rows at d = 64), bit for bit (on the
+   d = 64), at LightGCN's edge form at the ML-10M widths (10,000,054
+   ids into 69,878 and into 10,677 rows at d = 64), at HPF's (the same ids
+   at d = 5; 80,000 ids into 943 and 789 rows at the bench shape) and at
+   FM-SGD's (2,048 ids over the user and the offset item block into 1,732
+   feature rows, 1-D and d = 8), bit for bit (on the
    CPU, ``index_add_`` sums each row's updates in batch order and adds
    the sum once, as the kernel does; the gap to the plain version on the
    card, whose ``index_add_`` is atomic, is printed); two launches must
@@ -73,6 +76,14 @@ Phases, each of which fails the run when it fails:
    the CPU (where accumulate_rows is its plain version), two calls bit for
    bit; times beside the plain version on the card (``index_add_``), four
    cuSPARSE products and the bound;
+10c. HPF at those widths (``examples/hpf_movielens.py``: k = 5, seed 123)
+   on phase 10's train set: fits of 1 and 3 sweeps held to the same fits
+   on the CPU (rtol 3e-5), the first sweep's two accumulate_rows inputs
+   held bit for bit to the plain version on the CPU and timed, a second
+   3-sweep fit bit for bit, the 100-sweep fit timed (seconds per sweep
+   beside the byte bound, the busy share, peak device memory), then
+   recommend_batch of 8,192 users at k = 100 through fused_topk at d = 5,
+   every list held to the plain version;
 11. trainers at the bench.py shape (``make_ml100k_like(seed=7)``, 943 users
    x 1,682 items, 100,000 ratings): RatioSplit(0.2, 4.0, seed=123) ->
    BPR(k=10, max_iter=200, learning_rate=0.001, lambda_reg=0.01,
@@ -122,27 +133,50 @@ Phases, each of which fails the run when it fails:
    epoch ((4 - 1) / 3) beside the FP32 FLOP bound, peak device memory;
    score_batch of 8,192 users, their top-100 held to a float64 scoring of
    the same parameters, and recommend for one user;
+12c. the factor family's rest at the bench shape: one Experiment with
+   ``benchmarks/model_sweep.py``'s HPF, SKMeans and FM (als), PF, FM's sgd
+   and mcmc learners at ``examples/fm_example.py``'s settings and
+   ``examples/sansa_movielens.py``'s SANSA on AUC, NDCG@10, Recall@10, RMSE
+   and MAE: each AUC and NDCG@10 (and FM's RMSE) in the band of the JAX
+   package's CPU fits, fit seconds per model, fused_topk behind HPF's, PF's
+   and SANSA's recommend_batch held to the plain version, a second seeded
+   fit of each bit for bit, whose accumulate_rows inputs are held to the
+   plain version on the CPU; one FM-ALS sweep held to the CPU's and
+   ``_seg_sum`` beside accumulate_rows (error against float64, time);
+12d. the protocols at the bench shape, in the same process:
+   CrossValidation(5 folds, seed 123) over MF(k=10, max_iter=25) and
+   PMF(k=10, max_iter=100) on MAE and RMSE; StratifiedSplit (by user,
+   chronological) and TimestampSplit (ratio mode) on the bench data with
+   seeded timestamps and PropensityStratifiedEvaluation (2 strata), each an
+   Experiment with HPF and MostPop; GridSearch and RandomSearch (4 trials)
+   over HPF's k and hierarchical on validation AUC. The folds, splits and
+   strata are held to the same protocols built on the CPU, each search's
+   trials (within 1e-4) and best_params to the same search on the CPU;
 15. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
    over two launches and whether it runs without a sync are recorded)
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
+   fused_topk also at HPF's d = 5 (B = 8192 over the ML-10M catalog),
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
    the labelled shapes of phase 5 (the BPR trainers' four, NeuMF's and
-   LightGCN's at the bench shape, LightGCN's two at ML-10M), on the inputs
+   LightGCN's at the bench shape, LightGCN's and HPF's two each at ML-10M),
+   on the inputs
    phase 5 checked; the canary at (128, 128) beside ``torch.mul``.
 
-Phases 12 and 12b run last, after 15, in four spawned processes at once
-(the factor family and three groups of the neural family): the card
+Phases 12, 12b and 12c-12d run last, after 15, in five spawned processes
+at once (the factor family, three groups of the neural family, and the
+factor family's rest with the protocols): the card
 time-slices between processes and they share the host's cores, so no
 time this process takes is taken beside them, while their own fit seconds
 and busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernels' numbers (fused_topk once per batch size, B = 8192 first;
-accumulate_rows at the full-width V update and LightGCN's two ML-10M shapes),
+with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
+then at HPF's d = 5; accumulate_rows at the full-width V update and
+LightGCN's and HPF's two ML-10M shapes each),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -550,7 +584,19 @@ ACC_CASES = [
     ("LightGCN, bench shape, propagated item rows", 1_682, 1_024, 64, "popular", 1),
     ("LightGCN edge form, ML-10M, into user rows", ML10M_USERS, ML10M_RATINGS, 64, "popular", 1),
     ("LightGCN edge form, ML-10M, into item rows", ML10M_ITEMS, ML10M_RATINGS, 64, "popular", 1),
+    # the factor family's rest: HPF's two scatters a sweep at the ML-10M
+    # widths (phase 10c, every rating into the user rows and into the item
+    # rows, k = 5) and at the bench shape (phase 12c), and FM-SGD's w and V
+    # updates (a minibatch of 1,024 ratings: its user ids, then its item ids
+    # offset by the 943 users, into the 943 + 789 feature rows)
+    ("HPF, ML-10M, into user rows", ML10M_USERS, ML10M_RATINGS, 5, "popular", 1),
+    ("HPF, ML-10M, into item rows", ML10M_ITEMS, ML10M_RATINGS, 5, "popular", 1),
+    (None, 943, 80_000, 5, "popular", 1),  # HPF's user shapes at the bench shape
+    (None, 789, 80_000, 5, "popular", 1),  # HPF's item shapes
+    (None, 1_732, 2_048, None, "feature blocks", 1),  # FM-SGD's w
+    (None, 1_732, 2_048, 8, "feature blocks", 1),  # FM-SGD's V
 ]
+FM_USERS = 943  # the bench shape's train users: the first feature block of FM's ids
 
 
 def accumulate_inputs(R, B, d, kind, stride, gen):
@@ -560,8 +606,14 @@ def accumulate_inputs(R, B, d, kind, stride, gen):
 
     shape = (R,) if d is None else (R, d)
     table = torch.randn(*shape, generator=gen, device=DEV)
-    ids = (popular_ids(R, B, gen) if kind == "popular"
-           else torch.randint(R, (B,), generator=gen, device=DEV))
+    if kind == "feature blocks":  # FM's users, then its items past the users
+        half = B // 2
+        ids = torch.cat([popular_ids(FM_USERS, half, gen),
+                         FM_USERS + popular_ids(R - FM_USERS, B - half, gen)])
+    elif kind == "popular":
+        ids = popular_ids(R, B, gen)
+    else:
+        ids = torch.randint(R, (B,), generator=gen, device=DEV)
     if kind == "out of range":
         bad = torch.tensor([-1, -7, R, R + 3, 2**40], device=DEV)
         pick = torch.rand(B, generator=gen, device=DEV) < 0.05
@@ -599,8 +651,11 @@ def check_accumulate(what, table, ids, upd, calls=4):
     per_call, device_per_call, device_ms = 1, None, None
     if calls:
         scratch = table.clone()
-        per_call, device_per_call, names, device_ms = launches_per_call(
-            lambda: accumulate_rows(scratch, ids, upd), calls)
+        for _ in range(2):  # once more when the profiler kept no device event at all
+            per_call, device_per_call, names, device_ms = launches_per_call(
+                lambda: accumulate_rows(scratch, ids, upd), calls)
+            if device_per_call:
+                break
         if (per_call != 1 or not 0 < device_per_call <= 1
                 or not all("accumulate_rows_kernel" in k for k in names)):
             raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
@@ -1447,7 +1502,7 @@ def phase_factor_bench(bench_data):
 
     # ---- check what came out ----
     fit_s = {}
-    for (name, _, _), res in zip(configs, exp.result):
+    for (name, _, _), model, res in zip(configs, exp.models, exp.result):
         vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"{res.model_name}: non-finite metrics {vals}")
@@ -1508,6 +1563,328 @@ def phase_factor_bench(bench_data):
     log(f"factor family at the bench shape: ok, main path {sum(clock.seconds.values()):.1f} s, "
         f"second fits {sum(refits.seconds.values()):.1f} s")
     return launches, fused, fit_s, acc_err
+
+
+def factor_rest_configs():
+    """(band name, maker, fitted attributes) of the factor family's rest:
+    ``benchmarks/model_sweep.py``'s HPF, SKMeans and FM (als), PF (HPF with
+    ``hierarchical=False``), FM's sgd and mcmc learners at
+    ``examples/fm_example.py``'s settings, and ``examples/sansa_movielens.py``'s
+    SANSA."""
+    from cornac_tpu_torch import models as M
+
+    fm = dict(k0=1, k1=1, k2=8, max_iter=100, learning_rate=0.01, seed=123)
+    hpf = ("Gs", "Gr", "Ls", "Lr")
+    return [
+        ("HPF", lambda **kw: M.HPF(k=5, max_iter=100, seed=123, **kw), hpf),
+        ("PF", lambda **kw: M.HPF(k=5, max_iter=100, seed=123, hierarchical=False, name="PF",
+                                  **kw), hpf),
+        ("SKMeans", lambda **kw: M.SKMeans(k=5, max_iter=100, seed=123, **kw),
+         ("centroids", "final_par")),
+        ("FM-als", lambda **kw: M.FM(k2=8, max_iter=50, method="als", seed=123, name="FM-als",
+                                     **kw), ("w", "V")),
+        ("FM-sgd", lambda **kw: M.FM(method="sgd", name="FM-sgd", **fm, **kw), ("w", "V")),
+        ("FM-mcmc", lambda **kw: M.FM(method="mcmc", name="FM-mcmc", **fm, **kw), ("w", "V")),
+        ("SANSA", lambda **kw: M.SANSA(l2=500.0, weight_matrix_density=0.01, **kw),
+         ("W1", "W2")),
+    ]
+
+
+def same_bits(a, b):
+    """Two fitted arrays (numpy or scipy sparse) equal bit for bit."""
+    import scipy.sparse as sp
+
+    if sp.issparse(a):
+        a, b = a.tocsr(), b.tocsr()
+        return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+                and np.array_equal(a.indices, b.indices) and np.array_equal(a.data, b.data))
+    return np.array_equal(a, b)
+
+
+def phase_factor_rest_bench(bench_data):
+    """Phase 12c, RatioSplit -> Experiment with the factor family's rest at
+    the bench shape: each model's AUC and NDCG@10 (and FM's RMSE) in its
+    band, fit seconds per model, B1 behind HPF's, PF's and SANSA's
+    recommend_batch held to the plain version, then a second seeded fit of
+    each bit for bit, whose accumulate_rows inputs (the first at each
+    shape) are held to the plain version on the CPU. Then phase 12d, the
+    protocols (``phase_protocols_bench``), in the same process."""
+    import io
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.eval_methods import RatioSplit, rating_eval
+    from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    split = clock("RatioSplit(0.2, 4.0, seed=123)", lambda: RatioSplit(
+        bench_data(), test_size=0.2, rating_threshold=4.0, seed=123, verbose=False))
+    train = split.train_set
+    configs = factor_rest_configs()
+    users = np.random.RandomState(5).choice(train.num_users, 512, replace=False)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    exp = Experiment(split, [make(verbose=False) for _, make, _ in configs],
+                     [AUC(), NDCG(k=10), Recall(k=10), RMSE(), MAE()])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        clock(f"Experiment.run ({len(configs)} models)", exp.run)
+    relaxed = clock("B1 behind HPF's, PF's and SANSA's recommend_batch", lambda: [
+        serve_factor_model(m, train, users) for m in exp.models if m.name in ("HPF", "PF", "SANSA")])
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("factor family's rest at the bench shape")
+    if launches <= 0 or fused < 3:
+        raise AssertionError(f"the factor family's rest launched accumulate_rows {launches} and "
+                             f"fused_topk {fused} times")
+
+    # ---- check what came out ----
+    fit_s = {}
+    for (name, _, _), model, res in zip(configs, exp.models, exp.result):
+        vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{res.model_name}: non-finite metrics {vals}")
+        fit_s[name] = res.metric_avg_results["Train (s)"]
+        if name.startswith("FM"):
+            # the band's RMSE is over the test ratings (the Experiment's
+            # averages each user's first)
+            vals["RMSE over ratings"] = rating_eval(model, [RMSE()], split.test_set)[0][0]
+        checks = []
+        for metric in ("AUC", "NDCG@10") + (("RMSE",) if name.startswith("FM") else ()):
+            lo, hi, _, spread = band(name, metric)
+            value = vals["RMSE over ratings" if metric == "RMSE" else metric]
+            inside = lo <= value <= hi
+            checks.append(inside)
+            log(f"  {name}: {metric} {value:.6f}, band [{lo:.6f}, {hi:.6f}] "
+                f"({'one deterministic JAX fit +/- 1e-3' if spread is None else '5 JAX seeds'})"
+                f" {'inside' if inside else 'OUTSIDE'}")
+        log(f"  {name}: fit {fit_s[name]:.3f} s, test {res.metric_avg_results['Test (s)']:.3f} s "
+            f"(host clock); " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+        if not all(checks):
+            raise AssertionError(f"{name}: outside its quality band")
+    acc_err, recorded = 0.0, 0
+    refits = Clock()
+    for (name, make, attrs), model in zip(configs, exp.models):
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = refits(f"{name}.fit", lambda: make(verbose=False).fit(train))
+        for attr in attrs:
+            if not same_bits(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    refits.report("factor family's rest, second fits")
+    seg = seg_sum_probe(train)
+    if recorded < 4:  # HPF's and PF's two shapes, FM-sgd's w and V
+        raise AssertionError(f"the factor family's rest recorded {recorded} accumulate_rows shapes")
+    log(f"  every model: two seeded fits identical, bit for bit; accumulate_rows on the trainers' "
+        f"own inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit (max "
+        f"|err| {acc_err:.3e}); serving lists equal to the plain version (positions relaxed as "
+        f"near-ties: {sum(relaxed)}); accumulate_rows launches {launches}, fused_topk launches "
+        f"{fused}")
+    log(f"factor family's rest at the bench shape: ok, main path {sum(clock.seconds.values()):.1f} "
+        f"s, second fits {sum(refits.seconds.values()):.1f} s")
+    proto = phase_protocols_bench(bench_data)
+    proto["seg_sum"] = seg
+    return (launches + proto["launches"], fused + proto["fused"], fit_s, acc_err, proto)
+
+
+def seg_sum_probe(train):
+    """FM-ALS's ``_seg_sum`` at the bench shape: the segment sums of 80,000
+    rows of two columns into the user block on the card, held to the same
+    sums on the CPU and to a float64 sum (atol 1e-3: a float32 prefix sum's
+    error grows with its running total), beside ``accumulate_rows``' sums
+    (batch order), both timed with CUDA events; and, reported, how far one
+    float32 ALS sweep on the card lies from the same sweep in float64 on the
+    CPU (with no regularisation a feature of few ratings divides by a small
+    sum of squares). Returns the numbers."""
+    import torch
+
+    from cornac_tpu_torch.models import fm as fm_mod
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows
+
+    rid, cid, val = train.uir_tuple
+    n_feat = train.num_users + train.num_items
+    cid_off = np.asarray(cid, np.int64) + train.num_users
+    rng = np.random.RandomState(0)
+    x = rng.normal(0, 1, (len(rid), 2)).astype(np.float32)
+    blocks = {dev: fm_mod.make_blocks(rid, cid_off, n_feat, dev)[0] for dev in (DEV, "cpu")}
+    sums = {dev: fm_mod._seg_sum(torch.as_tensor(x, device=dev), b.perm, b.starts, b.ends)
+            for dev, b in blocks.items()}
+    exact = torch.zeros(n_feat, 2, dtype=torch.float64).index_add_(
+        0, torch.as_tensor(rid, dtype=torch.long), torch.as_tensor(x, dtype=torch.float64))
+    seg_err = (sums[DEV].cpu().double() - exact).abs().max().item()
+    cpu_err = (sums[DEV].cpu() - sums["cpu"]).abs().max().item()
+    if seg_err > 1e-3 or cpu_err > 1e-3:
+        raise AssertionError(f"_seg_sum on the card: {seg_err:.3e} from a float64 sum, "
+                             f"{cpu_err:.3e} from the CPU's")
+    x_d, block = torch.as_tensor(x, device=DEV), blocks[DEV]
+    acc = accumulate_rows(torch.zeros(n_feat, 2, device=DEV), block.ids, x_d)
+    out = dict(seg_err=seg_err, cpu_err=cpu_err,
+               acc_err=(acc.cpu().double() - exact).abs().max().item(),
+               seg_ms=time_ms(lambda: fm_mod._seg_sum(x_d, block.perm, block.starts, block.ends),
+                              200),
+               acc_ms=time_ms(lambda: accumulate_rows(torch.zeros(n_feat, 2, device=DEV),
+                                                      block.ids, x_d), 200))
+    w = rng.normal(0, 0.1, n_feat).astype(np.float32)
+    V = rng.normal(0, 0.1, (n_feat, 8)).astype(np.float32)
+    sweeps = {}
+    for dev, dt in ((DEV, torch.float32), ("cpu", torch.float64)):
+        blocks = [b._replace(cnt=b.cnt.to(dt)) for b in fm_mod.make_blocks(rid, cid_off, n_feat,
+                                                                           dev)]
+        t = [torch.as_tensor(a, dtype=dt, device=dev) for a in (np.float32(0.0), w, V.copy(),
+                                                                np.asarray(val, np.float32))]
+        sweeps[dev] = fm_mod._fm_als(*t[:3], t[3], blocks, 0.0, 0.0, 0.0, True, True, True, 1)[2]
+    out["sweep_v_err"] = (sweeps[DEV].cpu().double() - sweeps["cpu"]).abs().max().item()
+    out["sweep_v_max"] = sweeps["cpu"].abs().max().item()
+    log(f"  FM-ALS's _seg_sum, 80,000 x 2 into {n_feat} feature rows (the user block): "
+        f"{out['seg_ms']:.4f} ms, max |err| {seg_err:.3e} against a float64 sum, "
+        f"{cpu_err:.3e} from the CPU's (both within 1e-3); accumulate_rows (batch order) "
+        f"{out['acc_ms']:.4f} ms, max |err| {out['acc_err']:.3e} (CUDA events); one float32 "
+        f"ALS sweep (no regularisation) on the card lies {out['sweep_v_err']:.3e} from the "
+        f"float64 sweep in V (largest |V| {out['sweep_v_max']:.3e})")
+    return out
+
+
+def bench_quadruples(bench_data, seed=123):
+    """The bench data with seeded timestamps: (user, item, rating, time)."""
+    data = bench_data()
+    times = np.random.RandomState(seed).randint(0, 10**6, size=len(data))
+    return [(u, i, r, int(t)) for (u, i, r), t in zip(data, times)]
+
+
+def same_sets(a, b, what):
+    """Two eval methods' train/test/val sets hold the same triples."""
+    for split in ("train_set", "test_set", "val_set"):
+        x, y = getattr(a, split), getattr(b, split)
+        if (x is None) != (y is None) or (x is not None and not all(
+                np.array_equal(p, q) for p, q in zip(x.uir_tuple, y.uir_tuple))):
+            raise AssertionError(f"{what}: the {split}s differ")
+
+
+def search_trials(search):
+    return [(params, float(score)) for params, score in search.trial_results]
+
+
+def phase_protocols_bench(bench_data):
+    """Phase 12d, the protocols at the bench shape: CrossValidation(5 folds,
+    seed 123) over MF(k=10, max_iter=25) and PMF(k=10, max_iter=100) on MAE
+    and RMSE (``examples/cross_validation_example.py``); StratifiedSplit
+    (by user, chronological) and TimestampSplit (ratio mode) on the bench
+    data with seeded timestamps, and PropensityStratifiedEvaluation, each
+    an Experiment with HPF and MostPop; GridSearch and RandomSearch (4
+    trials) over HPF's k and hierarchical. The folds, splits and strata
+    are held to the same protocol built again with the port on the CPU,
+    and each search's best_params and per-trial validation scores (within
+    1e-4) to the same search run on the CPU."""
+    import io
+
+    import cornac_tpu_torch
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch import models as M
+    from cornac_tpu_torch.eval_methods import (CrossValidation, PropensityStratifiedEvaluation,
+                                               RatioSplit, StratifiedSplit, TimestampSplit)
+    from cornac_tpu_torch.hyperopt import Discrete, GridSearch, RandomSearch
+    from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    data = bench_data()
+    quads = bench_quadruples(bench_data)
+    hpf = dict(k=5, max_iter=100, seed=123)
+    protocols = {
+        "CrossValidation": lambda: CrossValidation(data, n_folds=5, seed=123),
+        "StratifiedSplit": lambda: StratifiedSplit(quads, group_by="user", chrono=True,
+                                                   test_size=0.2, rating_threshold=4.0,
+                                                   seed=123),
+        "TimestampSplit": lambda: TimestampSplit(quads, test_size=0.2, val_size=0.1,
+                                                 rating_threshold=4.0, seed=123),
+        "PropensityStratifiedEvaluation": lambda: PropensityStratifiedEvaluation(
+            data, n_strata=2, rating_threshold=4.0, seed=123),
+    }
+    built = {name: clock(f"{name} (set-up)", make) for name, make in protocols.items()}
+    search_split = clock("RatioSplit(0.2, 4.0, val 0.1, seed=123)", lambda: RatioSplit(
+        data, test_size=0.2, val_size=0.1, rating_threshold=4.0, seed=123))
+    space = [Discrete("k", [5, 10]), Discrete("hierarchical", [True, False])]
+
+    def searches(device):
+        return [GridSearch(M.HPF(device=device, **hpf), space, AUC(), search_split),
+                RandomSearch(M.HPF(device=device, **hpf), space, AUC(), search_split,
+                             n_trails=4)]
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    results = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name in protocols:
+            if name == "CrossValidation":
+                models = [M.MF(k=10, max_iter=25, seed=123), M.PMF(k=10, max_iter=100, seed=123)]
+                metrics = [MAE(), RMSE()]
+            else:
+                models = [M.HPF(**hpf), M.MostPop()]
+                metrics = [AUC(), NDCG(k=10), Recall(k=10), RMSE()]
+            exp = Experiment(built[name], models, metrics)
+            clock(f"{name}: Experiment ({', '.join(m.name for m in models)})", exp.run)
+            results[name] = exp.result
+        on_card = [clock(f"{type(s).__name__}: 4 HPF trials", lambda s=s: s.fit(
+            search_split.train_set, search_split.val_set)) for s in searches(None)]
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the protocols at the bench shape")
+    if launches <= 0:
+        raise AssertionError("the protocols' fits launched no accumulate_rows")
+
+    # ---- check what came out: the same protocols on the CPU ----
+    cpu = Clock()
+    cornac_tpu_torch.set_default_device("cpu")
+    try:
+        again = {name: cpu(f"{name} (set-up)", make) for name, make in protocols.items()}
+        cv, cv_cpu = built["CrossValidation"], again["CrossValidation"]
+        if not np.array_equal(cv._partition, cv_cpu._partition):
+            raise AssertionError("CrossValidation: the fold labels differ from the CPU's")
+        for fold in range(cv.n_folds):
+            cv._build_fold(fold)
+            cv_cpu._build_fold(fold)
+            same_sets(cv, cv_cpu, f"CrossValidation fold {fold}")
+        for name in ("StratifiedSplit", "TimestampSplit", "PropensityStratifiedEvaluation"):
+            same_sets(built[name], again[name], name)
+        pse, pse_cpu = built["PropensityStratifiedEvaluation"], again[
+            "PropensityStratifiedEvaluation"]
+        if list(pse.stratified_sets) != list(pse_cpu.stratified_sets) or not all(
+                np.array_equal(p, q) for name, s in pse.stratified_sets.items()
+                for p, q in zip(s.uir_tuple, pse_cpu.stratified_sets[name].uir_tuple)):
+            raise AssertionError("PropensityStratifiedEvaluation: the strata differ from the CPU's")
+        with contextlib.redirect_stdout(io.StringIO()):
+            on_cpu = [cpu(f"{type(s).__name__} on the CPU: 4 HPF trials", lambda s=s: s.fit(
+                search_split.train_set, search_split.val_set)) for s in searches("cpu")]
+    finally:
+        cornac_tpu_torch.set_default_device(None)
+    cpu.report("the protocols on the CPU")
+    for card_search, cpu_search in zip(on_card, on_cpu):
+        what = type(card_search).__name__
+        got, want = search_trials(card_search), search_trials(cpu_search)
+        if [p for p, _ in got] != [p for p, _ in want]:
+            raise AssertionError(f"{what}: the trial points differ from the CPU's")
+        worst = max(abs(g - w) for (_, g), (_, w) in zip(got, want))
+        if worst > 1e-4 or card_search.best_params != cpu_search.best_params:
+            raise AssertionError(f"{what}: trials {got} on the card, {want} on the CPU")
+        log(f"  {what} over HPF k and hierarchical (AUC on the validation set): best "
+            f"{card_search.best_params} as on the CPU, trials within {worst:.2e} of the CPU's: "
+            + ", ".join(f"{p} {s:.6f}" for p, s in got))
+    for name, res in results.items():
+        for model_res in res:
+            rows = model_res if isinstance(model_res, list) else [model_res]
+            for row in rows:
+                vals = {k: v for k, v in row.metric_avg_results.items() if "(s)" not in k}
+                if not all(np.isfinite(v) for v in vals.values()):
+                    raise AssertionError(f"{name}, {row.model_name}: non-finite metrics {vals}")
+        log(f"  {name}:\n" + "\n".join("    " + line for line in str(res).splitlines()))
+    log(f"  folds, splits and strata equal to the CPU's: CrossValidation {cv.n_folds} folds, "
+        f"StratifiedSplit, TimestampSplit, PropensityStratifiedEvaluation "
+        f"({len(pse.stratified_sets)} strata); accumulate_rows launches {launches}")
+    log(f"the protocols at the bench shape: ok, main path {sum(clock.seconds.values()):.1f} s, "
+        f"on the CPU {sum(cpu.seconds.values()):.1f} s")
+    return dict(launches=launches, fused=fused, seconds=dict(clock.seconds))
 
 
 # benchmarks/scale_netflix.py:130-157, WMF at the Netflix widths: the
@@ -1828,7 +2205,7 @@ def phase_neural_bench(bench_data, names):
         except ValueError as err:
             log(f"  VAECF.recommend_batch(k=10): refused as in the JAX package ({err})")
     fit_s = {}
-    for (name, _, _), res in zip(configs, exp.result):
+    for (name, _, _), model, res in zip(configs, exp.models, exp.result):
         vals = {k: v for k, v in res.metric_avg_results.items() if "(s)" not in k}
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"{res.model_name}: non-finite metrics {vals}")
@@ -1984,6 +2361,143 @@ def phase_lightgcn_ml10m(train, gen):
                           card_plain_max_abs_err=card_err)
 
 
+# examples/hpf_movielens.py's HPF (k = 5, 100 sweeps) on phase 10's train set
+HPF_ML10M = dict(k=5, seed=123)
+HPF_SWEEPS = 100
+HPF_RTOL, HPF_ATOL = 3e-5, 1e-6
+
+
+def phase_hpf_ml10m(train, seed):
+    """HPF at the ML-10M widths (69,878 users x 10,677 items, 10,000,054
+    ratings, k = 5), phase 10's train set: fits of 1 and of 3 sweeps on
+    the card held to the same fits on the CPU (rtol ``HPF_RTOL``: digamma,
+    exp and the column sums differ by ulps between the two devices; the
+    scatters do not), the first sweep's two accumulate_rows inputs held bit
+    for bit to the plain version on the CPU and timed, a second 3-sweep
+    fit bit for bit, the 100-sweep fit timed (seconds per sweep from a
+    100-sweep fit minus a 3-sweep fit) beside a sweep's byte bound, the
+    device-busy share and peak device memory; then recommend_batch for
+    8,192 users at k = 100 through fused_topk (d = 5), every list held to
+    the plain version. Returns (accumulate_rows launches, fused_topk
+    launches, the fitted model, the users served, the stats)."""
+    import torch
+
+    from cornac_tpu_torch.models import HPF
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    tables = ("Gs", "Gr", "Ls", "Lr")
+
+    def fit(sweeps, device=None):
+        return HPF(max_iter=sweeps, device=device, **HPF_ML10M).fit(train)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    with recording_accumulate({}) as store:
+        one = clock("HPF.fit, 1 sweep", lambda: fit(1))
+    three = clock("HPF.fit, 3 sweeps", lambda: fit(3))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = clock(f"HPF.fit, {HPF_SWEEPS} sweeps", lambda: fit(HPF_SWEEPS))
+    peak = torch.cuda.max_memory_allocated() - held
+    rng = np.random.RandomState(seed + 4)
+    users = rng.choice(train.num_users, SERVE_BATCH, replace=False)
+    recs = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                 lambda: model.recommend_batch(list(users), k=TOPK))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("HPF at ML-10M")
+    if launches != 2 * (1 + 3 + HPF_SWEEPS) or fused <= 0:
+        raise AssertionError(f"HPF launched accumulate_rows {launches} times (want "
+                             f"{2 * (4 + HPF_SWEEPS)}) and fused_topk {fused}")
+
+    # ---- check and measure ----
+    again = clock("HPF.fit, 3 sweeps, again", lambda: fit(3))
+    for name in tables:
+        if not np.array_equal(getattr(three, name), getattr(again, name)):
+            raise AssertionError(f"HPF at ML-10M: two seeded 3-sweep fits differ in {name}")
+    worst = 0.0
+    for sweeps, on_card in ((1, one), (3, three)):
+        on_cpu = clock(f"HPF.fit on the CPU, {sweeps} sweep(s)", lambda: fit(sweeps, "cpu"))
+        for name in tables:
+            a, b = getattr(on_card, name), getattr(on_cpu, name)
+            rel = float(np.max(np.abs(a - b) / (HPF_ATOL + np.abs(b))))
+            worst = max(worst, rel)
+            if not np.allclose(a, b, rtol=HPF_RTOL, atol=HPF_ATOL):
+                raise AssertionError(f"HPF at ML-10M, {sweeps} sweep(s): {name} on the card "
+                                     f"differs from the CPU's beyond rtol {HPF_RTOL}")
+    if len(store) != 2:
+        raise AssertionError(f"the first sweep recorded {len(store)} accumulate_rows shapes")
+    acc_err, acc_ms = 0.0, {}
+    for (shape, B, stride), (table, ids, upd) in store.items():
+        # not profiled: this late in the process the profiler loses the
+        # kernel's events; at tens of ms a launch, CUDA events time it
+        err = check_accumulate(f"HPF's first sweep, {B} ids into {shape}", table, ids, upd,
+                               calls=0)[0]
+        acc_err, acc_ms[shape[0]] = max(acc_err, err), time_ms(
+            lambda: accumulate_rows(table.clone(), ids, upd), 3, 1)
+    del store
+    if not all(np.isfinite(getattr(model, name)).all() for name in ("Theta", "Beta")):
+        raise AssertionError("the 100-sweep fit has non-finite tables")
+    # the 1-sweep fit records its scatters' inputs (copies of 10M rows): the
+    # 3-sweep fit is the set-up to subtract
+    sweep_s = (clock.seconds[f"HPF.fit, {HPF_SWEEPS} sweeps"]
+               - clock.seconds["HPF.fit, 3 sweeps"]) / (HPF_SWEEPS - 3)
+    nu, ni, n, k = train.num_users, train.num_items, train.num_ratings, HPF_ML10M["k"]
+    # a sweep must read the ratings (two int64 ids and a float32 value) once
+    # and read and write each table row once (G_s, G_r, L_s, L_r and the
+    # rates K_r, T_r)
+    nbytes = 20.0 * n + 2 * 4.0 * (2 * (nu + ni) * k + nu + ni)
+    bound_s = nbytes / PEAK_BYTES
+    # the busy share of 3 sweeps alone (the sweep function on the fit's own
+    # device tensors, no uploads), from the profiler's device events; this
+    # late in the process it may lose some, and then the share is not
+    # measured (6 accumulate_rows launches must be seen)
+    state = [torch.as_tensor(np.asarray(t, np.float32), device=DEV)
+             for t in HPF(**HPF_ML10M, max_iter=0).fit(train)._initial_tables()]
+    state += [torch.ones(nu, device=DEV), torch.ones(ni, device=DEV)]
+    edges = [torch.as_tensor(np.asarray(a, dt), device=DEV)
+             for a, dt in zip(train.uir_tuple, (np.int64, np.int64, np.float32))]
+    from cornac_tpu_torch.models.hpf import _hpf_cavi
+
+    _hpf_cavi(*state, *edges, 1, True)  # warm
+    wall_ms, busy_ms, _, events = profile_call(lambda: _hpf_cavi(*state, *edges, 3, True))
+    kept = sum(e.count for e in events if "accumulate_rows_kernel" in e.key)
+    share = busy_ms / wall_ms if kept == 6 else None
+    log(f"  HPF k={k} over {n:,} ratings ({nu:,} users x {ni:,} items): {sweep_s * 1e3:.3f} ms per "
+        f"sweep (a {HPF_SWEEPS}-sweep fit minus a 3-sweep fit, over {HPF_SWEEPS - 3}); byte bound "
+        f"{bound_s * 1e3:.4f} ms per sweep ({nbytes / 1e6:.1f} MB over {PEAK_BYTES / 1e12:.2f} "
+        f"TB/s), {100 * bound_s / sweep_s:.3f}% of it; accumulate_rows "
+        + ", ".join(f"{ms:.3f} ms into {R:,} rows" for R, ms in acc_ms.items())
+        + " (CUDA events, the table copied in each)"
+        + "; 3 sweeps busy "
+        + (f"{100 * share:.2f}%" if share is not None else
+           f"not measured (the profiler kept {kept} of 6 accumulate_rows events)")
+        + f" ({wall_ms:.1f} ms host clock, {busy_ms:.3f} ms device, top device ops "
+        f"{top_ops(events)}); peak device memory of the fit {peak / 2**30:.3f} GiB above "
+        f"what the run held")
+    del state, edges
+    log(f"  fits of 1 and 3 sweeps equal to the CPU's within rtol {HPF_RTOL} / atol {HPF_ATOL} "
+        f"(max |card - cpu| / (atol + |cpu|) {worst:.3e}); two seeded 3-sweep fits bit for bit; "
+        f"the first sweep's accumulate_rows inputs equal to the plain version on the CPU, bit "
+        f"for bit (max |err| {acc_err:.3e})")
+    dev = torch.device(DEV)
+    Ud = torch.as_tensor(np.asarray(model.get_user_vectors(), np.float32), device=dev)
+    Vd = torch.as_tensor(np.asarray(model.get_item_vectors(), np.float32), device=dev)
+    want = reference_lists(Ud[users], Vd, TOPK, [set()] * len(users))
+    got = [[model.iid_map[i] for i in row] for row in recs]
+    relaxed = check_lists(got, want, plain_scores(Ud[users], Vd).cpu().numpy(),
+                          "HPF recommend_batch")
+    log(f"  recommend_batch ({SERVE_BATCH} users, k={TOPK}, d={k}): equal to the plain version "
+        f"(positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}")
+    log(f"HPF at ML-10M: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, model, users, dict(
+        sweep_s=sweep_s, bound_s=bound_s, share=share, peak=peak, acc_ms=acc_ms,
+        max_abs_err=acc_err, worst_rel=worst)
+
+
 # benchmarks/vaecf_sparse_stream.py:38-39, VAECF at the Netflix widths
 VAECF_FULL = dict(k=32, autoencoder_structure=[100], batch_size=1024, learning_rate=0.001, seed=1)
 
@@ -2106,10 +2620,11 @@ def phase_vaecf_full(ds, seed):
                 fit4_s=clock.seconds["VAECF.fit, 4 epochs"])
 
 
-def phase_times(bpr, users):
-    """CUDA-event times of fused_topk at B = 1, 256 and 8192 users, each
-    with its split S, against its plain version and ``matmul`` + ``topk``
-    timed in turn (plain, kernel, library), beside the bound."""
+def phase_times(bpr, users, batches=(1, 256, SERVE_BATCH), what="BPR"):
+    """CUDA-event times of fused_topk at each batch size of ``batches``
+    (the serving model's vectors, for the first B of ``users``), each with
+    its split S, against its plain version and ``matmul`` + ``topk`` timed
+    in turn (plain, kernel, library), beside the bound."""
     import torch
 
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK, fused_topk_torch
@@ -2119,7 +2634,7 @@ def phase_times(bpr, users):
     Vd = torch.as_tensor(np.asarray(bpr.get_item_vectors(), np.float32), device=dev)
     N, d = Vd.shape
     rows = {}
-    for B in (1, 256, SERVE_BATCH):
+    for B in batches:
         U = Ud[:B].contiguous()
         reps = 20 if B == SERVE_BATCH else 200
         plain_ms = time_ms(lambda: fused_topk_torch(U, Vd, TOPK), reps)
@@ -2131,10 +2646,10 @@ def phase_times(bpr, users):
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         S = FUSED_TOPK.plan(U, N, TOPK)
         rows[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, slices=S)
-        log(f"  times B={B} N={N} d={d} k={TOPK} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"matmul+topk {library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel), bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {B / ms * 1e3:,.0f} users/s, "
+                       bound_ms=bound_ms, bound_by=bound_by, slices=S, d=d, items=N)
+        log(f"  times ({what}) B={B} N={N} d={d} k={TOPK} S={S}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, matmul+topk {library_ms:.4f} ms ({library_ms / ms:.2f}x the "
+            f"kernel), bound {bound_ms:.4f} ms ({bound_by}), {B / ms * 1e3:,.0f} users/s, "
             f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
 
@@ -2406,7 +2921,7 @@ def main():
     # process times: the card time-slices between processes and they share
     # the host's cores, so a time taken beside them would carry their load
     # (their own times carry each other's)
-    pool = multiprocessing.get_context("spawn").Pool(1 + len(NEURAL_GROUPS))
+    pool = multiprocessing.get_context("spawn").Pool(2 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
@@ -2416,8 +2931,10 @@ def main():
         ml10m_launches, W10, train10m = phase_knn_ml10m(args.seed)
         lap("related items")
         lgcn_launches, lgcn = phase_lightgcn_ml10m(train10m, gen)
-        del train10m
         lap("LightGCN edge form at ML-10M")
+        hpf_launches, hpf_fused, hpf_model, hpf_users, hpf = phase_hpf_ml10m(train10m, args.seed)
+        del train10m
+        lap("HPF at ML-10M")
         bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
         full_launches, full_fused, full = phase_trainer_full(args.seed)
@@ -2432,6 +2949,7 @@ def main():
         del netflix
         lap("VAECF at the Netflix widths")
         rows = phase_times(bpr, users)
+        hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
         cos_rows = phase_cosine_times([
             ("ML-1M item side", W_items),
             ("ML-1M user side", W_users),
@@ -2445,6 +2963,8 @@ def main():
         families += [(f"neural family ({', '.join(names)})",
                       pool.apply_async(run_captured, ("phase_neural_bench", names)))
                      for names in NEURAL_GROUPS]
+        families.append(("factor family's rest and the protocols",
+                         pool.apply_async(run_captured, ("phase_factor_rest_bench",))))
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -2455,11 +2975,13 @@ def main():
         pool.terminate()
         pool.join()
     factor_launches, factor_fused, factor_fit, factor_acc_err = done[0]
-    neural_launches = sum(r[0] for r in done[1:])
-    neural_fused = sum(r[1] for r in done[1:])
-    neural_fit = {name: sec for r in done[1:] for name, sec in r[2].items()}
-    neural_acc_err = max(r[3] for r in done[1:])
-    neural_prof = next(r[4] for r in done[1:] if r[4] is not None)
+    neural = done[1:1 + len(NEURAL_GROUPS)]
+    neural_launches = sum(r[0] for r in neural)
+    neural_fused = sum(r[1] for r in neural)
+    neural_fit = {name: sec for r in neural for name, sec in r[2].items()}
+    neural_acc_err = max(r[3] for r in neural)
+    neural_prof = next(r[4] for r in neural if r[4] is not None)
+    rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[-1]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -2468,7 +2990,7 @@ def main():
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
         "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
-                     + probe_launches["fused_topk"]),
+                     + hpf_fused + rest_fused + probe_launches["fused_topk"]),
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2476,6 +2998,13 @@ def main():
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     } for B, row in sorted(rows.items(), reverse=True)]
+    # B1 at HPF's d = 5 over the ML-10M catalog, on the trained vectors
+    hpf_row = hpf_rows[SERVE_BATCH]
+    kernels.append({**{k: v for k, v in kernels[0].items() if k not in ("batch", "slices")},
+                    "batch": SERVE_BATCH, "d": hpf_row["d"], "items": hpf_row["items"],
+                    "slices": hpf_row["slices"],
+                    **{k: hpf_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")}})
     cos = cos_rows["ML-10M item side"]
     kernels.append({
         "name": "cosine_topk",
@@ -2497,10 +3026,13 @@ def main():
     # each with its own max |kernel - plain| (the plain version on the CPU,
     # whose bits the kernel must give, and on the card, atomic); the largest
     # |kernel - plain on the CPU| over every check of every path besides
-    acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"])
+    acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"],
+                      hpf["max_abs_err"], rest_acc_err)
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
-                  "LightGCN edge form, ML-10M, into item rows"):
+                  "LightGCN edge form, ML-10M, into item rows",
+                  "HPF, ML-10M, into user rows",
+                  "HPF, ML-10M, into item rows"):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -2509,7 +3041,7 @@ def main():
             "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
             "replaces": "cornac_tpu/ops/accumulate.py:26",
             "launches": (bench_launches + full_launches + factor_launches + neural_launches
-                         + lgcn_launches),
+                         + lgcn_launches + hpf_launches + rest_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -2534,6 +3066,14 @@ def main():
     })
     log("factor family, fit seconds (host clock): " + ", ".join(
         f"{name} {sec:.3f}" for name, sec in factor_fit.items()))
+    log("factor family's rest, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in rest_fit.items()))
+    log("the protocols, host clock: " + ", ".join(
+        f"{name} {sec:.3f} s" for name, sec in proto["seconds"].items()))
+    log(f"HPF at ML-10M: {hpf['sweep_s'] * 1e3:.3f} ms per sweep, "
+        f"{100 * hpf['bound_s'] / hpf['sweep_s']:.3f}% of the byte bound, busy "
+        + ("not measured" if hpf["share"] is None else f"{100 * hpf['share']:.2f}%")
+        + f", peak {hpf['peak'] / 2**30:.3f} GiB")
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

@@ -12,17 +12,20 @@ without one, unless the caller passes ``device="cpu"`` or calls
 """
 
 from .device import default_device, set_default_device
-from . import data, eval_methods, experiment, metrics, models
+from . import data, eval_methods, experiment, hyperopt, metrics, models
+from .config import RuntimeConfig
 from .experiment import Experiment
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Experiment",
+    "RuntimeConfig",
     "data",
     "default_device",
     "eval_methods",
     "experiment",
+    "hyperopt",
     "metrics",
     "models",
     "set_default_device",

@@ -16,11 +16,15 @@ from .engine.nn import Dense, Tree
 from .models.baseline import BaselineOnly
 from .models.bpr import BPR
 from .models.ease import EASE
+from .models.fm import FM
+from .models.hpf import HPF
 from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
 from .models.mf import MF
 from .models.nmf import NMF
 from .models.pmf import PMF
+from .models.sansa import SANSA
+from .models.skm import SKMeans
 from .models.wmf import WMF
 
 _SNAPSHOT = (
@@ -148,18 +152,24 @@ _FACTOR_MODELS = {
     "COE": (COE, ("U", "V"), ("k",)),
     "NMF": (NMF, ("u_factors", "i_factors", "u_biases", "i_biases"), ("k", "use_bias")),
     "EASE": (EASE, ("B",), ("lamb", "posB")),
+    "HPF": (HPF, ("Theta", "Beta"), ("k", "hierarchical")),
+    "SKMeans": (SKMeans, ("centroids", "user_center_sim"), ("k",)),
+    "FM": (FM, ("w0", "w", "V"), ("k0", "k1", "k2", "method")),
 }
 
 
 def factor_model_from_arrays(cls_name, arrays, meta, device=None):
     """A fitted port ``PMF``, ``NMF``, ``WMF``, ``EASE``, ``IBPR``,
-    ``OnlineIBPR`` or ``COE`` (``cls_name``) from ``arrays`` (numpy, under
-    the model's own attribute names: ``U``, ``V`` for PMF, WMF and the
-    triplet models; ``u_factors``, ``i_factors``, ``u_biases``,
-    ``i_biases`` for NMF; ``B`` for EASE, with its user rows as CSR
-    ``data``, ``indices``, ``indptr``, ``shape``) and ``meta`` (the options
-    ``k`` and ``variant`` (PMF), ``k`` and ``use_bias`` (NMF), ``lamb`` and
-    ``posB`` (EASE), ``k`` (the others), then ``num_users``, ``num_items``,
+    ``OnlineIBPR``, ``COE``, ``HPF``, ``SKMeans`` or ``FM`` (``cls_name``)
+    from ``arrays`` (numpy, under the model's own attribute names: ``U``,
+    ``V`` for PMF, WMF and the triplet models; ``u_factors``,
+    ``i_factors``, ``u_biases``, ``i_biases`` for NMF; ``B`` for EASE, with
+    its user rows as CSR ``data``, ``indices``, ``indptr``, ``shape``;
+    ``Theta``, ``Beta`` for HPF; ``centroids``, ``user_center_sim`` for
+    SKMeans; ``w0``, ``w``, ``V`` for FM) and ``meta`` (the options ``k``
+    and ``variant`` (PMF), ``k`` and ``use_bias`` (NMF), ``lamb`` and
+    ``posB`` (EASE), ``k`` and ``hierarchical`` (HPF), ``k0``, ``k1``,
+    ``k2`` and ``method`` (FM), ``k`` (the others), then ``num_users``, ``num_items``,
     ``uid_map``, ``iid_map``, ``min_rating``, ``max_rating``,
     ``global_mean``, the fitted model's). It scores as the model it was read
     from. ``device``: where the model scores (default: the card)."""
@@ -172,9 +182,35 @@ def factor_model_from_arrays(cls_name, arrays, meta, device=None):
     for name in names:
         setattr(model, name, np.asarray(arrays[name]))
     if cls_name == "EASE":
-        model.U = csr_matrix(
-            (np.asarray(arrays["data"]), np.asarray(arrays["indices"]),
-             np.asarray(arrays["indptr"])), shape=tuple(arrays["shape"]))
+        model.U = _csr(arrays)
+    if cls_name == "FM":
+        model.w0 = float(model.w0)
+    model.train_set = model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def _csr(arrays, prefix=""):
+    return csr_matrix(
+        (np.asarray(arrays[prefix + "data"]), np.asarray(arrays[prefix + "indices"]),
+         np.asarray(arrays[prefix + "indptr"])), shape=tuple(arrays[prefix + "shape"]))
+
+
+def sansa_from_arrays(arrays, meta, device=None):
+    """A fitted port ``SANSA`` from ``arrays`` (numpy: the factors ``W1``
+    and ``W2`` and the user rows ``U`` of the train set, each as CSR
+    ``<name>_data``, ``<name>_indices``, ``<name>_indptr``,
+    ``<name>_shape``) and ``meta`` (``use_absolute_value_scores``, then
+    ``num_users``, ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
+    ``max_rating``, ``global_mean``). It scores as the model it was read
+    from. ``device``: where the model scores (default: the card)."""
+    _require(meta, ("use_absolute_value_scores",) + _SNAPSHOT)
+    model = SANSA(trainable=False, verbose=False, device=device,
+                  use_absolute_value_scores=meta["use_absolute_value_scores"])
+    _snapshot(model, meta)
+    model.weights = (_csr(arrays, "W1_"), _csr(arrays, "W2_"))
+    model.U = _csr(arrays, "U_")
+    model.X = model.U.astype(np.float32)
     model.train_set = model.val_set = None
     model.is_fitted = True
     return model

@@ -1,4 +1,5 @@
 from .experiment import Experiment
-from .result import ExperimentResult, Result
+from .result import CVExperimentResult, CVResult, ExperimentResult, PSTResult, Result
 
-__all__ = ["Experiment", "ExperimentResult", "Result"]
+__all__ = ["CVExperimentResult", "CVResult", "Experiment", "ExperimentResult", "PSTResult",
+           "Result"]

@@ -2,9 +2,10 @@
 
 Port of ``cornac_tpu/experiment/experiment.py``: validation filtering,
 verbose propagation, model auto-save, and the VALIDATION/TEST console +
-``CornacExp-*.log`` output. The fold-based eval methods (cross-validation,
-propensity-stratified) and ``checkpoint_dir`` come with the parts they
-need (ROADMAP.md A6, A12): until then ``checkpoint_dir`` raises.
+``CornacExp-*.log`` output, and the fold-based branch for cross-validation
+and propensity-stratified evaluation (one table per model, no validation
+table, no model auto-save). ``checkpoint_dir`` needs checkpointing, which
+is not ported yet (ROADMAP.md A12): it raises.
 """
 
 import os
@@ -13,7 +14,7 @@ from datetime import datetime
 from ..metrics.ranking import RankingMetric
 from ..metrics.rating import RatingMetric
 from ..models.recommender import Recommender
-from .result import ExperimentResult
+from .result import CVExperimentResult, ExperimentResult
 
 
 def _filter_instances(seq, types, kind):
@@ -21,6 +22,15 @@ def _filter_instances(seq, types, kind):
     if not hasattr(seq, "__len__"):
         raise ValueError("{} have to be an array but {}".format(kind, type(seq)))
     return [x for x in seq if isinstance(x, types)]
+
+
+def _is_fold_based(eval_method):
+    from ..eval_methods.cross_validation import CrossValidation
+    from ..eval_methods.propensity_stratified_evaluation import (
+        PropensityStratifiedEvaluation,
+    )
+
+    return isinstance(eval_method, (CrossValidation, PropensityStratifiedEvaluation))
 
 
 def _write_log(text, save_dir):
@@ -87,8 +97,13 @@ class Experiment:
 
     def run(self):
         """Fit + evaluate every model; print and log the result tables."""
-        self.result = ExperimentResult()
-        want_val = self.show_validation and self.eval_method.val_set is not None
+        fold_based = _is_fold_based(self.eval_method)
+        self.result = CVExperimentResult() if fold_based else ExperimentResult()
+        want_val = (
+            not fold_based
+            and self.show_validation
+            and self.eval_method.val_set is not None
+        )
         self.val_result = ExperimentResult() if want_val else None
 
         if self.verbose:
@@ -106,7 +121,7 @@ class Experiment:
             self.result.append(test_result)
             if self.val_result is not None:
                 self.val_result.append(val_result)
-            if self.save_dir:
+            if self.save_dir and not fold_based:
                 model.save(self.save_dir)
 
         sections = []

@@ -26,6 +26,13 @@ from ..device import default_device
 _DEVICE_MIN_CELLS = 8_000_000
 
 
+def set_device_metrics_min_cells(n):
+    """Set the score-matrix size (B * N cells) from which ``RankingContext``
+    ranks on the device (``config.RuntimeConfig.device_metrics_min_cells``)."""
+    global _DEVICE_MIN_CELLS
+    _DEVICE_MIN_CELLS = int(n)
+
+
 def _device_rank_and_ties(scores, pos_mask, cand_mask):
     """(rank_of, c_lt, p_lt) as int32 numpy arrays, computed on the default
     device by stable sorts and permutation inverses, scores compared in

@@ -11,6 +11,8 @@ from .baseline import BaselineOnly, GlobalAvg, MostPop
 from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
 from .ease import EASE
+from .fm import FM
+from .hpf import HPF
 from .ibpr import COE, IBPR, OnlineIBPR
 from .knn import ItemKNN, UserKNN
 from .lightgcn import NGCF, LightGCN
@@ -20,6 +22,8 @@ from .ncf import GMF, MLP, NCFBase, NeuMF
 from .nmf import NMF
 from .pmf import PMF
 from .recvae import RecVAE
+from .sansa import SANSA
+from .skm import SKMeans
 from .vaecf import VAECF
 from .wmf import WMF
 
@@ -31,8 +35,10 @@ __all__ = [
     "BPR",
     "COE",
     "EASE",
+    "FM",
     "GlobalAvg",
     "GMF",
+    "HPF",
     "IBPR",
     "is_ann_supported",
     "ItemKNN",
@@ -52,6 +58,8 @@ __all__ = [
     "PMF",
     "Recommender",
     "RecVAE",
+    "SANSA",
+    "SKMeans",
     "SVD",
     "TPUExactANN",
     "UserKNN",

@@ -21,6 +21,10 @@ def normal(shape=None, mean=0.0, std=1.0, random_state=None, dtype=np.float32):
     return get_rng(random_state).normal(mean, std, shape).astype(dtype)
 
 
+def gamma(shape=None, shape_param=1.0, scale_param=1.0, random_state=None, dtype=np.float32):
+    return get_rng(random_state).gamma(shape_param, scale_param, shape).astype(dtype)
+
+
 def xavier_uniform(shape, random_state=None, dtype=np.float32):
     """Glorot & Bengio (2010) uniform initializer."""
     assert len(shape) == 2  # fan-in/fan-out requires a matrix

@@ -17,6 +17,7 @@ from cornac_tpu_torch.data import Dataset
 from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, TPUExactANN
 from cornac_tpu_torch.models import COE, EASE, IBPR, NMF, PMF, WMF, ItemKNN, OnlineIBPR, UserKNN
 from cornac_tpu_torch.models import GMF, MLP, NGCF, BiVAECF, LightGCN, NeuMF, RecVAE, VAECF
+from cornac_tpu_torch.models import FM, HPF, SANSA, SKMeans
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -639,3 +640,103 @@ def test_edge_propagation_on_the_card_matches_plain(card):
         assert torch.equal(x, y)
     for x, y in zip(outs[0][:4], outs[2][:4]):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("make,attrs", [
+    (lambda **kw: HPF(k=5, max_iter=20, **kw), ("Gs", "Gr", "Ls", "Lr")),
+    (lambda **kw: HPF(k=5, max_iter=20, hierarchical=False, **kw), ("Gs", "Gr", "Ls", "Lr")),
+    (lambda **kw: FM(k2=8, max_iter=3, method="sgd", **kw), ("w", "V")),
+    (lambda **kw: FM(k2=8, max_iter=5, method="als", **kw), ("w", "V")),
+    (lambda **kw: FM(k2=8, max_iter=5, method="mcmc", **kw), ("w", "V")),
+    (lambda **kw: SKMeans(k=5, max_iter=50, **kw), ("centroids", "final_par")),
+])
+def test_factor_rest_seeded_fits_on_the_card_are_identical(card, make, attrs):
+    train = _star_train()
+    fits = []
+    for _ in range(2):
+        before = ACCUMULATE_ROWS.launches
+        fits.append(make(seed=4, verbose=False, device=card).fit(train))
+        if isinstance(fits[-1], HPF) or getattr(fits[-1], "method", None) == "sgd":
+            assert ACCUMULATE_ROWS.launches > before
+    for name in attrs:
+        assert np.isfinite(getattr(fits[0], name)).all()
+        np.testing.assert_array_equal(getattr(fits[0], name), getattr(fits[1], name))
+
+
+@pytest.mark.parametrize("hierarchical", [True, False])
+def test_hpf_on_the_card_matches_the_cpu(card, hierarchical):
+    train = _star_train()
+    on_card = HPF(k=5, max_iter=3, seed=2, hierarchical=hierarchical, device=card).fit(train)
+    on_cpu = HPF(k=5, max_iter=3, seed=2, hierarchical=hierarchical, device="cpu").fit(train)
+    for name in ("Gs", "Gr", "Ls", "Lr"):
+        np.testing.assert_allclose(getattr(on_card, name), getattr(on_cpu, name), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_sansa_scores_on_the_card_match_the_cpu(card):
+    train = _star_train()
+    on_card = SANSA(l2=20.0, weight_matrix_density=0.05, verbose=False, device=card).fit(train)
+    on_cpu = SANSA(l2=20.0, weight_matrix_density=0.05, verbose=False, device="cpu").fit(train)
+    users = np.arange(0, 300, 7)
+    np.testing.assert_allclose(on_card.score_batch(users), on_cpu.score_batch(users), rtol=1e-9,
+                               atol=1e-12)
+
+
+def test_factor_rest_sweeps_never_sync_with_the_host(card):
+    # HPF's CAVI sweeps and FM's SGD epoch, ALS and MCMC sweeps run under
+    # the sync debug mode "error"
+    from cornac_tpu_torch.models import fm as fm_mod, hpf as hpf_mod
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    rng = np.random.RandomState(1)
+    n_users, n_items, n, k = 500, 300, 20_000, 5
+    rid = torch.as_tensor(rng.randint(n_users, size=n), device=card)
+    cid = torch.as_tensor(rng.randint(n_items, size=n), device=card)
+    val = torch.as_tensor(rng.randint(1, 6, size=n).astype(np.float32), device=card)
+    tables = [torch.as_tensor(rng.gamma(0.3, 1.0, size=(rows, k)).astype(np.float32),
+                              device=card) for rows in (n_users, n_users, n_items, n_items)]
+    ones = [torch.ones(n_users, device=card), torch.ones(n_items, device=card)]
+    n_feat = n_users + n_items
+    blocks = fm_mod.make_blocks(rid.cpu().numpy(), cid.cpu().numpy() + n_users, n_feat, card)
+    w = torch.zeros(n_feat, device=card)
+    V = torch.as_tensor(rng.normal(0, 0.1, (n_feat, 8)).astype(np.float32), device=card)
+    perm = torch.randperm(n, device=card)
+    mask = torch.ones(n, device=card)
+    draws = fm_mod.draw_mcmc(epoch_generator(3, 0, card), n, n_feat, 8, card)
+    w0 = torch.zeros((), device=card)
+    state = fm_mod.mcmc_initial_state(w0, w.clone(), V.clone(), 0.0, 0.0)  # once a fit
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = []
+        for hierarchical in (True, False):
+            outs += hpf_mod._hpf_cavi(*[t.clone() for t in tables + ones], rid, cid, val, 2,
+                                      hierarchical)
+        outs += fm_mod._fm_sgd_epoch(w0, w.clone(), V.clone(), perm, blocks[0].ids,
+                                     blocks[1].ids, val, mask, 0.01, (0.0, 0.0, 0.0), 1024,
+                                     True, True, True)
+        outs += fm_mod._fm_als(w0, w.clone(), V.clone(), val, blocks, 0.0, 0.1, 0.1, True, True,
+                               True, 1)
+        outs += fm_mod._fm_mcmc_sweep(state, draws, val, blocks, 0.0, True, True, True, n_feat)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t in outs:
+        assert torch.isfinite(t).all()
+
+
+def test_fm_segment_sums_are_deterministic(card):
+    # the cumulative sum of 80,000 rows, one and two columns, gives the
+    # same bits on every call (a whole-tensor CUDA scan does not)
+    from cornac_tpu_torch.models import fm as fm_mod
+
+    rng = np.random.RandomState(3)
+    ids = rng.randint(1_700, size=80_000)
+    block = fm_mod.make_blocks(ids, ids, 1_700, card)[0]
+    for cols in (1, 2):
+        x = torch.as_tensor(rng.normal(size=(80_000, cols)).astype(np.float32), device=card)
+        first = fm_mod._seg_sum(x, block.perm, block.starts, block.ends)
+        for _ in range(20):
+            assert torch.equal(fm_mod._seg_sum(x, block.perm, block.starts, block.ends), first)
+        exact = torch.zeros(1_700, cols, dtype=torch.float64, device=card).index_add_(
+            0, block.ids, x.double())
+        assert (first.double() - exact).abs().max().item() < 1e-3

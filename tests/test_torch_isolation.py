@@ -65,7 +65,12 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "models.baseline", "ops.canary", "ops.optim", "ops.dense_scores",
                  "models.pmf", "models.nmf", "models.ease", "models.wmf", "models.ibpr",
                  "convert", "data.dataset", "engine.nn", "models.vaecf", "models.recvae",
-                 "models.bivaecf", "models.ncf", "models.lightgcn", "ops.graph"):
+                 "models.bivaecf", "models.ncf", "models.lightgcn", "ops.graph",
+                 "models.hpf", "models.skm", "models.fm", "models.sansa", "ops.sparse_chol",
+                 "eval_methods.stratified_split", "eval_methods.timestamp_split",
+                 "eval_methods.cross_validation",
+                 "eval_methods.propensity_stratified_evaluation", "experiment.result",
+                 "hyperopt", "config"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 

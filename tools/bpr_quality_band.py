@@ -4,10 +4,11 @@ Fits the JAX package's model on ``bench.make_ml100k_like(seed=7)`` split by
 ``RatioSplit(0.2, 4.0, seed=123)`` once per seed, on the CPU, and ranks the
 test users as ``bench.py`` does (AUC, NDCG@10, Recall@10; RMSE and MAE for
 the rating models). Prints one JSON line per seed, then one with the mean,
-the spread (sample standard deviation) and the band of AUC and NDCG@10 that
-``chip_smoke.py`` holds the port's fit to: ``mean +/- 3 x spread``. The
-deterministic models (NMF, WMF, EASE: no sampling, the same fit on every
-run from one seed) are fitted once, with the first seed, and their band is
+the spread (sample standard deviation) and the band of AUC and NDCG@10 (and
+RMSE for the rating models) that ``chip_smoke.py`` holds the port's fit to:
+``mean +/- 3 x spread``. The deterministic models (NMF, WMF, EASE, HPF, PF,
+SKMeans, FM-als, SANSA: no sampling, the same fit on every run from one
+seed) are fitted once, with the first seed, and their band is
 ``value +/- DETERMINISTIC_TOL``. ``tools/quality_bands.py`` keeps the
 bands it printed, which ``chip_smoke.py`` reads.
 
@@ -16,7 +17,10 @@ the ones named below): ``BPR`` (``bench.py``'s, the default), ``PMF``,
 ``MF-adam`` (adam with embedding dropout 0.1), ``IBPR``, ``COE``, ``NMF``,
 ``WMF``, ``EASE``, and the neural family's ``VAECF``, ``RecVAE``, ``BiVAECF``,
 ``NeuMF``, ``LightGCN``, with ``GMF`` and ``MLP`` at NeuMF's depth and ``NGCF``
-at LightGCN's. ``--package torch`` fits the port instead, on the CPU,
+at LightGCN's, and the factor family's rest: ``HPF``, ``PF`` (HPF with
+``hierarchical=False``), ``SKMeans``, ``FM-als`` (``model_sweep.py``'s),
+``FM-sgd`` and ``FM-mcmc`` (``examples/fm_example.py``'s settings) and
+``SANSA`` (``examples/sansa_movielens.py``'s). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
 every float32 matrix product of the JAX package to bfloat16 and sums in
 float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
@@ -80,6 +84,15 @@ CONFIGS = {
               True, False),
     "LightGCN": ("LightGCN", dict(emb_size=64, num_layers=3, num_epochs=40), True, False),
     "NGCF": ("NGCF", dict(emb_size=64, num_epochs=40), True, False),
+    "HPF": ("HPF", dict(k=5, max_iter=100), False, False),
+    "PF": ("HPF", dict(k=5, max_iter=100, hierarchical=False), False, False),
+    "SKMeans": ("SKMeans", dict(k=5, max_iter=100, verbose=False), False, False),
+    "FM-als": ("FM", dict(k2=8, max_iter=50, method="als", verbose=False), False, True),
+    "FM-sgd": ("FM", dict(k0=1, k1=1, k2=8, max_iter=100, learning_rate=0.01, method="sgd",
+                          verbose=False), True, True),
+    "FM-mcmc": ("FM", dict(k0=1, k1=1, k2=8, max_iter=100, learning_rate=0.01, method="mcmc",
+                           verbose=False), True, True),
+    "SANSA": ("SANSA", dict(l2=500.0, weight_matrix_density=0.01, verbose=False), None, False),
 }
 
 
@@ -141,7 +154,7 @@ def main():
         print(json.dumps({"model": args.model, "seed": seed, **row}), flush=True)
     summary = {"model": args.model, "package": args.package, "device": "cpu", "seeds": seeds,
                "bf16_products": args.bf16_products}
-    for name in ("AUC", "NDCG@10"):
+    for name in ("AUC", "NDCG@10") + (("RMSE",) if rating else ()):
         values = np.asarray([run[name] for run in runs])
         mean = float(values.mean())
         spread = float(values.std(ddof=1)) if len(values) > 1 else None

@@ -3,8 +3,8 @@ bench shape (``make_ml100k_like(7)``, ``RatioSplit(0.2, 4.0, seed=123)``).
 
 ``python tools/bpr_quality_band.py --model NAME`` printed them on a CPU
 from the JAX package's fits with seeds 123-127: (mean, spread) of AUC and
-of NDCG@10, the spread the sample standard deviation; a fit must land
-within three spreads of the mean. The deterministic models (spread None)
+of NDCG@10 (and of RMSE, for FM), the spread the sample standard deviation;
+a fit must land within three spreads of the mean. The deterministic models (spread None)
 were fitted once, and their band is the value +/- ``DETERMINISTIC_TOL``.
 """
 
@@ -44,12 +44,30 @@ BANDS = {
                 (0.17045347762006718, 0.004557508809276959)),
     "NGCF": ((0.9376181031335322, 0.0006383643274234236),
             (0.20914533125633655, 0.011723150635304316)),
+    # the factor family's rest; the FM entries carry RMSE third
+    "HPF": ((0.9416040610028223, None),
+            (0.3975118435800771, None)),
+    "PF": ((0.9392342669207875, None),
+           (0.34801643653866593, None)),
+    "SKMeans": ((0.935726370690104, None),
+                (0.21769408678610278, None)),
+    "FM-als": ((0.5954038162812441, None),
+               (0.0004884774865508248, None),
+               (0.8035231064239835, None)),
+    "FM-sgd": ((0.7267625525859469, 0.012015919624494975),
+               (0.11560790781846834, 0.004025282227839214),
+               (0.7873132544058109, 0.002357494843873768)),
+    "FM-mcmc": ((0.7344867617606281, 0.002297659188937873),
+                (0.03194185589975693, 0.003388039534222481),
+                (0.8132974881598496, 0.002145796482107631)),
+    "SANSA": ((0.9422985840130057, None),
+              (0.4150239678925398, None)),
 }
 
 
 def band(model, metric):
-    """(low, high, mean, spread) of ``metric`` ("AUC" or "NDCG@10") for
-    ``model``."""
-    mean, spread = BANDS[model][("AUC", "NDCG@10").index(metric)]
+    """(low, high, mean, spread) of ``metric`` ("AUC", "NDCG@10", or "RMSE"
+    where the entry has it) for ``model``."""
+    mean, spread = BANDS[model][("AUC", "NDCG@10", "RMSE").index(metric)]
     half = DETERMINISTIC_TOL if spread is None else 3 * spread
     return mean - half, mean + half, mean, spread
