@@ -152,31 +152,67 @@ Phases, each of which fails the run when it fails:
    over HPF's k and hierarchical on validation AUC. The folds, splits and
    strata are held to the same protocols built on the CPU, each search's
    trials (within 1e-4) and best_params to the same search on the CPU;
-15. times: each kernel, its plain version and library yardsticks
+15. SBPR at the Epinions widths (``examples/sbpr_epinions.py``: k = 10, lr
+   0.001, seed 123; seeded data at Cornac's Epinions counts, 40,163 users x
+   139,738 items, 664,824 star ratings, 487,183 trust edges), after phase
+   10c: RatioSplit(0.1, 0.5) with the user graph, the split and the social
+   arrays timed on the host, the membership structure and its bytes
+   printed; the first minibatch's five accumulate_rows inputs held bit for
+   bit to the plain version on the CPU and timed beside ``index_add_``; two
+   seeded 2-epoch fits bit for bit; the 50-epoch fit timed (seconds per
+   epoch, samples/s beside the byte bound of a sample, device events per
+   minibatch and the busy share of one epoch, peak device memory); a fit
+   with checkpoints every 10 epochs stopped at 20 and resumed to 50, equal
+   to the uninterrupted one bit for bit; ranking_eval's AUC, NDCG@10 and
+   Recall@10; recommend_batch of 8,192 users at k = 100 through fused_topk
+   (d = 11), every list held to the plain version;
+15b. C2PF at the Amazon Office widths (``examples/c2pf_example.py``: k =
+   100, 80 sweeps then 16; seeded data at Cornac's counts, 3,703 users x
+   6,523 items, 53,282 ratings) with the item graph of
+   ``GraphModality.from_feature(k=10, symmetric=True)`` over seeded
+   features: fits of max_iter 1 and 3 held to the CPU's (rtol 1e-4), the
+   first sweep's nine accumulate_rows inputs held bit for bit and timed
+   beside ``index_add_``, a second fit bit for bit, ms a sweep beside its
+   byte bound, peak memory, the example's Experiment (MAE, RMSE, P@10, R@10,
+   NDCG@10), recommend_batch of 8,192 users (with replacement) through
+   fused_topk at d = 100, held to the plain version;
+12e. the modality layer's models at the bench shape, in a sixth spawned
+   process: SBPR, VEBPR and C2PF (c2pf, tc2pf, rc2pf) on
+   ``tests/golden_models.py``'s block data (user graph, purchases and views,
+   item graph), each train AUC in the band of the JAX package's CPU fits,
+   seeded refits bit for bit with their accumulate_rows inputs held to the
+   plain version; ``Experiment(checkpoint_dir=...)`` with bench.py's BPR,
+   MF and VAECF (checkpoints every 50 epochs), and BPR stopped at epoch 100
+   and resumed to 200 equal to the Experiment's, bit for bit;
+16. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
    over two launches and whether it runs without a sync are recorded)
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
    fused_topk also at HPF's d = 5 (B = 8192 over the ML-10M catalog),
+   SBPR's d = 11 over Epinions' and C2PF's d = 100 over Amazon Office's,
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
    the labelled shapes of phase 5 (the BPR trainers' four, NeuMF's and
-   LightGCN's at the bench shape, LightGCN's and HPF's two each at ML-10M),
+   LightGCN's at the bench shape, LightGCN's and HPF's two each at ML-10M,
+   SBPR's three at Epinions, C2PF's three at Amazon Office),
    on the inputs
    phase 5 checked; the canary at (128, 128) beside ``torch.mul``.
 
-Phases 12, 12b and 12c-12d run last, after 15, in five spawned processes
-at once (the factor family, three groups of the neural family, and the
-factor family's rest with the protocols): the card
+Phases 12, 12b, 12c-12d and 12e run last, after 16, in six spawned
+processes at once (the factor family, three groups of the neural family,
+the factor family's rest with the protocols, and the modality layer's
+models with the checkpointed Experiment): the card
 time-slices between processes and they share the host's cores, so no
 time this process takes is taken beside them, while their own fit seconds
 and busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
-then at HPF's d = 5; accumulate_rows at the full-width V update and
-LightGCN's and HPF's two ML-10M shapes each),
+then at HPF's d = 5, SBPR's d = 11 and C2PF's d = 100; accumulate_rows at
+the full-width V update, LightGCN's and HPF's two ML-10M shapes each,
+SBPR's V update and C2PF's ratings into the item rows),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -212,6 +248,10 @@ DEV = "cuda"
 # benchmarks/scale_10m.py's configuration, the full-width trainer phase
 FULL_USERS, FULL_ITEMS, FULL_DRAWS, FULL_K, FULL_BATCH = 100_000, 10_000, 10_000_000, 32, 16_384
 ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
+# Cornac's published Epinions and Amazon Office counts (phases 15, 15b)
+EPINIONS_USERS, EPINIONS_ITEMS, EPINIONS_RATINGS, EPINIONS_TRUST = (
+    40_163, 139_738, 664_824, 487_183)
+OFFICE_USERS, OFFICE_ITEMS, OFFICE_RATINGS = 3_703, 6_523, 53_282
 
 
 def log(msg):
@@ -595,6 +635,21 @@ ACC_CASES = [
     (None, 789, 80_000, 5, "popular", 1),  # HPF's item shapes
     (None, 1_732, 2_048, None, "feature blocks", 1),  # FM-SGD's w
     (None, 1_732, 2_048, 8, "feature blocks", 1),  # FM-SGD's V
+    # the modality layer's models at their published widths (phases 15 and
+    # 15b also hold the kernel to the plain version on the inputs their
+    # first minibatch or sweep hands it): SBPR's three scatters at Epinions
+    # (a minibatch of 1,024: the user rows, [i; j; k] into the item rows,
+    # and each bias scatter) and C2PF's at Amazon Office (about 42,600 train
+    # ratings into the item and the user rows at k = 100, about 100,000
+    # context edges into the item rows, at k = 100 and 1-D)
+    ("SBPR, Epinions, U update", EPINIONS_USERS, 1_024, 10, "popular", 2),
+    ("SBPR, Epinions, V update (i, j, k)", EPINIONS_ITEMS, 3_072, 10, "popular", 1),
+    ("SBPR, Epinions, item bias", EPINIONS_ITEMS, 1_024, None, "popular", 2),
+    ("C2PF, Amazon Office, ratings into item rows", OFFICE_ITEMS, 42_626, 100, "popular", 1),
+    ("C2PF, Amazon Office, ratings into user rows", OFFICE_USERS, 42_626, 100, "popular", 1),
+    ("C2PF, Amazon Office, context edges into item rows", OFFICE_ITEMS, 100_000, 100, "popular",
+     1),
+    (None, OFFICE_ITEMS, 100_000, None, "popular", 1),  # C2PF's kappa sums
 ]
 FM_USERS = 943  # the bench shape's train users: the first feature block of FM's ids
 
@@ -2786,7 +2841,8 @@ def phase_accumulate_times(cases):
 
     rows = {}
     for label, (table, ids, upd, per_call, device_ms, kept, err, card_err) in cases.items():
-        (R, d), B = table.shape, ids.shape[0]
+        R, B = table.shape[0], ids.shape[0]
+        d = table.shape[1] if table.dim() > 1 else 1
         reps = 200 if B < 1_000_000 else 10
         plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
         ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
@@ -2822,6 +2878,499 @@ def phase_accumulate_times(cases):
             f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.3f} MB), "
             f"{100 * bound_ms / ms:.2f}% of bound")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the modality layer's models at published widths: SBPR at Cornac's Epinions
+# counts (its dataset documentation: 40,163 users, 139,738 items, 664,824
+# ratings, 487,183 trust edges), C2PF at its Amazon Office counts (3,703
+# users, 6,523 items, 53,282 ratings), the constants above; the data are
+# seeded, not the files
+# examples/sbpr_epinions.py's SBPR and examples/c2pf_example.py's C2PF
+SBPR_EPINIONS = dict(k=10, learning_rate=0.001, seed=123)
+SBPR_EPOCHS, SBPR_STOP = 50, 20
+C2PF_OFFICE = dict(k=100, variant="c2pf", seed=123)
+C2PF_ITERS = 80
+C2PF_RTOL, C2PF_ATOL = 1e-4, 1e-6
+
+
+def zipf_pairs(rng, n_users, n_items, n, user_skew, item_skew, cover=True):
+    """``n`` distinct (user, item) pairs: users drawn with probability
+    proportional to 1 / rank^user_skew and items to 1 / rank^item_skew,
+    the ranks scattered over the ids, duplicates dropped in draw order.
+    With ``cover``, every user and every item is in at least one pair (one
+    pair each first, the other side drawn), as in a published dataset's
+    counts."""
+    def weights(m, skew):
+        p = 1.0 / np.arange(1, m + 1) ** skew
+        return rng.permutation(m), p / p.sum()
+
+    (uperm, up), (iperm, ip) = weights(n_users, user_skew), weights(n_items, item_skew)
+    keys = np.empty(0, np.int64)
+    if cover:
+        every_item = uperm[rng.choice(n_users, n_items, p=up)] * n_items + np.arange(n_items)
+        every_user = np.arange(n_users) * n_items + iperm[rng.choice(n_items, n_users, p=ip)]
+        keys = np.concatenate([every_item, every_user]).astype(np.int64)
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]
+    while len(keys) < n:
+        draw = int(1.3 * (n - len(keys))) + 1024
+        u = uperm[rng.choice(n_users, draw, p=up)].astype(np.int64)
+        i = iperm[rng.choice(n_items, draw, p=ip)].astype(np.int64)
+        keys = np.concatenate([keys, u * n_items + i])
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]
+    keys = keys[:n]
+    return keys // n_items, keys % n_items
+
+
+def star_triples(rng, users, items, prefix=("u", "i")):
+    stars = rng.choice(np.arange(1, 6), len(users), p=[0.06, 0.08, 0.16, 0.32, 0.38])
+    return [(f"{prefix[0]}{u}", f"{prefix[1]}{i}", float(r))
+            for u, i, r in zip(users.tolist(), items.tolist(), stars.tolist())]
+
+
+def epinions_like(seed):
+    """Seeded data at the Epinions counts: star ratings over Zipf-like
+    users and items, and directed trust edges (no self loops) toward
+    Zipf-like popular users."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, EPINIONS_USERS, EPINIONS_ITEMS, EPINIONS_RATINGS, 0.5, 0.8)
+    ratings = star_triples(rng, users, items)
+    src, dst = zipf_pairs(rng, EPINIONS_USERS, EPINIONS_USERS, EPINIONS_TRUST + 50_000, 0.4, 0.7,
+                          cover=False)
+    keep = src != dst
+    src, dst = src[keep][:EPINIONS_TRUST], dst[keep][:EPINIONS_TRUST]
+    trust = [(f"u{a}", f"u{b}", 1.0) for a, b in zip(src.tolist(), dst.tolist())]
+    return ratings, trust
+
+
+def office_like(seed):
+    """Seeded data at the Amazon Office counts, and 64 seeded float32
+    features an item (tie-free cosines) for the item graph."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, OFFICE_USERS, OFFICE_ITEMS, OFFICE_RATINGS, 0.3, 0.6)
+    feats = rng.normal(size=(OFFICE_ITEMS, 64)).astype(np.float32)
+    return star_triples(rng, users, items), feats, [f"i{i}" for i in range(OFFICE_ITEMS)]
+
+
+@contextlib.contextmanager
+def recording_first_calls(store, limit):
+    """While open, the accumulate_rows wrapper keeps in ``store`` copies of
+    the inputs of its first ``limit`` calls (the table as it was before the
+    call), in order, and launches as always."""
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, AccumulateRowsKernel
+
+    class Recording(AccumulateRowsKernel):
+        def __call__(self, table, ids, updates):
+            if len(store) < limit:
+                store.append((table.clone(), ids.clone(), updates.clone()))
+            return super().__call__(table, ids, updates)
+
+    ACCUMULATE_ROWS.__class__ = Recording
+    try:
+        yield store
+    finally:
+        ACCUMULATE_ROWS.__class__ = AccumulateRowsKernel
+
+
+def hold_and_time_calls(what, calls):
+    """Each recorded accumulate_rows call held bit for bit to the plain
+    version on the CPU, then timed with CUDA events on a scratch copy of its
+    table beside ``index_add_`` (atomic) on the same inputs, and beside the
+    bound (the ids and updates read once, each touched row read and
+    written once). Returns (max |err|, [(shape, ms, index_add_ ms, bound
+    ms)])."""
+    import torch
+
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows
+
+    max_err, rows = 0.0, []
+    for n, (table, ids, upd) in enumerate(calls):
+        R, B = table.shape[0], ids.shape[0]
+        d = table.shape[1] if table.dim() > 1 else 1
+        err = check_accumulate(f"{what}, call {n + 1}: {B} ids into {tuple(table.shape)}",
+                               table, ids, upd, calls=0)[0]
+        max_err = max(max_err, err)
+        scratch = table.clone()
+        ms = time_ms(lambda: accumulate_rows(scratch, ids, upd), 50)
+        lib = time_ms(lambda: scratch.index_add_(0, ids, upd), 50)
+        touched = torch.unique(ids).numel()
+        bound = 1e3 * (8.0 * B + 4.0 * B * d + 8.0 * touched * d) / PEAK_BYTES
+        rows.append((f"{B} ids into {R} x {d}", ms, lib, bound))
+        log(f"  {what}, call {n + 1}: {B} ids into {R} x {d} ({touched} touched): kernel "
+            f"{ms:.4f} ms, index_add_ {lib:.4f} ms, bound {bound:.5f} ms (bytes), "
+            f"{100 * bound / ms:.2f}% of it")
+    return max_err, rows
+
+
+def serve_check(model, train, users, what):
+    """recommend_batch of the raw ids of ``users`` at k = TOPK through
+    fused_topk, every list held to the plain version on the model's own
+    vectors. Returns the positions relaxed as near-ties."""
+    import torch
+
+    dev = torch.device(DEV)
+    recs = model.recommend_batch([train.user_ids[u] for u in users], k=TOPK)
+    Ud = torch.as_tensor(np.asarray(model.get_user_vectors(), np.float32), device=dev)
+    Vd = torch.as_tensor(np.asarray(model.get_item_vectors(), np.float32), device=dev)
+    want = reference_lists(Ud[users], Vd, TOPK, [set()] * len(users))
+    got = [[model.iid_map[i] for i in row] for row in recs]
+    return check_lists(got, want, plain_scores(Ud[users], Vd).cpu().numpy(), what)
+
+
+def sbpr_sample_bytes(csr, membership, k):
+    """The least bytes one SBPR sample moves: the (user, item) pair (8),
+    the membership probe (as ``sample_bytes`` counts it for the CSR binary
+    search; one 4-byte word for the bitmap), the user's social row bounds
+    and one social item and count (16), the four factor rows (user,
+    positive, negative, social item) read and written once (2 x 4 x k x 4)
+    and the three item biases read and written once (2 x 3 x 4)."""
+    if membership.kind == "bitmap":
+        probe = 4.0
+    else:
+        probe = sample_bytes(csr, k)[1]
+    return 8.0 + probe + 16.0 + 2 * 4 * k * 4.0 + 2 * 3 * 4.0, probe
+
+
+def phase_sbpr_epinions(seed, work):
+    """Phase 15, SBPR at the Epinions widths: examples/sbpr_epinions.py's
+    configuration on seeded data at its counts (``epinions_like``). Times
+    the split with the user graph's build and the social arrays on the
+    host; holds the first minibatch's five accumulate_rows inputs bit for
+    bit to the plain version on the CPU; two seeded 2-epoch fits (the
+    second one epoch a chunk) bit for bit; the 50-epoch fit timed (seconds
+    per epoch, samples/s beside the byte bound of a sample, device events
+    per minibatch and the busy share of one epoch, peak device memory); a
+    checkpointed fit stopped at epoch 20 and resumed to 50 equal to it bit
+    for bit; ranking_eval's AUC, NDCG@10 and Recall@10; recommend_batch of
+    8,192 users at k = 100 through fused_topk (d = 11), every list held to
+    the plain version. Returns (accumulate_rows launches, fused_topk
+    launches, the model, the users served, the stats)."""
+    import io
+    import shutil
+
+    import torch
+
+    from cornac_tpu_torch.data import GraphModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
+    from cornac_tpu_torch.metrics import AUC, NDCG, Recall
+    from cornac_tpu_torch.models import SBPR
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+    from cornac_tpu_torch.ops.membership import build_membership
+
+    clock = Clock()
+    ratings, trust = clock("Epinions-like data (set-up)", lambda: epinions_like(seed + 15))
+    split = clock("RatioSplit(0.1) with the user graph's build", lambda: RatioSplit(
+        ratings, test_size=0.1, rating_threshold=0.5, exclude_unknowns=True, seed=123,
+        user_graph=GraphModality(data=trust), verbose=False))
+    train = split.train_set
+    probe = SBPR(**SBPR_EPINIONS)
+    probe.num_users = train.num_users
+    social = clock("the social arrays (social_items)", lambda: probe._prepare_social_data(train))
+    membership = build_membership(train.csr_matrix, device=DEV)
+    mem_bytes = sum(a.numel() * a.element_size() for a in membership.arrays)
+    wpr = (train.num_items + 31) // 32
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {train.num_ratings:,} "
+        f"train ratings, {split.user_graph.matrix.nnz:,} trust edges in the graph over "
+        f"{split.user_graph.matrix.shape[0]:,} users; {len(social[0]):,} social positives; "
+        f"membership: {membership.kind}, {mem_bytes / 2**20:.1f} MiB (a bitmap would take "
+        f"{train.num_users * wpr * 4 / 2**20:.1f} MiB)")
+    ck_dir = work / "sbpr_checkpoints"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    def fit(epochs, **extra):
+        return SBPR(max_iter=epochs, **SBPR_EPINIONS, **extra).fit(train)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    with recording_first_calls([], 5) as first:
+        two = clock("SBPR.fit, 2 epochs", lambda: fit(2))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = clock(f"SBPR.fit, {SBPR_EPOCHS} epochs", lambda: fit(SBPR_EPOCHS))
+    peak = torch.cuda.max_memory_allocated() - held
+    clock(f"SBPR.fit, checkpointed, stopped at epoch {SBPR_STOP}", lambda: SBPR(
+        max_iter=SBPR_STOP, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=10).fit(train))
+    resumed = clock(f"SBPR.fit, resumed to epoch {SBPR_EPOCHS}", lambda: SBPR(
+        max_iter=SBPR_EPOCHS, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=10).fit(train))
+    metrics = [AUC(), NDCG(k=10), Recall(k=10)]
+    quality = clock("ranking_eval (AUC, NDCG@10, Recall@10)", lambda: ranking_eval(
+        model, metrics, train, split.test_set, rating_threshold=0.5, exclude_unknowns=True)[0])
+    rng = np.random.RandomState(seed + 15)
+    users = rng.choice(train.num_users, SERVE_BATCH, replace=False)
+    relaxed = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                    lambda: serve_check(model, train, users, "SBPR recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("SBPR at Epinions")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"SBPR launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+
+    # ---- check and measure ----
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = clock("SBPR.fit, 2 epochs, one a chunk", lambda: fit(2, verbose=True))
+    attrs = ("u_factors", "i_factors", "i_biases")
+    for name in attrs:
+        if not np.array_equal(getattr(two, name), getattr(again, name)):
+            raise AssertionError(f"SBPR at Epinions: two seeded fits differ in {name}")
+        if not np.array_equal(getattr(model, name), getattr(resumed, name)):
+            raise AssertionError(f"SBPR at Epinions: the resumed fit differs in {name}")
+        if not np.isfinite(getattr(model, name)).all():
+            raise AssertionError(f"SBPR at Epinions: non-finite {name}")
+    if len(first) != 5:
+        raise AssertionError(f"the first minibatch recorded {len(first)} accumulate_rows calls")
+    acc_err, acc_rows = hold_and_time_calls("SBPR's first minibatch", first)
+    del first
+    n, k = train.num_ratings, SBPR_EPINIONS["k"]
+    epoch_s = (clock.seconds[f"SBPR.fit, {SBPR_EPOCHS} epochs"]
+               - clock.seconds["SBPR.fit, 2 epochs"]) / (SBPR_EPOCHS - 2)
+    bsz = min(1024, n)
+    n_batches = -(-n // bsz)
+    per_sample, probe_b = sbpr_sample_bytes(train.csr_matrix, membership, k)
+    bound_s = n_batches * bsz * per_sample / PEAK_BYTES
+    prof = epoch_profile(lambda e: fit(e), n_batches, 1)
+    log(f"  SBPR k={k} over {n:,} ratings: {epoch_s:.3f} s per epoch (a {SBPR_EPOCHS}-epoch fit "
+        f"minus a 2-epoch fit, over {SBPR_EPOCHS - 2}), {n / epoch_s / 1e6:.3f} M samples/s; "
+        f"byte bound {per_sample:.1f} B a sample (8 pair + {probe_b:.1f} probe + 16 social + 4 x "
+        f"2 x {k} x 4 rows + 3 x 2 x 4 biases) = {bound_s * 1e3:.3f} ms per epoch, "
+        f"{100 * bound_s / epoch_s:.4f}% of it; one epoch profiled: {prof['wall_ms']:.1f} ms "
+        f"host clock, device busy {prof['busy_ms']:.3f} ms ({100 * prof['share']:.2f}%), "
+        f"{prof['launches_per_minibatch']:.1f} device events per minibatch; top device ops "
+        f"{prof['top']}; peak device memory of the fit {peak / 2**30:.3f} GiB above what the "
+        f"run held")
+    log(f"  two seeded 2-epoch fits (the second one epoch a chunk) bit for bit; the fit stopped at "
+        f"epoch {SBPR_STOP} and resumed to {SBPR_EPOCHS} from its checkpoints equal to the "
+        f"uninterrupted one, bit for bit; the first minibatch's five accumulate_rows inputs equal "
+        f"to the plain version on the CPU, bit for bit (max |err| {acc_err:.3e})")
+    log(f"  ranking_eval: AUC {quality[0]:.6f}, NDCG@10 {quality[1]:.6f}, Recall@10 "
+        f"{quality[2]:.6f} (no band at this size); recommend_batch ({SERVE_BATCH} users, "
+        f"k={TOPK}, d={k + 1}) equal to the plain version (positions relaxed as near-ties: "
+        f"{relaxed}); fused_topk launches {fused}")
+    log(f"SBPR at Epinions: ok in {sum(clock.seconds.values()):.1f} s")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, fused, model, users, dict(
+        epoch_s=epoch_s, bound_s=bound_s, peak=peak, quality=quality, acc=acc_rows,
+        max_abs_err=acc_err, setup_s={name: clock.seconds[name] for name in (
+            "RatioSplit(0.1) with the user graph's build", "the social arrays (social_items)")},
+        **prof)
+
+
+def phase_c2pf_office(seed):
+    """Phase 15b, C2PF at the Amazon Office widths: examples/c2pf_example.py's
+    configuration (k = 100, 80 sweeps and 16 refinement sweeps) on seeded
+    data at its counts, the item graph from ``GraphModality.from_feature(k=10,
+    symmetric=True)`` over seeded item features. Fits of max_iter 1 and 3 on
+    the card held to the same fits on the CPU (rtol ``C2PF_RTOL``); the first
+    sweep's nine accumulate_rows inputs held bit for bit to the plain version
+    on the CPU; a second seeded fit bit for bit; the whole fit timed (ms a
+    sweep beside the byte bound of a sweep, peak device memory); the
+    example's Experiment (MAE, RMSE, P@10, R@10, NDCG@10); recommend_batch
+    of 8,192 users (with replacement) at k = 100 through fused_topk (d =
+    100), every list held to the plain version. Returns (accumulate_rows
+    launches, fused_topk launches, the model, the users served, the
+    stats)."""
+    import io
+
+    import torch
+
+    from cornac_tpu_torch import Experiment
+    from cornac_tpu_torch.data import GraphModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import MAE, NDCG, RMSE, Precision, Recall
+    from cornac_tpu_torch.models import C2PF
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    ratings, feats, item_ids = clock("Amazon-Office-like data (set-up)",
+                                     lambda: office_like(seed + 16))
+    graph = clock("GraphModality.from_feature(k=10, symmetric=True)",
+                  lambda: GraphModality.from_feature(feats, k=10, ids=item_ids, symmetric=True))
+    split = clock("RatioSplit(0.2) with the item graph's build", lambda: RatioSplit(
+        ratings, test_size=0.2, rating_threshold=1.0, exclude_unknowns=True, seed=123,
+        item_graph=graph, verbose=False))
+    train = split.train_set
+    probe = C2PF(**C2PF_OFFICE)
+    probe.num_items = train.num_items
+    edges = len(probe._context_edges(train)[0])
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {train.num_ratings:,} "
+        f"train ratings; the item graph: {len(graph.raw_data):,} edges, {edges:,} between train "
+        f"items")
+    tables = ("Gs", "Gr", "Ls", "Lr", "L2s", "L2r", "L3s", "L3r", "Xi")
+
+    def fit(iters, device=None):
+        return C2PF(max_iter=iters, device=device, **C2PF_OFFICE).fit(train)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    with recording_first_calls([], 9) as first:
+        one = clock("C2PF.fit, max_iter 1 (2 sweeps)", lambda: fit(1))
+    three = clock("C2PF.fit, max_iter 3 (4 sweeps)", lambda: fit(3))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sweeps = C2PF_ITERS + max(1, int(0.2 * C2PF_ITERS))
+    model = clock(f"C2PF.fit, max_iter {C2PF_ITERS} ({sweeps} sweeps)", lambda: fit(C2PF_ITERS))
+    peak = torch.cuda.max_memory_allocated() - held
+    exp = Experiment(split, [C2PF(max_iter=C2PF_ITERS, **C2PF_OFFICE)],
+                     [MAE(), RMSE(), Precision(k=10), Recall(k=10), NDCG(k=10)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        clock("Experiment.run (MAE, RMSE, P@10, R@10, NDCG@10)", exp.run)
+    users = np.random.RandomState(seed + 16).choice(train.num_users, SERVE_BATCH, replace=True)
+    relaxed = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                    lambda: serve_check(model, train, users, "C2PF recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("C2PF at Amazon Office")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"C2PF launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+
+    # ---- check and measure ----
+    again = clock("C2PF.fit, max_iter 3, again", lambda: fit(3))
+    for name in tables:
+        if not np.array_equal(getattr(three, name), getattr(again, name)):
+            raise AssertionError(f"C2PF at Amazon Office: two seeded fits differ in {name}")
+        if not np.isfinite(getattr(model, name)).all():
+            raise AssertionError(f"C2PF at Amazon Office: non-finite {name}")
+    worst = 0.0
+    for iters, on_card in ((1, one), (3, three)):
+        on_cpu = clock(f"C2PF.fit on the CPU, max_iter {iters}", lambda: fit(iters, "cpu"))
+        for name in tables:
+            a, b = getattr(on_card, name), getattr(on_cpu, name)
+            worst = max(worst, float(np.max(np.abs(a - b) / (C2PF_ATOL + np.abs(b)))))
+            if not np.allclose(a, b, rtol=C2PF_RTOL, atol=C2PF_ATOL):
+                raise AssertionError(f"C2PF at Amazon Office, max_iter {iters}: {name} on the "
+                                     f"card differs from the CPU's beyond rtol {C2PF_RTOL}")
+    if len(first) != 9:
+        raise AssertionError(f"the first sweep recorded {len(first)} accumulate_rows calls")
+    acc_err, acc_rows = hold_and_time_calls("C2PF's first sweep", first)
+    del first
+    sweep_s = (clock.seconds[f"C2PF.fit, max_iter {C2PF_ITERS} ({sweeps} sweeps)"]
+               - clock.seconds["C2PF.fit, max_iter 3 (4 sweeps)"]) / (sweeps - 4)
+    nu, ni, nnz, k = train.num_users, train.num_items, train.num_ratings, C2PF_OFFICE["k"]
+    # a sweep must read the ratings (two int64 ids, a float32 value) and the
+    # context edges (two int64 ids, their two float32 kappa parameters read
+    # and written) once, and read and write each table once
+    nbytes = 20.0 * nnz + 32.0 * edges + 2 * 4.0 * ((2 * nu + 4 * ni) * k + ni)
+    bound_s = nbytes / PEAK_BYTES
+    res = exp.result[0].metric_avg_results
+    log(f"  C2PF k={k} over {nnz:,} ratings and {edges:,} context edges: {sweep_s * 1e3:.3f} ms "
+        f"per sweep (a {sweeps}-sweep fit minus a 4-sweep fit, over {sweeps - 4}); byte bound "
+        f"{bound_s * 1e3:.5f} ms per sweep ({nbytes / 1e6:.2f} MB), {100 * bound_s / sweep_s:.3f}% "
+        f"of it; peak device memory of the fit {peak / 2**30:.3f} GiB above what the run held")
+    log(f"  fits of max_iter 1 and 3 equal to the CPU's within rtol {C2PF_RTOL} / atol "
+        f"{C2PF_ATOL} (max |card - cpu| / (atol + |cpu|) {worst:.3e}); two seeded fits bit for "
+        f"bit; the first sweep's nine accumulate_rows inputs equal to the plain version on the "
+        f"CPU, bit for bit (max |err| {acc_err:.3e})")
+    log("  Experiment: " + ", ".join(f"{name} {value:.4f}" for name, value in res.items()))
+    log(f"  recommend_batch ({SERVE_BATCH} users with replacement, k={TOPK}, d={k}): equal to the "
+        f"plain version (positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}")
+    log(f"C2PF at Amazon Office: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, model, users, dict(
+        sweep_s=sweep_s, bound_s=bound_s, peak=peak, worst_rel=worst, acc=acc_rows,
+        max_abs_err=acc_err, experiment=dict(res), edges=edges,
+        graph_s=clock.seconds["GraphModality.from_feature(k=10, symmetric=True)"])
+
+
+def phase_modality_bench(bench_data):
+    """Phase 12e, in a spawned process: SBPR, VEBPR and C2PF (all three
+    variants) on tests/golden_models.py's block data (the user graph, the
+    purchases and views, the item graph), each train AUC in the band of the
+    JAX package's CPU fits (``tools/bpr_quality_band.py --model``), a second
+    seeded fit of each (one epoch a chunk) bit for bit, whose accumulate_rows
+    inputs (the first at each shape) are held to the plain version on the
+    CPU; then ``Experiment(checkpoint_dir=...)`` with bench.py's BPR, MF and
+    VAECF at the bench shape, and the BPR fit stopped at epoch 100 and
+    resumed to 200 from its checkpoints, bit for bit against the
+    Experiment's."""
+    import io
+    import shutil
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    from bpr_quality_band import GOLDEN_CONFIGS, golden_auc, golden_split
+    from cornac_tpu_torch import Experiment, models
+    from cornac_tpu_torch.metrics import AUC, NDCG
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.utils.checkpoint import CheckpointManager
+
+    clock = Clock()
+    splits = {kind: golden_split(kind, pdata, peval)
+              for kind in ("user_graph", "item_graph", "purchase_view")}
+
+    def make(name, **extra):
+        cls, kwargs, _, _ = GOLDEN_CONFIGS[name]
+        return getattr(models, cls)(seed=123, **kwargs, **extra)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    fitted = {name: clock(f"{name}.fit", lambda: make(name).fit(splits[kind].train_set))
+              for name, (_, _, _, kind) in GOLDEN_CONFIGS.items()}
+    split = clock("RatioSplit(0.2, 4.0, seed=123)", lambda: peval.RatioSplit(
+        bench_data(), test_size=0.2, rating_threshold=4.0, seed=123, verbose=False))
+    ck_dir = ROOT / "build" / "chip_smoke" / "checkpoints_12e"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    bpr_kw = dict(BENCH_BPR)
+    exp = Experiment(split, [models.BPR(**bpr_kw), models.MF(k=10, max_iter=20, seed=123),
+                             models.VAECF(k=10, n_epochs=100, seed=123)],
+                     [AUC(), NDCG(k=10)], checkpoint_dir=str(ck_dir), checkpoint_every=50)
+    with contextlib.redirect_stdout(io.StringIO()):
+        clock("Experiment(checkpoint_dir=...).run (BPR, MF, VAECF)", exp.run)
+    stop_dir = ck_dir / "interrupted"
+    clock("BPR.fit, checkpointed, stopped at epoch 100", lambda: models.BPR(
+        **{**bpr_kw, "max_iter": 100}).enable_checkpointing(stop_dir, every=50).fit(split.train_set))
+    resumed = clock("BPR.fit, resumed to epoch 200", lambda: models.BPR(
+        **bpr_kw).enable_checkpointing(stop_dir, every=50).fit(split.train_set))
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the modality layer's models at the bench shape")
+    if launches <= 0:
+        raise AssertionError("phase 12e did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    fit_s, acc_err, recorded = {}, 0.0, 0
+    for name, (cls, _, _, kind) in GOLDEN_CONFIGS.items():
+        train, model = splits[kind].train_set, fitted[name]
+        fit_s[name] = clock.seconds[f"{name}.fit"]
+        auc = golden_auc(model, train)
+        lo, hi, _, spread = band(name, "AUC")
+        inside = lo <= auc <= hi
+        log(f"  {name}: train AUC {auc:.6f}, band [{lo:.6f}, {hi:.6f}] "
+            f"({'one deterministic JAX fit +/- 1e-3' if spread is None else '5 JAX seeds'}) "
+            f"{'inside' if inside else 'OUTSIDE'}; fit {fit_s[name]:.3f} s (host clock)")
+        if not inside:
+            raise AssertionError(f"{name}: outside its quality band")
+        verbose = {} if cls == "C2PF" else {"verbose": True}
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = make(name, **verbose).fit(train)
+        attrs = (("Gs", "Gr", "Ls", "Lr", "L2s", "L2r", "L3s", "L3r", "Xi") if cls == "C2PF"
+                 else ("u_factors", "i_factors", "i_biases"))
+        for attr in attrs:
+            if not same_bits(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    steps = {m.name: CheckpointManager(ck_dir / m.name).all_steps() for m in exp.models}
+    if steps != {"BPR": [100, 150, 200], "MF": [20], "VAECF": [50, 100]}:
+        raise AssertionError(f"the Experiment's checkpoints: {steps}")
+    for attr in ("u_factors", "i_factors", "i_biases"):
+        if not same_bits(getattr(exp.models[0], attr), getattr(resumed, attr)):
+            raise AssertionError(f"BPR: the resumed fit differs from the Experiment's in {attr}")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    log(f"  every model: two seeded fits identical, bit for bit; accumulate_rows on the trainers' "
+        f"own inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit (max "
+        f"|err| {acc_err:.3e}); Experiment(checkpoint_dir=...) checkpoints {steps}; BPR stopped at "
+        f"epoch 100 and resumed to 200 equal to the Experiment's BPR, bit for bit; "
+        + ", ".join(f"{r.model_name} AUC {r.metric_avg_results['AUC']:.4f}" for r in exp.result)
+        + f"; accumulate_rows launches {launches}")
+    log(f"the modality layer's models at the bench shape: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
 
 
 # the families at the bench shape run in processes of their own, at once,
@@ -2921,7 +3470,7 @@ def main():
     # process times: the card time-slices between processes and they share
     # the host's cores, so a time taken beside them would carry their load
     # (their own times carry each other's)
-    pool = multiprocessing.get_context("spawn").Pool(2 + len(NEURAL_GROUPS))
+    pool = multiprocessing.get_context("spawn").Pool(3 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
@@ -2935,6 +3484,11 @@ def main():
         hpf_launches, hpf_fused, hpf_model, hpf_users, hpf = phase_hpf_ml10m(train10m, args.seed)
         del train10m
         lap("HPF at ML-10M")
+        sbpr_launches, sbpr_fused, sbpr_model, sbpr_users, sbpr = phase_sbpr_epinions(
+            args.seed, work)
+        lap("SBPR at Epinions")
+        c2pf_launches, c2pf_fused, c2pf_model, c2pf_users, c2pf = phase_c2pf_office(args.seed)
+        lap("C2PF at Amazon Office")
         bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
         full_launches, full_fused, full = phase_trainer_full(args.seed)
@@ -2950,6 +3504,8 @@ def main():
         lap("VAECF at the Netflix widths")
         rows = phase_times(bpr, users)
         hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
+        sbpr_rows = phase_times(sbpr_model, sbpr_users, (SERVE_BATCH,), "SBPR at Epinions")
+        c2pf_rows = phase_times(c2pf_model, c2pf_users, (SERVE_BATCH,), "C2PF at Amazon Office")
         cos_rows = phase_cosine_times([
             ("ML-1M item side", W_items),
             ("ML-1M user side", W_users),
@@ -2965,6 +3521,8 @@ def main():
                      for names in NEURAL_GROUPS]
         families.append(("factor family's rest and the protocols",
                          pool.apply_async(run_captured, ("phase_factor_rest_bench",))))
+        families.append(("the modality layer's models and checkpointed Experiments",
+                         pool.apply_async(run_captured, ("phase_modality_bench",))))
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -2981,7 +3539,8 @@ def main():
     neural_fit = {name: sec for r in neural for name, sec in r[2].items()}
     neural_acc_err = max(r[3] for r in neural)
     neural_prof = next(r[4] for r in neural if r[4] is not None)
-    rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[-1]
+    rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[1 + len(NEURAL_GROUPS)]
+    modal_launches, modal_fit, modal_acc_err = done[2 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -2990,7 +3549,8 @@ def main():
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
         "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
-                     + hpf_fused + rest_fused + probe_launches["fused_topk"]),
+                     + hpf_fused + rest_fused + sbpr_fused + c2pf_fused
+                     + probe_launches["fused_topk"]),
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2998,12 +3558,15 @@ def main():
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     } for B, row in sorted(rows.items(), reverse=True)]
-    # B1 at HPF's d = 5 over the ML-10M catalog, on the trained vectors
-    hpf_row = hpf_rows[SERVE_BATCH]
-    kernels.append({**{k: v for k, v in kernels[0].items() if k not in ("batch", "slices")},
-                    "batch": SERVE_BATCH, "d": hpf_row["d"], "items": hpf_row["items"],
-                    "slices": hpf_row["slices"],
-                    **{k: hpf_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+    # B1 at HPF's d = 5 over the ML-10M catalog, SBPR's d = 11 over the
+    # Epinions catalog and C2PF's d = 100 over Amazon Office's, on the
+    # trained vectors
+    for extra in (hpf_rows, sbpr_rows, c2pf_rows):
+        row = extra[SERVE_BATCH]
+        kernels.append({**{k: v for k, v in kernels[0].items() if k not in ("batch", "slices")},
+                        "batch": SERVE_BATCH, "d": row["d"], "items": row["items"],
+                        "slices": row["slices"],
+                        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")}})
     cos = cos_rows["ML-10M item side"]
     kernels.append({
@@ -3027,12 +3590,15 @@ def main():
     # whose bits the kernel must give, and on the card, atomic); the largest
     # |kernel - plain on the CPU| over every check of every path besides
     acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"],
-                      hpf["max_abs_err"], rest_acc_err)
+                      hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
+                      c2pf["max_abs_err"], modal_acc_err)
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
                   "LightGCN edge form, ML-10M, into item rows",
                   "HPF, ML-10M, into user rows",
-                  "HPF, ML-10M, into item rows"):
+                  "HPF, ML-10M, into item rows",
+                  "SBPR, Epinions, V update (i, j, k)",
+                  "C2PF, Amazon Office, ratings into item rows"):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -3041,7 +3607,8 @@ def main():
             "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
             "replaces": "cornac_tpu/ops/accumulate.py:26",
             "launches": (bench_launches + full_launches + factor_launches + neural_launches
-                         + lgcn_launches + hpf_launches + rest_launches),
+                         + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
+                         + c2pf_launches + modal_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -3074,6 +3641,17 @@ def main():
         f"{100 * hpf['bound_s'] / hpf['sweep_s']:.3f}% of the byte bound, busy "
         + ("not measured" if hpf["share"] is None else f"{100 * hpf['share']:.2f}%")
         + f", peak {hpf['peak'] / 2**30:.3f} GiB")
+    log(f"SBPR at Epinions: {sbpr['epoch_s']:.3f} s per epoch, "
+        f"{100 * sbpr['bound_s'] / sbpr['epoch_s']:.4f}% of the byte bound, busy "
+        f"{100 * sbpr['share']:.2f}%, {sbpr['launches_per_minibatch']:.1f} device events per "
+        f"minibatch, peak {sbpr['peak'] / 2**30:.3f} GiB; AUC {sbpr['quality'][0]:.4f}, NDCG@10 "
+        f"{sbpr['quality'][1]:.4f}, Recall@10 {sbpr['quality'][2]:.4f}")
+    log(f"C2PF at Amazon Office: {c2pf['sweep_s'] * 1e3:.3f} ms per sweep, "
+        f"{100 * c2pf['bound_s'] / c2pf['sweep_s']:.3f}% of the byte bound, peak "
+        f"{c2pf['peak'] / 2**30:.3f} GiB; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in c2pf["experiment"].items()))
+    log("the modality layer's models at the bench shape, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in modal_fit.items()))
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

@@ -14,7 +14,8 @@ from scipy.sparse import csr_matrix
 from .device import resolve_device
 from .engine.nn import Dense, Tree
 from .models.baseline import BaselineOnly
-from .models.bpr import BPR
+from .models.bpr import BPR, WBPR
+from .models.c2pf import C2PF
 from .models.ease import EASE
 from .models.fm import FM
 from .models.hpf import HPF
@@ -24,7 +25,9 @@ from .models.mf import MF
 from .models.nmf import NMF
 from .models.pmf import PMF
 from .models.sansa import SANSA
+from .models.sbpr import SBPR
 from .models.skm import SKMeans
+from .models.vebpr import VEBPR
 from .models.wmf import WMF
 
 _SNAPSHOT = (
@@ -51,24 +54,31 @@ def _snapshot(model, meta):
         setattr(model, name, OrderedDict(value) if name.endswith("_map") else value)
 
 
-def bpr_from_arrays(arrays, meta, device=None, train_set=None):
+_BPR_CLASSES = {"BPR": BPR, "WBPR": WBPR, "SBPR": SBPR, "VEBPR": VEBPR}
+
+
+def bpr_from_arrays(arrays, meta, device=None, train_set=None, cls_name="BPR"):
     """A fitted port ``BPR`` from ``arrays`` (``u_factors``, ``i_factors``,
     ``i_biases`` as numpy) and ``meta`` (``k``, ``use_bias``, ``num_users``,
     ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``, ``max_rating``,
     ``global_mean``). ``device``: where the model scores (default: the
     card). ``train_set``: the port ``Dataset`` it was fitted on, kept as
     the model's ``train_set`` as ``fit`` keeps it (wrapping the model in an
-    ANN index needs it)."""
+    ANN index needs it). ``cls_name``: the BPR family's class to build,
+    ``"BPR"``, ``"WBPR"``, ``"SBPR"`` or ``"VEBPR"`` (which scores without
+    a bias: its ``i_biases`` are the zeros the JAX package keeps)."""
+    if cls_name not in _BPR_CLASSES:
+        raise ValueError(f"cls_name must be one of {sorted(_BPR_CLASSES)}, got {cls_name!r}")
     _require(meta, _BPR_META)
-    model = BPR(
-        k=meta["k"], use_bias=meta["use_bias"], trainable=False,
-        init_params={
-            "U": np.asarray(arrays["u_factors"], np.float32),
-            "V": np.asarray(arrays["i_factors"], np.float32),
-            "Bi": np.asarray(arrays["i_biases"], np.float32),
-        },
-        device=device,
-    )
+    init = {
+        "U": np.asarray(arrays["u_factors"], np.float32),
+        "V": np.asarray(arrays["i_factors"], np.float32),
+        "Bi": np.asarray(arrays["i_biases"], np.float32),
+    }
+    kwargs = dict(k=meta["k"], trainable=False, init_params=init, device=device)
+    if cls_name != "VEBPR":
+        kwargs["use_bias"] = meta["use_bias"]
+    model = _BPR_CLASSES[cls_name](**kwargs)
     _snapshot(model, meta)
     model.train_set, model.val_set = train_set, None
     model.is_fitted = True
@@ -185,6 +195,27 @@ def factor_model_from_arrays(cls_name, arrays, meta, device=None):
         model.U = _csr(arrays)
     if cls_name == "FM":
         model.w0 = float(model.w0)
+    model.train_set = model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+_C2PF_TABLES = ("G_s", "G_r", "L_s", "L_r", "L2_s", "L2_r", "L3_s", "L3_r")
+
+
+def c2pf_from_arrays(arrays, meta, device=None):
+    """A fitted port ``C2PF`` from ``arrays`` (numpy: the Gamma tables
+    ``G_s``, ``G_r``, ``L_s``, ``L_r``, ``L2_s``, ``L2_r``, the context
+    edges' ``L3_s``, ``L3_r``, and ``Theta``, ``Beta``, ``Xi``) and ``meta``
+    (``k``, ``variant``, then ``num_users``, ``num_items``, ``uid_map``,
+    ``iid_map``, ``min_rating``, ``max_rating``, ``global_mean``). It scores
+    and recommends as the model it was read from. ``device``: where the model scores (default: the card)."""
+    _require(meta, ("k", "variant") + _SNAPSHOT)
+    init = {name: np.asarray(arrays[name], np.float32) for name in _C2PF_TABLES}
+    init.update({name: np.asarray(arrays[name]) for name in ("Theta", "Beta", "Xi")})
+    model = C2PF(k=meta["k"], variant=meta["variant"], trainable=False, init_params=init,
+                 device=device)
+    _snapshot(model, meta)
     model.train_set = model.val_set = None
     model.is_fitted = True
     return model

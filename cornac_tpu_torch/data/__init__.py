@@ -1,4 +1,20 @@
-from .dataset import Dataset
+from .modality import FeatureModality, Modality
+from .text import ReviewModality, TextModality
+from .image import ImageModality
+from .graph import GraphModality
+from .sentiment import SentimentModality
 from .reader import Reader
+from .dataset import Dataset, PurchaseViewDataset
 
-__all__ = ["Dataset", "Reader"]
+__all__ = [
+    "Dataset",
+    "FeatureModality",
+    "GraphModality",
+    "ImageModality",
+    "Modality",
+    "PurchaseViewDataset",
+    "Reader",
+    "ReviewModality",
+    "SentimentModality",
+    "TextModality",
+]

@@ -9,8 +9,9 @@ the modality slots, the per-entity views (``user_data``, ...), the
 vectorised lookups (``lookup_ratings``, ``is_observed``) and the batch
 iterators are the JAX package's: they draw from the dataset's numpy ``rng``
 in the same order, so a seed gives byte-identical batches in both packages.
-The basket, sequential and purchase-view datasets come with the models
-that use them.
+``PurchaseViewDataset`` (purchases with an aligned view matrix, for
+VEBPR) is the JAX package's too; the basket and sequential datasets come
+with the models that use them (ROADMAP.md A10).
 """
 
 import copy
@@ -390,3 +391,79 @@ class Dataset:
             dataset = pickle.load(f)
         dataset.load_from = fpath
         return dataset
+
+
+def _id_map_kwargs(global_uid_map, global_iid_map):
+    """Constructor kwargs shared by the dataset builders: the global id maps
+    plus the entity counts they imply."""
+    return dict(
+        num_users=len(global_uid_map),
+        num_items=len(global_iid_map),
+        uid_map=global_uid_map,
+        iid_map=global_iid_map,
+    )
+
+
+class PurchaseViewDataset(Dataset):
+    """Purchase (primary) interactions plus an aligned 'view' matrix for
+    multi-behaviour models (VEBPR), as the JAX package builds it: view
+    entries that are also purchases are dropped, so the matrix holds what
+    was viewed but not purchased.
+    """
+
+    def __init__(self, dataset, view_matrix):
+        super().__init__(
+            num_users=dataset.num_users,
+            num_items=dataset.num_items,
+            uid_map=dataset.uid_map,
+            iid_map=dataset.iid_map,
+            uir_tuple=dataset.uir_tuple,
+            timestamps=getattr(dataset, "timestamps", None),
+            seed=getattr(dataset, "seed", None),
+        )
+        view_matrix = view_matrix - view_matrix.multiply(self.matrix > 0)
+        view_matrix.eliminate_zeros()
+        view_matrix.sort_indices()
+        self.view_matrix = view_matrix
+
+    @classmethod
+    def build(cls, purchase_data, view_data, seed=None):
+        """Build from two raw UIR streams sharing one ID space; entities from
+        either stream are retained."""
+        global_uid_map = OrderedDict()
+        global_iid_map = OrderedDict()
+
+        purchase_set = Dataset.build(
+            purchase_data,
+            fmt="UIR",
+            global_uid_map=global_uid_map,
+            global_iid_map=global_iid_map,
+            seed=seed,
+        )
+        view_set = Dataset.build(
+            view_data,
+            fmt="UIR",
+            global_uid_map=global_uid_map,
+            global_iid_map=global_iid_map,
+            seed=seed,
+        )
+
+        full_purchase = Dataset(
+            uir_tuple=purchase_set.uir_tuple,
+            seed=seed,
+            **_id_map_kwargs(global_uid_map, global_iid_map),
+        )
+        return cls(full_purchase, view_set.matrix)
+
+    @classmethod
+    def attach_view(cls, dataset, view_data):
+        """Attach a raw view stream to an existing purchase dataset; unknown
+        entities in the view stream are dropped."""
+        view_set = Dataset.build(
+            view_data,
+            fmt="UIR",
+            global_uid_map=dataset.uid_map,
+            global_iid_map=dataset.iid_map,
+            exclude_unknowns=True,
+        )
+        return cls(dataset, view_set.matrix)

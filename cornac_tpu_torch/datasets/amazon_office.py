@@ -1,0 +1,32 @@
+"""Amazon Office: ratings + context graph.
+
+Cached-file loaders, ported from the JAX package's (capability parity with reference
+``cornac/datasets/amazon_office.py``). Files are cached under the framework cache
+dir (see :mod:`cornac_tpu_torch.utils.download`, which downloads nothing).
+"""
+
+from ..data import Reader
+from ..utils import validate_format
+from ..utils.download import cache
+
+
+def load_feedback(reader=None):
+    """Load (user, item, rating) triplets ."""
+    fpath = cache(
+        url="https://static.preferred.ai/cornac/datasets/amazon_office/rating.zip",
+        unzip=True,
+        relative_path="amazon_office/rating.txt",
+    )
+    reader = Reader() if reader is None else reader
+    return reader.read(fpath, fmt="UIR", sep=" ")
+
+
+def load_graph(reader=None):
+    """Load the item context graph ."""
+    fpath = cache(
+        url="https://static.preferred.ai/cornac/datasets/amazon_office/context.zip",
+        unzip=True,
+        relative_path="amazon_office/context.txt",
+    )
+    reader = Reader() if reader is None else reader
+    return reader.read(fpath, fmt="UIR", sep=" ")

@@ -7,9 +7,10 @@ scores batches of users: a model with a device batch scorer hands a (B, N)
 tensor on the card to the fused metric program
 (``metrics.ranking.batch_eval_device``), others go through the host
 ``RankingContext``. ``BaseMethod`` builds train/test/val datasets over
-shared global ID maps and runs timed fit + eval. The modalities (text,
-images, graphs, ...) and the multi-device ``mesh`` branch are not ported
-yet (ROADMAP.md A12, A8): their arguments raise on anything but None.
+shared global ID maps, builds the modalities (features, text, images,
+graphs, sentiment, reviews) against them and runs timed fit + eval. Each
+modality slot takes the JAX package's class, checked on assignment. The
+multi-device ``mesh`` branch is not ported yet (ROADMAP.md A8).
 """
 
 import time
@@ -17,7 +18,15 @@ from collections import OrderedDict
 
 import numpy as np
 
-from ..data import Dataset
+from ..data import (
+    Dataset,
+    FeatureModality,
+    GraphModality,
+    ImageModality,
+    ReviewModality,
+    SentimentModality,
+    TextModality,
+)
 from ..experiment.result import Result
 from ..metrics import RankingContext, RankingMetric, RatingMetric
 from ..metrics.ranking import (
@@ -191,11 +200,20 @@ class BaseMethod:
     """Base evaluation protocol: builds train/test/val datasets over shared
     global ID maps, attaches modalities, and runs timed fit + eval."""
 
-    _MODALITY_SLOTS = (
-        "user_feature", "item_feature", "user_text", "item_text",
-        "user_image", "item_image", "user_graph", "item_graph",
-        "sentiment", "review_text",
-    )
+    # the class each modality slot takes; the properties are attached
+    # after the class body
+    _MODALITY_SLOTS = {
+        "user_feature": FeatureModality,
+        "item_feature": FeatureModality,
+        "user_text": TextModality,
+        "item_text": TextModality,
+        "user_image": ImageModality,
+        "item_image": ImageModality,
+        "user_graph": GraphModality,
+        "item_graph": GraphModality,
+        "sentiment": SentimentModality,
+        "review_text": ReviewModality,
+    }
 
     def __init__(
         self,
@@ -319,14 +337,30 @@ class BaseMethod:
             print("\n".join(lines))
 
     def _build_modalities(self):
-        # every slot holds None (the setters refuse anything else), so
-        # there is nothing to build against the ID maps: attach the slots
+        # user-side slots build against the global user id map, item-side
+        # slots against the global item id map, interaction-level slots
+        # (sentiment, reviews) against the train set's maps and pairs
+        train_kw = dict(
+            uid_map=self.train_set.uid_map,
+            iid_map=self.train_set.iid_map,
+            dok_matrix=self.train_set.dok_matrix,
+        )
+        for attr in self._MODALITY_SLOTS:
+            modality = getattr(self, attr)
+            if modality is None:
+                continue
+            if attr.startswith("user_"):
+                modality.build(id_map=self.global_uid_map, **train_kw)
+            elif attr.startswith("item_"):
+                modality.build(id_map=self.global_iid_map, **train_kw)
+            else:
+                modality.build(**train_kw)
         self.add_modalities(
             **{attr: getattr(self, attr) for attr in self._MODALITY_SLOTS}
         )
 
     def add_modalities(self, **kwargs):
-        """Attach modalities to every dataset."""
+        """Attach built modalities to every dataset."""
         for attr in self._MODALITY_SLOTS:
             setattr(self, attr, kwargs.get(attr, None))
         slots = {attr: getattr(self, attr) for attr in self._MODALITY_SLOTS}
@@ -468,25 +502,25 @@ class BaseMethod:
         )
 
 
-def _modality_slot(attr):
-    """One modality property: it holds None, the only value the port
-    takes until the modalities are ported (ROADMAP.md A12)."""
+def _modality_slot(attr, expected):
+    """One typed modality property: None or an instance of ``expected``."""
     storage = "_" + attr
 
     def fget(self):
         return getattr(self, storage, None)
 
     def fset(self, value):
-        if value is not None:
-            raise NotImplementedError(
-                f"the {attr} modality is not ported yet (ROADMAP.md A12); "
-                "only None is accepted"
+        if value is not None and not isinstance(value, expected):
+            raise ValueError(
+                "the {} modality must be a {}, got {}".format(
+                    attr, expected.__name__, type(value).__name__
+                )
             )
         setattr(self, storage, value)
 
     return property(fget, fset)
 
 
-for _attr in BaseMethod._MODALITY_SLOTS:
-    setattr(BaseMethod, _attr, _modality_slot(_attr))
-del _attr
+for _attr, _expected in BaseMethod._MODALITY_SLOTS.items():
+    setattr(BaseMethod, _attr, _modality_slot(_attr, _expected))
+del _attr, _expected

@@ -2,10 +2,10 @@
 
 Port of ``cornac_tpu/experiment/experiment.py``: validation filtering,
 verbose propagation, model auto-save, and the VALIDATION/TEST console +
-``CornacExp-*.log`` output, and the fold-based branch for cross-validation
+``CornacExp-*.log`` output, the fold-based branch for cross-validation
 and propensity-stratified evaluation (one table per model, no validation
-table, no model auto-save). ``checkpoint_dir`` needs checkpointing, which
-is not ported yet (ROADMAP.md A12): it raises.
+table, no model auto-save), and ``checkpoint_dir``: mid-training
+checkpoints and resume for every model.
 """
 
 import os
@@ -61,7 +61,9 @@ class Experiment:
     save_dir: str, optional
         Where to store trained models and the log file.
     checkpoint_dir: str, optional
-        Mid-training checkpoints; not ported yet (it raises).
+        Turn on periodic mid-training checkpoints (and resume) for every
+        model, stored under ``checkpoint_dir/<model name>``
+        (``Recommender.enable_checkpointing``).
     checkpoint_every: int, default: 10
         Epoch interval between checkpoints.
     """
@@ -78,11 +80,6 @@ class Experiment:
         checkpoint_dir=None,
         checkpoint_every=10,
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir needs Recommender.enable_checkpointing, which "
-                "is not ported yet (ROADMAP.md A12)"
-            )
         self.eval_method = eval_method
         self.models = _filter_instances(models, Recommender, "models")
         self.metrics = _filter_instances(
@@ -94,6 +91,12 @@ class Experiment:
         self.save_dir = save_dir
         self.result = None
         self.val_result = None
+        if checkpoint_dir is not None:
+            for model in self.models:
+                model.enable_checkpointing(
+                    os.path.join(checkpoint_dir, model.name),
+                    every=checkpoint_every,
+                )
 
     def run(self):
         """Fit + evaluate every model; print and log the result tables."""

@@ -10,6 +10,7 @@ from .ann import BaseANN, TPUExactANN
 from .baseline import BaselineOnly, GlobalAvg, MostPop
 from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
+from .c2pf import C2PF
 from .ease import EASE
 from .fm import FM
 from .hpf import HPF
@@ -23,8 +24,10 @@ from .nmf import NMF
 from .pmf import PMF
 from .recvae import RecVAE
 from .sansa import SANSA
+from .sbpr import SBPR
 from .skm import SKMeans
 from .vaecf import VAECF
+from .vebpr import VEBPR
 from .wmf import WMF
 
 __all__ = [
@@ -33,6 +36,7 @@ __all__ = [
     "BaselineOnly",
     "BiVAECF",
     "BPR",
+    "C2PF",
     "COE",
     "EASE",
     "FM",
@@ -59,11 +63,13 @@ __all__ = [
     "Recommender",
     "RecVAE",
     "SANSA",
+    "SBPR",
     "SKMeans",
     "SVD",
     "TPUExactANN",
     "UserKNN",
     "VAECF",
+    "VEBPR",
     "WBPR",
     "WMF",
 ]

@@ -14,8 +14,12 @@ fit's seed, the global epoch, the side: 0 items, 1 users), every minibatch
 drawing the loss's noise and then the refresh's. The loss takes its noise
 as an argument, so the tests hand it the JAX package's draws.
 
-Constrained adaptive priors from feature modalities (``cap_priors``) need
-the feature modalities (ROADMAP.md A12); they raise until then. Serving:
+Constrained adaptive priors (``cap_priors={"user": True, "item": True}``):
+a side's KL term centres its means on a linear map (``prior``, drawn after
+both encoders, user side first) of the entity's features, read from the
+train set's ``user_feature`` / ``item_feature`` modality. As in the JAX
+package, the map is evaluated outside the differentiated loss, so no step
+moves it: it keeps its initial draw (``_trained``). Serving:
 ``recommend_batch`` ranks ``mu_theta · mu_betaᵀ`` through ``fused_topk``.
 """
 
@@ -75,12 +79,21 @@ def _padded(A, bsz, device):
     return out, n_batches
 
 
+def _trained(side):
+    """The parameters a side's Adam steps: all but the prior map, which the
+    JAX package evaluates outside the differentiated loss (its gradient is
+    zero there, so Adam leaves it as drawn)."""
+    return {n: p for n, p in side.named_parameters() if not n.startswith("prior.")}
+
+
 def _sweep(side, opt, state, data, n_batches, bsz, n_real, other_table, gen, act, likelihood,
-           kl_beta):
+           kl_beta, feats=None):
     """One pass over a side's batches: an Adam step on each, then the
     batch's rows of the latent tables (sample, mean) from the updated
-    encoder. Returns (state, table[:n_real], mu_table[:n_real])."""
-    params = dict(side.named_parameters())
+    encoder. ``feats``: the side's feature rows, padded as ``data``, when
+    its prior is constrained (its KL centres on ``side.prior(features)``).
+    Returns (state, table[:n_real], mu_table[:n_real])."""
+    params = _trained(side)
     k = side.mu.b.shape[0]
     table = torch.zeros((n_batches * bsz, k), dtype=torch.float32, device=data.device)
     mu_table = torch.zeros_like(table)
@@ -88,7 +101,9 @@ def _sweep(side, opt, state, data, n_batches, bsz, n_real, other_table, gen, act
         rows = slice(b * bsz, (b + 1) * bsz)
         x = data[rows]
         noise = torch.randn((bsz, k), generator=gen, device=data.device)
-        loss = _side_loss(side, x, other_table, noise, act, likelihood, kl_beta)
+        with torch.no_grad():
+            mu_prior = 0.0 if feats is None else side.prior(feats[rows])
+        loss = _side_loss(side, x, other_table, noise, act, likelihood, kl_beta, mu_prior)
         state = step(params, opt, state, loss)
         with torch.no_grad():
             mu, std = _encode_side(side, x, act)
@@ -132,10 +147,6 @@ class BiVAECF(Recommender, ANNMixin):
         self.learning_rate = learning_rate
         self.beta_kl = beta_kl
         self.cap_priors = {"user": False, "item": False} if cap_priors is None else cap_priors
-        if any(self.cap_priors.values()):
-            raise NotImplementedError(
-                "BiVAECF's constrained adaptive priors (cap_priors) need the feature "
-                "modalities, which are not ported yet (ROADMAP.md A12)")
         self.seed = seed
         self.use_gpu = use_gpu  # API parity; the device is ``device``
         self.device = device
@@ -155,8 +166,17 @@ class BiVAECF(Recommender, ANNMixin):
         n_users, n_items = train_set.num_users, train_set.num_items
         act = ACTIVATIONS[self.act_fn]
 
-        user_side = _init_side(rng, [n_items] + self.encoder_structure, self.k).to(dev)
-        item_side = _init_side(rng, [n_users] + self.encoder_structure, self.k).to(dev)
+        user_side = _init_side(rng, [n_items] + self.encoder_structure, self.k)
+        item_side = _init_side(rng, [n_users] + self.encoder_structure, self.k)
+        feats = {}
+        for name, side, modality, rows in (
+                ("user", user_side, "user_feature", n_users),
+                ("item", item_side, "item_feature", n_items)):
+            if self.cap_priors.get(name, False):
+                F = np.asarray(getattr(train_set, modality).features[:rows], dtype=np.float32)
+                side.add_module("prior", init_dense(rng, F.shape[1], self.k))
+                feats[name] = F
+        user_side, item_side = user_side.to(dev), item_side.to(dev)
         theta = torch.as_tensor(rng.normal(0, 0.01, (n_users, self.k)).astype(np.float32),
                                 device=dev)
         beta = torch.as_tensor(rng.normal(0, 0.01, (n_items, self.k)).astype(np.float32),
@@ -166,10 +186,12 @@ class BiVAECF(Recommender, ANNMixin):
         bsz_u, bsz_i = min(self.batch_size, n_users), min(self.batch_size, n_items)
         X_d, nb_u = _padded(X, bsz_u, dev)
         XT_d, nb_i = _padded(np.ascontiguousarray(X.T), bsz_i, dev)
+        uf_d = _padded(feats["user"], bsz_u, dev)[0] if "user" in feats else None
+        if_d = _padded(feats["item"], bsz_i, dev)[0] if "item" in feats else None
 
         opt_u, opt_i = adam(self.learning_rate), adam(self.learning_rate)
-        state_u = opt_u.init(dict(user_side.named_parameters()))
-        state_i = opt_i.init(dict(item_side.named_parameters()))
+        state_u = opt_u.init(_trained(user_side))
+        state_i = opt_i.init(_trained(item_side))
         common = (act, self.likelihood, self.beta_kl)
 
         seed = rng.randint(2**31)
@@ -177,10 +199,10 @@ class BiVAECF(Recommender, ANNMixin):
         for epoch in range(self.n_epochs):
             state_i, beta, mu_beta = _sweep(item_side, opt_i, state_i, XT_d, nb_i, bsz_i,
                                             n_items, theta, epoch_generator(seed, epoch, dev, 0),
-                                            *common)
+                                            *common, if_d)
             state_u, theta, mu_theta = _sweep(user_side, opt_u, state_u, X_d, nb_u, bsz_u,
                                               n_users, beta, epoch_generator(seed, epoch, dev, 1),
-                                              *common)
+                                              *common, uf_d)
             if self.verbose:
                 print("Epoch %d/%d done" % (epoch + 1, self.n_epochs))
 

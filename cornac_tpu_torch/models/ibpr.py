@@ -142,7 +142,7 @@ class _TripletEmbedBase(Recommender, ANNMixin):
                         loss_sum += loss
             return opt_state, loss_sum
 
-        epoch_loop(self, self.max_iter, run_chunk, opt.init(params),
+        epoch_loop(self, self.max_iter, run_chunk, opt.init(params), resident=params,
                    on_report=lambda done, loss: print(
                        "Epoch %d/%d, loss: %.4f" % (done, self.max_iter, float(loss) / n_batches)))
 

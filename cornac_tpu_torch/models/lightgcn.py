@@ -160,6 +160,7 @@ class LightGCN(Recommender):
                   % (done, self.num_epochs, float(info["loss"]) / n_batches))
 
         epoch_loop(self, self.num_epochs, run_chunk, opt.init(params), on_report=report,
+                   resident=params,
                    max_chunk=1 if self.early_stopping else None)
         self._cache_embeddings()
         return self

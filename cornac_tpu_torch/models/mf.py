@@ -262,7 +262,7 @@ class MF(Recommender, ANNMixin):
                 return opt_state, self._epoch_info(loss, last)
 
             epoch_loop(self, self.max_iter, run_optax, opt.init(params),
-                       on_report=self._report, max_chunk=max_chunk)
+                       on_report=self._report, max_chunk=max_chunk, resident=params)
             for attr, name in (("u_factors", "U"), ("i_factors", "V"), ("u_biases", "Bu"),
                                ("i_biases", "Bi")):
                 setattr(self, attr, params[name].detach().cpu().numpy())

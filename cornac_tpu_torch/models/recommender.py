@@ -209,12 +209,27 @@ class Recommender:
     # training
     # ------------------------------------------------------------------ #
     def enable_checkpointing(self, directory, every=10, resume=True, max_to_keep=3):
-        """Periodic training checkpoints and mid-training resume: not ported
-        yet (the JAX package saves through Orbax)."""
-        raise NotImplementedError(
-            "checkpointed training (enable_checkpointing, resume) is not ported yet "
-            "(ROADMAP.md A12)"
-        )
+        """Turn on periodic training checkpoints and mid-training resume.
+
+        Trainers built on :func:`cornac_tpu_torch.utils.checkpoint.epoch_loop`
+        save their training carry (tables, parameters, optimizer state) to
+        ``directory`` every ``every`` epochs and, when ``resume`` is true,
+        continue from the newest checkpoint there. Each epoch's draws are
+        keyed on the global epoch index, so a resumed seeded fit is the
+        uninterrupted one, bit for bit. The format is the port's own
+        (``utils/checkpoint.py``). Returns ``self`` for chaining.
+        """
+        self._ckpt_cfg = {
+            "dir": str(directory),
+            "every": max(1, int(every)),
+            "resume": bool(resume),
+            "max_to_keep": int(max_to_keep),
+        }
+        return self
+
+    def disable_checkpointing(self):
+        self._ckpt_cfg = None
+        return self
 
     _DATASET_SNAPSHOT = (
         "num_users", "num_items", "uid_map", "iid_map",

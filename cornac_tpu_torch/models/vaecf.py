@@ -233,7 +233,8 @@ class VAECF(Recommender, ANNMixin):
         def report(done, loss_sum):
             print("Epoch %d/%d, loss: %.4f" % (done, self.n_epochs, float(loss_sum) / n_batches))
 
-        epoch_loop(self, self.n_epochs, run_chunk, opt.init(params), on_report=report)
+        epoch_loop(self, self.n_epochs, run_chunk, opt.init(params), on_report=report,
+                   resident=params)
         return self
 
     def _rows(self, users):

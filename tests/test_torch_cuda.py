@@ -18,6 +18,7 @@ from cornac_tpu_torch.models import BPR, MF, MMMF, WBPR, BaselineOnly, TPUExactA
 from cornac_tpu_torch.models import COE, EASE, IBPR, NMF, PMF, WMF, ItemKNN, OnlineIBPR, UserKNN
 from cornac_tpu_torch.models import GMF, MLP, NGCF, BiVAECF, LightGCN, NeuMF, RecVAE, VAECF
 from cornac_tpu_torch.models import FM, HPF, SANSA, SKMeans
+from cornac_tpu_torch.models import C2PF, SBPR, VEBPR
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -740,3 +741,114 @@ def test_fm_segment_sums_are_deterministic(card):
         exact = torch.zeros(1_700, cols, dtype=torch.float64, device=card).index_add_(
             0, block.ids, x.double())
         assert (first.double() - exact).abs().max().item() < 1e-3
+
+
+def _graph_split(kind):
+    """A small seeded RatioSplit with a user or item graph, or a
+    PurchaseViewDataset (``kind`` "purchase_view")."""
+    from cornac_tpu_torch.data import GraphModality, PurchaseViewDataset
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(8)
+    pairs = {(int(u), int(i)) for u, i in zip(rng.randint(200, size=5000),
+                                               rng.randint(300, size=5000))}
+    data = [(f"u{u}", f"i{i}", 1.0) for u, i in sorted(pairs)]
+    if kind == "purchase_view":
+        views = [(f"u{u}", f"i{i}", 1.0) for u, i in zip(rng.randint(200, size=3000),
+                                                       rng.randint(300, size=3000))]
+        return PurchaseViewDataset.build(data, views, seed=1)
+    n = 200 if kind == "user_graph" else 300
+    prefix = "u" if kind == "user_graph" else "i"
+    edges = [(f"{prefix}{a}", f"{prefix}{b}", 1.0)
+             for a, b in zip(rng.randint(n, size=2000), rng.randint(n, size=2000)) if a != b]
+    return RatioSplit(data=data, test_size=0.2, rating_threshold=1.0, seed=1,
+                      **{kind: GraphModality(data=edges)}).train_set
+
+
+@pytest.mark.parametrize("make,kind,attrs", [
+    (lambda **kw: SBPR(k=8, max_iter=6, learning_rate=0.05, batch_size=256, **kw), "user_graph",
+     ("u_factors", "i_factors", "i_biases")),
+    (lambda **kw: VEBPR(k=8, max_iter=6, learning_rate=0.05, batch_size=256, **kw),
+     "purchase_view", ("u_factors", "i_factors")),
+    *((lambda v=v, **kw: C2PF(k=16, max_iter=5, variant=v, **kw), "item_graph",
+       ("Gs", "Gr", "Ls", "Lr", "L2s", "L2r", "L3s", "L3r", "Xi"))
+      for v in ("c2pf", "tc2pf", "rc2pf")),
+])
+def test_modality_models_seeded_fits_on_the_card_are_identical(card, make, kind, attrs):
+    train = _graph_split(kind)
+    before = ACCUMULATE_ROWS.launches
+    a = make(seed=3).fit(train)
+    assert ACCUMULATE_ROWS.launches > before
+    b = make(seed=3, verbose=not isinstance(a, C2PF)).fit(train)
+    for attr in attrs:
+        assert np.array_equal(getattr(a, attr), getattr(b, attr)), attr
+    if isinstance(a, C2PF):  # digamma and the sums over k differ by ulps from the CPU's
+        cpu = make(seed=3, device="cpu").fit(train)
+        for attr in attrs:
+            np.testing.assert_allclose(getattr(a, attr), getattr(cpu, attr), rtol=1e-4,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("make", [
+    lambda n: BPR(k=8, max_iter=n, learning_rate=0.05, batch_size=256, seed=3),
+    lambda n: SBPR(k=8, max_iter=n, learning_rate=0.05, batch_size=256, seed=3),
+    lambda n: VAECF(k=8, autoencoder_structure=[32], n_epochs=n, batch_size=64, seed=3),
+])
+def test_checkpointed_fits_on_the_card_resume_bit_for_bit(card, tmp_path, make):
+    train = _graph_split("user_graph")
+    straight = make(6).fit(train)
+    make(4).enable_checkpointing(tmp_path, every=2).fit(train)
+    resumed = make(6).enable_checkpointing(tmp_path, every=2).fit(train)
+    if isinstance(straight, VAECF):
+        for p, q in zip(straight.params.parameters(), resumed.params.parameters()):
+            assert torch.equal(p, q)
+    else:
+        for attr in ("u_factors", "i_factors", "i_biases"):
+            assert np.array_equal(getattr(straight, attr), getattr(resumed, attr)), attr
+
+
+def test_modality_model_steps_never_sync_with_the_host(card):
+    from cornac_tpu_torch.models import c2pf as c2pf_mod, sbpr as sbpr_mod, vebpr as vebpr_mod
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    train = _graph_split("user_graph")
+    model = SBPR(k=8, seed=3, max_iter=0).fit(train)
+    rid, cid, _ = train.uir_tuple
+    n = len(rid)
+    pairs = torch.as_tensor(np.stack([rid, cid], 1).astype(np.int64), device=card)
+    membership = build_membership(train.csr_matrix, device=card)
+    social = tuple(torch.as_tensor(np.asarray(a, np.int64), device=card)
+                   for a in model._prepare_social_data(train))
+    U, V, Bi = (torch.tensor(np.asarray(a, np.float32), device=card)
+                for a in (model.u_factors, model.i_factors, model.i_biases))
+    views = (social[0], social[2])  # any CSR rows over the items serve as views here
+    bsz = 256
+    n_total = n + (-n) % bsz
+    state = {name: torch.rand(rows, *cols, device=card) + 0.1 for name, rows, cols in (
+        ("G_s", train.num_users, (8,)), ("G_r", train.num_users, (8,)),
+        ("L_s", train.num_items, (8,)), ("L_r", train.num_items, (8,)),
+        ("L2_s", train.num_items, (8,)), ("L2_r", train.num_items, (8,)),
+        ("l3_s", 500, ()), ("l3_r", 500, ()), ("T3_r", train.num_items, ()))}
+    ci, cj = (torch.randint(train.num_items, (500,), device=card) for _ in range(2))
+    x = torch.ones(n, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draws = sbpr_mod._tier_draws(epoch_generator(3, 0, card), n, n_total, bsz,
+                                     train.num_items)
+        skipped = sbpr_mod._sbpr_epoch(U, V, Bi, draws, pairs, membership, social, n,
+                                       (0.05, 0.01, 0.01, 0.01), bsz, True)
+        draws = sbpr_mod._tier_draws(epoch_generator(3, 1, card), n, n_total, bsz,
+                                     train.num_items)
+        vskipped = vebpr_mod._vebpr_epoch(U, V, draws, pairs, membership, membership, views, n,
+                                          (0.05, 0.01, 0.5), bsz)
+        for variant in ("c2pf", "tc2pf", "rc2pf"):
+            out = c2pf_mod._c2pf_cavi(state, pairs[:, 0], pairs[:, 1], x, ci, cj,
+                                      torch.ones(train.num_items, device=card), 1e15, 1e15,
+                                      variant, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(skipped) >= 0 and int(vskipped) >= 0
+    for t in (U, V, Bi, *out.values()):
+        assert torch.isfinite(t).all()

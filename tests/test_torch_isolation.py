@@ -70,7 +70,10 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "eval_methods.stratified_split", "eval_methods.timestamp_split",
                  "eval_methods.cross_validation",
                  "eval_methods.propensity_stratified_evaluation", "experiment.result",
-                 "hyperopt", "config"):
+                 "hyperopt", "config", "data.modality", "data.graph", "data.image",
+                 "data.sentiment", "data.text", "data.reader", "models.sbpr", "models.c2pf",
+                 "models.vebpr", "utils.profiling", "utils.fast_dot", "utils.download",
+                 "datasets.epinions", "datasets.amazon_office", "datasets.movielens"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 

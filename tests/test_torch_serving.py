@@ -9,6 +9,7 @@ counts on both sides).
 """
 
 import json
+import os
 import threading
 import urllib.request
 import warnings
@@ -217,15 +218,17 @@ def test_metric_sandbox(world):
     assert status == 400
 
 
-def test_trainer_not_ported():
-    # the trainer itself is ported (tests/test_torch_bpr_train.py); the
-    # parts of it still to port raise, naming their ROADMAP item
+def test_trainer_not_ported(tmp_path):
+    # the trainer itself is ported (tests/test_torch_bpr_train.py), and so
+    # is checkpointing (tests/test_torch_checkpoint.py); the parts of it
+    # still to port raise, naming their ROADMAP item
     train = Dataset.from_uir([("u", "i", 1.0)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BPR(k=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BPR(k=4, max_iter=1).enable_checkpointing("ckpt", every=1)
-    assert BPR(k=4, max_iter=1).fit(train).u_factors.shape == (1, 4)
+    model = BPR(k=4, max_iter=1)
+    assert model.enable_checkpointing(tmp_path / "ckpt", every=1) is model
+    assert model.fit(train).u_factors.shape == (1, 4)
+    assert os.listdir(tmp_path / "ckpt") == ["1"]
 
 
 def test_standalone_server_roundtrip(world, tmp_path, monkeypatch):

@@ -158,12 +158,28 @@ def test_epoch_loop_chunks_like_the_jax_package():
     assert _chunks(0) == (0, [], [])
 
 
-def test_epoch_loop_refuses_checkpointing():
-    # the refusal sits where a user asks for checkpoints, so no trainer's
-    # epoch loop ever runs with a checkpoint config
+def test_epoch_loop_refuses_checkpointing(tmp_path):
+    # checkpointing is ported now: where a user asks for checkpoints, the
+    # trainers' epoch loop saves its carry (tests/test_torch_checkpoint.py
+    # holds the resumes); with none asked for, it writes nothing
+    from cornac_tpu_torch.utils.checkpoint import CheckpointManager, epoch_loop
+
     for cls in (BPR, MF):
-        with pytest.raises(NotImplementedError, match="A12"):
-            cls(k=4).enable_checkpointing("ckpt", every=1)
+        model = cls(k=4)
+        assert model.enable_checkpointing(tmp_path / cls.__name__, every=2) is model
+        assert model._ckpt_cfg["every"] == 2 and model._ckpt_cfg["resume"]
+        state = (torch.zeros(3),)
+
+        def run_chunk(state, start, e):
+            state[0].add_(e)
+            return state, None
+
+        out = epoch_loop(model, 5, run_chunk, state)
+        assert out[0].tolist() == [5.0] * 3
+        assert CheckpointManager(tmp_path / cls.__name__).all_steps() == [2, 4, 5]
+        assert model.disable_checkpointing()._ckpt_cfg is None
+        epoch_loop(model, 3, run_chunk, state)
+        assert CheckpointManager(tmp_path / cls.__name__).all_steps() == [2, 4, 5]
 
 
 def test_epoch_generator_depends_on_seed_and_global_epoch():

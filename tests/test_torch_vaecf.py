@@ -13,7 +13,11 @@
 - VAECF's ``recommend_batch(k > 0)`` ranks the encoder means against the
   decoder's last weight: both packages raise where the latent width k
   differs from the first hidden width, and agree where they are equal.
-- Refusals: BiVAECF's feature priors (ROADMAP.md A12) and ``mesh=`` (A8).
+- BiVAECF's constrained adaptive priors: the prior maps drawn bit for bit
+  after both encoders, one loss and its gradients with the priors' means
+  on the JAX package's noise within rtol 1e-5 / atol 1e-6, and a short
+  fit that, like the JAX package's, leaves the maps as drawn.
+- Refusals: ``mesh=`` (ROADMAP.md A8).
 - Short fits: a seeded fit twice (once verbose) gives the same bits.
 
 Whole fits are held on quality on the card (``chip_smoke.py``): the random
@@ -301,9 +305,68 @@ def test_bivaecf_seeded_fits_are_identical_and_score_as_jax():
             == theirs.recommend_batch(uids, k=5, remove_seen=True, train_set=jtrain))
 
 
+def test_bivaecf_constrained_priors_match_jax():
+    from cornac_tpu.data import FeatureModality as JFeatureModality
+    from cornac_tpu_torch.data import FeatureModality
+
+    jtrain, train = _both()
+    rng = np.random.RandomState(9)
+    feats = {"user_feature": rng.rand(train.num_users, 5).astype(np.float32),
+             "item_feature": rng.rand(train.num_items, 3).astype(np.float32)}
+    for attr, F in feats.items():
+        setattr(jtrain, attr, JFeatureModality(features=F))
+        setattr(train, attr, FeatureModality(features=F))
+    kw = dict(k=4, encoder_structure=[10], batch_size=16, seed=5,
+              cap_priors={"user": True, "item": True})
+    theirs = JBiVAECF(n_epochs=0, **kw).fit(jtrain)
+    ours = BiVAECF(n_epochs=0, **kw).fit(train)
+    _assert_tree_equal(ours.user_side, theirs.user_side)
+    _assert_tree_equal(ours.item_side, theirs.item_side)
+
+    # one loss and its gradients, the means centred on the prior map
+    x = _batch(16, train.num_users, seed=2)
+    f = feats["item_feature"][:16]
+    theta = np.random.RandomState(3).normal(0, 0.1, (train.num_users, 4)).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    noise = np.asarray(jax.random.normal(key, (16, 4)))
+    mu_prior = j_bivae.dense(theirs.item_side["prior"], jnp.asarray(f))
+    loss, j_grads = jax.value_and_grad(j_bivae._side_loss)(
+        theirs.item_side, jnp.asarray(x), jnp.asarray(theta), key, J_ACT["tanh"], "pois", 1.0,
+        mu_prior)
+    with torch.no_grad():
+        p_prior = ours.item_side.prior(torch.from_numpy(f))
+    value = bivae_mod._side_loss(ours.item_side, torch.from_numpy(x), torch.from_numpy(theta),
+                                 torch.from_numpy(noise), ACTIVATIONS["tanh"], "pois", 1.0,
+                                 p_prior)
+    np.testing.assert_allclose(float(value), float(loss), **TOL)
+    trained = bivae_mod._trained(ours.item_side)
+    grads = dict(zip(trained, (g.numpy() for g in torch.autograd.grad(
+        value, list(trained.values())))))
+    j_flat = flatten(j_grads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g, j_flat[name], **TOL, err_msg=name)
+    # the JAX package's gradient of the prior map is zero: it is not trained
+    assert {n for n in j_flat if n.startswith("prior.")} == {"prior.w", "prior.b"}
+    assert all(not np.any(j_flat[n]) for n in j_flat if n.startswith("prior."))
+
+    # a short fit moves the encoders and leaves the prior maps as drawn, in
+    # both packages; a seeded refit gives the same bits
+    fitted = BiVAECF(n_epochs=2, **kw).fit(train)
+    again = BiVAECF(n_epochs=2, **kw).fit(train)
+    j_fitted = JBiVAECF(n_epochs=2, **kw).fit(jtrain)
+    for side in ("user_side", "item_side"):
+        prior = {n: p.detach().numpy() for n, p in getattr(fitted, side).named_parameters()
+                 if n.startswith("prior.")}
+        j_prior = {n: v for n, v in flatten(getattr(j_fitted, side)).items()
+                   if n.startswith("prior.")}
+        assert prior.keys() == j_prior.keys() and prior
+        for n in prior:
+            np.testing.assert_array_equal(prior[n], j_prior[n], err_msg=n)
+    np.testing.assert_array_equal(fitted.mu_theta, again.mu_theta)
+    assert np.abs(fitted.mu_theta).sum() > 0
+
+
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A12"):
-        BiVAECF(cap_priors={"user": True, "item": False})
     for make in (lambda: VAECF(mesh=object()), lambda: RecVAE(mesh=object()),
                  lambda: BiVAECF(mesh=object())):
         with pytest.raises(NotImplementedError, match="A8"):

@@ -20,7 +20,12 @@ the ones named below): ``BPR`` (``bench.py``'s, the default), ``PMF``,
 at LightGCN's, and the factor family's rest: ``HPF``, ``PF`` (HPF with
 ``hierarchical=False``), ``SKMeans``, ``FM-als`` (``model_sweep.py``'s),
 ``FM-sgd`` and ``FM-mcmc`` (``examples/fm_example.py``'s settings) and
-``SANSA`` (``examples/sansa_movielens.py``'s). ``--package torch`` fits the port instead, on the CPU,
+``SANSA`` (``examples/sansa_movielens.py``'s). The models that read a
+modality are fitted on ``tests/golden_models.py``'s block data instead
+(``golden_split``), at its builders' settings, and ranked by its train AUC
+(in-block discrimination, ``golden_models.train_auc``): ``SBPR`` (with the
+user graph), ``VEBPR`` (purchases and views), and ``C2PF``, ``TC2PF`` and
+``RC2PF`` (with the item graph; deterministic). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
 every float32 matrix product of the JAX package to bfloat16 and sums in
 float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
@@ -95,11 +100,52 @@ CONFIGS = {
     "SANSA": ("SANSA", dict(l2=500.0, weight_matrix_density=0.01, verbose=False), None, False),
 }
 
+# name -> (class name, constructor arguments without the seed, seeded,
+# golden_models split): tests/golden_models.py's builders
+GOLDEN_CONFIGS = {
+    "SBPR": ("SBPR", dict(k=8, max_iter=80, learning_rate=0.05, batch_size=256), True,
+             "user_graph"),
+    "VEBPR": ("VEBPR", dict(k=8, max_iter=80, learning_rate=0.05, batch_size=256), True,
+              "purchase_view"),
+    "C2PF": ("C2PF", dict(k=8, max_iter=40, variant="c2pf"), False, "item_graph"),
+    "TC2PF": ("C2PF", dict(k=8, max_iter=40, variant="tc2pf"), False, "item_graph"),
+    "RC2PF": ("C2PF", dict(k=8, max_iter=40, variant="rc2pf"), False, "item_graph"),
+}
+
+
+def golden_split(kind, data, eval_methods):
+    """``tests/golden_models.py``'s split ``kind`` ("user_graph",
+    "item_graph" or "purchase_view") built with a package's ``data`` and
+    ``eval_methods`` modules (the JAX package's or the port's): a RatioSplit
+    of the block data with the graph modality, or, for "purchase_view", an
+    object whose ``train_set`` is the PurchaseViewDataset of purchases and
+    views."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import golden_models as g
+
+    if kind == "purchase_view":
+        class Split:
+            train_set = data.PurchaseViewDataset.build(
+                g.implicit_data(seed=3), g.implicit_data(seed=4, n=800), seed=g.SEED)
+            test_set = None
+        return Split()
+    graph = {"user_graph": g.user_graph, "item_graph": g.item_graph}[kind]()
+    return eval_methods.RatioSplit(data=g.implicit_data(), test_size=0.2, rating_threshold=1.0,
+                                   seed=g.SEED, **{kind: data.GraphModality(data=graph)})
+
+
+def golden_auc(model, train_set):
+    """``golden_models.train_auc``: the in-block discrimination of a fit."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import golden_models as g
+
+    return g.train_auc(model, train_set)
+
 
 def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
-    cls, kwargs, seeded, _ = CONFIGS[name]
+    cls, kwargs, seeded = (CONFIGS[name] if name in CONFIGS else GOLDEN_CONFIGS[name])[:3]
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -107,7 +153,8 @@ def make_model(models, name, seed):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=sorted(CONFIGS), default="BPR")
+    parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS),
+                        default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=[123, 124, 125, 126, 127])
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
     parser.add_argument("--bf16-products", action="store_true",
@@ -124,7 +171,7 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         if args.bf16_products:
             one_bf16_pass()
-        from cornac_tpu import models
+        from cornac_tpu import data, eval_methods, models
         from cornac_tpu.eval_methods import RatioSplit
         from cornac_tpu.eval_methods.base_method import ranking_eval, rating_eval
         from cornac_tpu.metrics import AUC, MAE, NDCG, RMSE, Recall
@@ -132,10 +179,30 @@ def main():
         import cornac_tpu_torch
 
         cornac_tpu_torch.set_default_device("cpu")
-        from cornac_tpu_torch import models
+        from cornac_tpu_torch import data, eval_methods, models
         from cornac_tpu_torch.eval_methods import RatioSplit
         from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
         from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
+
+    summary = {"model": args.model, "package": args.package, "device": "cpu",
+               "bf16_products": args.bf16_products}
+    if args.model in GOLDEN_CONFIGS:
+        seeded, kind = GOLDEN_CONFIGS[args.model][2:]
+        split = golden_split(kind, data, eval_methods)
+        seeds = args.seeds if seeded else args.seeds[:1]
+        values = []
+        for seed in seeds:
+            model = make_model(models, args.model, seed).fit(split.train_set)
+            values.append(golden_auc(model, split.train_set))
+            print(json.dumps({"model": args.model, "seed": seed, "AUC": values[-1]}), flush=True)
+        values = np.asarray(values)
+        mean = float(values.mean())
+        spread = float(values.std(ddof=1)) if len(values) > 1 else None
+        half = 3 * spread if spread is not None else DETERMINISTIC_TOL
+        summary.update(seeds=seeds, AUC={"mean": mean, "spread": spread,
+                                         "band": [mean - half, mean + half]})
+        print(json.dumps(summary))
+        return
 
     rs = RatioSplit(data=bench.make_ml100k_like(), test_size=0.2, rating_threshold=4.0,
                     seed=123, verbose=False)
@@ -152,8 +219,7 @@ def main():
             row.update(zip(("RMSE", "MAE"), map(float, errors)))
         runs.append(row)
         print(json.dumps({"model": args.model, "seed": seed, **row}), flush=True)
-    summary = {"model": args.model, "package": args.package, "device": "cpu", "seeds": seeds,
-               "bf16_products": args.bf16_products}
+    summary["seeds"] = seeds
     for name in ("AUC", "NDCG@10") + (("RMSE",) if rating else ()):
         values = np.asarray([run[name] for run in runs])
         mean = float(values.mean())

@@ -3,7 +3,9 @@ bench shape (``make_ml100k_like(7)``, ``RatioSplit(0.2, 4.0, seed=123)``).
 
 ``python tools/bpr_quality_band.py --model NAME`` printed them on a CPU
 from the JAX package's fits with seeds 123-127: (mean, spread) of AUC and
-of NDCG@10 (and of RMSE, for FM), the spread the sample standard deviation;
+of NDCG@10 (and of RMSE, for FM; of the train AUC alone for the models fitted
+on ``tests/golden_models.py``'s block data), the spread the sample standard
+deviation;
 a fit must land within three spreads of the mean. The deterministic models (spread None)
 were fitted once, and their band is the value +/- ``DETERMINISTIC_TOL``.
 """
@@ -62,6 +64,13 @@ BANDS = {
                 (0.8132974881598496, 0.002145796482107631)),
     "SANSA": ((0.9422985840130057, None),
               (0.4150239678925398, None)),
+    # the models that read a modality, on tests/golden_models.py's block
+    # data: the train AUC alone (golden_models.train_auc)
+    "SBPR": ((0.8576370205310673, 0.0046771719870914346),),
+    "VEBPR": ((0.8369048928847503, 0.0007231961079112852),),
+    "C2PF": ((0.8742257146136561, None),),
+    "TC2PF": ((0.8521704503120568, None),),
+    "RC2PF": ((0.850123914677608, None),),
 }
 
 
