@@ -184,7 +184,36 @@ Phases, each of which fails the run when it fails:
    plain version; ``Experiment(checkpoint_dir=...)`` with bench.py's BPR,
    MF and VAECF (checkpoints every 50 epochs), and BPR stopped at epoch 100
    and resumed to 200 equal to the Experiment's, bit for bit;
-16. times: each kernel, its plain version and library yardsticks
+16. SASRec at the Diginetica counts (``examples/sasrec_example.py``: d =
+   64, 2 blocks, 1 head, max_len 50, batch 128, lr 0.001, seed 123, the
+   class defaults otherwise; sessions seeded at SR-GNN's Diginetica counts,
+   982,961 clicks, 43,097 items, 60,858 test sessions, mean length 5.12,
+   each session its own user), after the serving slice:
+   ``NextItemEvaluation.from_splits(fmt="USIT", exclude_unknowns=True,
+   mode="last")``; fits of 1 and 3 epochs (the example's 10 cut to 3)
+   give seconds per epoch and training sequences per second beside the
+   bound of a step, the 3-epoch fit's epoch-1 checkpoint equal to the
+   1-epoch fit bit for bit; the first step's three accumulate_rows inputs
+   held bit for bit to the plain version on the CPU and timed beside
+   ``index_add_``; peak device memory; the NextItemEvaluation metrics (MRR,
+   HitRatio@20, NDCG@20) and seconds; 64 histories' scores held to a
+   float64 scoring on the CPU; on the first 3,200 train sessions at the
+   same widths, one epoch profiled (device events a step, busy share) and
+   a fit stopped at epoch 1 and resumed to 3 held to the uninterrupted
+   one, bit for bit;
+12f. the next-item models, CVAECF and GCMC at the bench shapes, in a
+   seventh spawned process: SPop, FPMC, GRU4Rec and SASRec on
+   ``tools/seq_bench_data.py``'s sessions (2,000 sessions over 500 items,
+   NextItemEvaluation mode 'next'), CVAECF with a seeded user graph and
+   GCMC on ``make_ml100k_like(7)``, each metric in the band of the JAX
+   package's CPU fits, seeded refits bit for bit with their
+   accumulate_rows inputs held to the plain version; one GRU4Rec epoch on
+   draws made on the CPU, on the card and on the CPU from the same
+   parameters, every parameter within 1e-5 (``gru4rec_witness``, with and
+   without dropout); the native reader on
+   a UIRT file the phase writes (the native path taken, the line-by-line
+   parser's tuples);
+17. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
@@ -196,14 +225,16 @@ Phases, each of which fails the run when it fails:
    ML-10M, where two launches must give the same bits; accumulate_rows at
    the labelled shapes of phase 5 (the BPR trainers' four, NeuMF's and
    LightGCN's at the bench shape, LightGCN's and HPF's two each at ML-10M,
-   SBPR's three at Epinions, C2PF's three at Amazon Office),
-   on the inputs
+   SBPR's three at Epinions, C2PF's three at Amazon Office, SASRec's two
+   embedding gradients and FPMC's item-table scatter at the Diginetica
+   widths, GCMC's two edge sums at the bench shape), on the inputs
    phase 5 checked; the canary at (128, 128) beside ``torch.mul``.
 
-Phases 12, 12b, 12c-12d and 12e run last, after 16, in six spawned
+Phases 12, 12b, 12c-12d, 12e and 12f run last, after 17, in seven spawned
 processes at once (the factor family, three groups of the neural family,
-the factor family's rest with the protocols, and the modality layer's
-models with the checkpointed Experiment): the card
+the factor family's rest with the protocols, the modality layer's
+models with the checkpointed Experiment, and the next-item models with
+CVAECF and GCMC): the card
 time-slices between processes and they share the host's cores, so no
 time this process takes is taken beside them, while their own fit seconds
 and busy shares carry each other's load.
@@ -212,7 +243,8 @@ The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
 then at HPF's d = 5, SBPR's d = 11 and C2PF's d = 100; accumulate_rows at
 the full-width V update, LightGCN's and HPF's two ML-10M shapes each,
-SBPR's V update and C2PF's ratings into the item rows),
+SBPR's V update, C2PF's ratings into the item rows, SASRec's two embedding
+gradients, FPMC's item-table scatter and GCMC's two edge sums),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -221,6 +253,7 @@ import argparse
 import contextlib
 import copy
 import functools
+import itertools
 import json
 import multiprocessing
 import os
@@ -237,7 +270,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 try:
     from card_measure import (PEAK_BYTES, PEAK_F32_FLOPS, card_line, compare_topk,
                               library_cosine_topk, plain_scores, time_ms)
-    from quality_bands import band
+    from quality_bands import band, seq_band
 except ImportError:
     sys.exit("chip_smoke: run it from a checkout that holds tools/ and cornac_tpu_torch/")
 
@@ -252,6 +285,9 @@ ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
 EPINIONS_USERS, EPINIONS_ITEMS, EPINIONS_RATINGS, EPINIONS_TRUST = (
     40_163, 139_738, 664_824, 487_183)
 OFFICE_USERS, OFFICE_ITEMS, OFFICE_RATINGS = 3_703, 6_523, 53_282
+# Diginetica's counts as SR-GNN (Wu et al., AAAI 2019, Table 1) reports them
+# (phase 16): clicks, items, test sessions, mean session length
+DIGI_CLICKS, DIGI_ITEMS, DIGI_TEST, DIGI_MEAN_LEN = 982_961, 43_097, 60_858, 5.12
 
 
 def log(msg):
@@ -650,6 +686,21 @@ ACC_CASES = [
     ("C2PF, Amazon Office, context edges into item rows", OFFICE_ITEMS, 100_000, 100, "popular",
      1),
     (None, OFFICE_ITEMS, 100_000, None, "popular", 1),  # C2PF's kappa sums
+    # the next-item family (phase 16 also holds the kernel to the plain
+    # version on SASRec's first step, 12f on every trainer's own inputs):
+    # SASRec's embedding gradients at the Diginetica widths (31 sessions x
+    # 50 positions of a step, and the 2,048 shared negatives, into the
+    # 43,098 x 64 table), FPMC's item-table scatters at the same widths
+    # (examples/fpmc_diginetica.py: 1,024 transitions, d = 32) and GCMC's
+    # edge sums at the bench shape (80,000 edges into the 943 user and 789
+    # item rows, 100 columns a rating)
+    ("SASRec, Diginetica, embedding gradient (positions)", DIGI_ITEMS + 1, 1_550, 64,
+     "popular", 1),
+    ("SASRec, Diginetica, embedding gradient (negatives)", DIGI_ITEMS + 1, 2_048, 64,
+     "popular", 1),
+    ("FPMC, Diginetica, item-table scatter", DIGI_ITEMS, 1_024, 32, "popular", 1),
+    ("GCMC, bench shape, edges into item rows", 789, 80_000, 100, "popular", 1),
+    ("GCMC, bench shape, edges into user rows", 943, 80_000, 100, "popular", 1),
 ]
 FM_USERS = 943  # the bench shape's train users: the first feature block of FM's ids
 
@@ -686,7 +737,8 @@ def check_accumulate(what, table, ids, upd, calls=4):
     adds the sum once, as the kernel does (ids outside [0, R), which the
     kernel drops and the plain version refuses, left out of the latter);
     the profiler sees one kernel and nothing else per call over ``calls``
-    calls (none: not profiled). ``table`` is left as it was. Returns (max
+    calls (none: not profiled; where it keeps no device event in two tries,
+    one more call must give the kernel's bits). ``table`` is left as it was. Returns (max
     |kernel - plain on the CPU|, 0 when it passes; max |kernel - plain on
     the card|, where ``index_add_`` sums with atomics in no fixed order;
     launches per call; the kernel's mean device ms per event the profiler
@@ -711,7 +763,21 @@ def check_accumulate(what, table, ids, upd, calls=4):
                 lambda: accumulate_rows(scratch, ids, upd), calls)
             if device_per_call:
                 break
-        if (per_call != 1 or not 0 < device_per_call <= 1
+        if not device_per_call:
+            # some machines' profilers keep no event of a short kernel for
+            # a while: the launch is shown by its result instead, one call
+            # on a fresh copy giving the bits of the two above
+            shown, before = table.clone(), ACCUMULATE_ROWS.launches
+            accumulate_rows(shown, ids, upd)
+            torch.cuda.synchronize()
+            if (ACCUMULATE_ROWS.launches != before + 1 or torch.equal(shown, table)
+                    or not torch.equal(shown, got[0])):
+                raise AssertionError(f"{what}: the profiler kept no device event and a call "
+                                     f"did not give the kernel's result")
+            device_per_call, names = None, []
+            log(f"  {what}: the profiler kept no device event of {2 * calls} calls; the "
+                f"launch shown by its result")
+        if (per_call != 1 or (device_per_call is not None and not 0 < device_per_call <= 1)
                 or not all("accumulate_rows_kernel" in k for k in names)):
             raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
                                  f"events per call ({names}), not one kernel")
@@ -734,7 +800,8 @@ def check_accumulate(what, table, ids, upd, calls=4):
         + f"; the plain version's bits on the CPU; max |kernel - plain on the card| "
         f"{card_err:.3e}; two launches "
         + ("bit-identical)" if not calls else f"bit-identical; per call {per_call:g} launch, "
-           f"{device_per_call:g} device event, the kernel)"))
+           + ("device events not measured)" if device_per_call is None
+              else f"{device_per_call:g} device event, the kernel)")))
     return err, card_err, per_call, device_ms, device_per_call
 
 
@@ -3373,6 +3440,421 @@ def phase_modality_bench(bench_data):
     return launches, fit_s, acc_err
 
 
+# ---------------------------------------------------------------------------
+# the next-item family at published counts: SASRec with
+# examples/sasrec_example.py's settings on sessions seeded at Diginetica's
+# counts (DIGI_*, SR-GNN's preprocessing: 982,961 clicks, 43,097 items, 60,858
+# test sessions, mean session length 5.12). The data are seeded, not the
+# files.
+SASREC_DIGINETICA = dict(embedding_dim=64, n_layers=2, n_heads=1, max_len=50, batch_size=128,
+                         learning_rate=0.001, seed=123)
+SASREC_EPOCHS, SASREC_STOP = 3, 1  # the example's 10 epochs cut to 3
+SASREC_SUBSET_SESSIONS = 3_200  # the subset's train sessions (about 100 steps an epoch)
+SEQ_BLOCK = 100  # items a block of the transitions holds
+
+
+def diginetica_like(seed):
+    """USIT tuples at the Diginetica counts: round(clicks / mean length)
+    sessions, each its own user, of at least 2 clicks, lengths 2 + Poisson
+    adjusted to sum to the clicks exactly; a session's first click and each
+    jump draw an item Zipf-like (1/rank^0.8, the ranks scattered over the
+    ids); otherwise, with probability 0.8, the next item follows in the same
+    block of ``SEQ_BLOCK`` items (``benchmarks/head_to_head_seq.py``'s
+    transitions); every item is clicked at least once."""
+    rng = np.random.RandomState(seed)
+    n_sessions = int(round(DIGI_CLICKS / DIGI_MEAN_LEN))
+    lengths = 2 + rng.poisson(DIGI_MEAN_LEN - 2, n_sessions)
+    while lengths.sum() != DIGI_CLICKS:
+        diff = DIGI_CLICKS - int(lengths.sum())
+        pick = rng.randint(n_sessions, size=abs(diff))
+        if diff > 0:
+            np.add.at(lengths, pick, 1)
+        else:
+            np.subtract.at(lengths, pick, 1)
+            lengths = np.maximum(lengths, 2)
+    starts = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+    p = 1.0 / np.arange(1, DIGI_ITEMS + 1) ** 0.8
+    perm = rng.permutation(DIGI_ITEMS)
+    zipf = perm[rng.choice(DIGI_ITEMS, DIGI_CLICKS, p=p / p.sum())]
+    pos = np.arange(DIGI_CLICKS)
+    jump = rng.rand(DIGI_CLICKS) >= 0.8
+    jump[starts] = True
+    last = np.maximum.accumulate(np.where(jump, pos, 0))
+    anchor = zipf[last]
+    block0 = (anchor // SEQ_BLOCK) * SEQ_BLOCK
+    size = np.minimum(SEQ_BLOCK, DIGI_ITEMS - block0)
+    items = block0 + (anchor - block0 + pos - last) % size
+    missing = np.setdiff1d(np.arange(DIGI_ITEMS), items)
+    items[rng.choice(DIGI_CLICKS, missing.size, replace=False)] = missing
+    sess = np.repeat(np.arange(n_sessions), lengths)
+    return [(f"u{s}", f"s{s}", f"i{i}", t)
+            for t, (s, i) in enumerate(zip(sess.tolist(), items.tolist()))], lengths
+
+
+def sasrec_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
+    """(FLOPs, bytes) of one SASRec training step as the port computes it:
+    per block the four d x d projections and the two-layer feed-forward
+    (12 B L d^2) and the attention's two (L x L) products (4 B L^2 d),
+    the loss's in-batch and sampled score blocks (2 B L (B + N) d) and the
+    positives (2 B L d), three times over for the backward; the bytes are
+    those of Adam's dense update (the parameters, their gradients and two
+    moments read, the parameters and the moments written, 7 x 4 bytes a
+    parameter) and the batch's ids and mask."""
+    BL = bsz * L
+    fwd = n_blocks * (12 * BL * d * d + 4 * bsz * L * L * d) + 2 * BL * (bsz + n_neg) * d \
+        + 2 * BL * d
+    n_params = (vocab + 1) * d + L * d + 2 * d + n_blocks * (6 * d * d + 6 * d + d)
+    return 3.0 * fwd, 7 * 4.0 * n_params + BL * (8 + 8 + 4)
+
+
+def phase_sasrec_diginetica(seed, work):
+    """Phase 16, SASRec at the Diginetica counts (``diginetica_like``): the
+    last 60,858 sessions test, through ``NextItemEvaluation.from_splits(
+    fmt="USIT", exclude_unknowns=True, mode="last")``. Fits of 1 and 3
+    epochs over every train session (both checkpointed every epoch) give
+    seconds per epoch and training sequences per second over 2 steady
+    epochs beside the bound of a step, and the 3-epoch fit's epoch-1
+    checkpoint must equal the 1-epoch fit bit for bit (a second seeded
+    fit); the first step's three accumulate_rows inputs are held bit for
+    bit to the plain version on the CPU and timed beside ``index_add_``;
+    peak device memory of the 3-epoch fit; the NextItemEvaluation metrics
+    (MRR, HitRatio@20, NDCG@20) over the test sessions and their seconds;
+    64 histories scored on the card held to a float64 scoring of the same
+    parameters on the CPU. On the first 3,200 train sessions at the same
+    widths (the item table of all 43,097 items, about 100 steps an epoch):
+    one epoch profiled (device events a step, busy share), and a fit
+    stopped at epoch 1 and resumed to 3 held bit for bit to the
+    uninterrupted one. Returns (accumulate_rows launches, the stats)."""
+    import shutil
+
+    import torch
+
+    from cornac_tpu_torch.data import SequentialDataset
+    from cornac_tpu_torch.eval_methods import NextItemEvaluation
+    from cornac_tpu_torch.metrics import MRR, NDCG, HitRatio
+    from cornac_tpu_torch.models import SASRec
+    from cornac_tpu_torch.models import sasrec as sasrec_mod
+    from cornac_tpu_torch.models.seq_utils import build_session_examples, sessions_per_batch
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.utils.checkpoint import CheckpointManager
+
+    clock = Clock()
+    rows, lengths = clock("Diginetica-like sessions (set-up)", lambda: diginetica_like(seed + 16))
+    n_sessions = len(lengths)
+    cut = f"s{n_sessions - DIGI_TEST}"
+    first_test = next(k for k, r in enumerate(rows) if r[1] == cut)
+    ev = clock("NextItemEvaluation.from_splits (USIT)", lambda: NextItemEvaluation.from_splits(
+        train_data=rows[:first_test], test_data=rows[first_test:], fmt="USIT",
+        exclude_unknowns=True, seed=123, mode="last"))
+    del rows
+    train, test = ev.train_set, ev.test_set
+    _, _, _, mask = build_session_examples(train, SASREC_DIGINETICA["max_len"])
+    n_train = mask.shape[0]
+    bsz = sessions_per_batch(SASREC_DIGINETICA["batch_size"], mask, n_train)
+    steps = -(-n_train // bsz)
+    log(f"  {n_sessions:,} sessions ({DIGI_CLICKS:,} clicks, lengths {int(lengths.min())}-"
+        f"{int(lengths.max())}, mean {lengths.mean():.3f}); train {train.num_sessions:,} "
+        f"sessions over {train.num_items:,} items; test {test.num_sessions:,} sessions; "
+        f"{bsz} sessions a step ({SASREC_DIGINETICA['batch_size']} events), {steps:,} steps an "
+        f"epoch")
+    ck_dir = work / "sasrec_checkpoints"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    def fit(epochs, data, where=None, **extra):
+        model = SASRec(n_epochs=epochs, **SASREC_DIGINETICA, **extra)
+        if where is not None:
+            model.enable_checkpointing(ck_dir / where, every=1, max_to_keep=SASREC_EPOCHS)
+        return model.fit(data)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    with recording_first_calls([], 3) as first:
+        one = clock(f"SASRec.fit, {SASREC_STOP} epoch", lambda: fit(SASREC_STOP, train, "one"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = clock(f"SASRec.fit, {SASREC_EPOCHS} epochs",
+                  lambda: fit(SASREC_EPOCHS, train, "three"))
+    peak = torch.cuda.max_memory_allocated() - held
+    metrics = [MRR(), HitRatio(k=20), NDCG(k=20)]
+    result = clock("NextItemEvaluation over the test sessions", lambda: ev.eval(
+        model, train, test, True, metrics, mode="last"))
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("SASRec at Diginetica")
+    if launches <= 0:
+        raise AssertionError("SASRec did not launch accumulate_rows")
+
+    # ---- check and measure ----
+    at_one = CheckpointManager(ck_dir / "three").restore(SASREC_STOP)
+    for name, p in one.params.named_parameters():
+        if not torch.equal(p.cpu(), at_one[f"resident/{name}"]):
+            raise AssertionError(f"SASRec at Diginetica: two seeded fits differ at epoch "
+                                 f"{SASREC_STOP} in {name}")
+    for name, p in model.params.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"SASRec at Diginetica: non-finite {name}")
+    if len(first) != 3:
+        raise AssertionError(f"the first step recorded {len(first)} accumulate_rows calls")
+    acc_err, acc_rows = hold_and_time_calls("SASRec's first step", first)
+    del first
+    vals = result.metric_avg_results
+    if not all(np.isfinite(vals[m.name]) and 0.0 < vals[m.name] <= 1.0 for m in metrics):
+        raise AssertionError(f"SASRec at Diginetica: metrics {dict(vals)}")
+
+    # 64 test histories: the card's scores against a float64 scoring of the
+    # same parameters on the CPU
+    hist = [[int(x) for x in items[:-1]] for _, _, [items] in
+            itertools.islice(test.si_iter(batch_size=1), 64)]
+    got = model.score_history_batch(np.zeros(len(hist), int), hist)
+    cpu = copy.deepcopy(model.params).to("cpu").double()
+    seq = torch.as_tensor(sasrec_mod.pad_histories(hist, model.max_len, model.num_items)[0],
+                          dtype=torch.int64)
+    with torch.no_grad():
+        want = sasrec_mod._sasrec_scores(cpu, seq, model.num_items, model.num_heads,
+                                         model.num_items).numpy()
+    score_err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"SASRec at Diginetica: scores differ from float64 by {score_err}")
+
+    # both fits checkpoint every epoch, so the difference is 2 steady epochs
+    epoch_s = (clock.seconds[f"SASRec.fit, {SASREC_EPOCHS} epochs"]
+               - clock.seconds[f"SASRec.fit, {SASREC_STOP} epoch"]) / (SASREC_EPOCHS - SASREC_STOP)
+    flops, nbytes = sasrec_step_bound(bsz, SASREC_DIGINETICA["max_len"],
+                                      SASREC_DIGINETICA["embedding_dim"],
+                                      SASREC_DIGINETICA["n_layers"], 2048, train.num_items)
+    step_bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+
+    # the first 3,200 train sessions at the same widths (the whole item map)
+    sub_rows = [(f"u{s}", f"s{s}", train.item_ids[int(train.uir_tuple[1][k])], t)
+                for t, (s, k) in enumerate((s, k) for s, idx in itertools.islice(
+                    train.sessions.items(), SASREC_SUBSET_SESSIONS) for k in idx)]
+    sub = SequentialDataset.build(sub_rows, fmt="USIT", global_iid_map=copy.copy(train.iid_map),
+                                  seed=123)
+    sub_mask = build_session_examples(sub, SASREC_DIGINETICA["max_len"])[3]
+    sub_steps = -(-sub_mask.shape[0] // sessions_per_batch(
+        SASREC_DIGINETICA["batch_size"], sub_mask, sub_mask.shape[0]))
+    prof = epoch_profile(lambda e: fit(e, sub), sub_steps, 1)
+    straight = clock(f"SASRec.fit, {SASREC_EPOCHS} epochs, the subset",
+                     lambda: fit(SASREC_EPOCHS, sub))
+    clock(f"SASRec.fit, the subset, stopped at epoch {SASREC_STOP}",
+          lambda: fit(SASREC_STOP, sub, "stopped"))
+    resumed = clock(f"SASRec.fit, the subset, resumed to epoch {SASREC_EPOCHS}",
+                    lambda: fit(SASREC_EPOCHS, sub, "stopped"))
+    for (name, p), q in zip(straight.params.named_parameters(), resumed.params.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"SASRec at Diginetica widths: the resumed fit differs in {name}")
+
+    log(f"  SASRec d={SASREC_DIGINETICA['embedding_dim']}, {SASREC_DIGINETICA['n_layers']} "
+        f"blocks, max_len {SASREC_DIGINETICA['max_len']} over {n_train:,} train sequences: "
+        f"{epoch_s:.3f} s per epoch (a {SASREC_EPOCHS}-epoch fit minus a {SASREC_STOP}-epoch fit, "
+        f"over {SASREC_EPOCHS - SASREC_STOP}), {n_train / epoch_s:,.0f} training sequences/s, "
+        f"{1e3 * epoch_s / steps:.3f} ms a step; bound of a step {flops / 1e9:.3f} GFLOP and "
+        f"{nbytes / 1e6:.1f} MB = {1e3 * step_bound_s:.4f} ms ({bound_by}), "
+        f"{steps * step_bound_s:.3f} s an epoch, {100 * steps * step_bound_s / epoch_s:.3f}% of "
+        f"it; one epoch over {sub_mask.shape[0]:,} sequences ({sub_steps} steps) profiled: "
+        f"{prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events a "
+        f"step; top device ops {prof['top']}; peak device memory of the {SASREC_EPOCHS}-epoch "
+        f"fit {peak / 2**30:.3f} GiB above what the run held")
+    log(f"  two seeded fits bit for bit at epoch {SASREC_STOP} (the {SASREC_EPOCHS}-epoch fit's "
+        f"checkpoint); on the {sub_mask.shape[0]:,} sequences, the fit stopped at epoch "
+        f"{SASREC_STOP} and resumed to {SASREC_EPOCHS} from its checkpoints equal to the "
+        f"uninterrupted one, bit for bit; the first step's three accumulate_rows inputs equal to "
+        f"the plain version on the CPU, bit for bit (max |err| {acc_err:.3e}); 64 histories' "
+        f"scores within {score_err:.3e} of float64 on the CPU")
+    eval_s = clock.seconds["NextItemEvaluation over the test sessions"]
+    log(f"  NextItemEvaluation (mode last, {test.num_sessions:,} test sessions): MRR "
+        f"{vals['MRR']:.6f}, HitRatio@20 {vals['HitRatio@20']:.6f}, NDCG@20 {vals['NDCG@20']:.6f} "
+        f"in {eval_s:.3f} s; accumulate_rows launches {launches}")
+    log(f"SASRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del model, one, straight, resumed, ev
+    torch.cuda.empty_cache()
+    return launches, dict(epoch_s=epoch_s, seq_per_s=n_train / epoch_s,
+                          step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * step_bound_s,
+                          bound_by=bound_by, steps=steps, peak=peak,
+                          metrics={m.name: vals[m.name] for m in metrics}, eval_s=eval_s,
+                          acc=acc_rows, max_abs_err=acc_err, **prof)
+
+
+GRU_WITNESS_TOL = 1e-5  # max |card - CPU| of a parameter after one epoch
+
+
+def gru4rec_witness(models, train, dropout, card=DEV):
+    """One epoch of GRU4Rec's bench configuration, with ``dropout`` =
+    (p_embed, p_hidden), on ``card`` and on the CPU from the same initial
+    parameters and on the same draws, all made on the CPU: the permutation
+    of the padded session rows, every batch's dropout masks and its shared
+    negatives. The epoch is ``GRU4Rec.fit``'s (its rows, padding, batch
+    size, ``loss_on`` and ``adagrad_m`` steps) with the draws handed in.
+    Returns (steps, max |card - CPU| over the parameters, over the batch
+    losses)."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch.models.seq_utils import (build_session_examples, neg_sampling_table,
+                                                   sample_negatives, sessions_per_batch)
+    from cornac_tpu_torch.ops.optim import adagrad_m, step
+
+    model = make_model(models, "GRU4Rec", 123)
+    model.dropout_p_embed, model.dropout_p_hidden = dropout
+    model.n_epochs = 0
+    model.fit(train)  # the initial parameters, on the card
+    init = copy.deepcopy(model.params).to("cpu")
+    _, inputs, targets, mask = build_session_examples(train, model.max_len)
+    L = max(1, int(mask.sum(axis=1).max()))
+    inputs, targets, mask = inputs[:, :L], targets[:, :L], mask[:, :L]
+    bsz = sessions_per_batch(model.batch_size, mask, len(mask))
+    pad = (-len(mask)) % bsz
+    inputs, targets = (np.concatenate([a, np.zeros((pad, L), np.int32)]).astype(np.int64)
+                       for a in (inputs, targets))
+    mask = np.concatenate([mask, np.zeros((pad, L), np.float32)])
+    gen = torch.Generator().manual_seed(123)
+    cum = neg_sampling_table(train, model.sample_alpha, model.total_items, "cpu")
+    order = torch.randperm(len(mask), generator=gen)
+    draws = [(order[b * bsz:(b + 1) * bsz], model._drop_masks(gen, bsz, L, "cpu"),
+              sample_negatives(gen, cum, (model.n_sample,))) for b in range(len(mask) // bsz)]
+
+    def epoch(dev):
+        model.params = copy.deepcopy(init).to(dev)
+        params = dict(model.params.named_parameters())
+        opt = adagrad_m(model.learning_rate, model.momentum)
+        state = opt.init(params)
+        seq, tgt, m = (torch.as_tensor(a, device=dev) for a in (inputs, targets, mask))
+        losses = []
+        for idx, drop, negs in draws:
+            idx = idx.to(dev)
+            if drop is not None:
+                drop = {"embed": drop["embed"].to(dev), "hidden": [h.to(dev) for h in drop["hidden"]]}
+            loss = model.loss_on(seq[idx], tgt[idx], m[idx], drop, negs.to(dev))
+            state = step(params, opt, state, loss)
+            losses.append(loss.detach())
+        return {k: p.detach().cpu() for k, p in params.items()}, torch.stack(losses).cpu()
+
+    on_card, card_losses = epoch(card)
+    on_cpu, cpu_losses = epoch("cpu")
+    param_err = max((on_card[k] - on_cpu[k]).abs().max().item() for k in on_cpu)
+    return len(draws), param_err, (card_losses - cpu_losses).abs().max().item()
+
+
+# next-item models, CVAECF and GCMC at the bench shapes (phase 12f): the
+# configurations of tools/bpr_quality_band.py (SEQ_CONFIGS, AUX_CONFIGS)
+def phase_seq_bench(bench_data):
+    """Phase 12f, in a spawned process: SPop, FPMC, GRU4Rec and SASRec on
+    ``seq_bench_data.gen_sessions``' sessions under NextItemEvaluation
+    (mode 'next'), CVAECF (with ``seeded_trust`` as its user graph) and
+    GCMC on ``make_ml100k_like(7)``, each metric in the band of the JAX
+    package's CPU fits (``tools/bpr_quality_band.py --model``); a second
+    seeded fit of each trained model (one epoch a chunk where it chunks)
+    bit for bit, whose accumulate_rows inputs (the first at each shape) are
+    held to the plain version on the CPU; GRU4Rec's epoch on the CPU's
+    draws, on the card within ``GRU_WITNESS_TOL`` of the CPU's
+    (``gru4rec_witness``); then the native reader on a UIRT
+    file the phase writes: the native path taken, its tuples the line-by-line
+    parser's. Returns (accumulate_rows launches, fit seconds, max |err|)."""
+    import io
+
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import (AUX_CONFIGS, SEQ_CONFIGS, SEQ_METRICS, aux_metrics, aux_split,
+                                  make_model, seq_eval)
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import Reader
+    from cornac_tpu_torch.data.reader import PARSERS
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    clock = Clock()
+    ev, seq_metrics = clock("NextItemEvaluation.from_splits (gen_sessions)",
+                            lambda: seq_eval(peval, pmetrics))
+    triples = bench_data()
+    splits = {name: clock(f"{name}'s split", lambda: aux_split(name, pdata, peval, triples))
+              for name in AUX_CONFIGS}
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results = {}
+    for name in SEQ_CONFIGS:
+        results[name] = clock(f"{name} evaluate", lambda: ev.evaluate(
+            make_model(models, name, 123), seq_metrics, user_based=False))
+    for name in AUX_CONFIGS:
+        results[name] = clock(f"{name} evaluate", lambda: splits[name].evaluate(
+            make_model(models, name, 123), aux_metrics(name, pmetrics), user_based=False))
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("next-item models, CVAECF and GCMC at the bench shapes")
+    if launches <= 0:
+        raise AssertionError("phase 12f did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    fit_s, acc_err, recorded, outside = {}, 0.0, 0, []
+    for name, (test_result, _) in results.items():
+        names = SEQ_METRICS if name in SEQ_CONFIGS else AUX_CONFIGS[name][2]
+        fit_s[name] = test_result.metric_avg_results["Train (s)"]
+        for metric in names:
+            value = test_result.metric_avg_results[metric]
+            lo, hi, _, spread = seq_band(name, metric)
+            inside = lo <= value <= hi
+            log(f"  {name}: {metric} {value:.6f}, band [{lo:.6f}, {hi:.6f}] "
+                f"({'one deterministic JAX fit +/- 1e-3' if spread is None else '10 JAX seeds'}) "
+                f"{'inside' if inside else 'OUTSIDE'}")
+            if not inside:
+                outside.append(f"{name} {metric}")
+        if name == "SPop":
+            continue
+        train = ev.train_set if name in SEQ_CONFIGS else splits[name].train_set
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            a = make_model(models, name, 123).fit(train)
+            b = make_model(models, name, 123)
+            b.verbose = True
+            b.fit(train)
+        pa, pb = (m.params.items() if isinstance(m.params, dict)
+                  else m.params.state_dict().items() for m in (a, b))
+        for (key, x), (_, y) in zip(pa, pb):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: two seeded fits differ in {key}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    # GRU4Rec's training on the card is the CPU's: one epoch on the same
+    # draws, so the card's fits differ from the CPU's by their stream alone
+    for dropout in ((0.0, 0.0), (0.1, 0.2)):
+        steps, param_err, loss_err = clock(
+            f"GRU4Rec's epoch on the CPU's draws, dropout {dropout}",
+            lambda: gru4rec_witness(models, ev.train_set, dropout))
+        log(f"  GRU4Rec, one epoch ({steps} steps, dropout (embedding, hidden) {dropout}) on the "
+            f"CPU's draws, on the card and on the CPU: max |card - CPU| {param_err:.3e} over the "
+            f"parameters (held to {GRU_WITNESS_TOL:g}), {loss_err:.3e} over the batch losses")
+        if not param_err <= GRU_WITNESS_TOL:
+            raise AssertionError(f"GRU4Rec's epoch on the card differs from the CPU's on the same "
+                                 f"draws by {param_err:.3e}")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+
+    path = ROOT / "build" / "chip_smoke" / "ratings_12f.tsv"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(f"{u}\t{i}\t{r:g}\t{k}\n" for k, (u, i, r) in enumerate(triples)))
+    reader = Reader()
+    native = clock("Reader.read (UIRT, native)", lambda: reader.read(str(path), fmt="UIRT"))
+    if not reader.parsed_natively:
+        raise AssertionError("the native reader did not run on this host")
+    python = clock("Reader.read (UIRT, line by line)", lambda: Reader().read(
+        str(path), fmt="UIRT", parser=PARSERS["UIRT"]))
+    if [tuple((type(v), v) for v in t) for t in native] != \
+            [tuple((type(v), v) for v in t) for t in python]:
+        raise AssertionError("the native reader's tuples differ from the Python parser's")
+    log(f"  every trained model: two seeded fits identical, bit for bit; accumulate_rows on the "
+        f"trainers' own inputs ({recorded} shapes) equal to the plain version on the CPU, bit "
+        f"for bit (max |err| {acc_err:.3e}); the native reader: {len(native):,} UIRT tuples equal "
+        f"to the line-by-line parser's ({clock.seconds['Reader.read (UIRT, native)']:.3f} s "
+        f"against {clock.seconds['Reader.read (UIRT, line by line)']:.3f} s); accumulate_rows "
+        f"launches {launches}")
+    log(f"next-item models, CVAECF and GCMC at the bench shapes: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
 # the families at the bench shape run in processes of their own, at once,
 # after the timed phases: their eager steps are bound by the host, one core
 # each
@@ -3470,11 +3952,13 @@ def main():
     # process times: the card time-slices between processes and they share
     # the host's cores, so a time taken beside them would carry their load
     # (their own times carry each other's)
-    pool = multiprocessing.get_context("spawn").Pool(3 + len(NEURAL_GROUPS))
+    pool = multiprocessing.get_context("spawn").Pool(4 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
         lap("BPR serving slice")
+        sasrec_launches, sasrec = phase_sasrec_diginetica(args.seed, work)
+        lap("SASRec at Diginetica")
         knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
         lap("KNN slice")
         ml10m_launches, W10, train10m = phase_knn_ml10m(args.seed)
@@ -3523,6 +4007,8 @@ def main():
                          pool.apply_async(run_captured, ("phase_factor_rest_bench",))))
         families.append(("the modality layer's models and checkpointed Experiments",
                          pool.apply_async(run_captured, ("phase_modality_bench",))))
+        families.append(("the next-item models, CVAECF and GCMC",
+                         pool.apply_async(run_captured, ("phase_seq_bench",))))
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -3541,6 +4027,7 @@ def main():
     neural_prof = next(r[4] for r in neural if r[4] is not None)
     rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[1 + len(NEURAL_GROUPS)]
     modal_launches, modal_fit, modal_acc_err = done[2 + len(NEURAL_GROUPS)]
+    seqb_launches, seqb_fit, seqb_acc_err = done[3 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -3591,14 +4078,19 @@ def main():
     # |kernel - plain on the CPU| over every check of every path besides
     acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"],
                       hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
-                      c2pf["max_abs_err"], modal_acc_err)
+                      c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err)
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
                   "LightGCN edge form, ML-10M, into item rows",
                   "HPF, ML-10M, into user rows",
                   "HPF, ML-10M, into item rows",
                   "SBPR, Epinions, V update (i, j, k)",
-                  "C2PF, Amazon Office, ratings into item rows"):
+                  "C2PF, Amazon Office, ratings into item rows",
+                  "SASRec, Diginetica, embedding gradient (positions)",
+                  "SASRec, Diginetica, embedding gradient (negatives)",
+                  "FPMC, Diginetica, item-table scatter",
+                  "GCMC, bench shape, edges into item rows",
+                  "GCMC, bench shape, edges into user rows"):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -3608,7 +4100,7 @@ def main():
             "replaces": "cornac_tpu/ops/accumulate.py:26",
             "launches": (bench_launches + full_launches + factor_launches + neural_launches
                          + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
-                         + c2pf_launches + modal_launches),
+                         + c2pf_launches + modal_launches + sasrec_launches + seqb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -3652,6 +4144,15 @@ def main():
             f"{k} {v:.4f}" for k, v in c2pf["experiment"].items()))
     log("the modality layer's models at the bench shape, fit seconds (host clock): " + ", ".join(
         f"{name} {sec:.3f}" for name, sec in modal_fit.items()))
+    log("the next-item models, CVAECF and GCMC at the bench shapes, fit seconds (host clock): "
+        + ", ".join(f"{name} {sec:.3f}" for name, sec in seqb_fit.items()))
+    log(f"SASRec at Diginetica: {sasrec['epoch_s']:.3f} s per epoch, {sasrec['seq_per_s']:,.0f} "
+        f"training sequences/s, {sasrec['step_ms']:.3f} ms a step against a "
+        f"{sasrec['step_bound_ms']:.4f} ms bound ({sasrec['bound_by']}), busy "
+        f"{100 * sasrec['share']:.2f}%, {sasrec['launches_per_minibatch']:.1f} device events a "
+        f"step, peak {sasrec['peak'] / 2**30:.3f} GiB; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sasrec["metrics"].items())
+        + f" in {sasrec['eval_s']:.3f} s")
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

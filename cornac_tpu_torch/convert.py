@@ -16,8 +16,12 @@ from .engine.nn import Dense, Tree
 from .models.baseline import BaselineOnly
 from .models.bpr import BPR, WBPR
 from .models.c2pf import C2PF
+from .models.cvaecf import CVAECF
 from .models.ease import EASE
 from .models.fm import FM
+from .models.fpmc import FPMC
+from .models.gcmc import GCMC
+from .models.gru4rec import GRU4Rec
 from .models.hpf import HPF
 from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
@@ -25,6 +29,7 @@ from .models.mf import MF
 from .models.nmf import NMF
 from .models.pmf import PMF
 from .models.sansa import SANSA
+from .models.sasrec import SASRec
 from .models.sbpr import SBPR
 from .models.skm import SKMeans
 from .models.vebpr import VEBPR
@@ -243,6 +248,61 @@ def sansa_from_arrays(arrays, meta, device=None):
     model.U = _csr(arrays, "U_")
     model.X = model.U.astype(np.float32)
     model.train_set = model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+# class name -> (class, the options it is built with)
+_PARAM_MODELS = {
+    "FPMC": (FPMC, ("embedding_dim",)),
+    "GRU4Rec": (GRU4Rec, ("layers", "max_len", "embedding", "constrained_embedding")),
+    "SASRec": (SASRec, ("embedding_dim", "max_len", "num_blocks", "num_heads", "use_pos_emb",
+                        "use_biases")),
+    "CVAECF": (CVAECF, ("z_dim", "h_dim", "autoencoder_structure", "act_fn", "likelihood")),
+    "GCMC": (GCMC, ("activation_func", "gcn_agg_accum")),
+}
+
+
+def model_from_params(cls_name, params, meta, device=None, train_set=None):
+    """A fitted port ``FPMC``, ``GRU4Rec``, ``SASRec``, ``CVAECF`` or
+    ``GCMC`` (``cls_name``) from the JAX model's ``params`` pytree as
+    nested dicts and lists of numpy arrays (FPMC's four tables ``V_UI``,
+    ``V_IU``, ``V_IL``, ``V_LI``; the others as ``params_to_module`` takes
+    them) and ``meta`` (the options ``embedding_dim`` (FPMC); ``layers``,
+    ``max_len``, ``embedding``, ``constrained_embedding`` (GRU4Rec);
+    ``embedding_dim``, ``max_len``, ``num_blocks``, ``num_heads``,
+    ``use_pos_emb``, ``use_biases`` (SASRec); ``z_dim``, ``h_dim``,
+    ``autoencoder_structure``, ``act_fn``, ``likelihood`` (CVAECF);
+    ``activation_func``, ``gcn_agg_accum`` (GCMC); then ``num_users``,
+    ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
+    ``max_rating``, ``global_mean``, the fitted model's). CVAECF and GCMC
+    also need ``train_set``, the port dataset the model was fitted on
+    (CVAECF's rating and social rows, GCMC's rating graph, whose node
+    features are computed here). It scores as the model it was read from.
+    ``device``: where the model scores (default: the card)."""
+    if cls_name not in _PARAM_MODELS:
+        raise ValueError(f"cls_name must be one of {sorted(_PARAM_MODELS)}, got {cls_name!r}")
+    cls, options = _PARAM_MODELS[cls_name]
+    _require(meta, options + _SNAPSHOT)
+    if cls_name in ("CVAECF", "GCMC") and train_set is None:
+        raise ValueError(f"{cls_name} needs the train_set it was fitted on")
+    model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
+    _snapshot(model, meta)
+    dev = resolve_device(device)
+    if cls_name == "FPMC":
+        model.params = {name: torch.as_tensor(np.asarray(params[name], np.float32), device=dev)
+                        for name in ("V_UI", "V_IU", "V_IL", "V_LI")}
+    else:
+        model.params = params_to_module(params, dev)
+    if cls_name == "CVAECF":
+        model.r_mat = train_set.matrix
+        n_users = model.r_mat.shape[0]
+        model.u_adj_mat = train_set.user_graph.matrix[:n_users, :n_users]
+    if cls_name == "GCMC":
+        model.graph = model._build_graph(train_set, dev)
+        model._refresh_embeddings()
+    model.train_set = train_set
+    model.val_set = None
     model.is_fitted = True
     return model
 

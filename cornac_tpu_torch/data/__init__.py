@@ -4,7 +4,7 @@ from .image import ImageModality
 from .graph import GraphModality
 from .sentiment import SentimentModality
 from .reader import Reader
-from .dataset import Dataset, PurchaseViewDataset
+from .dataset import Dataset, PurchaseViewDataset, SequentialDataset
 
 __all__ = [
     "Dataset",
@@ -16,5 +16,6 @@ __all__ = [
     "Reader",
     "ReviewModality",
     "SentimentModality",
+    "SequentialDataset",
     "TextModality",
 ]

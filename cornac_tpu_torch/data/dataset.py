@@ -10,15 +10,16 @@ vectorised lookups (``lookup_ratings``, ``is_observed``) and the batch
 iterators are the JAX package's: they draw from the dataset's numpy ``rng``
 in the same order, so a seed gives byte-identical batches in both packages.
 ``PurchaseViewDataset`` (purchases with an aligned view matrix, for
-VEBPR) is the JAX package's too; the basket and sequential datasets come
-with the models that use them (ROADMAP.md A10).
+VEBPR) and ``SequentialDataset`` (sessions, for the next-item models) are
+the JAX package's too; the basket dataset comes with the next-basket
+models (ROADMAP.md A10).
 """
 
 import copy
 import os
 import pickle
 import warnings
-from collections import OrderedDict, defaultdict
+from collections import Counter, OrderedDict, defaultdict
 
 import numpy as np
 from scipy.sparse import csc_matrix, csr_matrix
@@ -402,6 +403,191 @@ def _id_map_kwargs(global_uid_map, global_iid_map):
         uid_map=global_uid_map,
         iid_map=global_iid_map,
     )
+
+
+class SequentialDataset(Dataset):
+    """Interaction data grouped into sessions (SIT / USIT / ±Json input).
+
+    A copy of ``cornac_tpu/data/dataset.py::SequentialDataset``: the session
+    map and its dense indices, ``sessions`` (session -> row positions in
+    input order, the ground-truth sequence), the per-user and chronological
+    views, the session-size statistics and the batch iterators.
+    """
+
+    def __init__(
+        self, num_users, num_sessions, num_items, uid_map, sid_map,
+        iid_map, uir_tuple, session_indices=None, timestamps=None,
+        extra_data=None, seed=None,
+    ):
+        super().__init__(
+            num_users, num_items, uid_map, iid_map, uir_tuple,
+            timestamps=timestamps, seed=seed,
+        )
+        self.num_sessions, self.sid_map = num_sessions, sid_map
+        self.session_indices, self.extra_data = session_indices, extra_data
+        session_sizes = list(Counter(session_indices).values())
+        self.max_session_size = int(np.max(session_sizes))
+        self.min_session_size = int(np.min(session_sizes))
+        self.avg_session_size = float(np.mean(session_sizes))
+
+    @property
+    def session_ids(self):
+        """Raw session IDs ordered by dense index."""
+        return self._cached("session_ids", lambda: list(self.sid_map.keys()))
+
+    @property
+    def sessions(self):
+        """Ordered dict: session index -> observation row positions."""
+
+        def build():
+            out = OrderedDict()
+            for idx, sid in enumerate(self.session_indices):
+                out.setdefault(sid, []).append(idx)
+            return out
+
+        return self._cached("sessions", build)
+
+    @property
+    def user_session_data(self):
+        """Dict: user index -> list of session indices."""
+
+        def build():
+            out = defaultdict(list)
+            for sid, ids in self.sessions.items():
+                out[self.uir_tuple[0][ids[0]]].append(sid)
+            return out
+
+        return self._cached("user_session_data", build)
+
+    @property
+    def chrono_user_session_data(self):
+        """Dict: user -> ([session ids], [timestamps]) sorted by time."""
+
+        def build():
+            assert self.timestamps is not None
+            out = defaultdict(lambda: ([], []))
+            for sid, ids in self.sessions.items():
+                u = self.uir_tuple[0][ids[0]]
+                out[u][0].append(sid)
+                out[u][1].append(self.timestamps[ids[0]])
+            for user, (sessions, ts) in out.items():
+                order = np.argsort(ts)
+                out[user] = (
+                    [sessions[i] for i in order],
+                    [ts[i] for i in order],
+                )
+            return out
+
+        return self._cached("chrono_user_session_data", build)
+
+    @classmethod
+    def build(
+        cls, data, fmt="SIT", global_uid_map=None, global_sid_map=None,
+        global_iid_map=None, seed=None, exclude_unknowns=False,
+    ):
+        """Construct from session tuples; user column optional depending on
+        format. Row order within a session is the ground-truth sequence."""
+        fmt = validate_format(fmt, ["SIT", "USIT", "SITJson", "USITJson"])
+
+        global_uid_map = OrderedDict() if global_uid_map is None else global_uid_map
+        global_sid_map = OrderedDict() if global_sid_map is None else global_sid_map
+        global_iid_map = OrderedDict() if global_iid_map is None else global_iid_map
+
+        has_user = fmt in ("USIT", "USITJson")
+        u_indices, s_indices, i_indices, valid_idx = [], [], [], []
+        for idx, tup in enumerate(data):
+            if has_user:
+                uid, sid, iid = tup[0], tup[1], tup[2]
+            else:
+                uid, sid, iid = None, tup[0], tup[1]
+            if exclude_unknowns and (iid not in global_iid_map):
+                continue
+            u_indices.append(global_uid_map.setdefault(uid, len(global_uid_map)))
+            s_indices.append(global_sid_map.setdefault(sid, len(global_sid_map)))
+            i_indices.append(global_iid_map.setdefault(iid, len(global_iid_map)))
+            valid_idx.append(idx)
+
+        uir_tuple = (
+            np.asarray(u_indices, dtype="int"),
+            np.asarray(i_indices, dtype="int"),
+            np.ones(len(u_indices), dtype="float"),
+        )
+        session_indices = np.asarray(s_indices, dtype="int")
+
+        ts_pos = 3 if has_user else 2
+        timestamps = np.fromiter(
+            (int(data[i][ts_pos]) for i in valid_idx), dtype="int"
+        )
+        extra_data = (
+            [data[i][ts_pos + 1] for i in valid_idx]
+            if fmt in ("SITJson", "USITJson")
+            else None
+        )
+
+        return cls(
+            num_sessions=len(set(s_indices)),
+            sid_map=global_sid_map,
+            **_id_map_kwargs(global_uid_map, global_iid_map),
+            uir_tuple=uir_tuple,
+            session_indices=session_indices,
+            timestamps=timestamps,
+            extra_data=extra_data,
+            seed=seed,
+        )
+
+    @classmethod
+    def from_sit(cls, data, seed=None):
+        return cls.build(data, "SIT", seed=seed)
+
+    @classmethod
+    def from_usit(cls, data, seed=None):
+        return cls.build(data, "USIT", seed=seed)
+
+    @classmethod
+    def from_sitjson(cls, data, seed=None):
+        return cls.build(data, "SITJson", seed=seed)
+
+    @classmethod
+    def from_usitjson(cls, data, seed=None):
+        return cls.build(data, "USITJson", seed=seed)
+
+    def num_batches(self, batch_size):
+        return estimate_batches(len(self.sessions), batch_size)
+
+    def session_iter(self, batch_size=1, shuffle=False):
+        """Yield batches of session indices."""
+        session_indices = np.array(list(self.sessions.keys()))
+        for batch_ids in self.idx_iter(len(session_indices), batch_size, shuffle):
+            yield session_indices[batch_ids]
+
+    def s_iter(self, batch_size=1, shuffle=False):
+        """Yield (session ids, their observation row positions)."""
+        for batch_session_ids in self.session_iter(batch_size, shuffle):
+            batch_mapped_ids = [self.sessions[sid] for sid in batch_session_ids]
+            yield batch_session_ids, batch_mapped_ids
+
+    def si_iter(self, batch_size=1, shuffle=False):
+        """Yield (session ids, row positions, per-session item lists)."""
+        item_arr = self.uir_tuple[1]
+        for batch_session_ids, batch_mapped_ids in self.s_iter(batch_size, shuffle):
+            batch_session_items = [
+                [item_arr[i] for i in ids] for ids in batch_mapped_ids
+            ]
+            yield batch_session_ids, batch_mapped_ids, batch_session_items
+
+    def usi_iter(self, batch_size=1, shuffle=False):
+        """Yield (users, session ids, row positions, item lists) grouped by user."""
+        item_arr = self.uir_tuple[1]
+        for user_indices in self.user_iter(batch_size, shuffle):
+            batch_sids = [list(self.user_session_data[uid]) for uid in user_indices]
+            batch_mapped_ids = [
+                [self.sessions[sid] for sid in sids] for sids in batch_sids
+            ]
+            batch_session_items = [
+                [[item_arr[i] for i in ids] for ids in mapped]
+                for mapped in batch_mapped_ids
+            ]
+            yield user_indices, batch_sids, batch_mapped_ids, batch_session_items
 
 
 class PurchaseViewDataset(Dataset):

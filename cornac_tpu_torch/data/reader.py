@@ -3,10 +3,13 @@
 A copy of ``cornac_tpu/data/reader.py``: the twelve line formats (UI, UIR,
 UIRT, UITup, UIReview, UBI, UBIT, UBITJson, SIT, SITJson, USIT, USITJson),
 the frequency / set / basket / sequence filters, binarize-by-threshold and
-``read_text``, through the Python parser. The JAX package's native C++
-reader (``data/fast_reader.py``) is not ported yet (ROADMAP.md A12): a
-file is always parsed line by line, which gives the tuples the native
-reader would.
+``read_text``. UIR and UIRT files with a one-character separator, no
+skipped lines and no custom parser go through the native C++ parser
+(``native/fast_io_ext.cpp``, built with g++ at first use), which gives the
+line-by-line parser's tuples byte for byte; a malformed row, a non-numeric
+rating or timestamp column, or a missing compiler sends the file to the
+Python parser, as in the JAX package. ``Reader.parsed_natively`` tells
+which parser read the last file.
 """
 
 import ast
@@ -221,6 +224,7 @@ class Reader:
     ):
         """Parse a file line-by-line into tuples according to ``fmt`` or a
         custom ``parser`` callable, then apply the configured filters."""
+        custom_parser = parser is not None
         parser = PARSERS.get(fmt, None) if parser is None else parser
         if parser is None:
             raise ValueError(
@@ -229,14 +233,26 @@ class Reader:
                 )
             )
 
-        with open(fpath, encoding=self.encoding, errors=self.errors) as f:
-            tuples = [
-                tup
-                for idx, line in enumerate(itertools.islice(f, skip_lines, None))
-                for tup in parser(
-                    line.strip().split(sep), line_idx=idx, id_inline=id_inline, **kwargs
-                )
-            ]
+        tuples = None
+        if (
+            not custom_parser
+            and fmt in ("UIR", "UIRT")
+            and skip_lines == 0
+            and not id_inline
+            and len(sep) == 1
+            and self.errors is None
+        ):
+            tuples = self._read_native(fpath, fmt, sep)
+        self.parsed_natively = tuples is not None
+        if tuples is None:
+            with open(fpath, encoding=self.encoding, errors=self.errors) as f:
+                tuples = [
+                    tup
+                    for idx, line in enumerate(itertools.islice(f, skip_lines, None))
+                    for tup in parser(
+                        line.strip().split(sep), line_idx=idx, id_inline=id_inline, **kwargs
+                    )
+                ]
 
         tuples = self._filter(tuples, fmt=fmt)
         if fmt in BASKET_FMTS:
@@ -244,6 +260,21 @@ class Reader:
         elif fmt in SEQUENCE_FMTS:
             tuples = self._filter_sequence(tuples, fmt=fmt)
         return tuples
+
+    def _read_native(self, fpath, fmt, sep):
+        """The whole file's tuples from the native parser, or None to parse
+        it line by line (no extension, a malformed row, a non-numeric
+        rating or timestamp column, an encoding the C parser cannot read)."""
+        from ..native import load_extension
+
+        ext = load_extension()
+        if ext is None:
+            return None
+        with open(fpath, "rb") as f:
+            raw = f.read()
+        if not raw.isascii() and self.encoding.lower() not in ("utf-8", "utf8", "ascii"):
+            return None  # the C parser assumes UTF-8-compatible bytes
+        return ext.parse_ratings(raw, sep, fmt == "UIRT")
 
 
 def read_text(fpath, sep=None, encoding="utf-8", errors=None):

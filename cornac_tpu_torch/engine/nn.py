@@ -1,7 +1,8 @@
 """Linear layers and stacks of them, as ``nn.Module``s.
 
-Port of ``cornac_tpu/engine/nn.py:1-70``: the neural family (VAECF, RecVAE,
-BiVAECF, NCF) builds its towers from these. A layer keeps the JAX package's
+Port of ``cornac_tpu/engine/nn.py``: the neural family (VAECF, RecVAE,
+BiVAECF, NCF, CVAECF) builds its towers from these, and the sequential
+models (SASRec) their transformer blocks. A layer keeps the JAX package's
 layout, ``w`` (fan_in, fan_out) and ``b`` (fan_out,), and computes
 ``x @ w + b``; its initial values are the same numpy draws, in the same
 order, from the same ``RandomState`` (torch's ``nn.Linear`` default,
@@ -72,6 +73,81 @@ def mlp(layers, x, act, final_act=None):
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+# ---------------------------------------------------------------------- #
+# transformer building blocks (SASRec; BERT4Rec, TransformerRec and TIGER
+# share them in the JAX package)
+# ---------------------------------------------------------------------- #
+def layer_norm(x, g, b, eps=1e-8):
+    """``(x - mean) * rsqrt(var + eps) * g + b`` over the last axis, the
+    variance biased (``jnp.var``), eps 1e-8 (``nn.LayerNorm``'s is 1e-5)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+def make_drop(dropout, generator):
+    """Inverted-dropout closure ``drop(x, i)``: keeps each entry with
+    probability ``1 - dropout`` (draws from ``generator``, in call order)
+    and scales by its inverse; the identity when the rate is 0 or no
+    generator is given (inference). ``i`` names the call site, as the JAX
+    package folds it into its key; here the generator's order of calls,
+    fixed by the model, separates the sites."""
+
+    def drop(x, i):
+        if dropout <= 0.0 or generator is None:
+            return x
+        keep = 1.0 - dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return x * mask / keep
+
+    return drop
+
+
+def init_transformer_block(xav, d, ffn_mult=1):
+    """A pre-LN block's parameters as a ``Tree``, drawn in the JAX
+    package's order: ``xav(shape)`` (the model's xavier draw from its numpy
+    ``RandomState``) for Wq, Wk, Wv, Wo, ff1, ff2; ones and zeros for the
+    norms and biases."""
+    return Tree(
+        Wq=xav((d, d)),
+        Wk=xav((d, d)),
+        Wv=xav((d, d)),
+        Wo=xav((d, d)),
+        ln1_g=np.ones(d, np.float32),
+        ln1_b=np.zeros(d, np.float32),
+        ff1=xav((d, ffn_mult * d)),
+        ff1_b=np.zeros(ffn_mult * d, np.float32),
+        ff2=xav((ffn_mult * d, d)),
+        ff2_b=np.zeros(d, np.float32),
+        ln2_g=np.ones(d, np.float32),
+        ln2_b=np.zeros(d, np.float32),
+    )
+
+
+def block_attention(blk, q_in, kv_in, attn_mask, n_heads, drop, di):
+    """One multi-head attention sub-layer: queries from ``q_in``, keys and
+    values from ``kv_in``; ``attn_mask`` (B, Lq, Lk) bool. Masked logits
+    are -1e9, so a fully masked query row softmaxes to uniform weights."""
+    B, L, d = kv_in.shape
+    head_dim = d // n_heads
+    Q = (q_in @ blk.Wq).reshape(B, -1, n_heads, head_dim)
+    K = (kv_in @ blk.Wk).reshape(B, L, n_heads, head_dim)
+    V = (kv_in @ blk.Wv).reshape(B, L, n_heads, head_dim)
+    logits = torch.einsum("blhd,bmhd->bhlm", Q, K) / float(np.sqrt(head_dim))
+    logits = torch.where(attn_mask[:, None, :, :], logits, -1e9)
+    attn = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhlm,bmhd->blhd", attn, V).reshape(B, -1, d)
+    return drop(ctx @ blk.Wo, di)
+
+
+def block_ffn(blk, h, drop, di, act=ACTIVATIONS["gelu"]):
+    """Pre-LN feed-forward sub-layer; ``act`` defaults to the tanh GELU
+    (``jax.nn.gelu``'s default)."""
+    f = layer_norm(h, blk.ln2_g, blk.ln2_b)
+    f = act(f @ blk.ff1 + blk.ff1_b)
+    return drop(f @ blk.ff2 + blk.ff2_b, di)
 
 
 class Tree(nn.Module):

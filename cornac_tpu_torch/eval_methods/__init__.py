@@ -1,5 +1,6 @@
 from .base_method import BaseMethod, ranking_eval, rating_eval
 from .cross_validation import CrossValidation
+from .next_item_evaluation import NextItemEvaluation
 from .propensity_stratified_evaluation import PropensityStratifiedEvaluation
 from .ratio_split import RatioSplit
 from .stratified_split import StratifiedSplit
@@ -8,6 +9,7 @@ from .timestamp_split import TimestampSplit
 __all__ = [
     "BaseMethod",
     "CrossValidation",
+    "NextItemEvaluation",
     "PropensityStratifiedEvaluation",
     "RatioSplit",
     "StratifiedSplit",

@@ -180,7 +180,8 @@ def ranking_eval(
             scores = scores[:, :n_items]
             scores = np.where(cand_mask, scores, -np.inf)
 
-            ctx = RankingContext(scores, pos_mask, cand_mask)
+            ctx = RankingContext(scores, pos_mask, cand_mask,
+                                 ties=any(mt.uses_ties for mt in metrics))
             for i, mt in enumerate(metrics):
                 values = mt.batch_compute(ctx)
                 user_results[i].update(

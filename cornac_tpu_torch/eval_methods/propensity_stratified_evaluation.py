@@ -183,7 +183,8 @@ class PropensityStratifiedEvaluation(BaseMethod):
             scores = np.asarray(model.score_batch(users), dtype=np.float64)[:, :n_items]
             scores = np.where(cand_mask, scores, -np.inf)
 
-            ctx = RankingContext(scores, pos_mask, cand_mask)
+            ctx = RankingContext(scores, pos_mask, cand_mask,
+                                 ties=any(mt.uses_ties for mt in metrics))
             w = np.where(pos_mask, ips_weight[None, :], 0.0)
             total_w = w.sum(axis=1)
             for i, mt in enumerate(metrics):

@@ -9,8 +9,10 @@ package's: a grid in sorted order, or draws from the model's seeded legacy
 """
 
 from .eval_methods import ranking_eval, rating_eval
+from .eval_methods.next_item_evaluation import ranking_eval as next_item_ranking_eval
 from .metrics import RatingMetric
 from .models import Recommender
+from .models.recommender import NextItemRecommender
 from .utils import get_rng
 
 __all__ = ["Discrete", "Continuous", "GridSearch", "RandomSearch"]
@@ -71,13 +73,20 @@ class BaseSearch(Recommender):
 
     def _validation_score(self, model, train_set, val_set):
         """Score one fitted trial on the validation set with the eval
-        function matching the metric type (rating or ranking — the same
-        dispatch the composed eval_method would use). The JAX package's
-        next-item branch (a ``NextItemRecommender`` scored by the next-item
-        ``ranking_eval``) comes with the sequential models, which the port
-        does not have yet (ROADMAP.md A10)."""
+        function matching the metric and the model (rating, next-item or
+        ranking: the same dispatch the composed eval_method would use)."""
         if isinstance(self.metric, RatingMetric):
             return rating_eval(model, [self.metric], val_set)[0][0]
+        if isinstance(model, NextItemRecommender):
+            return next_item_ranking_eval(
+                model,
+                [self.metric],
+                train_set,
+                val_set,
+                exclude_unknowns=self.eval_method.exclude_unknowns,
+                mode=self.eval_method.mode,
+                verbose=False,
+            )[0][0]
         return ranking_eval(
             model,
             [self.metric],

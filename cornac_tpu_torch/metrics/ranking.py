@@ -33,18 +33,21 @@ def set_device_metrics_min_cells(n):
     _DEVICE_MIN_CELLS = int(n)
 
 
-def _device_rank_and_ties(scores, pos_mask, cand_mask):
+def _device_rank_and_ties(scores, pos_mask, cand_mask, ties=True):
     """(rank_of, c_lt, p_lt) as int32 numpy arrays, computed on the default
     device by stable sorts and permutation inverses, scores compared in
-    float32 as in the JAX package."""
+    float32 as in the JAX package; ``(rank_of,)`` alone without ``ties``
+    (the same stable sort, so the same ranks)."""
     dev = default_device()
     scores = torch.as_tensor(np.asarray(scores, np.float32), device=dev)
-    pos_mask = torch.as_tensor(np.asarray(pos_mask, bool), device=dev)
-    cand_mask = torch.as_tensor(np.asarray(cand_mask, bool), device=dev)
     B, N = scores.shape
     order = torch.argsort(-scores, dim=1, stable=True)
     iota = torch.arange(N, device=dev).expand(B, N)
     rank_of = torch.empty((B, N), dtype=torch.int64, device=dev).scatter_(1, order, iota)
+    if not ties:
+        return (rank_of.to(torch.int32).cpu().numpy(),)
+    pos_mask = torch.as_tensor(np.asarray(pos_mask, bool), device=dev)
+    cand_mask = torch.as_tensor(np.asarray(cand_mask, bool), device=dev)
 
     s = torch.where(cand_mask, scores, -torch.inf)
     rev = order.flip(1)  # ascending
@@ -253,17 +256,23 @@ class RankingContext:
         Ground-truth positive items (a subset of the candidate set).
     cand_mask: (B, N) bool array
         Candidate items under evaluation (positives + negatives).
+    ties: bool
+        Whether a metric will read the tie counts (``c_lt``/``p_lt``: AUC,
+        MAP; ``RankingMetric.uses_ties``). The device path computes them
+        with the ranks or not at all.
     """
 
-    def __init__(self, scores, pos_mask, cand_mask):
+    def __init__(self, scores, pos_mask, cand_mask, ties=True):
         self.scores = scores
         self.pos_mask = pos_mask
         self.cand_mask = cand_mask
+        self.ties = ties
         self.B, self.N = scores.shape
         self.n_pos = pos_mask.sum(axis=1)
         self.n_cand = cand_mask.sum(axis=1)
         self.n_neg = self.n_cand - self.n_pos
         self._rank_of = None
+        self._pos_ranks = None
         self._tie_counts = None
 
     def _try_device_path(self):
@@ -271,14 +280,15 @@ class RankingContext:
         default device (a failure there raises; nothing falls back)."""
         if self.B * self.N < _DEVICE_MIN_CELLS:
             return False
-        rank_of, c_lt, p_lt = _device_rank_and_ties(
-            self.scores, self.pos_mask, self.cand_mask
+        rank_and_ties = _device_rank_and_ties(
+            self.scores, self.pos_mask, self.cand_mask, ties=self.ties
         )
+        self._rank_of = rank_and_ties[0]
+        if self.ties:
+            self._tie_counts = rank_and_ties[1:]
         # rank_of/tie caches make the column order itself unnecessary;
         # mark it filled so the host argsort never runs
         self._order = "device"
-        self._rank_of = rank_of
-        self._tie_counts = (c_lt, p_lt)
         return True
 
     @property
@@ -311,8 +321,11 @@ class RankingContext:
 
     @property
     def pos_ranks(self):
-        """(B, N) int: rank of each positive column, OUT_OF_RANGE elsewhere."""
-        return np.where(self.pos_mask, self.rank_of, self.OUT_OF_RANGE)
+        """(B, N) int: rank of each positive column, OUT_OF_RANGE elsewhere
+        (computed once per context; every metric reads it)."""
+        if self._pos_ranks is None:
+            self._pos_ranks = np.where(self.pos_mask, self.rank_of, self.OUT_OF_RANGE)
+        return self._pos_ranks
 
     def _compute_tie_counts(self):
         """For every column j (restricted to candidates): the number of
@@ -322,6 +335,9 @@ class RankingContext:
         order_probe = self._desc_order  # may fill the cache via device path
         if self._tie_counts is not None:
             return
+        if isinstance(order_probe, str):  # ranked on the device
+            raise RuntimeError("RankingContext(ties=False): no metric was to read the tie "
+                               "counts")
         s = np.where(self.cand_mask, self.scores, -np.inf)
         # ascending order; excluded (-inf) first. Reuses the shared
         # descending sort — valid because scores obey the -inf contract and
@@ -384,7 +400,10 @@ class RankingContext:
 
 
 class RankingMetric:
-    """Base ranking metric (higher is better)."""
+    """Base ranking metric (higher is better). ``uses_ties``: whether
+    ``batch_compute`` reads the context's tie counts."""
+
+    uses_ties = False
 
     def __init__(self, name=None, k=-1, higher_better=True):
         assert hasattr(k, "__len__") or k == -1 or k > 0
@@ -570,6 +589,8 @@ class FMeasure(MeasureAtK):
 class AUC(RankingMetric):
     """Area under the ROC curve over (positive, negative) candidate pairs."""
 
+    uses_ties = True
+
     def __init__(self):
         RankingMetric.__init__(self, name="AUC")
 
@@ -593,6 +614,8 @@ class AUC(RankingMetric):
 
 class MAP(RankingMetric):
     """Mean Average Precision (rankdata 'max' convention of the reference)."""
+
+    uses_ties = True
 
     def __init__(self):
         RankingMetric.__init__(self, name="MAP")

@@ -3,6 +3,7 @@ from .recommender import (
     MEASURE_DOT,
     MEASURE_L2,
     ANNMixin,
+    NextItemRecommender,
     Recommender,
     is_ann_supported,
 )
@@ -11,7 +12,11 @@ from .baseline import BaselineOnly, GlobalAvg, MostPop
 from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
 from .c2pf import C2PF
+from .cvaecf import CVAECF
 from .ease import EASE
+from .fpmc import FPMC
+from .gcmc import GCMC
+from .gru4rec import GRU4Rec
 from .fm import FM
 from .hpf import HPF
 from .ibpr import COE, IBPR, OnlineIBPR
@@ -24,8 +29,10 @@ from .nmf import NMF
 from .pmf import PMF
 from .recvae import RecVAE
 from .sansa import SANSA
+from .sasrec import SASRec
 from .sbpr import SBPR
 from .skm import SKMeans
+from .spop import SPop
 from .vaecf import VAECF
 from .vebpr import VEBPR
 from .wmf import WMF
@@ -38,10 +45,14 @@ __all__ = [
     "BPR",
     "C2PF",
     "COE",
+    "CVAECF",
     "EASE",
     "FM",
+    "FPMC",
+    "GCMC",
     "GlobalAvg",
     "GMF",
+    "GRU4Rec",
     "HPF",
     "IBPR",
     "is_ann_supported",
@@ -56,6 +67,7 @@ __all__ = [
     "MostPop",
     "NCFBase",
     "NeuMF",
+    "NextItemRecommender",
     "NGCF",
     "NMF",
     "OnlineIBPR",
@@ -63,8 +75,10 @@ __all__ = [
     "Recommender",
     "RecVAE",
     "SANSA",
+    "SASRec",
     "SBPR",
     "SKMeans",
+    "SPop",
     "SVD",
     "TPUExactANN",
     "UserKNN",

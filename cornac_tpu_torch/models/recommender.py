@@ -11,8 +11,11 @@ the batched eval harness uses:
   pointwise prediction for rating metrics.
 
 Device tensors live in process-local attributes listed in
-``ignored_attrs``: they are never pickled and are rebuilt on demand. The
-next-basket and next-item bases come with their models.
+``ignored_attrs``: they are never pickled and are rebuilt on demand.
+``NextItemRecommender`` is the base of the session models: ``score`` takes
+a history of items, and ``score_history_batch`` is the hook of the batched
+next-item eval. The next-basket base comes with its models (ROADMAP.md
+A10).
 """
 
 import copy
@@ -533,3 +536,32 @@ class Recommender:
                   f"(delta = {current_value - self.best_value:.6f})")
             return True
         return False
+
+
+class NextItemRecommender(Recommender):
+    """Base for next-item models: ``score`` takes history items."""
+
+    def __init__(self, name, trainable=True, verbose=False):
+        super().__init__(name=name, trainable=trainable, verbose=verbose)
+
+    def score(self, user_idx, history_items, **kwargs):
+        raise NotImplementedError("this model does not implement score prediction")
+
+    def score_history_batch(self, user_indices, histories):
+        """(B, total_items) float64 scores for a batch of (user, history)
+        pairs, the hook the batched next-item eval calls. Sequence models
+        override it with one padded forward on their device; the default
+        loops ``score``. The width covers eval-time unknown items (filled
+        with the row's minimum) so the eval can slice to its candidates."""
+        total = max(self.total_items, self.num_items)
+        out = np.empty((len(user_indices), total), dtype=np.float64)
+        for b, (u, h) in enumerate(zip(user_indices, histories)):
+            try:
+                row = np.asarray(self.score(u, h), dtype=np.float64)
+            except ScoreException:
+                row = np.full(total, self.default_score())
+            if len(row) < total:
+                fill = row.min() if len(row) else self.default_score()
+                row = np.concatenate([row, np.full(total - len(row), fill)])
+            out[b] = row[:total]
+        return out

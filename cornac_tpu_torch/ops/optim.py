@@ -14,7 +14,12 @@ optax's own update rules (``optax/_src/transform.py``: ``scale_by_adam``,
   correction, initial nu 0, no momentum;
 - adagrad: the sum of squares starts at 0.1 (``torch.optim.Adagrad``: 0),
   eps 1e-7 inside the root, and a zero sum gives a zero update;
-- sgd: ``-lr * g``.
+- sgd: ``-lr * g``;
+- adagrad_m (``cornac_tpu/models/seq_utils.py::adagrad_m``, the reference's
+  ``IndexedAdagradM`` over dense tables, not an optax alias): the sum of
+  squares starts at 0, eps 1e-6 inside the root, and momentum, when set,
+  accumulates the scaled step (``mom = momentum * mom - lr * g /
+  sqrt(acc + eps)``).
 
 The updates are dense, as optax's are: every entry's moments decay at every
 step, whether or not its row was in the minibatch (``torch.optim.SparseAdam``
@@ -118,6 +123,32 @@ def adagrad(learning_rate, initial_accumulator_value=0.1, eps=1e-7):
     return Optimizer(init, update)
 
 
+def adagrad_m(learning_rate, momentum=0.0, eps=1e-6):
+    """The sequential models' adagrad with optional momentum (GRU4Rec,
+    FPMC's general path)."""
+    def init(params):
+        state = {"acc": {n: torch.zeros_like(p) for n, p in params.items()}}
+        if momentum > 0:
+            state["mom"] = {n: torch.zeros_like(p) for n, p in params.items()}
+        return state
+
+    def update(grads, state):
+        names = list(grads)
+        g = [grads[n] for n in names]
+        acc = torch._foreach_add([state["acc"][n] for n in names],
+                                 torch._foreach_mul(g, g))
+        scaled = torch._foreach_mul(torch._foreach_mul(g, -learning_rate),
+                                    torch._foreach_rsqrt(torch._foreach_add(acc, eps)))
+        new = {"acc": dict(zip(names, acc))}
+        if momentum > 0:
+            scaled = torch._foreach_add(
+                torch._foreach_mul([state["mom"][n] for n in names], momentum), scaled)
+            new["mom"] = dict(zip(names, scaled))
+        return dict(zip(names, scaled)), new
+
+    return Optimizer(init, update)
+
+
 OPTIMIZERS = {"sgd": sgd, "adam": adam, "rmsprop": rmsprop, "adagrad": adagrad}
 
 
@@ -139,9 +170,10 @@ def apply_updates(params, updates):
 
 def step(params, opt, state, loss):
     """One step of ``opt`` on ``loss``: its gradients with respect to every
-    tensor of ``params`` (a dict), the optimizer's update, applied in place.
-    Returns the new state."""
-    grads = torch.autograd.grad(loss, list(params.values()))
+    tensor of ``params`` (a dict; a tensor the loss does not reach gets
+    zeros, as ``jax.grad`` gives it), the optimizer's update, applied in
+    place. Returns the new state."""
+    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
     updates, state = opt.update(dict(zip(params, grads)), state)
     apply_updates(params, updates)
     return state

@@ -19,6 +19,7 @@ from cornac_tpu_torch.models import COE, EASE, IBPR, NMF, PMF, WMF, ItemKNN, Onl
 from cornac_tpu_torch.models import GMF, MLP, NGCF, BiVAECF, LightGCN, NeuMF, RecVAE, VAECF
 from cornac_tpu_torch.models import FM, HPF, SANSA, SKMeans
 from cornac_tpu_torch.models import C2PF, SBPR, VEBPR
+from cornac_tpu_torch.models import FPMC, GCMC, GRU4Rec, SASRec
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -852,3 +853,121 @@ def test_modality_model_steps_never_sync_with_the_host(card):
     assert int(skipped) >= 0 and int(vskipped) >= 0
     for t in (U, V, Bi, *out.values()):
         assert torch.isfinite(t).all()
+
+
+def _sessions_split():
+    """Small seeded next-item split: block-structured sessions (the
+    generator of ``tools/seq_bench_data.py``) under NextItemEvaluation."""
+    from cornac_tpu_torch.eval_methods import NextItemEvaluation
+
+    rng = np.random.RandomState(7)
+    rows, t = [], 0
+    for s in range(300):
+        u, block, x = rng.randint(60), rng.randint(10) * 20, rng.randint(20)
+        for _ in range(rng.randint(3, 10)):
+            rows.append((f"u{u}", str(s), f"i{block + x}", t))
+            t += 1
+            x = (x + 1) % 20 if rng.rand() < 0.8 else rng.randint(20)
+    train = [r for r in rows if int(r[1]) < 250]
+    test = [r for r in rows if int(r[1]) >= 250]
+    return NextItemEvaluation.from_splits(train_data=train, test_data=test, fmt="USIT",
+                                          exclude_unknowns=True, seed=1)
+
+
+def _param_bits(model):
+    params = model.params
+    items = params.items() if isinstance(params, dict) else params.state_dict().items()
+    return {k: v.detach().cpu().clone() for k, v in items}
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: SASRec(embedding_dim=16, max_len=10, batch_size=64, n_sample=64, n_epochs=2,
+                        seed=3, **kw),
+    lambda **kw: GRU4Rec(layers=[16], batch_size=64, n_sample=64, n_epochs=2,
+                         dropout_p_hidden=0.2, seed=3, **kw),
+    lambda **kw: FPMC(embedding_dim=16, n_epochs=3, batch_size=128, seed=3, **kw),
+    lambda **kw: FPMC(embedding_dim=16, loss="bpr-max", n_sample=32, n_epochs=2,
+                      batch_size=128, seed=3, **kw),
+])
+def test_sequential_seeded_fits_on_the_card_are_identical(card, make):
+    ev = _sessions_split()
+    before = ACCUMULATE_ROWS.launches
+    a = _param_bits(make().fit(ev.train_set))
+    assert ACCUMULATE_ROWS.launches > before
+    b = _param_bits(make(verbose=True).fit(ev.train_set))
+    assert a.keys() == b.keys()
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_gcmc_seeded_fits_on_the_card_are_identical(card):
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(4)
+    pairs = sorted({(rng.randint(200), rng.randint(300)) for _ in range(4000)})
+    data = [(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs]
+    train = RatioSplit(data=data, test_size=0.2, seed=1).train_set
+    kw = dict(max_iter=8, gcn_agg_units=50, gcn_out_units=16, seed=3)
+    before = ACCUMULATE_ROWS.launches
+    a = GCMC(**kw).fit(train)
+    assert ACCUMULATE_ROWS.launches > before
+    b = GCMC(verbose=True, **kw).fit(train)
+    for key, value in _param_bits(a).items():
+        assert torch.equal(value, _param_bits(b)[key]), key
+    # the fitted encoder on the card against the same parameters on the CPU
+    import copy
+
+    from cornac_tpu_torch.engine.nn import ACTIVATIONS
+    from cornac_tpu_torch.models import gcmc as gcmc_mod
+
+    params = copy.deepcopy(a.params).to("cpu")
+    graph = {k: v.cpu() for k, v in a.graph.items()}
+    ufeat, _ = gcmc_mod._encode(params, graph, ACTIVATIONS[a.activation_func],
+                                len(a.rating_values), a.gcn_agg_accum, 0.0, None)
+    np.testing.assert_allclose(a.ufeat.cpu().numpy(), ufeat.detach().numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_sequential_epochs_never_sync_with_the_host(card):
+    from cornac_tpu_torch.models import fpmc as fpmc_mod
+    from cornac_tpu_torch.models.seq_utils import build_session_examples, neg_sampling_table
+    from cornac_tpu_torch.ops.optim import adagrad_m, adam, step
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    ev = _sessions_split()
+    train = ev.train_set
+    sas = SASRec(embedding_dim=16, max_len=10, n_sample=64, n_epochs=0, seed=3).fit(train)
+    gru = GRU4Rec(layers=[16], n_sample=64, n_epochs=0, dropout_p_hidden=0.2, seed=3).fit(train)
+    fpmc = FPMC(embedding_dim=16, n_epochs=0, seed=3).fit(train)
+    _, inputs, targets, mask = build_session_examples(train, 10)
+    seq, tgt, m = (torch.as_tensor(a, device=card) for a in (inputs, targets, mask))
+    seq, tgt = seq.long(), tgt.long()
+    sas_seq = torch.where(m > 0, seq, train.num_items)
+    cum = neg_sampling_table(train, 0.5, train.num_items, card)
+    cum_total = neg_sampling_table(train, 0.5, gru.total_items, card)
+    n = 500
+    trans = tuple(torch.randint(train.num_items, (n,), device=card) for _ in range(3))
+    users = torch.randint(train.num_users, (n,), device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for model, opt, batch, table in ((sas, adam(0.001, b2=0.98), sas_seq, cum),
+                                         (gru, adagrad_m(0.05, 0.1), seq, cum_total)):
+            params = dict(model.params.named_parameters())
+            state = opt.init(params)
+            gen = epoch_generator(3, 0, card)
+            order = torch.randperm(batch.shape[0], generator=gen, device=card)
+            for b in range(3):
+                idx = order[b * 32:(b + 1) * 32]
+                state = step(params, opt, state,
+                             model.loss_fn(batch[idx], tgt[idx], m[idx], gen, table))
+        pos_idx, neg = fpmc_mod._fpmc_draws(epoch_generator(3, 0, card), n, 512,
+                                            train.num_items, card)
+        loss = fpmc_mod._fpmc_epoch(fpmc.params, users, *trans[:2], pos_idx, neg, n, 0.01,
+                                    0.001, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss)
+    for model in (sas, gru):
+        for p in model.params.parameters():
+            assert torch.isfinite(p).all()

@@ -73,7 +73,10 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "hyperopt", "config", "data.modality", "data.graph", "data.image",
                  "data.sentiment", "data.text", "data.reader", "models.sbpr", "models.c2pf",
                  "models.vebpr", "utils.profiling", "utils.fast_dot", "utils.download",
-                 "datasets.epinions", "datasets.amazon_office", "datasets.movielens"):
+                 "datasets.epinions", "datasets.amazon_office", "datasets.movielens",
+                 "native", "native.build", "models.seq_utils",
+                 "models.spop", "models.fpmc", "models.gru4rec", "models.sasrec",
+                 "models.cvaecf", "models.gcmc", "eval_methods.next_item_evaluation"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 
@@ -99,7 +102,8 @@ print(json.dumps(sorted(m for m in sys.modules
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/card_measure.py",
-                                    "tools/quality_bands.py", "tools/cuda_on_silicon.py",
+                                    "tools/quality_bands.py", "tools/seq_bench_data.py",
+                                    "tools/cuda_on_silicon.py",
                                     "tools/profiler_loss_probe.py", "tools/wrapper_bench.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts that run on the card load as modules (tools/ on the

@@ -68,6 +68,26 @@ def test_host_context_matches_jax(device_path, monkeypatch):
         np.testing.assert_allclose(mp.batch_compute(ctx_p), mj.batch_compute(ctx_j), atol=1e-12)
 
 
+def test_device_context_without_ties(monkeypatch):
+    """A context built for metrics that read no tie counts ranks on the
+    device in one call without them: the same values, and a read of the
+    tie counts raises."""
+    scores, pos, cand = _batch(seed=4)
+    masked = np.where(cand, scores.astype(np.float64), -np.inf)
+    monkeypatch.setattr(pr, "_DEVICE_MIN_CELLS", 0)
+    ctx_p = pr.RankingContext(masked, pos, cand, ties=False)
+    ctx_j = jr.RankingContext(masked, pos, cand)
+    checked = 0
+    for mp, mj in zip(_metrics(pr), _metrics(jr)):
+        if mp.uses_ties:
+            with pytest.raises(RuntimeError, match="ties=False"):
+                mp.batch_compute(ctx_p)
+            continue
+        np.testing.assert_allclose(mp.batch_compute(ctx_p), mj.batch_compute(ctx_j), atol=1e-12)
+        checked += 1
+    assert checked >= 3 and ctx_p._tie_counts is None
+
+
 def test_per_user_compute_matches_jax():
     rng = np.random.RandomState(3)
     items = np.arange(50)

@@ -25,7 +25,18 @@ modality are fitted on ``tests/golden_models.py``'s block data instead
 (``golden_split``), at its builders' settings, and ranked by its train AUC
 (in-block discrimination, ``golden_models.train_auc``): ``SBPR`` (with the
 user graph), ``VEBPR`` (purchases and views), and ``C2PF``, ``TC2PF`` and
-``RC2PF`` (with the item graph; deterministic). ``--package torch`` fits the port instead, on the CPU,
+``RC2PF`` (with the item graph; deterministic). The next-item models
+``SPop`` (deterministic), ``FPMC`` (``examples/fpmc_diginetica.py``'s),
+``GRU4Rec`` and ``SASRec`` (``benchmarks/head_to_head_seq.py``'s
+``GRU_KW``/``SAS_KW``) are fitted on ``seq_bench_data.gen_sessions``'
+sessions under ``NextItemEvaluation.from_splits(mode="next")`` and banded
+on MRR, HitRatio@20 and NDCG@20; ``CVAECF``
+(``examples/cvaecf_filmtrust.py``'s, with ``seq_bench_data.seeded_trust``
+as its user graph, ``RatioSplit(0.2, 3.0)``) on NDCG@50 and Recall@50, and
+``GCMC`` (``examples/gcmc_example.py``'s, ``RatioSplit(0.2)``) on RMSE,
+both on ``make_ml100k_like(7)``; their bands come from ten seeds, 123-132
+(five seeds misjudged GRU4Rec's MRR spread by a factor of two: 0.00054 over
+123-127, 0.00097 over 128-132). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
 every float32 matrix product of the JAX package to bfloat16 and sums in
 float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
@@ -113,6 +124,72 @@ GOLDEN_CONFIGS = {
 }
 
 
+# name -> (class name, constructor arguments without the seed, seeded)
+SEQ_CONFIGS = {
+    "SPop": ("SPop", {}, None),
+    "FPMC": ("FPMC", dict(embedding_dim=32, n_epochs=10, learning_rate=0.01, batch_size=1024),
+             True),
+    "GRU4Rec": ("GRU4Rec", dict(layers=[64], loss="cross-entropy", batch_size=64,
+                                learning_rate=0.05, n_epochs=5, n_sample=128), True),
+    "SASRec": ("SASRec", dict(embedding_dim=64, loss="ce", batch_size=64, learning_rate=0.001,
+                              n_epochs=5, max_len=20, num_blocks=2, num_heads=1, n_sample=128),
+               True),
+}
+SEQ_METRICS = ("MRR", "HitRatio@20", "NDCG@20")
+
+# name -> (class name, constructor arguments without the seed, metrics)
+AUX_CONFIGS = {
+    "CVAECF": ("CVAECF", dict(z_dim=20, h_dim=20, autoencoder_structure=[40],
+                              learning_rate=0.001, n_epochs=70), ("NDCG@50", "Recall@50")),
+    "GCMC": ("GCMC", dict(max_iter=1000, learning_rate=0.01, train_early_stopping_patience=100),
+             ("RMSE",)),
+}
+
+
+def seq_eval(eval_methods, metrics, seed=123):
+    """The next-item cell: ``gen_sessions``' split under
+    ``NextItemEvaluation`` (mode 'next', unknown items excluded), and its
+    three metrics."""
+    from seq_bench_data import gen_sessions, session_split
+
+    train, test = session_split(gen_sessions())
+    ev = eval_methods.NextItemEvaluation.from_splits(
+        train_data=train, test_data=test, fmt="USIT", exclude_unknowns=True, seed=seed,
+        mode="next")
+    return ev, [metrics.MRR(), metrics.HitRatio(k=20), metrics.NDCG(k=20)]
+
+
+def aux_split(name, data, eval_methods, triples):
+    """CVAECF's split (with the seeded user graph) or GCMC's, of
+    ``triples``."""
+    if name == "CVAECF":
+        from seq_bench_data import seeded_trust
+
+        return eval_methods.RatioSplit(
+            data=triples, test_size=0.2, rating_threshold=3.0, exclude_unknowns=True, seed=123,
+            user_graph=data.GraphModality(data=seeded_trust(triples)))
+    return eval_methods.RatioSplit(data=triples, test_size=0.2, exclude_unknowns=True, seed=123)
+
+
+def aux_metrics(name, metrics):
+    if name == "CVAECF":
+        return [metrics.NDCG(k=50), metrics.Recall(k=50)]
+    return [metrics.RMSE()]
+
+
+def band_summary(runs, names):
+    """{metric: {"mean", "spread", "band"}} over the runs (a single run:
+    the value +/- DETERMINISTIC_TOL)."""
+    out = {}
+    for name in names:
+        values = np.asarray([run[name] for run in runs])
+        mean = float(values.mean())
+        spread = float(values.std(ddof=1)) if len(values) > 1 else None
+        half = 3 * spread if spread is not None else DETERMINISTIC_TOL
+        out[name] = {"mean": mean, "spread": spread, "band": [mean - half, mean + half]}
+    return out
+
+
 def golden_split(kind, data, eval_methods):
     """``tests/golden_models.py``'s split ``kind`` ("user_graph",
     "item_graph" or "purchase_view") built with a package's ``data`` and
@@ -145,7 +222,10 @@ def golden_auc(model, train_set):
 def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
-    cls, kwargs, seeded = (CONFIGS[name] if name in CONFIGS else GOLDEN_CONFIGS[name])[:3]
+    table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, AUX_CONFIGS) if name in t)
+    cls, kwargs, seeded = table[name][:3]
+    if table is AUX_CONFIGS:
+        seeded = True
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -153,15 +233,22 @@ def make_model(models, name, seed):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS),
+    parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
+                        + sorted(SEQ_CONFIGS) + sorted(AUX_CONFIGS),
                         default="BPR")
-    parser.add_argument("--seeds", type=int, nargs="+", default=[123, 124, 125, 126, 127])
+    parser.add_argument("--seeds", type=int, nargs="+", default=None,
+                        help="default: 123-127; 123-132 for the next-item models, CVAECF and "
+                             "GCMC")
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
     parser.add_argument("--bf16-products", action="store_true",
                         help="JAX package only: every float32 matrix product in one bf16 pass")
     args = parser.parse_args()
     if args.bf16_products and args.package != "jax":
         parser.error("--bf16-products applies to the JAX package")
+
+    if args.seeds is None:
+        wide = args.model in SEQ_CONFIGS or args.model in AUX_CONFIGS
+        args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
 
@@ -171,7 +258,7 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         if args.bf16_products:
             one_bf16_pass()
-        from cornac_tpu import data, eval_methods, models
+        from cornac_tpu import data, eval_methods, metrics, models
         from cornac_tpu.eval_methods import RatioSplit
         from cornac_tpu.eval_methods.base_method import ranking_eval, rating_eval
         from cornac_tpu.metrics import AUC, MAE, NDCG, RMSE, Recall
@@ -179,7 +266,7 @@ def main():
         import cornac_tpu_torch
 
         cornac_tpu_torch.set_default_device("cpu")
-        from cornac_tpu_torch import data, eval_methods, models
+        from cornac_tpu_torch import data, eval_methods, metrics, models
         from cornac_tpu_torch.eval_methods import RatioSplit
         from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
         from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
@@ -201,6 +288,31 @@ def main():
         half = 3 * spread if spread is not None else DETERMINISTIC_TOL
         summary.update(seeds=seeds, AUC={"mean": mean, "spread": spread,
                                          "band": [mean - half, mean + half]})
+        print(json.dumps(summary))
+        return
+
+    if args.model in SEQ_CONFIGS:
+        ev, seq_metrics = seq_eval(eval_methods, metrics)
+        seeds = args.seeds if SEQ_CONFIGS[args.model][2] else args.seeds[:1]
+        runs = []
+        for seed in seeds:
+            result = ev.evaluate(make_model(models, args.model, seed), seq_metrics,
+                                 user_based=False)[0]
+            runs.append({name: float(result.metric_avg_results[name]) for name in SEQ_METRICS})
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=seeds, **band_summary(runs, SEQ_METRICS))
+        print(json.dumps(summary))
+        return
+    if args.model in AUX_CONFIGS:
+        names = AUX_CONFIGS[args.model][2]
+        split = aux_split(args.model, data, eval_methods, bench.make_ml100k_like())
+        runs = []
+        for seed in args.seeds:
+            result = split.evaluate(make_model(models, args.model, seed),
+                                    aux_metrics(args.model, metrics), user_based=False)[0]
+            runs.append({name: float(result.metric_avg_results[name]) for name in names})
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=args.seeds, **band_summary(runs, names))
         print(json.dumps(summary))
         return
 

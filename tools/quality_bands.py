@@ -80,3 +80,37 @@ def band(model, metric):
     mean, spread = BANDS[model][("AUC", "NDCG@10", "RMSE").index(metric)]
     half = DETERMINISTIC_TOL if spread is None else 3 * spread
     return mean - half, mean + half, mean, spread
+
+
+# The next-item models on seq_bench_data.gen_sessions' sessions
+# (NextItemEvaluation.from_splits, mode 'next': MRR, HitRatio@20, NDCG@20),
+# CVAECF (NDCG@50, Recall@50) and GCMC (RMSE) on make_ml100k_like(7):
+# (mean, spread) of each metric from ``tools/bpr_quality_band.py --model
+# NAME`` (JAX package, CPU, ten seeds, 123-132: five misjudged GRU4Rec's MRR
+# spread by a factor of two; SPop is deterministic). A card's fit draws
+# another stream than the CPU's; ``chip_smoke.gru4rec_witness`` holds
+# GRU4Rec's training on the card to the CPU's on the same draws.
+SEQ_BANDS = {
+    "SPop": {"MRR": (0.02066732744202636, None), "HitRatio@20": (0.05619146722164412, None),
+             "NDCG@20": (0.02387006778085176, None)},
+    "FPMC": {"MRR": (0.7009480376300465, 0.008919269755237722),
+            "HitRatio@20": (0.8026014568158167, 0.0013699908191586237),
+            "NDCG@20": (0.7238179053232598, 0.006956791986316601)},
+    "GRU4Rec": {"MRR": (0.8197976343180695, 0.0007442010234545375),
+               "HitRatio@20": (0.8781997918834547, 0.003896978836841064),
+               "NDCG@20": (0.829873179015026, 0.0011844042912346983)},
+    "SASRec": {"MRR": (0.8054126744312953, 0.003729429936119365),
+              "HitRatio@20": (0.874089490114464, 0.0036296305127526823),
+              "NDCG@20": (0.8182169598861948, 0.0027567065240796705)},
+    "CVAECF": {"NDCG@50": (0.5420523512179062, 0.00022777890532817475),
+              "Recall@50": (0.7545760241344626, 9.978442452688747e-05)},
+    "GCMC": {"RMSE": (0.7406408624374798, 0.009185807801493662)},
+}
+
+
+def seq_band(model, metric):
+    """(low, high, mean, spread) of ``metric`` for ``model`` in
+    ``SEQ_BANDS``."""
+    mean, spread = SEQ_BANDS[model][metric]
+    half = DETERMINISTIC_TOL if spread is None else 3 * spread
+    return mean - half, mean + half, mean, spread
