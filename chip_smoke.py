@@ -50,7 +50,9 @@ Phases, each of which fails the run when it fails:
    time per launch, at the four BPR shapes, is taken here, early: late in
    the process the profiler loses a short kernel's events);
 6. canary vs plain: ``csrc/canary.cu`` against ``x * 2``, bit for bit, at
-   (128, 128) and at sizes that end inside a block or span 64M elements;
+   (128, 128), at sizes that are no multiple of 4, end inside a block or
+   span 64M elements, and on views that are not 16-byte aligned (the
+   scalar kernel);
 7. on-silicon probe (the canary's path): ``tools/cuda_on_silicon.py``'s
    three steps, canary, fused_topk and cosine_topk, each cold and warm
    under its own timeout and held to its plain version;
@@ -190,17 +192,32 @@ Phases, each of which fails the run when it fails:
    982,961 clicks, 43,097 items, 60,858 test sessions, mean length 5.12,
    each session its own user), after the serving slice:
    ``NextItemEvaluation.from_splits(fmt="USIT", exclude_unknowns=True,
-   mode="last")``; fits of 1 and 3 epochs (the example's 10 cut to 3)
-   give seconds per epoch and training sequences per second beside the
-   bound of a step, the 3-epoch fit's epoch-1 checkpoint equal to the
+   mode="last")``; fits of 1 and 2 epochs (the example's 10 cut to 2, to
+   keep the whole run inside its time limit) give seconds per epoch and
+   training sequences per second beside the bound of a step, the 2-epoch
+   fit's epoch-1 checkpoint equal to the
    1-epoch fit bit for bit; the first step's three accumulate_rows inputs
    held bit for bit to the plain version on the CPU and timed beside
    ``index_add_``; peak device memory; the NextItemEvaluation metrics (MRR,
    HitRatio@20, NDCG@20) and seconds; 64 histories' scores held to a
    float64 scoring on the CPU; on the first 3,200 train sessions at the
    same widths, one epoch profiled (device events a step, busy share) and
-   a fit stopped at epoch 1 and resumed to 3 held to the uninterrupted
+   a fit stopped at epoch 1 and resumed to 2 held to the uninterrupted
    one, bit for bit;
+17. the next-basket family at the Ta Feng counts (``tools/seq_bench_data.py::
+   tafeng_like``: 32,266 customers, 23,812 products, about 817,741 purchase
+   lines; the files are not in the repository), after the serving slice:
+   ``NextBasketEvaluation(test_size=0.2, seed=123)`` with GPTop as GTop, PTop
+   and GPTop (repetition and exploration breakdowns), TIFUKNN, UPCF, Beacon
+   and DNNTSP at the ``examples/*_tafeng.py`` settings, each through
+   ``evaluate`` (Recall@10, Recall@50, HitRatio@10; fit and evaluation
+   seconds, peak device memory); Beacon and DNNTSP fit 1 and 2 epochs (the
+   examples' 15 and 30 cut to 2): seconds per epoch, training sequences/s
+   beside the bound of a step, one epoch over the first 3,200 train users
+   profiled (device events a step, busy share); DNNTSP's first step's three
+   accumulate_rows inputs held bit for bit to the plain version on the CPU;
+   8 histories' scores of each held to a float64 scoring of the same
+   parameters; the family's host loops timed on their own;
 12f. the next-item models, CVAECF and GCMC at the bench shapes, in a
    seventh spawned process: SPop, FPMC, GRU4Rec and SASRec on
    ``tools/seq_bench_data.py``'s sessions (2,000 sessions over 500 items,
@@ -213,7 +230,18 @@ Phases, each of which fails the run when it fails:
    without dropout); the native reader on
    a UIRT file the phase writes (the native path taken, the line-by-line
    parser's tuples);
-17. times: each kernel, its plain version and library yardsticks
+12g. the next-basket family at the bench shape, in an eighth spawned
+   process: GPTop, TIFUKNN and UPCF on ``gen_baskets``' baskets and on
+   ``tests/data/basket.txt`` scored on the card equal to the CPU's, TIFUKNN's
+   neighbour sets identical but for members at a near-tie (rtol 1e-5) of the
+   last distance; Beacon and DNNTSP at the Ta Feng examples'
+   settings, each metric in the band of the JAX package's CPU fits over ten
+   seeds, seeded refits bit for bit with their accumulate_rows inputs held to
+   the plain version; one epoch of each on draws made on the CPU, on the card
+   and on the CPU from the same parameters, every parameter within 1e-5
+   (``basket_witness``; DNNTSP's three biases of zero exact gradient held to
+   Adam's step bound instead);
+18. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
@@ -228,13 +256,16 @@ Phases, each of which fails the run when it fails:
    SBPR's three at Epinions, C2PF's three at Amazon Office, SASRec's two
    embedding gradients and FPMC's item-table scatter at the Diginetica
    widths, GCMC's two edge sums at the bench shape), on the inputs
-   phase 5 checked; the canary at (128, 128) beside ``torch.mul``.
+   phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
+   2``, each call split into its device time (the profiler's, and CUDA
+   events around one call) and its host time, the canary's host time into
+   its steps.
 
-Phases 12, 12b, 12c-12d, 12e and 12f run last, after 17, in seven spawned
-processes at once (the factor family, three groups of the neural family,
-the factor family's rest with the protocols, the modality layer's
-models with the checkpointed Experiment, and the next-item models with
-CVAECF and GCMC): the card
+Phases 12, 12b, 12c-12d, 12e, 12f and 12g run last, after 18, in eight
+spawned processes at once (the factor family, three groups of the neural
+family, the factor family's rest with the protocols, the modality layer's
+models with the checkpointed Experiment, the next-item models with CVAECF
+and GCMC, and the next-basket models): the card
 time-slices between processes and they share the host's cores, so no
 time this process takes is taken beside them, while their own fit seconds
 and busy shares carry each other's load.
@@ -1414,24 +1445,34 @@ def phase_trainer_bench(bench_data):
 
 def phase_canary(gen):
     """The canary kernel against ``x * 2`` on the card, bit for bit, at the
-    probe's (128, 128) and at sizes that end inside a block or span many."""
+    probe's (128, 128), at sizes that are no multiple of 4, end inside a
+    block or span many, and on views that are not 16-byte aligned (the
+    scalar kernel)."""
     import torch
 
     from cornac_tpu_torch.ops.canary import CANARY, scale2, scale2_torch
 
-    shapes = [(128, 128), (1,), (255,), (257,), (3, 1000, 7), (64 * 1024 * 1024 + 3,)]
-    for shape in shapes:
-        x = torch.randn(shape, generator=gen, device=DEV)
+    shapes = [(128, 128), (1,), (3,), (255,), (257,), (1026,), (3, 1000, 7),
+              (64 * 1024 * 1024 + 3,)]
+    cases = [(str(shape), torch.randn(shape, generator=gen, device=DEV)) for shape in shapes]
+    base = torch.randn(4 * 4099, generator=gen, device=DEV)
+    cases += [(f"view at offset {off} of {n}", base[off:off + n])
+              for off, n in ((1, 16384), (2, 1027), (3, 5), (4, 4095))]
+    cases.append(("rows 1-127 of (128, 129)",
+                  torch.randn(128, 129, generator=gen, device=DEV)[1:]))
+    unaligned = 0
+    for what, x in cases:
+        unaligned += x.data_ptr() % 16 != 0
         before = CANARY.launches
         y = scale2(x, force="kernel")
         torch.cuda.synchronize()
         if CANARY.launches != before + 1:
-            raise AssertionError(f"canary {shape}: the kernel was not launched")
+            raise AssertionError(f"canary {what}: the kernel was not launched")
         if not torch.equal(y, scale2_torch(x)):
-            raise AssertionError(f"canary {shape}: differs from x * 2")
-        del x, y
-    log(f"canary vs plain: ok, {len(shapes)} shapes up to {shapes[-1][0]:,} elements, "
-        f"bit for bit x * 2")
+            raise AssertionError(f"canary {what}: differs from x * 2")
+    del cases, base
+    log(f"canary vs plain: ok, {len(shapes) + 5} inputs up to {shapes[-1][0]:,} elements, "
+        f"{unaligned} of them not 16-byte aligned (the scalar kernel), bit for bit x * 2")
     return 0.0
 
 
@@ -1474,10 +1515,53 @@ def phase_probe():
     return launches, record
 
 
+def host_us(fn, reps):
+    """Host microseconds a call of ``fn`` takes to return, over ``reps``
+    calls in a row (no sync inside)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = 1e6 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def device_us(fn, name, reps=100):
+    """(the profiler's mean device time of the kernels whose name holds
+    ``name``, over ``reps`` calls of ``fn``; the median of CUDA events
+    around one call after a synchronise, over ``reps`` calls), in us. The
+    first is None where the profiler kept no such event."""
+    import torch
+
+    _, _, _, events = profile_call(lambda: [fn() for _ in range(reps)])
+    hits = [e for e in events if name in e.key]
+    prof = (sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
+            if hits else None)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * start.elapsed_time(end))
+    return prof, float(np.median(times))
+
+
 def phase_canary_times():
-    """CUDA-event times of the canary at the probe's (128, 128), its plain
-    version and ``torch.mul``, beside its bound: 64 KiB read and 64 KiB
-    written over 3.35 TB/s (a launch takes far longer)."""
+    """The canary at the probe's (128, 128) beside ``torch.mul`` and ``x *
+    2``: CUDA-event ms over 500 calls in a row (what a caller's loop sees),
+    the bound (64 KiB read and 64 KiB written over 3.35 TB/s), and each
+    call split into its device time (the profiler's kernel time; CUDA
+    events around one call) and its host time (``time.perf_counter`` over
+    500 calls), the canary's host time split into its steps: the checks,
+    ``torch.empty_like``, the device and its stream, the packed ctypes call
+    that returns before the launch (n = 0), and the C side's launch (the
+    full call on a kept output minus that)."""
     import torch
 
     from cornac_tpu_torch.ops.canary import CANARY, scale2_torch
@@ -1488,11 +1572,48 @@ def phase_canary_times():
     ms = time_ms(lambda: CANARY(x), reps)
     library_ms = time_ms(lambda: torch.mul(x, 2), reps)
     bound_ms = 1e3 * 2 * 4.0 * x.numel() / PEAK_BYTES
+
+    calls = {"canary": lambda: CANARY(x), "torch.mul": lambda: torch.mul(x, 2),
+             "x * 2": lambda: x * 2}
+    # every host time before the profiles of the device times
+    split = {what: dict(host_us=host_us(fn, reps)) for what, fn in calls.items()}
+    out = torch.empty_like(x)
+    index = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    call = CANARY._call
+    steps = {
+        "checks": lambda: (isinstance(x, torch.Tensor) and x.is_cuda
+                           and x.dtype == torch.float32 and x.is_contiguous()),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "device and stream": lambda: torch._C._cuda_getCurrentRawStream(x.get_device()),
+        "packed ctypes call, no launch": lambda: call(index, x.data_ptr(), out.data_ptr(), 0,
+                                                      stream),
+        "packed ctypes call with the launch": lambda: call(index, x.data_ptr(), out.data_ptr(),
+                                                           x.numel(), stream),
+    }
+    step_us = {what: host_us(fn, reps) for what, fn in steps.items()}
+    step_us["the launch (C side)"] = (step_us.pop("packed ctypes call with the launch")
+                                      - step_us["packed ctypes call, no launch"])
+    for what, fn in calls.items():
+        prof, event = device_us(fn, "scale2" if what == "canary" else "elementwise")
+        split[what].update(device_prof_us=prof, device_event_us=event)
+    if not torch.equal(out, x * 2):
+        raise AssertionError("canary: the timed launches left a wrong output")
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.3f} us"
+
     log(f"  times canary (128, 128): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
-        f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms (bytes), {100 * bound_ms / ms:.3f}% of "
-        f"bound: launch-bound")
+        f"{library_ms:.4f} ms (CUDA events over {reps} calls in a row), bound {bound_ms:.6f} ms "
+        f"(bytes), {100 * bound_ms / ms:.3f}% of bound")
+    for what, row in split.items():
+        log(f"  split {what}: host {row['host_us']:.3f} us a call (perf_counter over {reps}), "
+            f"device {fmt(row['device_prof_us'])} (profiler) / {row['device_event_us']:.3f} us "
+            f"(events around one call)")
+    log("  canary's host steps: " + ", ".join(f"{k} {v:.3f} us" for k, v in step_us.items())
+        + f"; sum {sum(step_us.values()):.3f} us")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes")
+                bound_by="bytes", split=split, host_steps_us=step_us)
 
 
 def factor_configs():
@@ -3448,7 +3569,9 @@ def phase_modality_bench(bench_data):
 # files.
 SASREC_DIGINETICA = dict(embedding_dim=64, n_layers=2, n_heads=1, max_len=50, batch_size=128,
                          learning_rate=0.001, seed=123)
-SASREC_EPOCHS, SASREC_STOP = 3, 1  # the example's 10 epochs cut to 3
+# the example's 10 epochs cut to 2 (PR 10 fitted 3): the whole run keeps
+# inside its 1,200 s with the next-basket phase beside it
+SASREC_EPOCHS, SASREC_STOP = 2, 1
 SASREC_SUBSET_SESSIONS = 3_200  # the subset's train sessions (about 100 steps an epoch)
 SEQ_BLOCK = 100  # items a block of the transitions holds
 
@@ -3510,20 +3633,20 @@ def sasrec_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
 def phase_sasrec_diginetica(seed, work):
     """Phase 16, SASRec at the Diginetica counts (``diginetica_like``): the
     last 60,858 sessions test, through ``NextItemEvaluation.from_splits(
-    fmt="USIT", exclude_unknowns=True, mode="last")``. Fits of 1 and 3
+    fmt="USIT", exclude_unknowns=True, mode="last")``. Fits of 1 and 2
     epochs over every train session (both checkpointed every epoch) give
-    seconds per epoch and training sequences per second over 2 steady
-    epochs beside the bound of a step, and the 3-epoch fit's epoch-1
+    seconds per epoch and training sequences per second over their steady
+    difference beside the bound of a step, and the 2-epoch fit's epoch-1
     checkpoint must equal the 1-epoch fit bit for bit (a second seeded
     fit); the first step's three accumulate_rows inputs are held bit for
     bit to the plain version on the CPU and timed beside ``index_add_``;
-    peak device memory of the 3-epoch fit; the NextItemEvaluation metrics
+    peak device memory of the 2-epoch fit; the NextItemEvaluation metrics
     (MRR, HitRatio@20, NDCG@20) over the test sessions and their seconds;
     64 histories scored on the card held to a float64 scoring of the same
     parameters on the CPU. On the first 3,200 train sessions at the same
     widths (the item table of all 43,097 items, about 100 steps an epoch):
     one epoch profiled (device events a step, busy share), and a fit
-    stopped at epoch 1 and resumed to 3 held bit for bit to the
+    stopped at epoch 1 and resumed to 2 held bit for bit to the
     uninterrupted one. Returns (accumulate_rows launches, the stats)."""
     import shutil
 
@@ -3574,7 +3697,7 @@ def phase_sasrec_diginetica(seed, work):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     model = clock(f"SASRec.fit, {SASREC_EPOCHS} epochs",
-                  lambda: fit(SASREC_EPOCHS, train, "three"))
+                  lambda: fit(SASREC_EPOCHS, train, "longer"))
     peak = torch.cuda.max_memory_allocated() - held
     metrics = [MRR(), HitRatio(k=20), NDCG(k=20)]
     result = clock("NextItemEvaluation over the test sessions", lambda: ev.eval(
@@ -3585,7 +3708,7 @@ def phase_sasrec_diginetica(seed, work):
         raise AssertionError("SASRec did not launch accumulate_rows")
 
     # ---- check and measure ----
-    at_one = CheckpointManager(ck_dir / "three").restore(SASREC_STOP)
+    at_one = CheckpointManager(ck_dir / "longer").restore(SASREC_STOP)
     for name, p in one.params.named_parameters():
         if not torch.equal(p.cpu(), at_one[f"resident/{name}"]):
             raise AssertionError(f"SASRec at Diginetica: two seeded fits differ at epoch "
@@ -3855,6 +3978,474 @@ def phase_seq_bench(bench_data):
     return launches, fit_s, acc_err
 
 
+# ---------------------------------------------------------------------- #
+# the next-basket family (phases 17 and 12g)
+# ---------------------------------------------------------------------- #
+BASKET_METRICS = ("Recall@10", "Recall@50", "HitRatio@10")
+# the Ta Feng examples' settings (examples/*_tafeng.py)
+TAFENG_MODELS = {
+    "GTop": ("GPTop", dict(use_personalized_popularity=False)),
+    "PTop": ("GPTop", dict(use_global_popularity=False)),
+    "GPTop": ("GPTop", {}),
+    "TIFUKNN": ("TIFUKNN", dict(n_neighbors=300, within_decay_rate=0.9, group_decay_rate=0.7,
+                                alpha=0.7, n_groups=7)),
+    "UPCF": ("UPCF", dict(recency=1, locality=1, asymmetry=0.25)),
+    "Beacon": ("Beacon", dict(emb_dim=2, rnn_unit=4, alpha=0.5, rnn_cell_type="LSTM",
+                              batch_size=32, lr=0.001, seed=123)),
+    "DNNTSP": ("DNNTSP", dict(emb_dim=32, loss_type="bpr", lr=0.001, batch_size=64, seed=123)),
+}
+BASKET_EPOCHS, BASKET_STOP = 2, 1  # the examples' 15 (Beacon) and 30 (DNNTSP) cut to 2
+BASKET_SUBSET_USERS = 3_200  # the profiled epochs' train users
+# the host loops of the family, timed on their own during the fits
+BASKET_HOST_LOOPS = (("Beacon", "_build_correlation_matrix"), ("DNNTSP", "_pack"),
+                     ("TIFUKNN", "_compute_user_vector"), ("UPCF", "_user_wise_popularity"))
+
+
+@contextlib.contextmanager
+def timed_methods(methods, seconds):
+    """While open, each (class name, method) of the port's models adds its
+    host seconds to ``seconds[(class name, method)]``."""
+    from cornac_tpu_torch import models
+
+    saved = []
+    for cls_name, name in methods:
+        cls = getattr(models, cls_name)
+        real = getattr(cls, name)
+
+        def timed(*args, _real=real, _key=(cls_name, name), **kwargs):
+            t = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                seconds[_key] = seconds.get(_key, 0.0) + time.perf_counter() - t
+
+        saved.append((cls, name, real))
+        setattr(cls, name, timed)
+    try:
+        yield seconds
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+
+
+def beacon_step_bound(B, T, n, E, units):
+    """(FLOPs, bytes) of one Beacon training step as the port computes it:
+    the multi-hot baskets times A (2 B T n^2), the encoder's dense layer
+    forward and its weight gradient (4 B T n E), the head (2 B units n,
+    three times) and the correlation term probs @ A forward and its input
+    gradient (4 B n^2); the bytes are A read once, RMSProp's update of the
+    parameters (5 x 4 bytes a parameter: parameter, gradient and moment
+    read, parameter and moment written) and the batch's targets."""
+    flops = 2.0 * B * T * n * n + 4.0 * B * n * n + 4.0 * B * T * n * E + 6.0 * B * units * n
+    n_params = n * (E + units + 1) + E + 1 + 4 * units * (E + units + 1)
+    return flops, 4.0 * n * n + 5 * 4.0 * n_params + 4.0 * B * n
+
+
+def dnntsp_step_bound(B, T, N, E, n):
+    """(FLOPs, bytes) of one DNNTSP training step as the port computes it,
+    three times the forward: two graph convolutions (2 B T N^2 E + 2 B T N
+    E^2 each), the three attention projections (2 B T N E^2 each), the
+    attention's two (T x T) products (2 B N T^2 E each), the temporal
+    weights (2 B T N E), the gated table (3 B n E), its output layer
+    (2 B n E) and bpr's loss (10 B n); the bytes are Adam's update of the
+    parameters (7 x 4 bytes a parameter), the batch's graph blocks, its
+    targets and its negatives."""
+    fwd = (2 * (2.0 * B * T * N * N * E + 2.0 * B * T * N * E * E) + 3 * 2.0 * B * T * N * E * E
+           + 2 * 2.0 * B * N * T * T * E + 2.0 * B * T * N * E + 5.0 * B * n * E + 10.0 * B * n)
+    n_params = n * (E + 1) + 7 * E * E + 8 * E + 2
+    return 3.0 * fwd, 7 * 4.0 * n_params + 4.0 * B * T * N * N + 12.0 * B * n
+
+
+def basket_subset(train, n_users):
+    """The first ``n_users`` users of a basket train set, over the whole
+    item map (the same widths), as a new BasketDataset."""
+    from cornac_tpu_torch.data import BasketDataset
+
+    users, items, baskets = train.user_ids, train.item_ids, train.basket_ids
+    rows = []
+    for u in list(train.user_basket_data)[:n_users]:
+        for b in train.user_basket_data[u]:
+            for k in train.baskets[b]:
+                rows.append((users[u], baskets[b], items[train.uir_tuple[1][k]],
+                             int(train.timestamps[k])))
+    return BasketDataset.build(rows, fmt="UBIT", global_iid_map=copy.copy(train.iid_map),
+                               seed=123)
+
+
+def phase_basket_tafeng(seed):
+    """Phase 17, the next-basket family at the Ta Feng counts
+    (``tools/seq_bench_data.py::tafeng_like``: 32,266 customers, 23,812
+    products, about 817,741 purchase lines): ``NextBasketEvaluation(
+    test_size=0.2, seed=123)`` with the repetition and exploration
+    breakdowns for GPTop as GTop, PTop and GPTop, then TIFUKNN, UPCF, Beacon
+    and DNNTSP at the examples' settings, each through ``evaluate`` (fit,
+    then the basket ranking_eval; Recall@10, Recall@50, HitRatio@10): fit
+    and evaluation seconds, peak device memory. Beacon and DNNTSP also fit
+    1 epoch (the examples' 15 and 30 cut to 2 and 1): seconds per epoch,
+    training sequences/s and the bound of a step; the first step's three
+    accumulate_rows inputs of DNNTSP's 1-epoch fit held bit for bit to the
+    plain version on the CPU; 8 histories' scores of each held to a float64
+    scoring of the same parameters; one epoch of each over the first 3,200
+    train users at the same widths profiled (device events a step, busy
+    share). The
+    family's host loops are timed on their own. Returns (accumulate_rows
+    launches, the stats)."""
+    import torch
+
+    import cornac_tpu_torch.metrics as pmetrics
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.eval_methods import NextBasketEvaluation
+    from cornac_tpu_torch.models import beacon as beacon_mod, dnntsp as dnntsp_mod
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from seq_bench_data import TAFENG_ITEMS, TAFENG_LINES, TAFENG_USERS, tafeng_like
+
+    clock = Clock()
+    rows = clock("Ta Feng-like baskets (set-up)", lambda: tafeng_like(seed + 17))
+    ev = clock("NextBasketEvaluation (the user split, UBIT)", lambda: NextBasketEvaluation(
+        data=rows, fmt="UBIT", test_size=0.2, seed=123))
+    n_lines = len(rows)
+    del rows
+    train, test = ev.train_set, ev.test_set
+    metrics = [pmetrics.Recall(k=10), pmetrics.Recall(k=50), pmetrics.HitRatio(k=10)]
+
+    def make(name, **extra):
+        cls, kw = TAFENG_MODELS[name]
+        return getattr(models, cls)(name=name, **{**kw, **extra})
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results, peaks, loops, first = {}, {}, {}, []
+    with timed_methods(BASKET_HOST_LOOPS, loops):
+        for name in TAFENG_MODELS:
+            ev.repetition_eval = ev.exploration_eval = name in ("GTop", "PTop", "GPTop")
+            if name in ("Beacon", "DNNTSP"):
+                stop = make(name, n_epochs=BASKET_STOP)
+                if name == "DNNTSP":
+                    with recording_first_calls(first, 3):
+                        clock(f"{name}.fit, {BASKET_STOP} epoch", lambda: stop.fit(train))
+                else:
+                    clock(f"{name}.fit, {BASKET_STOP} epoch", lambda: stop.fit(train))
+                del stop
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            extra = {"n_epochs": BASKET_EPOCHS} if name in ("Beacon", "DNNTSP") else {}
+            model = make(name, **extra)
+            results[name] = (model, clock(f"{name} evaluate", lambda: ev.evaluate(
+                model, metrics, user_based=False)[0]))
+            peaks[name] = torch.cuda.max_memory_allocated() - held
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the next-basket family at Ta Feng")
+    if launches <= 0:
+        raise AssertionError("DNNTSP did not launch accumulate_rows")
+
+    # ---- check and measure ----
+    vals = {}
+    for name, (model, result) in results.items():
+        vals[name] = {k: result.metric_avg_results[k] for k in result.metric_avg_results
+                      if not k.endswith("(s)")}
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals[name].values()):
+            raise AssertionError(f"{name} at Ta Feng: metrics {vals[name]}")
+        if set(BASKET_METRICS) - set(vals[name]):
+            raise AssertionError(f"{name} at Ta Feng: missing metrics in {list(vals[name])}")
+    if len(first) != 3:
+        raise AssertionError(f"DNNTSP's first step recorded {len(first)} accumulate_rows calls")
+    acc_err, acc_rows = hold_and_time_calls("DNNTSP's first step at Ta Feng", first)
+    del first
+
+    # 8 test histories: the float32 scores against a float64 scoring of the
+    # same parameters (on the card: A in float64 is 4.5 GB, and on the host
+    # its products would take most of the phase)
+    hist = [[list(b) for b in baskets[:-1]] for _, _, [baskets] in
+            itertools.islice(test.ubi_iter(batch_size=1), 8)]
+    beacon, dnntsp = results["Beacon"][0], results["DNNTSP"][0]
+    got = beacon.score_baskets_batch(np.zeros(8, int), hist)
+    ids, lengths = (torch.as_tensor(a, device=DEV) for a in beacon._pack(hist))
+    with torch.no_grad():
+        want = torch.sigmoid(beacon_mod.beacon_logits(
+            copy.deepcopy(beacon.params).double(), beacon._A().double(), ids, lengths,
+            beacon.alpha, beacon.rnn_unit, beacon.rnn_cell_type)).cpu().numpy()
+    score_err = {"Beacon": float(np.abs(got - want).max())}
+    got = dnntsp.score_baskets_batch(np.zeros(8, int), hist)
+    packed, _ = dnntsp._scoring_blocks(hist)
+    blocks = [torch.as_tensor(a, device=DEV) for a in packed]
+    blocks[2] = blocks[2].double()
+    with torch.no_grad():
+        want = dnntsp_mod.dnntsp_scores(copy.deepcopy(dnntsp.params).double(),
+                                        *blocks).cpu().numpy()[:8]
+    score_err["DNNTSP"] = float(np.abs(got - want).max())
+    del ids, lengths, blocks
+    torch.cuda.empty_cache()
+    for name, err in score_err.items():
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} at Ta Feng: scores differ from float64 by {err}")
+
+    # steady epochs, the bound of a step, one epoch profiled over a subset
+    sub = clock(f"the first {BASKET_SUBSET_USERS:,} train users (set-up)",
+                lambda: basket_subset(train, BASKET_SUBSET_USERS))
+    T = beacon.max_seq_length
+    n = beacon.total_items
+    stats = {}
+    for name in ("Beacon", "DNNTSP"):
+        model = results[name][0]
+        bsz = model.batch_size
+        n_seq = sum(1 for b in train.user_basket_data.values() if len(b) >= 2)
+        steps = -(-n_seq // bsz)
+        fit_s = results[name][1].metric_avg_results["Train (s)"]
+        epoch_s = (fit_s - clock.seconds[f"{name}.fit, {BASKET_STOP} epoch"]) / (
+            BASKET_EPOCHS - BASKET_STOP)
+        if name == "Beacon":
+            flops, nbytes = beacon_step_bound(bsz, T, n, model.emb_dim, model.rnn_unit)
+        else:
+            flops, nbytes = dnntsp_step_bound(bsz, model._train_T, model._train_N,
+                                              model.emb_dim, n)
+        step_bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        sub_seq = sum(1 for b in sub.user_basket_data.values() if len(b) >= 2)
+        sub_steps = -(-sub_seq // bsz)
+        prof = epoch_profile(lambda e: make(name, n_epochs=e).fit(sub), sub_steps, 1)
+        stats[name] = dict(epoch_s=epoch_s, seq_per_s=n_seq / epoch_s,
+                           step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * step_bound_s,
+                           bound_by=bound_by, steps=steps, n_seq=n_seq, flops=flops,
+                           nbytes=nbytes, sub_steps=sub_steps, **prof)
+        log(f"  {name} over {n_seq:,} train sequences ({steps:,} steps of {bsz}): "
+            f"{epoch_s:.3f} s per epoch (a {BASKET_EPOCHS}-epoch fit minus a {BASKET_STOP}-epoch "
+            f"fit), {n_seq / epoch_s:,.0f} training sequences/s, {1e3 * epoch_s / steps:.3f} ms a "
+            f"step; bound of a step {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = "
+            f"{1e3 * step_bound_s:.4f} ms ({bound_by}), {100 * step_bound_s * steps / epoch_s:.3f}% "
+            f"of it; one epoch over {sub_seq:,} sequences ({sub_steps} steps) profiled: "
+            f"{prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
+            f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events a "
+            f"step; top device ops {prof['top']}")
+    log(f"  Beacon's T (the most baskets of a train user) {T}, X @ A "
+        f"{2.0 * beacon.batch_size * T * n * n / 1e9:.1f} GFLOP a step; DNNTSP's graph blocks "
+        f"T {dnntsp._train_T}, N {dnntsp._train_N}")
+    log(f"  {n_lines:,} purchase lines ({TAFENG_LINES:,} published) of {ev.total_users:,} users "
+        f"({TAFENG_USERS:,}) over {ev.total_items:,} items ({TAFENG_ITEMS:,}); train "
+        f"{train.num_users:,} users, {train.num_baskets:,} baskets; test "
+        f"{len(test.user_basket_data):,} users")
+    for name, (model, result) in results.items():
+        r = result.metric_avg_results
+        log(f"  {name}: fit {r['Train (s)']:.3f} s, evaluation {r['Test (s)']:.3f} s, peak device "
+            f"memory {peaks[name] / 2**30:.3f} GiB; " + ", ".join(
+                f"{k} {v:.6f}" for k, v in vals[name].items()))
+    log("  host loops (host clock, summed over the fits and the evaluations): " + ", ".join(
+        f"{cls}.{meth} {loops.get((cls, meth), 0.0):.3f} s" for cls, meth in BASKET_HOST_LOOPS))
+    log(f"  DNNTSP's first step's three accumulate_rows inputs equal to the plain version on the "
+        f"CPU, bit for bit (max |err| {acc_err:.3e}); 8 histories' scores within "
+        + ", ".join(f"{k} {v:.3e}" for k, v in score_err.items())
+        + f" of float64; accumulate_rows launches {launches}")
+    log(f"the next-basket family at Ta Feng: ok in {sum(clock.seconds.values()):.1f} s")
+    del results, ev, beacon, dnntsp
+    torch.cuda.empty_cache()
+    return launches, dict(stats=stats, metrics=vals, peaks=peaks, T=T, acc=acc_rows,
+                          max_abs_err=acc_err, loops=loops,
+                          seconds=sum(clock.seconds.values()))
+
+
+BASKET_WITNESS_TOL = 1e-5  # max |card - CPU| of a parameter after one epoch
+
+
+def basket_witness(name, train, card=DEV):
+    """One epoch of Beacon's or DNNTSP's bench configuration on ``card``
+    and on the CPU from the same initial parameters and on the same draws,
+    all made on the CPU: the permutation, and every step's dropout mask
+    (Beacon) or negatives (DNNTSP). Returns (steps, max |card - CPU| over
+    the parameters whose gradient is not zero in exact arithmetic, the
+    names of those whose gradient is, their max |value| on either device).
+    DNNTSP's graph-convolution biases come right before a batch
+    normalisation and bpr's differences cancel its output bias: their
+    gradients are float32 rounding, which Adam scales to about lr a step."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.ops.optim import rmsprop, step
+
+    model = make_model(models, name, 123)
+    model.n_epochs = 0
+    model.device = "cpu"
+    model.fit(train)
+    init = copy.deepcopy(model.params)
+    data = model._training_data(train, "cpu")
+    n_rows = data[-1].shape[0] if name == "Beacon" else data[1].shape[0]
+    bsz = min(model.batch_size, n_rows)
+    n_total = n_rows + (-n_rows) % bsz
+    gen = torch.Generator().manual_seed(123)
+    order = torch.randperm(n_total, generator=gen) % n_rows
+    draws = []
+    for b in range(n_total // bsz):
+        if name == "Beacon":
+            extra = model._drop_mask(gen, (bsz, model.max_seq_length, model.emb_dim), "cpu")
+        else:
+            extra = torch.randint(0, model.total_items, (bsz, model.total_items), generator=gen)
+        draws.append((order[b * bsz:(b + 1) * bsz], extra))
+    zero_grad = () if name == "Beacon" else ("gcn_b.0", "gcn_b.1", "fc_b")
+
+    def epoch(dev):
+        model.device = dev
+        model.params = copy.deepcopy(init).to(dev)
+        if name == "Beacon":
+            model._A_dense = None  # rebuilt on ``dev``
+        params = dict(model.params.named_parameters())
+        opt = model._make_optimizer() if name == "DNNTSP" else rmsprop(model.lr)
+        state = opt.init(params)
+        tensors = [[x.to(dev) for x in t] if isinstance(t, list) else t.to(dev) for t in data]
+        for idx, extra in draws:
+            idx, extra = idx.to(dev), None if extra is None else extra.to(dev)
+            if name == "Beacon":
+                ids, lengths, y = tensors
+                loss = model.loss_on(ids[idx], lengths[idx], y[idx], extra)
+            else:
+                blocks, y, cls_w = tensors
+                loss = model.loss_on([a[idx] for a in blocks], y[idx], extra, cls_w)
+            state = step(params, opt, state, loss)
+        return {k: p.detach().cpu() for k, p in params.items()}
+
+    on_card, on_cpu = epoch(card), epoch("cpu")
+    err = max((on_card[k] - on_cpu[k]).abs().max().item() for k in on_cpu if k not in zero_grad)
+    noise = max([max(on_card[k].abs().max().item(), on_cpu[k].abs().max().item())
+                 for k in zero_grad] or [0.0])
+    return len(draws), err, zero_grad, noise
+
+
+def neighbour_sets_match(got, want, queries, X, rtol=1e-5):
+    """Hold TIFUKNN's neighbour lists ``got`` (the card's) to ``want``
+    (the CPU's), row by row, as sets: the order within a list may differ
+    where float32 distances nearly tie, and so may a member, but only one
+    whose float64 distance lies within ``rtol`` of the list's last. Returns
+    the number of such swapped members."""
+    swapped = 0
+    for q, g, w in zip(queries, got, want):
+        extra = np.setdiff1d(g, w)
+        if not extra.size:
+            continue
+        d2 = ((X.astype(np.float64) - q.astype(np.float64)) ** 2).sum(1)
+        edge = d2[w].max()
+        near = np.abs(d2[np.concatenate([extra, np.setdiff1d(w, g)])] - edge) <= rtol * edge
+        if not near.all():
+            raise AssertionError("TIFUKNN: the card's neighbour sets differ from the CPU's "
+                                 "beyond near-ties")
+        swapped += extra.size
+    return swapped
+
+
+def phase_basket_bench(bench_data):
+    """Process 12g, spawned: the next-basket family at the bench shape
+    (``seq_bench_data.gen_baskets``: 300 users, 120 items, seed 7, under
+    ``NextBasketEvaluation(test_size=0.2, seed=123)``) and on
+    ``tests/data/basket.txt``: GPTop, TIFUKNN and UPCF scored on the card
+    equal to the port's CPU scores (rtol 1e-5 / atol 1e-6) with TIFUKNN's
+    neighbour sets identical (``neighbour_sets_match``); Beacon and DNNTSP
+    at the Ta Feng examples'
+    settings, each metric in the band of the JAX package's CPU fits over ten
+    seeds (``tools/quality_bands.py::BASKET_BANDS``); a second seeded fit of
+    each bit for bit, whose accumulate_rows inputs are held to the plain
+    version on the CPU; one epoch of each on the CPU's draws, on the card
+    within ``BASKET_WITNESS_TOL`` of the CPU's (``basket_witness``). Returns
+    (accumulate_rows launches, fit seconds, max |err|)."""
+    import io
+
+    import torch
+
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import BASKET_CONFIGS, BASKET_METRICS as METRICS, basket_eval, make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import Reader
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from quality_bands import basket_band
+
+    clock = Clock()
+    ev, metrics = clock("NextBasketEvaluation (gen_baskets)", lambda: basket_eval(peval, pmetrics))
+    txt = clock("NextBasketEvaluation (tests/data/basket.txt)", lambda: peval.NextBasketEvaluation(
+        data=Reader().read(str(ROOT / "tests" / "data" / "basket.txt"), fmt="UBIT"),
+        test_size=0.25, fmt="UBIT", seed=123))
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results = {name: clock(f"{name} evaluate", lambda: ev.evaluate(
+        make_model(models, name, 123), metrics, user_based=False)[0]) for name in BASKET_CONFIGS}
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the next-basket family at the bench shape")
+    if launches <= 0:
+        raise AssertionError("process 12g did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    outside, fit_s = [], {}
+    for name, result in results.items():
+        fit_s[name] = result.metric_avg_results["Train (s)"]
+        for metric in METRICS:
+            value = result.metric_avg_results[metric]
+            lo, hi, _, _ = basket_band(name, metric)
+            inside = lo <= value <= hi
+            log(f"  {name}: {metric} {value:.6f}, band [{lo:.6f}, {hi:.6f}] (10 JAX seeds) "
+                f"{'inside' if inside else 'OUTSIDE'}")
+            if not inside:
+                outside.append(f"{name} {metric}")
+
+    # the deterministic models: the card's scores are the CPU's
+    checked, swapped = 0, 0
+    for split in (ev, txt):
+        users, hist = [], []
+        for [u], _, [baskets] in split.test_set.ubi_iter(1):
+            users.append(int(u))
+            hist.append([list(b) for b in baskets[:-1]])
+        for name in ("GPTop", "TIFUKNN", "UPCF"):
+            cls, kw = TAFENG_MODELS[name]
+            if name == "TIFUKNN" and split is txt:
+                kw = dict(kw, n_neighbors=3)
+            extra = {} if name == "GPTop" else {"device": "cpu"}
+            card = getattr(models, cls)(**kw).fit(split.train_set)
+            cpu = getattr(models, cls)(**kw, **extra).fit(split.train_set)
+            got, want = card.score_baskets_batch(users, hist), cpu.score_baskets_batch(users, hist)
+            if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{name}: the card's scores differ from the CPU's by "
+                                     f"{np.abs(got - want).max():.3e}")
+            if name == "TIFUKNN":
+                q = np.stack([cpu._compute_user_vector(h) for h in hist])
+                swapped += neighbour_sets_match(card.neighbors(q).cpu().numpy(),
+                                                cpu.neighbors(q).numpy(), q, cpu.user_vectors)
+            checked += 1
+
+    acc_err, recorded = 0.0, 0
+    for name in BASKET_CONFIGS:
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            a = make_model(models, name, 123).fit(ev.train_set)
+            b = make_model(models, name, 123)
+            b.verbose = True
+            b.fit(ev.train_set)
+        for (key, x), y in zip(a.params.named_parameters(), b.params.parameters()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: two seeded fits differ in {key}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    for name in BASKET_CONFIGS:
+        steps, err, zero_grad, noise = clock(f"{name}'s epoch on the CPU's draws",
+                                             lambda: basket_witness(name, ev.train_set, DEV))
+        log(f"  {name}, one epoch ({steps} steps) on the CPU's draws, on the card and on the CPU: "
+            f"max |card - CPU| {err:.3e} over the parameters (held to {BASKET_WITNESS_TOL:g})"
+            + (f"; {', '.join(zero_grad)} (zero gradient in exact arithmetic) within "
+               f"{noise:.3e} of 0 on either" if zero_grad else ""))
+        if not err <= BASKET_WITNESS_TOL:
+            raise AssertionError(f"{name}'s epoch on the card differs from the CPU's on the same "
+                                 f"draws by {err:.3e}")
+        # an Adam or RMSProp step moves a parameter by at most about
+        # lr x (1 - b1) / sqrt(1 - b2), or lr / sqrt(1 - decay): 3.16 lr
+        if zero_grad and not noise <= 3.2 * steps * make_model(models, name, 123).lr:
+            raise AssertionError(f"{name}: {zero_grad} moved by {noise:.3e}")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+    log(f"  GPTop, TIFUKNN and UPCF on the card equal to the CPU's scores on {checked} fits "
+        f"(gen_baskets and tests/data/basket.txt), TIFUKNN's neighbour sets identical (members "
+        f"swapped at a near-tie of the last distance: {swapped}); Beacon "
+        f"and DNNTSP: two seeded fits identical, bit for bit; accumulate_rows on their own inputs "
+        f"({recorded} shapes) equal to the plain version on the CPU, bit for bit (max |err| "
+        f"{acc_err:.3e}); accumulate_rows launches {launches}")
+    log(f"the next-basket family at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
 # the families at the bench shape run in processes of their own, at once,
 # after the timed phases: their eager steps are bound by the host, one core
 # each
@@ -3952,11 +4543,13 @@ def main():
     # process times: the card time-slices between processes and they share
     # the host's cores, so a time taken beside them would carry their load
     # (their own times carry each other's)
-    pool = multiprocessing.get_context("spawn").Pool(4 + len(NEURAL_GROUPS))
+    pool = multiprocessing.get_context("spawn").Pool(5 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
         lap("BPR serving slice")
+        basket_launches, basket = phase_basket_tafeng(args.seed)
+        lap("the next-basket family at Ta Feng")
         sasrec_launches, sasrec = phase_sasrec_diginetica(args.seed, work)
         lap("SASRec at Diginetica")
         knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
@@ -4009,6 +4602,8 @@ def main():
                          pool.apply_async(run_captured, ("phase_modality_bench",))))
         families.append(("the next-item models, CVAECF and GCMC",
                          pool.apply_async(run_captured, ("phase_seq_bench",))))
+        families.append(("the next-basket models",
+                         pool.apply_async(run_captured, ("phase_basket_bench",))))
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -4028,6 +4623,7 @@ def main():
     rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[1 + len(NEURAL_GROUPS)]
     modal_launches, modal_fit, modal_acc_err = done[2 + len(NEURAL_GROUPS)]
     seqb_launches, seqb_fit, seqb_acc_err = done[3 + len(NEURAL_GROUPS)]
+    nbb_launches, nbb_fit, nbb_acc_err = done[4 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -4078,7 +4674,8 @@ def main():
     # |kernel - plain on the CPU| over every check of every path besides
     acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"],
                       hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
-                      c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err)
+                      c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err,
+                      basket["max_abs_err"], nbb_acc_err)
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
                   "LightGCN edge form, ML-10M, into item rows",
@@ -4100,7 +4697,8 @@ def main():
             "replaces": "cornac_tpu/ops/accumulate.py:26",
             "launches": (bench_launches + full_launches + factor_launches + neural_launches
                          + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
-                         + c2pf_launches + modal_launches + sasrec_launches + seqb_launches),
+                         + c2pf_launches + modal_launches + sasrec_launches + seqb_launches
+                         + basket_launches + nbb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -4146,6 +4744,15 @@ def main():
         f"{name} {sec:.3f}" for name, sec in modal_fit.items()))
     log("the next-item models, CVAECF and GCMC at the bench shapes, fit seconds (host clock): "
         + ", ".join(f"{name} {sec:.3f}" for name, sec in seqb_fit.items()))
+    log("the next-basket models at the bench shape, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in nbb_fit.items()))
+    for name, st in basket["stats"].items():
+        log(f"{name} at Ta Feng: {st['epoch_s']:.3f} s per epoch, {st['seq_per_s']:,.0f} "
+            f"training sequences/s, {st['step_ms']:.3f} ms a step against a "
+            f"{st['step_bound_ms']:.4f} ms bound ({st['bound_by']}), busy "
+            f"{100 * st['share']:.2f}%, {st['launches_per_minibatch']:.1f} device events a step, "
+            f"peak {basket['peaks'][name] / 2**30:.3f} GiB; " + ", ".join(
+                f"{k} {basket['metrics'][name][k]:.4f}" for k in BASKET_METRICS))
     log(f"SASRec at Diginetica: {sasrec['epoch_s']:.3f} s per epoch, {sasrec['seq_per_s']:,.0f} "
         f"training sequences/s, {sasrec['step_ms']:.3f} ms a step against a "
         f"{sasrec['step_bound_ms']:.4f} ms bound ({sasrec['bound_by']}), busy "

@@ -14,9 +14,11 @@ from scipy.sparse import csr_matrix
 from .device import resolve_device
 from .engine.nn import Dense, Tree
 from .models.baseline import BaselineOnly
+from .models.beacon import Beacon
 from .models.bpr import BPR, WBPR
 from .models.c2pf import C2PF
 from .models.cvaecf import CVAECF
+from .models.dnntsp import DNNTSP
 from .models.ease import EASE
 from .models.fm import FM
 from .models.fpmc import FPMC
@@ -260,12 +262,20 @@ _PARAM_MODELS = {
                         "use_biases")),
     "CVAECF": (CVAECF, ("z_dim", "h_dim", "autoencoder_structure", "act_fn", "likelihood")),
     "GCMC": (GCMC, ("activation_func", "gcn_agg_accum")),
+    "Beacon": (Beacon, ("emb_dim", "rnn_unit", "alpha", "rnn_cell_type", "nb_hop",
+                        "max_seq_length")),
+    "DNNTSP": (DNNTSP, ("emb_dim", "loss_type")),
 }
+# what a model scores with besides its parameters and options: Beacon's
+# correlation matrix (scipy sparse), DNNTSP's padded graph sizes (the JAX
+# model's ``_train_N`` and ``_train_T``)
+_PARAM_EXTRAS = {"Beacon": ("correlation_matrix",), "DNNTSP": ("train_N", "train_T")}
 
 
 def model_from_params(cls_name, params, meta, device=None, train_set=None):
-    """A fitted port ``FPMC``, ``GRU4Rec``, ``SASRec``, ``CVAECF`` or
-    ``GCMC`` (``cls_name``) from the JAX model's ``params`` pytree as
+    """A fitted port ``FPMC``, ``GRU4Rec``, ``SASRec``, ``CVAECF``,
+    ``GCMC``, ``Beacon`` or ``DNNTSP`` (``cls_name``) from the JAX model's
+    ``params`` pytree as
     nested dicts and lists of numpy arrays (FPMC's four tables ``V_UI``,
     ``V_IU``, ``V_IL``, ``V_LI``; the others as ``params_to_module`` takes
     them) and ``meta`` (the options ``embedding_dim`` (FPMC); ``layers``,
@@ -273,7 +283,10 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     ``embedding_dim``, ``max_len``, ``num_blocks``, ``num_heads``,
     ``use_pos_emb``, ``use_biases`` (SASRec); ``z_dim``, ``h_dim``,
     ``autoencoder_structure``, ``act_fn``, ``likelihood`` (CVAECF);
-    ``activation_func``, ``gcn_agg_accum`` (GCMC); then ``num_users``,
+    ``activation_func``, ``gcn_agg_accum`` (GCMC); ``emb_dim``,
+    ``rnn_unit``, ``alpha``, ``rnn_cell_type``, ``nb_hop``,
+    ``max_seq_length`` and the ``correlation_matrix`` (Beacon); ``emb_dim``,
+    ``loss_type``, ``train_N``, ``train_T`` (DNNTSP); then ``num_users``,
     ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
     ``max_rating``, ``global_mean``, the fitted model's). CVAECF and GCMC
     also need ``train_set``, the port dataset the model was fitted on
@@ -283,7 +296,8 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     if cls_name not in _PARAM_MODELS:
         raise ValueError(f"cls_name must be one of {sorted(_PARAM_MODELS)}, got {cls_name!r}")
     cls, options = _PARAM_MODELS[cls_name]
-    _require(meta, options + _SNAPSHOT)
+    extras = _PARAM_EXTRAS.get(cls_name, ())
+    _require(meta, options + extras + _SNAPSHOT)
     if cls_name in ("CVAECF", "GCMC") and train_set is None:
         raise ValueError(f"{cls_name} needs the train_set it was fitted on")
     model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
@@ -301,6 +315,11 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     if cls_name == "GCMC":
         model.graph = model._build_graph(train_set, dev)
         model._refresh_embeddings()
+    if cls_name == "Beacon":
+        model.correlation_matrix = meta["correlation_matrix"]
+        model._A_dense = None
+    if cls_name == "DNNTSP":
+        model._train_N, model._train_T = int(meta["train_N"]), int(meta["train_T"])
     model.train_set = train_set
     model.val_set = None
     model.is_fitted = True

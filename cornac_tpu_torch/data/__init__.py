@@ -4,9 +4,10 @@ from .image import ImageModality
 from .graph import GraphModality
 from .sentiment import SentimentModality
 from .reader import Reader
-from .dataset import Dataset, PurchaseViewDataset, SequentialDataset
+from .dataset import BasketDataset, Dataset, PurchaseViewDataset, SequentialDataset
 
 __all__ = [
+    "BasketDataset",
     "Dataset",
     "FeatureModality",
     "GraphModality",

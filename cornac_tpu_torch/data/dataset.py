@@ -10,9 +10,9 @@ vectorised lookups (``lookup_ratings``, ``is_observed``) and the batch
 iterators are the JAX package's: they draw from the dataset's numpy ``rng``
 in the same order, so a seed gives byte-identical batches in both packages.
 ``PurchaseViewDataset`` (purchases with an aligned view matrix, for
-VEBPR) and ``SequentialDataset`` (sessions, for the next-item models) are
-the JAX package's too; the basket dataset comes with the next-basket
-models (ROADMAP.md A10).
+VEBPR), ``BasketDataset`` (baskets, for the next-basket models) and
+``SequentialDataset`` (sessions, for the next-item models) are the JAX
+package's too.
 """
 
 import copy
@@ -403,6 +403,161 @@ def _id_map_kwargs(global_uid_map, global_iid_map):
         uid_map=global_uid_map,
         iid_map=global_iid_map,
     )
+
+
+class BasketDataset(Dataset):
+    """Interaction data grouped into baskets (UBI / UBIT / UBITJson input).
+
+    A copy of ``cornac_tpu/data/dataset.py::BasketDataset``: the basket map
+    and its dense indices, ``baskets`` (basket -> row positions in input
+    order), the per-user and chronological views, the basket-size
+    statistics and the batch iterators. ``build`` excludes only unknown
+    items, as the JAX package does, so a basket keeps its index across the
+    splits.
+    """
+
+    def __init__(
+        self, num_users, num_baskets, num_items, uid_map, bid_map, iid_map,
+        uir_tuple, basket_indices=None, timestamps=None, extra_data=None,
+        seed=None,
+    ):
+        super().__init__(
+            num_users, num_items, uid_map, iid_map, uir_tuple,
+            timestamps=timestamps, seed=seed,
+        )
+        self.num_baskets, self.bid_map = num_baskets, bid_map
+        self.basket_indices, self.extra_data = basket_indices, extra_data
+        basket_sizes = np.bincount(basket_indices)
+        basket_sizes = basket_sizes[basket_sizes > 0]
+        self.max_basket_size = int(np.max(basket_sizes))
+        self.min_basket_size = int(np.min(basket_sizes))
+        self.avg_basket_size = float(np.mean(basket_sizes))
+
+    @property
+    def basket_ids(self):
+        """Raw basket IDs ordered by dense index."""
+        return self._cached("basket_ids", lambda: list(self.bid_map.keys()))
+
+    @property
+    def baskets(self):
+        """Dict: basket index -> observation row positions."""
+
+        def build():
+            out = defaultdict(list)
+            for idx, bid in enumerate(self.basket_indices):
+                out[bid].append(idx)
+            return out
+
+        return self._cached("baskets", build)
+
+    @property
+    def user_basket_data(self):
+        """Dict: user index -> list of basket indices."""
+
+        def build():
+            out = defaultdict(list)
+            for bid, ids in self.baskets.items():
+                out[self.uir_tuple[0][ids[0]]].append(bid)
+            return out
+
+        return self._cached("user_basket_data", build)
+
+    @property
+    def chrono_user_basket_data(self):
+        """Dict: user -> ([basket ids], [timestamps]) sorted by time."""
+
+        def build():
+            assert self.timestamps is not None
+            out = defaultdict(lambda: ([], []))
+            for bid, ids in self.baskets.items():
+                u = self.uir_tuple[0][ids[0]]
+                out[u][0].append(bid)
+                out[u][1].append(self.timestamps[ids[0]])
+            for user, (baskets, ts) in out.items():
+                order = np.argsort(ts)
+                out[user] = ([baskets[i] for i in order], [ts[i] for i in order])
+            return out
+
+        return self._cached("chrono_user_basket_data", build)
+
+    @classmethod
+    def build(
+        cls, data, fmt="UBI", global_uid_map=None, global_bid_map=None,
+        global_iid_map=None, seed=None, exclude_unknowns=False,
+    ):
+        """Construct from (user, basket, item[, ts[, json]]) tuples;
+        ``exclude_unknowns`` drops rows of items the item map lacks."""
+        fmt = validate_format(fmt, ["UBI", "UBIT", "UBITJson"])
+
+        global_uid_map = OrderedDict() if global_uid_map is None else global_uid_map
+        global_bid_map = OrderedDict() if global_bid_map is None else global_bid_map
+        global_iid_map = OrderedDict() if global_iid_map is None else global_iid_map
+
+        u_indices, b_indices, i_indices, valid_idx = [], [], [], []
+        for idx, (uid, bid, iid, *_rest) in enumerate(data):
+            if exclude_unknowns and (iid not in global_iid_map):
+                continue
+            u_indices.append(global_uid_map.setdefault(uid, len(global_uid_map)))
+            b_indices.append(global_bid_map.setdefault(bid, len(global_bid_map)))
+            i_indices.append(global_iid_map.setdefault(iid, len(global_iid_map)))
+            valid_idx.append(idx)
+
+        uir_tuple = (
+            np.asarray(u_indices, dtype="int"),
+            np.asarray(i_indices, dtype="int"),
+            np.ones(len(u_indices), dtype="float"),
+        )
+        timestamps = (
+            np.fromiter((int(data[i][3]) for i in valid_idx), dtype="int")
+            if fmt in ("UBIT", "UBITJson")
+            else None
+        )
+        extra_data = [data[i][4] for i in valid_idx] if fmt == "UBITJson" else None
+
+        return cls(
+            num_baskets=len(global_bid_map),
+            bid_map=global_bid_map,
+            **_id_map_kwargs(global_uid_map, global_iid_map),
+            uir_tuple=uir_tuple,
+            basket_indices=np.asarray(b_indices, dtype="int"),
+            timestamps=timestamps,
+            extra_data=extra_data,
+            seed=seed,
+        )
+
+    @classmethod
+    def from_ubi(cls, data, seed=None):
+        return cls.build(data, "UBI", seed=seed)
+
+    @classmethod
+    def from_ubit(cls, data, seed=None):
+        return cls.build(data, "UBIT", seed=seed)
+
+    @classmethod
+    def from_ubitjson(cls, data, seed=None):
+        return cls.build(data, "UBITJson", seed=seed)
+
+    def ub_iter(self, batch_size=1, shuffle=False):
+        """Yield (users, list-of-their-basket-ids) batches."""
+        for batch_users in self.user_iter(batch_size, shuffle):
+            batch_baskets = [self.user_basket_data[uid] for uid in batch_users]
+            yield batch_users, batch_baskets
+
+    def ubi_iter(self, batch_size=1, shuffle=False):
+        """Yield (users, their baskets, per-basket item arrays) batches."""
+        item_indices = self.uir_tuple[1]
+        for batch_users, batch_baskets in self.ub_iter(batch_size, shuffle):
+            batch_basket_items = [
+                [item_indices[self.baskets[bid]] for bid in user_baskets]
+                for user_baskets in batch_baskets
+            ]
+            yield batch_users, batch_baskets, batch_basket_items
+
+    def basket_iter(self, batch_size=1, shuffle=False):
+        """Yield batches of basket indices."""
+        basket_indices = np.fromiter(set(self.baskets.keys()), dtype="int")
+        for batch_ids in self.idx_iter(len(basket_indices), batch_size, shuffle):
+            yield basket_indices[batch_ids]
 
 
 class SequentialDataset(Dataset):

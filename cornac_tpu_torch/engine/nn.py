@@ -9,8 +9,7 @@ order, from the same ``RandomState`` (torch's ``nn.Linear`` default,
 U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for both), so a seeded layer starts
 bit for bit where the JAX layer does. Parameter names follow the JAX
 package's pytrees (``encoder.0.w`` is ``params["encoder"][0]["w"]``), which
-``convert.params_to_module`` relies on. The transformer blocks wait for
-ROADMAP.md A10.
+``convert.params_to_module`` relies on.
 """
 
 import numpy as np

@@ -92,7 +92,7 @@ def _unpack_bits(bits, N):
     return bools.reshape(bits.shape[0], -1)[:, :N] != 0
 
 
-def _fused_metrics(scores, cand_bits, pos_idx, specs):
+def _fused_metrics(scores, cand_bits, pos_idx, specs, dtype=torch.float32):
     """(B, M) float32 metric values for a static tuple of (kind, k) specs:
     the JAX package's ``_fused_metrics_kernel``.
 
@@ -106,7 +106,7 @@ def _fused_metrics(scores, cand_bits, pos_idx, specs):
     P = pos_idx.shape[1]
     dev = scores.device
     cand_mask = _unpack_bits(cand_bits, N)
-    s = torch.where(cand_mask, scores.to(torch.float32), -torch.inf)
+    s = torch.where(cand_mask, scores.to(dtype), -torch.inf)
 
     valid = pos_idx >= 0  # (B, P); padded slots are -1
     safe_idx = pos_idx.clamp(min=0).long()
@@ -213,9 +213,12 @@ def metric_device_specs(metrics):
     return tuple(specs)
 
 
-def batch_eval_device(scores_dev, pos_mask, cand_mask, specs):
+def batch_eval_device(scores_dev, pos_mask, cand_mask, specs, dtype=torch.float32):
     """Run the fused metric program: ``scores_dev`` is a (B, N) tensor
-    (numpy goes to the default device), masks are host bool arrays.
+    (numpy goes to the default device), masks are host bool arrays;
+    ``dtype`` is what the scores are compared in (float32, as the JAX
+    package's fused program; float64 where the JAX package ranks on the
+    host in float64, as its next-basket eval does).
     Returns a (B, M) float64 numpy array, the only device->host copy.
     The JAX package's ``mesh`` branch comes with the multi-device slice."""
     if not isinstance(scores_dev, torch.Tensor):
@@ -241,6 +244,7 @@ def batch_eval_device(scores_dev, pos_mask, cand_mask, specs):
         torch.as_tensor(cand_bits, device=dev),
         torch.as_tensor(pos_idx, device=dev),
         specs,
+        dtype,
     )
     return out.cpu().numpy().astype(np.float64)
 

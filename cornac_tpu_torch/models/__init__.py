@@ -3,16 +3,20 @@ from .recommender import (
     MEASURE_DOT,
     MEASURE_L2,
     ANNMixin,
+    NextBasketRecommender,
     NextItemRecommender,
     Recommender,
     is_ann_supported,
 )
 from .ann import BaseANN, TPUExactANN
 from .baseline import BaselineOnly, GlobalAvg, MostPop
+from .basket import GPTop, TIFUKNN, UPCF
+from .beacon import Beacon
 from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
 from .c2pf import C2PF
 from .cvaecf import CVAECF
+from .dnntsp import DNNTSP
 from .ease import EASE
 from .fpmc import FPMC
 from .gcmc import GCMC
@@ -41,17 +45,20 @@ __all__ = [
     "ANNMixin",
     "BaseANN",
     "BaselineOnly",
+    "Beacon",
     "BiVAECF",
     "BPR",
     "C2PF",
     "COE",
     "CVAECF",
+    "DNNTSP",
     "EASE",
     "FM",
     "FPMC",
     "GCMC",
     "GlobalAvg",
     "GMF",
+    "GPTop",
     "GRU4Rec",
     "HPF",
     "IBPR",
@@ -67,6 +74,7 @@ __all__ = [
     "MostPop",
     "NCFBase",
     "NeuMF",
+    "NextBasketRecommender",
     "NextItemRecommender",
     "NGCF",
     "NMF",
@@ -80,7 +88,9 @@ __all__ = [
     "SKMeans",
     "SPop",
     "SVD",
+    "TIFUKNN",
     "TPUExactANN",
+    "UPCF",
     "UserKNN",
     "VAECF",
     "VEBPR",

@@ -14,8 +14,9 @@ Device tensors live in process-local attributes listed in
 ``ignored_attrs``: they are never pickled and are rebuilt on demand.
 ``NextItemRecommender`` is the base of the session models: ``score`` takes
 a history of items, and ``score_history_batch`` is the hook of the batched
-next-item eval. The next-basket base comes with its models (ROADMAP.md
-A10).
+next-item eval. ``NextBasketRecommender`` is the base of the basket models:
+``score`` takes a history of baskets, and ``score_baskets_batch`` is the
+hook of the batched next-basket eval.
 """
 
 import copy
@@ -538,6 +539,41 @@ class Recommender:
         return False
 
 
+def _score_rows(model, user_indices, histories):
+    """(B, total_items) float64 rows of ``model.score(u, h)`` for each
+    (user, history) pair: ``default_score()`` on a ``ScoreException``, a
+    short row filled with its minimum (eval-time unknown items)."""
+    total = max(model.total_items, model.num_items)
+    out = np.empty((len(user_indices), total), dtype=np.float64)
+    for b, (u, h) in enumerate(zip(user_indices, histories)):
+        try:
+            row = np.asarray(model.score(u, h), dtype=np.float64)
+        except ScoreException:
+            row = np.full(total, model.default_score())
+        if len(row) < total:
+            fill = row.min() if len(row) else model.default_score()
+            row = np.concatenate([row, np.full(total - len(row), fill)])
+        out[b] = row[:total]
+    return out
+
+
+class NextBasketRecommender(Recommender):
+    """Base for next-basket models: ``score`` takes history baskets."""
+
+    def __init__(self, name, trainable=True, verbose=False):
+        super().__init__(name=name, trainable=trainable, verbose=verbose)
+
+    def score(self, user_idx, history_baskets, **kwargs):
+        raise NotImplementedError("this model does not implement score prediction")
+
+    def score_baskets_batch(self, user_indices, histories):
+        """(B, total_items) float64 scores for a batch of (user, history
+        baskets) pairs, the hook the batched next-basket eval calls. The
+        default loops ``score``; the width covers eval-time unknown items
+        (filled with the row's minimum)."""
+        return _score_rows(self, user_indices, histories)
+
+
 class NextItemRecommender(Recommender):
     """Base for next-item models: ``score`` takes history items."""
 
@@ -553,15 +589,4 @@ class NextItemRecommender(Recommender):
         override it with one padded forward on their device; the default
         loops ``score``. The width covers eval-time unknown items (filled
         with the row's minimum) so the eval can slice to its candidates."""
-        total = max(self.total_items, self.num_items)
-        out = np.empty((len(user_indices), total), dtype=np.float64)
-        for b, (u, h) in enumerate(zip(user_indices, histories)):
-            try:
-                row = np.asarray(self.score(u, h), dtype=np.float64)
-            except ScoreException:
-                row = np.full(total, self.default_score())
-            if len(row) < total:
-                fill = row.min() if len(row) else self.default_score()
-                row = np.concatenate([row, np.full(total - len(row), fill)])
-            out[b] = row[:total]
-        return out
+        return _score_rows(self, user_indices, histories)

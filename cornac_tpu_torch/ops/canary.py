@@ -10,41 +10,39 @@ launch on the current stream. For a tensor on the CPU the plain version
 only moves its exponent.
 """
 
-import ctypes
-
 import torch
 
 from ..device import default_device
 from .dispatch import resolve_path
-from .native import CudaLibrary, check_tensor
+from .native import CudaLibrary, PackedCall
 
 
 class CanaryKernel:
     """ctypes binding of ``cornac_scale2``; ``launches`` counts the calls
-    that launch it, and nothing else adds to it."""
+    that launch it, and nothing else adds to it.
+
+    A call does only what the launch needs: three attribute checks, the
+    output, the device and its current stream, and the five arguments in
+    one packed array (``native.PackedCall``)."""
 
     def __init__(self):
         self.library = CudaLibrary("canary")
         self.launches = 0
-        self._fn = None
+        self._call = None
 
     def __call__(self, x):
         """Launch on the current stream. x: contiguous float32 on a CUDA
         device, any shape. Returns a new tensor of x's shape."""
-        if not isinstance(x, torch.Tensor) or not x.is_contiguous():
-            raise ValueError("x must be a contiguous tensor")
-        check_tensor(x.view(-1), "x", 1)
+        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == torch.float32
+                and x.is_contiguous()):
+            raise ValueError("x must be a contiguous float32 CUDA tensor")
         out = torch.empty_like(x)
-        if self._fn is None:
-            fn = self.library.load().cornac_scale2
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+        if self._call is None:
+            self._call = PackedCall(self.library.load().cornac_scale2, 5)
         # the C side launches on this device and restores the caller's
         index = x.get_device()
-        err = self._fn(index, x.data_ptr(), out.data_ptr(), x.numel(),
-                       torch._C._cuda_getCurrentRawStream(index))
+        err = self._call(index, x.data_ptr(), out.data_ptr(), x.numel(),
+                         torch._C._cuda_getCurrentRawStream(index))
         if err:
             self.library.check(err)
         self.launches += 1

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -97,6 +98,32 @@ class CudaLibrary:
         if err != 0:
             msg = self.load().cornac_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} ({msg})")
+
+
+class PackedCall:
+    """A C entry point ``int fn(const int64_t* args)`` called with its
+    ``n_args`` arguments (ints: indices, sizes, pointers' and streams'
+    addresses) packed into one int64 array that is kept and refilled.
+
+    ctypes converts each declared argument on every call; one pointer to a
+    kept array saves most of that at many arguments
+    (``tools/packed_call_bench.py`` times both). Each thread keeps its own
+    array, since ctypes releases the interpreter lock while C runs. Returns
+    ``fn``'s int (a ``cudaError_t``)."""
+
+    def __init__(self, fn, n_args):
+        self._type = ctypes.c_int64 * n_args
+        fn.argtypes = [ctypes.POINTER(self._type)]
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        self._local = threading.local()
+
+    def __call__(self, *values):
+        args = getattr(self._local, "args", None)
+        if args is None:
+            args = self._local.args = self._type()
+        args[:] = values  # raises unless there are exactly n_args
+        return self._fn(args)
 
 
 def check_tensor(t, name, ndim):

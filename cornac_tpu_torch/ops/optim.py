@@ -9,6 +9,8 @@ optax's own update rules (``optax/_src/transform.py``: ``scale_by_adam``,
 
 - adam: b1 0.9, b2 0.999, eps 1e-8 added outside the root (eps_root 0),
   both moments bias-corrected by ``1 - b ** count``;
+- adamw: adam's direction plus ``weight_decay * param`` (decoupled, every
+  parameter: optax's ``mask=None``), the sum times ``-lr``;
 - rmsprop: decay 0.9, eps 1e-8 added inside the root (``rsqrt(nu + eps)``,
   where ``torch.optim.RMSprop`` uses ``sqrt(nu) + eps``), no bias
   correction, initial nu 0, no momentum;
@@ -28,8 +30,9 @@ for the host. Adam updates all tensors at once with ``torch._foreach_*``
 operations, the same arithmetic in a few launches.
 
 Each maker returns an ``Optimizer(init, update)``: ``init(params)`` gives
-the state, ``update(grads, state)`` gives (updates, new state), both dicts
-keyed as ``params``; ``apply_updates`` adds the updates to the parameters
+the state, ``update(grads, state, params=None)`` gives (updates, new state),
+both dicts keyed as ``params`` (only adamw reads ``params``, as optax's
+``update`` takes them); ``apply_updates`` adds the updates to the parameters
 in place.
 """
 
@@ -56,38 +59,59 @@ def sgd(learning_rate):
     def init(params):
         return {}
 
-    def update(grads, state):
+    def update(grads, state, params=None):
         return {name: g * -learning_rate for name, g in grads.items()}, state
 
     return Optimizer(init, update)
 
 
+def _adam_direction(grads, state, b1, b2, eps, eps_root):
+    """optax's ``scale_by_adam`` on every tensor at once: (names, the
+    bias-corrected directions, the new state)."""
+    # torch._foreach_*: a few launches for the whole model, not some twenty
+    # per tensor; each operation the one a tensor at a time would do, so
+    # the same bits
+    count = state["count"] + 1
+    names = list(grads)
+    g = [grads[n] for n in names]
+    mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                            torch._foreach_mul([state["mu"][n] for n in names], b1))
+    nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+                            torch._foreach_mul([state["nu"][n] for n in names], b2))
+    m_hat = torch._foreach_div(mu, _correction(b1, count))
+    v_hat = torch._foreach_div(nu, _correction(b2, count))
+    denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_add(v_hat, eps_root)), eps)
+    return names, torch._foreach_div(m_hat, denom), {
+        "count": count, "mu": dict(zip(names, mu)), "nu": dict(zip(names, nu))}
+
+
+def _adam_init(params):
+    return {"count": _count(params),
+            "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+            "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
     """``optax.adam`` at the same defaults."""
-    def init(params):
-        return {"count": _count(params),
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+    def update(grads, state, params=None):
+        names, direction, state = _adam_direction(grads, state, b1, b2, eps, eps_root)
+        return dict(zip(names, torch._foreach_mul(direction, -learning_rate))), state
 
-    def update(grads, state):
-        # every tensor at once (torch._foreach_*: a few launches for the
-        # whole model, not some twenty per tensor), each operation the one
-        # a tensor at a time would do, so the same bits
-        count = state["count"] + 1
-        names = list(grads)
-        g = [grads[n] for n in names]
-        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
-                                torch._foreach_mul([state["mu"][n] for n in names], b1))
-        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
-                                torch._foreach_mul([state["nu"][n] for n in names], b2))
-        m_hat = torch._foreach_div(mu, _correction(b1, count))
-        v_hat = torch._foreach_div(nu, _correction(b2, count))
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_add(v_hat, eps_root)), eps)
-        updates = torch._foreach_mul(torch._foreach_div(m_hat, denom), -learning_rate)
-        return dict(zip(names, updates)), {"count": count, "mu": dict(zip(names, mu)),
-                                           "nu": dict(zip(names, nu))}
+    return Optimizer(_adam_init, update)
 
-    return Optimizer(init, update)
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
+    """``optax.adamw`` at the same defaults (``mask=None``: every parameter
+    decays): ``-lr * (adam's direction + weight_decay * param)``."""
+    def update(grads, state, params=None):
+        if params is None:
+            raise ValueError("adamw needs the parameters to decay them")
+        names, direction, state = _adam_direction(grads, state, b1, b2, eps, eps_root)
+        decayed = torch._foreach_add(
+            direction, torch._foreach_mul([params[n].detach() for n in names], weight_decay))
+        return dict(zip(names, torch._foreach_mul(decayed, -learning_rate))), state
+
+    return Optimizer(_adam_init, update)
 
 
 def rmsprop(learning_rate, decay=0.9, eps=1e-8, initial_scale=0.0):
@@ -96,7 +120,7 @@ def rmsprop(learning_rate, decay=0.9, eps=1e-8, initial_scale=0.0):
     def init(params):
         return {"nu": {n: torch.full_like(p, initial_scale) for n, p in params.items()}}
 
-    def update(grads, state):
+    def update(grads, state, params=None):
         nu, updates = {}, {}
         for name, g in grads.items():
             nu[name] = (1 - decay) * (g * g) + decay * state["nu"][name]
@@ -112,7 +136,7 @@ def adagrad(learning_rate, initial_accumulator_value=0.1, eps=1e-7):
         return {"sum_of_squares": {n: torch.full_like(p, initial_accumulator_value)
                                    for n, p in params.items()}}
 
-    def update(grads, state):
+    def update(grads, state, params=None):
         sums, updates = {}, {}
         for name, g in grads.items():
             sums[name] = g * g + state["sum_of_squares"][name]
@@ -132,7 +156,7 @@ def adagrad_m(learning_rate, momentum=0.0, eps=1e-6):
             state["mom"] = {n: torch.zeros_like(p) for n, p in params.items()}
         return state
 
-    def update(grads, state):
+    def update(grads, state, params=None):
         names = list(grads)
         g = [grads[n] for n in names]
         acc = torch._foreach_add([state["acc"][n] for n in names],
@@ -174,6 +198,6 @@ def step(params, opt, state, loss):
     zeros, as ``jax.grad`` gives it), the optimizer's update, applied in
     place. Returns the new state."""
     grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
-    updates, state = opt.update(dict(zip(params, grads)), state)
+    updates, state = opt.update(dict(zip(params, grads)), state, params)
     apply_updates(params, updates)
     return state

@@ -41,3 +41,50 @@ def test_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         scale2(x, force="pallas")
     assert CANARY.library.source.name == "canary.cu" and CANARY.library.source.exists()
+
+
+_PACKED_SOURCE = r"""
+#include <cstdint>
+extern "C" int packed_probe(const int64_t* args) {
+  return (int)(args[0] + (args[1] >> 40) - args[2]);
+}
+"""
+
+
+def test_packed_call_passes_every_argument_and_counts_them(tmp_path):
+    """``native.PackedCall``, the canary's binding, on a C function built
+    here with g++: each int64 arrives (a pointer-sized value too), a wrong
+    count raises, and threads calling at once each get their own answer."""
+    import ctypes
+    import subprocess
+    import sys
+    import threading
+
+    from cornac_tpu_torch.ops.native import PackedCall
+
+    src, lib = tmp_path / "probe.cpp", tmp_path / "libprobe.so"
+    src.write_text(_PACKED_SOURCE)
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(lib), str(src)], check=True)
+    call = PackedCall(ctypes.CDLL(str(lib)).packed_probe, 3)
+    assert call(5, 7 << 40, -2) == 14
+    with pytest.raises(ValueError):
+        call(1, 2)
+
+    wrong = []
+
+    def worker(k):
+        for r in range(300):
+            if call(k, r << 40, 0) != k + r:
+                wrong.append((k, r))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads) and wrong == []

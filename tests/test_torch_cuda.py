@@ -20,6 +20,7 @@ from cornac_tpu_torch.models import GMF, MLP, NGCF, BiVAECF, LightGCN, NeuMF, Re
 from cornac_tpu_torch.models import FM, HPF, SANSA, SKMeans
 from cornac_tpu_torch.models import C2PF, SBPR, VEBPR
 from cornac_tpu_torch.models import FPMC, GCMC, GRU4Rec, SASRec
+from cornac_tpu_torch.models import DNNTSP, TIFUKNN, UPCF, Beacon
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -969,5 +970,91 @@ def test_sequential_epochs_never_sync_with_the_host(card):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(loss)
     for model in (sas, gru):
+        for p in model.params.parameters():
+            assert torch.isfinite(p).all()
+
+
+def _basket_split():
+    """Small seeded next-basket split: ``tools/seq_bench_data.py``'s
+    block-structured baskets under NextBasketEvaluation."""
+    import os
+    import sys
+
+    from cornac_tpu_torch.eval_methods import NextBasketEvaluation
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    from seq_bench_data import gen_baskets
+
+    return NextBasketEvaluation(data=gen_baskets(n_users=80, n_items=40, seed=5), test_size=0.2,
+                                seed=1)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: Beacon(emb_dim=4, rnn_unit=4, n_epochs=2, batch_size=16, seed=3, **kw),
+    lambda **kw: Beacon(emb_dim=4, rnn_unit=4, rnn_cell_type="GRU", nb_hop=2, n_epochs=2,
+                        batch_size=16, seed=3, **kw),
+    lambda **kw: DNNTSP(emb_dim=8, n_epochs=2, batch_size=16, seed=3, **kw),
+    lambda **kw: DNNTSP(emb_dim=8, loss_type="weight_mse", optimizer="rmsprop", n_epochs=2,
+                        batch_size=16, seed=3, **kw),
+])
+def test_basket_seeded_fits_on_the_card_are_identical(card, make):
+    ev = _basket_split()
+    before = ACCUMULATE_ROWS.launches
+    a = _param_bits(make().fit(ev.train_set))
+    if isinstance(make(), DNNTSP):  # its gathers' gradients are accumulate_rows
+        assert ACCUMULATE_ROWS.launches > before
+    b = _param_bits(make(verbose=True).fit(ev.train_set))
+    assert a.keys() == b.keys()
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_basket_scores_on_the_card_match_the_cpu(card):
+    ev = _basket_split()
+    users, hist = [], []
+    for [u], _, [baskets] in ev.test_set.ubi_iter(1):
+        users.append(int(u))
+        hist.append([list(b) for b in baskets[:-1]])
+    for make in (lambda **kw: TIFUKNN(n_neighbors=9, **kw), lambda **kw: UPCF(recency=2, **kw)):
+        on_card, on_cpu = make().fit(ev.train_set), make(device="cpu").fit(ev.train_set)
+        np.testing.assert_allclose(on_card.score_baskets_batch(users, hist),
+                                   on_cpu.score_baskets_batch(users, hist), rtol=1e-5, atol=1e-6)
+        if isinstance(on_card, TIFUKNN):
+            q = np.stack([on_cpu._compute_user_vector(h) for h in hist])
+            assert torch.equal(on_card.neighbors(q).cpu(), on_cpu.neighbors(q))
+
+
+def test_basket_epochs_never_sync_with_the_host(card):
+    ev = _basket_split()
+    train = ev.train_set
+    beacon = Beacon(emb_dim=4, rnn_unit=4, n_epochs=0, batch_size=16, seed=3).fit(train)
+    dnntsp = DNNTSP(emb_dim=8, n_epochs=0, batch_size=16, seed=3).fit(train)
+    from cornac_tpu_torch.ops.optim import adam, rmsprop, step
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    ids, lengths, y = beacon._training_data(train, card)
+    blocks, yd, cls_w = dnntsp._training_data(train, card)
+    n = dnntsp.total_items
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for model, opt in ((beacon, rmsprop(0.01)), (dnntsp, adam(0.01))):
+            params = dict(model.params.named_parameters())
+            state = opt.init(params)
+            gen = epoch_generator(3, 0, card)
+            order = torch.randperm(y.shape[0], generator=gen, device=card)
+            for b in range(3):
+                idx = order[b * 16:(b + 1) * 16]
+                if model is beacon:
+                    loss = model.loss_on(ids[idx], lengths[idx], y[idx],
+                                         model._drop_mask(gen, (16, model.max_seq_length, 4), card))
+                else:
+                    neg = torch.randint(0, n, (16, n), generator=gen, device=card)
+                    loss = model.loss_on([a[idx] for a in blocks], yd[idx], neg, cls_w)
+                state = step(params, opt, state, loss)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for model in (beacon, dnntsp):
         for p in model.params.parameters():
             assert torch.isfinite(p).all()

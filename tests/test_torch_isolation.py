@@ -30,12 +30,15 @@ from cornac_tpu_torch.ops.fused_topk import fused_topk
 from cornac_tpu_torch.ops.canary import scale2
 from cornac_tpu_torch.ops.cosine_topk import cosine_topk
 from cornac_tpu_torch.ops.membership import build_membership
+from cornac_tpu_torch.models import DNNTSP, TIFUKNN
 from scipy.sparse import csr_matrix
 for name, call in (("default_device", cornac_tpu_torch.default_device),
                    ("fused_topk", lambda: fused_topk([[1.0]], [[1.0]], 1)),
                    ("scale2", lambda: scale2([1.0])),
                    ("cosine_topk", lambda: cosine_topk([[1.0], [2.0]], 1)),
-                   ("build_membership", lambda: build_membership(csr_matrix((2, 2))))):
+                   ("build_membership", lambda: build_membership(csr_matrix((2, 2)))),
+                   ("TIFUKNN", lambda: TIFUKNN()._device()),
+                   ("DNNTSP", lambda: DNNTSP()._device())):
     try:
         out[name] = str(call())
     except RuntimeError as e:
@@ -76,7 +79,9 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "datasets.epinions", "datasets.amazon_office", "datasets.movielens",
                  "native", "native.build", "models.seq_utils",
                  "models.spop", "models.fpmc", "models.gru4rec", "models.sasrec",
-                 "models.cvaecf", "models.gcmc", "eval_methods.next_item_evaluation"):
+                 "models.cvaecf", "models.gcmc", "eval_methods.next_item_evaluation",
+                 "models.basket", "models.beacon", "models.dnntsp",
+                 "eval_methods.next_basket_evaluation"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 
@@ -87,6 +92,7 @@ def test_no_card_means_raise_unless_cpu_requested(probe):
     assert probe["scale2"].startswith("raised:")
     assert probe["cosine_topk"].startswith("raised:")
     assert probe["build_membership"].startswith("raised:")
+    assert probe["TIFUKNN"].startswith("raised:") and probe["DNNTSP"].startswith("raised:")
     assert probe["after_set"] == "cpu"
 
 

@@ -34,7 +34,11 @@ on MRR, HitRatio@20 and NDCG@20; ``CVAECF``
 (``examples/cvaecf_filmtrust.py``'s, with ``seq_bench_data.seeded_trust``
 as its user graph, ``RatioSplit(0.2, 3.0)``) on NDCG@50 and Recall@50, and
 ``GCMC`` (``examples/gcmc_example.py``'s, ``RatioSplit(0.2)``) on RMSE,
-both on ``make_ml100k_like(7)``; their bands come from ten seeds, 123-132
+both on ``make_ml100k_like(7)``, and the next-basket models ``Beacon``
+and ``DNNTSP`` (``examples/beacon_tafeng.py``'s and
+``examples/dnntsp_tafeng.py``'s settings) on ``seq_bench_data.gen_baskets``'
+baskets under ``NextBasketEvaluation(test_size=0.2, seed=123)`` on
+Recall@10, Recall@50 and HitRatio@10; their bands come from ten seeds, 123-132
 (five seeds misjudged GRU4Rec's MRR spread by a factor of two: 0.00054 over
 123-127, 0.00097 over 128-132). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
@@ -137,6 +141,16 @@ SEQ_CONFIGS = {
 }
 SEQ_METRICS = ("MRR", "HitRatio@20", "NDCG@20")
 
+# name -> (class name, constructor arguments without the seed): the Ta Feng
+# examples' settings
+BASKET_CONFIGS = {
+    "Beacon": ("Beacon", dict(emb_dim=2, rnn_unit=4, alpha=0.5, rnn_cell_type="LSTM",
+                              n_epochs=15, batch_size=32, lr=0.001)),
+    "DNNTSP": ("DNNTSP", dict(emb_dim=32, loss_type="bpr", lr=0.001, n_epochs=30,
+                              batch_size=64)),
+}
+BASKET_METRICS = ("Recall@10", "Recall@50", "HitRatio@10")
+
 # name -> (class name, constructor arguments without the seed, metrics)
 AUX_CONFIGS = {
     "CVAECF": ("CVAECF", dict(z_dim=20, h_dim=20, autoencoder_structure=[40],
@@ -157,6 +171,17 @@ def seq_eval(eval_methods, metrics, seed=123):
         train_data=train, test_data=test, fmt="USIT", exclude_unknowns=True, seed=seed,
         mode="next")
     return ev, [metrics.MRR(), metrics.HitRatio(k=20), metrics.NDCG(k=20)]
+
+
+def basket_eval(eval_methods, metrics, seed=123):
+    """The next-basket cell: ``gen_baskets``' baskets under
+    ``NextBasketEvaluation`` (a fifth of the users test), and its three
+    metrics."""
+    from seq_bench_data import gen_baskets
+
+    ev = eval_methods.NextBasketEvaluation(data=gen_baskets(), test_size=0.2, fmt="UBI",
+                                           seed=seed)
+    return ev, [metrics.Recall(k=10), metrics.Recall(k=50), metrics.HitRatio(k=10)]
 
 
 def aux_split(name, data, eval_methods, triples):
@@ -222,10 +247,10 @@ def golden_auc(model, train_set):
 def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
-    table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, AUX_CONFIGS) if name in t)
-    cls, kwargs, seeded = table[name][:3]
-    if table is AUX_CONFIGS:
-        seeded = True
+    table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, AUX_CONFIGS, BASKET_CONFIGS)
+                 if name in t)
+    cls, kwargs = table[name][:2]
+    seeded = True if table is AUX_CONFIGS or table is BASKET_CONFIGS else table[name][2]
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -234,11 +259,11 @@ def make_model(models, name, seed):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
-                        + sorted(SEQ_CONFIGS) + sorted(AUX_CONFIGS),
+                        + sorted(SEQ_CONFIGS) + sorted(AUX_CONFIGS) + sorted(BASKET_CONFIGS),
                         default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=None,
-                        help="default: 123-127; 123-132 for the next-item models, CVAECF and "
-                             "GCMC")
+                        help="default: 123-127; 123-132 for the next-item and next-basket "
+                             "models, CVAECF and GCMC")
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
     parser.add_argument("--bf16-products", action="store_true",
                         help="JAX package only: every float32 matrix product in one bf16 pass")
@@ -247,7 +272,7 @@ def main():
         parser.error("--bf16-products applies to the JAX package")
 
     if args.seeds is None:
-        wide = args.model in SEQ_CONFIGS or args.model in AUX_CONFIGS
+        wide = any(args.model in t for t in (SEQ_CONFIGS, AUX_CONFIGS, BASKET_CONFIGS))
         args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
@@ -301,6 +326,17 @@ def main():
             runs.append({name: float(result.metric_avg_results[name]) for name in SEQ_METRICS})
             print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
         summary.update(seeds=seeds, **band_summary(runs, SEQ_METRICS))
+        print(json.dumps(summary))
+        return
+    if args.model in BASKET_CONFIGS:
+        ev, basket_metrics = basket_eval(eval_methods, metrics)
+        runs = []
+        for seed in args.seeds:
+            result = ev.evaluate(make_model(models, args.model, seed), basket_metrics,
+                                 user_based=False)[0]
+            runs.append({name: float(result.metric_avg_results[name]) for name in BASKET_METRICS})
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=args.seeds, **band_summary(runs, BASKET_METRICS))
         print(json.dumps(summary))
         return
     if args.model in AUX_CONFIGS:

@@ -114,3 +114,27 @@ def seq_band(model, metric):
     mean, spread = SEQ_BANDS[model][metric]
     half = DETERMINISTIC_TOL if spread is None else 3 * spread
     return mean - half, mean + half, mean, spread
+
+
+# The next-basket models on seq_bench_data.gen_baskets' baskets
+# (NextBasketEvaluation(test_size=0.2, seed=123): 60 test users), at the Ta
+# Feng examples' settings: (mean, spread) of Recall@10, Recall@50 and
+# HitRatio@10 from ``python tools/bpr_quality_band.py --model Beacon`` and
+# ``--model DNNTSP`` (JAX package, CPU, ten seeds, 123-132). A card's fit
+# draws another stream than the CPU's; ``chip_smoke.basket_witness`` holds
+# one epoch of each on the card to the CPU's on the same draws.
+BASKET_BANDS = {
+    "Beacon": {"Recall@10": (0.11430555555555555, 0.024198839801457952),
+               "Recall@50": (0.43472222222222223, 0.015943680886780155),
+               "HitRatio@10": (0.30666666666666664, 0.056218269514104524)},
+    "DNNTSP": {"Recall@10": (0.12180555555555554, 0.02738964952741396),
+               "Recall@50": (0.48624999999999996, 0.04245372894704205),
+               "HitRatio@10": (0.3183333333333333, 0.054120350568700244)},
+}
+
+
+def basket_band(model, metric):
+    """(low, high, mean, spread) of ``metric`` for ``model`` in
+    ``BASKET_BANDS``."""
+    mean, spread = BASKET_BANDS[model][metric]
+    return mean - 3 * spread, mean + 3 * spread, mean, spread

@@ -1,10 +1,15 @@
-"""Seeded data of the next-item, CVAECF and GCMC bench cells, shared by
-``tools/bpr_quality_band.py`` (the JAX package's bands) and
-``chip_smoke.py`` (phase 12f, the port's fits). Imports neither package.
+"""Seeded data of the next-item, next-basket, CVAECF and GCMC bench cells,
+shared by ``tools/bpr_quality_band.py`` (the JAX package's bands) and
+``chip_smoke.py`` (phases 12f, 12g and 17, the port's fits). Imports neither
+package.
 
 - ``gen_sessions``: a copy of ``benchmarks/head_to_head_seq.py::gen_sessions``
   (block-structured Markov sessions, 2,000 sessions over 500 items), and
   ``session_split`` its split (the first 85% of the sessions train).
+- ``gen_baskets``: a copy of ``benchmarks/head_to_head_basket.py::gen_baskets``
+  (each user buys 3-6 baskets of 2-4 distinct items from one of 4 blocks of
+  the catalog), as UBI tuples; ``tafeng_like`` draws baskets by the same
+  law at the Ta Feng grocery dataset's published counts, as UBIT tuples.
 - ``seeded_trust``: a user graph for ``make_ml100k_like(7)``'s users (the
   FilmTrust trust network that ``examples/cvaecf_filmtrust.py`` reads is not
   in the repository): each user trusts a few users, drawn with a bias toward
@@ -30,6 +35,68 @@ def gen_sessions(n_sessions=2000, n_items=500, n_users=300, seed=7):
             t += 1
             x = (x + 1) % per if rng.rand() < 0.8 else rng.randint(per)
     return rows
+
+
+def gen_baskets(n_users=300, n_items=120, seed=7):
+    """Markov-flavoured baskets: each user draws a preferred block of the
+    catalog and samples baskets from it (so next-basket prediction has
+    signal), as UBI tuples (user, basket, item)."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    bid = 0
+    for u in range(n_users):
+        block = rng.randint(0, 4)
+        lo, hi = block * (n_items // 4), (block + 1) * (n_items // 4)
+        for _ in range(rng.randint(3, 7)):
+            bid += 1
+            size = rng.randint(2, 5)
+            items = rng.choice(np.arange(lo, hi), size=size, replace=False)
+            rows.extend((f"u{u}", f"b{bid}", f"i{it}") for it in items)
+    return rows
+
+
+# the Ta Feng grocery dataset (November 2000 - February 2001) as Cornac's
+# examples read it: customers, products, purchase lines
+TAFENG_USERS, TAFENG_ITEMS, TAFENG_LINES = 32_266, 23_812, 817_741
+
+
+def tafeng_like(seed, n_users=TAFENG_USERS, n_items=TAFENG_ITEMS, n_lines=TAFENG_LINES):
+    """UBIT tuples (user, basket, item, time) at the Ta Feng counts by
+    ``gen_baskets``' law: each user draws one of 4 blocks of the catalog and
+    buys 3-6 baskets of distinct items from it. ``gen_baskets`` draws a
+    basket's size from [2, 5); here the upper end is widened by w, just as
+    far as the purchase lines' expectation reaches ``n_lines`` (w = 2 x
+    (lines per basket - 3), its fraction drawn per basket), and the lines
+    must land within 2% of it. Items no basket drew replace a line each
+    (every item is bought at least once). A basket's time is its index."""
+    rng = np.random.RandomState(seed)
+    per = n_items // 4
+    n_baskets = rng.randint(3, 7, size=n_users)
+    block = rng.randint(0, 4, size=n_users)
+    nb = int(n_baskets.sum())
+    widen = 2 * (n_lines / (4.5 * n_users) - 3)
+    high = 5 + int(widen) + (rng.rand(nb) < widen - int(widen))
+    sizes = rng.randint(2, high)
+    if abs(int(sizes.sum()) - n_lines) > 0.02 * n_lines:
+        raise AssertionError(f"{int(sizes.sum())} purchase lines, not within 2% of {n_lines}")
+    # distinct items within a basket: redraw the baskets that repeat one
+    width = int(sizes.max())
+    valid = np.arange(width)[None, :] < sizes[:, None]
+    draw = rng.randint(per, size=(nb, width))
+    while True:
+        srt = np.sort(np.where(valid, draw, -1 - np.arange(width)[None, :]), axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
+        if not dup.any():
+            break
+        draw[dup] = rng.randint(per, size=(int(dup.sum()), width))
+    owner = np.repeat(np.arange(n_users), n_baskets)
+    items = (draw + (block[owner] * per)[:, None])[valid]
+    basket = np.repeat(np.arange(nb), sizes)
+    missing = np.setdiff1d(np.arange(n_items), items)
+    items[rng.choice(items.size, missing.size, replace=False)] = missing
+    user = owner[basket]
+    return [(f"u{u}", f"b{b}", f"i{i}", b)
+            for u, b, i in zip(user.tolist(), basket.tolist(), items.tolist())]
 
 
 def session_split(rows):
