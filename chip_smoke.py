@@ -204,6 +204,33 @@ Phases, each of which fails the run when it fails:
    same widths, one epoch profiled (device events a step, busy share) and
    a fit stopped at epoch 1 and resumed to 2 held to the uninterrupted
    one, bit for bit;
+16b. TransformerRec at the Diginetica widths (``examples/
+   transformer_rec_diginetica.py``: BERT4Rec and a gpt2/clm TransformerRec,
+   d = 64, 2 blocks of 2 heads, max_len 50, 128 sessions a step, the class
+   defaults otherwise) on phase 16's split: trained on the first 6,400 train
+   sessions over the whole item table, after a warm-up fit of two steps
+   a fit of 2 epochs (the example's 10 cut), seconds per epoch (its last) and
+   training sequences/s beside the bound of a step
+   (``transformer_step_bound``), one epoch over 640 sessions profiled
+   (device events a step, busy share), peak device memory, ``NextItemEvaluation``
+   over the first 2,048 test sessions (MRR, HitRatio@20, NDCG@20), 64
+   histories' scores held to a float64 scoring on the CPU, the first step's
+   five accumulate_rows inputs held bit for bit to the plain version on the
+   CPU and timed beside ``index_add_``;
+16c. TIGER at ``examples/tiger_example.py``'s settings (rqvae, 3 levels of
+   256 codes, d_model 128, d_ff 1,024, seed 123, the class defaults
+   otherwise) on ``NextItemEvaluation.leave_last_out`` of
+   ``make_ml100k_like(7)`` (the generation order as timestamps) with seeded
+   TF-IDF-like features (1,682 x 512; the plots are not in the repository):
+   one fit of 2 seq2seq epochs (the example's 20 cut) on the first half of
+   the users' sessions after the RQ-VAE's 200 epochs, each epoch timed, the
+   RQ-VAE's seconds, its dead codes restarted, the collision level, seconds
+   per seq2seq epoch and ms a step beside ``tiger_step_bound``, 4 steps
+   profiled, peak device memory, the beam
+   evaluation (HitRatio@10, NDCG@10), 64 histories' beam scores and 4
+   histories' exact scores held to the same scoring on the CPU, the first
+   RQ-VAE and seq2seq steps' accumulate_rows inputs held bit for bit and
+   timed;
 17. the next-basket family at the Ta Feng counts (``tools/seq_bench_data.py::
    tafeng_like``: 32,266 customers, 23,812 products, about 817,741 purchase
    lines; the files are not in the repository), after the serving slice:
@@ -241,6 +268,19 @@ Phases, each of which fails the run when it fails:
    and on the CPU from the same parameters, every parameter within 1e-5
    (``basket_witness``; DNNTSP's three biases of zero exact gradient held to
    Adam's step bound instead);
+12h. the generative next-item models at the bench shape, in a ninth spawned
+   process: BERT4Rec, TransformerRec (clm at 'all' and 'last', plm, rtd),
+   TIGER with rqvae and beam scoring and with rkmeans and exact scoring on
+   ``gen_sessions``' sessions (TIGER over ``seq_bench_data.session_features``),
+   each metric in the band of the JAX package's CPU fits over ten seeds,
+   seeded refits bit for bit with their accumulate_rows inputs held to the
+   plain version, BERT4Rec and TIGER-rkmeans stopped at epoch 1 and resumed
+   bit for bit, TIGER-rkmeans' semantic IDs equal to the CPU's bytes; one
+   epoch of BERT4Rec, of TIGER's RQ-VAE and of its seq2seq on draws made on
+   the CPU, on the card and on the CPU, every parameter within 1e-5 (the
+   card's BERT4Rec epoch held instead to the CPU's float64 epoch, within
+   the CPU float32 epoch's own distance from it, the parameters more than
+   1e-5 away named) (``generative_witness``);
 18. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
@@ -255,27 +295,35 @@ Phases, each of which fails the run when it fails:
    LightGCN's at the bench shape, LightGCN's and HPF's two each at ML-10M,
    SBPR's three at Epinions, C2PF's three at Amazon Office, SASRec's two
    embedding gradients and FPMC's item-table scatter at the Diginetica
-   widths, GCMC's two edge sums at the bench shape), on the inputs
+   widths, BERT4Rec's embedding and output-bias gradients there, TIGER's
+   token table and an RQ-VAE codebook at the example's settings, GCMC's two
+   edge sums at the bench shape), on the inputs
    phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
    2``, each call split into its device time (the profiler's, and CUDA
    events around one call) and its host time, the canary's host time into
    its steps.
 
-Phases 12, 12b, 12c-12d, 12e, 12f and 12g run last, after 18, in eight
-spawned processes at once (the factor family, three groups of the neural
-family, the factor family's rest with the protocols, the modality layer's
-models with the checkpointed Experiment, the next-item models with CVAECF
-and GCMC, and the next-basket models): the card
-time-slices between processes and they share the host's cores, so no
-time this process takes is taken beside them, while their own fit seconds
-and busy shares carry each other's load.
+Phases 12, 12b, 12c-12d, 12e, 12f, 12g and 12h run in nine spawned
+processes at once (the factor family, three groups of the neural family,
+the factor family's rest with the protocols, the modality layer's models
+with the checkpointed Experiment, the next-item models with CVAECF and
+GCMC, the next-basket models and the generative next-item models), at a
+lower CPU priority, beside phase 16, and are collected before 16b. This
+process runs 8, 17, 16c, 16 (beside them), 16b, then 9-15b in the order
+9, 10, 10b, 10c, 15, 15b, 11, 13, 14, 14b, then 18. The card time-slices
+between processes and they share the host's cores: phase 16's host-bound
+steps never wait on the card inside an epoch, so they lose to them only
+the host's share (its times carry that load), the card-bound phases and
+every other time run alone, and the nine processes' own fit seconds and
+busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
 then at HPF's d = 5, SBPR's d = 11 and C2PF's d = 100; accumulate_rows at
 the full-width V update, LightGCN's and HPF's two ML-10M shapes each,
 SBPR's V update, C2PF's ratings into the item rows, SASRec's two embedding
-gradients, FPMC's item-table scatter and GCMC's two edge sums),
+gradients, FPMC's item-table scatter, BERT4Rec's two gradients, TIGER's
+token table and RQ-VAE codebook, and GCMC's two edge sums),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -730,6 +778,20 @@ ACC_CASES = [
     ("SASRec, Diginetica, embedding gradient (negatives)", DIGI_ITEMS + 1, 2_048, 64,
      "popular", 1),
     ("FPMC, Diginetica, item-table scatter", DIGI_ITEMS, 1_024, 32, "popular", 1),
+    # the generative next-item models (phases 16b and 16c also hold the
+    # kernel to the plain version on their first steps' inputs, 12h on every
+    # trainer's own): BERT4Rec's embedding and output-bias gradients at the
+    # Diginetica widths (128 sessions x 50 positions into the 43,099-row
+    # table with its padding and mask rows), TIGER's token table at
+    # examples/tiger_example.py's settings (256 histories x 20 items x 4
+    # levels into 1 + 3 x 256 + 2 rows at d_model 128) and an RQ-VAE codebook
+    # (a batch of 1,024 items into 256 codes at latent 32)
+    ("BERT4Rec, Diginetica, embedding gradient (positions)", DIGI_ITEMS + 2, 6_400, 64,
+     "popular", 1),
+    ("BERT4Rec, Diginetica, output-bias gradient (positions)", DIGI_ITEMS + 2, 6_400, None,
+     "popular", 1),
+    ("TIGER, ML-100K, token table (encoder tokens)", 771, 20_480, 128, "popular", 1),
+    ("TIGER, ML-100K, RQ-VAE codebook", 256, 1_024, 32, "popular", 1),
     ("GCMC, bench shape, edges into item rows", 789, 80_000, 100, "popular", 1),
     ("GCMC, bench shape, edges into user rows", 943, 80_000, 100, "popular", 1),
 ]
@@ -3143,16 +3205,21 @@ def office_like(seed):
 
 
 @contextlib.contextmanager
-def recording_first_calls(store, limit):
+def recording_first_calls(store, limit, calls=None):
     """While open, the accumulate_rows wrapper keeps in ``store`` copies of
-    the inputs of its first ``limit`` calls (the table as it was before the
-    call), in order, and launches as always."""
+    the inputs of its first ``limit`` calls, or of the calls numbered
+    ``calls`` (from 0) (the table as it was before the call), in order, and
+    launches as always."""
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, AccumulateRowsKernel
+
+    wanted = set(range(limit) if calls is None else calls)
+    seen = [0]
 
     class Recording(AccumulateRowsKernel):
         def __call__(self, table, ids, updates):
-            if len(store) < limit:
+            if seen[0] in wanted:
                 store.append((table.clone(), ids.clone(), updates.clone()))
+            seen[0] += 1
             return super().__call__(table, ids, updates)
 
     ACCUMULATE_ROWS.__class__ = Recording
@@ -3614,6 +3681,37 @@ def diginetica_like(seed):
             for t, (s, i) in enumerate(zip(sess.tolist(), items.tolist()))], lengths
 
 
+@contextlib.contextmanager
+def timed_epoch_ends(stamps):
+    """While open, the card is synchronised and the host clock appended to
+    ``stamps`` where an epoch of a checkpointed fit starts (its generator's
+    draw, ``utils.checkpoint.epoch_generator``) and where its checkpoint is
+    saved: between them lies one epoch on the card."""
+    import torch
+
+    from cornac_tpu_torch.utils import checkpoint
+
+    real_gen, real_save = checkpoint.epoch_generator, checkpoint.CheckpointManager.save
+
+    def stamp():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def epoch_generator(*args, **kwargs):
+        stamp()
+        return real_gen(*args, **kwargs)
+
+    def save(self, *args, **kwargs):
+        stamp()
+        return real_save(self, *args, **kwargs)
+
+    checkpoint.epoch_generator, checkpoint.CheckpointManager.save = epoch_generator, save
+    try:
+        yield stamps
+    finally:
+        checkpoint.epoch_generator, checkpoint.CheckpointManager.save = real_gen, real_save
+
+
 def sasrec_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
     """(FLOPs, bytes) of one SASRec training step as the port computes it:
     per block the four d x d projections and the two-layer feed-forward
@@ -3647,12 +3745,12 @@ def phase_sasrec_diginetica(seed, work):
     widths (the item table of all 43,097 items, about 100 steps an epoch):
     one epoch profiled (device events a step, busy share), and a fit
     stopped at epoch 1 and resumed to 2 held bit for bit to the
-    uninterrupted one. Returns (accumulate_rows launches, the stats)."""
+    uninterrupted one. Returns (accumulate_rows launches, the stats, the
+    NextItemEvaluation, which phase 16b reuses)."""
     import shutil
 
     import torch
 
-    from cornac_tpu_torch.data import SequentialDataset
     from cornac_tpu_torch.eval_methods import NextItemEvaluation
     from cornac_tpu_torch.metrics import MRR, NDCG, HitRatio
     from cornac_tpu_torch.models import SASRec
@@ -3749,11 +3847,7 @@ def phase_sasrec_diginetica(seed, work):
     bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
 
     # the first 3,200 train sessions at the same widths (the whole item map)
-    sub_rows = [(f"u{s}", f"s{s}", train.item_ids[int(train.uir_tuple[1][k])], t)
-                for t, (s, k) in enumerate((s, k) for s, idx in itertools.islice(
-                    train.sessions.items(), SASREC_SUBSET_SESSIONS) for k in idx)]
-    sub = SequentialDataset.build(sub_rows, fmt="USIT", global_iid_map=copy.copy(train.iid_map),
-                                  seed=123)
+    sub = session_subset(train, SASREC_SUBSET_SESSIONS, train.iid_map)
     sub_mask = build_session_examples(sub, SASREC_DIGINETICA["max_len"])[3]
     sub_steps = -(-sub_mask.shape[0] // sessions_per_batch(
         SASREC_DIGINETICA["batch_size"], sub_mask, sub_mask.shape[0]))
@@ -3792,13 +3886,466 @@ def phase_sasrec_diginetica(seed, work):
         f"in {eval_s:.3f} s; accumulate_rows launches {launches}")
     log(f"SASRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
     shutil.rmtree(ck_dir, ignore_errors=True)
-    del model, one, straight, resumed, ev
+    del model, one, straight, resumed
     torch.cuda.empty_cache()
     return launches, dict(epoch_s=epoch_s, seq_per_s=n_train / epoch_s,
                           step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * step_bound_s,
                           bound_by=bound_by, steps=steps, peak=peak,
                           metrics={m.name: vals[m.name] for m in metrics}, eval_s=eval_s,
-                          acc=acc_rows, max_abs_err=acc_err, **prof)
+                          acc=acc_rows, max_abs_err=acc_err, **prof), ev
+
+
+def session_subset(ds, n, iid_map):
+    """The first ``n`` sessions of ``ds`` (a SequentialDataset) as one
+    built over the global item map ``iid_map`` (the whole item table, as
+    the full data's), each session its own user."""
+    from cornac_tpu_torch.data import SequentialDataset
+
+    rows = [(f"u{s}", f"s{s}", ds.item_ids[int(ds.uir_tuple[1][k])], t)
+            for t, (s, k) in enumerate((s, k) for s, idx in itertools.islice(
+                ds.sessions.items(), n) for k in idx)]
+    return SequentialDataset.build(rows, fmt="USIT", global_iid_map=copy.copy(iid_map), seed=123)
+
+
+# the two models of examples/transformer_rec_diginetica.py (phase 16b), the
+# class defaults otherwise (loss ce, 2,048 sampled negatives, alpha 0.5,
+# dropout 0.2, lr 0.001); the example's 10 epochs cut to a fit of 2 on the
+# first 6,400 train sessions (50 steps of 128), evaluated on the first
+# 2,048 test sessions, to keep the whole run inside its 1,200 s
+TRANSFORMER_DIGINETICA = dict(embedding_dim=64, n_layers=2, n_heads=2, max_len=50,
+                              batch_size=128, seed=123)
+TRANSFORMER_MODELS = {"BERT4Rec": ("BERT4Rec", dict(mask_prob=0.2)),
+                      "TransformerRec gpt2/clm": ("TransformerRec",
+                                                  dict(backbone="gpt2", objective="clm"))}
+TRANSFORMER_TRAIN_SESSIONS, TRANSFORMER_TEST_SESSIONS = 6_400, 2_048
+TRANSFORMER_PROFILED_SESSIONS = 640  # the profiled epoch's sessions (5 steps)
+TRANSFORMER_EPOCHS = 2
+
+
+def transformer_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
+    """(FLOPs, bytes) of one TransformerRec training step as the port
+    computes it (mlm and clm alike: the loss's score blocks cover every
+    position): per block the four d x d projections and the 4 d wide
+    feed-forward (24 B L d^2) and the attention's two (L x L) products
+    (4 B L^2 d), the loss's in-batch and sampled score blocks
+    (2 B L (B + N) d) and the positives (2 B L d), three times over for the
+    backward; the bytes are Adam's dense update (7 x 4 bytes a parameter)
+    and the batch's ids and mask."""
+    BL = bsz * L
+    fwd = n_blocks * (24 * BL * d * d + 4 * bsz * L * L * d) + 2 * BL * (bsz + n_neg) * d \
+        + 2 * BL * d
+    n_params = (vocab + 2) * (d + 1) + L * d + 2 * d + n_blocks * (12 * d * d + 9 * d)
+    return 3.0 * fwd, 7 * 4.0 * n_params + BL * (8 + 8 + 4)
+
+
+def phase_transformer_diginetica(ev):
+    """Phase 16b, TransformerRec at the Diginetica widths on phase 16's
+    NextItemEvaluation ``ev``: BERT4Rec and a gpt2/clm TransformerRec at
+    ``examples/transformer_rec_diginetica.py``'s settings, trained on the
+    first 6,400 train sessions over the whole item table (after a warm-up
+    fit of two steps: a fit of 2 epochs checkpointed every epoch, seconds
+    per epoch from its last, training sequences/s, ms a step beside
+    ``transformer_step_bound``), peak device
+    memory, ``NextItemEvaluation.eval`` over the first 2,048 test sessions
+    (MRR, HitRatio@20, NDCG@20), 64 test histories scored on the card held
+    to a float64 scoring of the same parameters on the CPU, the first
+    step's five accumulate_rows inputs held bit for bit to the plain
+    version on the CPU and timed beside ``index_add_``, and one epoch over
+    the first 640 sessions profiled (a fit of 1 epoch minus a fit of
+    none: device events a step, busy share). Returns (accumulate_rows
+    launches, {model: stats})."""
+    import shutil
+
+    import torch
+
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.metrics import MRR, NDCG, HitRatio
+    from cornac_tpu_torch.models import transformer_rec as tr_mod
+    from cornac_tpu_torch.models.seq_utils import pad_histories
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    clock = Clock()
+    train_full, test_full = ev.train_set, ev.test_set
+    train = clock(f"the first {TRANSFORMER_TRAIN_SESSIONS:,} train sessions (set-up)",
+                  lambda: session_subset(train_full, TRANSFORMER_TRAIN_SESSIONS,
+                                         train_full.iid_map))
+    test = clock(f"the first {TRANSFORMER_TEST_SESSIONS:,} test sessions (set-up)",
+                 lambda: session_subset(test_full, TRANSFORMER_TEST_SESSIONS,
+                                        train_full.iid_map))
+    few = session_subset(train_full, 256, train_full.iid_map)
+    profiled = session_subset(train_full, TRANSFORMER_PROFILED_SESSIONS, train_full.iid_map)
+
+    def make(name, epochs):
+        cls, kw = TRANSFORMER_MODELS[name]
+        return getattr(models, cls)(n_epochs=epochs, **TRANSFORMER_DIGINETICA, **kw)
+
+    ck_dir = ROOT / "build" / "chip_smoke" / "transformer_checkpoints"
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    fits, firsts, results, peaks, stamps = {}, {}, {}, {}, {}
+    metrics = [MRR(), HitRatio(k=20), NDCG(k=20)]
+    for name in TRANSFORMER_MODELS:
+        with recording_first_calls([], 5) as first:
+            # two steps at the same shapes: the process's first use of them
+            clock(f"{name}.fit, 1 epoch of 256 sessions (warm-up)",
+                  lambda: make(name, 1).fit(few))
+        firsts[name] = first
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        with timed_epoch_ends(stamps.setdefault(name, [])):
+            fits[name] = clock(f"{name}.fit, {TRANSFORMER_EPOCHS} epochs", lambda: make(
+                name, TRANSFORMER_EPOCHS).enable_checkpointing(ck_dir, every=1).fit(train))
+        peaks[name] = torch.cuda.max_memory_allocated() - held
+        results[name] = clock(f"{name}: NextItemEvaluation", lambda: ev.eval(
+            fits[name], train, test, True, metrics, mode="last"))
+    launches = ACCUMULATE_ROWS.launches
+    if launches <= 0:
+        raise AssertionError("TransformerRec did not launch accumulate_rows")
+
+    # ---- check and measure ----
+    rows_bsz = fits["BERT4Rec"].training_rows(train)
+    n_train, bsz = rows_bsz[0].shape[0], rows_bsz[3]
+    steps = n_train // bsz
+    prof_steps = fits["BERT4Rec"].training_rows(profiled)[0].shape[0] // bsz
+    hist = [[int(x) for x in items[:-1]] for _, _, [items] in
+            itertools.islice(test.si_iter(batch_size=1), 64)]
+    stats = {}
+    for name, model in fits.items():
+        for key, p in model.params.named_parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"{name} at Diginetica: non-finite {key}")
+        vals = results[name].metric_avg_results
+        if not all(np.isfinite(vals[m.name]) and 0.0 < vals[m.name] <= 1.0 for m in metrics):
+            raise AssertionError(f"{name} at Diginetica: metrics {dict(vals)}")
+        if len(firsts[name]) != 5:
+            raise AssertionError(f"{name}'s first step recorded {len(firsts[name])} "
+                                 f"accumulate_rows calls")
+        acc_err, acc_rows = clock(f"{name}: the first step's accumulate_rows held and timed",
+                                  lambda: hold_and_time_calls(f"{name}'s first step",
+                                                              firsts[name]))
+
+        # 64 test histories: the card's scores against a float64 scoring of
+        # the same parameters on the CPU
+        def scores():
+            got = model.score_history_batch(np.zeros(len(hist), int), hist)
+            cpu = copy.deepcopy(model.params).to("cpu").double()
+            extra = [model.num_items + 1] if model.objective != "clm" else []
+            seq = torch.as_tensor(pad_histories([h + extra for h in hist], model.max_len,
+                                                model.num_items)[0], dtype=torch.int64)
+            with torch.no_grad():
+                want = tr_mod._encode_scores(cpu, seq, model.num_items, model.num_heads,
+                                             model.backbone == "gpt2", model.num_items).numpy()
+            return got, want
+
+        got, want = clock(f"{name}: 64 histories on the card and in float64 on the CPU", scores)
+        score_err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{name} at Diginetica: scores differ from float64 by "
+                                 f"{score_err}")
+        prof = clock(f"{name}: one epoch over {TRANSFORMER_PROFILED_SESSIONS:,} sessions profiled",
+                     lambda: epoch_profile(lambda e: make(name, e).fit(profiled), prof_steps, 1))
+        # the last epoch: from its generator's draw to its checkpoint
+        if len(stamps[name]) != 2 * TRANSFORMER_EPOCHS:
+            raise AssertionError(f"{name}: {len(stamps[name])} epoch stamps")
+        epoch_s = stamps[name][-1] - stamps[name][-2]
+        flops, nbytes = transformer_step_bound(bsz, model.max_len, model.embedding_dim,
+                                               model.num_blocks, model.n_sample, model.num_items)
+        bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        eval_s = clock.seconds[f"{name}: NextItemEvaluation"]
+        stats[name] = dict(epoch_s=epoch_s, seq_per_s=n_train / epoch_s,
+                           step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * bound_s,
+                           bound_by=bound_by, peak=peaks[name], eval_s=eval_s,
+                           metrics={m.name: vals[m.name] for m in metrics}, acc=acc_rows,
+                           max_abs_err=acc_err, score_err=score_err, **prof)
+        log(f"  {name} d={model.embedding_dim}, {model.num_blocks} blocks of {model.num_heads} "
+            f"heads, max_len {model.max_len}, over {n_train:,} train sequences ({steps} steps of "
+            f"{bsz}): {epoch_s:.3f} s per epoch (the fit's last, from its start to its "
+            f"checkpoint), {n_train / epoch_s:,.0f} training sequences/s, "
+            f"{1e3 * epoch_s / steps:.3f} ms a step; bound of a step {flops / 1e9:.3f} GFLOP and "
+            f"{nbytes / 1e6:.1f} MB = {1e3 * bound_s:.4f} ms ({bound_by}), "
+            f"{100 * bound_s * steps / epoch_s:.3f}% of it; one epoch of {prof_steps} steps "
+            f"profiled: {prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
+            f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events a "
+            f"step; top device ops {prof['top']}; peak device memory of the "
+            f"{TRANSFORMER_EPOCHS}-epoch fit {peaks[name] / 2**30:.3f} GiB above what the run held")
+        log(f"  {name}: NextItemEvaluation (mode last, {test.num_sessions:,} test sessions): MRR "
+            f"{vals['MRR']:.6f}, HitRatio@20 {vals['HitRatio@20']:.6f}, NDCG@20 "
+            f"{vals['NDCG@20']:.6f} in {eval_s:.3f} s; the first step's five accumulate_rows "
+            f"inputs equal to the plain version on the CPU, bit for bit (max |err| "
+            f"{acc_err:.3e}); 64 histories' scores within {score_err:.3e} of float64 on the CPU")
+    clock.report("TransformerRec at Diginetica")
+    log(f"  accumulate_rows launches {launches}")
+    log(f"TransformerRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del fits, firsts
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+# examples/tiger_example.py's settings (phase 16c), the class defaults
+# otherwise (latent 32, hidden (512, 256, 128), 200 RQ-VAE epochs of 1,024,
+# 6 heads of 64, 4 + 4 layers, max_len 20, batch 256, lr 0.001, weight decay
+# 1e-4, the constant schedule, beam scoring with 20 beams); the example's 20
+# seq2seq epochs cut to one fit of 2
+TIGER_EXAMPLE = dict(tokenizer="rqvae", rqvae_num_levels=3, rqvae_codebook_size=256,
+                     d_model=128, d_ff=1024, seed=123)
+TIGER_EPOCHS = 2
+TIGER_FEATURES = 512  # TfidfVectorizer(max_features=512) over the plots
+TIGER_PROFILE_STEPS = 4  # seq2seq steps profiled (some 6,600 device events)
+TIGER_TRAIN_USERS = 472  # the seq2seq trains on the first half of the users' sessions
+
+
+def tiger_step_bound(B, S, T, d, a, ff, n_enc, n_dec, level_sizes, n_params):
+    """(FLOPs, bytes) of one TIGER seq2seq training step as the port
+    computes it: per encoder layer the four projections (8 B S d a), the
+    attention (4 B S^2 a) and the feed-forward (4 B S d ff); per decoder
+    layer (T positions) the self-attention's (8 B T d a + 4 B T^2 a), the
+    cross attention's queries and output (4 B T d a), its keys and values
+    over the S encoder positions (4 B S d a) and products (4 B T S a), the
+    feed-forward (4 B T d ff); the heads (2 B d x each level's size); three
+    times over for the backward. The bytes are AdamW's dense update (7 x 4
+    bytes a parameter) and the batch's tokens."""
+    enc = n_enc * (8 * B * S * d * a + 4 * B * S * S * a + 4 * B * S * d * ff)
+    dec = n_dec * (8 * B * T * d * a + 4 * B * T * T * a + 4 * B * T * d * a
+                   + 4 * B * S * d * a + 4 * B * T * S * a + 4 * B * T * d * ff)
+    heads = 2 * B * d * sum(level_sizes)
+    return 3.0 * (enc + dec + heads), 7 * 4.0 * n_params + 8.0 * B * (S + T)
+
+
+@contextlib.contextmanager
+def timed_epochs(seconds):
+    """While open, every call of ``models.tiger._train_epoch`` (an RQ-VAE
+    or a seq2seq epoch) appends its seconds to ``seconds``, the card
+    synchronised at both ends."""
+    import torch
+
+    from cornac_tpu_torch.models import tiger as tiger_mod
+
+    real = tiger_mod._train_epoch
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    tiger_mod._train_epoch = timed
+    try:
+        yield seconds
+    finally:
+        tiger_mod._train_epoch = real
+
+
+def phase_tiger_ml100k(bench_data):
+    """Phase 16c, TIGER at ``examples/tiger_example.py``'s settings:
+    ``NextItemEvaluation.leave_last_out(seed=123)`` of ``make_ml100k_like(7)``
+    with the generation order as timestamps and seeded TF-IDF-like item
+    features (``seq_bench_data.tfidf_like``: 1,682 x 512, nonnegative,
+    sparse, L2-normalised; the plots are not in the repository); the
+    seq2seq trains on the first 472 users' sessions (the whole catalog).
+    One fit of 2 seq2seq epochs after the RQ-VAE's 200, each epoch timed on the
+    synchronised card (the second is the steady one): the RQ-VAE's
+    seconds, the dead codes restarted, the collision level's size, seconds
+    per seq2seq epoch and ms a step beside ``tiger_step_bound``; peak device
+    memory; the beam evaluation (HitRatio@10, NDCG@10) and its seconds; 64
+    histories' beam scores on the card held to the same scoring on the CPU
+    (the beams as sets, a swap allowed only at a near-tie of the last kept
+    score) and 4 histories' exact scores over the first 256 items; the
+    first RQ-VAE step's three and the first seq2seq step's two
+    accumulate_rows inputs held bit for bit to the plain version on the CPU
+    and timed beside ``index_add_``; 4 seq2seq steps profiled (device
+    events a step, busy share). Returns (accumulate_rows launches,
+    stats)."""
+    import torch
+
+    from cornac_tpu_torch.data import FeatureModality
+    from cornac_tpu_torch.eval_methods import NextItemEvaluation
+    from cornac_tpu_torch.metrics import NDCG, HitRatio
+    from cornac_tpu_torch.models import TIGER
+    from cornac_tpu_torch.models import tiger as tiger_mod
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.optim import step
+    from seq_bench_data import tfidf_like
+
+    clock = Clock()
+    triples = bench_data()
+    items = sorted({i for _, i, _ in triples}, key=lambda s: int(s[1:]))
+    feats = clock("TF-IDF-like features (set-up)", lambda: tfidf_like(len(items), TIGER_FEATURES))
+    ev = clock("NextItemEvaluation.leave_last_out (UIRT)", lambda: NextItemEvaluation.leave_last_out(
+        [(u, i, r, t) for t, (u, i, r) in enumerate(triples)], fmt="UIRT", seed=123,
+        item_feature=FeatureModality(features=feats, ids=items)))
+    test = ev.test_set
+    # the first half of the users' sessions, over the whole catalog and its
+    # features (the time budget's cut)
+    train = clock(f"the first {TIGER_TRAIN_USERS} users' sessions (set-up)",
+                  lambda: session_subset(ev.train_set, TIGER_TRAIN_USERS, ev.train_set.iid_map))
+    train.add_modalities(item_feature=ev.train_set.item_feature)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    # the RQ-VAE's codebook lookups come first: a level's a step
+    probe = TIGER(**TIGER_EXAMPLE)
+    n_rq_calls = probe.rqvae_num_levels * probe.rqvae_n_epochs * -(
+        -len(items) // min(probe.rqvae_batch_size, len(items)))
+    host, epochs, first = {}, [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with timed_methods([("TIGER", "_fit_rqvae"), ("TIGER", "_build_examples")], host), \
+            timed_epochs(epochs), recording_first_calls(first, 0, calls=(
+                0, 1, 2, n_rq_calls, n_rq_calls + 1)):
+        model = clock(f"TIGER.fit, {TIGER_EPOCHS} seq2seq epochs",
+                      lambda: TIGER(n_epochs=TIGER_EPOCHS, **TIGER_EXAMPLE).fit(train))
+    peak = torch.cuda.max_memory_allocated() - held
+    metrics = [HitRatio(k=10), NDCG(k=10)]
+    result = clock("NextItemEvaluation (beam) over the test users", lambda: ev.eval(
+        model, train, test, True, metrics, mode="last"))
+    launches = ACCUMULATE_ROWS.launches
+    if launches <= 0:
+        raise AssertionError("TIGER did not launch accumulate_rows")
+
+    # ---- check and measure ----
+    for key, p in model.params.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"TIGER at ML-100K: non-finite {key}")
+    vals = result.metric_avg_results
+    if not all(np.isfinite(vals[m.name]) and 0.0 <= vals[m.name] <= 1.0 for m in metrics):
+        raise AssertionError(f"TIGER at ML-100K: metrics {dict(vals)}")
+    if len(epochs) != probe.rqvae_n_epochs + TIGER_EPOCHS or len(first) != 5:
+        raise AssertionError(f"TIGER: {len(epochs)} epochs timed, {len(first)} accumulate_rows "
+                             f"calls recorded")
+    acc_err, acc_rows = clock("the first steps' accumulate_rows held and timed", lambda: (
+        hold_and_time_calls("TIGER's first RQ-VAE step", first[:3])))
+    err2, rows2 = hold_and_time_calls("TIGER's first seq2seq step", first[3:])
+    acc_err, acc_rows = max(acc_err, err2), acc_rows + rows2
+
+    # the card's scores against the same parameters scored on the CPU
+    hist = [[int(x) for x in items_[:-1]] for _, _, [items_] in
+            itertools.islice(test.si_iter(batch_size=1), 64)]
+    cpu = copy.copy(model)
+    cpu.params = copy.deepcopy(model.params).to("cpu")
+    got = model.score_history_batch([None] * len(hist), hist)
+    want = clock("64 histories' beams on the CPU",
+                 lambda: cpu.score_history_batch([None] * len(hist), hist))
+    beam_swaps, beam_err = beams_match(got, want)
+    enc_c, mask_c = model._encode_history_batch(hist[:4])
+    sid = torch.as_tensor(model.sid_table[:256], device=enc_c.device)
+    offsets = torch.as_tensor(model.offsets, device=enc_c.device)
+
+    def exact_on_cpu():
+        enc_h, mask_h = cpu._encode_history_batch(hist[:4])
+        return tiger_mod._exact_cross_scores(cpu.params, offsets.cpu(), sid.cpu(), enc_h,
+                                             mask_h, model.num_heads).numpy()
+
+    with torch.no_grad():
+        exact = tiger_mod._exact_cross_scores(model.params, offsets, sid, enc_c, mask_c,
+                                              model.num_heads).cpu().numpy()
+        exact_cpu = clock("4 histories' exact scores over 256 items on the CPU", exact_on_cpu)
+    exact_err = float(np.abs(exact - exact_cpu).max())
+    if not np.allclose(exact, exact_cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"TIGER's exact scores on the card differ from the CPU's by "
+                             f"{exact_err}")
+
+    # the seq2seq step: its bound and a profile of TIGER_PROFILE_STEPS steps
+    hists, outs = model._build_examples(train)
+    dev = model.params.tok_emb.device
+    enc = torch.as_tensor(model.enc_token_table[hists].reshape(len(hists), -1), device=dev)
+    tgt = torch.as_tensor(model.sid_table[outs], device=dev)
+    bsz = model.batch_size
+    steps = -(-len(hists) // bsz)
+    params = copy.deepcopy(model.params)
+    named = dict(params.named_parameters())
+    opt = model._optimizer(steps)
+    state = opt.init(named)
+    perm = tiger_mod._epoch_perm(1, 0, steps * bsz, len(hists), dev)
+
+    def some_steps():
+        nonlocal state
+        for b in range(TIGER_PROFILE_STEPS):
+            idx = perm[b * bsz:(b + 1) * bsz]
+            state = step(named, opt, state, tiger_mod._seq2seq_loss(
+                params, offsets, enc[idx], tgt[idx], model.num_heads))
+
+    wall_ms, busy_ms, n_events, events = clock(
+        f"{TIGER_PROFILE_STEPS} seq2seq steps profiled", lambda: profile_call(some_steps))
+    n_params = sum(p.numel() for p in named.values())
+    S, T = model.max_len * len(model.level_sizes), len(model.level_sizes)
+    flops, nbytes = tiger_step_bound(bsz, S, T, model.d_model, model.num_heads * model.d_kv,
+                                     model.d_ff, model.num_enc_layers, model.num_dec_layers,
+                                     model.level_sizes, n_params)
+    bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    rq_s = host[("TIGER", "_fit_rqvae")]
+    epoch_s = epochs[-1]
+    eval_s = clock.seconds["NextItemEvaluation (beam) over the test users"]
+    share = busy_ms / wall_ms if events else None
+    clock.report("TIGER at ML-100K")
+    log(f"  {len(items):,} items x {TIGER_FEATURES} features; {train.num_sessions:,} train "
+        f"sessions, {len(hists):,} seq2seq examples ({steps} steps of {bsz}); the RQ-VAE "
+        f"({probe.rqvae_n_epochs} epochs) {rq_s:.3f} s, its epochs on the card "
+        f"{sum(epochs[:-TIGER_EPOCHS]):.3f} s, {model.rqvae_restarts} dead codes restarted, the "
+        f"collision level {model.level_sizes[-1]} wide; the examples' host loop "
+        f"{host[('TIGER', '_build_examples')]:.3f} s")
+    log(f"  TIGER seq2seq (d {model.d_model}, {model.num_heads} heads of {model.d_kv}, "
+        f"{model.num_enc_layers} + {model.num_dec_layers} layers, S {S}, T {T}): epochs "
+        + ", ".join(f"{e:.3f}" for e in epochs[-TIGER_EPOCHS:])
+        + f" s, {1e3 * epoch_s / steps:.3f} ms a step (the last epoch); bound of a step "
+        f"{flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = {1e3 * bound_s:.4f} ms "
+        f"({bound_by}), {100 * bound_s * steps / epoch_s:.3f}% of it; {TIGER_PROFILE_STEPS} steps "
+        f"profiled: {wall_ms:.1f} ms host clock, device busy {busy_ms:.3f} ms ("
+        + ("not measured" if share is None else f"{100 * share:.2f}%")
+        + f"), {n_events / TIGER_PROFILE_STEPS:.1f} device events a step; top device ops "
+        f"{top_ops(events)}; peak device memory of the fit {peak / 2**30:.3f} GiB above what "
+        f"the run held")
+    log(f"  NextItemEvaluation (beam, {model.n_beams} beams, {test.num_sessions:,} test users): "
+        f"HitRatio@10 {vals['HitRatio@10']:.6f}, NDCG@10 {vals['NDCG@10']:.6f} in "
+        f"{eval_s:.3f} s; 64 histories' beams on the card equal to the CPU's but for "
+        f"{beam_swaps} swaps at near-ties, scores within {beam_err:.3e}; 4 histories' exact "
+        f"scores over 256 items within {exact_err:.3e}; the first steps' accumulate_rows "
+        f"inputs equal to the plain version on the CPU, bit for bit (max |err| {acc_err:.3e}); "
+        f"accumulate_rows launches {launches}")
+    log(f"TIGER at ML-100K: ok in {sum(clock.seconds.values()):.1f} s")
+    restarts, collisions = model.rqvae_restarts, model.level_sizes[-1]
+    del model, cpu, params, state
+    torch.cuda.empty_cache()
+    return launches, dict(rq_s=rq_s, restarts=restarts, collisions=collisions, epoch_s=epoch_s,
+                          step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * bound_s,
+                          bound_by=bound_by, share=share,
+                          launches_per_minibatch=n_events / TIGER_PROFILE_STEPS, peak=peak,
+                          eval_s=eval_s, metrics={m.name: vals[m.name] for m in metrics},
+                          acc=acc_rows, max_abs_err=acc_err)
+
+
+def beams_match(got, want, tol=1e-4):
+    """Hold TIGER's beam scores ``got`` (the card's) to ``want`` (the
+    CPU's), row by row: the items a row's beams reached (scores above the
+    -1e10 fill) as sets, and their scores within ``tol``. A member may
+    differ only where its score lies within ``tol`` of the row's last kept
+    score (float32 log-softmax rounding can swap near-tied beams). Returns
+    (members swapped, max |score difference| over the common members)."""
+    swaps, err = 0, 0.0
+    for g, w in zip(got, want):
+        gs, ws = np.flatnonzero(g > -1e9), np.flatnonzero(w > -1e9)
+        common = np.intersect1d(gs, ws)
+        if common.size:
+            err = max(err, float(np.abs(g[common] - w[common]).max()))
+        odd = np.setxor1d(gs, ws)
+        if odd.size:
+            edge = min(w[ws].min(), g[gs].min())
+            near = np.abs(np.where(g[odd] > -1e9, g[odd], w[odd]) - edge) <= tol
+            if not near.all():
+                raise AssertionError("TIGER: the card's beams differ from the CPU's beyond "
+                                     "near-ties")
+            swaps += odd.size
+    if err > tol:
+        raise AssertionError(f"TIGER: beam scores on the card differ from the CPU's by {err}")
+    return swaps, err
 
 
 GRU_WITNESS_TOL = 1e-5  # max |card - CPU| of a parameter after one epoch
@@ -3974,6 +4521,249 @@ def phase_seq_bench(bench_data):
         f"against {clock.seconds['Reader.read (UIRT, line by line)']:.3f} s); accumulate_rows "
         f"launches {launches}")
     log(f"next-item models, CVAECF and GCMC at the bench shapes: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
+GENERATIVE_WITNESS_TOL = 1e-5  # max |card - CPU| of a parameter after one epoch
+# (BERT4Rec's, held to the float64 epoch, at least)
+
+
+def _draws_to(draws, dev):
+    """A step's draws (tensors, lists of tensors, None) moved to ``dev``."""
+    if isinstance(draws, dict):
+        return {k: _draws_to(v, dev) for k, v in draws.items()}
+    if isinstance(draws, list):
+        return [x.to(dev) for x in draws]
+    return None if draws is None else draws.to(dev)
+
+
+def generative_witness(models, train, card=DEV):
+    """One epoch of BERT4Rec, one of TIGER's RQ-VAE and one of its
+    seq2seq, at their bench configurations, on ``card`` and on the CPU from
+    the same initial parameters and on the same draws, all made on the CPU
+    (the permutations; BERT4Rec's mask uniforms, negatives and dropout
+    masks). BERT4Rec's epoch runs on the CPU in float64 too: the CPU's
+    float32 epoch's distance from it is how far float32 rounding alone
+    carries a parameter (Adam divides each gradient by its own running
+    size, so a gradient's relative rounding error becomes an error of that
+    size times the learning rate in its step, and the epoch's 27 steps add
+    up to some 1e-4 at lr 0.005). Returns {epoch: (steps, the card's parameters, the CPU's, the
+    CPU's float64 epoch's or None)}, each {leaf: float64 tensor on the
+    CPU}."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch.models import tiger as tiger_mod
+    from cornac_tpu_torch.models.seq_utils import neg_sampling_table
+    from cornac_tpu_torch.ops.optim import adam, adamw, step
+
+    def params_of(module):
+        return {k: p.detach().cpu().double() for k, p in module.named_parameters()}
+
+    def witness(epoch, reach=False):
+        return (epoch(card, torch.float32), epoch("cpu", torch.float32),
+                epoch("cpu", torch.float64) if reach else None)
+
+    gen = torch.Generator().manual_seed(123)
+    out = {}
+    bert = make_model(models, "BERT4Rec", 123)
+    bert.n_epochs = 0
+    bert.fit(train)  # the initial parameters, on the card
+    init = copy.deepcopy(bert.params).to("cpu")
+    inputs, targets, mask, bsz = bert.training_rows(train)
+    cum = neg_sampling_table(train, bert.sample_alpha, bert.num_items, "cpu")
+    order = torch.randperm(len(inputs), generator=gen)
+    draws = [(order[b * bsz:(b + 1) * bsz], bert.draws(gen, bsz, inputs.shape[1], "cpu", cum))
+             for b in range(len(inputs) // bsz)]
+
+    def bert_epoch(dev, dtype):
+        bert.params = copy.deepcopy(init).to(dev, dtype)
+        params = dict(bert.params.named_parameters())
+        opt = adam(bert.learning_rate)
+        state = opt.init(params)
+        seq, tgt = (torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (inputs, targets))
+        m = torch.as_tensor(mask, dtype=dtype, device=dev)
+        for idx, d in draws:
+            idx = idx.to(dev)
+            state = step(params, opt, state,
+                         bert.loss_on(seq[idx], tgt[idx], m[idx], _draws_to(d, dev)))
+        return params_of(bert.params)
+
+    out["BERT4Rec"] = (len(draws), *witness(bert_epoch, reach=True))
+
+    tiger = make_model(models, "TIGER-rqvae", 123)
+    tiger.rqvae_n_epochs, tiger.n_epochs = 0, 0
+    tiger.fit(train)  # k-means codebooks and the seq2seq's initial parameters
+    feats = tiger._get_item_features()
+    rq_init = copy.deepcopy(tiger.rqvae_params).to("cpu")
+    n = feats.shape[0]
+    rq_bsz = min(tiger.rqvae_batch_size, n)
+    rq_perm = torch.randperm(n + (-n) % rq_bsz, generator=gen) % n
+
+    def rq_epoch(dev, dtype):
+        p = copy.deepcopy(rq_init).to(dev, dtype)
+        opt = adamw(tiger.rqvae_learning_rate, weight_decay=tiger.rqvae_weight_decay)
+        x = torch.as_tensor(feats, dtype=dtype, device=dev)
+        tiger_mod._train_epoch(p, opt, opt.init(dict(p.named_parameters())),
+                               lambda idx: tiger_mod._rqvae_loss(p, x[idx], tiger.rqvae_beta),
+                               rq_perm.to(dev), rq_bsz)
+        return params_of(p)
+
+    out["TIGER's RQ-VAE"] = (len(rq_perm) // rq_bsz, *witness(rq_epoch))
+
+    hists, outs = tiger._build_examples(train)
+    enc = tiger.enc_token_table[hists].reshape(len(hists), -1)
+    tgt = tiger.sid_table[outs]
+    s_init = copy.deepcopy(tiger.params).to("cpu")
+    s_bsz = min(tiger.batch_size, len(hists))
+    s_perm = torch.randperm(len(hists) + (-len(hists)) % s_bsz, generator=gen) % len(hists)
+
+    def seq2seq_epoch(dev, dtype):
+        p = copy.deepcopy(s_init).to(dev, dtype)
+        opt = tiger._optimizer(len(s_perm) // s_bsz)
+        e, t, off = (torch.as_tensor(a, device=dev) for a in (enc, tgt, tiger.offsets))
+        tiger_mod._train_epoch(p, opt, opt.init(dict(p.named_parameters())),
+                               lambda idx: tiger_mod._seq2seq_loss(p, off, e[idx], t[idx],
+                                                                   tiger.num_heads),
+                               s_perm.to(dev), s_bsz)
+        return params_of(p)
+
+    out["TIGER's seq2seq"] = (len(s_perm) // s_bsz, *witness(seq2seq_epoch))
+    return out
+
+
+# the generative next-item models at the bench shape (process 12h): the
+# configurations of tools/bpr_quality_band.py (GENERATIVE_CONFIGS)
+GENERATIVE_RESUMED = ("BERT4Rec", "TIGER-rkmeans")  # stopped at epoch 1 and resumed
+
+
+def phase_generative_bench(bench_data):
+    """Process 12h, spawned: BERT4Rec, TransformerRec (clm at 'all' and
+    'last', plm, rtd), TIGER with rqvae and beam scoring and with rkmeans
+    and exact scoring on ``seq_bench_data.gen_sessions``' sessions (TIGER
+    over ``session_features``) under NextItemEvaluation (mode 'next'), each
+    metric in the band of the JAX package's CPU fits over ten seeds; a
+    second seeded fit of each (one epoch a chunk) bit for bit, whose
+    accumulate_rows inputs (the first at each shape) are held to the plain
+    version on the CPU; BERT4Rec and TIGER-rkmeans stopped at epoch 1 and
+    resumed from their checkpoints equal to the uninterrupted fits; TIGER
+    rkmeans' semantic IDs on the card equal to the CPU's bytes; the card
+    witness (``generative_witness``). Returns (accumulate_rows launches,
+    fit seconds, max |err|)."""
+    import io
+    import shutil
+
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import GENERATIVE_CONFIGS, SEQ_METRICS, make_model, seq_eval
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    clock = Clock()
+    ev, seq_metrics = clock("NextItemEvaluation.from_splits (gen_sessions, features)",
+                            lambda: seq_eval(peval, pmetrics, data=pdata))
+    train = ev.train_set
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    fitted, results = {}, {}
+    for name in GENERATIVE_CONFIGS:
+        fitted[name] = make_model(models, name, 123)
+        results[name] = clock(f"{name} evaluate", lambda: ev.evaluate(
+            fitted[name], seq_metrics, user_based=False))
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the generative next-item models at the bench shape")
+    if launches <= 0:
+        raise AssertionError("process 12h did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    fit_s, acc_err, recorded, outside = {}, 0.0, 0, []
+    work = ROOT / "build" / "chip_smoke" / "generative_checkpoints"
+    for name, (test_result, _) in results.items():
+        fit_s[name] = test_result.metric_avg_results["Train (s)"]
+        for metric in SEQ_METRICS:
+            value = test_result.metric_avg_results[metric]
+            lo, hi, _, _ = seq_band(name, metric)
+            inside = lo <= value <= hi
+            log(f"  {name}: {metric} {value:.6f}, band [{lo:.6f}, {hi:.6f}] (10 JAX seeds) "
+                f"{'inside' if inside else 'OUTSIDE'}")
+            if not inside:
+                outside.append(f"{name} {metric}")
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = make_model(models, name, 123)
+            again.verbose = True
+            again.fit(train)
+        a, b = (m.params.state_dict() for m in (fitted[name], again))
+        for key in a:
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(f"{name}: two seeded fits differ in {key}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+        if name in GENERATIVE_RESUMED:
+            shutil.rmtree(work, ignore_errors=True)
+            stopped = make_model(models, name, 123)
+            stopped.n_epochs = 1
+            stopped.enable_checkpointing(work, every=1).fit(train)
+            resumed = make_model(models, name, 123)
+            resumed.enable_checkpointing(work, every=1).fit(train)
+            for key, value in resumed.params.state_dict().items():
+                if not torch.equal(value, a[key]):
+                    raise AssertionError(f"{name}: the resumed fit differs in {key}")
+            shutil.rmtree(work, ignore_errors=True)
+    # rkmeans runs on the host: the card's fit has the CPU's semantic IDs
+    tiger = fitted["TIGER-rkmeans"]
+    on_cpu = make_model(models, "TIGER-rkmeans", 123)
+    on_cpu._build_semantic_ids(on_cpu._fit_rkmeans(tiger._get_item_features()))
+    if not (np.array_equal(on_cpu.sid_table, tiger.sid_table)
+            and on_cpu.sid_table.dtype == tiger.sid_table.dtype):
+        raise AssertionError("TIGER-rkmeans: the card's semantic IDs differ from the CPU's")
+    witness = clock("the card witness: one epoch each on the CPU's draws",
+                    lambda: generative_witness(models, train))
+    for what, (steps, card, cpu, exact) in witness.items():
+        to_cpu = max((card[k] - cpu[k]).abs().max().item() for k in cpu)
+        if exact is None:
+            log(f"  {what}, one epoch ({steps} steps) on the CPU's draws, on the card and on the "
+                f"CPU: max |card - CPU| {to_cpu:.3e} over the parameters, held to "
+                f"{GENERATIVE_WITNESS_TOL:g}")
+            if not to_cpu <= GENERATIVE_WITNESS_TOL:
+                raise AssertionError(f"{what}: the card's epoch differs from the CPU's on the "
+                                     f"same draws by {to_cpu:.3e}")
+            continue
+        # float32 rounding alone carries the CPU's epoch this far from the
+        # float64 one; the card's float32 epoch is held to the float64
+        # epoch within that reach, and its parameters more than 1e-5 from
+        # it are named, each beside the CPU's own distance there
+        reach = max((cpu[k] - exact[k]).abs().max().item() for k in cpu)
+        tol = max(GENERATIVE_WITNESS_TOL, reach)
+        off, worst = [], 0.0
+        for k in card:
+            d = (card[k] - exact[k]).abs()
+            worst = max(worst, d.max().item())
+            off += [f"{k}{list(i)} {d[tuple(i)].item():.3e} (CPU "
+                    f"{(cpu[k] - exact[k]).abs()[tuple(i)].item():.3e})"
+                    for i in torch.nonzero(d > GENERATIVE_WITNESS_TOL).tolist()]
+        log(f"  {what}, one epoch ({steps} steps) on the CPU's draws, on the card, on the CPU "
+            f"and on the CPU in float64: max |card - float64| {worst:.3e} over the parameters, "
+            f"held to the CPU float32 epoch's own distance from the float64 one, {reach:.3e} "
+            f"(at least {GENERATIVE_WITNESS_TOL:g}); max |card - CPU| {to_cpu:.3e}; parameters "
+            f"of the card's epoch more than {GENERATIVE_WITNESS_TOL:g} from the float64 one: "
+            f"{'; '.join(off) or 'none'}")
+        if not worst <= tol:
+            raise AssertionError(f"{what}: the card's epoch lies {worst:.3e} from the float64 "
+                                 f"epoch, the CPU's float32 epoch {reach:.3e}")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+    log(f"  every model: two seeded fits identical, bit for bit; {', '.join(GENERATIVE_RESUMED)} "
+        f"stopped at epoch 1 and resumed equal to the uninterrupted fits; TIGER-rkmeans' "
+        f"semantic IDs ({tiger.sid_table.shape[0]} x {tiger.sid_table.shape[1]}, collision level "
+        f"{tiger.level_sizes[-1]}) equal to the CPU's bytes; accumulate_rows on the trainers' "
+        f"own inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit "
+        f"(max |err| {acc_err:.3e}); accumulate_rows launches {launches}")
+    log(f"the generative next-item models at the bench shape: ok in "
         f"{sum(clock.seconds.values()):.1f} s")
     return launches, fit_s, acc_err
 
@@ -4453,23 +5243,21 @@ NEURAL_GROUPS = (("GMF", "MLP"), ("NeuMF", "LightGCN", "NGCF"), ("VAECF", "RecVA
 FAMILY_TIMEOUT = 900  # seconds a family's process may take
 
 
-@functools.lru_cache(maxsize=1)
-def _bench_data():
-    return make_ml100k_like()
-
-
-def run_captured(phase, *args):
+def run_captured(phase, triples, *args):
     """In a spawned process: the phase function ``phase`` of this script
-    on ``make_ml100k_like(7)`` and ``args``, its log captured. Returns
-    (log, result); a failure raises with the log and the traceback."""
+    on ``triples`` (``make_ml100k_like(7)``, made once by the parent) and
+    ``args``, its log captured, at a lower CPU priority than the parent's
+    phases beside it. Returns (log, result); a failure raises with the log
+    and the traceback."""
     import io
     import traceback
 
+    os.nice(10)
     sys.path.insert(0, str(ROOT))
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            result = globals()[phase](_bench_data, *args)
+            result = globals()[phase](lambda: triples, *args)
     except Exception:
         raise RuntimeError(f"{phase}{args} failed:\n{out.getvalue()}{traceback.format_exc()}"
                            ) from None
@@ -4537,21 +5325,41 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the serving slice runs. The factor and neural
-    # families at the bench shape run last, in four processes of their own
-    # at once (their logs printed when each ends), after every phase this
-    # process times: the card time-slices between processes and they share
-    # the host's cores, so a time taken beside them would carry their load
-    # (their own times carry each other's)
-    pool = multiprocessing.get_context("spawn").Pool(5 + len(NEURAL_GROUPS))
+    # makes the data while the serving slice runs. The nine bench-shape
+    # processes run beside phase 16 and are collected (their logs printed)
+    # before 16b: the module's docstring says why there
+    pool = multiprocessing.get_context("spawn").Pool(6 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
         lap("BPR serving slice")
         basket_launches, basket = phase_basket_tafeng(args.seed)
         lap("the next-basket family at Ta Feng")
-        sasrec_launches, sasrec = phase_sasrec_diginetica(args.seed, work)
-        lap("SASRec at Diginetica")
+        tiger_launches, tiger = phase_tiger_ml100k(bench_data.get)
+        lap("TIGER at ML-100K")
+        triples = bench_data.get()
+        jobs = [("factor family", "phase_factor_bench", ())]
+        jobs += [(f"neural family ({', '.join(names)})", "phase_neural_bench", (names,))
+                 for names in NEURAL_GROUPS]
+        jobs += [("factor family's rest and the protocols", "phase_factor_rest_bench", ()),
+                 ("the modality layer's models and checkpointed Experiments",
+                  "phase_modality_bench", ()),
+                 ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
+                 ("the next-basket models", "phase_basket_bench", ()),
+                 ("the generative next-item models", "phase_generative_bench", ())]
+        families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
+                    for what, phase, extra in jobs]
+        sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
+        lap("SASRec at Diginetica, beside the nine bench-shape processes")
+        done = []
+        for what, job in families:
+            text, result = job.get(timeout=FAMILY_TIMEOUT)
+            log(text.rstrip())
+            lap(f"{what} at the bench shape, in its own process")
+            done.append(result)
+        tr_launches, transformer = phase_transformer_diginetica(digi_ev)
+        del digi_ev
+        lap("TransformerRec at Diginetica")
         knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
         lap("KNN slice")
         ml10m_launches, W10, train10m = phase_knn_ml10m(args.seed)
@@ -4579,40 +5387,22 @@ def main():
         vaecf = phase_vaecf_full(netflix, args.seed)
         del netflix
         lap("VAECF at the Netflix widths")
-        rows = phase_times(bpr, users)
-        hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
-        sbpr_rows = phase_times(sbpr_model, sbpr_users, (SERVE_BATCH,), "SBPR at Epinions")
-        c2pf_rows = phase_times(c2pf_model, c2pf_users, (SERVE_BATCH,), "C2PF at Amazon Office")
-        cos_rows = phase_cosine_times([
-            ("ML-1M item side", W_items),
-            ("ML-1M user side", W_users),
-            ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
-            ("ML-10M item side", W10),
-        ])
-        acc_rows = phase_accumulate_times(acc_cases)
-        canary_row = phase_canary_times()
-        lap("times")
-        families = [("factor family", pool.apply_async(run_captured, ("phase_factor_bench",)))]
-        families += [(f"neural family ({', '.join(names)})",
-                      pool.apply_async(run_captured, ("phase_neural_bench", names)))
-                     for names in NEURAL_GROUPS]
-        families.append(("factor family's rest and the protocols",
-                         pool.apply_async(run_captured, ("phase_factor_rest_bench",))))
-        families.append(("the modality layer's models and checkpointed Experiments",
-                         pool.apply_async(run_captured, ("phase_modality_bench",))))
-        families.append(("the next-item models, CVAECF and GCMC",
-                         pool.apply_async(run_captured, ("phase_seq_bench",))))
-        families.append(("the next-basket models",
-                         pool.apply_async(run_captured, ("phase_basket_bench",))))
-        done = []
-        for what, job in families:
-            text, result = job.get(timeout=FAMILY_TIMEOUT)
-            log(text.rstrip())
-            lap(f"{what} at the bench shape, in its own process")
-            done.append(result)
     finally:
         pool.terminate()
         pool.join()
+    rows = phase_times(bpr, users)
+    hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
+    sbpr_rows = phase_times(sbpr_model, sbpr_users, (SERVE_BATCH,), "SBPR at Epinions")
+    c2pf_rows = phase_times(c2pf_model, c2pf_users, (SERVE_BATCH,), "C2PF at Amazon Office")
+    cos_rows = phase_cosine_times([
+        ("ML-1M item side", W_items),
+        ("ML-1M user side", W_users),
+        ("half dense, ML-1M item widths", star_weights(3706, 6040, 0.5, "integer", gen)),
+        ("ML-10M item side", W10),
+    ])
+    acc_rows = phase_accumulate_times(acc_cases)
+    canary_row = phase_canary_times()
+    lap("times")
     factor_launches, factor_fused, factor_fit, factor_acc_err = done[0]
     neural = done[1:1 + len(NEURAL_GROUPS)]
     neural_launches = sum(r[0] for r in neural)
@@ -4624,6 +5414,7 @@ def main():
     modal_launches, modal_fit, modal_acc_err = done[2 + len(NEURAL_GROUPS)]
     seqb_launches, seqb_fit, seqb_acc_err = done[3 + len(NEURAL_GROUPS)]
     nbb_launches, nbb_fit, nbb_acc_err = done[4 + len(NEURAL_GROUPS)]
+    genb_launches, genb_fit, genb_acc_err = done[5 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -4675,7 +5466,8 @@ def main():
     acc_all_err = max(acc_err, factor_acc_err, neural_acc_err, lgcn["max_abs_err"],
                       hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
                       c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err,
-                      basket["max_abs_err"], nbb_acc_err)
+                      basket["max_abs_err"], nbb_acc_err, genb_acc_err, tiger["max_abs_err"],
+                      *(st["max_abs_err"] for st in transformer.values()))
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
                   "LightGCN edge form, ML-10M, into item rows",
@@ -4686,6 +5478,10 @@ def main():
                   "SASRec, Diginetica, embedding gradient (positions)",
                   "SASRec, Diginetica, embedding gradient (negatives)",
                   "FPMC, Diginetica, item-table scatter",
+                  "BERT4Rec, Diginetica, embedding gradient (positions)",
+                  "BERT4Rec, Diginetica, output-bias gradient (positions)",
+                  "TIGER, ML-100K, token table (encoder tokens)",
+                  "TIGER, ML-100K, RQ-VAE codebook",
                   "GCMC, bench shape, edges into item rows",
                   "GCMC, bench shape, edges into user rows"):
         acc = acc_rows[label]
@@ -4698,7 +5494,8 @@ def main():
             "launches": (bench_launches + full_launches + factor_launches + neural_launches
                          + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
                          + c2pf_launches + modal_launches + sasrec_launches + seqb_launches
-                         + basket_launches + nbb_launches),
+                         + basket_launches + nbb_launches + tr_launches + tiger_launches
+                         + genb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -4760,6 +5557,24 @@ def main():
         f"step, peak {sasrec['peak'] / 2**30:.3f} GiB; " + ", ".join(
             f"{k} {v:.4f}" for k, v in sasrec["metrics"].items())
         + f" in {sasrec['eval_s']:.3f} s")
+    for name, st in transformer.items():
+        log(f"{name} at Diginetica: {st['epoch_s']:.3f} s per epoch, {st['seq_per_s']:,.0f} "
+            f"training sequences/s, {st['step_ms']:.3f} ms a step against a "
+            f"{st['step_bound_ms']:.4f} ms bound ({st['bound_by']}), busy "
+            f"{100 * st['share']:.2f}%, {st['launches_per_minibatch']:.1f} device events a step, "
+            f"peak {st['peak'] / 2**30:.3f} GiB; " + ", ".join(
+                f"{k} {v:.4f}" for k, v in st["metrics"].items())
+            + f" in {st['eval_s']:.3f} s")
+    log(f"TIGER at ML-100K: the RQ-VAE {tiger['rq_s']:.3f} s ({tiger['restarts']} dead codes "
+        f"restarted, collision level {tiger['collisions']}), {tiger['epoch_s']:.3f} s per seq2seq "
+        f"epoch, {tiger['step_ms']:.3f} ms a step against a {tiger['step_bound_ms']:.4f} ms bound "
+        f"({tiger['bound_by']}), busy "
+        + ("not measured" if tiger["share"] is None else f"{100 * tiger['share']:.2f}%")
+        + f", {tiger['launches_per_minibatch']:.1f} device events a step, peak "
+        f"{tiger['peak'] / 2**30:.3f} GiB; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tiger["metrics"].items()) + f" in {tiger['eval_s']:.3f} s")
+    log("the generative next-item models at the bench shape, fit seconds (host clock): "
+        + ", ".join(f"{name} {sec:.3f}" for name, sec in genb_fit.items()))
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

@@ -34,6 +34,8 @@ from .models.sansa import SANSA
 from .models.sasrec import SASRec
 from .models.sbpr import SBPR
 from .models.skm import SKMeans
+from .models.tiger import TIGER
+from .models.transformer_rec import TransformerRec
 from .models.vebpr import VEBPR
 from .models.wmf import WMF
 
@@ -265,16 +267,26 @@ _PARAM_MODELS = {
     "Beacon": (Beacon, ("emb_dim", "rnn_unit", "alpha", "rnn_cell_type", "nb_hop",
                         "max_seq_length")),
     "DNNTSP": (DNNTSP, ("emb_dim", "loss_type")),
+    "TransformerRec": (TransformerRec, ("backbone", "objective", "loss_at", "embedding_dim",
+                                        "max_len", "num_blocks", "num_heads")),
+    "TIGER": (TIGER, ("tokenizer", "rqvae_num_levels", "rqvae_codebook_size", "d_model", "d_ff",
+                      "num_heads", "d_kv", "num_enc_layers", "num_dec_layers", "max_len",
+                      "scoring", "n_beams")),
 }
 # what a model scores with besides its parameters and options: Beacon's
 # correlation matrix (scipy sparse), DNNTSP's padded graph sizes (the JAX
-# model's ``_train_N`` and ``_train_T``)
-_PARAM_EXTRAS = {"Beacon": ("correlation_matrix",), "DNNTSP": ("train_N", "train_T")}
+# model's ``_train_N`` and ``_train_T``), TIGER's host tables (``rqvae_params``
+# None for the rkmeans tokenizer)
+_TIGER_TABLES = ("sid_table", "offsets", "enc_token_table", "level_sizes", "prefix_children",
+                 "sid_to_item")
+_PARAM_EXTRAS = {"Beacon": ("correlation_matrix",), "DNNTSP": ("train_N", "train_T"),
+                 "TIGER": _TIGER_TABLES + ("rqvae_params",)}
 
 
 def model_from_params(cls_name, params, meta, device=None, train_set=None):
     """A fitted port ``FPMC``, ``GRU4Rec``, ``SASRec``, ``CVAECF``,
-    ``GCMC``, ``Beacon`` or ``DNNTSP`` (``cls_name``) from the JAX model's
+    ``GCMC``, ``Beacon``, ``DNNTSP``, ``TransformerRec`` or ``TIGER``
+    (``cls_name``) from the JAX model's
     ``params`` pytree as
     nested dicts and lists of numpy arrays (FPMC's four tables ``V_UI``,
     ``V_IU``, ``V_IL``, ``V_LI``; the others as ``params_to_module`` takes
@@ -286,7 +298,15 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     ``activation_func``, ``gcn_agg_accum`` (GCMC); ``emb_dim``,
     ``rnn_unit``, ``alpha``, ``rnn_cell_type``, ``nb_hop``,
     ``max_seq_length`` and the ``correlation_matrix`` (Beacon); ``emb_dim``,
-    ``loss_type``, ``train_N``, ``train_T`` (DNNTSP); then ``num_users``,
+    ``loss_type``, ``train_N``, ``train_T`` (DNNTSP); ``backbone``,
+    ``objective``, ``loss_at``, ``embedding_dim``, ``max_len``,
+    ``num_blocks``, ``num_heads`` (TransformerRec, also for BERT4Rec); the
+    options ``tokenizer``, ``rqvae_num_levels``, ``rqvae_codebook_size``,
+    ``d_model``, ``d_ff``, ``num_heads``, ``d_kv``, ``num_enc_layers``,
+    ``num_dec_layers``, ``max_len``, ``scoring``, ``n_beams`` and the host
+    tables ``sid_table``, ``offsets``, ``enc_token_table``, ``level_sizes``,
+    ``prefix_children``, ``sid_to_item`` and ``rqvae_params`` (None for
+    rkmeans) (TIGER); then ``num_users``,
     ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
     ``max_rating``, ``global_mean``, the fitted model's). CVAECF and GCMC
     also need ``train_set``, the port dataset the model was fitted on
@@ -320,6 +340,14 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
         model._A_dense = None
     if cls_name == "DNNTSP":
         model._train_N, model._train_T = int(meta["train_N"]), int(meta["train_T"])
+    if cls_name == "TIGER":
+        model.sid_table, model.offsets, model.enc_token_table = (
+            np.asarray(meta[name], np.int64) for name in _TIGER_TABLES[:3])
+        model.level_sizes = [int(s) for s in meta["level_sizes"]]
+        model.prefix_children, model.sid_to_item = meta["prefix_children"], meta["sid_to_item"]
+        model.pad_idx = model.total_items
+        if meta["rqvae_params"] is not None:
+            model.rqvae_params = params_to_module(meta["rqvae_params"], dev)
     model.train_set = train_set
     model.val_set = None
     model.is_fitted = True

@@ -8,7 +8,9 @@ scored in chunks of 256 through ``NextItemRecommender.score_history_batch``
 (one padded forward on the model's device for GRU4Rec and SASRec) and
 ranked by the batched metrics (``RankingContext``); a chunk's float64
 scores are (256, items), so the (positions x items) matrix is never built
-whole.
+whole. A model with ``score_history_batch_device`` (GRU4Rec, SASRec,
+TransformerRec) keeps a chunk's scores on its device, where the context
+ranks them (without tie counts to read, each target's rank alone).
 """
 
 import time
@@ -16,6 +18,7 @@ import warnings
 from collections import OrderedDict, defaultdict
 
 import numpy as np
+import torch
 
 from ..data import SequentialDataset
 from ..experiment.result import Result
@@ -29,10 +32,14 @@ EVALUATION_MODES = frozenset(["last", "next"])
 
 
 def _fit_width(scores, n_items):
-    """Slice or min-fill-expand a score matrix to exactly n_items columns
-    (models trained before eval-time unknowns may return narrower rows)."""
+    """Slice or min-fill-expand a score matrix (numpy, or a tensor on the
+    model's device) to exactly n_items columns (models trained before
+    eval-time unknowns may return narrower rows)."""
     if scores.shape[1] >= n_items:
         return scores[:, :n_items]
+    if isinstance(scores, torch.Tensor):
+        fill = scores.min(dim=1, keepdim=True).values
+        return torch.cat([scores, fill.expand(-1, n_items - scores.shape[1])], 1)
     fill = scores.min(axis=1, keepdims=True)
     out = np.broadcast_to(fill, (scores.shape[0], n_items)).copy()
     out[:, : scores.shape[1]] = scores
@@ -71,32 +78,32 @@ def ranking_eval(
             for pos in range(first, len(session_items))
         )
 
-    # score + metric every position in device-sized chunks
+    # score + metric every position in device-sized chunks; a model that
+    # scores on its device (``score_history_batch_device``) hands the
+    # context its tensor, ranked there
+    on_device = getattr(model, "score_history_batch_device", None)
+    ties = any(mt.uses_ties for mt in metrics)
     task_groups, values = [], []  # aligned: values[j] is (n_metrics,)
     for start in range(0, len(tasks), batch_size):
         chunk = tasks[start : start + batch_size]
-        targets = np.asarray([t[3] for t in chunk])
-        scores = _fit_width(
-            np.asarray(
-                model.score_history_batch(
-                    np.asarray([t[1] for t in chunk]),
-                    [t[2] for t in chunk],
-                ),
-                dtype=np.float64,
-            ),
-            n_items,
-        )
+        users, histories = np.asarray([t[1] for t in chunk]), [t[2] for t in chunk]
+        if on_device is not None:
+            scores = _fit_width(on_device(users, histories), n_items)
+        else:
+            scores = _fit_width(
+                np.asarray(model.score_history_batch(users, histories), dtype=np.float64),
+                n_items,
+            )
 
+        targets = np.asarray([t[3] for t in chunk])
         usable = np.flatnonzero(targets < n_items)
         if not len(usable):
             continue
-        pos_mask = np.zeros((len(usable), n_items), dtype=bool)
-        pos_mask[np.arange(len(usable)), targets[usable]] = True
-        cand_mask = np.ones_like(pos_mask)
         # every position usable (the common case): the chunk's own rows,
         # not a copy of them
-        ctx = RankingContext(scores if len(usable) == len(chunk) else scores[usable],
-                             pos_mask, cand_mask, ties=any(mt.uses_ties for mt in metrics))
+        if len(usable) < len(chunk):
+            scores = scores[usable]
+        ctx = RankingContext(scores, targets=targets[usable], ties=ties)
         per_metric = np.stack(
             [np.asarray(mt.batch_compute(ctx), dtype=float) for mt in metrics]
         )  # (n_metrics, n_usable)

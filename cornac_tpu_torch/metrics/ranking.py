@@ -35,11 +35,15 @@ def set_device_metrics_min_cells(n):
 
 def _device_rank_and_ties(scores, pos_mask, cand_mask, ties=True):
     """(rank_of, c_lt, p_lt) as int32 numpy arrays, computed on the default
-    device by stable sorts and permutation inverses, scores compared in
-    float32 as in the JAX package; ``(rank_of,)`` alone without ``ties``
-    (the same stable sort, so the same ranks)."""
-    dev = default_device()
-    scores = torch.as_tensor(np.asarray(scores, np.float32), device=dev)
+    device (or a score tensor's own) by stable sorts and permutation
+    inverses, scores compared in float32 as in the JAX package;
+    ``(rank_of,)`` alone without ``ties`` (the same stable sort, so the
+    same ranks)."""
+    if isinstance(scores, torch.Tensor):  # where the model made them
+        scores = scores.to(torch.float32)
+    else:
+        scores = torch.as_tensor(np.asarray(scores, np.float32), device=default_device())
+    dev = scores.device
     B, N = scores.shape
     order = torch.argsort(-scores, dim=1, stable=True)
     iota = torch.arange(N, device=dev).expand(B, N)
@@ -69,6 +73,20 @@ def _device_rank_and_ties(scores, pos_mask, cand_mask, ties=True):
     c_lt = c_lt_sorted.gather(1, inv_rev)
     p_lt = p_lt_sorted.gather(1, inv_rev)
     return tuple(t.to(torch.int32).cpu().numpy() for t in (rank_of, c_lt, p_lt))
+
+
+def _device_target_ranks(scores, targets):
+    """(B, 1) int64 numpy: the 0-based rank of each row's one positive
+    column ``targets[b]`` in a score tensor, counted where the tensor lies:
+    the columns scored above it plus those tied with it at a lower index,
+    its place in the stable descending sort of ``_device_rank_and_ties``
+    (float32 compares); only the ranks leave the device."""
+    s = scores.to(torch.float32)
+    t = torch.as_tensor(targets, dtype=torch.int64, device=s.device)[:, None]
+    st = s.gather(1, t)
+    cols = torch.arange(s.shape[1], device=s.device)[None, :]
+    ranks = (s > st).sum(1) + ((s == st) & (cols < t)).sum(1)
+    return ranks.cpu().numpy()[:, None]
 
 
 # --------------------------------------------------------------------- #
@@ -254,8 +272,9 @@ class RankingContext:
 
     Parameters
     ----------
-    scores: (B, N) float array
+    scores: (B, N) float array or tensor
         Model scores; columns outside the candidate set must be ``-inf``.
+        A tensor is ranked on its own device, whatever its size.
     pos_mask: (B, N) bool array
         Ground-truth positive items (a subset of the candidate set).
     cand_mask: (B, N) bool array
@@ -264,32 +283,59 @@ class RankingContext:
         Whether a metric will read the tie counts (``c_lt``/``p_lt``: AUC,
         MAP; ``RankingMetric.uses_ties``). The device path computes them
         with the ranks or not at all.
+    targets: (B,) int array, optional
+        In place of the masks: one positive a row, at that column, and
+        every column a candidate (the next-item evaluation's rows). On a
+        score tensor without tie counts, the device path then counts the
+        targets' ranks alone.
     """
 
-    def __init__(self, scores, pos_mask, cand_mask, ties=True):
+    def __init__(self, scores, pos_mask=None, cand_mask=None, ties=True, targets=None):
         self.scores = scores
-        self.pos_mask = pos_mask
-        self.cand_mask = cand_mask
         self.ties = ties
         self.B, self.N = scores.shape
-        self.n_pos = pos_mask.sum(axis=1)
-        self.n_cand = cand_mask.sum(axis=1)
+        self.targets = None if targets is None else np.asarray(targets, dtype=np.int64)
+        self._pos_mask, self._cand_mask = pos_mask, cand_mask
+        if self.targets is None:
+            self.n_pos = pos_mask.sum(axis=1)
+            self.n_cand = cand_mask.sum(axis=1)
+        else:
+            self.n_pos = np.ones(self.B, dtype=np.int64)
+            self.n_cand = np.full(self.B, self.N, dtype=np.int64)
         self.n_neg = self.n_cand - self.n_pos
         self._rank_of = None
         self._pos_ranks = None
         self._tie_counts = None
 
+    @property
+    def pos_mask(self):
+        if self._pos_mask is None:  # built from the targets when first read
+            self._pos_mask = np.zeros((self.B, self.N), dtype=bool)
+            self._pos_mask[np.arange(self.B), self.targets] = True
+        return self._pos_mask
+
+    @property
+    def cand_mask(self):
+        if self._cand_mask is None:
+            self._cand_mask = np.ones((self.B, self.N), dtype=bool)
+        return self._cand_mask
+
     def _try_device_path(self):
         """At large batch sizes, compute order/ranks/tie-counts on the
-        default device (a failure there raises; nothing falls back)."""
-        if self.B * self.N < _DEVICE_MIN_CELLS:
+        default device, and always on a score tensor's own (a failure there
+        raises; nothing falls back)."""
+        on_device = isinstance(self.scores, torch.Tensor)
+        if not on_device and self.B * self.N < _DEVICE_MIN_CELLS:
             return False
-        rank_and_ties = _device_rank_and_ties(
-            self.scores, self.pos_mask, self.cand_mask, ties=self.ties
-        )
-        self._rank_of = rank_and_ties[0]
-        if self.ties:
-            self._tie_counts = rank_and_ties[1:]
+        if on_device and self.targets is not None and not self.ties:
+            self._pos_ranks = _device_target_ranks(self.scores, self.targets)
+        else:
+            rank_and_ties = _device_rank_and_ties(
+                self.scores, self.pos_mask, self.cand_mask, ties=self.ties
+            )
+            self._rank_of = rank_and_ties[0]
+            if self.ties:
+                self._tie_counts = rank_and_ties[1:]
         # rank_of/tie caches make the column order itself unnecessary;
         # mark it filled so the host argsort never runs
         self._order = "device"
@@ -326,7 +372,10 @@ class RankingContext:
     @property
     def pos_ranks(self):
         """(B, N) int: rank of each positive column, OUT_OF_RANGE elsewhere
-        (computed once per context; every metric reads it)."""
+        (computed once per context; every metric reads it); (B, 1), the
+        targets' ranks, where the device path counted those alone."""
+        if self._pos_ranks is None:
+            self._desc_order  # the device path may fill it: (B, 1) for targets
         if self._pos_ranks is None:
             self._pos_ranks = np.where(self.pos_mask, self.rank_of, self.OUT_OF_RANGE)
         return self._pos_ranks

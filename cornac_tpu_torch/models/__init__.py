@@ -37,6 +37,14 @@ from .sasrec import SASRec
 from .sbpr import SBPR
 from .skm import SKMeans
 from .spop import SPop
+from .tiger import TIGER
+from .tiger_configs import (
+    GRID_CONFIG,
+    PAISCHER_CONFIG,
+    PAISCHER_SPORTS_CONFIG,
+    PAISCHER_TOYS_CONFIG,
+)
+from .transformer_rec import BERT4Rec, TransformerRec
 from .vaecf import VAECF
 from .vebpr import VEBPR
 from .wmf import WMF
@@ -45,6 +53,7 @@ __all__ = [
     "ANNMixin",
     "BaseANN",
     "BaselineOnly",
+    "BERT4Rec",
     "Beacon",
     "BiVAECF",
     "BPR",
@@ -57,6 +66,7 @@ __all__ = [
     "FPMC",
     "GCMC",
     "GlobalAvg",
+    "GRID_CONFIG",
     "GMF",
     "GPTop",
     "GRU4Rec",
@@ -79,6 +89,9 @@ __all__ = [
     "NGCF",
     "NMF",
     "OnlineIBPR",
+    "PAISCHER_CONFIG",
+    "PAISCHER_SPORTS_CONFIG",
+    "PAISCHER_TOYS_CONFIG",
     "PMF",
     "Recommender",
     "RecVAE",
@@ -89,7 +102,9 @@ __all__ = [
     "SPop",
     "SVD",
     "TIFUKNN",
+    "TIGER",
     "TPUExactANN",
+    "TransformerRec",
     "UPCF",
     "UserKNN",
     "VAECF",

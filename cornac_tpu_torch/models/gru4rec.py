@@ -282,7 +282,11 @@ class GRU4Rec(NextItemRecommender):
         return self.score_history_batch([user_idx], [list(history_items)])[0]
 
     @torch.no_grad()
-    def score_history_batch(self, user_indices, histories):
+    def score_history_batch_device(self, user_indices, histories):
+        """(B, num_items) float32 next-item logits on the model's device."""
         h = self._history_states(histories)
-        logits = h @ self.params.out_emb.T + self.params.out_b
-        return logits.cpu().numpy().astype(np.float64)[:, :self.num_items]
+        return (h @ self.params.out_emb.T + self.params.out_b)[:, :self.num_items]
+
+    def score_history_batch(self, user_indices, histories):
+        scores = self.score_history_batch_device(user_indices, histories)
+        return scores.cpu().numpy().astype(np.float64)

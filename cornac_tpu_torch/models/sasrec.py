@@ -252,10 +252,14 @@ class SASRec(NextItemRecommender):
         return self.score_history_batch([user_idx], [list(history_items)])[0]
 
     @torch.no_grad()
-    def score_history_batch(self, user_indices, histories):
+    def score_history_batch_device(self, user_indices, histories):
+        """(B, num_items) float32 next-item logits on the model's device."""
         pad_id = self.num_items
         padded, _ = pad_histories(histories, self.max_len, pad_value=pad_id)
         (padded,), B = pad_batch_rows([padded])
         seq = torch.as_tensor(padded, dtype=torch.int64, device=self.params.emb.device)
-        logits = _sasrec_scores(self.params, seq, pad_id, self.num_heads, self.num_items)
-        return logits[:B].cpu().numpy().astype(np.float64)
+        return _sasrec_scores(self.params, seq, pad_id, self.num_heads, self.num_items)[:B]
+
+    def score_history_batch(self, user_indices, histories):
+        scores = self.score_history_batch_device(user_indices, histories)
+        return scores.cpu().numpy().astype(np.float64)

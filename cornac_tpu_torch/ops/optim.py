@@ -10,7 +10,10 @@ optax's own update rules (``optax/_src/transform.py``: ``scale_by_adam``,
 - adam: b1 0.9, b2 0.999, eps 1e-8 added outside the root (eps_root 0),
   both moments bias-corrected by ``1 - b ** count``;
 - adamw: adam's direction plus ``weight_decay * param`` (decoupled, every
-  parameter: optax's ``mask=None``), the sum times ``-lr``;
+  parameter: optax's ``mask=None``), the sum times ``-lr``; ``lr`` may be a
+  schedule, a function of the count of earlier updates (a device tensor),
+  as optax's ``scale_by_schedule`` reads it (``warmup_cosine_decay_schedule``
+  is optax's of that name);
 - rmsprop: decay 0.9, eps 1e-8 added inside the root (``rsqrt(nu + eps)``,
   where ``torch.optim.RMSprop`` uses ``sqrt(nu) + eps``), no bias
   correction, initial nu 0, no momentum;
@@ -36,6 +39,7 @@ both dicts keyed as ``params`` (only adamw reads ``params``, as optax's
 in place.
 """
 
+import math
 from collections import namedtuple
 
 import torch
@@ -102,16 +106,51 @@ def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
     """``optax.adamw`` at the same defaults (``mask=None``: every parameter
-    decays): ``-lr * (adam's direction + weight_decay * param)``."""
+    decays): ``-lr * (adam's direction + weight_decay * param)``.
+    ``learning_rate``: a number, or a schedule called with the number of
+    earlier updates (an int32 device tensor) that returns a 0-d float32
+    tensor, so no step waits for the host."""
     def update(grads, state, params=None):
         if params is None:
             raise ValueError("adamw needs the parameters to decay them")
+        lr = learning_rate(state["count"]) if callable(learning_rate) else learning_rate
         names, direction, state = _adam_direction(grads, state, b1, b2, eps, eps_root)
         decayed = torch._foreach_add(
             direction, torch._foreach_mul([params[n].detach() for n in names], weight_decay))
-        return dict(zip(names, torch._foreach_mul(decayed, -learning_rate))), state
+        return dict(zip(names, torch._foreach_mul(decayed, -lr))), state
 
     return Optimizer(_adam_init, update)
+
+
+def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps, decay_steps,
+                                 end_value=0.0):
+    """``optax.warmup_cosine_decay_schedule`` (exponent 1): a linear ramp
+    from ``init_value`` to ``peak_value`` over ``warmup_steps``, then a
+    cosine decay to ``end_value`` at ``decay_steps`` (the warmup included),
+    held there after. Called with an int tensor count, it returns a 0-d
+    float32 tensor on the count's device, computed in float32 as optax
+    computes it. Raises as optax does when no step is left to decay."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps - warmup_steps}.")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = float(decay_steps - warmup_steps)
+
+    def warmup(count):
+        if warmup_steps <= 0:  # optax: a constant schedule
+            return torch.full_like(count, init_value, dtype=torch.float32)
+        frac = 1 - torch.clamp(count, 0, warmup_steps).to(torch.float32) / warmup_steps
+        return (init_value - peak_value) * frac + peak_value
+
+    def cosine(count):
+        t = torch.clamp(count.to(torch.float32), max=cos_steps)
+        decay = 0.5 * (1 + torch.cos(math.pi * t / cos_steps))
+        return peak_value * ((1 - alpha) * decay + alpha)
+
+    def schedule(count):
+        return torch.where(count < warmup_steps, warmup(count), cosine(count - warmup_steps))
+
+    return schedule
 
 
 def rmsprop(learning_rate, decay=0.9, eps=1e-8, initial_scale=0.0):

@@ -21,6 +21,7 @@ from cornac_tpu_torch.models import FM, HPF, SANSA, SKMeans
 from cornac_tpu_torch.models import C2PF, SBPR, VEBPR
 from cornac_tpu_torch.models import FPMC, GCMC, GRU4Rec, SASRec
 from cornac_tpu_torch.models import DNNTSP, TIFUKNN, UPCF, Beacon
+from cornac_tpu_torch.models import TIGER, BERT4Rec, TransformerRec
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -856,11 +857,10 @@ def test_modality_model_steps_never_sync_with_the_host(card):
         assert torch.isfinite(t).all()
 
 
-def _sessions_split():
-    """Small seeded next-item split: block-structured sessions (the
-    generator of ``tools/seq_bench_data.py``) under NextItemEvaluation."""
-    from cornac_tpu_torch.eval_methods import NextItemEvaluation
-
+def _session_rows():
+    """Block-structured sessions (the generator of
+    ``tools/seq_bench_data.py``) as USIT tuples, 300 sessions over 200
+    items."""
     rng = np.random.RandomState(7)
     rows, t = [], 0
     for s in range(300):
@@ -869,10 +869,19 @@ def _sessions_split():
             rows.append((f"u{u}", str(s), f"i{block + x}", t))
             t += 1
             x = (x + 1) % 20 if rng.rand() < 0.8 else rng.randint(20)
+    return rows
+
+
+def _sessions_split(**kwargs):
+    """Small seeded next-item split: ``_session_rows`` under
+    NextItemEvaluation, the first 250 sessions train."""
+    from cornac_tpu_torch.eval_methods import NextItemEvaluation
+
+    rows = _session_rows()
     train = [r for r in rows if int(r[1]) < 250]
     test = [r for r in rows if int(r[1]) >= 250]
     return NextItemEvaluation.from_splits(train_data=train, test_data=test, fmt="USIT",
-                                          exclude_unknowns=True, seed=1)
+                                          exclude_unknowns=True, seed=1, **kwargs)
 
 
 def _param_bits(model):
@@ -1056,5 +1065,115 @@ def test_basket_epochs_never_sync_with_the_host(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     for model in (beacon, dnntsp):
+        for p in model.params.parameters():
+            assert torch.isfinite(p).all()
+
+
+
+def _feature_split():
+    """``_sessions_split`` with seeded content features for TIGER (a
+    vector a block of 20 items, plus noise an item)."""
+    from cornac_tpu_torch.data import FeatureModality
+
+    rng = np.random.RandomState(11)
+    feats = rng.randn(10, 16)[np.arange(200) // 20] + 0.5 * rng.randn(200, 16)
+    return _sessions_split(item_feature=FeatureModality(
+        features=feats.astype(np.float32), ids=[f"i{k}" for k in range(200)]))
+
+
+_TIGER_KW = dict(rqvae_latent_dim=8, rqvae_hidden_dims=(32,), rqvae_num_levels=2,
+                 rqvae_codebook_size=8, rqvae_n_epochs=3, rqvae_batch_size=64, d_model=16,
+                 d_ff=32, num_heads=2, d_kv=8, num_enc_layers=1, num_dec_layers=1, max_len=6,
+                 n_epochs=2, batch_size=64, n_beams=8, seed=3)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: BERT4Rec(embedding_dim=16, max_len=10, batch_size=32, n_sample=64, n_epochs=2,
+                          num_heads=2, seed=3, **kw),
+    lambda **kw: TransformerRec(backbone="gpt2", objective="clm", embedding_dim=16, max_len=10,
+                                batch_size=32, n_sample=64, n_epochs=2, seed=3, **kw),
+    lambda **kw: TransformerRec(backbone="xlnet", objective="plm", embedding_dim=16, max_len=10,
+                                batch_size=32, n_sample=64, n_epochs=2, seed=3, **kw),
+    lambda **kw: TransformerRec(backbone="electra", objective="rtd", embedding_dim=16,
+                                max_len=10, batch_size=32, n_sample=64, n_epochs=2, seed=3, **kw),
+    lambda **kw: TIGER(**_TIGER_KW, lr_schedule="cosine", warmup_steps=5, **kw),
+    lambda **kw: TIGER(**_TIGER_KW, tokenizer="rkmeans", scoring="exact", **kw),
+])
+def test_generative_seeded_fits_on_the_card_are_identical(card, make):
+    ev = _feature_split()
+    before = ACCUMULATE_ROWS.launches
+    a = make().fit(ev.train_set)
+    assert ACCUMULATE_ROWS.launches > before
+    b = make(verbose=True).fit(ev.train_set)
+    pa, pb = _param_bits(a), _param_bits(b)
+    assert pa.keys() == pb.keys()
+    for key in pa:
+        assert torch.equal(pa[key], pb[key]), key
+    if isinstance(a, TIGER):
+        np.testing.assert_array_equal(a.sid_table, b.sid_table)
+        # the card's scores against the same parameters scored on the CPU
+        import copy
+
+        cpu = copy.copy(a)
+        cpu.params = copy.deepcopy(a.params).to("cpu")
+        hist = [[1, 2, 3], [4], list(range(10, 19))]
+        np.testing.assert_allclose(a.score_history_batch([0] * 3, hist),
+                                   cpu.score_history_batch([0] * 3, hist), rtol=1e-4, atol=1e-4)
+
+
+def test_generative_epochs_never_sync_with_the_host(card):
+    from cornac_tpu_torch.models import tiger as tiger_mod
+    from cornac_tpu_torch.models.seq_utils import neg_sampling_table
+    from cornac_tpu_torch.ops.optim import adam, adamw, step
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    ev = _feature_split()
+    train = ev.train_set
+    cum = neg_sampling_table(train, 0.5, train.num_items, card)
+    models = [TransformerRec(backbone=b, objective=o, embedding_dim=16, max_len=10,
+                             n_sample=64, n_epochs=0, dropout=0.2, seed=3).fit(train)
+              for b, o in (("bert", "mlm"), ("gpt2", "clm"), ("xlnet", "plm"),
+                           ("electra", "rtd"))]
+    rows = [tuple(torch.as_tensor(a, device=card) for a in m.training_rows(train)[:3])
+            for m in models]
+    tiger = TIGER(**{**_TIGER_KW, "rqvae_n_epochs": 0, "n_epochs": 0}).fit(train)
+    tiger.lr_schedule, tiger.warmup_steps = "cosine", 3
+    rq = tiger.rqvae_params
+    feats = torch.as_tensor(tiger._get_item_features(), device=card)
+    hists, outs = tiger._build_examples(train)
+    enc = torch.as_tensor(tiger.enc_token_table[hists].reshape(len(hists), -1), device=card)
+    tgt = torch.as_tensor(tiger.sid_table[outs], device=card)
+    offsets = torch.as_tensor(tiger.offsets, device=card)
+    seq2seq_opt = tiger._optimizer(20)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for model, (seq, tgt_rows, m) in zip(models, rows):
+            params = dict(model.params.named_parameters())
+            opt = adam(0.001)
+            state = opt.init(params)
+            gen = epoch_generator(3, 0, card)
+            order = torch.randperm(seq.shape[0], generator=gen, device=card)
+            for b in range(3):
+                idx = order[b * 16:(b + 1) * 16]
+                draws = model.draws(gen, 16, seq.shape[1], card, cum)
+                state = step(params, opt, state, model.loss_on(seq[idx], tgt_rows[idx],
+                                                               m[idx], draws))
+        # one RQ-VAE epoch with its table of used codes, one seq2seq epoch
+        opt = adamw(0.001, weight_decay=0.0)
+        perm = tiger_mod._epoch_perm(3, 0, 128, feats.shape[0], card)
+        _, rq_loss, ids = tiger_mod._train_epoch(
+            rq, opt, opt.init(dict(rq.named_parameters())),
+            lambda idx: tiger_mod._rqvae_loss(rq, feats[idx], 0.25), perm, 64)
+        used = tiger_mod._used_codes(ids, 2, 8)
+        perm = tiger_mod._epoch_perm(3, 0, 256, enc.shape[0], card)
+        _, loss, _ = tiger_mod._train_epoch(
+            tiger.params, seq2seq_opt, seq2seq_opt.init(dict(tiger.params.named_parameters())),
+            lambda idx: tiger_mod._seq2seq_loss(tiger.params, offsets, enc[idx], tgt[idx], 2),
+            perm, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss) and torch.isfinite(rq_loss) and used.any()
+    for model in models + [tiger]:
         for p in model.params.parameters():
             assert torch.isfinite(p).all()

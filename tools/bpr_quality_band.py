@@ -30,7 +30,11 @@ user graph), ``VEBPR`` (purchases and views), and ``C2PF``, ``TC2PF`` and
 ``GRU4Rec`` and ``SASRec`` (``benchmarks/head_to_head_seq.py``'s
 ``GRU_KW``/``SAS_KW``) are fitted on ``seq_bench_data.gen_sessions``'
 sessions under ``NextItemEvaluation.from_splits(mode="next")`` and banded
-on MRR, HitRatio@20 and NDCG@20; ``CVAECF``
+on MRR, HitRatio@20 and NDCG@20, as are the generative models of
+``GENERATIVE_CONFIGS`` (``BERT4Rec``, ``TransformerRec-clm``,
+``TransformerRec-clm-last``, ``TransformerRec-plm``, ``TransformerRec-rtd``,
+``TIGER-rqvae`` with beam scoring and ``TIGER-rkmeans`` with exact scoring,
+TIGER over ``seq_bench_data.session_features``); ``CVAECF``
 (``examples/cvaecf_filmtrust.py``'s, with ``seq_bench_data.seeded_trust``
 as its user graph, ``RatioSplit(0.2, 3.0)``) on NDCG@50 and Recall@50, and
 ``GCMC`` (``examples/gcmc_example.py``'s, ``RatioSplit(0.2)``) on RMSE,
@@ -141,6 +145,30 @@ SEQ_CONFIGS = {
 }
 SEQ_METRICS = ("MRR", "HitRatio@20", "NDCG@20")
 
+# the generative next-item models on the same sessions, narrow (d 64, two
+# blocks of two heads, max_len 20; TIGER: two levels of 16 codes over
+# seq_bench_data.session_features, one encoder and one decoder block):
+# name -> (class name, constructor arguments without the seed, seeded)
+_TRANSFORMER = dict(embedding_dim=64, num_blocks=2, num_heads=2, max_len=20, batch_size=64,
+                    learning_rate=0.005, n_epochs=10, n_sample=128)
+_TIGER = dict(rqvae_latent_dim=16, rqvae_hidden_dims=(64,), rqvae_num_levels=2,
+              rqvae_codebook_size=16, rqvae_n_epochs=50, rqvae_batch_size=256, d_model=32,
+              d_ff=64, num_heads=2, d_kv=16, num_enc_layers=1, num_dec_layers=1, max_len=10,
+              n_epochs=5, batch_size=128, learning_rate=0.003, n_beams=20)
+GENERATIVE_CONFIGS = {
+    "BERT4Rec": ("BERT4Rec", _TRANSFORMER, True),
+    "TransformerRec-clm": ("TransformerRec", dict(_TRANSFORMER, backbone="gpt2",
+                                                  objective="clm"), True),
+    "TransformerRec-clm-last": ("TransformerRec", dict(_TRANSFORMER, backbone="gpt2",
+                                                       objective="clm", loss_at="last"), True),
+    "TransformerRec-plm": ("TransformerRec", dict(_TRANSFORMER, backbone="xlnet",
+                                                  objective="plm"), True),
+    "TransformerRec-rtd": ("TransformerRec", dict(_TRANSFORMER, backbone="electra",
+                                                  objective="rtd"), True),
+    "TIGER-rqvae": ("TIGER", dict(_TIGER, tokenizer="rqvae", scoring="beam"), True),
+    "TIGER-rkmeans": ("TIGER", dict(_TIGER, tokenizer="rkmeans", scoring="exact"), True),
+}
+
 # name -> (class name, constructor arguments without the seed): the Ta Feng
 # examples' settings
 BASKET_CONFIGS = {
@@ -160,16 +188,21 @@ AUX_CONFIGS = {
 }
 
 
-def seq_eval(eval_methods, metrics, seed=123):
+def seq_eval(eval_methods, metrics, seed=123, data=None):
     """The next-item cell: ``gen_sessions``' split under
     ``NextItemEvaluation`` (mode 'next', unknown items excluded), and its
-    three metrics."""
-    from seq_bench_data import gen_sessions, session_split
+    three metrics; with a package's ``data`` module, the items carry
+    ``session_features`` (TIGER reads them)."""
+    from seq_bench_data import gen_sessions, session_features, session_split
 
     train, test = session_split(gen_sessions())
+    extra = {}
+    if data is not None:
+        feats, ids = session_features()
+        extra["item_feature"] = data.FeatureModality(features=feats, ids=ids)
     ev = eval_methods.NextItemEvaluation.from_splits(
         train_data=train, test_data=test, fmt="USIT", exclude_unknowns=True, seed=seed,
-        mode="next")
+        mode="next", **extra)
     return ev, [metrics.MRR(), metrics.HitRatio(k=20), metrics.NDCG(k=20)]
 
 
@@ -247,8 +280,8 @@ def golden_auc(model, train_set):
 def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
-    table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, AUX_CONFIGS, BASKET_CONFIGS)
-                 if name in t)
+    table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, GENERATIVE_CONFIGS,
+                             AUX_CONFIGS, BASKET_CONFIGS) if name in t)
     cls, kwargs = table[name][:2]
     seeded = True if table is AUX_CONFIGS or table is BASKET_CONFIGS else table[name][2]
     if seeded is not None:
@@ -259,7 +292,8 @@ def make_model(models, name, seed):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
-                        + sorted(SEQ_CONFIGS) + sorted(AUX_CONFIGS) + sorted(BASKET_CONFIGS),
+                        + sorted(SEQ_CONFIGS) + sorted(GENERATIVE_CONFIGS) + sorted(AUX_CONFIGS)
+                        + sorted(BASKET_CONFIGS),
                         default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=None,
                         help="default: 123-127; 123-132 for the next-item and next-basket "
@@ -272,7 +306,8 @@ def main():
         parser.error("--bf16-products applies to the JAX package")
 
     if args.seeds is None:
-        wide = any(args.model in t for t in (SEQ_CONFIGS, AUX_CONFIGS, BASKET_CONFIGS))
+        wide = any(args.model in t for t in (SEQ_CONFIGS, GENERATIVE_CONFIGS, AUX_CONFIGS,
+                                             BASKET_CONFIGS))
         args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
@@ -316,9 +351,10 @@ def main():
         print(json.dumps(summary))
         return
 
-    if args.model in SEQ_CONFIGS:
-        ev, seq_metrics = seq_eval(eval_methods, metrics)
-        seeds = args.seeds if SEQ_CONFIGS[args.model][2] else args.seeds[:1]
+    if args.model in SEQ_CONFIGS or args.model in GENERATIVE_CONFIGS:
+        generative = args.model in GENERATIVE_CONFIGS
+        ev, seq_metrics = seq_eval(eval_methods, metrics, data=data if generative else None)
+        seeds = args.seeds if (generative or SEQ_CONFIGS[args.model][2]) else args.seeds[:1]
         runs = []
         for seed in seeds:
             result = ev.evaluate(make_model(models, args.model, seed), seq_metrics,

@@ -105,6 +105,22 @@ SEQ_BANDS = {
     "CVAECF": {"NDCG@50": (0.5420523512179062, 0.00022777890532817475),
               "Recall@50": (0.7545760241344626, 9.978442452688747e-05)},
     "GCMC": {"RMSE": (0.7406408624374798, 0.009185807801493662)},
+    # the generative next-item models (process 12h) on the same sessions,
+    # TIGER over seq_bench_data.session_features: the configurations of
+    # tools/bpr_quality_band.py's GENERATIVE_CONFIGS (BERT4Rec and
+    # TransformerRec at d 64, two blocks of two heads, max_len 20, 10 epochs
+    # of 64 sessions at lr 0.005; TIGER with two levels of 16 codes, d_model
+    # 32, one encoder and one decoder block, 5 epochs), from
+    # ``python tools/bpr_quality_band.py --model NAME`` (ten seeds, 123-132);
+    # ``chip_smoke.generative_witness`` holds their training on the card to
+    # the CPU's on the same draws
+    "BERT4Rec": {"MRR": (0.2291511184110519, 0.009788477574717744), "HitRatio@20": (0.7503642039542143, 0.016123996394198804), "NDCG@20": (0.34102499855827106, 0.011559218233740735)},
+    "TransformerRec-clm": {"MRR": (0.8187739199560882, 0.001613146016473731), "HitRatio@20": (0.8789281997918834, 0.0032543059068676407), "NDCG@20": (0.8293104508014769, 0.001708801093154621)},
+    "TransformerRec-clm-last": {"MRR": (0.6469906358063313, 0.023926543986933165), "HitRatio@20": (0.8077523413111342, 0.005748114262634939), "NDCG@20": (0.6827027502138382, 0.018276642997385645)},
+    "TransformerRec-plm": {"MRR": (0.17266183215994585, 0.07077392715819547), "HitRatio@20": (0.5532258064516129, 0.21134606195186956), "NDCG@20": (0.25092387157727475, 0.10302783482305378)},
+    "TransformerRec-rtd": {"MRR": (0.21372344324337886, 0.03689500876906335), "HitRatio@20": (0.7258584807492195, 0.09875595162527616), "NDCG@20": (0.32137820923179666, 0.05380846245204053)},
+    "TIGER-rqvae": {"MRR": (0.5835558368368609, 0.031089074950825392), "HitRatio@20": (0.8649843912591051, 0.005695546955835246), "NDCG@20": (0.6474248542416192, 0.02449168991637448)},
+    "TIGER-rkmeans": {"MRR": (0.4602196758454692, 0.05072567833638084), "HitRatio@20": (0.8404266389177939, 0.012317347837437688), "NDCG@20": (0.542987694041402, 0.0424577120260151)},
 }
 
 

@@ -10,6 +10,11 @@ package.
   (each user buys 3-6 baskets of 2-4 distinct items from one of 4 blocks of
   the catalog), as UBI tuples; ``tafeng_like`` draws baskets by the same
   law at the Ta Feng grocery dataset's published counts, as UBIT tuples.
+- ``session_features``: seeded content features of ``gen_sessions``' items
+  for TIGER (a vector a block of the catalog, plus noise an item), and
+  ``tfidf_like``: seeded TF-IDF-like rows (nonnegative, sparse,
+  L2-normalised) standing in for the plot features of
+  ``examples/tiger_example.py``, whose files are not in the repository.
 - ``seeded_trust``: a user graph for ``make_ml100k_like(7)``'s users (the
   FilmTrust trust network that ``examples/cvaecf_filmtrust.py`` reads is not
   in the repository): each user trusts a few users, drawn with a bias toward
@@ -35,6 +40,33 @@ def gen_sessions(n_sessions=2000, n_items=500, n_users=300, seed=7):
             t += 1
             x = (x + 1) % per if rng.rand() < 0.8 else rng.randint(per)
     return rows
+
+
+def session_features(n_items=500, n_blocks=10, dim=32, noise=0.5, seed=11):
+    """(features (n_items, dim) float32, ids): ``gen_sessions``' items
+    ``i0``.. each get their block's seeded vector plus seeded noise, so
+    that items of a block lie near each other, as content would."""
+    rng = np.random.RandomState(seed)
+    centres = rng.randn(n_blocks, dim)
+    block = np.arange(n_items) // (n_items // n_blocks)
+    feats = centres[block] + noise * rng.randn(n_items, dim)
+    return feats.astype(np.float32), [f"i{k}" for k in range(n_items)]
+
+
+def tfidf_like(n_items, dim=512, terms=(5, 40), seed=17):
+    """(n_items, dim) float32 rows like ``TfidfVectorizer(max_features=dim)``
+    over short texts: each row has 5-40 distinct terms drawn Zipf-like over
+    the vocabulary, weighted by a count times an idf, then L2-normalised."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, dim + 1) ** 0.9
+    p /= p.sum()
+    idf = 1.0 + np.log((1.0 + n_items) / (1.0 + n_items * np.minimum(1.0, 8 * p)))
+    out = np.zeros((n_items, dim), np.float32)
+    for row in range(n_items):
+        n = rng.randint(terms[0], terms[1] + 1)
+        cols = rng.choice(dim, size=n, replace=False, p=p)
+        out[row, cols] = (1 + rng.poisson(1.0, size=n)) * idf[cols]
+    return out / np.linalg.norm(out, axis=1, keepdims=True)
 
 
 def gen_baskets(n_users=300, n_items=120, seed=7):
