@@ -281,14 +281,57 @@ Phases, each of which fails the run when it fails:
    card's BERT4Rec epoch held instead to the CPU's float64 epoch, within
    the CPU float32 epoch's own distance from it, the parameters more than
    1e-5 away named) (``generative_witness``);
-18. times: each kernel, its plain version and library yardsticks
+18b. SoRec, MCF and PCRL on data already built, after phase 15b: SoRec at
+   ``examples/sorec_filmtrust.py``'s settings (k = 5, lr 0.001, lambda_c 10,
+   batch 1,024; 2 of its 100 epochs, each timed) on phase 15's Epinions split
+   with its trust graph, 20 rating-stream steps profiled (device events a
+   step, busy share), MAE and RMSE, a second seeded fit bit for bit; MCF
+   (``examples/mcf_office.py``: k = 10, 40 iterations) and PCRL
+   (``examples/pcrl_example.py``: k = 100, z_dims [300], batch 300, 60
+   iterations) on phase 15b's Amazon Office split with its item graph, fits
+   timed, Precision, Recall and NDCG@10; each of the three serving 1,024
+   users at k = 100 through fused_topk, held to the plain version;
+18. VBPR at Cornac's Tradesy counts (19,243 users, 165,906 items, 394,421
+   seeded binary feedback; seeded 4,096-wide non-negative visual features,
+   made on the card, 2.72 GB there during the fit), ``examples/
+   vbpr_tradesy.py``'s split and settings (k = 10, k2 = 20, batch 100, lr
+   0.005, lambda_w 1, lambda_b 0.01), 1 of its 50 epochs: the split with
+   ``ImageModality(normalized=True)`` timed on the host, the steps after the
+   first 100 timed with CUDA events beside the bound of a step (Adam's 28 B
+   a parameter and the triplets' feature rows), 20 steps profiled (device
+   events a step, busy share), peak device memory; ranking_eval's AUC and
+   Recall@50 (over the first 4,096 test users when all would take more than
+   30 s); recommend_batch of 8,192 users through fused_topk at d = 31, held
+   to the plain version;
+18c. at Cornac's Amazon Clothing counts (5,377 users, 3,393 items, 13,689
+   seeded star ratings, seeded 4,096-wide features and a seeded corpus),
+   in this process (short and host-bound, it would crowd the ten processes
+   beside phase 16): AMR, CausalRec and VMF on RatioSplit(0.1, 0.5) with the
+   image modality and DMRL on RatioSplit(0.2, 0.5) with the text (TF-IDF
+   over the corpus' count matrix) and image modalities, each at its
+   example's settings, through ``evaluate`` (AMR and CausalRec at 3 of their
+   50 epochs, VMF at 5 of its 100, DMRL at its 20); AMR serving 1,024 users
+   through fused_topk, held to the plain version;
+12i. the side-information models at the bench shape, in a tenth spawned
+   process: SoRec, MCF, VBPR, AMR, CausalRec, VMF, DMRL and PCRL on
+   ``make_ml100k_like(7)`` with ``seq_bench_data.side_modalities`` (a seeded
+   trust graph, 64-wide image-like features, their k-NN item graph,
+   TF-IDF-like text) at ``tools/bpr_quality_band.py``'s ``SIDE_CONFIGS``,
+   each AUC and NDCG@10 in the band of the JAX package's CPU fits over ten
+   seeds, SoRec's and MCF's tables held to the JAX fit's own (its first rows
+   and column sums), seeded refits bit for bit with their accumulate_rows
+   inputs held to the plain version; one VBPR and one AMR epoch on draws
+   made on the CPU, on the card and on the CPU, every parameter within 1e-5
+   (``visual_witness``);
+19. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
    over two launches and whether it runs without a sync are recorded)
    with CUDA events, beside the bound; fused_topk at B = 1, 256 and 8192,
    fused_topk also at HPF's d = 5 (B = 8192 over the ML-10M catalog),
-   SBPR's d = 11 over Epinions' and C2PF's d = 100 over Amazon Office's,
+   SBPR's d = 11 over Epinions', C2PF's d = 100 over Amazon Office's and
+   VBPR's d = 31 over Tradesy's,
    cosine_topk at both ML-1M shapes, a half-dense ML-1M-wide matrix and
    ML-10M, where two launches must give the same bits; accumulate_rows at
    the labelled shapes of phase 5 (the BPR trainers' four, NeuMF's and
@@ -297,33 +340,38 @@ Phases, each of which fails the run when it fails:
    embedding gradients and FPMC's item-table scatter at the Diginetica
    widths, BERT4Rec's embedding and output-bias gradients there, TIGER's
    token table and an RQ-VAE codebook at the example's settings, GCMC's two
-   edge sums at the bench shape), on the inputs
+   edge sums at the bench shape, VBPR's item-factor gradient at Tradesy,
+   SoRec's trust stream at Epinions, MCF's item-graph stream at Amazon
+   Office, DMRL's item embeddings at Amazon Clothing), on the inputs
    phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
    2``, each call split into its device time (the profiler's, and CUDA
    events around one call) and its host time, the canary's host time into
    its steps.
 
-Phases 12, 12b, 12c-12d, 12e, 12f, 12g and 12h run in nine spawned
+Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h and 12i run in ten spawned
 processes at once (the factor family, three groups of the neural family,
 the factor family's rest with the protocols, the modality layer's models
 with the checkpointed Experiment, the next-item models with CVAECF and
-GCMC, the next-basket models and the generative next-item models), at a
-lower CPU priority, beside phase 16, and are collected before 16b. This
-process runs 8, 17, 16c, 16 (beside them), 16b, then 9-15b in the order
-9, 10, 10b, 10c, 15, 15b, 11, 13, 14, 14b, then 18. The card time-slices
+GCMC, the next-basket models, the generative next-item models and the
+side-information models), at a lower CPU priority, beside phase 16, and
+are collected before 16b. This process runs 8, 17, 16c, 16 (beside them),
+16b, then 9-15b in the order 9, 10, 10b, 10c, 15, 15b, then 18b, 18, 18c,
+11, 13, 14, 14b, then 19. The card time-slices
 between processes and they share the host's cores: phase 16's host-bound
 steps never wait on the card inside an epoch, so they lose to them only
 the host's share (its times carry that load), the card-bound phases and
-every other time run alone, and the nine processes' own fit seconds and
+every other time run alone, and the ten processes' own fit seconds and
 busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
-then at HPF's d = 5, SBPR's d = 11 and C2PF's d = 100; accumulate_rows at
-the full-width V update, LightGCN's and HPF's two ML-10M shapes each,
-SBPR's V update, C2PF's ratings into the item rows, SASRec's two embedding
-gradients, FPMC's item-table scatter, BERT4Rec's two gradients, TIGER's
-token table and RQ-VAE codebook, and GCMC's two edge sums),
+then at HPF's d = 5, SBPR's d = 11, C2PF's d = 100 and VBPR's d = 31;
+accumulate_rows at the full-width V update, LightGCN's and HPF's two ML-10M
+shapes each, SBPR's V update, C2PF's ratings into the item rows, SASRec's
+two embedding gradients, FPMC's item-table scatter, BERT4Rec's two
+gradients, TIGER's token table and RQ-VAE codebook, GCMC's two edge sums,
+VBPR's item-factor gradient, SoRec's trust stream, MCF's item-graph stream
+and DMRL's item embeddings),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -364,6 +412,12 @@ ML10M_USERS, ML10M_ITEMS, ML10M_RATINGS = 69_878, 10_677, 10_000_054
 EPINIONS_USERS, EPINIONS_ITEMS, EPINIONS_RATINGS, EPINIONS_TRUST = (
     40_163, 139_738, 664_824, 487_183)
 OFFICE_USERS, OFFICE_ITEMS, OFFICE_RATINGS = 3_703, 6_523, 53_282
+# Cornac's published Tradesy and Amazon Clothing counts (cornac/datasets/
+# README.md; phases 18 and 18c): users, items, feedback, and the width of
+# their CNN visual features
+TRADESY_USERS, TRADESY_ITEMS, TRADESY_FEEDBACK = 19_243, 165_906, 394_421
+CLOTHING_USERS, CLOTHING_ITEMS, CLOTHING_RATINGS = 5_377, 3_393, 13_689
+VISUAL_WIDTH = 4_096
 # Diginetica's counts as SR-GNN (Wu et al., AAAI 2019, Table 1) reports them
 # (phase 16): clicks, items, test sessions, mean session length
 DIGI_CLICKS, DIGI_ITEMS, DIGI_TEST, DIGI_MEAN_LEN = 982_961, 43_097, 60_858, 5.12
@@ -794,6 +848,20 @@ ACC_CASES = [
     ("TIGER, ML-100K, RQ-VAE codebook", 256, 1_024, 32, "popular", 1),
     ("GCMC, bench shape, edges into item rows", 789, 80_000, 100, "popular", 1),
     ("GCMC, bench shape, edges into user rows", 943, 80_000, 100, "popular", 1),
+    # the side-information models (phases 18, 18b, 18c and 12i, which also
+    # hold the kernel to the plain version on the inputs their trainers hand
+    # it): VBPR's gathers' gradients at the Tradesy counts (a step of 100
+    # triplets: [i; j] into the item factors and biases, u into Gu and Tu),
+    # SoRec's trust-stream U update at Epinions (1,024 edges, k = 5), MCF's
+    # item-graph stream at Amazon Office (1,024 edges into V, k = 10), DMRL's
+    # item-embedding gradient at Amazon Clothing (1,024 x 5 slots, d = 100)
+    ("VBPR, Tradesy, item-factor gradient (positives + negatives)", TRADESY_ITEMS, 200, 10,
+     "popular", 1),
+    (None, TRADESY_ITEMS, 200, None, "popular", 1),  # VBPR's item-bias gradient
+    (None, TRADESY_USERS, 100, 20, "popular", 2),  # VBPR's Tu gradient
+    ("SoRec, Epinions, U update (trust stream)", EPINIONS_USERS, 1_024, 5, "popular", 2),
+    ("MCF, Amazon Office, V update (item-graph stream)", OFFICE_ITEMS, 1_024, 10, "popular", 2),
+    ("DMRL, Amazon Clothing, item-embedding gradient", CLOTHING_ITEMS, 5_120, 100, "popular", 1),
 ]
 FM_USERS = 943  # the bench shape's train users: the first feature block of FM's ids
 
@@ -3301,7 +3369,8 @@ def phase_sbpr_epinions(seed, work):
     for bit; ranking_eval's AUC, NDCG@10 and Recall@10; recommend_batch of
     8,192 users at k = 100 through fused_topk (d = 11), every list held to
     the plain version. Returns (accumulate_rows launches, fused_topk
-    launches, the model, the users served, the stats)."""
+    launches, the model, the users served, the stats, the split among
+    them)."""
     import io
     import shutil
 
@@ -3412,7 +3481,7 @@ def phase_sbpr_epinions(seed, work):
         epoch_s=epoch_s, bound_s=bound_s, peak=peak, quality=quality, acc=acc_rows,
         max_abs_err=acc_err, setup_s={name: clock.seconds[name] for name in (
             "RatioSplit(0.1) with the user graph's build", "the social arrays (social_items)")},
-        **prof)
+        split=split, **prof)
 
 
 def phase_c2pf_office(seed):
@@ -3427,8 +3496,8 @@ def phase_c2pf_office(seed):
     example's Experiment (MAE, RMSE, P@10, R@10, NDCG@10); recommend_batch
     of 8,192 users (with replacement) at k = 100 through fused_topk (d =
     100), every list held to the plain version. Returns (accumulate_rows
-    launches, fused_topk launches, the model, the users served, the
-    stats)."""
+    launches, fused_topk launches, the model, the users served, the stats,
+    the split among them)."""
     import io
 
     import torch
@@ -3530,7 +3599,7 @@ def phase_c2pf_office(seed):
     return launches, fused, model, users, dict(
         sweep_s=sweep_s, bound_s=bound_s, peak=peak, worst_rel=worst, acc=acc_rows,
         max_abs_err=acc_err, experiment=dict(res), edges=edges,
-        graph_s=clock.seconds["GraphModality.from_feature(k=10, symmetric=True)"])
+        graph_s=clock.seconds["GraphModality.from_feature(k=10, symmetric=True)"], split=split)
 
 
 def phase_modality_bench(bench_data):
@@ -5236,6 +5305,677 @@ def phase_basket_bench(bench_data):
     return launches, fit_s, acc_err
 
 
+# ---------------------------------------------------------------------------
+# the side-information models (phases 18, 18b, 18c and process 12i), at the
+# counts of TRADESY_* and CLOTHING_*. The data are seeded, not the files.
+# examples/vbpr_tradesy.py; its 50 epochs cut to 1 (about 3,550 steps)
+VBPR_TRADESY = dict(k=10, k2=20, batch_size=100, learning_rate=0.005, lambda_w=1, lambda_b=0.01,
+                    lambda_e=0.0, seed=123)
+VBPR_EPOCHS = 1
+VBPR_TIMED_FROM = 100  # the steps after the first 100 are timed
+VBPR_PROFILED_STEPS = 20
+EVAL_SUBSET_USERS, EVAL_BUDGET_S = 4_096, 30.0
+# examples/sorec_filmtrust.py's settings on phase 15's Epinions split (2 of
+# its 100 epochs), examples/mcf_office.py's and examples/pcrl_example.py's
+# on phase 15b's Amazon Office split
+SOREC_EPINIONS = dict(k=5, learning_rate=0.001, lambda_c=10, lambda_reg=0.001, batch_size=1024,
+                      seed=123)
+SOREC_EPOCHS = 2
+SOREC_PROFILED_STEPS = 20
+MCF_OFFICE = dict(k=10, max_iter=40, learning_rate=0.001, seed=123)
+PCRL_OFFICE = dict(k=100, z_dims=[300], max_iter=60, batch_size=300, learning_rate=0.001,
+                   seed=123)
+SERVED_USERS = 1_024  # users each 18b/18c model serves through fused_topk
+# the Clothing examples (amr_clothing.py, causalrec_clothing.py,
+# vmf_clothing.py, dmrl_clothes_example.py), each with its epochs cut: name
+# -> (class, settings, epochs, the example's epochs, metrics)
+CLOTHING_MODELS = {
+    "AMR": ("AMR", dict(k=10, k2=20, batch_size=100, learning_rate=0.001, lambda_w=1,
+                        lambda_b=0.01, lambda_e=0.0, lambda_adv=1.0, epsilon_adv=0.05,
+                        verbose=False), ("n_epochs", 3, 50), ("AUC", "Recall@50")),
+    "CausalRec": ("CausalRec", dict(k=10, k2=20, batch_size=100, learning_rate=0.005, lambda_w=1,
+                                    lambda_b=0.01, lambda_e=0.0, tanh=1, lambda_2=0.8,
+                                    verbose=False), ("n_epochs", 3, 50), ("AUC", "Recall@50")),
+    "VMF": ("VMF", dict(k=10, d=10, batch_size=100, learning_rate=0.001), ("n_epochs", 5, 100),
+            ("RMSE", "Recall@50", "NDCG@50")),
+    "DMRL": ("DMRL", dict(batch_size=1024, learning_rate=0.001, embedding_dim=100, num_factors=4,
+                          num_neg=4), ("epochs", 20, 20), ("Precision@10", "Recall@10",
+                                                            "NDCG@10")),
+}
+SIDE_WITNESS_TOL = 1e-5  # max |card - CPU| of a parameter after one epoch
+# the largest inner gradient at which the card's and the CPU's FGSM signs may
+# differ, over its step's largest: float32 rounding of a sum of terms
+SIGN_FLIP_TOL = 1e-5
+
+
+def tradesy_like(seed):
+    """Seeded binary feedback at the Tradesy counts over Zipf-like users and
+    items."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, TRADESY_USERS, TRADESY_ITEMS, TRADESY_FEEDBACK, 0.5, 0.7)
+    return [(f"u{u}", f"i{i}", 1.0) for u, i in zip(users.tolist(), items.tolist())]
+
+
+def visual_features(n_items, seed, rank=32):
+    """(n_items, VISUAL_WIDTH) float32 on the host, non-negative like CNN
+    activations: the ReLU of a seeded rank-``rank`` product plus noise,
+    made on the card (680M normal draws would take the host tens of
+    seconds) and copied to the host once."""
+    import torch
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    a = torch.randn(n_items, rank, generator=gen, device=DEV)
+    b = torch.randn(rank, VISUAL_WIDTH, generator=gen, device=DEV) / rank ** 0.5
+    out = torch.randn(n_items, VISUAL_WIDTH, generator=gen, device=DEV).mul_(0.3)
+    out.addmm_(a, b).relu_()
+    host = out.cpu().numpy()
+    del out
+    torch.cuda.empty_cache()
+    return host
+
+
+def clothing_like(seed):
+    """Seeded star ratings at the Amazon Clothing counts, seeded visual
+    features and a seeded corpus (10-60 words an item, Zipf-like over a
+    vocabulary of 12,000)."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, CLOTHING_USERS, CLOTHING_ITEMS, CLOTHING_RATINGS, 0.4, 0.6)
+    ratings = star_triples(rng, users, items)
+    p = 1.0 / np.arange(1, 12_001) ** 0.9
+    p /= p.sum()
+    # letters only: the tokenizer's rules drop digits
+    vocab = ["".join(chr(97 + (w // 26 ** j) % 26) for j in range(3)) + "x"
+             for w in range(12_000)]
+    docs = [" ".join(vocab[w] for w in rng.choice(12_000, size=rng.randint(10, 61), p=p))
+            for _ in range(CLOTHING_ITEMS)]
+    return ratings, visual_features(CLOTHING_ITEMS, seed), docs, [
+        f"i{i}" for i in range(CLOTHING_ITEMS)]
+
+
+@contextlib.contextmanager
+def timed_steps(module, first, last, events):
+    """While open, a CUDA event is recorded after the ``first``-th and the
+    ``last``-th optimizer step (``module.step``) and appended to
+    ``events``."""
+    import torch
+
+    real, count = module.step, [0]
+
+    def step(*args, **kwargs):
+        out = real(*args, **kwargs)
+        count[0] += 1
+        if count[0] in (first, last):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        return out
+
+    module.step = step
+    try:
+        yield events
+    finally:
+        module.step = real
+
+
+def ratings_subset(test, users):
+    """The ratings of ``users`` in ``test``, with the attributes
+    ``ranking_eval`` reads."""
+    import types
+
+    from scipy.sparse import csr_matrix
+
+    keep = np.isin(test.uir_tuple[0], users)
+    u, i, r = (a[keep] for a in test.uir_tuple)
+    return types.SimpleNamespace(uir_tuple=(u, i, r), num_items=test.num_items,
+                                 csr_matrix=csr_matrix((r, (u, i)), shape=test.csr_matrix.shape))
+
+
+def vbpr_step_bound(n_params, bsz, f_dim, k2):
+    """(FLOPs, bytes) of one VBPR step as the port computes it: Adam's dense
+    update over every parameter (p, g, m, v read, p, m, v written: 28 B a
+    parameter), the 2B feature rows of the positives and negatives read
+    once and the triplets' ids; the projections of those rows through E and
+    Bp (2 x 2B x f x (k2 + 1)), three times over for the backward."""
+    flops = 3 * 2.0 * 2 * bsz * f_dim * (k2 + 1)
+    return flops, 28.0 * n_params + 4.0 * 2 * bsz * f_dim + 8.0 * 3 * bsz
+
+
+def phase_vbpr_tradesy(seed):
+    """Phase 18, VBPR at the Tradesy counts (``examples/vbpr_tradesy.py``'s
+    split and settings; seeded feedback, seeded 4,096-wide features):
+    RatioSplit(0.1, 0.5) with ``ImageModality(normalized=True)``, the split
+    timed on the host; a fit of ``VBPR_EPOCHS`` epoch, the steps after the
+    first 100 timed with CUDA events (ms a step beside the bound of a step),
+    ``VBPR_PROFILED_STEPS`` steps profiled (device events a step, busy
+    share), peak device memory; ranking_eval's AUC and Recall@50 over the
+    first 4,096 test users, and over the others too unless all of them
+    would take more than 30 s;
+    recommend_batch of 8,192 users at k = 100 through fused_topk (d = 31),
+    every list held to the plain version. Returns (accumulate_rows
+    launches, fused_topk launches, the model, the users served, the
+    stats)."""
+    import torch
+
+    from cornac_tpu_torch.data import ImageModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
+    from cornac_tpu_torch.metrics import AUC, Recall
+    from cornac_tpu_torch.models import VBPR
+    from cornac_tpu_torch.models import vbpr as vbpr_mod
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+    from cornac_tpu_torch.ops.optim import adam
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    clock = Clock()
+    feedback = clock("Tradesy-like feedback (set-up)", lambda: tradesy_like(seed + 18))
+    feats = clock("visual features, made on the card and copied to the host (set-up)",
+                  lambda: visual_features(TRADESY_ITEMS, seed + 18))
+    ids = [f"i{i}" for i in range(TRADESY_ITEMS)]
+    split = clock("RatioSplit(0.1) with ImageModality(normalized=True)", lambda: RatioSplit(
+        feedback, test_size=0.1, rating_threshold=0.5, exclude_unknowns=True, seed=123,
+        item_image=ImageModality(features=feats, ids=ids, normalized=True), verbose=False))
+    del feats, feedback
+    train = split.train_set
+    n, bsz = train.num_ratings, VBPR_TRADESY["batch_size"]
+    n_batches = -(-n // bsz)
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {n:,} train feedback, "
+        f"{n_batches:,} steps an epoch; features {train.item_image.features.shape}, "
+        f"{train.item_image.features.nbytes / 2**30:.2f} GiB")
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with timed_steps(vbpr_mod, VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, []) as events:
+        model = clock(f"VBPR.fit, {VBPR_EPOCHS} epoch", lambda: VBPR(
+            n_epochs=VBPR_EPOCHS, verbose=False, **VBPR_TRADESY).fit(train))
+    peak = torch.cuda.max_memory_allocated() - held
+    step_ms = events[0].elapsed_time(events[1]) / (VBPR_EPOCHS * n_batches - VBPR_TIMED_FROM)
+    metrics = [AUC(), Recall(k=50)]
+    test_users = np.unique(split.test_set.uir_tuple[0])
+    head, rest = test_users[:EVAL_SUBSET_USERS], test_users[EVAL_SUBSET_USERS:]
+    per_user = clock(f"ranking_eval (AUC, Recall@50), the first {len(head):,} test users",
+                     lambda: ranking_eval(model, metrics, train, ratings_subset(split.test_set, head),
+                                          rating_threshold=0.5)[1])
+    projected = (clock.seconds[f"ranking_eval (AUC, Recall@50), the first {len(head):,} test "
+                               f"users"] * len(test_users) / len(head))
+    if len(rest) and projected <= EVAL_BUDGET_S:  # the rest of the test users too
+        more = clock(f"ranking_eval (AUC, Recall@50), the other {len(rest):,} test users",
+                     lambda: ranking_eval(model, metrics, train, ratings_subset(split.test_set, rest),
+                                          rating_threshold=0.5)[1])
+        per_user = [{**a, **b} for a, b in zip(per_user, more)]
+    evaluated = len(per_user[0])
+    quality = [sum(d.values()) / len(d) for d in per_user]
+    users = np.random.RandomState(seed + 18).choice(train.num_users, SERVE_BATCH, replace=False)
+    relaxed = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
+                    lambda: serve_check(model, train, users, "VBPR recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("VBPR at Tradesy")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"VBPR launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+
+    # ---- check and measure ----
+    for arr in model._arrays() + (model.theta_item, model.visual_bias):
+        if not np.isfinite(arr).all():
+            raise AssertionError("VBPR at Tradesy: a non-finite parameter")
+    dev = torch.device(DEV)
+    params = {t: torch.tensor(np.asarray(a, np.float32), device=dev, requires_grad=True)
+              for t, a in zip(vbpr_mod.TABLES, model._arrays())}
+    F = torch.as_tensor(np.asarray(train.item_image.features[: model.total_items], np.float32),
+                        device=dev)
+    pairs = torch.as_tensor(np.stack(train.uir_tuple[:2], axis=1).astype(np.int64), device=dev)
+    pos, negs = vbpr_mod.vbpr_draws(epoch_generator(seed, 0, dev), n,
+                                    VBPR_PROFILED_STEPS * bsz, train.num_items)
+    opt = adam(VBPR_TRADESY["learning_rate"])
+    hyper = (model.lambda_w, model.lambda_b, model.lambda_e, 0.0, 0.0)
+
+    def some_steps():
+        vbpr_mod.vbpr_epoch(params, opt, opt.init(params), (pos, negs), pairs, F, hyper, bsz,
+                            False)
+
+    some_steps()  # warm
+    wall_ms, busy_ms, events_n, top = profile_call(some_steps)
+    share = busy_ms / wall_ms if top else None
+    del F, params
+    n_params = sum(np.asarray(a).size for a in model._arrays())
+    flops, nbytes = vbpr_step_bound(n_params, bsz, VISUAL_WIDTH, model.k2)
+    bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    epoch_s = clock.seconds[f"VBPR.fit, {VBPR_EPOCHS} epoch"] / VBPR_EPOCHS
+    log(f"  VBPR k={model.k} k2={model.k2} over {n:,} feedback: {epoch_s:.3f} s an epoch (host "
+        f"clock, the fit's set-up and the features' copy to the card included), {step_ms:.3f} ms "
+        f"a step (CUDA events over steps {VBPR_TIMED_FROM + 1}-{VBPR_EPOCHS * n_batches}) "
+        f"against a {bound_ms:.4f} ms bound ({bound_by}: {n_params:,} parameters x 28 B + "
+        f"{2 * bsz} feature rows x {VISUAL_WIDTH * 4:,} B = {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP), {100 * bound_ms / step_ms:.3f}% of it; {VBPR_PROFILED_STEPS} "
+        f"steps profiled: {wall_ms / VBPR_PROFILED_STEPS:.3f} ms a step host clock, busy "
+        + ("not measured" if share is None else f"{100 * share:.2f}%")
+        + f", {events_n / VBPR_PROFILED_STEPS:.1f} device events a step; top device ops "
+        f"{top_ops(top) if top else 'none seen'}; peak device memory of the fit "
+        f"{peak / 2**30:.3f} GiB above what the run held")
+    log(f"  ranking_eval over {evaluated:,} of {len(test_users):,} test users: AUC "
+        f"{quality[0]:.6f}, Recall@50 {quality[1]:.6f} (projected for all: {projected:.1f} s; no "
+        f"band at this size); recommend_batch ({SERVE_BATCH} users, k={TOPK}, d="
+        f"{model.k + model.k2 + 1}) equal to the plain version (positions relaxed as near-ties: "
+        f"{relaxed}); fused_topk launches {fused}, accumulate_rows launches {launches}")
+    log(f"VBPR at Tradesy: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, model, users, dict(
+        epoch_s=epoch_s, step_ms=step_ms, bound_ms=bound_ms, bound_by=bound_by, share=share,
+        launches_per_step=events_n / VBPR_PROFILED_STEPS, peak=peak, quality=quality,
+        evaluated=evaluated, n_test_users=len(test_users),
+        split_s=clock.seconds["RatioSplit(0.1) with ImageModality(normalized=True)"])
+
+
+@contextlib.contextmanager
+def timed_stream_epochs(module, stamps):
+    """While open, the card is synchronised and the host clock appended to
+    ``stamps`` before the first and after the second of each pair of
+    ``module.run_stream_epoch`` calls (SoRec's trust then rating stream:
+    one epoch)."""
+    import torch
+
+    real, count = module.run_stream_epoch, [0]
+
+    def stamp():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def run(*args, **kwargs):
+        if count[0] % 2 == 0:
+            stamp()
+        out = real(*args, **kwargs)
+        if count[0] % 2 == 1:
+            stamp()
+        count[0] += 1
+        return out
+
+    module.run_stream_epoch = run
+    try:
+        yield stamps
+    finally:
+        module.run_stream_epoch = real
+
+
+def phase_side_published(epinions, office):
+    """Phase 18b, on data already built: SoRec (``examples/sorec_filmtrust.py``'s
+    settings, 2 epochs) on phase 15's Epinions split with its trust graph,
+    each epoch timed, MAE and RMSE, a second seeded fit bit for bit; MCF
+    (``examples/mcf_office.py``: 40 iterations) and PCRL
+    (``examples/pcrl_example.py``: 60) on phase 15b's Amazon Office split
+    with its item graph, fits timed, Precision, Recall and NDCG@10; each of
+    the three serving 1,024 users at k = 100 through fused_topk, every list
+    held to the plain version. Returns (accumulate_rows launches, fused_topk
+    launches, the stats)."""
+    import io
+
+    import torch
+
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
+    from cornac_tpu_torch.metrics import MAE, NDCG, RMSE, Precision, Recall
+    from cornac_tpu_torch.models import MCF, PCRL, SoRec
+    from cornac_tpu_torch.models import sorec as sorec_mod
+    from cornac_tpu_torch.models.sorec import scaled_ratings, stream_tensors
+    from cornac_tpu_torch.ops.rmsprop import rmsprop_stream_epoch, stream_order
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    ep_train, of_train = epinions.train_set, office.train_set
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    with timed_stream_epochs(sorec_mod, []) as stamps:
+        sorec = clock(f"SoRec.fit, {SOREC_EPOCHS} epochs", lambda: SoRec(
+            max_iter=SOREC_EPOCHS, **SOREC_EPINIONS).fit(ep_train))
+    epoch_s = [b - a for a, b in zip(stamps[::2], stamps[1::2])]
+    errors = clock("rating_eval (MAE, RMSE)", lambda: rating_eval(
+        sorec, [MAE(), RMSE()], epinions.test_set)[0])
+    mcf = clock(f"MCF.fit, {MCF_OFFICE['max_iter']} iterations", lambda: MCF(**MCF_OFFICE).fit(
+        of_train))
+    pcrl = clock(f"PCRL.fit, {PCRL_OFFICE['max_iter']} iterations", lambda: PCRL(
+        **PCRL_OFFICE).fit(of_train))
+    ranking = [Precision(k=10), Recall(k=10), NDCG(k=10)]
+    quality = {name: clock(f"{name} ranking_eval (P@10, R@10, NDCG@10)", lambda: ranking_eval(
+        m, ranking, of_train, office.test_set, rating_threshold=1.0)[0])
+        for name, m in (("MCF", mcf), ("PCRL", pcrl))}
+    rng = np.random.RandomState(18)
+    relaxed = {}
+    for name, m, train in (("SoRec", sorec, ep_train), ("MCF", mcf, of_train),
+                           ("PCRL", pcrl, of_train)):
+        users = rng.choice(train.num_users, SERVED_USERS, replace=False)
+        relaxed[name] = clock(f"{name} recommend_batch {SERVED_USERS} users k={TOPK}",
+                              lambda: serve_check(m, train, users, f"{name} recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("SoRec at Epinions, MCF and PCRL at Amazon Office")
+    if launches <= 0 or fused < 3:
+        raise AssertionError(f"18b launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+
+    # ---- check what came out ----
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = clock(f"SoRec.fit, {SOREC_EPOCHS} epochs, again (verbose)", lambda: SoRec(
+            max_iter=SOREC_EPOCHS, verbose=True, **SOREC_EPINIONS).fit(ep_train))
+    for name in ("U", "V", "Z"):
+        if not same_bits(getattr(sorec, name), getattr(again, name)):
+            raise AssertionError(f"SoRec at Epinions: two seeded fits differ in {name}")
+    for m in (sorec, mcf):
+        if not all(np.isfinite(getattr(m, t)).all() for t in ("U", "V", "Z")):
+            raise AssertionError(f"{m.name}: non-finite tables")
+    if not (np.isfinite(pcrl.Theta).all() and np.isfinite(pcrl.Beta).all()):
+        raise AssertionError("PCRL: non-finite Theta or Beta")
+    n_trust = len(ep_train.user_graph.get_train_triplet(set(ep_train.uir_tuple[0]),
+                                                        set(ep_train.uir_tuple[0]))[0])
+    # SOREC_PROFILED_STEPS minibatches of the rating stream profiled, from
+    # the fitted tables
+    dev = torch.device(DEV)
+    U, V = (torch.tensor(np.asarray(a, np.float32), device=dev) for a in (sorec.U, sorec.V))
+    rid, iid, rat = ep_train.uir_tuple
+    pairs, vals = stream_tensors(rid, iid, scaled_ratings(rat, sorec.min_rating,
+                                                          sorec.max_rating), dev)
+    perm, mask, bsz = stream_order(len(rat), SOREC_EPINIONS["batch_size"],
+                                   np.random.RandomState(0), dev)
+    perm, mask = perm[:SOREC_PROFILED_STEPS * bsz], mask[:SOREC_PROFILED_STEPS * bsz]
+    lr, reg = SOREC_EPINIONS["learning_rate"], SOREC_EPINIONS["lambda_reg"]
+
+    def some_steps():
+        rmsprop_stream_epoch(U, V, torch.zeros_like(U), torch.zeros_like(V), perm, mask, pairs,
+                             vals, lr, lr, reg, 0.9, bsz)
+
+    some_steps()  # warm
+    wall_ms, busy_ms, events_n, top = profile_call(some_steps)
+    share = busy_ms / wall_ms if top else None
+    per_step = events_n / SOREC_PROFILED_STEPS
+    log(f"  SoRec k={SOREC_EPINIONS['k']} over {ep_train.num_ratings:,} ratings and {n_trust:,} "
+        f"trust edges: epochs " + ", ".join(f"{s:.3f}" for s in epoch_s) + " s (host clock, "
+        f"synchronised at both ends), "
+        f"{-(-n_trust // 1024) + -(-ep_train.num_ratings // 1024):,} steps an epoch; "
+        f"{SOREC_PROFILED_STEPS} rating-stream steps profiled: {wall_ms / SOREC_PROFILED_STEPS:.3f} "
+        f"ms a step host clock, busy " + ("not measured" if share is None else f"{100 * share:.2f}%")
+        + f", {per_step:.1f} device events a step; top device ops "
+        f"{top_ops(top) if top else 'none seen'}; MAE {errors[0]:.6f}, RMSE {errors[1]:.6f}; two "
+        f"seeded fits identical, bit for bit")
+    for name in ("MCF", "PCRL"):
+        fit_name = next(k for k in clock.seconds if k.startswith(f"{name}.fit"))
+        log(f"  {name} at Amazon Office: {fit_name} {clock.seconds[fit_name]:.3f} s (host "
+            f"clock); P@10 {quality[name][0]:.6f}, R@10 {quality[name][1]:.6f}, NDCG@10 "
+            f"{quality[name][2]:.6f}")
+    log(f"  recommend_batch ({SERVED_USERS} users each, k={TOPK}) equal to the plain version "
+        f"(positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}, "
+        f"accumulate_rows launches {launches}")
+    log(f"SoRec, MCF and PCRL on the published splits: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, dict(
+        sorec_epoch_s=epoch_s, sorec_errors=errors, quality=quality, sorec_share=share,
+        sorec_events=per_step, sorec_step_ms=wall_ms / SOREC_PROFILED_STEPS,
+        mcf_s=clock.seconds[f"MCF.fit, {MCF_OFFICE['max_iter']} iterations"],
+        pcrl_s=clock.seconds[f"PCRL.fit, {PCRL_OFFICE['max_iter']} iterations"])
+
+
+def phase_clothing(seed):
+    """Phase 18c, at the Amazon Clothing counts (seeded ratings, seeded
+    4,096-wide features, a seeded corpus): AMR, CausalRec and VMF on
+    RatioSplit(0.1, 0.5) with the image modality, DMRL on RatioSplit(0.2,
+    0.5) with the text (TF-IDF over the corpus' count matrix) and image
+    modalities, each at its example's settings with its epochs cut
+    (``CLOTHING_MODELS``), through ``evaluate`` (fit and metric seconds);
+    AMR serving 1,024 users through fused_topk, held to the plain version.
+    Returns (accumulate_rows launches, fused_topk launches, the stats)."""
+    import torch
+
+    import cornac_tpu_torch.metrics as pmetrics
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import ImageModality, TextModality
+    from cornac_tpu_torch.data.text import BaseTokenizer
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    ratings, feats, docs, ids = clock("Amazon-Clothing-like data (set-up)",
+                                      lambda: clothing_like(seed + 19))
+    visual = clock("RatioSplit(0.1) with ImageModality(normalized=True)", lambda: RatioSplit(
+        ratings, test_size=0.1, rating_threshold=0.5, exclude_unknowns=True, seed=123,
+        item_image=ImageModality(features=feats, ids=ids, normalized=True), verbose=False))
+    textual = clock("RatioSplit(0.2) with the text and image modalities", lambda: RatioSplit(
+        ratings, test_size=0.2, rating_threshold=0.5, exclude_unknowns=True, seed=123,
+        item_text=TextModality(corpus=docs, ids=ids, tokenizer=BaseTokenizer(
+            stop_words="english"), max_vocab=8000, max_doc_freq=0.5),
+        item_image=ImageModality(features=feats, ids=ids, normalized=True), verbose=False))
+    metric = {"AUC": pmetrics.AUC(), "Recall@50": pmetrics.Recall(k=50),
+              "NDCG@50": pmetrics.NDCG(k=50), "RMSE": pmetrics.RMSE(),
+              "Precision@10": pmetrics.Precision(k=10), "Recall@10": pmetrics.Recall(k=10),
+              "NDCG@10": pmetrics.NDCG(k=10)}
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    results, fitted = {}, {}
+    for name, (cls, kw, (arg, epochs, _), names) in CLOTHING_MODELS.items():
+        split = textual if name == "DMRL" else visual
+        model = getattr(models, cls)(seed=123, **{arg: epochs}, **kw)
+        results[name] = clock(f"{name} evaluate", lambda: split.evaluate(
+            model, [metric[m] for m in names], user_based=False)[0].metric_avg_results)
+        fitted[name] = model
+    users = np.random.RandomState(seed + 19).choice(visual.train_set.num_users, SERVED_USERS,
+                                                    replace=False)
+    relaxed = clock(f"AMR recommend_batch {SERVED_USERS} users k={TOPK}", lambda: serve_check(
+        fitted["AMR"], visual.train_set, users, "AMR recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the Clothing models")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"18c launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+    for name, (_, _, (arg, epochs, full), names) in CLOTHING_MODELS.items():
+        res = results[name]
+        if not all(np.isfinite(res[m]) for m in names):
+            raise AssertionError(f"{name} at Clothing: non-finite metrics {res}")
+        log(f"  {name} ({arg} {epochs}, the example's {full}): fit {res['Train (s)']:.3f} s, "
+            f"evaluation {res['Test (s)']:.3f} s (host clock); "
+            + ", ".join(f"{m} {res[m]:.6f}" for m in names))
+    text = textual.train_set.item_text
+    log(f"  {visual.train_set.num_users:,} train users x {visual.train_set.num_items:,} items, "
+        f"{visual.train_set.num_ratings:,} train ratings; DMRL's text: {text.count_matrix.shape[1]:,} "
+        f"terms (TF-IDF over the count matrix); AMR's recommend_batch ({SERVED_USERS} users, "
+        f"k={TOPK}) equal to the plain version (positions relaxed as near-ties: {relaxed}); "
+        f"fused_topk launches {fused}, accumulate_rows launches {launches}")
+    log(f"the Clothing models: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, dict(results=results, seconds=dict(clock.seconds))
+
+
+@contextlib.contextmanager
+def fgsm_signs(record=None, replay=None):
+    """While open, ``torch.sign`` (AMR's FGSM step, the only sign its epoch
+    takes) appends (its input, its output) to ``record``, or returns the
+    next of ``replay``'s outputs instead of its own (moved to the input's
+    device) after appending its own pair to ``record``."""
+    import torch
+
+    real, count = torch.sign, [0]
+
+    def sign(x):
+        own = real(x)
+        if record is not None:
+            record.append((x.detach().cpu(), own.cpu()))
+        if replay is None:
+            return own
+        count[0] += 1
+        return replay[count[0] - 1][1].to(x.device)
+
+    torch.sign = sign
+    try:
+        yield record
+    finally:
+        torch.sign = real
+
+
+def visual_witness(name, train, card=DEV):
+    """One epoch of VBPR's or AMR's bench configuration on ``card`` and on
+    the CPU from the same initial parameters and on the same draws, made on
+    the CPU (``vbpr_draws`` from a CPU generator). AMR's FGSM step takes the
+    sign of an inner gradient, and where that gradient is within rounding of
+    0 the card and the CPU can take opposite signs (a step of 2 epsilon in
+    a feature): the CPU's epoch replays the card's signs, and the entries
+    where its own sign differs are returned with their size against the
+    step's largest. Returns (steps, max |card - CPU| over the parameters,
+    the signs that differ, the largest |inner gradient| among them over
+    its step's largest)."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.models import vbpr as vbpr_mod
+    from cornac_tpu_torch.ops.optim import adam
+
+    model = make_model(models, name, 123)
+    model.trainable = False
+    model.fit(train)  # the initial parameters
+    n, bsz = train.num_ratings, model.batch_size
+    n_total = -(-n // bsz) * bsz
+    draws = vbpr_mod.vbpr_draws(torch.Generator().manual_seed(123), n, n_total, train.num_items)
+    hyper = (model.lambda_w, model.lambda_b, model.lambda_e, model._adv_lambda,
+             model._adv_epsilon)
+    feats = np.asarray(train.item_image.features[: model.total_items], np.float32)
+    pairs = np.stack(train.uir_tuple[:2], axis=1).astype(np.int64)
+
+    def epoch(dev):
+        params = {t: torch.tensor(np.asarray(a, np.float32), device=dev, requires_grad=True)
+                  for t, a in zip(vbpr_mod.TABLES, model._arrays())}
+        opt = adam(model.learning_rate)
+        vbpr_mod.vbpr_epoch(params, opt, opt.init(params), tuple(d.to(dev) for d in draws),
+                            torch.as_tensor(pairs, device=dev), torch.as_tensor(feats, device=dev),
+                            hyper, bsz, model._adversarial)
+        return {t: p.detach().cpu() for t, p in params.items()}
+
+    card_signs, cpu_signs = [], []
+    with fgsm_signs(record=card_signs):
+        on_card = epoch(card)
+    with fgsm_signs(record=cpu_signs, replay=card_signs):
+        on_cpu = epoch("cpu")
+    flips, worst = 0, 0.0
+    for (_, theirs), (g, own) in zip(card_signs, cpu_signs):
+        differ = own != theirs
+        flips += int(differ.sum())
+        if differ.any():
+            worst = max(worst, float(g.abs()[differ].max() / g.abs().max()))
+    err = max((on_card[t] - on_cpu[t]).abs().max().item() for t in on_cpu)
+    return n_total // bsz, err, flips, worst
+
+
+def phase_side_bench(bench_data):
+    """Process 12i, spawned: the side-information models at the bench shape
+    (``make_ml100k_like(7)`` with ``seq_bench_data.side_modalities``: the
+    seeded trust graph, 64-wide image-like features, their k-NN item graph,
+    TF-IDF-like text), at ``tools/bpr_quality_band.py``'s ``SIDE_CONFIGS``:
+    each model's AUC and NDCG@10 in the band of the JAX package's CPU fits
+    over ten seeds (``tools/quality_bands.py::SIDE_BANDS``); SoRec's and
+    MCF's tables held to the JAX fit's own (its first rows and column sums,
+    ``SIDE_FINGERPRINTS``, within ``FINGERPRINT_TOL``); a second seeded fit
+    of each bit for bit, whose accumulate_rows inputs are held to the plain
+    version on the CPU; one VBPR and one AMR epoch on the CPU's draws, on the
+    card within ``SIDE_WITNESS_TOL`` of the CPU's, which replays the card's
+    FGSM signs, those that differ from its own at inner gradients within
+    ``SIGN_FLIP_TOL`` of 0 (``visual_witness``).
+    Returns (accumulate_rows launches, fit seconds, max |err|)."""
+    import io
+
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import SIDE_CONFIGS, make_model, side_split
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from quality_bands import FINGERPRINT_TOL, SIDE_FINGERPRINTS, side_band
+
+    clock = Clock()
+    split = clock("RatioSplit(0.2, 4.0) with the side modalities", lambda: side_split(
+        pdata, peval, bench_data()))
+    metrics = [pmetrics.AUC(), pmetrics.NDCG(k=10), pmetrics.Recall(k=10)]
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results, fitted = {}, {}
+    for name in SIDE_CONFIGS:
+        model = make_model(models, name, 123)
+        results[name] = clock(f"{name} evaluate", lambda: split.evaluate(
+            model, metrics, user_based=False)[0].metric_avg_results)
+        fitted[name] = model
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the side-information models at the bench shape")
+    if launches <= 0:
+        raise AssertionError("process 12i did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    outside, fit_s = [], {}
+    for name, res in results.items():
+        fit_s[name] = res["Train (s)"]
+        for metric in ("AUC", "NDCG@10"):
+            lo, hi, _, _ = side_band(name, metric)
+            inside = lo <= res[metric] <= hi
+            log(f"  {name}: {metric} {res[metric]:.6f}, band [{lo:.6f}, {hi:.6f}] (10 JAX seeds) "
+                f"{'inside' if inside else 'OUTSIDE'}; fit {fit_s[name]:.3f} s (host clock)")
+            if not inside:
+                outside.append(f"{name} {metric}")
+    for name, tables in SIDE_FINGERPRINTS.items():
+        for table, want in tables.items():
+            got = np.asarray(getattr(fitted[name], table))
+            rows = np.abs(got[:len(want["rows"])] - np.asarray(want["rows"])).max()
+            sums = np.abs(got.sum(axis=0) - np.asarray(want["colsum"])).max()
+            log(f"  {name}'s {table} against the JAX fit's: its first rows within {rows:.3e}, its "
+                f"column sums within {sums:.3e} (held to {FINGERPRINT_TOL['rows']:g} and "
+                f"{FINGERPRINT_TOL['colsum']:g})")
+            if not (rows <= FINGERPRINT_TOL["rows"] and sums <= FINGERPRINT_TOL["colsum"]):
+                raise AssertionError(f"{name}'s {table} differs from the JAX fit's")
+    acc_err, recorded = 0.0, 0
+    attrs = {"SoRec": ("U", "V", "Z"), "MCF": ("U", "V", "Z"), "VMF": ("U", "V", "P", "E"),
+             "PCRL": ("Gs", "Gr", "Ls", "Lr"),
+             "CausalRec": ("beta_item", "gamma_user", "gamma_item", "theta_user", "theta_item"),
+             "DMRL": ()}
+    for name, model in fitted.items():
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = make_model(models, name, 123)
+            again.verbose = True
+            again.fit(split.train_set)
+        names = attrs.get(name, ("beta_item", "gamma_user", "gamma_item", "theta_user",
+                                 "emb_matrix", "beta_prime"))
+        for attr in names:
+            if not same_bits(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr}")
+        if name in ("DMRL", "PCRL"):
+            for key, p in model.params.items():
+                if not torch.equal(p, again.params[key]):
+                    raise AssertionError(f"{name}: two seeded fits differ in {key}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    for name in ("VBPR", "AMR"):
+        steps, err, flips, worst = clock(f"{name}'s epoch on the CPU's draws",
+                                         lambda: visual_witness(name, split.train_set, DEV))
+        log(f"  {name}, one epoch ({steps} steps) on the CPU's draws, on the card and on the CPU: "
+            f"max |card - CPU| {err:.3e} over the parameters (held to {SIDE_WITNESS_TOL:g})"
+            + (f"; the CPU replayed the card's FGSM signs, {flips} of which differ from its own, "
+               f"at inner gradients of at most {worst:.3e} of their step's largest (held to "
+               f"{SIGN_FLIP_TOL:g})" if name == "AMR" else ""))
+        if not err <= SIDE_WITNESS_TOL:
+            raise AssertionError(f"{name}'s epoch on the card differs from the CPU's on the same "
+                                 f"draws by {err:.3e}")
+        if not worst <= SIGN_FLIP_TOL:
+            raise AssertionError(f"{name}: an FGSM sign differs at an inner gradient of {worst:.3e} "
+                                 f"of its step's largest")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+    log(f"  every model: two seeded fits identical, bit for bit; accumulate_rows on their own "
+        f"inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit (max "
+        f"|err| {acc_err:.3e}); accumulate_rows launches {launches}")
+    log(f"the side-information models at the bench shape: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
 # the families at the bench shape run in processes of their own, at once,
 # after the timed phases: their eager steps are bound by the host, one core
 # each
@@ -5325,10 +6065,10 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the serving slice runs. The nine bench-shape
+    # makes the data while the serving slice runs. The ten bench-shape
     # processes run beside phase 16 and are collected (their logs printed)
     # before 16b: the module's docstring says why there
-    pool = multiprocessing.get_context("spawn").Pool(6 + len(NEURAL_GROUPS))
+    pool = multiprocessing.get_context("spawn").Pool(7 + len(NEURAL_GROUPS))
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
@@ -5346,11 +6086,12 @@ def main():
                   "phase_modality_bench", ()),
                  ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
                  ("the next-basket models", "phase_basket_bench", ()),
-                 ("the generative next-item models", "phase_generative_bench", ())]
+                 ("the generative next-item models", "phase_generative_bench", ()),
+                 ("the side-information models", "phase_side_bench", ())]
         families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
                     for what, phase, extra in jobs]
         sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
-        lap("SASRec at Diginetica, beside the nine bench-shape processes")
+        lap("SASRec at Diginetica, beside the ten bench-shape processes")
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -5374,6 +6115,13 @@ def main():
         lap("SBPR at Epinions")
         c2pf_launches, c2pf_fused, c2pf_model, c2pf_users, c2pf = phase_c2pf_office(args.seed)
         lap("C2PF at Amazon Office")
+        side_launches, side_fused, side = phase_side_published(sbpr.pop("split"),
+                                                               c2pf.pop("split"))
+        lap("SoRec at Epinions, MCF and PCRL at Amazon Office")
+        vbpr_launches, vbpr_fused, vbpr_model, vbpr_users, vbpr = phase_vbpr_tradesy(args.seed)
+        lap("VBPR at Tradesy")
+        cloth_launches, cloth_fused, cloth = phase_clothing(args.seed)
+        lap("the Clothing models")
         bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
         full_launches, full_fused, full = phase_trainer_full(args.seed)
@@ -5394,6 +6142,8 @@ def main():
     hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
     sbpr_rows = phase_times(sbpr_model, sbpr_users, (SERVE_BATCH,), "SBPR at Epinions")
     c2pf_rows = phase_times(c2pf_model, c2pf_users, (SERVE_BATCH,), "C2PF at Amazon Office")
+    vbpr_rows = phase_times(vbpr_model, vbpr_users, (SERVE_BATCH,), "VBPR at Tradesy")
+    del vbpr_model
     cos_rows = phase_cosine_times([
         ("ML-1M item side", W_items),
         ("ML-1M user side", W_users),
@@ -5415,6 +6165,7 @@ def main():
     seqb_launches, seqb_fit, seqb_acc_err = done[3 + len(NEURAL_GROUPS)]
     nbb_launches, nbb_fit, nbb_acc_err = done[4 + len(NEURAL_GROUPS)]
     genb_launches, genb_fit, genb_acc_err = done[5 + len(NEURAL_GROUPS)]
+    sideb_launches, sideb_fit, sideb_acc_err = done[6 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -5423,8 +6174,8 @@ def main():
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
         "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
-                     + hpf_fused + rest_fused + sbpr_fused + c2pf_fused
-                     + probe_launches["fused_topk"]),
+                     + hpf_fused + rest_fused + sbpr_fused + c2pf_fused + side_fused
+                     + vbpr_fused + cloth_fused + probe_launches["fused_topk"]),
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -5433,9 +6184,9 @@ def main():
         "library_ms": row["library_ms"],
     } for B, row in sorted(rows.items(), reverse=True)]
     # B1 at HPF's d = 5 over the ML-10M catalog, SBPR's d = 11 over the
-    # Epinions catalog and C2PF's d = 100 over Amazon Office's, on the
-    # trained vectors
-    for extra in (hpf_rows, sbpr_rows, c2pf_rows):
+    # Epinions catalog, C2PF's d = 100 over Amazon Office's and VBPR's d = 31
+    # over Tradesy's, on the trained vectors
+    for extra in (hpf_rows, sbpr_rows, c2pf_rows, vbpr_rows):
         row = extra[SERVE_BATCH]
         kernels.append({**{k: v for k, v in kernels[0].items() if k not in ("batch", "slices")},
                         "batch": SERVE_BATCH, "d": row["d"], "items": row["items"],
@@ -5467,6 +6218,7 @@ def main():
                       hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
                       c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err,
                       basket["max_abs_err"], nbb_acc_err, genb_acc_err, tiger["max_abs_err"],
+                      sideb_acc_err,
                       *(st["max_abs_err"] for st in transformer.values()))
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
@@ -5483,7 +6235,11 @@ def main():
                   "TIGER, ML-100K, token table (encoder tokens)",
                   "TIGER, ML-100K, RQ-VAE codebook",
                   "GCMC, bench shape, edges into item rows",
-                  "GCMC, bench shape, edges into user rows"):
+                  "GCMC, bench shape, edges into user rows",
+                  "VBPR, Tradesy, item-factor gradient (positives + negatives)",
+                  "SoRec, Epinions, U update (trust stream)",
+                  "MCF, Amazon Office, V update (item-graph stream)",
+                  "DMRL, Amazon Clothing, item-embedding gradient"):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -5495,7 +6251,8 @@ def main():
                          + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
                          + c2pf_launches + modal_launches + sasrec_launches + seqb_launches
                          + basket_launches + nbb_launches + tr_launches + tiger_launches
-                         + genb_launches),
+                         + genb_launches + side_launches + vbpr_launches + cloth_launches
+                         + sideb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -5575,6 +6332,23 @@ def main():
             f"{k} {v:.4f}" for k, v in tiger["metrics"].items()) + f" in {tiger['eval_s']:.3f} s")
     log("the generative next-item models at the bench shape, fit seconds (host clock): "
         + ", ".join(f"{name} {sec:.3f}" for name, sec in genb_fit.items()))
+    log(f"VBPR at Tradesy: {vbpr['epoch_s']:.3f} s an epoch, {vbpr['step_ms']:.3f} ms a step "
+        f"against a {vbpr['bound_ms']:.4f} ms bound ({vbpr['bound_by']}), busy "
+        + ("not measured" if vbpr["share"] is None else f"{100 * vbpr['share']:.2f}%")
+        + f", {vbpr['launches_per_step']:.1f} device events a step, peak "
+        f"{vbpr['peak'] / 2**30:.3f} GiB; AUC {vbpr['quality'][0]:.4f}, Recall@50 "
+        f"{vbpr['quality'][1]:.4f} over {vbpr['evaluated']:,} test users")
+    log("SoRec at Epinions: epochs " + ", ".join(f"{e:.3f}" for e in side["sorec_epoch_s"])
+        + f" s, {side['sorec_step_ms']:.3f} ms a step (profiled), busy "
+        + ("not measured" if side["sorec_share"] is None else f"{100 * side['sorec_share']:.2f}%")
+        + f", {side['sorec_events']:.1f} device events a step; MAE {side['sorec_errors'][0]:.4f}, RMSE {side['sorec_errors'][1]:.4f}; MCF "
+        f"{side['mcf_s']:.3f} s, PCRL {side['pcrl_s']:.3f} s at Amazon Office; " + "; ".join(
+            f"{name} P@10 {q[0]:.4f} R@10 {q[1]:.4f} NDCG@10 {q[2]:.4f}"
+            for name, q in side["quality"].items()))
+    log("the Clothing models, fit seconds (host clock): " + ", ".join(
+        f"{name} {res['Train (s)']:.3f}" for name, res in cloth["results"].items()))
+    log("the side-information models at the bench shape, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in sideb_fit.items()))
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

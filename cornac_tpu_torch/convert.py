@@ -17,7 +17,9 @@ from .models.baseline import BaselineOnly
 from .models.beacon import Beacon
 from .models.bpr import BPR, WBPR
 from .models.c2pf import C2PF
+from .models.causalrec import CausalRec
 from .models.cvaecf import CVAECF
+from .models.dmrl import DMRL
 from .models.dnntsp import DNNTSP
 from .models.ease import EASE
 from .models.fm import FM
@@ -27,16 +29,21 @@ from .models.gru4rec import GRU4Rec
 from .models.hpf import HPF
 from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
+from .models.mcf import MCF
 from .models.mf import MF
 from .models.nmf import NMF
+from .models.pcrl import PCRL
 from .models.pmf import PMF
 from .models.sansa import SANSA
 from .models.sasrec import SASRec
 from .models.sbpr import SBPR
 from .models.skm import SKMeans
+from .models.sorec import SoRec
 from .models.tiger import TIGER
 from .models.transformer_rec import TransformerRec
+from .models.vbpr import AMR, VBPR
 from .models.vebpr import VEBPR
+from .models.vmf import VMF
 from .models.wmf import WMF
 
 _SNAPSHOT = (
@@ -273,6 +280,20 @@ _PARAM_MODELS = {
                       "num_heads", "d_kv", "num_enc_layers", "num_dec_layers", "max_len",
                       "scoring", "n_beams")),
 }
+# the side-information models: class name -> (class, the options it is
+# built with); their ``params`` are the JAX model's ``init_params`` names
+# (DMRL's and PCRL's: their ``params`` pytrees)
+_SIDE_MODELS = {
+    "SoRec": (SoRec, ("k",)),
+    "MCF": (MCF, ("k",)),
+    "VBPR": (VBPR, ("k", "k2")),
+    "AMR": (AMR, ("k", "k2")),
+    "CausalRec": (CausalRec, ("k", "k2", "tanh", "lambda_2")),
+    "VMF": (VMF, ("k", "d")),
+    "DMRL": (DMRL, ("embedding_dim", "num_factors", "num_neg")),
+    "PCRL": (PCRL, ("k", "z_dims")),
+}
+_PARAM_MODELS.update(_SIDE_MODELS)
 # what a model scores with besides its parameters and options: Beacon's
 # correlation matrix (scipy sparse), DNNTSP's padded graph sizes (the JAX
 # model's ``_train_N`` and ``_train_T``), TIGER's host tables (``rqvae_params``
@@ -285,8 +306,9 @@ _PARAM_EXTRAS = {"Beacon": ("correlation_matrix",), "DNNTSP": ("train_N", "train
 
 def model_from_params(cls_name, params, meta, device=None, train_set=None):
     """A fitted port ``FPMC``, ``GRU4Rec``, ``SASRec``, ``CVAECF``,
-    ``GCMC``, ``Beacon``, ``DNNTSP``, ``TransformerRec`` or ``TIGER``
-    (``cls_name``) from the JAX model's
+    ``GCMC``, ``Beacon``, ``DNNTSP``, ``TransformerRec``, ``TIGER``,
+    ``SoRec``, ``MCF``, ``VBPR``, ``AMR``, ``CausalRec``, ``VMF``, ``DMRL``
+    or ``PCRL`` (``cls_name``) from the JAX model's
     ``params`` pytree as
     nested dicts and lists of numpy arrays (FPMC's four tables ``V_UI``,
     ``V_IU``, ``V_IL``, ``V_LI``; the others as ``params_to_module`` takes
@@ -308,18 +330,30 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     ``prefix_children``, ``sid_to_item`` and ``rqvae_params`` (None for
     rkmeans) (TIGER); then ``num_users``,
     ``num_items``, ``uid_map``, ``iid_map``, ``min_rating``,
-    ``max_rating``, ``global_mean``, the fitted model's). CVAECF and GCMC
-    also need ``train_set``, the port dataset the model was fitted on
-    (CVAECF's rating and social rows, GCMC's rating graph, whose node
-    features are computed here). It scores as the model it was read from.
+    ``max_rating``, ``global_mean``, the fitted model's). The
+    side-information models take their JAX ``init_params`` as ``params``:
+    ``U``, ``V``, ``Z`` (SoRec, MCF; option ``k``); ``Bi``, ``Gu``, ``Gi``,
+    ``Tu``, ``E``, ``Bp`` (VBPR, AMR; ``k``, ``k2``); those and ``E_ind``
+    (and ``E2``, ``E_ind2`` at tanh 2) for CausalRec (``k``, ``k2``,
+    ``tanh``, ``lambda_2``, and ``mean_feat`` when the fit was given one);
+    ``U``, ``V``, ``P``, ``E`` (VMF; ``k``, ``d``); DMRL's ``params`` pytree
+    (``embedding_dim``, ``num_factors``, ``num_neg``); ``G_s``, ``G_r``,
+    ``L_s``, ``L_r`` (PCRL, which scores with them alone; ``k``,
+    ``z_dims``). CVAECF, GCMC, VBPR, AMR, CausalRec, VMF and DMRL also need
+    ``train_set``, the port dataset the model was fitted on (CVAECF's rating
+    and social rows, GCMC's rating graph, whose node features are computed
+    here, the others' item features). It scores as the model it was read from.
     ``device``: where the model scores (default: the card)."""
     if cls_name not in _PARAM_MODELS:
         raise ValueError(f"cls_name must be one of {sorted(_PARAM_MODELS)}, got {cls_name!r}")
     cls, options = _PARAM_MODELS[cls_name]
     extras = _PARAM_EXTRAS.get(cls_name, ())
     _require(meta, options + extras + _SNAPSHOT)
-    if cls_name in ("CVAECF", "GCMC") and train_set is None:
+    if cls_name in ("CVAECF", "GCMC", "VBPR", "AMR", "CausalRec", "VMF", "DMRL") \
+            and train_set is None:
         raise ValueError(f"{cls_name} needs the train_set it was fitted on")
+    if cls_name in _SIDE_MODELS:
+        return _side_model(cls_name, params, meta, device, train_set)
     model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
     _snapshot(model, meta)
     dev = resolve_device(device)
@@ -348,6 +382,57 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
         model.pad_idx = model.total_items
         if meta["rqvae_params"] is not None:
             model.rqvae_params = params_to_module(meta["rqvae_params"], dev)
+    model.train_set = train_set
+    model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def _side_model(cls_name, params, meta, device, train_set):
+    """``model_from_params`` for the side-information models: the model
+    built unfitted from ``params``, then the scoring arrays it derives from
+    them (VBPR's and CausalRec's projected features, VMF's ``Q``, PCRL's
+    Theta and Beta) as its fit derives them."""
+    cls, options = _SIDE_MODELS[cls_name]
+    kwargs = {name: meta[name] for name in options}
+    arrays = {name: np.asarray(a) for name, a in params.items() if not isinstance(a, dict)}
+    if cls_name in ("SoRec", "MCF", "VBPR", "AMR", "PCRL"):
+        kwargs["init_params"] = arrays
+    model = cls(trainable=False, device=device, **kwargs)
+    _snapshot(model, meta)
+    dev = resolve_device(device)
+    feats = (None if train_set is None or train_set.item_image is None
+             else np.asarray(train_set.item_image.features, np.float32))
+    if cls_name in ("SoRec", "MCF"):
+        model.U, model.V, model.Z = (np.asarray(arrays[n], np.float64) for n in ("U", "V", "Z"))
+    elif cls_name in ("VBPR", "AMR"):
+        model._finalize(torch.as_tensor(feats[: model.total_items], device=dev))
+    elif cls_name == "CausalRec":
+        F = feats[: model.total_items]
+        mean_feat = meta.get("mean_feat")
+        mean_feat = (F.mean(axis=0) if mean_feat is None
+                     else np.asarray(mean_feat, np.float32)).reshape(1, -1)
+        model._store({n: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                      for n, a in arrays.items()}, torch.as_tensor(F, device=dev), mean_feat)
+    elif cls_name == "VMF":
+        model._store({n: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                      for n, a in arrays.items()}, feats[: model.num_items])
+    elif cls_name == "DMRL":
+        text, image = model._item_features(train_set)
+        model._n_mod = 1 + (text is not None) + (image is not None)
+        model._text, model._image = (None if a is None else torch.as_tensor(
+            np.asarray(a, np.float32), device=dev) for a in (text, image))
+        flat = {}
+        for name, value in params.items():
+            if isinstance(value, dict):
+                flat.update({f"{name}.{k}": v for k, v in value.items()})
+            else:
+                flat[name] = value
+        model.params = {n: torch.tensor(np.asarray(a, np.float32), device=dev)
+                        for n, a in flat.items()}
+    else:  # PCRL, whose constructor took G_s, G_r, L_s, L_r
+        model.Theta = model.Gs / np.maximum(model.Gr, 1e-10)
+        model.Beta = model.Ls / np.maximum(model.Lr, 1e-10)
     model.train_set = train_set
     model.val_set = None
     model.is_fitted = True

@@ -14,8 +14,10 @@ from .basket import GPTop, TIFUKNN, UPCF
 from .beacon import Beacon
 from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
+from .causalrec import CausalRec
 from .c2pf import C2PF
 from .cvaecf import CVAECF
+from .dmrl import DMRL
 from .dnntsp import DNNTSP
 from .ease import EASE
 from .fpmc import FPMC
@@ -26,15 +28,18 @@ from .hpf import HPF
 from .ibpr import COE, IBPR, OnlineIBPR
 from .knn import ItemKNN, UserKNN
 from .lightgcn import NGCF, LightGCN
+from .mcf import MCF
 from .mf import MF, SVD
 from .mmmf import MMMF
 from .ncf import GMF, MLP, NCFBase, NeuMF
 from .nmf import NMF
+from .pcrl import PCRL
 from .pmf import PMF
 from .recvae import RecVAE
 from .sansa import SANSA
 from .sasrec import SASRec
 from .sbpr import SBPR
+from .sorec import SoRec
 from .skm import SKMeans
 from .spop import SPop
 from .tiger import TIGER
@@ -46,10 +51,13 @@ from .tiger_configs import (
 )
 from .transformer_rec import BERT4Rec, TransformerRec
 from .vaecf import VAECF
+from .vmf import VMF
+from .vbpr import AMR, VBPR
 from .vebpr import VEBPR
 from .wmf import WMF
 
 __all__ = [
+    "AMR",
     "ANNMixin",
     "BaseANN",
     "BaselineOnly",
@@ -58,8 +66,10 @@ __all__ = [
     "BiVAECF",
     "BPR",
     "C2PF",
+    "CausalRec",
     "COE",
     "CVAECF",
+    "DMRL",
     "DNNTSP",
     "EASE",
     "FM",
@@ -75,6 +85,7 @@ __all__ = [
     "is_ann_supported",
     "ItemKNN",
     "LightGCN",
+    "MCF",
     "MEASURE_COSINE",
     "MEASURE_DOT",
     "MEASURE_L2",
@@ -92,6 +103,7 @@ __all__ = [
     "PAISCHER_CONFIG",
     "PAISCHER_SPORTS_CONFIG",
     "PAISCHER_TOYS_CONFIG",
+    "PCRL",
     "PMF",
     "Recommender",
     "RecVAE",
@@ -99,6 +111,7 @@ __all__ = [
     "SASRec",
     "SBPR",
     "SKMeans",
+    "SoRec",
     "SPop",
     "SVD",
     "TIFUKNN",
@@ -108,7 +121,9 @@ __all__ = [
     "UPCF",
     "UserKNN",
     "VAECF",
+    "VBPR",
     "VEBPR",
+    "VMF",
     "WBPR",
     "WMF",
 ]

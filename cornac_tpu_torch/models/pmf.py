@@ -5,19 +5,18 @@ in minibatches, linear or non-linear (the Gaussian mean through a sigmoid,
 ratings rescaled to [0, 1]). The trainer ``_pmf_epoch`` is eager torch on
 the model's device. Each epoch visits the ratings in a fresh permutation
 from a ``torch.Generator`` seeded from (the fit's seed, the global epoch
-index); each minibatch gathers the rows of U, V and their RMSProp caches,
-writes the caches back and adds the updates through the deterministic
-``ops.accumulate.accumulate_rows``. Nothing syncs with the host inside an
-epoch. The JAX package's padding of the columns to 64 is left out: padded
-columns are exactly zero either way.
+index) and runs the shared stream epoch ``ops.rmsprop.rmsprop_stream_epoch``
+(the RMSProp caches written back, the updates summed through the
+deterministic ``ops.accumulate.accumulate_rows``). Nothing syncs with the
+host inside an epoch.
 """
 
 import numpy as np
 import torch
 
 from ..exception import ScoreException
-from ..ops.accumulate import accumulate_rows
 from ..ops.dispatch import full_f32
+from ..ops.rmsprop import rmsprop_stream_epoch, set_rows_last_wins  # noqa: F401
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.common import scale, sigmoid
@@ -26,60 +25,16 @@ from .mf import _epoch_permutation
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
 
 
-def set_rows_last_wins(table, ids, values):
-    """``table[ids[p]] = values[p]`` for every batch position p, in place,
-    where for a row that appears more than once the last position in batch
-    order wins: the rule of ``cache.at[u].set(...)`` in the JAX package on
-    its CPU reference (XLA applies a scatter's updates in order). A max of
-    the batch positions per row (order-free, so deterministic on the card),
-    then one gather: every duplicate of a row writes the same value."""
-    pos = torch.arange(ids.shape[0], device=ids.device)
-    last = torch.full((table.shape[0],), -1, dtype=torch.int64, device=ids.device)
-    last.scatter_reduce_(0, ids, pos, reduce="amax")
-    table[ids] = values[last[ids]]
-    return table
-
-
 def _pmf_epoch(U, V, cache_u, cache_v, perm, mask, pairs, val, lr, reg, gamma, batch_size,
                non_linear):
     """One RMSProp epoch over the ratings in the order ``perm`` ((n_total,)
     int64, |R| padded to whole minibatches; ``mask`` (n_total,) float32 is 0
-    on the padding), updating the four tables in place. Returns the epoch's
-    loss (a device scalar).
-
-    The caches are written as ``_pmf_epochs`` writes them
-    (``cornac_tpu/models/pmf.py:76-77``): each position writes its new cache
-    row, a padded position the old one, and the last position of a row in
-    the minibatch wins (``set_rows_last_wins``). The factor updates use each
-    position's own new cache value and sum through ``accumulate_rows``."""
-    eps = 1e-8
-    loss = torch.zeros((), dtype=torch.float32, device=U.device)
-    for s in range(0, perm.shape[0], batch_size):
-        idx, m = perm[s:s + batch_size], mask[s:s + batch_size]
-        u, i = pairs[idx].unbind(1)
-        r = val[idx]
-        pu, qi = U[u], V[i]
-        sc = (pu * qi).sum(1)
-        if non_linear:
-            sg = torch.sigmoid(torch.clamp(sc, -6.0, 6.0))
-            e = r - sg
-            we = e * sg * (1.0 - sg)
-        else:
-            e = r - sc
-            we = e
-        we = we * m
-        loss += ((e * e + reg * ((pu * pu).sum(1) + (qi * qi).sum(1))) * m).sum()
-        mm = m[:, None]
-        gu = we[:, None] * qi - reg * pu * mm
-        gv = we[:, None] * pu - reg * qi * mm
-        old_u, old_v = cache_u[u], cache_v[i]
-        cu = gamma * old_u + (1 - gamma) * gu * gu
-        cv = gamma * old_v + (1 - gamma) * gv * gv
-        set_rows_last_wins(cache_u, u, torch.where(mm > 0, cu, old_u))
-        set_rows_last_wins(cache_v, i, torch.where(mm > 0, cv, old_v))
-        accumulate_rows(U, u, lr * gu / (torch.sqrt(cu) + eps) * mm)
-        accumulate_rows(V, i, lr * gv / (torch.sqrt(cv) + eps) * mm)
-    return loss
+    on the padding), updating the four tables in place: the shared stream
+    epoch ``ops.rmsprop.rmsprop_stream_epoch`` with U and V at one learning
+    rate, as ``cornac_tpu/models/pmf.py::_pmf_epochs`` runs it. Returns the
+    epoch's loss (a device scalar)."""
+    return rmsprop_stream_epoch(U, V, cache_u, cache_v, perm, mask, pairs, val, lr, lr, reg,
+                                gamma, batch_size, non_linear)
 
 
 class PMF(Recommender, ANNMixin):

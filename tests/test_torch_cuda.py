@@ -22,6 +22,7 @@ from cornac_tpu_torch.models import C2PF, SBPR, VEBPR
 from cornac_tpu_torch.models import FPMC, GCMC, GRU4Rec, SASRec
 from cornac_tpu_torch.models import DNNTSP, TIFUKNN, UPCF, Beacon
 from cornac_tpu_torch.models import TIGER, BERT4Rec, TransformerRec
+from cornac_tpu_torch.models import AMR, DMRL, MCF, PCRL, VBPR, VMF, CausalRec, SoRec
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -1177,3 +1178,129 @@ def test_generative_epochs_never_sync_with_the_host(card):
     for model in models + [tiger]:
         for p in model.params.parameters():
             assert torch.isfinite(p).all()
+
+
+def _side_split():
+    """A small seeded RatioSplit of star ratings with a user graph, an item
+    graph, 8-wide non-negative item features and a seeded item corpus."""
+    from cornac_tpu_torch.data import GraphModality, ImageModality, TextModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(9)
+    pairs = {(int(u), int(i)) for u, i in zip(rng.randint(150, size=4000),
+                                               rng.randint(200, size=4000))}
+    data = [(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in sorted(pairs)]
+    items = [f"i{i}" for i in range(200)]
+    trust = [(f"u{a}", f"u{b}", 1.0) for a, b in rng.randint(150, size=(1500, 2)) if a != b]
+    graph = [(f"i{a}", f"i{b}", 1.0) for a, b in rng.randint(200, size=(1500, 2)) if a != b]
+    words = [f"w{k}" for k in range(60)]
+    docs = [" ".join(rng.choice(words, size=rng.randint(3, 9))) for _ in items]
+    return RatioSplit(data=data, test_size=0.2, rating_threshold=3.0, seed=1,
+                      exclude_unknowns=True, verbose=False,
+                      user_graph=GraphModality(data=trust), item_graph=GraphModality(data=graph),
+                      item_image=ImageModality(features=rng.rand(200, 8).astype(np.float32),
+                                               ids=items),
+                      item_text=TextModality(corpus=docs, ids=items)).train_set
+
+
+_SIDE = [
+    (lambda **kw: SoRec(k=5, max_iter=3, batch_size=256, **kw), ("U", "V", "Z")),
+    (lambda **kw: MCF(k=5, max_iter=3, batch_size=256, **kw), ("U", "V", "Z")),
+    *((lambda c=c, **kw: c(k=4, k2=3, n_epochs=2, batch_size=64, **{"verbose": False, **kw}),
+       ("beta_item", "gamma_user", "gamma_item", "theta_user", "emb_matrix", "beta_prime"))
+      for c in (VBPR, AMR)),
+    (lambda **kw: CausalRec(k=4, k2=3, n_epochs=2, batch_size=64, tanh=2,
+                            **{"verbose": False, **kw}),
+     ("beta_item", "gamma_user", "gamma_item", "theta_user", "theta_item", "ind_theta_item")),
+    (lambda **kw: VMF(k=4, d=3, n_epochs=2, batch_size=64, **kw), ("U", "V", "P", "E")),
+    (lambda **kw: DMRL(batch_size=64, epochs=2, embedding_dim=8, num_factors=2, dropout=0.2,
+                       **kw), ()),
+    (lambda **kw: PCRL(k=4, z_dims=[6], max_iter=2, batch_size=32, w_determinist=False, **kw),
+     ("Gs", "Gr", "Ls", "Lr")),
+]
+
+
+@pytest.mark.parametrize("make,attrs", _SIDE)
+def test_side_models_seeded_fits_on_the_card_are_identical(card, make, attrs):
+    train = _side_split()
+    before = ACCUMULATE_ROWS.launches
+    a = make(seed=3).fit(train)
+    assert ACCUMULATE_ROWS.launches > before
+    b = make(seed=3, verbose=True).fit(train)
+    for attr in attrs:
+        assert np.array_equal(getattr(a, attr), getattr(b, attr)), attr
+    if isinstance(a, (DMRL, PCRL)):
+        for name, p in a.params.items():
+            assert torch.equal(p, b.params[name]), name
+
+
+def test_side_model_epochs_never_sync_with_the_host(card):
+    from cornac_tpu_torch.models import causalrec as causal_mod, pcrl as pcrl_mod
+    from cornac_tpu_torch.models import vbpr as vbpr_mod, vmf as vmf_mod
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.ops.optim import adam, adamw, rmsprop
+    from cornac_tpu_torch.ops.rmsprop import run_stream_epoch
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    train = _side_split()
+    rid, cid, rat = train.uir_tuple
+    n = len(rid)
+    pairs = torch.as_tensor(np.stack([rid, cid], 1).astype(np.int64), device=card)
+    vals = torch.as_tensor(rat.astype(np.float32) / 5, device=card)
+    F = torch.as_tensor(np.asarray(train.item_image.features[: train.num_items], np.float32),
+                        device=card)
+    membership = build_membership(train.csr_matrix, device=card)
+    U = torch.rand(train.num_users, 5, device=card)
+    V = torch.rand(train.num_items, 5, device=card)
+    vbpr = VBPR(k=4, k2=3, seed=3, trainable=False).fit(train)
+    vbpr_p = {t: torch.tensor(np.asarray(a, np.float32), device=card, requires_grad=True)
+              for t, a in zip(vbpr_mod.TABLES, vbpr._arrays())}
+    causal = CausalRec(k=4, k2=3, tanh=1, seed=3, trainable=False)
+    causal.fit(train)
+    causal_p = {t: torch.tensor(a, device=card, requires_grad=True) for t, a in causal._initial(
+        F.shape[1], np.random.RandomState(3)).items()}
+    vmf_p = {t: torch.rand(rows, cols, device=card, requires_grad=True) for t, rows, cols in (
+        ("U", train.num_users, 4), ("V", train.num_items, 4), ("P", train.num_users, 3),
+        ("E", F.shape[1], 3))}
+    dmrl = DMRL(batch_size=64, epochs=0, embedding_dim=8, num_factors=2, dropout=0.2, seed=3)
+    dmrl.fit(train)
+    dmrl_p = {t: p.clone().requires_grad_(True) for t, p in DMRL(
+        batch_size=64, epochs=1, embedding_dim=8, num_factors=2, seed=3).fit(train).params.items()}
+    pcrl = PCRL(k=4, z_dims=[6], max_iter=1, batch_size=32, w_determinist=False, seed=3)
+    pcrl.fit(train)
+    pcrl_p = {t: p.clone().requires_grad_(True) for t, p in pcrl.params.items()}
+    C = torch.as_tensor(np.asarray(train.item_graph.matrix[: train.num_items,
+                                                           : train.num_items].todense(),
+                                   np.float32), device=card)
+    C = torch.cat([C, C.new_zeros(((-C.shape[0]) % 32, C.shape[1]))])
+    tables = tuple(torch.rand(rows, 4, device=card) + 0.5 for rows in (
+        train.num_users, train.num_users, train.num_items, train.num_items))
+    ratings = (pairs[:, 0], pairs[:, 1], vals)
+    host_rng = np.random.RandomState(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stream = run_stream_epoch(U, V, torch.zeros_like(U), torch.zeros_like(V), pairs, vals,
+                                  host_rng, 0.01, 0.001, 0.001, 0.9, 256)
+        gen = epoch_generator(3, 0, card)
+        draws = vbpr_mod.vbpr_draws(gen, n, n + (-n) % 64, train.num_items)
+        opt = adam(0.01)
+        for adversarial in (False, True):
+            vbpr_mod.vbpr_epoch(vbpr_p, opt, opt.init(vbpr_p), draws, pairs, F,
+                                (0.1, 0.01, 0.0, 1.0, 0.05), 64, adversarial)
+        causal_mod.causalrec_epoch(causal_p, opt, opt.init(causal_p), draws, pairs, membership,
+                                   F, (0.1, 0.01, 0.0), 64, 1)
+        ropt = rmsprop(0.01)
+        vmf_mod.vmf_epoch(vmf_p, ropt, ropt.init(vmf_p), vmf_mod.vmf_order(gen, n, n + (-n) % 64),
+                          (pairs, vals), F, (0.001, 0.001, 1.0, 10.0), 64)
+        wopt = adamw(0.001, weight_decay=0.01)
+        dmrl.epoch(dmrl_p, wopt, wopt.init(dmrl_p), vmf_mod.vmf_order(gen, n, n + (-n) % 64),
+                   pairs, lambda B: dmrl.draws(gen, B), 64)
+        _, out, _ = pcrl_mod.pcrl_epoch(pcrl_p, ropt, ropt.init(pcrl_p), tables, ratings, C, 32,
+                                        pcrl.draws(gen, pcrl_p))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(stream)
+    for t in (U, V, *vbpr_p.values(), *causal_p.values(), *vmf_p.values(), *dmrl_p.values(),
+              *pcrl_p.values(), *out):
+        assert torch.isfinite(t).all()

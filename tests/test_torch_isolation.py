@@ -81,7 +81,9 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "models.spop", "models.fpmc", "models.gru4rec", "models.sasrec",
                  "models.cvaecf", "models.gcmc", "eval_methods.next_item_evaluation",
                  "models.basket", "models.beacon", "models.dnntsp",
-                 "eval_methods.next_basket_evaluation"):
+                 "eval_methods.next_basket_evaluation", "ops.rmsprop", "models.sorec",
+                 "models.mcf", "models.vbpr", "models.causalrec", "models.vmf", "models.dmrl",
+                 "models.pcrl"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 

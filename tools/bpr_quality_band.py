@@ -42,7 +42,11 @@ both on ``make_ml100k_like(7)``, and the next-basket models ``Beacon``
 and ``DNNTSP`` (``examples/beacon_tafeng.py``'s and
 ``examples/dnntsp_tafeng.py``'s settings) on ``seq_bench_data.gen_baskets``'
 baskets under ``NextBasketEvaluation(test_size=0.2, seed=123)`` on
-Recall@10, Recall@50 and HitRatio@10; their bands come from ten seeds, 123-132
+Recall@10, Recall@50 and HitRatio@10, and the side-information models of
+``SIDE_CONFIGS`` (``SoRec``, ``MCF``, ``VBPR``, ``AMR``, ``CausalRec``,
+``VMF``, ``DMRL``, ``PCRL``) on ``make_ml100k_like(7)`` with
+``seq_bench_data.side_modalities`` (``side_split``) on AUC, NDCG@10 and
+Recall@10; their bands come from ten seeds, 123-132
 (five seeds misjudged GRU4Rec's MRR spread by a factor of two: 0.00054 over
 123-127, 0.00097 over 128-132). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
@@ -56,6 +60,7 @@ whatever the precision asked for).
 """
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -188,6 +193,90 @@ AUX_CONFIGS = {
 }
 
 
+# the side-information models on make_ml100k_like(7) with
+# seq_bench_data.side_modalities (a seeded trust graph, seeded image-like
+# features, their k-NN item graph, TF-IDF-like text): name -> (class name,
+# constructor arguments without the seed); SoRec and MCF at their examples'
+# rates, the others at their examples' settings with larger minibatches and
+# fewer epochs, so that a fit takes seconds on the card (VMF at lr 0.01: at
+# its example's 0.001 ten epochs leave its saturated sigmoid at chance, AUC
+# 0.50)
+SIDE_CONFIGS = {
+    "SoRec": ("SoRec", dict(k=5, max_iter=30, learning_rate=0.001, lambda_c=10,
+                            lambda_reg=0.001)),
+    "MCF": ("MCF", dict(k=10, max_iter=30, learning_rate=0.001)),
+    "VBPR": ("VBPR", dict(k=10, k2=10, n_epochs=5, batch_size=500, learning_rate=0.005,
+                          lambda_w=0.01, lambda_b=0.01, lambda_e=0.0, verbose=False)),
+    "AMR": ("AMR", dict(k=10, k2=10, n_epochs=5, batch_size=500, learning_rate=0.005,
+                        lambda_w=0.01, lambda_b=0.01, lambda_e=0.0, lambda_adv=1.0,
+                        epsilon_adv=0.05, verbose=False)),
+    "CausalRec": ("CausalRec", dict(k=10, k2=10, n_epochs=5, batch_size=500,
+                                    learning_rate=0.005, lambda_w=0.01, lambda_b=0.01,
+                                    lambda_e=0.0, tanh=1, lambda_2=0.8, verbose=False)),
+    "VMF": ("VMF", dict(k=10, d=10, n_epochs=10, batch_size=500, learning_rate=0.01)),
+    "DMRL": ("DMRL", dict(batch_size=1024, epochs=5, learning_rate=0.001, embedding_dim=100,
+                          num_factors=4, num_neg=4)),
+    "PCRL": ("PCRL", dict(k=100, z_dims=[300], max_iter=30, batch_size=300,
+                          learning_rate=0.001)),
+}
+SIDE_METRICS = ("AUC", "NDCG@10", "Recall@10")
+
+
+def side_split(data, eval_methods, triples):
+    """The side-information cell: ``RatioSplit(0.2, 4.0, seed=123)`` of
+    ``triples`` with ``seq_bench_data.side_modalities``."""
+    from seq_bench_data import side_modalities
+
+    return eval_methods.RatioSplit(data=triples, test_size=0.2, rating_threshold=4.0,
+                                   exclude_unknowns=True, seed=123, verbose=False,
+                                   **side_modalities(triples, data))
+
+
+FINGERPRINT_ROWS = 8
+
+
+def fingerprint(model):
+    """A fit's tables U, V and Z (SoRec, MCF) as {name: {"rows": the first
+    ``FINGERPRINT_ROWS`` rows, "colsum": the column sums}}, plain lists."""
+    return {name: {"rows": np.asarray(getattr(model, name))[:FINGERPRINT_ROWS].tolist(),
+                   "colsum": np.asarray(getattr(model, name)).sum(axis=0).tolist()}
+            for name in ("U", "V", "Z")}
+
+
+@functools.lru_cache(maxsize=1)
+def _port_side_split():
+    """The port's ``side_split`` of the bench data, built once."""
+    import bench
+    from cornac_tpu_torch import data as tdata, eval_methods as teval
+
+    return side_split(tdata, teval, bench.make_ml100k_like())
+
+
+def jax_dmrl_ranking(split, model):
+    """AUC, NDCG@10 and Recall@10 of the JAX package's DMRL fitted on
+    ``split`` (its ``side_split``), its parameters scored by the port's
+    scorer on the CPU (``convert.model_from_params``): the JAX package's
+    scorer runs the modality MLPs for every (user, item) pair, some 0.4 s a
+    user here on a CPU, and the port's gives its scores within rtol 1e-5
+    (``tests/test_torch_visual.py``)."""
+    import cornac_tpu_torch
+    from cornac_tpu_torch import metrics as tmetrics
+    from cornac_tpu_torch.convert import model_from_params
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
+
+    cornac_tpu_torch.set_default_device("cpu")
+    model.fit(split.train_set)
+    port = _port_side_split()
+    meta = {name: getattr(model, name) for name in (
+        "num_users", "num_items", "uid_map", "iid_map", "min_rating", "max_rating",
+        "global_mean", "embedding_dim", "num_factors", "num_neg")}
+    scorer = model_from_params("DMRL", model.params, meta, device="cpu",
+                               train_set=port.train_set)
+    return ranking_eval(scorer, [tmetrics.AUC(), tmetrics.NDCG(k=10), tmetrics.Recall(k=10)],
+                        port.train_set, port.test_set, rating_threshold=4.0,
+                        exclude_unknowns=True)[0]
+
+
 def seq_eval(eval_methods, metrics, seed=123, data=None):
     """The next-item cell: ``gen_sessions``' split under
     ``NextItemEvaluation`` (mode 'next', unknown items excluded), and its
@@ -281,9 +370,9 @@ def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
     table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, GENERATIVE_CONFIGS,
-                             AUX_CONFIGS, BASKET_CONFIGS) if name in t)
+                             AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS) if name in t)
     cls, kwargs = table[name][:2]
-    seeded = True if table is AUX_CONFIGS or table is BASKET_CONFIGS else table[name][2]
+    seeded = True if table in (AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS) else table[name][2]
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -293,12 +382,15 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
                         + sorted(SEQ_CONFIGS) + sorted(GENERATIVE_CONFIGS) + sorted(AUX_CONFIGS)
-                        + sorted(BASKET_CONFIGS),
+                        + sorted(BASKET_CONFIGS) + sorted(SIDE_CONFIGS),
                         default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=None,
                         help="default: 123-127; 123-132 for the next-item and next-basket "
                              "models, CVAECF and GCMC")
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
+    parser.add_argument("--fingerprint", action="store_true",
+                        help="SoRec and MCF: print the first seed's fit's U, V and Z as their "
+                             "first FINGERPRINT_ROWS rows and column sums instead of a band")
     parser.add_argument("--bf16-products", action="store_true",
                         help="JAX package only: every float32 matrix product in one bf16 pass")
     args = parser.parse_args()
@@ -307,7 +399,7 @@ def main():
 
     if args.seeds is None:
         wide = any(args.model in t for t in (SEQ_CONFIGS, GENERATIVE_CONFIGS, AUX_CONFIGS,
-                                             BASKET_CONFIGS))
+                                             BASKET_CONFIGS, SIDE_CONFIGS))
         args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
@@ -373,6 +465,27 @@ def main():
             runs.append({name: float(result.metric_avg_results[name]) for name in BASKET_METRICS})
             print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
         summary.update(seeds=args.seeds, **band_summary(runs, BASKET_METRICS))
+        print(json.dumps(summary))
+        return
+    if args.model in SIDE_CONFIGS:
+        split = side_split(data, eval_methods, bench.make_ml100k_like())
+        if args.fingerprint:
+            model = make_model(models, args.model, args.seeds[0]).fit(split.train_set)
+            summary.update(seed=args.seeds[0], fingerprint=fingerprint(model))
+            print(json.dumps(summary))
+            return
+        ranking_metrics = [metrics.AUC(), metrics.NDCG(k=10), metrics.Recall(k=10)]
+        runs = []
+        for seed in args.seeds:
+            if args.model == "DMRL" and args.package == "jax":
+                values = jax_dmrl_ranking(split, make_model(models, "DMRL", seed))
+            else:
+                result = split.evaluate(make_model(models, args.model, seed), ranking_metrics,
+                                        user_based=False)[0]
+                values = [result.metric_avg_results[name] for name in SIDE_METRICS]
+            runs.append(dict(zip(SIDE_METRICS, map(float, values))))
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=args.seeds, **band_summary(runs, SIDE_METRICS))
         print(json.dumps(summary))
         return
     if args.model in AUX_CONFIGS:

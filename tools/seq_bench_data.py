@@ -159,3 +159,34 @@ def seeded_trust(triples, per_user=8, seed=11):
         for b in rng.choice(len(users), size=per_user, replace=False, p=w / w.sum()):
             edges.append((users[a], users[b], 1.0))
     return edges
+
+
+def image_like(n_items, dim=64, rank=8, seed=19):
+    """(n_items, dim) float32 non-negative rows like CNN activations: the
+    ReLU of a seeded rank-``rank`` product plus seeded noise, so items share
+    visual directions."""
+    rng = np.random.RandomState(seed)
+    low = rng.randn(n_items, rank) @ rng.randn(rank, dim) / np.sqrt(rank)
+    return np.maximum(low + 0.3 * rng.randn(n_items, dim), 0.0).astype(np.float32)
+
+
+def side_modalities(triples, data):
+    """The bench shape's side information for the models of
+    ``bpr_quality_band.SIDE_CONFIGS``, built with a package's ``data``
+    module: ``seeded_trust`` as the user graph; over the items (sorted raw
+    ids), ``image_like`` features as the image modality, the k = 10
+    cosine graph of those features (``GraphModality.from_feature``,
+    symmetric, its edges sorted) as the item graph, and ``tfidf_like`` rows
+    (512 wide) as the text modality's features."""
+    items = sorted({i for _, i, _ in triples})
+    feats = image_like(len(items))
+    # from_feature's edges come out of a set, in an order that the string
+    # hash's per-process seed picks: sorted, MCF's item-graph stream visits
+    # the same edges in every process
+    graph = data.GraphModality.from_feature(feats, k=10, ids=items, symmetric=True,
+                                            verbose=False)
+    return dict(
+        user_graph=data.GraphModality(data=seeded_trust(triples)),
+        item_graph=data.GraphModality(data=sorted(graph.raw_data)),
+        item_image=data.ImageModality(features=feats, ids=items),
+        item_text=data.TextModality(features=tfidf_like(len(items)), ids=items))
