@@ -161,12 +161,14 @@ Phases, each of which fails the run when it fails:
    arrays timed on the host, the membership structure and its bytes
    printed; the first minibatch's five accumulate_rows inputs held bit for
    bit to the plain version on the CPU and timed beside ``index_add_``; two
-   seeded 2-epoch fits bit for bit; the 50-epoch fit timed (seconds per
-   epoch, samples/s beside the byte bound of a sample, device events per
-   minibatch and the busy share of one epoch, peak device memory); a fit
-   with checkpoints every 10 epochs stopped at 20 and resumed to 50, equal
-   to the uninterrupted one bit for bit; ranking_eval's AUC, NDCG@10 and
-   Recall@10; recommend_batch of 8,192 users at k = 100 through fused_topk
+   seeded 2-epoch fits bit for bit; the 20-epoch fit (the example's 50, cut
+   for the run's time) timed (seconds per epoch, samples/s beside the byte
+   bound of a sample, device events per minibatch and the busy share of one
+   epoch, peak device memory); a fit with checkpoints every 10 epochs
+   stopped at 10 and resumed to 20, equal to the uninterrupted one bit for
+   bit; ranking_eval's AUC, NDCG@10 and Recall@10 over the first 4,096 test
+   users (all of them while that takes 15 s or less; 26-30 s on the host,
+   cut for the run's time); recommend_batch of 8,192 users at k = 100 through fused_topk
    (d = 11), every list held to the plain version;
 15b. C2PF at the Amazon Office widths (``examples/c2pf_example.py``: k =
    100, 80 sweeps then 16; seeded data at Cornac's counts, 3,703 users x
@@ -222,10 +224,11 @@ Phases, each of which fails the run when it fails:
    otherwise) on ``NextItemEvaluation.leave_last_out`` of
    ``make_ml100k_like(7)`` (the generation order as timestamps) with seeded
    TF-IDF-like features (1,682 x 512; the plots are not in the repository):
-   one fit of 2 seq2seq epochs (the example's 20 cut) on the first half of
+   one fit of 1 seq2seq epoch (the example's 20 cut) on the first half of
    the users' sessions after the RQ-VAE's 200 epochs, each epoch timed, the
    RQ-VAE's seconds, its dead codes restarted, the collision level, seconds
-   per seq2seq epoch and ms a step beside ``tiger_step_bound``, 4 steps
+   of the (first, cold) seq2seq epoch and ms a step over its steps after the
+   first 40 (CUDA events) beside ``tiger_step_bound``, 4 steps
    profiled, peak device memory, the beam
    evaluation (HitRatio@10, NDCG@10), 64 histories' beam scores and 4
    histories' exact scores held to the same scoring on the CPU, the first
@@ -323,7 +326,52 @@ Phases, each of which fails the run when it fails:
    inputs held to the plain version; one VBPR and one AMR epoch on draws
    made on the CPU, on the card and on the CPU, every parameter within 1e-5
    (``visual_witness``);
-19. times: each kernel, its plain version and library yardsticks
+19. the item-text models at citeulike-a's counts (5,551 users, 16,980 items,
+   204,986 seeded pairs with mild skews, the largest degrees in the
+   hundreds, a seeded abstract an item), after 18c: the four CiteULike
+   examples' split (RatioSplit(0.2, 0.5) with ``TextModality(max_vocab=8000,
+   max_doc_freq=0.5)``, timed on the host) and settings, CDL at 2 of its 30
+   epochs, CDR at 1 of 30, CVAE at 2 of 30 and CTR at 2 of its 50
+   iterations (``CITEULIKE_MODELS``), each fit timed with its peak device
+   memory, NDCG@100 and Recall@300 over the first 2,048 test users (all of
+   them while that takes 15 s or less), each serving 1,024 users at k = 100
+   through fused_topk, held to the plain version;
+19b. NARRE and HRDR at Cornac's Amazon Digital Music counts (5,541 users,
+   3,568 items, 64,706 seeded star ratings skewed toward 4-5, a seeded
+   review each, most past 50 tokens): ``examples/narre_example.py``'s and
+   ``hrdr_example.py``'s split (RatioSplit(0.2) with
+   ``ReviewModality(max_vocab=4000, max_doc_freq=0.5)``) and settings
+   (embedding 100, ids 32, 32 factors, attention 16, 64 filters of width 3,
+   L 50, R 32, batch 64, Adam), 1 of their 10 epochs each: the steps after
+   the first 100 timed with CUDA events beside the bound of a step (the text
+   CNN's FLOPs forward and backward, Adam's bytes), the first step's
+   word-table gradient held bit for bit to the plain version on the CPU and
+   timed with the empty review slots dropped (as the fit runs it) and summed
+   into the padding row (NARRE's), the same bits either way, 5 steps
+   profiled (device events a step, busy share), peak device memory; MAE and RMSE
+   over the test ratings, NDCG@10 over the test users; each serving 1,024
+   users at k = 100 through fused_topk, held to the plain version;
+19c. ConvMF and HFT at ``conv_mf_example.py``'s and ``hft_example.py``'s
+   settings (HFT at 8 of its 40 iterations) on ``make_ml100k_like(7)``
+   with seeded plots for its 1,682 items, each through ``evaluate``; the
+   first CNN step's embedding gradient held bit for bit to the plain version
+   on the CPU and timed; HFT serving its 943 train users through fused_topk,
+   held to the plain version;
+12j. the text and review models at the bench shape, in an eleventh
+   spawned process (the first of the three that wait for a worker): NARRE, HRDR, CDL, CDR, CVAE, ConvMF, CTR and HFT on
+   ``make_ml100k_like(7)`` with ``seq_bench_data.text_modalities`` (a seeded
+   document an item, a seeded review a rating) at
+   ``tools/bpr_quality_band.py``'s ``TEXT_CONFIGS``, each AUC and NDCG@10
+   (NARRE's and HRDR's RMSE too) in the band of the JAX package's CPU fits
+   over ten seeds, ConvMF's, CTR's and HFT's tables held to the JAX fit's
+   own (their first rows and column sums), seeded refits bit for bit with
+   their accumulate_rows inputs held to the plain version; one CDL and one CDR
+   epoch on draws made on the CPU, on the card within twice the CPU float32
+   epoch's distance from the CPU's float64 epoch (``text_witness``), and one
+   NARRE and one HRDR epoch on the CPU with each step's gradients computed
+   again on the card from the CPU's parameters, within 1e-4 of each tensor's
+   largest (``review_witness``: a float32 epoch of these models is chaotic);
+20. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
@@ -342,25 +390,28 @@ Phases, each of which fails the run when it fails:
    token table and an RQ-VAE codebook at the example's settings, GCMC's two
    edge sums at the bench shape, VBPR's item-factor gradient at Tradesy,
    SoRec's trust stream at Epinions, MCF's item-graph stream at Amazon
-   Office, DMRL's item embeddings at Amazon Clothing), on the inputs
-   phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
+   Office, DMRL's item embeddings at Amazon Clothing, NARRE's word table
+   with the empty review slots dropped and summed into the padding row at
+   the Digital Music widths, ConvMF's embeddings at the ML-100K plots'), on
+   the inputs phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
    2``, each call split into its device time (the profiler's, and CUDA
    events around one call) and its host time, the canary's host time into
    its steps.
 
-Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h and 12i run in ten spawned
-processes at once (the factor family, three groups of the neural family,
-the factor family's rest with the protocols, the modality layer's models
-with the checkpointed Experiment, the next-item models with CVAECF and
-GCMC, the next-basket models, the generative next-item models and the
-side-information models), at a lower CPU priority, beside phase 16, and
-are collected before 16b. This process runs 8, 17, 16c, 16 (beside them),
-16b, then 9-15b in the order 9, 10, 10b, 10c, 15, 15b, then 18b, 18, 18c,
-11, 13, 14, 14b, then 19. The card time-slices
+Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i and 12j run in eleven
+spawned processes, eight at a time (the factor family, three groups of the neural
+family, the factor family's rest with the protocols, the modality layer's
+models with the checkpointed Experiment, the next-item models with CVAECF
+and GCMC, the next-basket models, the generative next-item models, the
+side-information models and the text and review models), at a lower CPU
+priority, beside phase 16, and are collected before 16b. This process runs
+8, 17, 16c, 16 (beside them), 16b, then 9-15b in the order 9, 10, 10b, 10c,
+15, 15b, then 18b, 18, 18c, 19, 19b, 19c, 11, 13, 14, 14b, then 20. The
+card time-slices
 between processes and they share the host's cores: phase 16's host-bound
 steps never wait on the card inside an epoch, so they lose to them only
 the host's share (its times carry that load), the card-bound phases and
-every other time run alone, and the ten processes' own fit seconds and
+every other time run alone, and the eleven processes' own fit seconds and
 busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
@@ -370,8 +421,9 @@ accumulate_rows at the full-width V update, LightGCN's and HPF's two ML-10M
 shapes each, SBPR's V update, C2PF's ratings into the item rows, SASRec's
 two embedding gradients, FPMC's item-table scatter, BERT4Rec's two
 gradients, TIGER's token table and RQ-VAE codebook, GCMC's two edge sums,
-VBPR's item-factor gradient, SoRec's trust stream, MCF's item-graph stream
-and DMRL's item embeddings),
+VBPR's item-factor gradient, SoRec's trust stream, MCF's item-graph stream,
+DMRL's item embeddings, NARRE's word table both ways and ConvMF's
+embeddings),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -862,6 +914,20 @@ ACC_CASES = [
     ("SoRec, Epinions, U update (trust stream)", EPINIONS_USERS, 1_024, 5, "popular", 2),
     ("MCF, Amazon Office, V update (item-graph stream)", OFFICE_ITEMS, 1_024, 10, "popular", 2),
     ("DMRL, Amazon Clothing, item-embedding gradient", CLOTHING_ITEMS, 5_120, 100, "popular", 1),
+    # the text and review models (phases 19b and 19c also hold the kernel to
+    # the plain version on the inputs their first steps hand it, 12j on every
+    # trainer's own): NARRE's word-table gradient at examples/narre_example.py's
+    # widths (64 entities x 32 review slots x 50 tokens into 4,004 x 100, some
+    # 60% of the slots empty at the Digital Music counts), with the empty
+    # slots dropped (ids past the table, as the fit sends them) and with them
+    # summed into the padding row, and ConvMF's embedding gradient at
+    # conv_mf_example.py's (128 plots x 300 tokens into 8,004 x 200, the
+    # plots' padding into row 0)
+    ("NARRE, Digital Music, word-table gradient (empty slots dropped)", 4_004, 102_400, 100,
+     "review slots", 1),
+    ("NARRE, Digital Music, word-table gradient (empty slots into row 0)", 4_004, 102_400, 100,
+     "review pads", 1),
+    ("ConvMF, ML-100K plots, embedding gradient", 8_004, 38_400, 200, "plot docs", 1),
 ]
 FM_USERS = 943  # the bench shape's train users: the first feature block of FM's ids
 
@@ -879,6 +945,8 @@ def accumulate_inputs(R, B, d, kind, stride, gen):
                          FM_USERS + popular_ids(R - FM_USERS, B - half, gen)])
     elif kind == "popular":
         ids = popular_ids(R, B, gen)
+    elif kind in ("review slots", "review pads", "plot docs"):
+        ids = padded_doc_ids(R, B, kind, gen)
     else:
         ids = torch.randint(R, (B,), generator=gen, device=DEV)
     if kind == "out of range":
@@ -891,12 +959,32 @@ def accumulate_inputs(R, B, d, kind, stride, gen):
     return table, ids, upd
 
 
+def padded_doc_ids(R, B, kind, gen):
+    """B token ids of padded documents: "review slots" and "review pads" are
+    NARRE's word gathers, slots of 50 tokens, 60% of them empty (their ids
+    R, past the table, for "review slots"; 0, the padding row, for "review
+    pads"), each filled slot a review of 30-149 tokens cut to 50, padded
+    with 0; "plot docs" are ConvMF's, rows of 300 tokens, each a plot of
+    40-199 tokens padded with 0. The tokens are Zipf-like over [4, R)."""
+    import torch
+
+    L = 300 if kind == "plot docs" else 50
+    rows = B // L
+    lo, hi = (40, 200) if kind == "plot docs" else (30, 150)
+    lengths = torch.randint(lo, hi, (rows, 1), generator=gen, device=DEV)
+    ids = (4 + popular_ids(R - 4, B, gen)).reshape(rows, L)
+    ids = torch.where(torch.arange(L, device=DEV)[None, :] < lengths, ids, 0)
+    if kind != "plot docs":
+        empty = torch.rand((rows, 1), generator=gen, device=DEV) < 0.6
+        ids = torch.where(empty, R if kind == "review slots" else 0, ids)
+    return ids.reshape(-1)
+
+
 def check_accumulate(what, table, ids, upd, calls=4):
     """Hold one accumulate_rows call to its plain version: two launches
     give the same bits, and those are the bits of the plain version on the
     CPU, whose ``index_add_`` sums each row's updates in batch order and
-    adds the sum once, as the kernel does (ids outside [0, R), which the
-    kernel drops and the plain version refuses, left out of the latter);
+    adds the sum once, as the kernel does (both drop ids outside [0, R));
     the profiler sees one kernel and nothing else per call over ``calls``
     calls (none: not profiled; where it keeps no device event in two tries,
     one more call must give the kernel's bits). ``table`` is left as it was. Returns (max
@@ -906,9 +994,8 @@ def check_accumulate(what, table, ids, upd, calls=4):
     kept, and kept per call, both None unprofiled)."""
     import torch
 
-    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, ids_in_table
 
-    R = table.shape[0]
     before = ACCUMULATE_ROWS.launches
     got = [accumulate_rows(table.clone(), ids, upd) for _ in range(2)]
     torch.cuda.synchronize()
@@ -943,17 +1030,16 @@ def check_accumulate(what, table, ids, upd, calls=4):
             raise AssertionError(f"{what}: {per_call} launches and {device_per_call} device "
                                  f"events per call ({names}), not one kernel")
         del scratch
-    keep = (ids >= 0) & (ids < R)
-    ok_ids, ok_upd = (ids, upd) if bool(keep.all()) else (ids[keep], upd[keep])
-    want = accumulate_rows(table.to("cpu", copy=True), ok_ids.cpu(), ok_upd.cpu())
+    want = accumulate_rows(table.to("cpu", copy=True), ids.cpu(), upd.cpu())
     kernel = got[0].cpu()
     err = (kernel - want).abs().max().item()
     if not torch.equal(kernel, want):
         raise AssertionError(f"{what}: the kernel differs from the plain version on the CPU, "
                              f"max |kernel - plain| {err:.3e}")
     del want, kernel
-    card_err = (got[0] - accumulate_rows(table.clone(), ok_ids, ok_upd, force="torch")
+    card_err = (got[0] - accumulate_rows(table.clone(), ids, upd, force="torch")
                 ).abs().max().item()
+    ok_ids = ids_in_table(table, ids, upd)[0]
     runs = torch.unique(ok_ids, return_counts=True)[1]
     log(f"  {what}: ok ({runs.numel()} runs, the longest {int(runs.max())} ids"
         + (f"; {ids.numel() - ok_ids.numel()} ids outside [0, R) dropped"
@@ -3150,30 +3236,37 @@ def phase_accumulate_times(cases):
     in PyTorch's deterministic mode, timed in turn, beside the bound; and
     the kernel's own device time per launch, which ``phase_accumulate``
     took from the profiler's events (None where it kept none). The
-    bound counts what the function must move: the ids (8 bytes each) and
-    the updates read once, each touched table row read and written once;
-    its B * d additions are far below the float32 peak."""
+    bound counts what the function must move: the ids (8 bytes each) read
+    once, the updates of the ids inside the table read once (the kernel
+    never reads the others), each touched table row read and written once;
+    its additions, one an element of those updates, are far below the
+    float32 peak."""
     import torch
 
-    from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch
+    from cornac_tpu_torch.ops.accumulate import (accumulate_rows, accumulate_rows_torch,
+                                                 ids_in_table)
 
     rows = {}
     for label, (table, ids, upd, per_call, device_ms, kept, err, card_err) in cases.items():
         R, B = table.shape[0], ids.shape[0]
         d = table.shape[1] if table.dim() > 1 else 1
         reps = 200 if B < 1_000_000 else 10
+        # the library calls on the ids inside the table: the kernel and
+        # the plain version drop the others, index_add_ refuses them
+        ok_ids, ok_upd = ids_in_table(table, ids, upd)
         plain_ms = time_ms(lambda: accumulate_rows_torch(table, ids, upd), reps)
         ms = time_ms(lambda: accumulate_rows(table, ids, upd), reps)
-        library_ms = time_ms(lambda: table.index_add_(0, ids, upd), reps)
+        library_ms = time_ms(lambda: table.index_add_(0, ok_ids, ok_upd), reps)
         # deterministic index_add_ sorts: 0.6-0.7 s a call at 10M ids
         det_ms, det_bits, det_as_kernel, det_no_sync = deterministic_index_add(
-            table, ids, upd, reps if B < 1_000_000 else 3)
+            table, ok_ids, ok_upd, reps if B < 100_000 else 3)
         # the profiler again, after the run's long profiles: it has been seen
         # to keep fewer of a short kernel's events late in the process
         late = profile_call(lambda: [accumulate_rows(table, ids, upd) for _ in range(20)])[2]
-        touched = torch.unique(ids).numel()
-        nbytes = 8.0 * B + 4.0 * B * d + 8.0 * touched * d
-        flops = float(B * d)
+        touched = torch.unique(ok_ids).numel()
+        # every id is read, only the updates of the ids inside are
+        nbytes = 8.0 * B + 4.0 * ok_ids.numel() * d + 8.0 * touched * d
+        flops = float(ok_ids.numel() * d)
         bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         rows[label] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -3206,7 +3299,7 @@ def phase_accumulate_times(cases):
 # seeded, not the files
 # examples/sbpr_epinions.py's SBPR and examples/c2pf_example.py's C2PF
 SBPR_EPINIONS = dict(k=10, learning_rate=0.001, seed=123)
-SBPR_EPOCHS, SBPR_STOP = 50, 20
+SBPR_EPOCHS, SBPR_STOP = 20, 10  # the example's 50, cut for the run's time
 C2PF_OFFICE = dict(k=100, variant="c2pf", seed=123)
 C2PF_ITERS = 80
 C2PF_RTOL, C2PF_ATOL = 1e-4, 1e-6
@@ -3301,12 +3394,12 @@ def hold_and_time_calls(what, calls):
     """Each recorded accumulate_rows call held bit for bit to the plain
     version on the CPU, then timed with CUDA events on a scratch copy of its
     table beside ``index_add_`` (atomic) on the same inputs, and beside the
-    bound (the ids and updates read once, each touched row read and
-    written once). Returns (max |err|, [(shape, ms, index_add_ ms, bound
+    bound (the ids and the updates of the ids inside the table read once,
+    each touched row read and written once). Returns (max |err|, [(shape, ms, index_add_ ms, bound
     ms)])."""
     import torch
 
-    from cornac_tpu_torch.ops.accumulate import accumulate_rows
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows, ids_in_table
 
     max_err, rows = 0.0, []
     for n, (table, ids, upd) in enumerate(calls):
@@ -3317,9 +3410,11 @@ def hold_and_time_calls(what, calls):
         max_err = max(max_err, err)
         scratch = table.clone()
         ms = time_ms(lambda: accumulate_rows(scratch, ids, upd), 50)
-        lib = time_ms(lambda: scratch.index_add_(0, ids, upd), 50)
-        touched = torch.unique(ids).numel()
-        bound = 1e3 * (8.0 * B + 4.0 * B * d + 8.0 * touched * d) / PEAK_BYTES
+        ok_ids, ok_upd = ids_in_table(table, ids, upd)  # index_add_ refuses the others
+        lib = time_ms(lambda: scratch.index_add_(0, ok_ids, ok_upd), 50)
+        touched = torch.unique(ok_ids).numel()
+        # every id is read, only the updates of the ids inside are
+        bound = 1e3 * (8.0 * B + 4.0 * ok_ids.numel() * d + 8.0 * touched * d) / PEAK_BYTES
         rows.append((f"{B} ids into {R} x {d}", ms, lib, bound))
         log(f"  {what}, call {n + 1}: {B} ids into {R} x {d} ({touched} touched): kernel "
             f"{ms:.4f} ms, index_add_ {lib:.4f} ms, bound {bound:.5f} ms (bytes), "
@@ -3362,11 +3457,12 @@ def phase_sbpr_epinions(seed, work):
     the split with the user graph's build and the social arrays on the
     host; holds the first minibatch's five accumulate_rows inputs bit for
     bit to the plain version on the CPU; two seeded 2-epoch fits (the
-    second one epoch a chunk) bit for bit; the 50-epoch fit timed (seconds
-    per epoch, samples/s beside the byte bound of a sample, device events
-    per minibatch and the busy share of one epoch, peak device memory); a
-    checkpointed fit stopped at epoch 20 and resumed to 50 equal to it bit
-    for bit; ranking_eval's AUC, NDCG@10 and Recall@10; recommend_batch of
+    second one epoch a chunk) bit for bit; the ``SBPR_EPOCHS``-epoch fit
+    timed (seconds per epoch, samples/s beside the byte bound of a sample,
+    device events per minibatch and the busy share of one epoch, peak device
+    memory); a checkpointed fit stopped at epoch ``SBPR_STOP`` and resumed
+    to ``SBPR_EPOCHS`` equal to it bit for bit; ranking_eval's AUC, NDCG@10
+    and Recall@10 (``evaluate_in_budget``); recommend_batch of
     8,192 users at k = 100 through fused_topk (d = 11), every list held to
     the plain version. Returns (accumulate_rows launches, fused_topk
     launches, the model, the users served, the stats, the split among
@@ -3378,7 +3474,6 @@ def phase_sbpr_epinions(seed, work):
 
     from cornac_tpu_torch.data import GraphModality
     from cornac_tpu_torch.eval_methods import RatioSplit
-    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
     from cornac_tpu_torch.metrics import AUC, NDCG, Recall
     from cornac_tpu_torch.models import SBPR
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
@@ -3422,8 +3517,10 @@ def phase_sbpr_epinions(seed, work):
     resumed = clock(f"SBPR.fit, resumed to epoch {SBPR_EPOCHS}", lambda: SBPR(
         max_iter=SBPR_EPOCHS, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=10).fit(train))
     metrics = [AUC(), NDCG(k=10), Recall(k=10)]
-    quality = clock("ranking_eval (AUC, NDCG@10, Recall@10)", lambda: ranking_eval(
-        model, metrics, train, split.test_set, rating_threshold=0.5, exclude_unknowns=True)[0])
+    # all 40,000 test users over 136,000 items take 26-30 s on the host: the
+    # first 4,096, and the others only while all would take 15 s or less
+    quality, evaluated, n_test = evaluate_in_budget(
+        model, metrics, train, split.test_set, 0.5, clock, "SBPR", head=EVAL_SUBSET_USERS)
     rng = np.random.RandomState(seed + 15)
     users = rng.choice(train.num_users, SERVE_BATCH, replace=False)
     relaxed = clock(f"recommend_batch {SERVE_BATCH} users k={TOPK}",
@@ -3470,8 +3567,9 @@ def phase_sbpr_epinions(seed, work):
         f"epoch {SBPR_STOP} and resumed to {SBPR_EPOCHS} from its checkpoints equal to the "
         f"uninterrupted one, bit for bit; the first minibatch's five accumulate_rows inputs equal "
         f"to the plain version on the CPU, bit for bit (max |err| {acc_err:.3e})")
-    log(f"  ranking_eval: AUC {quality[0]:.6f}, NDCG@10 {quality[1]:.6f}, Recall@10 "
-        f"{quality[2]:.6f} (no band at this size); recommend_batch ({SERVE_BATCH} users, "
+    log(f"  ranking_eval over {evaluated:,} of {n_test:,} test users: AUC {quality[0]:.6f}, "
+        f"NDCG@10 {quality[1]:.6f}, Recall@10 {quality[2]:.6f} (no band at this size); "
+        f"recommend_batch ({SERVE_BATCH} users, "
         f"k={TOPK}, d={k + 1}) equal to the plain version (positions relaxed as near-ties: "
         f"{relaxed}); fused_topk launches {fused}")
     log(f"SBPR at Epinions: ok in {sum(clock.seconds.values()):.1f} s")
@@ -4159,10 +4257,12 @@ def phase_transformer_diginetica(ev):
 # otherwise (latent 32, hidden (512, 256, 128), 200 RQ-VAE epochs of 1,024,
 # 6 heads of 64, 4 + 4 layers, max_len 20, batch 256, lr 0.001, weight decay
 # 1e-4, the constant schedule, beam scoring with 20 beams); the example's 20
-# seq2seq epochs cut to one fit of 2
+# seq2seq epochs cut to one fit of 1, whose steps after the first
+# TIGER_TIMED_FROM are timed as the steady state
 TIGER_EXAMPLE = dict(tokenizer="rqvae", rqvae_num_levels=3, rqvae_codebook_size=256,
                      d_model=128, d_ff=1024, seed=123)
-TIGER_EPOCHS = 2
+TIGER_EPOCHS = 1  # the example's 20, cut for the run's time
+TIGER_TIMED_FROM = 40  # seq2seq steps of warm-up before the steps timed
 TIGER_FEATURES = 512  # TfidfVectorizer(max_features=512) over the plots
 TIGER_PROFILE_STEPS = 4  # seq2seq steps profiled (some 6,600 device events)
 TIGER_TRAIN_USERS = 472  # the seq2seq trains on the first half of the users' sessions
@@ -4218,10 +4318,12 @@ def phase_tiger_ml100k(bench_data):
     features (``seq_bench_data.tfidf_like``: 1,682 x 512, nonnegative,
     sparse, L2-normalised; the plots are not in the repository); the
     seq2seq trains on the first 472 users' sessions (the whole catalog).
-    One fit of 2 seq2seq epochs after the RQ-VAE's 200, each epoch timed on the
-    synchronised card (the second is the steady one): the RQ-VAE's
-    seconds, the dead codes restarted, the collision level's size, seconds
-    per seq2seq epoch and ms a step beside ``tiger_step_bound``; peak device
+    One fit of ``TIGER_EPOCHS`` seq2seq epochs after the RQ-VAE's 200, each
+    epoch timed on the synchronised card (the last is reported) and the
+    seq2seq steps after the first ``TIGER_TIMED_FROM`` with CUDA events: the
+    RQ-VAE's seconds, the dead codes restarted, the collision level's size,
+    seconds per seq2seq epoch and ms a step (the steps timed) beside
+    ``tiger_step_bound``; peak device
     memory; the beam evaluation (HitRatio@10, NDCG@10) and its seconds; 64
     histories' beam scores on the card held to the same scoring on the CPU
     (the beams as sets, a swap allowed only at a near-tie of the last kept
@@ -4262,13 +4364,15 @@ def phase_tiger_ml100k(bench_data):
     probe = TIGER(**TIGER_EXAMPLE)
     n_rq_calls = probe.rqvae_num_levels * probe.rqvae_n_epochs * -(
         -len(items) // min(probe.rqvae_batch_size, len(items)))
-    host, epochs, first = {}, [], []
+    n_rq_steps = n_rq_calls // probe.rqvae_num_levels
+    host, epochs, first, steady = {}, [], [], {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     with timed_methods([("TIGER", "_fit_rqvae"), ("TIGER", "_build_examples")], host), \
             timed_epochs(epochs), recording_first_calls(first, 0, calls=(
-                0, 1, 2, n_rq_calls, n_rq_calls + 1)):
+                0, 1, 2, n_rq_calls, n_rq_calls + 1)), \
+            timed_steps(tiger_mod, n_rq_steps + TIGER_TIMED_FROM, None, steady):
         model = clock(f"TIGER.fit, {TIGER_EPOCHS} seq2seq epochs",
                       lambda: TIGER(n_epochs=TIGER_EPOCHS, **TIGER_EXAMPLE).fit(train))
     peak = torch.cuda.max_memory_allocated() - held
@@ -4328,6 +4432,11 @@ def phase_tiger_ml100k(bench_data):
     tgt = torch.as_tensor(model.sid_table[outs], device=dev)
     bsz = model.batch_size
     steps = -(-len(hists) // bsz)
+    if steady["count"] != n_rq_steps + TIGER_EPOCHS * steps:
+        raise AssertionError(f"TIGER took {steady['count']} optimizer steps, not the "
+                             f"{n_rq_steps} of the RQ-VAE and {TIGER_EPOCHS} x {steps}")
+    timed = steady["count"] - n_rq_steps - TIGER_TIMED_FROM
+    step_ms = steady["events"][0].elapsed_time(steady["events"][1]) / timed
     params = copy.deepcopy(model.params)
     named = dict(params.named_parameters())
     opt = model._optimizer(steps)
@@ -4364,9 +4473,10 @@ def phase_tiger_ml100k(bench_data):
     log(f"  TIGER seq2seq (d {model.d_model}, {model.num_heads} heads of {model.d_kv}, "
         f"{model.num_enc_layers} + {model.num_dec_layers} layers, S {S}, T {T}): epochs "
         + ", ".join(f"{e:.3f}" for e in epochs[-TIGER_EPOCHS:])
-        + f" s, {1e3 * epoch_s / steps:.3f} ms a step (the last epoch); bound of a step "
-        f"{flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = {1e3 * bound_s:.4f} ms "
-        f"({bound_by}), {100 * bound_s * steps / epoch_s:.3f}% of it; {TIGER_PROFILE_STEPS} steps "
+        + f" s (the first, cold: {1e3 * epoch_s / steps:.3f} ms a step), {step_ms:.3f} ms a step "
+        f"(CUDA events over seq2seq steps {TIGER_TIMED_FROM + 1}-{TIGER_EPOCHS * steps}); bound "
+        f"of a step {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = {1e3 * bound_s:.4f} ms "
+        f"({bound_by}), {1e5 * bound_s / step_ms:.3f}% of it; {TIGER_PROFILE_STEPS} steps "
         f"profiled: {wall_ms:.1f} ms host clock, device busy {busy_ms:.3f} ms ("
         + ("not measured" if share is None else f"{100 * share:.2f}%")
         + f"), {n_events / TIGER_PROFILE_STEPS:.1f} device events a step; top device ops "
@@ -4384,7 +4494,7 @@ def phase_tiger_ml100k(bench_data):
     del model, cpu, params, state
     torch.cuda.empty_cache()
     return launches, dict(rq_s=rq_s, restarts=restarts, collisions=collisions, epoch_s=epoch_s,
-                          step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * bound_s,
+                          step_ms=step_ms, step_bound_ms=1e3 * bound_s,
                           bound_by=bound_by, share=share,
                           launches_per_minibatch=n_events / TIGER_PROFILE_STEPS, peak=peak,
                           eval_s=eval_s, metrics={m.name: vals[m.name] for m in metrics},
@@ -5394,25 +5504,28 @@ def clothing_like(seed):
 
 
 @contextlib.contextmanager
-def timed_steps(module, first, last, events):
-    """While open, a CUDA event is recorded after the ``first``-th and the
-    ``last``-th optimizer step (``module.step``) and appended to
-    ``events``."""
+def timed_steps(module, first, last, out):
+    """While open, a CUDA event is recorded after the ``first``-th optimizer
+    step (``module.step``) and after each later one up to the ``last``-th
+    (None: to the end), the latest kept: ``out["events"]`` is the pair,
+    ``out["count"]`` the steps taken."""
     import torch
 
-    real, count = module.step, [0]
+    real = module.step
+    out.update(count=0, events=[None, None])
 
     def step(*args, **kwargs):
-        out = real(*args, **kwargs)
-        count[0] += 1
-        if count[0] in (first, last):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-        return out
+        result = real(*args, **kwargs)
+        out["count"] += 1
+        if first <= out["count"] and (last is None or out["count"] <= last):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            out["events"][out["count"] > first] = event
+        return result
 
     module.step = step
     try:
-        yield events
+        yield out
     finally:
         module.step = real
 
@@ -5488,10 +5601,11 @@ def phase_vbpr_tradesy(seed):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    with timed_steps(vbpr_mod, VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, []) as events:
+    with timed_steps(vbpr_mod, VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, {}) as timed:
         model = clock(f"VBPR.fit, {VBPR_EPOCHS} epoch", lambda: VBPR(
             n_epochs=VBPR_EPOCHS, verbose=False, **VBPR_TRADESY).fit(train))
     peak = torch.cuda.max_memory_allocated() - held
+    events = timed["events"]
     step_ms = events[0].elapsed_time(events[1]) / (VBPR_EPOCHS * n_batches - VBPR_TIMED_FROM)
     metrics = [AUC(), Recall(k=50)]
     test_users = np.unique(split.test_set.uir_tuple[0])
@@ -5976,11 +6090,767 @@ def phase_side_bench(bench_data):
     return launches, fit_s, acc_err
 
 
+# ---------------------------------------------------------------------------
+# the text and review models (phases 19, 19b, 19c and process 12j). Cornac's
+# published Amazon Digital Music counts (cornac/datasets/README.md) and
+# citeulike-a's (Wang & Blei, KDD 2011); the data are seeded, not the files
+MUSIC_USERS, MUSIC_ITEMS, MUSIC_RATINGS = 5_541, 3_568, 64_706
+CITEULIKE_USERS, CITEULIKE_ITEMS, CITEULIKE_PAIRS = 5_551, 16_980, 204_986
+# examples/narre_example.py's and hrdr_example.py's settings, 1 of their 10
+# epochs
+REVIEW_MUSIC = dict(embedding_size=100, id_embedding_size=32, n_factors=32, attention_size=16,
+                    n_filters=64, max_text_length=50, max_num_review=32, batch_size=64,
+                    seed=123, verbose=False)
+REVIEW_EPOCHS = 1
+REVIEW_TIMED_FROM = 100  # the steps after the first 100 are timed
+REVIEW_PROFILED_STEPS = 5  # as 16b profiles 5: the profiler takes about 1 ms an event
+# the four CiteULike examples' settings (cdl_example.py, cdr_example.py,
+# cvae_example.py, ctr_example_citeulike.py), each with its depth cut: name
+# -> (class, settings, (the depth's argument, the depth, the example's))
+CITEULIKE_MODELS = {
+    "CDL": ("CDL", dict(k=50, autoencoder_structure=[200], batch_size=128, lambda_u=0.1,
+                        lambda_v=1, lambda_w=1e-4, lambda_n=1000, seed=123, verbose=False),
+            ("max_iter", 2, 30)),
+    "CDR": ("CDR", dict(k=50, autoencoder_structure=[200], batch_size=128, lambda_u=0.01,
+                        lambda_v=0.1, lambda_w=1e-4, lambda_n=5, seed=123, verbose=False),
+            ("max_iter", 1, 30)),
+    "CVAE": ("CVAE", dict(z_dim=50, vae_layers=(200, 100), seed=123, verbose=False),
+             ("n_epochs", 2, 30)),
+    "CTR": ("CTR", dict(k=50, lambda_v=1, seed=123, verbose=False), ("max_iter", 2, 50)),
+}
+CITEULIKE_EVAL_USERS, CITEULIKE_EVAL_BUDGET_S = 2_048, 15.0
+# conv_mf_example.py's and hft_example.py's settings on make_ml100k_like(7)
+# with seeded plots (HFT's 40 iterations cut to 8: some 0.5 s an iteration on
+# the card's host, the pair 20 s or more at the full depth)
+PLOT_MODELS = {
+    "ConvMF": ("ConvMF", dict(k=50, cnn_epochs=5, seed=123, verbose=False), ("n_epochs", 5, 5),
+               8000, 4.0),
+    "HFT": ("HFT", dict(k=10, grad_iter=5, l2_reg=0.001, lambda_text=0.01, vocab_size=5000,
+                        seed=123, verbose=False), ("max_iter", 8, 40), 5000, 1.0),
+}
+TEXT_WITNESS_TOL = 1e-5  # max |card - float64 epoch| at least, as generative_witness
+# review_witness: a step's gradient of a tensor on the card within
+# REVIEW_GRAD_TOL of its largest |gradient| on the CPU, or of GRAD_FLOOR of
+# the step's largest |gradient| of all where that is more: float32 sums in
+# another order (two CPU thread counts differ by at most 5e-6 of a tensor's
+# largest at the bench shape), and the tensors whose exact gradients are 0
+# (the attention biases, and the item side's attention where an item's
+# reviews are one document) hold rounding alone, some 1e-9 of the largest
+REVIEW_GRAD_TOL, GRAD_FLOOR = 1e-4, 1e-3
+
+
+def letter_words(n):
+    """``n`` distinct letter-only tokens (the tokenizers strip digits), none
+    an English stop word."""
+    return np.array(["".join(chr(97 + (w // 26 ** j) % 26) for j in range(4)) + "q"
+                     for w in range(n)])
+
+
+def zipf_docs(rng, lengths, n_words, offset=30):
+    """One document of ``lengths[j]`` tokens for each j, drawn in one draw
+    over ``letter_words(n_words)`` with probability proportional to
+    1 / (rank + ``offset``): a Zipf-Mandelbrot law whose commonest word is
+    in under half the documents, so ``max_doc_freq=0.5`` drops none, and of
+    whose tokens some 11-12% fall past the half of the words that a
+    ``max_vocab`` of ``n_words`` / 2 keeps (unknown, as in real text)."""
+    words = letter_words(n_words)
+    p = 1.0 / (np.arange(1, n_words + 1) + offset)
+    tokens = words[rng.choice(n_words, size=int(lengths.sum()), p=p / p.sum())]
+    ends = np.cumsum(lengths)
+    return [" ".join(tokens[e - n: e]) for e, n in zip(ends.tolist(), lengths.tolist())]
+
+
+def digital_music_like(seed):
+    """Seeded star ratings at the Amazon Digital Music counts over Zipf-like
+    users and items (every one in a rating at least), skewed toward 4 and 5
+    stars as Amazon's are, and one letter-only review a rating, 30-79
+    tokens long (most past the examples' 50), over twice the 4,000 words
+    the examples keep."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, MUSIC_USERS, MUSIC_ITEMS, MUSIC_RATINGS, 0.6, 0.6)
+    stars = rng.choice(np.arange(1, 6), len(users), p=[0.04, 0.04, 0.09, 0.23, 0.60])
+    docs = zipf_docs(rng, rng.randint(30, 80, len(users)), 8_000)
+    ratings = [(f"u{u}", f"i{i}", float(r))
+               for u, i, r in zip(users.tolist(), items.tolist(), stars.tolist())]
+    return ratings, [(u, i, doc) for (u, i, _), doc in zip(ratings, docs)]
+
+
+def citeulike_like(seed):
+    """Seeded binary pairs at citeulike-a's counts over mildly skewed users
+    and items (the largest degrees in the hundreds, every one in a pair at
+    least), and one letter-only abstract an item, 60-159 tokens long, over
+    twice the 8,000 words the examples keep."""
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, CITEULIKE_USERS, CITEULIKE_ITEMS, CITEULIKE_PAIRS, 0.3, 0.3)
+    pairs = [(f"u{u}", f"i{i}", 1.0) for u, i in zip(users.tolist(), items.tolist())]
+    docs = zipf_docs(rng, rng.randint(60, 160, CITEULIKE_ITEMS), 16_000)
+    return pairs, docs, [f"i{i}" for i in range(CITEULIKE_ITEMS)]
+
+
+def review_step_bound(model, n_params):
+    """(FLOPs, bytes) of one review-model step as the port computes it: the
+    text CNN's windows times the kernels in both towers, forward and the
+    two products of its backward (3 x 2 x B R W ks E F each), and the bytes
+    of Adam's dense update (28 B a parameter) and of the word gathers of
+    both towers (B R L E floats read, their gradient rows written)."""
+    B, R, L, E = model.batch_size, model.max_num_review, model.max_text_length, \
+        model.embedding_size
+    flops = sum(2 * 3 * 2.0 * B * R * (L - ks + 1) * ks * E * model.n_filters
+                for ks in model.kernel_sizes)
+    return flops, 28.0 * n_params + 2 * 2 * 4.0 * B * R * L * E
+
+
+def phase_review_music(seed):
+    """Phase 19b, NARRE and HRDR at the Amazon Digital Music counts
+    (``examples/narre_example.py``'s and ``hrdr_example.py``'s split and
+    settings; seeded ratings and reviews): RatioSplit(0.2) with
+    ``ReviewModality(max_vocab=4000, max_doc_freq=0.5)``, the split timed on
+    the host; a fit of ``REVIEW_EPOCHS`` epoch of each, its steps after the
+    first 100 timed with CUDA events beside the bound of a step, its first
+    step's word-table gradient held bit for bit to the plain version on the
+    CPU and timed with the empty review slots dropped (as the fit runs it)
+    and, for NARRE, sent into the padding row, ``REVIEW_PROFILED_STEPS``
+    steps profiled on the fit's review packs (device events a step, busy
+    share), peak device memory; MAE and RMSE over the test ratings, NDCG@10 over the
+    test users; recommend_batch of 1,024 users at k = 100 through
+    fused_topk, held to the plain version. Returns (accumulate_rows
+    launches, fused_topk launches, the stats)."""
+    import torch
+
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import ReviewModality
+    from cornac_tpu_torch.data.text import BaseTokenizer
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
+    from cornac_tpu_torch.metrics import MAE, NDCG, RMSE
+    from cornac_tpu_torch.models import narre as narre_mod
+    from cornac_tpu_torch.models.mf import _epoch_permutation
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+    from cornac_tpu_torch.ops.optim import adam
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    clock = Clock()
+    ratings, reviews = clock("Digital-Music-like ratings and reviews (set-up)",
+                             lambda: digital_music_like(seed + 21))
+    split = clock("RatioSplit(0.2) with ReviewModality(max_vocab=4000, max_doc_freq=0.5)",
+                  lambda: RatioSplit(ratings, test_size=0.2, exclude_unknowns=True, seed=123,
+                                     review_text=ReviewModality(
+                                         data=reviews, tokenizer=BaseTokenizer(
+                                             stop_words="english"),
+                                         max_vocab=4000, max_doc_freq=0.5), verbose=False))
+    del ratings, reviews
+    train = split.train_set
+    n, bsz = train.num_ratings, REVIEW_MUSIC["batch_size"]
+    n_batches = -(-n // bsz)
+    users = np.random.RandomState(seed + 21).choice(train.num_users, SERVED_USERS,
+                                                    replace=False)
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {n:,} train ratings "
+        f"({n / train.num_users:.1f} a user, {n / train.num_items:.1f} an item), "
+        f"{n_batches:,} steps an epoch; vocabulary {train.review_text.vocab.size:,} tokens")
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    fitted, stats = {}, {}
+    for name in ("NARRE", "HRDR"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        first, packs = [], []
+        with timed_steps(narre_mod, REVIEW_TIMED_FROM, REVIEW_EPOCHS * n_batches, {}) as timed, \
+                recording_first_calls(first, 10), kept_review_packs(narre_mod, packs):
+            model = clock(f"{name}.fit, {REVIEW_EPOCHS} epoch", lambda: getattr(models, name)(
+                max_iter=REVIEW_EPOCHS, **REVIEW_MUSIC).fit(train))
+        peak = torch.cuda.max_memory_allocated() - held
+        events = timed["events"]
+        step_ms = events[0].elapsed_time(events[1]) / (REVIEW_EPOCHS * n_batches
+                                                       - REVIEW_TIMED_FROM)
+        errors = clock(f"{name} rating_eval (MAE, RMSE)", lambda: rating_eval(
+            model, [MAE(), RMSE()], split.test_set)[0])
+        ndcg = clock(f"{name} ranking_eval (NDCG@10)", lambda: ranking_eval(
+            model, [NDCG(k=10)], train, split.test_set)[0][0])
+        relaxed = clock(f"{name} recommend_batch {SERVED_USERS} users k={TOPK}",
+                        lambda: serve_check(model, train, users, f"{name} recommend_batch"))
+        fitted[name] = model
+        stats[name] = dict(step_ms=step_ms, peak=peak, errors=errors, ndcg=ndcg,
+                           relaxed=relaxed, first=first, packs=packs[-1],
+                           epoch_s=clock.seconds[f"{name}.fit, {REVIEW_EPOCHS} epoch"])
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"19b launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+
+    # ---- check and measure ----
+    dev = torch.device(DEV)
+    acc_err = 0.0
+    for name, model in fitted.items():
+        st = stats[name]
+        for table in (model.P, model.Q, model.W1):
+            if not np.isfinite(table).all():
+                raise AssertionError(f"{name} at Digital Music: a non-finite factor")
+        if not all(np.isfinite(st["errors"])) or not np.isfinite(st["ndcg"]):
+            raise AssertionError(f"{name} at Digital Music: non-finite metrics")
+        # the first step's word-table gradient (the largest call), as the fit
+        # ran it (the empty slots dropped) and with them sent into row 0
+        word = max(st["first"], key=lambda c: c[1].numel())
+        table, ids, upd = word
+        padded = torch.where((ids >= 0) & (ids < table.shape[0]), ids, 0)
+        rows = []
+        ways = (("dropped", word), ("into row 0", (table, padded, upd)))
+        for label, call in ways if name == "NARRE" else ways[:1]:
+            err, timed = clock(f"{name}'s word-table gradient, the empty slots {label}, held and "
+                               f"timed", lambda: hold_and_time_calls(
+                                   f"{name}'s word-table gradient, the empty slots {label}",
+                                   [call]))
+            acc_err, rows = max(acc_err, err), rows + timed
+        if not torch.equal(accumulate_rows_of(word), accumulate_rows_of((table, padded, upd))):
+            raise AssertionError(f"{name}: the empty slots change the word-table gradient")
+        st["word_rows"] = rows
+        st["empty_share"] = float((padded != ids).float().mean())
+        del st["first"]
+        # steps profiled on the fit's review packs, the fit's way (the empty
+        # slots dropped; the calls timed above show what they would cost)
+        params = {k: p.detach().clone().requires_grad_(True) for k, p in model.params.items()}
+        t = st.pop("packs")
+        gen = epoch_generator(seed, 0, dev)
+        order = _epoch_permutation(REVIEW_PROFILED_STEPS * bsz, gen) % n
+        uid, iid, rat = train.uir_tuple
+        data = (torch.as_tensor(uid.astype(np.int64), device=dev),
+                torch.as_tensor(iid.astype(np.int64), device=dev),
+                torch.as_tensor(rat.astype(np.float32), device=dev))
+        draws = [model.draws(gen, bsz) for _ in range(REVIEW_PROFILED_STEPS)]
+        opt = adam(model.learning_rate)
+
+        def some_steps():
+            steps = iter(draws)
+            model.epoch(params, opt, opt.init(params), t, order, data, lambda B: next(steps),
+                        bsz)
+
+        wall_ms, busy_ms, events_n, top = clock(
+            f"{name}, {REVIEW_PROFILED_STEPS} steps profiled", lambda: profile_call(some_steps))
+        st["profile"] = dict(step_ms=wall_ms / REVIEW_PROFILED_STEPS,
+                             share=busy_ms / wall_ms if top else None,
+                             busy_ms=busy_ms / REVIEW_PROFILED_STEPS,
+                             events=events_n / REVIEW_PROFILED_STEPS,
+                             top=top_ops(top) if top else "none seen")
+        del params, t
+        n_params = sum(p.numel() for p in model.params.values())
+        flops, nbytes = review_step_bound(model, n_params)
+        st["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        st["bound_by"] = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        st["n_params"] = n_params
+        a = st["profile"]
+        log(f"  {name} at Digital Music: {st['epoch_s']:.3f} s an epoch (host clock, the fit's "
+            f"set-up included), {st['step_ms']:.3f} ms a step (CUDA events over steps "
+            f"{REVIEW_TIMED_FROM + 1}-{REVIEW_EPOCHS * n_batches}) against a "
+            f"{st['bound_ms']:.4f} ms bound ({st['bound_by']}: {flops / 1e9:.2f} GFLOP of the "
+            f"text CNN, {nbytes / 1e6:.1f} MB of Adam's {n_params:,} parameters and the word "
+            f"gathers), {100 * st['bound_ms'] / st['step_ms']:.3f}% of it; "
+            f"{REVIEW_PROFILED_STEPS} steps profiled with the empty slots dropped: "
+            f"{a['step_ms']:.3f} ms a step host clock, busy "
+            + ("not measured" if a["share"] is None else f"{100 * a['share']:.2f}%")
+            + f" ({a['busy_ms']:.3f} ms of device time a step), {a['events']:.1f} device events "
+            f"a step, top device ops {a['top']}; the word-table gradient of the first step "
+            f"({100 * st['empty_share']:.1f}% of its ids in empty slots) "
+            f"{st['word_rows'][0][1]:.4f} ms dropped"
+            + (f", {st['word_rows'][1][1]:.4f} ms into row 0" if len(st["word_rows"]) > 1
+               else "")
+            + f", the same bits either way; peak device memory of the fit "
+            f"{st['peak'] / 2**30:.3f} GiB")
+        log(f"  {name}: MAE {st['errors'][0]:.6f}, RMSE {st['errors'][1]:.6f}, NDCG@10 "
+            f"{st['ndcg']:.6f} (no band at this size); recommend_batch ({SERVED_USERS} users, "
+            f"k={TOPK}) equal to the plain version (positions relaxed as near-ties: "
+            f"{st['relaxed']})")
+    clock.report("NARRE and HRDR at Digital Music")
+    log(f"  fused_topk launches {fused}, accumulate_rows launches {launches}")
+    log(f"NARRE and HRDR at Digital Music: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, dict(stats=stats, max_abs_err=acc_err, seconds=dict(clock.seconds))
+
+
+@contextlib.contextmanager
+def kept_review_packs(module, store):
+    """While open, the review packs a review model's fit builds
+    (``ReviewRegressor._reviews``: the dict of review tensors on the card,
+    which HRDR's fit then gives its rating rows) are appended to
+    ``store``."""
+    real = module.ReviewRegressor._reviews
+
+    def keep(self, train_set, dev):
+        store.append(real(self, train_set, dev))
+        return store[-1]
+
+    module.ReviewRegressor._reviews = keep
+    try:
+        yield store
+    finally:
+        module.ReviewRegressor._reviews = real
+
+
+def accumulate_rows_of(call):
+    """The kernel's result of one recorded accumulate_rows call, on a copy
+    of its table."""
+    from cornac_tpu_torch.ops.accumulate import accumulate_rows
+
+    table, ids, upd = call
+    return accumulate_rows(table.clone(), ids, upd)
+
+
+def evaluate_in_budget(model, metrics, train, test, threshold, clock, what,
+                       head=CITEULIKE_EVAL_USERS):
+    """ranking_eval of ``metrics`` over the first ``head`` test users, and
+    over the others too while all would take ``CITEULIKE_EVAL_BUDGET_S`` or
+    less. Returns (the mean of each metric, the users evaluated, the test
+    users)."""
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval
+
+    test_users = np.unique(test.uir_tuple[0])
+    head, rest = test_users[:head], test_users[head:]
+    label = f"{what} ranking_eval, the first {len(head):,} test users"
+    per_user = clock(label, lambda: ranking_eval(model, metrics, train, ratings_subset(
+        test, head), rating_threshold=threshold)[1])
+    if len(rest) and clock.seconds[label] * len(test_users) / len(head) \
+            <= CITEULIKE_EVAL_BUDGET_S:
+        more = clock(f"{what} ranking_eval, the other {len(rest):,} test users",
+                     lambda: ranking_eval(model, metrics, train, ratings_subset(test, rest),
+                                          rating_threshold=threshold)[1])
+        per_user = [{**a, **b} for a, b in zip(per_user, more)]
+    return [sum(d.values()) / len(d) for d in per_user], len(per_user[0]), len(test_users)
+
+
+def phase_citeulike(seed):
+    """Phase 19, CDL, CDR, CVAE and CTR at citeulike-a's counts (the four
+    CiteULike examples' split and settings; seeded pairs and abstracts):
+    RatioSplit(0.2, 0.5) with ``TextModality(max_vocab=8000,
+    max_doc_freq=0.5)``, the split timed on the host; each model fitted at
+    its cut depth (``CITEULIKE_MODELS``), timed, peak device memory; NDCG@100
+    and Recall@300 over the test users (``evaluate_in_budget``); each
+    serving 1,024 users at k = 100 through fused_topk, held to the plain
+    version. Returns (accumulate_rows launches, fused_topk launches, the
+    stats)."""
+    import torch
+
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import TextModality
+    from cornac_tpu_torch.data.text import BaseTokenizer
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import NDCG, Recall
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    pairs, docs, ids = clock("citeulike-a-like pairs and abstracts (set-up)",
+                             lambda: citeulike_like(seed + 20))
+    split = clock("RatioSplit(0.2, 0.5) with TextModality(max_vocab=8000, max_doc_freq=0.5)",
+                  lambda: RatioSplit(pairs, test_size=0.2, rating_threshold=0.5,
+                                     exclude_unknowns=True, seed=123, verbose=False,
+                                     item_text=TextModality(
+                                         corpus=docs, ids=ids, tokenizer=BaseTokenizer(
+                                             stop_words="english"),
+                                         max_vocab=8000, max_doc_freq=0.5)))
+    del pairs, docs
+    train = split.train_set
+    degrees = (np.diff(train.matrix.indptr).max(), np.diff(train.matrix.tocsc().indptr).max())
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {train.num_ratings:,} "
+        f"train pairs, the largest degrees {degrees[0]} (a user) and {degrees[1]} (an item); "
+        f"{train.item_text.count_matrix.shape[1]:,} terms")
+    users = np.random.RandomState(seed + 20).choice(train.num_users, SERVED_USERS,
+                                                    replace=False)
+    metrics = [NDCG(k=100), Recall(k=300)]
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    stats = {}
+    for name, (cls, kw, (arg, depth, full)) in CITEULIKE_MODELS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        label = f"{name}.fit, {arg} {depth}"
+        model = clock(label, lambda: getattr(models, cls)(**{arg: depth}, **kw).fit(train))
+        peak = torch.cuda.max_memory_allocated() - held
+        quality, evaluated, n_test = evaluate_in_budget(model, metrics, train, split.test_set,
+                                                        0.5, clock, name)
+        relaxed = clock(f"{name} recommend_batch {SERVED_USERS} users k={TOPK}",
+                        lambda: serve_check(model, train, users, f"{name} recommend_batch"))
+        if not (np.isfinite(model.U).all() and np.isfinite(model.V).all()
+                and np.isfinite(quality).all()):
+            raise AssertionError(f"{name} at CiteULike: non-finite factors or metrics")
+        stats[name] = dict(fit_s=clock.seconds[label], peak=peak, quality=quality,
+                           evaluated=evaluated, relaxed=relaxed)
+        log(f"  {name} ({arg} {depth}, the example's {full}): fit {clock.seconds[label]:.3f} s "
+            f"(host clock), peak device memory {peak / 2**30:.3f} GiB; NDCG@100 {quality[0]:.6f}, "
+            f"Recall@300 {quality[1]:.6f} over {evaluated:,} of {n_test:,} test users (no band "
+            f"at this size); recommend_batch ({SERVED_USERS} users, k={TOPK}) equal to the plain "
+            f"version (positions relaxed as near-ties: {relaxed})")
+        del model
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the CiteULike models")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"19 launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+    log(f"  fused_topk launches {fused}, accumulate_rows launches {launches}")
+    log(f"the CiteULike models: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, fused, dict(stats=stats, seconds=dict(clock.seconds))
+
+
+def phase_plots(bench_data, seed):
+    """Phase 19c, ConvMF and HFT at ``conv_mf_example.py``'s and
+    ``hft_example.py``'s settings on ``make_ml100k_like(7)`` (built already)
+    with seeded plots for its 1,682 items (``PLOT_MODELS``; HFT's
+    iterations cut): each through ``evaluate`` on its example's RatioSplit
+    (RMSE, Precision@10, Recall@10, NDCG@10 for ConvMF; MAE, RMSE for HFT),
+    fit seconds; the first CNN step's embedding gradient held bit for bit to
+    the plain version on the CPU and timed; HFT serving every train user (at
+    most 1,024) at k = 100 through fused_topk, held to the plain version.
+    Returns
+    (accumulate_rows launches, fused_topk launches, the stats)."""
+    import torch
+
+    import cornac_tpu_torch.metrics as pmetrics
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import TextModality
+    from cornac_tpu_torch.data.text import BaseTokenizer
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    triples = bench_data()
+    rng = np.random.RandomState(seed + 22)
+    plots = clock("seeded plots (set-up)", lambda: zipf_docs(rng, rng.randint(40, 200, 1_682),
+                                                             12_000))
+    ids = [f"i{i}" for i in range(1_682)]
+    names = {"ConvMF": ("RMSE", "Precision@10", "Recall@10", "NDCG@10"), "HFT": ("MAE", "RMSE")}
+    metric = {"RMSE": pmetrics.RMSE(), "MAE": pmetrics.MAE(),
+              "Precision@10": pmetrics.Precision(k=10), "Recall@10": pmetrics.Recall(k=10),
+              "NDCG@10": pmetrics.NDCG(k=10)}
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    results, fitted, first = {}, {}, []
+    for name, (cls, kw, (arg, depth, full), vocab, threshold) in PLOT_MODELS.items():
+        split = clock(f"{name}'s RatioSplit with TextModality(max_vocab={vocab})",
+                      lambda: RatioSplit(triples, test_size=0.2, rating_threshold=threshold,
+                                         exclude_unknowns=True, seed=123, verbose=False,
+                                         item_text=TextModality(
+                                             corpus=plots, ids=ids, tokenizer=BaseTokenizer(
+                                                 stop_words="english"),
+                                             max_vocab=vocab, max_doc_freq=0.5)))
+        model = getattr(models, cls)(**{arg: depth}, **kw)
+        with recording_first_calls(first if name == "ConvMF" else [], 1):
+            results[name] = clock(f"{name} evaluate", lambda: split.evaluate(
+                model, [metric[m] for m in names[name]], user_based=False)[0].metric_avg_results)
+        fitted[name] = (model, split)
+    model, split = fitted["HFT"]
+    n_users = split.train_set.num_users
+    users = np.random.RandomState(seed + 22).choice(n_users, min(SERVED_USERS, n_users),
+                                                    replace=False)
+    relaxed = clock(f"HFT recommend_batch {len(users)} users k={TOPK}", lambda: serve_check(
+        model, split.train_set, users, "HFT recommend_batch"))
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("ConvMF and HFT on ML-100K plots")
+    if launches <= 0 or fused <= 0:
+        raise AssertionError(f"19c launched accumulate_rows {launches} and fused_topk {fused} "
+                             f"times")
+    for name, (cls, kw, (arg, depth, full), _, _) in PLOT_MODELS.items():
+        res = results[name]
+        if not all(np.isfinite(res[m]) for m in names[name]):
+            raise AssertionError(f"{name} on ML-100K plots: non-finite metrics {res}")
+        log(f"  {name} ({arg} {depth}, the example's {full}): fit {res['Train (s)']:.3f} s, "
+            f"evaluation {res['Test (s)']:.3f} s (host clock); "
+            + ", ".join(f"{m} {res[m]:.6f}" for m in names[name]))
+    err, rows = hold_and_time_calls("ConvMF's embedding gradient, the first CNN step", first)
+    log(f"  HFT's recommend_batch ({len(users)} users, k={TOPK}) equal to the plain version "
+        f"(positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}, "
+        f"accumulate_rows launches {launches}")
+    log(f"ConvMF and HFT on ML-100K plots: ok in {sum(clock.seconds.values()):.1f} s")
+    return launches, fused, dict(results=results, embedding_rows=rows, max_abs_err=err,
+                                 seconds=dict(clock.seconds))
+
+
+def review_witness(name, train, card=DEV):
+    """One epoch of NARRE's or HRDR's bench configuration on the CPU, on
+    draws made there (the order, the dropout masks), each step's loss and
+    gradients computed again on ``card`` from the CPU's parameters of that
+    step (the CPU's trajectory leads). A whole float32 epoch of these models
+    is no witness: a discrete event (a ReLU or a max-pool position switching
+    at a near-tie) carries one run of float32 rounding 1e-2 from the float64
+    epoch where another stays within 1e-5 (PERF.md), on the card or on
+    the CPU alike. Returns (steps, (the largest |card - CPU| over a step's
+    gradient of a tensor, over the larger of that tensor's largest |gradient|
+    and ``GRAD_FLOOR`` of the step's largest of all, the tensor's name), the
+    largest |card - CPU| over the steps' losses)."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.models.mf import _epoch_permutation
+    from cornac_tpu_torch.ops.optim import adam, apply_updates
+
+    model = make_model(models, name, 123)
+    model.trainable = False
+    model.fit(train)  # the train statistics
+    model._vocab = train.review_text.vocab
+    gen = torch.Generator().manual_seed(123)
+    rid, cid, rat = train.uir_tuple
+    n, bsz = len(rid), min(model.batch_size, len(rid))
+    order = _epoch_permutation(n + (-n) % bsz, gen) % n
+    params = {k: torch.tensor(np.asarray(a), requires_grad=True)
+              for k, a in model._init_all(np.random.RandomState(123), model._vocab.size).items()}
+    data = {dev: (torch.as_tensor(rid.astype(np.int64), device=dev),
+                  torch.as_tensor(cid.astype(np.int64), device=dev),
+                  torch.as_tensor(rat.astype(np.float32), device=dev)) for dev in ("cpu", card)}
+    packs = {"cpu": model._tensors(train, "cpu")}
+    packs[card] = {k: v.to(card) for k, v in packs["cpu"].items()}
+    opt = adam(model.learning_rate)
+    state = opt.init(params)
+    worst, loss_err = (0.0, None), 0.0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # beside phase 16's host-bound steps
+    try:
+        for s in range(0, order.shape[0], bsz):
+            masks = model.draws(gen, bsz)
+            grads = {}
+            for dev in ("cpu", card):
+                p = params if dev == "cpu" else {k: v.detach().to(card).requires_grad_(True)
+                                                 for k, v in params.items()}
+                users, items, values = (a[order[s: s + bsz].to(dev)] for a in data[dev])
+                loss = model.loss_on(p, packs[dev], users, items, values,
+                                     tuple(m.to(dev) for m in masks))
+                grads[dev] = (float(loss), dict(zip(p, (g.cpu() for g in torch.autograd.grad(
+                    loss, list(p.values()), materialize_grads=True)))))
+            (cpu_loss, g_cpu), (card_loss, g_card) = grads["cpu"], grads[card]
+            loss_err = max(loss_err, abs(card_loss - cpu_loss))
+            scale = max(g.abs().max().item() for g in g_cpu.values())
+            for k, g in g_cpu.items():
+                err = ((g_card[k] - g).abs().max().item()
+                       / max(g.abs().max().item(), GRAD_FLOOR * scale))
+                if err > worst[0]:
+                    worst = (err, k)
+            updates, state = opt.update(g_cpu, state, params)
+            apply_updates(params, updates)
+    finally:
+        torch.set_num_threads(threads)
+    return order.shape[0] // bsz, worst, loss_err
+
+
+def text_witness(name, train, card=DEV):
+    """One epoch of CDL's or CDR's bench configuration on ``card``, on the
+    CPU and on the CPU in float64, from the same initial parameters and on
+    the same draws, all made on the CPU (the order, the corruption masks;
+    CDR's positives and negatives). The CPU's float32 epoch's distance from
+    the float64 one is how far float32 rounding alone carries a parameter.
+    Returns (steps, the card's parameters, the CPU's, the CPU's float64
+    epoch's), each {name: float64 tensor on the CPU}."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.engine.nn import ACTIVATIONS
+    from cornac_tpu_torch.models import cdl as cdl_mod, cvae as cvae_mod
+    from cornac_tpu_torch.models.mf import _epoch_permutation
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.ops.optim import adam
+
+    model = make_model(models, name, 123)
+    model.trainable = False
+    model.fit(train)  # the train statistics (and CDL's and CDR's U and V)
+    gen = torch.Generator().manual_seed(123)
+    rid, cid, rat = train.uir_tuple
+    n = len(rid)
+
+    def out(params):
+        return {k: p.detach().cpu().double() for k, p in params.items()}
+
+    text = cdl_mod.minmax_text(train, model.num_items)
+    rng = np.random.RandomState(123)
+    init = {"U": model.U, "V": model.V, **model._initial(rng, text.shape[1])}
+    act = ACTIVATIONS[model.act_fn]
+    lambdas = (model.lambda_u, model.lambda_v, model.lambda_w, model.lambda_n)
+    keep = 1.0 - model.corruption_rate
+    if name == "CDL":
+        bsz = min(model.batch_size, model.num_items)
+        order = _epoch_permutation(model.num_items + (-model.num_items) % bsz,
+                                   gen) % model.num_items
+        R_t = np.asarray(train.csc_matrix.T.todense(), np.float32)
+        C_t = np.where(R_t != 0, model.a, model.b).astype(np.float32)
+    else:
+        bsz = min(model.batch_size, n)
+        draws = cvae_mod.cdr_draws(gen, n, -(-n // bsz) * bsz, model.num_items)
+        order = draws[0]
+    masks = [(torch.rand((bsz, text.shape[1]), generator=gen) < keep).to(torch.float32)
+             for _ in range(len(order) // bsz)]
+
+    def epoch(dev, dtype):
+        params = {k: torch.tensor(np.asarray(a), dtype=dtype, device=dev, requires_grad=True)
+                  for k, a in init.items()}
+        text_d = torch.as_tensor(text, dtype=dtype, device=dev)
+        steps = iter(masks)
+
+        def step_draws(shape):
+            return next(steps).to(dev, dtype)
+
+        if name == "CDL":
+            uv = {k: params.pop(k) for k in ("U", "V")}
+            opts = (adam(model.learning_rate), adam(model.learning_rate))
+            data = (text_d, torch.as_tensor(R_t, dtype=dtype, device=dev),
+                    torch.as_tensor(C_t, dtype=dtype, device=dev))
+            cdl_mod.cdl_epoch(uv, params, opts, (opts[0].init(uv), opts[1].init(params)),
+                              order.to(dev), data, step_draws, bsz, act, lambdas)
+            params.update(uv)
+        else:
+            opt = adam(model.learning_rate)
+            data = (text_d, torch.as_tensor(np.stack([rid, cid], 1).astype(np.int64),
+                                            device=dev),
+                    build_membership(train.csr_matrix, device=dev))
+            cvae_mod.cdr_epoch(params, opt, opt.init(params),
+                               tuple(d.to(dev) for d in draws), data, step_draws, bsz, act,
+                               lambdas)
+        return out(params)
+
+    steps = len(masks)
+    on_card = epoch(card, torch.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # beside phase 16's host-bound steps
+    try:
+        return steps, on_card, epoch("cpu", torch.float32), epoch("cpu", torch.float64)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def phase_text_bench(bench_data):
+    """Process 12j, spawned: the text and review models at the bench shape
+    (``make_ml100k_like(7)`` with ``seq_bench_data.text_modalities``: a
+    seeded document an item, a seeded review a rating), at
+    ``tools/bpr_quality_band.py``'s ``TEXT_CONFIGS``: each model's AUC and
+    NDCG@10 (NARRE's and HRDR's RMSE too) in the band of the JAX package's
+    CPU fits over ten seeds (``tools/quality_bands.py::TEXT_BANDS``);
+    ConvMF's, CTR's and HFT's tables held to the JAX fit's own (their first
+    rows and column sums, ``TEXT_FINGERPRINTS``, within
+    ``TEXT_FINGERPRINT_TOL``); a second seeded fit of each bit for bit,
+    whose accumulate_rows inputs are held to the plain version on the CPU;
+    one CDL and CDR epoch on the CPU's draws, on the card within twice the
+    CPU float32 epoch's distance from the float64 epoch (``text_witness``);
+    one NARRE and HRDR epoch on the CPU, each step's gradients computed again
+    on the card from the CPU's parameters, within ``REVIEW_GRAD_TOL`` of
+    each tensor's largest (``review_witness``). Returns (accumulate_rows
+    launches, fit seconds, max |err|)."""
+    import io
+
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import REVIEW_MODELS, TEXT_CONFIGS, make_model, text_split
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from quality_bands import TEXT_FINGERPRINT_TOL, TEXT_FINGERPRINTS, text_band
+
+    clock = Clock()
+    split = clock("RatioSplit(0.2, 4.0) with the item texts and the reviews", lambda: text_split(
+        pdata, peval, bench_data()))
+    base = [pmetrics.AUC(), pmetrics.NDCG(k=10), pmetrics.Recall(k=10)]
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results, fitted = {}, {}
+    for name in TEXT_CONFIGS:
+        model = make_model(models, name, 123)
+        metrics = base + ([pmetrics.RMSE()] if name in REVIEW_MODELS else [])
+        results[name] = clock(f"{name} evaluate", lambda: split.evaluate(
+            model, metrics, user_based=False)[0].metric_avg_results)
+        fitted[name] = model
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the text and review models at the bench shape")
+    if launches <= 0:
+        raise AssertionError("process 12j did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    outside, fit_s = [], {}
+    for name, res in results.items():
+        fit_s[name] = res["Train (s)"]
+        for metric in ("AUC", "NDCG@10") + (("RMSE",) if name in REVIEW_MODELS else ()):
+            lo, hi, _, _ = text_band(name, metric)
+            inside = lo <= res[metric] <= hi
+            log(f"  {name}: {metric} {res[metric]:.6f}, band [{lo:.6f}, {hi:.6f}] (10 JAX seeds) "
+                f"{'inside' if inside else 'OUTSIDE'}; fit {fit_s[name]:.3f} s (host clock)")
+            if not inside:
+                outside.append(f"{name} {metric}")
+    for name, tables in TEXT_FINGERPRINTS.items():
+        tol = TEXT_FINGERPRINT_TOL[name]
+        for table, want in tables.items():
+            got = np.asarray(getattr(fitted[name], table), np.float64)
+            rows = np.abs(got[:len(want["rows"])] - np.asarray(want["rows"])).max()
+            sums = np.abs(got.sum(axis=0) - np.asarray(want["colsum"])).max()
+            log(f"  {name}'s {table} against the JAX fit's: its first rows within {rows:.3e}, its "
+                f"column sums within {sums:.3e} (held to {tol['rows']:g} and {tol['colsum']:g})")
+            if not (rows <= tol["rows"] and sums <= tol["colsum"]):
+                raise AssertionError(f"{name}'s {table} differs from the JAX fit's")
+    acc_err, recorded = 0.0, 0
+    attrs = {"NARRE": ("P", "Q"), "HRDR": ("P", "Q"), "ConvMF": ("U", "V", "theta"),
+             "HFT": ("gamma_u", "gamma_i", "beta_u", "beta_i")}
+    for name, model in fitted.items():
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store:
+            again = make_model(models, name, 123)
+            again.verbose = True
+            again.fit(split.train_set)
+        for attr in attrs.get(name, ("U", "V")):
+            if not same_bits(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr}")
+        for group in ("params", "sdae", "vae", "cnn"):
+            for key, p in getattr(model, group, {}).items():
+                if not torch.equal(p, getattr(again, group)[key]):
+                    raise AssertionError(f"{name}: two seeded fits differ in {key}")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    for name in ("NARRE", "HRDR"):
+        steps, (err, where), loss_err = clock(
+            f"{name}'s epoch on the CPU, each step's gradients on the card",
+            lambda: review_witness(name, split.train_set, DEV))
+        log(f"  {name}, one epoch ({steps} steps) on the CPU's draws, each step's loss and gradients "
+            f"computed again on the card from the CPU's parameters: the largest |card - CPU| of a "
+            f"tensor's gradient {err:.3e} of its largest |gradient| (or of {GRAD_FLOOR:g} of the "
+            f"step's largest, where more; {where}; held to {REVIEW_GRAD_TOL:g}), of the losses "
+            f"{loss_err:.3e}")
+        if not err <= REVIEW_GRAD_TOL:
+            raise AssertionError(f"{name}'s gradients on the card differ from the CPU's: {where} "
+                                 f"by {err:.3e} of its largest")
+    for name in ("CDL", "CDR"):
+        steps, card, cpu, exact = clock(f"{name}'s epoch on the CPU's draws",
+                                        lambda: text_witness(name, split.train_set, DEV))
+        to_cpu = max((card[k] - cpu[k]).abs().max().item() for k in cpu)
+        reach = max((cpu[k] - exact[k]).abs().max().item() for k in cpu)
+        off = max((card[k] - exact[k]).abs().max().item() for k in card)
+        tol = max(TEXT_WITNESS_TOL, 2 * reach)
+        log(f"  {name}, one epoch ({steps} steps) on the CPU's draws: max |card - float64 epoch| "
+            f"{off:.3e}, held to twice the CPU float32 epoch's own distance from it, {reach:.3e} "
+            f"(at least {TEXT_WITNESS_TOL:g}); max |card - CPU| {to_cpu:.3e}")
+        if not off <= tol:
+            raise AssertionError(f"{name}'s epoch on the card lies {off:.3e} from the float64 "
+                                 f"epoch, the CPU's float32 epoch {reach:.3e}")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+    log(f"  every model: two seeded fits identical, bit for bit; accumulate_rows on their own "
+        f"inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit (max "
+        f"|err| {acc_err:.3e}); accumulate_rows launches {launches}")
+    log(f"the text and review models at the bench shape: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
 # the families at the bench shape run in processes of their own, at once,
 # after the timed phases: their eager steps are bound by the host, one core
 # each
 NEURAL_GROUPS = (("GMF", "MLP"), ("NeuMF", "LightGCN", "NGCF"), ("VAECF", "RecVAE", "BiVAECF"))
 FAMILY_TIMEOUT = 900  # seconds a family's process may take
+# the bench-shape processes at once: eight workers on the card host's eight
+# cores beside phase 16's host-bound steps; the next-basket, modality and
+# VAECF processes end first and free theirs for the last three. Beside
+# eleven at once, phase 16 took 341-405 s on an H100's host; beside ten,
+# 285 s.
+BENCH_WORKERS = 8
 
 
 def run_captured(phase, triples, *args):
@@ -6065,10 +6935,11 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the serving slice runs. The ten bench-shape
-    # processes run beside phase 16 and are collected (their logs printed)
-    # before 16b: the module's docstring says why there
-    pool = multiprocessing.get_context("spawn").Pool(7 + len(NEURAL_GROUPS))
+    # makes the data while the serving slice runs. The eleven bench-shape
+    # processes run beside phase 16, BENCH_WORKERS at a time, and are
+    # collected (their logs printed) before 16b: the module's docstring says
+    # why there
+    pool = multiprocessing.get_context("spawn").Pool(BENCH_WORKERS)
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         launches, bpr, users = phase_slice(args.seed, work)
@@ -6086,12 +6957,14 @@ def main():
                   "phase_modality_bench", ()),
                  ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
                  ("the next-basket models", "phase_basket_bench", ()),
+                 # the three queued, the longest first
+                 ("the text and review models", "phase_text_bench", ()),
                  ("the generative next-item models", "phase_generative_bench", ()),
                  ("the side-information models", "phase_side_bench", ())]
         families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
                     for what, phase, extra in jobs]
         sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
-        lap("SASRec at Diginetica, beside the ten bench-shape processes")
+        lap("SASRec at Diginetica, beside the eleven bench-shape processes")
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -6122,6 +6995,12 @@ def main():
         lap("VBPR at Tradesy")
         cloth_launches, cloth_fused, cloth = phase_clothing(args.seed)
         lap("the Clothing models")
+        cite_launches, cite_fused, cite = phase_citeulike(args.seed)
+        lap("the CiteULike models")
+        music_launches, music_fused, music = phase_review_music(args.seed)
+        lap("NARRE and HRDR at Digital Music")
+        plot_launches, plot_fused, plots = phase_plots(bench_data.get, args.seed)
+        lap("ConvMF and HFT on ML-100K plots")
         bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
         full_launches, full_fused, full = phase_trainer_full(args.seed)
@@ -6166,6 +7045,7 @@ def main():
     nbb_launches, nbb_fit, nbb_acc_err = done[4 + len(NEURAL_GROUPS)]
     genb_launches, genb_fit, genb_acc_err = done[5 + len(NEURAL_GROUPS)]
     sideb_launches, sideb_fit, sideb_acc_err = done[6 + len(NEURAL_GROUPS)]
+    textb_launches, textb_fit, textb_acc_err = done[7 + len(NEURAL_GROUPS)]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -6175,7 +7055,8 @@ def main():
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
         "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
                      + hpf_fused + rest_fused + sbpr_fused + c2pf_fused + side_fused
-                     + vbpr_fused + cloth_fused + probe_launches["fused_topk"]),
+                     + vbpr_fused + cloth_fused + cite_fused + music_fused + plot_fused
+                     + probe_launches["fused_topk"]),
         "max_abs_err": max_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -6218,7 +7099,7 @@ def main():
                       hpf["max_abs_err"], rest_acc_err, sbpr["max_abs_err"],
                       c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err,
                       basket["max_abs_err"], nbb_acc_err, genb_acc_err, tiger["max_abs_err"],
-                      sideb_acc_err,
+                      sideb_acc_err, music["max_abs_err"], plots["max_abs_err"], textb_acc_err,
                       *(st["max_abs_err"] for st in transformer.values()))
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
@@ -6239,7 +7120,10 @@ def main():
                   "VBPR, Tradesy, item-factor gradient (positives + negatives)",
                   "SoRec, Epinions, U update (trust stream)",
                   "MCF, Amazon Office, V update (item-graph stream)",
-                  "DMRL, Amazon Clothing, item-embedding gradient"):
+                  "DMRL, Amazon Clothing, item-embedding gradient",
+                  "NARRE, Digital Music, word-table gradient (empty slots dropped)",
+                  "NARRE, Digital Music, word-table gradient (empty slots into row 0)",
+                  "ConvMF, ML-100K plots, embedding gradient"):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -6252,7 +7136,8 @@ def main():
                          + c2pf_launches + modal_launches + sasrec_launches + seqb_launches
                          + basket_launches + nbb_launches + tr_launches + tiger_launches
                          + genb_launches + side_launches + vbpr_launches + cloth_launches
-                         + sideb_launches),
+                         + sideb_launches + cite_launches + music_launches + plot_launches
+                         + textb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -6323,8 +7208,8 @@ def main():
                 f"{k} {v:.4f}" for k, v in st["metrics"].items())
             + f" in {st['eval_s']:.3f} s")
     log(f"TIGER at ML-100K: the RQ-VAE {tiger['rq_s']:.3f} s ({tiger['restarts']} dead codes "
-        f"restarted, collision level {tiger['collisions']}), {tiger['epoch_s']:.3f} s per seq2seq "
-        f"epoch, {tiger['step_ms']:.3f} ms a step against a {tiger['step_bound_ms']:.4f} ms bound "
+        f"restarted, collision level {tiger['collisions']}), {tiger['epoch_s']:.3f} s the first "
+        f"seq2seq epoch, {tiger['step_ms']:.3f} ms a step after {TIGER_TIMED_FROM} against a {tiger['step_bound_ms']:.4f} ms bound "
         f"({tiger['bound_by']}), busy "
         + ("not measured" if tiger["share"] is None else f"{100 * tiger['share']:.2f}%")
         + f", {tiger['launches_per_minibatch']:.1f} device events a step, peak "
@@ -6349,6 +7234,21 @@ def main():
         f"{name} {res['Train (s)']:.3f}" for name, res in cloth["results"].items()))
     log("the side-information models at the bench shape, fit seconds (host clock): " + ", ".join(
         f"{name} {sec:.3f}" for name, sec in sideb_fit.items()))
+    for name, st in music["stats"].items():
+        log(f"{name} at Digital Music: {st['epoch_s']:.3f} s an epoch, {st['step_ms']:.3f} ms a "
+            f"step against a {st['bound_ms']:.4f} ms bound ({st['bound_by']}), busy "
+            + ("not measured" if st["profile"]["share"] is None
+               else f"{100 * st['profile']['share']:.2f}%")
+            + f", {st['profile']['events']:.1f} device events a step, peak "
+            f"{st['peak'] / 2**30:.3f} GiB; MAE {st['errors'][0]:.4f}, RMSE {st['errors'][1]:.4f}, "
+            f"NDCG@10 {st['ndcg']:.4f}")
+    log("the CiteULike models: " + "; ".join(
+        f"{name} fit {st['fit_s']:.3f} s, NDCG@100 {st['quality'][0]:.4f}, Recall@300 "
+        f"{st['quality'][1]:.4f}" for name, st in cite["stats"].items()))
+    log("ConvMF and HFT on ML-100K plots, fit seconds (host clock): " + ", ".join(
+        f"{name} {res['Train (s)']:.3f}" for name, res in plots["results"].items()))
+    log("the text and review models at the bench shape, fit seconds (host clock): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in textb_fit.items()))
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

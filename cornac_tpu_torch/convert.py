@@ -18,6 +18,10 @@ from .models.beacon import Beacon
 from .models.bpr import BPR, WBPR
 from .models.c2pf import C2PF
 from .models.causalrec import CausalRec
+from .models.cdl import CDL
+from .models.convmf import ConvMF
+from .models.ctr import CTR
+from .models.cvae import CDR, CVAE
 from .models.cvaecf import CVAECF
 from .models.dmrl import DMRL
 from .models.dnntsp import DNNTSP
@@ -26,14 +30,18 @@ from .models.fm import FM
 from .models.fpmc import FPMC
 from .models.gcmc import GCMC
 from .models.gru4rec import GRU4Rec
+from .models.hft import HFT
 from .models.hpf import HPF
+from .models.hrdr import HRDR
 from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
 from .models.mcf import MCF
 from .models.mf import MF
+from .models.narre import NARRE
 from .models.nmf import NMF
 from .models.pcrl import PCRL
 from .models.pmf import PMF
+from .models.review_utils import flatten
 from .models.sansa import SANSA
 from .models.sasrec import SASRec
 from .models.sbpr import SBPR
@@ -294,6 +302,23 @@ _SIDE_MODELS = {
     "PCRL": (PCRL, ("k", "z_dims")),
 }
 _PARAM_MODELS.update(_SIDE_MODELS)
+# the text and review models: class name -> (class, the options it is built
+# with); ``params`` are NARRE's and HRDR's JAX ``params`` pytrees, CDL's,
+# CDR's, CVAE's and CTR's U and V, ConvMF's U, V, theta and its ``cnn``
+# pytree, HFT's alpha, beta_u, beta_i, gamma_u and gamma_i
+_REVIEW_OPTIONS = ("embedding_size", "id_embedding_size", "n_factors", "attention_size",
+                   "kernel_sizes", "n_filters", "max_text_length", "max_num_review")
+_TEXT_MODELS = {
+    "NARRE": (NARRE, _REVIEW_OPTIONS),
+    "HRDR": (HRDR, _REVIEW_OPTIONS + ("n_user_mlp_factors", "n_item_mlp_factors")),
+    "CDL": (CDL, ("k",)),
+    "CDR": (CDR, ("k",)),
+    "CVAE": (CVAE, ("z_dim",)),
+    "CTR": (CTR, ("k",)),
+    "ConvMF": (ConvMF, ("k", "filter_sizes")),
+    "HFT": (HFT, ("k",)),
+}
+_PARAM_MODELS.update(_TEXT_MODELS)
 # what a model scores with besides its parameters and options: Beacon's
 # correlation matrix (scipy sparse), DNNTSP's padded graph sizes (the JAX
 # model's ``_train_N`` and ``_train_T``), TIGER's host tables (``rqvae_params``
@@ -339,21 +364,33 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     ``U``, ``V``, ``P``, ``E`` (VMF; ``k``, ``d``); DMRL's ``params`` pytree
     (``embedding_dim``, ``num_factors``, ``num_neg``); ``G_s``, ``G_r``,
     ``L_s``, ``L_r`` (PCRL, which scores with them alone; ``k``,
-    ``z_dims``). CVAECF, GCMC, VBPR, AMR, CausalRec, VMF and DMRL also need
+    ``z_dims``). The text and review models take NARRE's and HRDR's JAX
+    ``params`` pytrees (options ``embedding_size``, ``id_embedding_size``,
+    ``n_factors``, ``attention_size``, ``kernel_sizes``, ``n_filters``,
+    ``max_text_length``, ``max_num_review``; HRDR also
+    ``n_user_mlp_factors``, ``n_item_mlp_factors``), ``U`` and ``V`` (CDL,
+    CDR, CTR: ``k``; CVAE: ``z_dim``), ``U``, ``V``, ``theta`` and the
+    ``cnn`` pytree (ConvMF: ``k``, ``filter_sizes``), ``alpha``,
+    ``beta_u``, ``beta_i``, ``gamma_u``, ``gamma_i`` (HFT: ``k``). CVAECF,
+    GCMC, VBPR, AMR, CausalRec, VMF, DMRL, NARRE and HRDR also need
     ``train_set``, the port dataset the model was fitted on (CVAECF's rating
     and social rows, GCMC's rating graph, whose node features are computed
-    here, the others' item features). It scores as the model it was read from.
+    here, the visual models' item features, the review models' reviews,
+    over which their towers collapse). It scores as the model it was read
+    from.
     ``device``: where the model scores (default: the card)."""
     if cls_name not in _PARAM_MODELS:
         raise ValueError(f"cls_name must be one of {sorted(_PARAM_MODELS)}, got {cls_name!r}")
     cls, options = _PARAM_MODELS[cls_name]
     extras = _PARAM_EXTRAS.get(cls_name, ())
     _require(meta, options + extras + _SNAPSHOT)
-    if cls_name in ("CVAECF", "GCMC", "VBPR", "AMR", "CausalRec", "VMF", "DMRL") \
-            and train_set is None:
+    if cls_name in ("CVAECF", "GCMC", "VBPR", "AMR", "CausalRec", "VMF", "DMRL", "NARRE",
+                    "HRDR") and train_set is None:
         raise ValueError(f"{cls_name} needs the train_set it was fitted on")
     if cls_name in _SIDE_MODELS:
         return _side_model(cls_name, params, meta, device, train_set)
+    if cls_name in _TEXT_MODELS:
+        return _text_model(cls_name, params, meta, device, train_set)
     model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
     _snapshot(model, meta)
     dev = resolve_device(device)
@@ -433,6 +470,37 @@ def _side_model(cls_name, params, meta, device, train_set):
     else:  # PCRL, whose constructor took G_s, G_r, L_s, L_r
         model.Theta = model.Gs / np.maximum(model.Gr, 1e-10)
         model.Beta = model.Ls / np.maximum(model.Lr, 1e-10)
+    model.train_set = train_set
+    model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def _text_model(cls_name, params, meta, device, train_set):
+    """``model_from_params`` for the text and review models. NARRE and HRDR
+    collapse their towers over ``train_set``'s reviews into the factor
+    tables as their fit does (HRDR with the population statistics of its
+    batch normalisation, kept in ``bn_stats``)."""
+    cls, options = _TEXT_MODELS[cls_name]
+    kwargs = {name: meta[name] for name in options}
+    if cls_name == "HFT":
+        kwargs["init_params"] = {n: np.asarray(params[n], np.float64) if n != "alpha"
+                                 else float(params[n]) for n in (
+                                     "alpha", "beta_u", "beta_i", "gamma_u", "gamma_i")}
+    model = cls(trainable=False, verbose=False, device=device, **kwargs)
+    _snapshot(model, meta)
+    dev = resolve_device(device)
+    if cls_name in ("NARRE", "HRDR"):
+        model.params = {n: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                        for n, a in flatten(params).items()}
+        model._cache_factors(model._tensors(train_set, dev))
+    elif cls_name == "ConvMF":
+        model.U, model.V = (np.asarray(params[n], np.float32) for n in ("U", "V"))
+        model.theta = np.asarray(params["theta"], np.float32)
+        model.cnn = {n: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                     for n, a in flatten(params["cnn"]).items()}
+    elif cls_name != "HFT":
+        model.U, model.V = (np.asarray(params[n]) for n in ("U", "V"))
     model.train_set = train_set
     model.val_set = None
     model.is_fitted = True

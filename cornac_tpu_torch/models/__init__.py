@@ -16,6 +16,10 @@ from .bivaecf import BiVAECF
 from .bpr import BPR, WBPR
 from .causalrec import CausalRec
 from .c2pf import C2PF
+from .cdl import CDL
+from .convmf import ConvMF
+from .ctr import CTR
+from .cvae import CDR, CVAE
 from .cvaecf import CVAECF
 from .dmrl import DMRL
 from .dnntsp import DNNTSP
@@ -24,13 +28,16 @@ from .fpmc import FPMC
 from .gcmc import GCMC
 from .gru4rec import GRU4Rec
 from .fm import FM
+from .hft import HFT
 from .hpf import HPF
+from .hrdr import HRDR
 from .ibpr import COE, IBPR, OnlineIBPR
 from .knn import ItemKNN, UserKNN
 from .lightgcn import NGCF, LightGCN
 from .mcf import MCF
 from .mf import MF, SVD
 from .mmmf import MMMF
+from .narre import NARRE
 from .ncf import GMF, MLP, NCFBase, NeuMF
 from .nmf import NMF
 from .pcrl import PCRL
@@ -67,7 +74,12 @@ __all__ = [
     "BPR",
     "C2PF",
     "CausalRec",
+    "CDL",
+    "CDR",
     "COE",
+    "ConvMF",
+    "CTR",
+    "CVAE",
     "CVAECF",
     "DMRL",
     "DNNTSP",
@@ -80,7 +92,9 @@ __all__ = [
     "GMF",
     "GPTop",
     "GRU4Rec",
+    "HFT",
     "HPF",
+    "HRDR",
     "IBPR",
     "is_ann_supported",
     "ItemKNN",
@@ -93,6 +107,7 @@ __all__ = [
     "MLP",
     "MMMF",
     "MostPop",
+    "NARRE",
     "NCFBase",
     "NeuMF",
     "NextBasketRecommender",

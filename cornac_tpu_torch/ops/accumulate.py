@@ -163,11 +163,23 @@ class AccumulateRowsKernel:
 ACCUMULATE_ROWS = AccumulateRowsKernel()
 
 
+def ids_in_table(table, ids, updates):
+    """The ids in [0, R) of ``table`` and their updates: the ones the
+    kernel sums, the others being dropped (and refused by ``index_add_``)."""
+    inside = (ids >= 0) & (ids < table.shape[0])
+    if bool(inside.all()):
+        return ids, updates
+    return ids[inside], updates[inside]
+
+
 def accumulate_rows_torch(table, ids, updates):
     """Plain version: a stable sort of ``ids``, one sum per run of equal ids
     in batch order (``index_add_`` into zeros), then one add per table row.
     On the CPU ``index_add_`` is sequential, so these are the kernel's sums;
-    on the card it is not, and the result agrees only to float32 rounding."""
+    on the card it is not, and the result agrees only to float32 rounding.
+    Ids outside [0, R) are dropped, as the kernel drops them (on the card,
+    where it is only the kernel's reference, that check waits for it)."""
+    ids, updates = ids_in_table(table, ids, updates)
     ids_sorted, order = torch.sort(ids, stable=True)
     rows, run = torch.unique_consecutive(ids_sorted, return_inverse=True)
     sums = updates.new_zeros((rows.shape[0],) + updates.shape[1:])
@@ -203,8 +215,8 @@ class _GatherRows(torch.autograd.Function):
     every run (autograd's own backward of a gather is atomic on the card)."""
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, table, ids, grad_ids):
+        ctx.save_for_backward(ids if grad_ids is None else grad_ids)
         ctx.table_shape = table.shape
         return table[ids]
 
@@ -212,11 +224,14 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         table_grad = grad.new_zeros(ctx.table_shape)
-        return accumulate_rows(table_grad, ids, grad.contiguous()), None
+        return accumulate_rows(table_grad, ids, grad.contiguous()), None, None
 
 
-def gather_rows(table, ids):
+def gather_rows(table, ids, grad_ids=None):
     """``table[ids]`` for the trainers' autodiff losses: ids (B,) int64 into
     the first dimension of a float32 table; the gradient with respect to
-    ``table`` is summed deterministically (``accumulate_rows``)."""
-    return _GatherRows.apply(table, ids)
+    ``table`` is summed deterministically (``accumulate_rows``).
+    ``grad_ids`` (B,), when given, are the rows the gradient goes to
+    instead: a caller whose gathered rows have an exactly zero gradient may
+    send them outside [0, R), where ``accumulate_rows`` drops them."""
+    return _GatherRows.apply(table, ids, grad_ids)

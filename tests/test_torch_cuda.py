@@ -23,6 +23,7 @@ from cornac_tpu_torch.models import FPMC, GCMC, GRU4Rec, SASRec
 from cornac_tpu_torch.models import DNNTSP, TIFUKNN, UPCF, Beacon
 from cornac_tpu_torch.models import TIGER, BERT4Rec, TransformerRec
 from cornac_tpu_torch.models import AMR, DMRL, MCF, PCRL, VBPR, VMF, CausalRec, SoRec
+from cornac_tpu_torch.models import CDL, CDR, CVAE, HRDR, NARRE, ConvMF
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -1303,4 +1304,123 @@ def test_side_model_epochs_never_sync_with_the_host(card):
     assert torch.isfinite(stream)
     for t in (U, V, *vbpr_p.values(), *causal_p.values(), *vmf_p.values(), *dmrl_p.values(),
               *pcrl_p.values(), *out):
+        assert torch.isfinite(t).all()
+
+
+def _text_split():
+    """A small seeded RatioSplit of star ratings with a seeded item corpus
+    and a seeded review a rating."""
+    from cornac_tpu_torch.data import ReviewModality, TextModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(10)
+    pairs = {(int(u), int(i)) for u, i in zip(rng.randint(150, size=3000),
+                                               rng.randint(200, size=3000))}
+    data = [(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in sorted(pairs)]
+    items = [f"i{i}" for i in range(200)]
+    words = [f"w{chr(97 + k % 26)}{chr(97 + k // 26)}" for k in range(60)]
+    docs = [" ".join(rng.choice(words, size=rng.randint(4, 20))) for _ in items]
+    reviews = [(u, i, " ".join(rng.choice(words, size=rng.randint(3, 15)))) for u, i, _ in data]
+    return RatioSplit(data=data, test_size=0.2, rating_threshold=3.0, seed=1,
+                      exclude_unknowns=True, verbose=False,
+                      item_text=TextModality(corpus=docs, ids=items, max_vocab=50),
+                      review_text=ReviewModality(data=reviews, max_vocab=50)).train_set
+
+
+_REVIEW_KW = dict(embedding_size=8, id_embedding_size=4, n_factors=4, attention_size=4,
+                  n_filters=4, max_text_length=10, max_num_review=12, batch_size=64, max_iter=2)
+_TEXT = [
+    (lambda **kw: NARRE(**_REVIEW_KW, **{"verbose": False, **kw}), ("P", "Q")),
+    (lambda **kw: HRDR(n_user_mlp_factors=8, n_item_mlp_factors=8, **_REVIEW_KW,
+                       **{"verbose": False, **kw}), ("P", "Q")),
+    (lambda **kw: CDL(k=4, autoencoder_structure=[6], batch_size=32, max_iter=2,
+                      **{"verbose": False, **kw}), ("U", "V")),
+    (lambda **kw: CDR(k=4, autoencoder_structure=[6], batch_size=64, max_iter=2,
+                      **{"verbose": False, **kw}), ("U", "V")),
+    (lambda **kw: CVAE(z_dim=4, vae_layers=(8, 6), batch_size=32, n_epochs=2,
+                       **{"verbose": False, **kw}), ("U", "V")),
+    (lambda **kw: ConvMF(k=4, n_epochs=2, cnn_epochs=1, cnn_bs=32, emb_dim=6, max_len=12,
+                         filter_sizes=(2, 3), num_filters=3, hidden_dim=5,
+                         **{"verbose": False, **kw}), ("U", "V", "theta")),
+]
+
+
+@pytest.mark.parametrize("make,attrs", _TEXT)
+def test_text_models_seeded_fits_on_the_card_are_identical(card, make, attrs):
+    train = _text_split()
+    before = ACCUMULATE_ROWS.launches
+    a = make(seed=3).fit(train)
+    assert ACCUMULATE_ROWS.launches > before or isinstance(a, CVAE)  # CVAE gathers no table
+    b = make(seed=3, verbose=True).fit(train)
+    for attr in attrs:
+        assert np.array_equal(getattr(a, attr), getattr(b, attr)), attr
+    for name in ("params", "sdae", "vae", "cnn"):
+        for key, p in getattr(a, name, {}).items():
+            assert torch.equal(p, getattr(b, name)[key]), key
+
+
+def test_text_model_epochs_never_sync_with_the_host(card):
+    """NARRE's, HRDR's, CDL's and CDR's epochs never wait for the host. CTR
+    and HFT are not held to it: CTR's LDA step is a host loop that reads V
+    once an iteration, and HFT's fit is host numpy and scipy, both as the
+    JAX package designs them."""
+    from cornac_tpu_torch.engine.nn import ACTIVATIONS
+    from cornac_tpu_torch.models import cdl as cdl_mod, cvae as cvae_mod
+    from cornac_tpu_torch.models.mf import _epoch_permutation
+    from cornac_tpu_torch.ops.membership import build_membership
+    from cornac_tpu_torch.ops.optim import adam
+    from cornac_tpu_torch.utils.checkpoint import epoch_generator
+
+    train = _text_split()
+    rid, cid, rat = train.uir_tuple
+    n = len(rid)
+    data = (torch.as_tensor(rid.astype(np.int64), device=card),
+            torch.as_tensor(cid.astype(np.int64), device=card),
+            torch.as_tensor(rat.astype(np.float32), device=card))
+    review = []
+    for make, _ in _TEXT[:2]:
+        model = make(seed=3, trainable=False).fit(train)
+        model._vocab = train.review_text.vocab
+        params = {k: torch.tensor(np.asarray(a, np.float32), device=card, requires_grad=True)
+                  for k, a in model._init_all(np.random.RandomState(3), model._vocab.size).items()}
+        review.append((model, params, model._tensors(train, card)))
+    cdl = CDL(k=4, autoencoder_structure=[6], seed=3, trainable=False).fit(train)
+    text = torch.as_tensor(cdl_mod.minmax_text(train, cdl.num_items), device=card)
+    rng = np.random.RandomState(3)
+    sdae = {k: torch.tensor(a, device=card, requires_grad=True)
+            for k, a in cdl._initial(rng, text.shape[1]).items()}
+    uv = {k: torch.rand(rows, 4, device=card, requires_grad=True)
+          for k, rows in (("U", cdl.num_users), ("V", cdl.num_items))}
+    R_t = np.asarray(train.csc_matrix.T.todense(), np.float32)
+    cdl_data = (text, torch.as_tensor(R_t, device=card),
+                torch.as_tensor(np.where(R_t != 0, 1.0, 0.01).astype(np.float32), device=card))
+    cdr = CDR(k=4, autoencoder_structure=[6], seed=3, trainable=False).fit(train)
+    cdr_p = {k: torch.tensor(np.asarray(a, np.float32), device=card, requires_grad=True)
+             for k, a in {"U": cdr.U, "V": cdr.V, **cdr._initial(rng, text.shape[1])}.items()}
+    cdr_data = (text, torch.as_tensor(np.stack([rid, cid], 1).astype(np.int64), device=card),
+                build_membership(train.csr_matrix, device=card))
+    act = ACTIVATIONS["relu"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen = epoch_generator(3, 0, card)
+        order = _epoch_permutation(n + (-n) % 64, gen) % n
+        for model, params, t in review:
+            opt = adam(0.001)
+            _, loss = model.epoch(params, opt, opt.init(params), t, order, data,
+                                  lambda B, m=model: m.draws(gen, B), 64)
+        opts = (adam(0.01), adam(0.01))
+        items = _epoch_permutation(cdl.num_items + (-cdl.num_items) % 32, gen) % cdl.num_items
+        cdl_mod.cdl_epoch(uv, sdae, opts, (opts[0].init(uv), opts[1].init(sdae)), items,
+                          cdl_data, cdl_mod.keep_mask_draws(gen, 0.7), 32, act,
+                          (0.1, 10.0, 0.1, 1000.0))
+        opt = adam(0.001)
+        cvae_mod.cdr_epoch(cdr_p, opt, opt.init(cdr_p),
+                           cvae_mod.cdr_draws(gen, n, n + (-n) % 64, cdr.num_items), cdr_data,
+                           cdl_mod.keep_mask_draws(gen, 0.7), 64, act, (0.01, 0.1, 1e-4, 5.0))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss)
+    for t in (*review[0][1].values(), *review[1][1].values(), *uv.values(), *sdae.values(),
+              *cdr_p.values()):
         assert torch.isfinite(t).all()

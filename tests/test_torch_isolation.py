@@ -83,7 +83,8 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "models.basket", "models.beacon", "models.dnntsp",
                  "eval_methods.next_basket_evaluation", "ops.rmsprop", "models.sorec",
                  "models.mcf", "models.vbpr", "models.causalrec", "models.vmf", "models.dmrl",
-                 "models.pcrl"):
+                 "models.pcrl", "models.review_utils", "models.narre", "models.hrdr",
+                 "models.cdl", "models.cvae", "models.convmf", "models.ctr", "models.hft"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 

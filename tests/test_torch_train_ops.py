@@ -26,7 +26,7 @@ from cornac_tpu.ops.accumulate import accumulate_rows as j_accumulate_rows
 from cornac_tpu.ops.membership import build_membership as j_build_membership
 from cornac_tpu.utils.init_utils import normal as j_normal
 from cornac_tpu_torch.models import BPR, MF
-from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch
+from cornac_tpu_torch.ops.accumulate import accumulate_rows, accumulate_rows_torch, ids_in_table
 from cornac_tpu_torch.ops.dense_scores import device_broadcast_row
 from cornac_tpu_torch.ops.membership import build_membership
 from cornac_tpu_torch.utils.checkpoint import epoch_generator, epoch_loop
@@ -80,6 +80,24 @@ def test_accumulate_rows_sums_each_run_in_batch_order(d):
     out = accumulate_rows_torch(t, torch.from_numpy(ids), torch.from_numpy(updates))
     assert out is t  # in place
     np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_accumulate_rows_drops_ids_outside_the_table():
+    # as the kernel does: ids below 0 or past R add nothing, the others
+    # give the bits of the in-range batch alone
+    table, ids, updates = _accumulate_case(70, 900, 33, seed=5)
+    outside = ids.copy()
+    outside[::3] = np.where(np.arange(0, 900, 3) % 2, 70 + np.arange(0, 900, 3), -1)
+    kept, kept_updates = ids_in_table(torch.from_numpy(table), torch.from_numpy(outside),
+                                      torch.from_numpy(updates))
+    inside = (outside >= 0) & (outside < 70)
+    np.testing.assert_array_equal(kept.numpy(), outside[inside])
+    np.testing.assert_array_equal(kept_updates.numpy(), updates[inside])
+    want = accumulate_rows_torch(torch.from_numpy(table.copy()), torch.from_numpy(ids[inside]),
+                                 torch.from_numpy(updates[inside]))
+    got = accumulate_rows(torch.from_numpy(table.copy()), torch.from_numpy(outside),
+                          torch.from_numpy(updates))
+    assert torch.equal(got, want)
 
 
 def test_accumulate_rows_empty_batch_and_bad_force():

@@ -46,7 +46,11 @@ Recall@10, Recall@50 and HitRatio@10, and the side-information models of
 ``SIDE_CONFIGS`` (``SoRec``, ``MCF``, ``VBPR``, ``AMR``, ``CausalRec``,
 ``VMF``, ``DMRL``, ``PCRL``) on ``make_ml100k_like(7)`` with
 ``seq_bench_data.side_modalities`` (``side_split``) on AUC, NDCG@10 and
-Recall@10; their bands come from ten seeds, 123-132
+Recall@10, and the text and review models of ``TEXT_CONFIGS`` (``NARRE``,
+``HRDR``, ``CDL``, ``CDR``, ``CVAE``, ``ConvMF``, ``CTR``, ``HFT``) on
+``make_ml100k_like(7)`` with ``seq_bench_data.text_modalities``
+(``text_split``) on AUC, NDCG@10 and Recall@10 (NARRE and HRDR also on
+RMSE over the test ratings); their bands come from ten seeds, 123-132
 (five seeds misjudged GRU4Rec's MRR spread by a factor of two: 0.00054 over
 123-127, 0.00097 over 128-132). ``--package torch`` fits the port instead, on the CPU,
 to see where its fits fall. ``--bf16-products`` rounds both operands of
@@ -221,6 +225,46 @@ SIDE_CONFIGS = {
 }
 SIDE_METRICS = ("AUC", "NDCG@10", "Recall@10")
 
+# the text and review models on make_ml100k_like(7) with
+# seq_bench_data.text_modalities (a seeded document an item, a seeded
+# review a rating): name -> (class name, constructor arguments without the
+# seed). CDL at benchmarks/head_to_head_tf.py's configuration, NARRE and
+# HRDR at narrower widths than its (embeddings 16, 8 filters, 4 reviews of
+# 16 tokens) with larger minibatches, the others at their examples' settings
+# with narrower widths and fewer epochs, so that a fit takes seconds on the
+# card and an epoch of NARRE or HRDR on a CPU (the card witness's
+# reference, in float32 and float64) a few seconds too
+_REVIEW = dict(embedding_size=16, id_embedding_size=8, n_factors=8, attention_size=8,
+               n_filters=8, max_text_length=16, max_num_review=4, batch_size=512, max_iter=2,
+               verbose=False)
+TEXT_CONFIGS = {
+    "NARRE": ("NARRE", dict(_REVIEW)),
+    "HRDR": ("HRDR", dict(_REVIEW, n_user_mlp_factors=16, n_item_mlp_factors=16)),
+    "CDL": ("CDL", dict(k=32, autoencoder_structure=[64], act_fn="relu", lambda_u=0.1,
+                        lambda_v=10, lambda_w=0.1, lambda_n=1000, corruption_rate=0.3,
+                        learning_rate=0.001, batch_size=128, max_iter=30, verbose=False)),
+    "CDR": ("CDR", dict(k=32, autoencoder_structure=[64], batch_size=512, max_iter=5,
+                        verbose=False)),
+    "CVAE": ("CVAE", dict(z_dim=32, vae_layers=(64, 32), n_epochs=10, batch_size=128,
+                          verbose=False)),
+    "ConvMF": ("ConvMF", dict(k=32, n_epochs=5, cnn_epochs=2, emb_dim=32, max_len=64,
+                              num_filters=16, hidden_dim=32, verbose=False)),
+    "CTR": ("CTR", dict(k=20, max_iter=10, lambda_v=1, verbose=False)),
+    "HFT": ("HFT", dict(k=10, max_iter=10, grad_iter=5, lambda_text=0.01, verbose=False)),
+}
+REVIEW_MODELS = ("NARRE", "HRDR")  # rating models: banded on RMSE too
+TEXT_METRICS = ("AUC", "NDCG@10", "Recall@10")
+
+
+def text_split(data, eval_methods, triples):
+    """The text cell: ``RatioSplit(0.2, 4.0, seed=123)`` of ``triples`` with
+    ``seq_bench_data.text_modalities``."""
+    from seq_bench_data import text_modalities
+
+    return eval_methods.RatioSplit(data=triples, test_size=0.2, rating_threshold=4.0,
+                                   exclude_unknowns=True, seed=123, verbose=False,
+                                   **text_modalities(triples, data))
+
 
 def side_split(data, eval_methods, triples):
     """The side-information cell: ``RatioSplit(0.2, 4.0, seed=123)`` of
@@ -235,12 +279,18 @@ def side_split(data, eval_methods, triples):
 FINGERPRINT_ROWS = 8
 
 
-def fingerprint(model):
-    """A fit's tables U, V and Z (SoRec, MCF) as {name: {"rows": the first
-    ``FINGERPRINT_ROWS`` rows, "colsum": the column sums}}, plain lists."""
-    return {name: {"rows": np.asarray(getattr(model, name))[:FINGERPRINT_ROWS].tolist(),
-                   "colsum": np.asarray(getattr(model, name)).sum(axis=0).tolist()}
-            for name in ("U", "V", "Z")}
+# the tables of the fits held to the JAX fit's own
+FINGERPRINT_TABLES = {"SoRec": ("U", "V", "Z"), "MCF": ("U", "V", "Z"), "ConvMF": ("U", "V"),
+                      "CTR": ("U", "V"), "HFT": ("gamma_u", "gamma_i", "beta_u", "beta_i")}
+
+
+def fingerprint(model, name):
+    """A fit's tables (``FINGERPRINT_TABLES[name]``) as {table: {"rows":
+    the first ``FINGERPRINT_ROWS`` rows, "colsum": the column sums}}, plain
+    lists."""
+    return {table: {"rows": np.asarray(getattr(model, table))[:FINGERPRINT_ROWS].tolist(),
+                    "colsum": np.asarray(getattr(model, table)).sum(axis=0).tolist()}
+            for table in FINGERPRINT_TABLES[name]}
 
 
 @functools.lru_cache(maxsize=1)
@@ -370,9 +420,10 @@ def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
     table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, GENERATIVE_CONFIGS,
-                             AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS) if name in t)
+                             AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS) if name in t)
     cls, kwargs = table[name][:2]
-    seeded = True if table in (AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS) else table[name][2]
+    seeded = (True if table in (AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS)
+              else table[name][2])
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -382,15 +433,17 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
                         + sorted(SEQ_CONFIGS) + sorted(GENERATIVE_CONFIGS) + sorted(AUX_CONFIGS)
-                        + sorted(BASKET_CONFIGS) + sorted(SIDE_CONFIGS),
+                        + sorted(BASKET_CONFIGS) + sorted(SIDE_CONFIGS)
+                        + sorted(TEXT_CONFIGS),
                         default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=None,
                         help="default: 123-127; 123-132 for the next-item and next-basket "
                              "models, CVAECF and GCMC")
     parser.add_argument("--package", choices=("jax", "torch"), default="jax")
     parser.add_argument("--fingerprint", action="store_true",
-                        help="SoRec and MCF: print the first seed's fit's U, V and Z as their "
-                             "first FINGERPRINT_ROWS rows and column sums instead of a band")
+                        help="SoRec, MCF, ConvMF, CTR, HFT: print the first seed's fit's "
+                             "FINGERPRINT_TABLES as their first FINGERPRINT_ROWS rows and column "
+                             "sums instead of a band")
     parser.add_argument("--bf16-products", action="store_true",
                         help="JAX package only: every float32 matrix product in one bf16 pass")
     args = parser.parse_args()
@@ -399,7 +452,7 @@ def main():
 
     if args.seeds is None:
         wide = any(args.model in t for t in (SEQ_CONFIGS, GENERATIVE_CONFIGS, AUX_CONFIGS,
-                                             BASKET_CONFIGS, SIDE_CONFIGS))
+                                             BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS))
         args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
@@ -471,7 +524,7 @@ def main():
         split = side_split(data, eval_methods, bench.make_ml100k_like())
         if args.fingerprint:
             model = make_model(models, args.model, args.seeds[0]).fit(split.train_set)
-            summary.update(seed=args.seeds[0], fingerprint=fingerprint(model))
+            summary.update(seed=args.seeds[0], fingerprint=fingerprint(model, args.model))
             print(json.dumps(summary))
             return
         ranking_metrics = [metrics.AUC(), metrics.NDCG(k=10), metrics.Recall(k=10)]
@@ -486,6 +539,26 @@ def main():
             runs.append(dict(zip(SIDE_METRICS, map(float, values))))
             print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
         summary.update(seeds=args.seeds, **band_summary(runs, SIDE_METRICS))
+        print(json.dumps(summary))
+        return
+    if args.model in TEXT_CONFIGS:
+        split = text_split(data, eval_methods, bench.make_ml100k_like())
+        if args.fingerprint:
+            model = make_model(models, args.model, args.seeds[0]).fit(split.train_set)
+            summary.update(seed=args.seeds[0], fingerprint=fingerprint(model, args.model))
+            print(json.dumps(summary))
+            return
+        names = TEXT_METRICS + (("RMSE",) if args.model in REVIEW_MODELS else ())
+        text_metrics = [metrics.AUC(), metrics.NDCG(k=10), metrics.Recall(k=10)]
+        if args.model in REVIEW_MODELS:
+            text_metrics.append(metrics.RMSE())
+        runs = []
+        for seed in args.seeds:
+            result = split.evaluate(make_model(models, args.model, seed), text_metrics,
+                                    user_based=False)[0]
+            runs.append({name: float(result.metric_avg_results[name]) for name in names})
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=args.seeds, **band_summary(runs, names))
         print(json.dumps(summary))
         return
     if args.model in AUX_CONFIGS:

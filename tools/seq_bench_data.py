@@ -15,11 +15,17 @@ package.
   ``tfidf_like``: seeded TF-IDF-like rows (nonnegative, sparse,
   L2-normalised) standing in for the plot features of
   ``examples/tiger_example.py``, whose files are not in the repository.
+- ``text_corpus``: a copy of ``benchmarks/head_to_head_tf.py::text_corpus``
+  (a Zipf-like letter-only document of 50 words an item over a vocabulary
+  of 400), and ``text_modalities`` the bench shape's item texts and
+  per-rating reviews for the text and review models.
 - ``seeded_trust``: a user graph for ``make_ml100k_like(7)``'s users (the
   FilmTrust trust network that ``examples/cvaecf_filmtrust.py`` reads is not
   in the repository): each user trusts a few users, drawn with a bias toward
   users of similar taste so that the graph carries some signal.
 """
+
+import itertools
 
 import numpy as np
 
@@ -190,3 +196,31 @@ def side_modalities(triples, data):
         item_graph=data.GraphModality(data=sorted(graph.raw_data)),
         item_image=data.ImageModality(features=feats, ids=items),
         item_text=data.TextModality(features=tfidf_like(len(items)), ids=items))
+
+
+def text_corpus(n_items, seed=31):
+    """(documents, ids): a Zipf-like letter-only document of 50 words for
+    each item ``i0``.. (the tokenizers strip digits)."""
+    rng = np.random.RandomState(seed)
+    syll = ["ba", "ce", "di", "fo", "gu", "ka", "le", "mi", "no", "pu"]
+    vocab = np.array(["".join(w) for w in itertools.product(syll, syll, syll)][:400])
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    p /= p.sum()
+    return ([" ".join(rng.choice(vocab, size=50, p=p)) for _ in range(n_items)],
+            [f"i{i}" for i in range(n_items)])
+
+
+def text_modalities(triples, data, n_items=1682):
+    """The bench shape's text for the models of
+    ``bpr_quality_band.TEXT_CONFIGS``, built with a package's ``data``
+    module: ``text_corpus`` as the item texts (``TextModality``, 200 words
+    at most) and, as in ``benchmarks/head_to_head_tf.py``, each rating's
+    review the document of another seeded corpus that its item's number
+    picks (``ReviewModality``, 200 words at most)."""
+    docs, ids = text_corpus(n_items)
+    reviews, _ = text_corpus(n_items, seed=101)
+    return dict(
+        item_text=data.TextModality(corpus=docs, ids=ids, max_vocab=200),
+        review_text=data.ReviewModality(
+            data=[(u, i, reviews[int(i[1:]) % len(reviews)]) for u, i, _ in triples],
+            max_vocab=200))
