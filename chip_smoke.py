@@ -161,12 +161,12 @@ Phases, each of which fails the run when it fails:
    arrays timed on the host, the membership structure and its bytes
    printed; the first minibatch's five accumulate_rows inputs held bit for
    bit to the plain version on the CPU and timed beside ``index_add_``; two
-   seeded 2-epoch fits bit for bit; the 20-epoch fit (the example's 50, cut
-   for the run's time) timed (seconds per epoch, samples/s beside the byte
-   bound of a sample, device events per minibatch and the busy share of one
-   epoch, peak device memory); a fit with checkpoints every 10 epochs
-   stopped at 10 and resumed to 20, equal to the uninterrupted one bit for
-   bit; ranking_eval's AUC, NDCG@10 and Recall@10 over the first 4,096 test
+   seeded 2-epoch fits bit for bit; the 10-epoch fit (the example's 50, cut
+   for the run's time) timed (seconds per epoch, samples/s
+   beside the byte bound of a sample, device events per minibatch and the
+   busy share of one epoch, peak device memory); a fit with checkpoints
+   every 5 epochs stopped at 5 and resumed to 10, equal to the
+   uninterrupted one bit for bit; ranking_eval's AUC, NDCG@10 and Recall@10 over the first 4,096 test
    users (all of them while that takes 15 s or less; 26-30 s on the host,
    cut for the run's time); recommend_batch of 8,192 users at k = 100 through fused_topk
    (d = 11), every list held to the plain version;
@@ -194,18 +194,18 @@ Phases, each of which fails the run when it fails:
    982,961 clicks, 43,097 items, 60,858 test sessions, mean length 5.12,
    each session its own user), after the serving slice:
    ``NextItemEvaluation.from_splits(fmt="USIT", exclude_unknowns=True,
-   mode="last")``; fits of 1 and 2 epochs (the example's 10 cut to 2, to
-   keep the whole run inside its time limit) give seconds per epoch and
-   training sequences per second beside the bound of a step, the 2-epoch
-   fit's epoch-1 checkpoint equal to the
-   1-epoch fit bit for bit; the first step's three accumulate_rows inputs
-   held bit for bit to the plain version on the CPU and timed beside
-   ``index_add_``; peak device memory; the NextItemEvaluation metrics (MRR,
-   HitRatio@20, NDCG@20) and seconds; 64 histories' scores held to a
-   float64 scoring on the CPU; on the first 3,200 train sessions at the
-   same widths, one epoch profiled (device events a step, busy share) and
-   a fit stopped at epoch 1 and resumed to 2 held to the uninterrupted
-   one, bit for bit;
+   mode="last")``; a fit of 1 epoch (the example's 10 cut to 1, to keep
+   the whole run inside its time limit): ms a step from CUDA events over
+   its steady steps, the steady epoch and training sequences per second
+   from it, beside the bound of a step, its last 5 steps profiled (device
+   events a step, busy share); the first step's three accumulate_rows
+   inputs held bit for bit to the plain version on the CPU and timed
+   beside ``index_add_``; peak device memory; the NextItemEvaluation
+   metrics (MRR, HitRatio@20, NDCG@20) and seconds; 64 histories' scores
+   held to a float64 scoring on the CPU; on the first 3,200 train sessions
+   at the same widths, a 2-epoch fit's epoch-1 checkpoint equal to a
+   second seeded fit of 1 epoch, and that fit resumed to 2 held to the
+   uninterrupted one, bit for bit;
 16b. TransformerRec at the Diginetica widths (``examples/
    transformer_rec_diginetica.py``: BERT4Rec and a gpt2/clm TransformerRec,
    d = 64, 2 blocks of 2 heads, max_len 50, 128 sessions a step, the class
@@ -241,10 +241,11 @@ Phases, each of which fails the run when it fails:
    and GPTop (repetition and exploration breakdowns), TIFUKNN, UPCF, Beacon
    and DNNTSP at the ``examples/*_tafeng.py`` settings, each through
    ``evaluate`` (Recall@10, Recall@50, HitRatio@10; fit and evaluation
-   seconds, peak device memory); Beacon and DNNTSP fit 1 and 2 epochs (the
-   examples' 15 and 30 cut to 2): seconds per epoch, training sequences/s
-   beside the bound of a step, one epoch over the first 3,200 train users
-   profiled (device events a step, busy share); DNNTSP's first step's three
+   seconds, peak device memory); Beacon and DNNTSP fit 1 epoch (the
+   examples' 15 and 30 cut to 1): ms a step from CUDA events over the
+   steady steps, the steady epoch and training sequences/s from it beside
+   the bound of a step, the fit's last 5 steps profiled (device events a
+   step, busy share); DNNTSP's first step's three
    accumulate_rows inputs held bit for bit to the plain version on the CPU;
    8 histories' scores of each held to a float64 scoring of the same
    parameters; the family's host loops timed on their own;
@@ -308,7 +309,7 @@ Phases, each of which fails the run when it fails:
    to the plain version;
 18c. at Cornac's Amazon Clothing counts (5,377 users, 3,393 items, 13,689
    seeded star ratings, seeded 4,096-wide features and a seeded corpus),
-   in this process (short and host-bound, it would crowd the ten processes
+   in this process (short and host-bound, it would crowd the processes
    beside phase 16): AMR, CausalRec and VMF on RatioSplit(0.1, 0.5) with the
    image modality and DMRL on RatioSplit(0.2, 0.5) with the text (TF-IDF
    over the corpus' count matrix) and image modalities, each at its
@@ -358,7 +359,7 @@ Phases, each of which fails the run when it fails:
    on the CPU and timed; HFT serving its 943 train users through fused_topk,
    held to the plain version;
 12j. the text and review models at the bench shape, in an eleventh
-   spawned process (the first of the three that wait for a worker): NARRE, HRDR, CDL, CDR, CVAE, ConvMF, CTR and HFT on
+   spawned process (the first of the four that wait for a worker): NARRE, HRDR, CDL, CDR, CVAE, ConvMF, CTR and HFT on
    ``make_ml100k_like(7)`` with ``seq_bench_data.text_modalities`` (a seeded
    document an item, a seeded review a rating) at
    ``tools/bpr_quality_band.py``'s ``TEXT_CONFIGS``, each AUC and NDCG@10
@@ -371,7 +372,37 @@ Phases, each of which fails the run when it fails:
    NARRE and one HRDR epoch on the CPU with each step's gradients computed
    again on the card from the CPU's parameters, within 1e-4 of each tensor's
    largest (``review_witness``: a float32 epoch of these models is chaotic);
-20. times: each kernel, its plain version and library yardsticks
+20. the sentiment and explainable models at the Amazon Toys & Games 5-core
+   counts (19,412 users, 11,924 items, 167,597 seeded star ratings with
+   seeded timestamps, one to four seeded (aspect, opinion, polarity) tuples
+   each over an assumed lexicon of 200 aspects and 500 opinions), after
+   19c: the examples' split (RatioSplit(0.15), TriRank's 0.2) and settings
+   (``TOYS_MODELS``): EFM and ComparERObj at 40 explicit and 60 latent
+   factors for 100 and 10 iterations (the examples' 100), MTER, ComparERSub, LRPPM and Companion
+   at 500 iterations each (the examples' 10,000, 200,000, 20,000 and
+   500,000), TriRank's 100 power iterations, HypAR at its defaults for 12
+   steps (its epoch has some 1,113); every host build timed; ms an iteration (a step) by CUDA
+   events, device events a call and the busy share over 3 profiled (HypAR's
+   2); peak
+   device memory; NDCG@50 (and RMSE for the rating models) over the first
+   500 test users; the accumulate_rows inputs of HypAR's first step (its
+   first hyperedge scatters into the review rows and into the node rows)
+   and of Companion's first item-table update recorded from the fits and
+   held bit for bit to the plain version on the CPU (phase 21 times them);
+   the stemmer HypAR ran printed;
+12k. the sentiment and explainable models at the bench shape, in a twelfth
+   spawned process (the second queued): EFM, ComparERObj, MTER, ComparERSub,
+   LRPPM, Companion, TriRank and HypAR on ``make_ml100k_like(7)`` with
+   seeded timestamps and sentiment (``bpr_quality_band.sentiment_split``;
+   the ComparER models on its first 150 users) at ``SENTIMENT_CONFIGS``,
+   each AUC and NDCG@10 (RMSE for the rating models) in the band of the JAX
+   package's CPU fits over ten seeds (LRPPM's thirty), seeded refits bit for
+   bit with their accumulate_rows inputs held to the plain version; one
+   iteration of each sampled fit on the CPU's draws, its gradients on the
+   card held to the CPU's and its step to the CPU's step on the card's
+   gradients, and one HypAR step's gradients held to float64
+   (``sentiment_witness``);
+21. times: each kernel, its plain version and library yardsticks
    (``torch.matmul`` + ``torch.topk``; for the cosine also cuSPARSE
    products through ``torch.sparse``; for accumulate_rows ``index_add_``,
    atomic, and ``index_add_`` in PyTorch's deterministic mode, whose bits
@@ -392,27 +423,29 @@ Phases, each of which fails the run when it fails:
    SoRec's trust stream at Epinions, MCF's item-graph stream at Amazon
    Office, DMRL's item embeddings at Amazon Clothing, NARRE's word table
    with the empty review slots dropped and summed into the padding row at
-   the Digital Music widths, ConvMF's embeddings at the ML-100K plots'), on
-   the inputs phase 5 checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
+   the Digital Music widths, ConvMF's embeddings at the ML-100K plots',
+   and the inputs phase 20 recorded from HypAR's and Companion's fits at
+   the Amazon Toys counts), on
+   the inputs phase 5 (phase 20) checked; the canary at (128, 128) beside ``torch.mul`` and ``x *
    2``, each call split into its device time (the profiler's, and CUDA
    events around one call) and its host time, the canary's host time into
    its steps.
 
-Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i and 12j run in eleven
-spawned processes, eight at a time (the factor family, three groups of the neural
+Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i, 12j and 12k run in
+twelve spawned processes, eight at a time (the factor family, three groups of the neural
 family, the factor family's rest with the protocols, the modality layer's
 models with the checkpointed Experiment, the next-item models with CVAECF
 and GCMC, the next-basket models, the generative next-item models, the
-side-information models and the text and review models), at a lower CPU
-priority, beside phase 16, and are collected before 16b. This process runs
-8, 17, 16c, 16 (beside them), 16b, then 9-15b in the order 9, 10, 10b, 10c,
-15, 15b, then 18b, 18, 18c, 19, 19b, 19c, 11, 13, 14, 14b, then 20. The
-card time-slices
-between processes and they share the host's cores: phase 16's host-bound
-steps never wait on the card inside an epoch, so they lose to them only
-the host's share (its times carry that load), the card-bound phases and
-every other time run alone, and the eleven processes' own fit seconds and
-busy shares carry each other's load.
+side-information models, the text and review models and the sentiment
+models), at a lower CPU
+priority, beside phases 17, 16c and 16, and are collected before 16b. This
+process runs 8, then 17, 16c, 16 (beside them), 16b, then 9-15b in the order
+9, 10, 10b, 10c, 15, 15b, then 18b, 18, 18c, 19, 19b, 19c, 20, 11, 13, 14,
+14b, then 21. The card time-slices between processes and they share the
+host's cores: the times of phases 17, 16c and 16 carry that load (their
+host-bound steps lose the host's share, Beacon's card-bound steps the
+card's slices as well), every other time runs alone, and the twelve
+processes' own fit seconds and busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers (fused_topk once per batch size, B = 8192 first,
@@ -422,8 +455,9 @@ shapes each, SBPR's V update, C2PF's ratings into the item rows, SASRec's
 two embedding gradients, FPMC's item-table scatter, BERT4Rec's two
 gradients, TIGER's token table and RQ-VAE codebook, GCMC's two edge sums,
 VBPR's item-factor gradient, SoRec's trust stream, MCF's item-graph stream,
-DMRL's item embeddings, NARRE's word table both ways and ConvMF's
-embeddings),
+DMRL's item embeddings, NARRE's word table both ways, ConvMF's
+embeddings, HypAR's two hyperedge scatters and Companion's item-table
+update as their fits at Amazon Toys handed them to the kernel),
 and ``{"ok": true, "device": {...}}``. The
 script imports nothing of JAX or of the JAX package.
 """
@@ -470,6 +504,11 @@ OFFICE_USERS, OFFICE_ITEMS, OFFICE_RATINGS = 3_703, 6_523, 53_282
 TRADESY_USERS, TRADESY_ITEMS, TRADESY_FEEDBACK = 19_243, 165_906, 394_421
 CLOTHING_USERS, CLOTHING_ITEMS, CLOTHING_RATINGS = 5_377, 3_393, 13_689
 VISUAL_WIDTH = 4_096
+# the Amazon Toys & Games 5-core counts (McAuley et al., SIGIR 2015; the data
+# Cornac's amazon_toy loader reads) (phase 20), and the lexicon's size, an
+# assumption: the repository does not record it
+TOYS_USERS, TOYS_ITEMS, TOYS_RATINGS = 19_412, 11_924, 167_597
+TOYS_ASPECTS, TOYS_OPINIONS = 200, 500
 # Diginetica's counts as SR-GNN (Wu et al., AAAI 2019, Table 1) reports them
 # (phase 16): clicks, items, test sessions, mean session length
 DIGI_CLICKS, DIGI_ITEMS, DIGI_TEST, DIGI_MEAN_LEN = 982_961, 43_097, 60_858, 5.12
@@ -530,6 +569,17 @@ class Clock:
     def report(self, what):
         for name, sec in self.seconds.items():
             log(f"  {what}, host clock: {name}: {sec:.3f} s")
+
+
+@contextlib.contextmanager
+def swapped(owner, name, value):
+    """While open, ``owner.name`` is ``value``; the real one after."""
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
 
 
 def phase_kernel(gen):
@@ -3299,7 +3349,7 @@ def phase_accumulate_times(cases):
 # seeded, not the files
 # examples/sbpr_epinions.py's SBPR and examples/c2pf_example.py's C2PF
 SBPR_EPINIONS = dict(k=10, learning_rate=0.001, seed=123)
-SBPR_EPOCHS, SBPR_STOP = 20, 10  # the example's 50, cut for the run's time
+SBPR_EPOCHS, SBPR_STOP = 10, 5  # the example's 50 cut for the run's time (20, 10 before)
 C2PF_OFFICE = dict(k=100, variant="c2pf", seed=123)
 C2PF_ITERS = 80
 C2PF_RTOL, C2PF_ATOL = 1e-4, 1e-6
@@ -3513,9 +3563,11 @@ def phase_sbpr_epinions(seed, work):
     model = clock(f"SBPR.fit, {SBPR_EPOCHS} epochs", lambda: fit(SBPR_EPOCHS))
     peak = torch.cuda.max_memory_allocated() - held
     clock(f"SBPR.fit, checkpointed, stopped at epoch {SBPR_STOP}", lambda: SBPR(
-        max_iter=SBPR_STOP, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=10).fit(train))
+        max_iter=SBPR_STOP, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=SBPR_STOP
+                                                                   ).fit(train))
     resumed = clock(f"SBPR.fit, resumed to epoch {SBPR_EPOCHS}", lambda: SBPR(
-        max_iter=SBPR_EPOCHS, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=10).fit(train))
+        max_iter=SBPR_EPOCHS, **SBPR_EPINIONS).enable_checkpointing(ck_dir, every=SBPR_STOP
+                                                                    ).fit(train))
     metrics = [AUC(), NDCG(k=10), Recall(k=10)]
     # all 40,000 test users over 136,000 items take 26-30 s on the host: the
     # first 4,096, and the others only while all would take 15 s or less
@@ -3803,9 +3855,12 @@ def phase_modality_bench(bench_data):
 # files.
 SASREC_DIGINETICA = dict(embedding_dim=64, n_layers=2, n_heads=1, max_len=50, batch_size=128,
                          learning_rate=0.001, seed=123)
-# the example's 10 epochs cut to 2 (PR 10 fitted 3): the whole run keeps
-# inside its 1,200 s with the next-basket phase beside it
+# the example's 10 epochs cut to 1 over every train session (earlier runs
+# fitted 1 and 2 and differenced them): the whole run keeps well inside its
+# 1,200 s; the subset's fits run 2 and stop at 1
 SASREC_EPOCHS, SASREC_STOP = 2, 1
+SASREC_TIMED_FROM = 100  # the steps after the first 100 are timed
+SASREC_PROFILED_STEPS = 5
 SASREC_SUBSET_SESSIONS = 3_200  # the subset's train sessions (about 100 steps an epoch)
 SEQ_BLOCK = 100  # items a block of the transitions holds
 
@@ -3898,20 +3953,20 @@ def sasrec_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
 def phase_sasrec_diginetica(seed, work):
     """Phase 16, SASRec at the Diginetica counts (``diginetica_like``): the
     last 60,858 sessions test, through ``NextItemEvaluation.from_splits(
-    fmt="USIT", exclude_unknowns=True, mode="last")``. Fits of 1 and 2
-    epochs over every train session (both checkpointed every epoch) give
-    seconds per epoch and training sequences per second over their steady
-    difference beside the bound of a step, and the 2-epoch fit's epoch-1
-    checkpoint must equal the 1-epoch fit bit for bit (a second seeded
-    fit); the first step's three accumulate_rows inputs are held bit for
+    fmt="USIT", exclude_unknowns=True, mode="last")``. A fit of 1 epoch
+    over every train session: ms a step from CUDA events over the steps
+    after the first ``SASREC_TIMED_FROM``, the steady epoch and training
+    sequences per second from it, beside the bound of a step, and its last
+    ``SASREC_PROFILED_STEPS`` steps profiled (device events a step, busy
+    share); the first step's three accumulate_rows inputs are held bit for
     bit to the plain version on the CPU and timed beside ``index_add_``;
-    peak device memory of the 2-epoch fit; the NextItemEvaluation metrics
-    (MRR, HitRatio@20, NDCG@20) over the test sessions and their seconds;
-    64 histories scored on the card held to a float64 scoring of the same
+    peak device memory of the fit; the NextItemEvaluation metrics (MRR,
+    HitRatio@20, NDCG@20) over the test sessions and their seconds; 64
+    histories scored on the card held to a float64 scoring of the same
     parameters on the CPU. On the first 3,200 train sessions at the same
     widths (the item table of all 43,097 items, about 100 steps an epoch):
-    one epoch profiled (device events a step, busy share), and a fit
-    stopped at epoch 1 and resumed to 2 held bit for bit to the
+    a 2-epoch fit's epoch-1 checkpoint must equal a second seeded fit of 1
+    epoch bit for bit, and that fit, resumed to 2 from its checkpoint, the
     uninterrupted one. Returns (accumulate_rows launches, the stats, the
     NextItemEvaluation, which phase 16b reuses)."""
     import shutil
@@ -3956,13 +4011,14 @@ def phase_sasrec_diginetica(seed, work):
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = 0
-    with recording_first_calls([], 3) as first:
-        one = clock(f"SASRec.fit, {SASREC_STOP} epoch", lambda: fit(SASREC_STOP, train, "one"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    model = clock(f"SASRec.fit, {SASREC_EPOCHS} epochs",
-                  lambda: fit(SASREC_EPOCHS, train, "longer"))
+    last = steps - SASREC_PROFILED_STEPS
+    with recording_first_calls([], 3) as first, timed_calls(
+            SASRec, "loss_fn", SASREC_TIMED_FROM, last, {}, profiled=SASREC_PROFILED_STEPS,
+            at_start=True) as timed:
+        model = clock(f"SASRec.fit, {SASREC_STOP} epoch", lambda: fit(SASREC_STOP, train))
     peak = torch.cuda.max_memory_allocated() - held
     metrics = [MRR(), HitRatio(k=20), NDCG(k=20)]
     result = clock("NextItemEvaluation over the test sessions", lambda: ev.eval(
@@ -3973,11 +4029,9 @@ def phase_sasrec_diginetica(seed, work):
         raise AssertionError("SASRec did not launch accumulate_rows")
 
     # ---- check and measure ----
-    at_one = CheckpointManager(ck_dir / "longer").restore(SASREC_STOP)
-    for name, p in one.params.named_parameters():
-        if not torch.equal(p.cpu(), at_one[f"resident/{name}"]):
-            raise AssertionError(f"SASRec at Diginetica: two seeded fits differ at epoch "
-                                 f"{SASREC_STOP} in {name}")
+    if timed["count"] != SASREC_STOP * steps:
+        raise AssertionError(f"SASRec took {timed['count']} steps, not {SASREC_STOP * steps}")
+    step_ms = timed["events"][0].elapsed_time(timed["events"][1]) / (last - SASREC_TIMED_FROM)
     for name, p in model.params.named_parameters():
         if not torch.isfinite(p).all():
             raise AssertionError(f"SASRec at Diginetica: non-finite {name}")
@@ -4004,9 +4058,8 @@ def phase_sasrec_diginetica(seed, work):
     if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"SASRec at Diginetica: scores differ from float64 by {score_err}")
 
-    # both fits checkpoint every epoch, so the difference is 2 steady epochs
-    epoch_s = (clock.seconds[f"SASRec.fit, {SASREC_EPOCHS} epochs"]
-               - clock.seconds[f"SASRec.fit, {SASREC_STOP} epoch"]) / (SASREC_EPOCHS - SASREC_STOP)
+    # the steady epoch: every step at the timed steps' mean
+    epoch_s = step_ms * steps / 1e3
     flops, nbytes = sasrec_step_bound(bsz, SASREC_DIGINETICA["max_len"],
                                       SASREC_DIGINETICA["embedding_dim"],
                                       SASREC_DIGINETICA["n_layers"], 2048, train.num_items)
@@ -4018,11 +4071,18 @@ def phase_sasrec_diginetica(seed, work):
     sub_mask = build_session_examples(sub, SASREC_DIGINETICA["max_len"])[3]
     sub_steps = -(-sub_mask.shape[0] // sessions_per_batch(
         SASREC_DIGINETICA["batch_size"], sub_mask, sub_mask.shape[0]))
-    prof = epoch_profile(lambda e: fit(e, sub), sub_steps, 1)
+    prof = dict(wall_ms=timed["wall_ms"], busy_ms=timed["busy_ms"],
+                share=timed["busy_ms"] / timed["wall_ms"],
+                launches_per_minibatch=timed["device_events"], top=timed["top"])
     straight = clock(f"SASRec.fit, {SASREC_EPOCHS} epochs, the subset",
-                     lambda: fit(SASREC_EPOCHS, sub))
-    clock(f"SASRec.fit, the subset, stopped at epoch {SASREC_STOP}",
-          lambda: fit(SASREC_STOP, sub, "stopped"))
+                     lambda: fit(SASREC_EPOCHS, sub, "straight"))
+    stopped = clock(f"SASRec.fit, the subset, stopped at epoch {SASREC_STOP}",
+                    lambda: fit(SASREC_STOP, sub, "stopped"))
+    at_one = CheckpointManager(ck_dir / "straight").restore(SASREC_STOP)
+    for name, p in stopped.params.named_parameters():
+        if not torch.equal(p.cpu(), at_one[f"resident/{name}"]):
+            raise AssertionError(f"SASRec at Diginetica widths: two seeded fits differ at epoch "
+                                 f"{SASREC_STOP} in {name}")
     resumed = clock(f"SASRec.fit, the subset, resumed to epoch {SASREC_EPOCHS}",
                     lambda: fit(SASREC_EPOCHS, sub, "stopped"))
     for (name, p), q in zip(straight.params.named_parameters(), resumed.params.parameters()):
@@ -4031,18 +4091,21 @@ def phase_sasrec_diginetica(seed, work):
 
     log(f"  SASRec d={SASREC_DIGINETICA['embedding_dim']}, {SASREC_DIGINETICA['n_layers']} "
         f"blocks, max_len {SASREC_DIGINETICA['max_len']} over {n_train:,} train sequences: "
-        f"{epoch_s:.3f} s per epoch (a {SASREC_EPOCHS}-epoch fit minus a {SASREC_STOP}-epoch fit, "
-        f"over {SASREC_EPOCHS - SASREC_STOP}), {n_train / epoch_s:,.0f} training sequences/s, "
-        f"{1e3 * epoch_s / steps:.3f} ms a step; bound of a step {flops / 1e9:.3f} GFLOP and "
-        f"{nbytes / 1e6:.1f} MB = {1e3 * step_bound_s:.4f} ms ({bound_by}), "
-        f"{steps * step_bound_s:.3f} s an epoch, {100 * steps * step_bound_s / epoch_s:.3f}% of "
-        f"it; one epoch over {sub_mask.shape[0]:,} sequences ({sub_steps} steps) profiled: "
-        f"{prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
-        f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events a "
-        f"step; top device ops {prof['top']}; peak device memory of the {SASREC_EPOCHS}-epoch "
-        f"fit {peak / 2**30:.3f} GiB above what the run held")
-    log(f"  two seeded fits bit for bit at epoch {SASREC_STOP} (the {SASREC_EPOCHS}-epoch fit's "
-        f"checkpoint); on the {sub_mask.shape[0]:,} sequences, the fit stopped at epoch "
+        f"{step_ms:.3f} ms a step (CUDA events over steps {SASREC_TIMED_FROM + 1}-{last}), "
+        f"{epoch_s:.3f} s a steady epoch at that rate ({steps:,} steps; the {SASREC_STOP}-epoch "
+        f"fit {clock.seconds[f'SASRec.fit, {SASREC_STOP} epoch']:.3f} s host clock, its set-up "
+        f"included), {n_train / epoch_s:,.0f} training sequences/s; bound of a step "
+        f"{flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = {1e3 * step_bound_s:.4f} ms "
+        f"({bound_by}), {steps * step_bound_s:.3f} s an epoch, "
+        f"{100 * steps * step_bound_s / epoch_s:.3f}% of it; its last {SASREC_PROFILED_STEPS} "
+        f"steps profiled: {prof['wall_ms']:.1f} ms host clock, device busy "
+        f"{prof['busy_ms']:.3f} ms ({100 * prof['share']:.2f}%), "
+        f"{prof['launches_per_minibatch']:.1f} device events a step; top device ops "
+        f"{prof['top']}; peak device memory of the fit {peak / 2**30:.3f} GiB above what the run "
+        f"held")
+    log(f"  on the {sub_mask.shape[0]:,} sequences ({sub_steps} steps an epoch), two seeded fits "
+        f"bit for bit at epoch {SASREC_STOP} (the {SASREC_EPOCHS}-epoch fit's checkpoint), and "
+        f"the fit stopped at epoch "
         f"{SASREC_STOP} and resumed to {SASREC_EPOCHS} from its checkpoints equal to the "
         f"uninterrupted one, bit for bit; the first step's three accumulate_rows inputs equal to "
         f"the plain version on the CPU, bit for bit (max |err| {acc_err:.3e}); 64 histories' "
@@ -4053,10 +4116,10 @@ def phase_sasrec_diginetica(seed, work):
         f"in {eval_s:.3f} s; accumulate_rows launches {launches}")
     log(f"SASRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
     shutil.rmtree(ck_dir, ignore_errors=True)
-    del model, one, straight, resumed
+    del model, straight, stopped, resumed
     torch.cuda.empty_cache()
     return launches, dict(epoch_s=epoch_s, seq_per_s=n_train / epoch_s,
-                          step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * step_bound_s,
+                          step_ms=step_ms, step_bound_ms=1e3 * step_bound_s,
                           bound_by=bound_by, steps=steps, peak=peak,
                           metrics={m.name: vals[m.name] for m in metrics}, eval_s=eval_s,
                           acc=acc_rows, max_abs_err=acc_err, **prof), ev
@@ -4304,11 +4367,8 @@ def timed_epochs(seconds):
         seconds.append(time.perf_counter() - t)
         return out
 
-    tiger_mod._train_epoch = timed
-    try:
+    with swapped(tiger_mod, "_train_epoch", timed):
         yield seconds
-    finally:
-        tiger_mod._train_epoch = real
 
 
 def phase_tiger_ml100k(bench_data):
@@ -4372,7 +4432,7 @@ def phase_tiger_ml100k(bench_data):
     with timed_methods([("TIGER", "_fit_rqvae"), ("TIGER", "_build_examples")], host), \
             timed_epochs(epochs), recording_first_calls(first, 0, calls=(
                 0, 1, 2, n_rq_calls, n_rq_calls + 1)), \
-            timed_steps(tiger_mod, n_rq_steps + TIGER_TIMED_FROM, None, steady):
+            timed_calls(tiger_mod, "step", n_rq_steps + TIGER_TIMED_FROM, None, steady):
         model = clock(f"TIGER.fit, {TIGER_EPOCHS} seq2seq epochs",
                       lambda: TIGER(n_epochs=TIGER_EPOCHS, **TIGER_EXAMPLE).fit(train))
     peak = torch.cuda.max_memory_allocated() - held
@@ -4963,8 +5023,9 @@ TAFENG_MODELS = {
                               batch_size=32, lr=0.001, seed=123)),
     "DNNTSP": ("DNNTSP", dict(emb_dim=32, loss_type="bpr", lr=0.001, batch_size=64, seed=123)),
 }
-BASKET_EPOCHS, BASKET_STOP = 2, 1  # the examples' 15 (Beacon) and 30 (DNNTSP) cut to 2
-BASKET_SUBSET_USERS = 3_200  # the profiled epochs' train users
+BASKET_EPOCHS = 1  # the examples' 15 (Beacon) and 30 (DNNTSP) cut to 1
+BASKET_TIMED_FROM = 100  # the steps after the first 100 are timed
+BASKET_PROFILED_STEPS = 5  # the fit's last steps, profiled
 # the host loops of the family, timed on their own during the fits
 BASKET_HOST_LOOPS = (("Beacon", "_build_correlation_matrix"), ("DNNTSP", "_pack"),
                      ("TIFUKNN", "_compute_user_vector"), ("UPCF", "_user_wise_popularity"))
@@ -4976,25 +5037,20 @@ def timed_methods(methods, seconds):
     host seconds to ``seconds[(class name, method)]``."""
     from cornac_tpu_torch import models
 
-    saved = []
-    for cls_name, name in methods:
-        cls = getattr(models, cls_name)
-        real = getattr(cls, name)
+    with contextlib.ExitStack() as stack:
+        for cls_name, name in methods:
+            cls = getattr(models, cls_name)
+            real = getattr(cls, name)
 
-        def timed(*args, _real=real, _key=(cls_name, name), **kwargs):
-            t = time.perf_counter()
-            try:
-                return _real(*args, **kwargs)
-            finally:
-                seconds[_key] = seconds.get(_key, 0.0) + time.perf_counter() - t
+            def timed(*args, _real=real, _key=(cls_name, name), **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _real(*args, **kwargs)
+                finally:
+                    seconds[_key] = seconds.get(_key, 0.0) + time.perf_counter() - t
 
-        saved.append((cls, name, real))
-        setattr(cls, name, timed)
-    try:
+            stack.enter_context(swapped(cls, name, timed))
         yield seconds
-    finally:
-        for cls, name, real in saved:
-            setattr(cls, name, real)
 
 
 def beacon_step_bound(B, T, n, E, units):
@@ -5025,22 +5081,6 @@ def dnntsp_step_bound(B, T, N, E, n):
     return 3.0 * fwd, 7 * 4.0 * n_params + 4.0 * B * T * N * N + 12.0 * B * n
 
 
-def basket_subset(train, n_users):
-    """The first ``n_users`` users of a basket train set, over the whole
-    item map (the same widths), as a new BasketDataset."""
-    from cornac_tpu_torch.data import BasketDataset
-
-    users, items, baskets = train.user_ids, train.item_ids, train.basket_ids
-    rows = []
-    for u in list(train.user_basket_data)[:n_users]:
-        for b in train.user_basket_data[u]:
-            for k in train.baskets[b]:
-                rows.append((users[u], baskets[b], items[train.uir_tuple[1][k]],
-                             int(train.timestamps[k])))
-    return BasketDataset.build(rows, fmt="UBIT", global_iid_map=copy.copy(train.iid_map),
-                               seed=123)
-
-
 def phase_basket_tafeng(seed):
     """Phase 17, the next-basket family at the Ta Feng counts
     (``tools/seq_bench_data.py::tafeng_like``: 32,266 customers, 23,812
@@ -5049,14 +5089,14 @@ def phase_basket_tafeng(seed):
     breakdowns for GPTop as GTop, PTop and GPTop, then TIFUKNN, UPCF, Beacon
     and DNNTSP at the examples' settings, each through ``evaluate`` (fit,
     then the basket ranking_eval; Recall@10, Recall@50, HitRatio@10): fit
-    and evaluation seconds, peak device memory. Beacon and DNNTSP also fit
-    1 epoch (the examples' 15 and 30 cut to 2 and 1): seconds per epoch,
-    training sequences/s and the bound of a step; the first step's three
-    accumulate_rows inputs of DNNTSP's 1-epoch fit held bit for bit to the
-    plain version on the CPU; 8 histories' scores of each held to a float64
-    scoring of the same parameters; one epoch of each over the first 3,200
-    train users at the same widths profiled (device events a step, busy
-    share). The
+    and evaluation seconds, peak device memory. Beacon and DNNTSP fit 1
+    epoch (the examples' 15 and 30 cut to 1): ms a step from CUDA events
+    over the steps after the first ``BASKET_TIMED_FROM``, the steady epoch
+    and training sequences/s from it, and the bound of a step; the fit's
+    last ``BASKET_PROFILED_STEPS`` steps profiled (device events a step,
+    busy share); the first step's three accumulate_rows inputs of DNNTSP's
+    fit held bit for bit to the plain version on the CPU; 8 histories'
+    scores of each held to a float64 scoring of the same parameters. The
     family's host loops are timed on their own. Returns (accumulate_rows
     launches, the stats)."""
     import torch
@@ -5083,25 +5123,29 @@ def phase_basket_tafeng(seed):
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = 0
-    results, peaks, loops, first = {}, {}, {}, []
+    n_seq = sum(1 for b in train.user_basket_data.values() if len(b) >= 2)
+    results, peaks, loops, first, timed = {}, {}, {}, [], {}
     with timed_methods(BASKET_HOST_LOOPS, loops):
         for name in TAFENG_MODELS:
             ev.repetition_eval = ev.exploration_eval = name in ("GTop", "PTop", "GPTop")
-            if name in ("Beacon", "DNNTSP"):
-                stop = make(name, n_epochs=BASKET_STOP)
-                if name == "DNNTSP":
-                    with recording_first_calls(first, 3):
-                        clock(f"{name}.fit, {BASKET_STOP} epoch", lambda: stop.fit(train))
-                else:
-                    clock(f"{name}.fit, {BASKET_STOP} epoch", lambda: stop.fit(train))
-                del stop
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
-            extra = {"n_epochs": BASKET_EPOCHS} if name in ("Beacon", "DNNTSP") else {}
-            model = make(name, **extra)
-            results[name] = (model, clock(f"{name} evaluate", lambda: ev.evaluate(
-                model, metrics, user_based=False)[0]))
+            with contextlib.ExitStack() as stack:
+                extra = {}
+                if name in ("Beacon", "DNNTSP"):
+                    extra = {"n_epochs": BASKET_EPOCHS}
+                    steps = BASKET_EPOCHS * -(-n_seq // TAFENG_MODELS[name][1]["batch_size"])
+                    timed[name] = stack.enter_context(timed_calls(
+                        getattr(models, TAFENG_MODELS[name][0]), "loss_on", BASKET_TIMED_FROM,
+                        steps - BASKET_PROFILED_STEPS, {}, profiled=BASKET_PROFILED_STEPS,
+                        at_start=True))
+                    timed[name]["steps"] = steps
+                if name == "DNNTSP":
+                    stack.enter_context(recording_first_calls(first, 3))
+                model = make(name, **extra)
+                results[name] = (model, clock(f"{name} evaluate", lambda: ev.evaluate(
+                    model, metrics, user_based=False)[0]))
             peaks[name] = torch.cuda.max_memory_allocated() - held
     launches = ACCUMULATE_ROWS.launches
     clock.report("the next-basket family at Ta Feng")
@@ -5149,20 +5193,21 @@ def phase_basket_tafeng(seed):
         if not err <= 1e-4:
             raise AssertionError(f"{name} at Ta Feng: scores differ from float64 by {err}")
 
-    # steady epochs, the bound of a step, one epoch profiled over a subset
-    sub = clock(f"the first {BASKET_SUBSET_USERS:,} train users (set-up)",
-                lambda: basket_subset(train, BASKET_SUBSET_USERS))
+    # steady steps, the bound of a step, the last steps profiled
     T = beacon.max_seq_length
     n = beacon.total_items
     stats = {}
     for name in ("Beacon", "DNNTSP"):
         model = results[name][0]
         bsz = model.batch_size
-        n_seq = sum(1 for b in train.user_basket_data.values() if len(b) >= 2)
-        steps = -(-n_seq // bsz)
+        tm = timed[name]
+        steps = tm["steps"] // BASKET_EPOCHS
+        if tm["count"] != tm["steps"]:
+            raise AssertionError(f"{name} at Ta Feng took {tm['count']} steps, not {tm['steps']}")
+        last = tm["steps"] - BASKET_PROFILED_STEPS
+        step_ms = tm["events"][0].elapsed_time(tm["events"][1]) / (last - BASKET_TIMED_FROM)
+        epoch_s = step_ms * steps / 1e3
         fit_s = results[name][1].metric_avg_results["Train (s)"]
-        epoch_s = (fit_s - clock.seconds[f"{name}.fit, {BASKET_STOP} epoch"]) / (
-            BASKET_EPOCHS - BASKET_STOP)
         if name == "Beacon":
             flops, nbytes = beacon_step_bound(bsz, T, n, model.emb_dim, model.rnn_unit)
         else:
@@ -5170,19 +5215,20 @@ def phase_basket_tafeng(seed):
                                               model.emb_dim, n)
         step_bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        sub_seq = sum(1 for b in sub.user_basket_data.values() if len(b) >= 2)
-        sub_steps = -(-sub_seq // bsz)
-        prof = epoch_profile(lambda e: make(name, n_epochs=e).fit(sub), sub_steps, 1)
+        prof = dict(wall_ms=tm["wall_ms"], busy_ms=tm["busy_ms"],
+                    share=tm["busy_ms"] / tm["wall_ms"],
+                    launches_per_minibatch=tm["device_events"], top=tm["top"])
         stats[name] = dict(epoch_s=epoch_s, seq_per_s=n_seq / epoch_s,
-                           step_ms=1e3 * epoch_s / steps, step_bound_ms=1e3 * step_bound_s,
+                           step_ms=step_ms, step_bound_ms=1e3 * step_bound_s,
                            bound_by=bound_by, steps=steps, n_seq=n_seq, flops=flops,
-                           nbytes=nbytes, sub_steps=sub_steps, **prof)
+                           nbytes=nbytes, fit_s=fit_s, **prof)
         log(f"  {name} over {n_seq:,} train sequences ({steps:,} steps of {bsz}): "
-            f"{epoch_s:.3f} s per epoch (a {BASKET_EPOCHS}-epoch fit minus a {BASKET_STOP}-epoch "
-            f"fit), {n_seq / epoch_s:,.0f} training sequences/s, {1e3 * epoch_s / steps:.3f} ms a "
-            f"step; bound of a step {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = "
+            f"{step_ms:.3f} ms a step (CUDA events over steps {BASKET_TIMED_FROM + 1}-{last}), "
+            f"{epoch_s:.3f} s a steady epoch at that rate (the {BASKET_EPOCHS}-epoch fit "
+            f"{fit_s:.3f} s host clock, its set-up included), {n_seq / epoch_s:,.0f} training "
+            f"sequences/s; bound of a step {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.1f} MB = "
             f"{1e3 * step_bound_s:.4f} ms ({bound_by}), {100 * step_bound_s * steps / epoch_s:.3f}% "
-            f"of it; one epoch over {sub_seq:,} sequences ({sub_steps} steps) profiled: "
+            f"of it; the fit's last {BASKET_PROFILED_STEPS} steps profiled: "
             f"{prof['wall_ms']:.1f} ms host clock, device busy {prof['busy_ms']:.3f} ms "
             f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events a "
             f"step; top device ops {prof['top']}")
@@ -5424,7 +5470,7 @@ VBPR_TRADESY = dict(k=10, k2=20, batch_size=100, learning_rate=0.005, lambda_w=1
 VBPR_EPOCHS = 1
 VBPR_TIMED_FROM = 100  # the steps after the first 100 are timed
 VBPR_PROFILED_STEPS = 20
-EVAL_SUBSET_USERS, EVAL_BUDGET_S = 4_096, 30.0
+EVAL_SUBSET_USERS, EVAL_BUDGET_S = 4_096, 10.0
 # examples/sorec_filmtrust.py's settings on phase 15's Epinions split (2 of
 # its 100 epochs), examples/mcf_office.py's and examples/pcrl_example.py's
 # on phase 15b's Amazon Office split
@@ -5504,30 +5550,67 @@ def clothing_like(seed):
 
 
 @contextlib.contextmanager
-def timed_steps(module, first, last, out):
-    """While open, a CUDA event is recorded after the ``first``-th optimizer
-    step (``module.step``) and after each later one up to the ``last``-th
-    (None: to the end), the latest kept: ``out["events"]`` is the pair,
-    ``out["count"]`` the steps taken."""
+def timed_calls(owner, name, first, last, out, profiled=0, at_start=False):
+    """While open, ``owner.name`` (a step or an iteration function) is
+    wrapped: a CUDA event is recorded after call ``first`` (counting from
+    1) and after call ``last`` (None: after every later call, the latest
+    kept), or before each with ``at_start`` (then the span holds whatever
+    runs between the calls, as a step's backward and optimizer after its
+    loss); the ``profiled`` calls after the span run under torch.profiler.
+    ``out``: "count" (calls), "events" (the two CUDA events), and, where
+    profiled, "wall_ms", "busy_ms", "device_events" (device events a call)
+    and "top"."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    real = module.step
-    out.update(count=0, events=[None, None])
+    real = getattr(owner, name)
+    lo = None if last is None else last if at_start else last + 1  # the first call profiled
+    out.update(count=0, events=[None, None], wall_ms=None, busy_ms=None, device_events=None,
+               top="")
+    state = {}
 
-    def step(*args, **kwargs):
-        result = real(*args, **kwargs)
-        out["count"] += 1
-        if first <= out["count"] and (last is None or out["count"] <= last):
+    def stop():
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - state["t"]
+        prof = state.pop("prof")
+        prof.__exit__(None, None, None)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        out.update(wall_ms=1e3 * wall, busy_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                   device_events=sum(e.count for e in events) / profiled, top=top_ops(events))
+
+    def mark(n):
+        if n == first or (n > first and (last is None or n == last)):
             event = torch.cuda.Event(enable_timing=True)
             event.record()
-            out["events"][out["count"] > first] = event
+            out["events"][n > first] = event
+
+    def wrapped(*args, **kwargs):
+        out["count"] += 1
+        n = out["count"]
+        if at_start:
+            mark(n)
+            if profiled and n == lo + profiled and "prof" in state:
+                stop()
+        if profiled and n == lo:
+            torch.cuda.synchronize()
+            state["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            state["prof"].__enter__()
+            state["t"] = time.perf_counter()
+        result = real(*args, **kwargs)
+        if not at_start:
+            mark(n)
+            if profiled and n == lo + profiled - 1:
+                stop()
         return result
 
-    module.step = step
     try:
-        yield out
+        with swapped(owner, name, wrapped):
+            yield out
     finally:
-        module.step = real
+        if "prof" in state:
+            stop()
 
 
 def ratings_subset(test, users):
@@ -5601,10 +5684,12 @@ def phase_vbpr_tradesy(seed):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    with timed_steps(vbpr_mod, VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, {}) as timed:
+    with timed_calls(vbpr_mod, "step", VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, {}) as timed:
         model = clock(f"VBPR.fit, {VBPR_EPOCHS} epoch", lambda: VBPR(
             n_epochs=VBPR_EPOCHS, verbose=False, **VBPR_TRADESY).fit(train))
     peak = torch.cuda.max_memory_allocated() - held
+    if timed["count"] != VBPR_EPOCHS * n_batches:
+        raise AssertionError(f"VBPR took {timed['count']} steps, not {VBPR_EPOCHS * n_batches}")
     events = timed["events"]
     step_ms = events[0].elapsed_time(events[1]) / (VBPR_EPOCHS * n_batches - VBPR_TIMED_FROM)
     metrics = [AUC(), Recall(k=50)]
@@ -5707,11 +5792,8 @@ def timed_stream_epochs(module, stamps):
         count[0] += 1
         return out
 
-    module.run_stream_epoch = run
-    try:
+    with swapped(module, "run_stream_epoch", run):
         yield stamps
-    finally:
-        module.run_stream_epoch = real
 
 
 def phase_side_published(epinions, office):
@@ -5919,11 +6001,8 @@ def fgsm_signs(record=None, replay=None):
         count[0] += 1
         return replay[count[0] - 1][1].to(x.device)
 
-    torch.sign = sign
-    try:
+    with swapped(torch, "sign", sign):
         yield record
-    finally:
-        torch.sign = real
 
 
 def visual_witness(name, train, card=DEV):
@@ -6257,11 +6336,15 @@ def phase_review_music(seed):
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         first, packs = [], []
-        with timed_steps(narre_mod, REVIEW_TIMED_FROM, REVIEW_EPOCHS * n_batches, {}) as timed, \
+        with timed_calls(narre_mod, "step", REVIEW_TIMED_FROM, REVIEW_EPOCHS * n_batches,
+                         {}) as timed, \
                 recording_first_calls(first, 10), kept_review_packs(narre_mod, packs):
             model = clock(f"{name}.fit, {REVIEW_EPOCHS} epoch", lambda: getattr(models, name)(
                 max_iter=REVIEW_EPOCHS, **REVIEW_MUSIC).fit(train))
         peak = torch.cuda.max_memory_allocated() - held
+        if timed["count"] != REVIEW_EPOCHS * n_batches:
+            raise AssertionError(f"{name} took {timed['count']} steps, not "
+                                 f"{REVIEW_EPOCHS * n_batches}")
         events = timed["events"]
         step_ms = events[0].elapsed_time(events[1]) / (REVIEW_EPOCHS * n_batches
                                                        - REVIEW_TIMED_FROM)
@@ -6380,11 +6463,8 @@ def kept_review_packs(module, store):
         store.append(real(self, train_set, dev))
         return store[-1]
 
-    module.ReviewRegressor._reviews = keep
-    try:
+    with swapped(module.ReviewRegressor, "_reviews", keep):
         yield store
-    finally:
-        module.ReviewRegressor._reviews = real
 
 
 def accumulate_rows_of(call):
@@ -6840,16 +6920,601 @@ def phase_text_bench(bench_data):
     return launches, fit_s, acc_err
 
 
+# ---------------------------------------------------------------------------
+# the sentiment and explainable models (phase 20 and process 12k): the six
+# Amazon Toys & Games examples' settings (efm_example.py, comparer_example.py,
+# mter_example.py, lrppm_example.py, companion_example.py,
+# trirank_example.py) and HypAR's defaults: name -> (class, settings, (the
+# depth's argument, the depth run, the example's) or None where the example
+# runs whole)
+# HypAR's steps: its defaults' epoch has about 1,113, some 280 ms each on
+# an H100 (its hyperedge scatters' long runs into the aspect and opinion
+# nodes: PERF.md section 5), so a run of the phase within its time takes 12
+HYPAR_STEPS = 12
+TOYS_MODELS = {
+    "EFM": ("EFM", dict(num_explicit_factors=40, num_latent_factors=60, num_most_cared_aspects=15,
+                        rating_scale=5.0, alpha=0.85, max_iter=100, seed=123), None),
+    # at all users its comparative pair stream (tens of millions of
+    # (pair, aspect) entries, summed in order into 200 aspect rows) takes
+    # some 0.25 s an iteration: 10 of the example's 100
+    "ComparERObj": ("ComparERObj", dict(num_explicit_factors=40, num_latent_factors=60,
+                                        seed=123), ("max_iter", 10, 100)),
+    "MTER": ("MTER", dict(n_user_factors=15, n_item_factors=15, n_aspect_factors=12,
+                          n_opinion_factors=12, n_bpr_samples=1000, n_element_samples=50,
+                          lambda_reg=0.1, lambda_bpr=10, lr=0.1, seed=123),
+             ("max_iter", 500, 10_000)),
+    "ComparERSub": ("ComparERSub", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
+                                        lr=0.1, seed=123), ("max_iter", 500, 200_000)),
+    "LRPPM": ("LRPPM", dict(n_factors=8, ld=1.0, reg=0.01, alpha=1.0, n_samples=200,
+                            n_ranking_samples=1000, lr=0.1, seed=123), ("max_iter", 500, 20_000)),
+    "Companion": ("Companion", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
+                                    n_opinion_factors=8, n_element_samples=50, n_bpr_samples=1000,
+                                    n_aspect_ranking_samples=1000,
+                                    n_opinion_ranking_samples=1000, lr=0.5, seed=123),
+                  ("max_iter", 500, 500_000)),
+    "TriRank": ("TriRank", dict(max_iter=100, seed=123, verbose=False), None),
+    "HypAR": ("HypAR", dict(num_epochs=1, seed=123, verbose=False),
+              ("steps", HYPAR_STEPS, "10 epochs")),
+}
+TOYS_RATING = ("EFM", "ComparERObj", "MTER", "ComparERSub", "LRPPM", "Companion")  # and RMSE
+# the iteration (or step) functions probed: name -> (module, function,
+# probe at the call's start)
+TOYS_PROBED = {"MTER": ("mter", "mter_iteration", False),
+               "ComparERSub": ("mter", "mter_iteration", False),
+               "LRPPM": ("lrppm", "lrppm_iteration", False),
+               "Companion": ("companion", "companion_iteration", False)}
+SAMPLED_TIMED = (50, 450)  # CUDA events after iterations 50 and 450
+HYPAR_TIMED = (3, 9)  # before steps 3 and 9
+TOYS_PROFILED = 3  # iterations profiled after the timed ones
+HYPAR_PROFILED = 2  # HypAR's steps profiled (some 600 device events each)
+TOYS_EVAL_USERS = 500  # the test users evaluated (13,341 in all)
+# the main path's accumulate_rows inputs that phase 20 records, holds and
+# hands to the times phase: (model, call from 0 in its recording) -> label
+TOYS_RECORDED = {
+    ("HypAR", 0): "HypAR, Amazon Toys, first step's hyperedge scatter into review rows",
+    ("HypAR", 1): "HypAR, Amazon Toys, first step's hyperedge scatter into node rows",
+    ("Companion", 0): "Companion, Amazon Toys, first item-table update (every stream)",
+}
+TOYS_HOST_BUILDS = (("EFM", "_build_matrices"), ("ComparERObj", "_build_matrices"),
+                    ("ComparERObj", "_build_pairs"), ("MTER", "_build_data"),
+                    ("ComparERSub", "_build_data"), ("ComparERSub", "_build_sub_pairs"),
+                    ("LRPPM", "_build_data"), ("Companion", "_build_data"),
+                    ("Companion", "_host_streams"), ("TriRank", "_create_matrices"),
+                    ("HypAR", "_create_graphs"), ("HypAR", "_ao_content_embeddings"))
+
+
+def toys_like(seed):
+    """Seeded data at the Amazon Toys & Games 5-core counts: star ratings
+    over Zipf-like users and items with seeded timestamps (UIRT), and one to
+    four seeded (aspect, opinion, polarity) tuples a rating over the assumed
+    lexicon (``seq_bench_data.sentiment_lexicon``)."""
+    from seq_bench_data import sentiment_lexicon, timed
+
+    rng = np.random.RandomState(seed)
+    users, items = zipf_pairs(rng, TOYS_USERS, TOYS_ITEMS, TOYS_RATINGS, 0.4, 0.6)
+    triples = star_triples(rng, users, items)
+    lexicon = sentiment_lexicon(triples, TOYS_ASPECTS, TOYS_OPINIONS, seed=seed + 1)
+    return timed(triples, seed=seed + 2), lexicon
+
+
+def toys_splits(seed):
+    """Phase 20's splits, made in a spawned process while the earlier
+    phases run (about 12 s of host work): RatioSplit(0.15) and TriRank's
+    RatioSplit(0.2) of ``toys_like(seed)``, each with its
+    SentimentModality. Returns (the two splits, the seconds each took)."""
+    sys.path.insert(0, str(ROOT))
+    from cornac_tpu_torch.data import SentimentModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    quads, lexicon = timed("Toys-like ratings, timestamps and sentiment", lambda: toys_like(seed))
+
+    def split_of(data, lex, test_size):
+        return RatioSplit(data=data, fmt="UIRT", test_size=test_size, exclude_unknowns=True,
+                          seed=123, verbose=False, sentiment=SentimentModality(data=lex))
+
+    splits = (timed("RatioSplit(0.15) with SentimentModality",
+                    lambda: split_of(quads, lexicon, 0.15)),
+              timed("RatioSplit(0.2) with SentimentModality (TriRank's)",
+                    lambda: split_of(quads, lexicon, 0.2)))
+    return splits, seconds
+
+
+def probe_ms(out, timed):
+    """ms a call between the two events of ``timed_calls``, or None."""
+    import torch
+
+    if None in out["events"]:
+        return None
+    torch.cuda.synchronize()
+    return out["events"][0].elapsed_time(out["events"][1]) / (timed[1] - timed[0])
+
+
+def limited_steps(module, steps):
+    """While open, ``module.hypar_draws`` yields ``steps`` steps at most."""
+    import itertools
+
+    real = module.hypar_draws
+
+    def draws(*args, **kwargs):
+        return itertools.islice(real(*args, **kwargs), steps)
+
+    return swapped(module, "hypar_draws", draws)
+
+
+def evaluate_head(model, train, test, users, rating):
+    """NDCG@50 over ``users``' test ratings and, for a rating model, RMSE
+    over them: [NDCG@50] or [NDCG@50, RMSE]."""
+    from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
+    from cornac_tpu_torch.metrics import NDCG, RMSE
+
+    head = ratings_subset(test, users)
+    out = list(ranking_eval(model, [NDCG(k=50)], train, head)[0])
+    if rating:
+        out += list(rating_eval(model, [RMSE()], head)[0])
+    return out
+
+
+def phase_sentiment_toys(toys_data):
+    """Phase 20, the sentiment and explainable models at the Amazon Toys &
+    Games 5-core counts (seeded ratings with timestamps and seeded
+    sentiment over an assumed lexicon, ``toys_like``): the examples' split,
+    RatioSplit(0.15, exclude_unknowns, seed 123; TriRank's 0.2), made by
+    ``toys_splits`` in a spawned process (``toys_data()`` returns them and
+    its seconds); each model
+    of ``TOYS_MODELS`` fitted at its depth, its host builds timed (``TOYS_HOST_BUILDS``); MTER's, ComparERSub's,
+    LRPPM's and Companion's ms an iteration by CUDA events over iterations
+    51-450 and HypAR's a step over steps 3-8, each with its device
+    events a call and busy share over the ``TOYS_PROFILED`` after;
+    NDCG@50 (and RMSE for the rating models) over the first
+    ``TOYS_EVAL_USERS`` test users; the accumulate_rows inputs of
+    ``TOYS_RECORDED``, recorded from the fits, held bit for bit to the plain
+    version on the CPU and returned (``acc_cases``) for the times phase.
+    Returns (accumulate_rows launches, the stats)."""
+    import torch
+
+    import cornac_tpu_torch.models.companion as companion_mod
+    import cornac_tpu_torch.models.hypar as hypar_mod
+    import cornac_tpu_torch.models.lrppm as lrppm_mod
+    import cornac_tpu_torch.models.mter as mter_mod
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    mods = {"mter": mter_mod, "lrppm": lrppm_mod, "companion": companion_mod}
+    clock = Clock()
+    (split, split_tri), made = clock("the splits from their process (waited for)",
+                                                toys_data)
+    for name, sec in made.items():
+        log(f"  {name} (set-up, in the spawned process, host clock): {sec:.3f} s")
+    train = split.train_set
+    sent = train.sentiment
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {train.num_ratings:,} "
+        f"train ratings, {len(sent.sentiment):,} reviews' tuples over {sent.num_aspects} aspects "
+        f"and {sent.num_opinions} opinions; HypAR's stemmer: "
+        f"{hypar_mod.stemmer_name()}")
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    stats, host_s, recorded = {}, {}, {}
+    with timed_methods(TOYS_HOST_BUILDS, host_s):
+        for name, (cls, kw, depth) in TOYS_MODELS.items():
+            sp = split_tri if name == "TriRank" else split
+            kwargs = dict(kw)
+            if depth is not None and depth[0] != "steps":
+                kwargs[depth[0]] = depth[1]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            probe = {}
+            with contextlib.ExitStack() as stack:
+                if name in TOYS_PROBED:
+                    mod, fn, at_start = TOYS_PROBED[name]
+                    stack.enter_context(timed_calls(mods[mod], fn, *SAMPLED_TIMED, probe,
+                                                    TOYS_PROFILED, at_start))
+                if name == "HypAR":
+                    stack.enter_context(limited_steps(hypar_mod, HYPAR_STEPS))
+                    stack.enter_context(timed_calls(hypar_mod.HypARNet, "loss_on", *HYPAR_TIMED,
+                                                    probe, HYPAR_PROFILED, True))
+                    stack.enter_context(hypar_mod.fixed_svds_start(0))
+                    stack.enter_context(recording_first_calls(recorded.setdefault(name, []), 2))
+                if name == "Companion":
+                    stack.enter_context(recording_first_calls(recorded.setdefault(name, []), 0,
+                                                              calls=(1,)))
+                label = f"{name}.fit" + ("" if depth is None else f", {depth[0]} {depth[1]}")
+                model = clock(label, lambda: getattr(models, cls)(**kwargs).fit(sp.train_set))
+            peak = torch.cuda.max_memory_allocated() - held
+            tr = sp.train_set
+            test_users = np.unique(sp.test_set.uir_tuple[0])
+            head = test_users[:TOYS_EVAL_USERS]
+            quality = clock(f"{name} NDCG@50" + (" and RMSE" if name in TOYS_RATING else ""),
+                            lambda: evaluate_head(model, tr, sp.test_set, head,
+                                                  name in TOYS_RATING))
+            if not np.isfinite(quality).all():
+                raise AssertionError(f"{name} at Toys: non-finite metrics {quality}")
+            st = dict(fit_s=clock.seconds[label], peak=peak, quality=quality,
+                      evaluated=len(head), n_test=len(test_users))
+            timed = HYPAR_TIMED if name == "HypAR" else SAMPLED_TIMED
+            if probe:
+                st.update(ms=probe_ms(probe, timed), events=probe["device_events"],
+                          share=None if probe["busy_ms"] is None
+                          else probe["busy_ms"] / probe["wall_ms"], top=probe["top"],
+                          calls=probe["count"])
+                if st["ms"] is None or st["events"] is None:
+                    raise AssertionError(f"{name}: the probe saw {probe['count']} calls")
+            if name == "TriRank":
+                st["iterations"] = model.last_iterations
+            stats[name] = st
+            log(f"  {name}" + ("" if depth is None else
+                               f" ({depth[0]} {depth[1]}, the example's {depth[2]})")
+                + f": fit {st['fit_s']:.3f} s (host clock), peak device memory "
+                f"{peak / 2**30:.3f} GiB; NDCG@50 {quality[0]:.6f}"
+                + (f", RMSE {quality[1]:.6f}" if len(quality) > 1 else "")
+                + f" over the first {len(head):,} of {len(test_users):,} test users"
+                + ("" if "ms" not in st else
+                   f"; {st['ms']:.3f} ms a{' step' if name == 'HypAR' else 'n iteration'} "
+                   f"(CUDA events, calls {timed[0] + 1}-{timed[1]}), "
+                   f"{st['events']:.1f} device events a call, busy "
+                   + ("not measured" if st["share"] is None else f"{100 * st['share']:.2f}%")
+                   + f" (profiled over "
+                   f"{HYPAR_PROFILED if name == 'HypAR' else TOYS_PROFILED}); top device ops "
+                   f"{st['top']}")
+                + ("" if name != "TriRank" else
+                   f"; the last batch's power iteration stopped after {st['iterations']} steps"))
+            del model
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the sentiment models at Toys")
+    for (cls_name, method), sec in host_s.items():
+        log(f"  host build {cls_name}.{method}: {sec:.3f} s (host clock)")
+    if launches <= 0:
+        raise AssertionError("phase 20 did not launch accumulate_rows")
+    acc_err, acc_cases = 0.0, {}
+    for (name, n), label in TOYS_RECORDED.items():
+        if len(recorded.get(name, ())) <= n:
+            raise AssertionError(f"{name}: {len(recorded.get(name, ()))} calls recorded")
+        table, ids, upd = recorded[name][n]
+        err, card_err, per_call, device_ms, kept = check_accumulate(
+            f"{label}: {ids.numel()} ids into {tuple(table.shape)}", table, ids, upd, calls=20)
+        acc_err = max(acc_err, err)
+        acc_cases[label] = (table, ids, upd, per_call, device_ms, kept, err, card_err)
+    del recorded
+    log(f"  accumulate_rows launches {launches}")
+    log(f"the sentiment models at Toys: ok in {sum(clock.seconds.values()):.1f} s")
+    torch.cuda.empty_cache()
+    return launches, dict(stats=stats, host_s={f"{c}.{m}": s for (c, m), s in host_s.items()},
+                          seconds=dict(clock.seconds), max_abs_err=acc_err, acc_cases=acc_cases)
+
+
+SENTIMENT_WITNESS_TOL = 1e-5  # |card step - CPU step on the card's gradients|, of a table's largest
+# the sampled fits' two seeded refits in 12k, at these depths (the bands'
+# fits take 500-1,000 iterations, some 10-40 ms each on the card's host)
+SENTIMENT_SHORT_REFITS = {"MTER": 100, "ComparERSub": 100, "LRPPM": 100, "Companion": 100}
+
+
+def sentiment_witness(name, train, card=None, seed=5):
+    """One iteration of ``name`` (MTER, ComparERSub, LRPPM, Companion) from
+    its initial tables on the CPU's draws, on the card and on the CPU; or,
+    for HypAR, one step's loss and gradients from its initial parameters.
+    The step of the sampled fits divides a gradient by its own size
+    (AdaGrad's first sum is eps + g^2, eps 1e-9), so a float32 rounding of
+    a gradient near 3e-5 moves its entry some 3,000 times as far: the
+    witness holds the gradients the card's iteration hands its step to the
+    CPU's, and the card's step to the CPU's step on those same gradients.
+    Returns (the largest |card - CPU| of a gradient over the tensor's
+    largest |gradient|, or over ``GRAD_FLOOR`` of the iteration's largest
+    where that is more; the tensor; the largest |card step - CPU step on
+    the card's gradients| of a table over its largest |value|, None for
+    HypAR)."""
+    import torch
+
+    from bpr_quality_band import make_model
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.models import companion as companion_mod, lrppm as lrppm_mod
+    from cornac_tpu_torch.models import mter as mter_mod
+    from cornac_tpu_torch.models.hypar import fixed_svds_start, hypar_draws
+    from cornac_tpu_torch.ops.csr_lookup import CsrLookup
+
+    card = DEV if card is None else card
+    real_step = {"adagrad": mter_mod.adagrad_project, "lrppm": lrppm_mod._apply}
+    out = {}
+    cpu_gen = torch.Generator()
+    for dev in ("cpu", card):
+        dev = torch.device(dev)
+        model = make_model(models, name, 123)
+        model.device, model.trainable = dev, False
+        with fixed_svds_start(0):
+            model.fit(train)
+        cpu_gen.manual_seed(seed)
+        got = out[dev.type] = {}
+        if name == "HypAR":
+            n_edges = len(model.edge_u)
+            bsz = min(model.batch_size, n_edges)
+            draws_cpu = next(hypar_draws(cpu_gen, model, n_edges, bsz, -(-n_edges // bsz),
+                                         torch.device("cpu")))
+            draws = {k: ([m.to(dev) for m in v] if isinstance(v, list) else v.to(dev))
+                     for k, v in draws_cpu.items()}
+            params = model.net.params
+            loss = model.net.loss_on(draws)
+            grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+            got["grads"] = {n: g.detach().cpu() for n, g in zip(params, grads)}
+            got["model"] = model
+            continue
+
+        def adagrad(params, sgrads, grads, lr, ld_reg, _got=got):
+            _got["grads"] = {n: g.cpu() for n, g in grads.items()}
+            _got["step"] = (lr, ld_reg)
+            return real_step["adagrad"](params, sgrads, grads, lr, ld_reg)
+
+        def lrppm_step(tables, grads, lr, reg, _got=got):
+            _got["grads"] = {n: g.cpu() for n, g in zip(("U", "I", "UA", "IA"), grads)}
+            _got["step"] = (lr, reg)
+            return real_step["lrppm"](tables, grads, lr, reg)
+
+        with torch.no_grad(), swapped(mter_mod, "adagrad_project", adagrad), \
+                swapped(companion_mod, "adagrad_project", adagrad), \
+                swapped(lrppm_mod, "_apply", lrppm_step):
+            if name == "LRPPM":
+                uia, _ = model._build_data(train)
+                X_u, X_i, X_a, X_l = model._triples(uia)
+                rid, cid, rvals = train.uir_tuple
+                csr = train.csr_matrix.sorted_indices()
+                as_t = lambda a, dt=torch.int64: torch.as_tensor(np.asarray(a)).to(dev, dt)  # noqa
+                data = lrppm_mod.LrppmData(
+                    as_t(rid), as_t(cid), as_t(rvals, torch.float32), as_t(X_u), as_t(X_i),
+                    as_t(X_a), as_t(X_l, torch.float32), CsrLookup.build(csr, device=dev),
+                    lrppm_mod.aspect_membership(csr, uia, model.num_aspects, dev),
+                    model.num_aspects)
+                draws = lrppm_mod.lrppm_draws(cpu_gen, 1, data, model.n_samples,
+                                              model.n_ranking_samples, "cpu")
+                params = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev).clone()
+                               for t in (model.U, model.I, model.UA, model.IA))
+                lrppm_mod.lrppm_iteration(params, data, {k: v[0].to(dev) for k, v in draws.items()},
+                                          0.1, 0.01, 1.0)
+                got["tables"] = dict(zip(("U", "I", "UA", "IA"), (t.cpu() for t in params)))
+                continue
+            params, sgrads = model._device_params(dev)
+            if name == "Companion":
+                streams, mats = model._host_streams(*model._build_data(train))
+                data = model._device_data(train, streams, mats, dev)
+                draws = companion_mod.companion_draws(
+                    cpu_gen, 1, data, (model.num_items, model.num_aspects, model.num_opinions),
+                    model._sizes(), "cpu")
+                companion_mod.companion_iteration(
+                    params, sgrads, data, {k: v[0].to(dev) for k, v in draws.items()},
+                    model.n_user_factors, 0.5, 0.1, 10.0, 10.0, 10.0, 10.0, 10.0)
+            else:
+                rating_matrix, uia, uao, iao = model._build_data(train)
+                pairs, n_pair = None, 0
+                if name == "ComparERSub":
+                    pairs = model._build_sub_pairs(train, uia)
+                    n_pair = model.n_pair_samples
+                data = model._device_data(train, rating_matrix, uia, uao, iao, pairs, dev)
+                draws = mter_mod.mter_draws(cpu_gen, 1, data, model.n_element_samples,
+                                            model.n_bpr_samples, n_pair, model.num_items, "cpu")
+                mter_mod.mter_iteration(params, sgrads, data,
+                                        {k: v[0].to(dev) for k, v in draws.items()},
+                                        float(model.lr), float(model.lambda_reg),
+                                        float(model.lambda_bpr), float(getattr(model, "lambda_d",
+                                                                               0.0)))
+            got["tables"] = {n: p.cpu() for n, p in params.items()}
+            got["initial"] = model._device_params(torch.device("cpu"))
+    cpu, on_card = out["cpu"], out[torch.device(card).type]
+    if name == "HypAR":
+        return hypar_grads_held(cpu["model"], cpu["grads"], on_card["grads"], draws_cpu)
+    largest = max(g.abs().max().item() for g in cpu["grads"].values())
+    worst, where = 0.0, ""
+    for n, g in cpu["grads"].items():
+        scale = max(g.abs().max().item(), GRAD_FLOOR * largest, 1e-30)
+        err = (on_card["grads"][n] - g).abs().max().item() / scale
+        if err > worst:
+            worst, where = err, n
+    # the CPU's step on the card's gradients, from the same initial tables
+    step_err = 0.0
+    with torch.no_grad():
+        if name == "LRPPM":
+            tables = tuple(cpu_table.clone() for cpu_table in (
+                torch.as_tensor(np.asarray(t, np.float32))
+                for t in (model.U, model.I, model.UA, model.IA)))
+            real_step["lrppm"](tables, tuple(on_card["grads"][n] for n in ("U", "I", "UA", "IA")),
+                               *on_card["step"])
+            replay = dict(zip(("U", "I", "UA", "IA"), tables))
+        else:
+            replay, sgrads = cpu["initial"]
+            real_step["adagrad"](replay, sgrads, on_card["grads"], *on_card["step"])
+    for n, t in replay.items():
+        scale = max(t.abs().max().item(), 1e-30)
+        step_err = max(step_err, (on_card["tables"][n] - t).abs().max().item() / scale)
+    return worst, where, step_err
+
+
+def hypar_grads_held(model, cpu_grads, card_grads, draws):
+    """HypAR's step gradients on the card held to a float64 step on the CPU
+    from the same parameters and draws (``model``: the CPU's). A tensor
+    whose gradient is small beside the step's largest holds float32
+    rounding in either device (its ranking loss's ``pred_b`` has an exact
+    gradient of 0), so each tensor is allowed ``REVIEW_GRAD_TOL`` of its
+    largest |gradient| (or of ``GRAD_FLOOR`` of the step's largest, where
+    more), or twice the CPU float32 gradient's own distance from float64,
+    where more. Returns (the largest |card - float64| over its allowance,
+    the tensor, None)."""
+    import copy
+
+    import torch
+
+    from cornac_tpu_torch.models.hypar import HypARNet
+
+    net = model.net
+    graph = copy.copy(net.graph)
+    graph.adj = copy.copy(graph.adj)
+    if graph.adj.dense is not None:
+        graph.adj.dense = graph.adj.dense.double()
+    else:
+        graph.adj.edge_norm = graph.adj.edge_norm.double()
+    graph.stats = {c: (dv.double(), de.double()) for c, (dv, de) in graph.stats.items()}
+    feats = None if net.ao_feats is None else net.ao_feats.double()
+    net64 = HypARNet(model, {n: p.detach().double() for n, p in net.params.items()}, graph, feats)
+    d64 = {k: ([m.double() for m in v] if isinstance(v, list) else
+               v.double() if v.is_floating_point() else v) for k, v in draws.items()}
+    params = net64.params
+    exact = dict(zip(params, torch.autograd.grad(net64.loss_on(d64), list(params.values()),
+                                                 materialize_grads=True)))
+    largest = max(g.abs().max().item() for g in exact.values())
+    worst, where = 0.0, ""
+    for n, g in exact.items():
+        scale = max(g.abs().max().item(), GRAD_FLOOR * largest)
+        reach = (cpu_grads[n].double() - g).abs().max().item()
+        off = (card_grads[n].double() - g).abs().max().item()
+        allowed = max(REVIEW_GRAD_TOL * scale, 2 * reach, 1e-30)
+        if off / allowed > worst:
+            worst, where = off / allowed, n
+        apart = (card_grads[n] - cpu_grads[n]).abs().max().item() / max(scale, 1e-30)
+        if n == "node_emb" or apart > REVIEW_GRAD_TOL:
+            # where float32 on the two devices parts, which of them float64
+            # sides with, all of the tensor's largest |gradient|
+            log(f"  HypAR's {n} gradient: |card - CPU float32| {apart:.3e}, |card - float64| "
+                f"{off / scale:.3e}, |CPU float32 - float64| {reach / scale:.3e} of the "
+                f"tensor's largest")
+    return worst, where, None
+
+
+def phase_sentiment_bench(bench_data):
+    """Process 12k, spawned: the sentiment and explainable models at the
+    bench shape (``make_ml100k_like(7)`` with seeded timestamps and
+    sentiment, ``bpr_quality_band.sentiment_split``; the ComparER models on
+    its first users), at ``tools/bpr_quality_band.py``'s
+    ``SENTIMENT_CONFIGS``: each model's AUC and NDCG@10 (and RMSE for the
+    rating models) in the band of the JAX package's CPU fits over ten seeds
+    (``tools/quality_bands.py::SENTIMENT_BANDS``); a second seeded fit of
+    each bit for bit (two of 100 iterations for the sampled fits,
+    ``SENTIMENT_SHORT_REFITS``; HypAR's content vectors from one svds start), whose
+    accumulate_rows inputs are held to the plain version on the CPU; one
+    iteration of each sampled fit, and one HypAR step's gradients, on the
+    card against the CPU from the same tables and draws
+    (``sentiment_witness``). Two CPU threads. Returns (accumulate_rows
+    launches, fit seconds, max |err|)."""
+    import io
+
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.metrics as pmetrics
+    from bpr_quality_band import (SENTIMENT_CONFIGS, SENTIMENT_RATING, make_model,
+                                  sentiment_split)
+    from cornac_tpu_torch import models
+    from cornac_tpu_torch.models.hypar import fixed_svds_start
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from quality_bands import sentiment_band
+
+    torch.set_num_threads(2)
+    clock = Clock()
+    triples = bench_data()
+    split = clock("RatioSplit(0.15, 4.0) with timestamps and sentiment",
+                  lambda: sentiment_split(pdata, peval, triples))
+    split_c = clock("the ComparER users' RatioSplit", lambda: sentiment_split(
+        pdata, peval, triples, "ComparERObj"))
+
+    def split_of(name):
+        return split_c if name.startswith("ComparER") else split
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = 0
+    results, fitted = {}, {}
+    for name in SENTIMENT_CONFIGS:
+        model = make_model(models, name, 123)
+        metrics = [pmetrics.AUC(), pmetrics.NDCG(k=10), pmetrics.Recall(k=10)] + (
+            [pmetrics.RMSE()] if name in SENTIMENT_RATING else [])
+        with fixed_svds_start(0):
+            results[name] = clock(f"{name} evaluate", lambda: split_of(name).evaluate(
+                model, metrics, user_based=False)[0].metric_avg_results)
+        fitted[name] = model
+    launches = ACCUMULATE_ROWS.launches
+    clock.report("the sentiment models at the bench shape")
+    if launches <= 0:
+        raise AssertionError("process 12k did not launch accumulate_rows")
+
+    # ---- check what came out ----
+    outside, fit_s = [], {}
+    for name, res in results.items():
+        fit_s[name] = res["Train (s)"]
+        for metric in ("AUC", "NDCG@10") + (("RMSE",) if name in SENTIMENT_RATING else ()):
+            lo, hi, _, _ = sentiment_band(name, metric)
+            inside = lo <= res[metric] <= hi
+            log(f"  {name}: {metric} {res[metric]:.6f}, band [{lo:.6f}, {hi:.6f}] (JAX seeds) "
+                f"{'inside' if inside else 'OUTSIDE'}; fit {fit_s[name]:.3f} s (host clock)")
+            if not inside:
+                outside.append(f"{name} {metric}")
+    acc_err, recorded = 0.0, 0
+    tables = {"EFM": ("U1", "U2", "V", "H1", "H2"), "ComparERObj": ("U1", "U2", "V", "H1", "H2"),
+              "LRPPM": ("U", "I", "UA", "IA"), "TriRank": ("p", "a", "u")}
+    for name, model in fitted.items():
+        if name in SENTIMENT_SHORT_REFITS:
+            # the sampled fits' refit at a shorter depth, both fits at it
+            model = make_model(models, name, 123)
+            model.max_iter = SENTIMENT_SHORT_REFITS[name]
+            model.fit(split_of(name).train_set)
+        with contextlib.redirect_stdout(io.StringIO()), recording_accumulate({}) as store, \
+                fixed_svds_start(0):
+            again = make_model(models, name, 123)
+            if name in SENTIMENT_SHORT_REFITS:
+                again.max_iter = SENTIMENT_SHORT_REFITS[name]
+            again.fit(split_of(name).train_set)
+        if name == "HypAR":
+            for key, p in model.params.items():
+                if not np.array_equal(p, again.params[key]):
+                    raise AssertionError(f"HypAR: two seeded fits differ in {key}")
+        for attr in tables.get(name, () if name == "HypAR" else
+                               ("G1", "G2", "G3", "U", "I", "A", "O")):
+            if not same_bits(getattr(model, attr), getattr(again, attr)):
+                raise AssertionError(f"{name}: two seeded fits differ in {attr}")
+        users = np.arange(64)
+        if not np.array_equal(model.score_batch(users), again.score_batch(users)):
+            raise AssertionError(f"{name}: two seeded fits score differently")
+        acc_err = max(acc_err, check_recorded_accumulate(name, store))
+        recorded += len(store)
+    for name in ("MTER", "ComparERSub", "LRPPM", "Companion", "HypAR"):
+        err, where, step_err = clock(f"{name}'s witness", lambda: sentiment_witness(
+            name, split_of(name).train_set))
+        if name == "HypAR":
+            log(f"  HypAR, a step's gradients on the CPU's draws, on the card against float64 on "
+                f"the CPU: the largest |card - float64| {err:.3e} of its allowance ({where}; "
+                f"{REVIEW_GRAD_TOL:g} of the tensor's largest, or twice the CPU float32's reach; "
+                f"held to 1)")
+            tol = 1.0
+        else:
+            log(f"  {name}, one iteration's gradients from the initial tables on the CPU's draws, "
+                f"on the card against the CPU: the largest |card - CPU| {err:.3e} of the "
+                f"tensor's largest ({where}; held to {REVIEW_GRAD_TOL:g}); the card's step "
+                f"against the CPU's step on the card's gradients {step_err:.3e} of a table's "
+                f"largest (held to {SENTIMENT_WITNESS_TOL:g})")
+            tol = REVIEW_GRAD_TOL
+        if not err <= tol or not (step_err is None or step_err <= SENTIMENT_WITNESS_TOL):
+            raise AssertionError(f"{name} on the card differs from the CPU: gradients {err:.3e} "
+                                 f"({where}), step {step_err}")
+    if outside:
+        raise AssertionError(f"outside their quality bands: {', '.join(outside)}")
+    log(f"  every model: two seeded fits identical, bit for bit; accumulate_rows on their own "
+        f"inputs ({recorded} shapes) equal to the plain version on the CPU, bit for bit (max "
+        f"|err| {acc_err:.3e}); accumulate_rows launches {launches}")
+    log(f"the sentiment models at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
+    return launches, fit_s, acc_err
+
+
 # the families at the bench shape run in processes of their own, at once,
 # after the timed phases: their eager steps are bound by the host, one core
 # each
 NEURAL_GROUPS = (("GMF", "MLP"), ("NeuMF", "LightGCN", "NGCF"), ("VAECF", "RecVAE", "BiVAECF"))
 FAMILY_TIMEOUT = 900  # seconds a family's process may take
 # the bench-shape processes at once: eight workers on the card host's eight
-# cores beside phase 16's host-bound steps; the next-basket, modality and
-# VAECF processes end first and free theirs for the last three. Beside
-# eleven at once, phase 16 took 341-405 s on an H100's host; beside ten,
-# 285 s.
+# cores beside phases 17, 16c and 16; the next-basket, modality and VAECF
+# processes end first and free theirs for the last four. Beside eleven at
+# once, phase 16 alone took 341-405 s on an H100's host; beside ten, 285 s.
 BENCH_WORKERS = 8
 
 
@@ -6935,19 +7600,16 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the serving slice runs. The eleven bench-shape
-    # processes run beside phase 16, BENCH_WORKERS at a time, and are
-    # collected (their logs printed) before 16b: the module's docstring says
-    # why there
+    # makes the data while the serving slice runs. The twelve bench-shape
+    # processes run beside phases 17, 16c and 16, BENCH_WORKERS at a time,
+    # and are collected (their logs printed) before 16b: the module's
+    # docstring says why there
     pool = multiprocessing.get_context("spawn").Pool(BENCH_WORKERS)
     try:
         bench_data = pool.apply_async(make_ml100k_like)
+        toys_data = pool.apply_async(toys_splits, (args.seed + 30,))
         launches, bpr, users = phase_slice(args.seed, work)
         lap("BPR serving slice")
-        basket_launches, basket = phase_basket_tafeng(args.seed)
-        lap("the next-basket family at Ta Feng")
-        tiger_launches, tiger = phase_tiger_ml100k(bench_data.get)
-        lap("TIGER at ML-100K")
         triples = bench_data.get()
         jobs = [("factor family", "phase_factor_bench", ())]
         jobs += [(f"neural family ({', '.join(names)})", "phase_neural_bench", (names,))
@@ -6957,14 +7619,19 @@ def main():
                   "phase_modality_bench", ()),
                  ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
                  ("the next-basket models", "phase_basket_bench", ()),
-                 # the three queued, the longest first
+                 # the four queued, the longest first
                  ("the text and review models", "phase_text_bench", ()),
+                 ("the sentiment and explainable models", "phase_sentiment_bench", ()),
                  ("the generative next-item models", "phase_generative_bench", ()),
                  ("the side-information models", "phase_side_bench", ())]
         families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
                     for what, phase, extra in jobs]
+        basket_launches, basket = phase_basket_tafeng(args.seed)
+        lap("the next-basket family at Ta Feng, beside the twelve bench-shape processes")
+        tiger_launches, tiger = phase_tiger_ml100k(bench_data.get)
+        lap("TIGER at ML-100K, beside them")
         sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
-        lap("SASRec at Diginetica, beside the eleven bench-shape processes")
+        lap("SASRec at Diginetica, beside them")
         done = []
         for what, job in families:
             text, result = job.get(timeout=FAMILY_TIMEOUT)
@@ -7001,6 +7668,9 @@ def main():
         lap("NARRE and HRDR at Digital Music")
         plot_launches, plot_fused, plots = phase_plots(bench_data.get, args.seed)
         lap("ConvMF and HFT on ML-100K plots")
+        toys_launches, toys = phase_sentiment_toys(toys_data.get)
+        acc_cases.update(toys.pop("acc_cases"))  # timed with the others in phase 21
+        lap("the sentiment models at Amazon Toys & Games")
         bench_launches, bench = phase_trainer_bench(bench_data.get)
         lap("trainers at the bench shape")
         full_launches, full_fused, full = phase_trainer_full(args.seed)
@@ -7040,12 +7710,15 @@ def main():
     neural_acc_err = max(r[3] for r in neural)
     neural_prof = next(r[4] for r in neural if r[4] is not None)
     rest_launches, rest_fused, rest_fit, rest_acc_err, proto = done[1 + len(NEURAL_GROUPS)]
-    modal_launches, modal_fit, modal_acc_err = done[2 + len(NEURAL_GROUPS)]
-    seqb_launches, seqb_fit, seqb_acc_err = done[3 + len(NEURAL_GROUPS)]
-    nbb_launches, nbb_fit, nbb_acc_err = done[4 + len(NEURAL_GROUPS)]
-    genb_launches, genb_fit, genb_acc_err = done[5 + len(NEURAL_GROUPS)]
-    sideb_launches, sideb_fit, sideb_acc_err = done[6 + len(NEURAL_GROUPS)]
-    textb_launches, textb_fit, textb_acc_err = done[7 + len(NEURAL_GROUPS)]
+    # each process's result by its phase, whatever the jobs' order
+    by_phase = {phase: res for (_, phase, _), res in zip(jobs, done)}
+    modal_launches, modal_fit, modal_acc_err = by_phase["phase_modality_bench"]
+    seqb_launches, seqb_fit, seqb_acc_err = by_phase["phase_seq_bench"]
+    nbb_launches, nbb_fit, nbb_acc_err = by_phase["phase_basket_bench"]
+    genb_launches, genb_fit, genb_acc_err = by_phase["phase_generative_bench"]
+    sideb_launches, sideb_fit, sideb_acc_err = by_phase["phase_side_bench"]
+    textb_launches, textb_fit, textb_acc_err = by_phase["phase_text_bench"]
+    sentb_launches, sentb_fit, sentb_acc_err = by_phase["phase_sentiment_bench"]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -7100,6 +7773,7 @@ def main():
                       c2pf["max_abs_err"], modal_acc_err, sasrec["max_abs_err"], seqb_acc_err,
                       basket["max_abs_err"], nbb_acc_err, genb_acc_err, tiger["max_abs_err"],
                       sideb_acc_err, music["max_abs_err"], plots["max_abs_err"], textb_acc_err,
+                      toys["max_abs_err"], sentb_acc_err,
                       *(st["max_abs_err"] for st in transformer.values()))
     for label in ("full width, V update (positives + negatives)",
                   "LightGCN edge form, ML-10M, into user rows",
@@ -7123,7 +7797,8 @@ def main():
                   "DMRL, Amazon Clothing, item-embedding gradient",
                   "NARRE, Digital Music, word-table gradient (empty slots dropped)",
                   "NARRE, Digital Music, word-table gradient (empty slots into row 0)",
-                  "ConvMF, ML-100K plots, embedding gradient"):
+                  "ConvMF, ML-100K plots, embedding gradient",
+                  *TOYS_RECORDED.values()):
         acc = acc_rows[label]
         kernels.append({
             "name": "accumulate_rows",
@@ -7137,7 +7812,7 @@ def main():
                          + basket_launches + nbb_launches + tr_launches + tiger_launches
                          + genb_launches + side_launches + vbpr_launches + cloth_launches
                          + sideb_launches + cite_launches + music_launches + plot_launches
-                         + textb_launches),
+                         + textb_launches + toys_launches + sentb_launches),
             "max_abs_err": acc["max_abs_err"],
             "card_plain_max_abs_err": acc["card_plain_max_abs_err"],
             "max_abs_err_all_paths": acc_all_err,
@@ -7249,6 +7924,19 @@ def main():
         f"{name} {res['Train (s)']:.3f}" for name, res in plots["results"].items()))
     log("the text and review models at the bench shape, fit seconds (host clock): " + ", ".join(
         f"{name} {sec:.3f}" for name, sec in textb_fit.items()))
+    for name, st in toys["stats"].items():
+        log(f"{name} at Amazon Toys & Games: fit {st['fit_s']:.3f} s, NDCG@50 "
+            f"{st['quality'][0]:.4f}" + (f", RMSE {st['quality'][1]:.4f}" if len(st["quality"]) > 1
+                                         else "")
+            + ("" if "ms" not in st else
+               f"; {st['ms']:.3f} ms a{' step' if name == 'HypAR' else 'n iteration'}, "
+               f"{st['events']:.1f} device events a call, busy "
+               + ("not measured" if st["share"] is None else f"{100 * st['share']:.2f}%"))
+            + f", peak {st['peak'] / 2**30:.3f} GiB")
+    log("the sentiment models' host builds at Amazon Toys & Games (host clock): " + ", ".join(
+        f"{name} {sec:.3f} s" for name, sec in toys["host_s"].items()))
+    log("the sentiment and explainable models at the bench shape, fit seconds (host clock): "
+        + ", ".join(f"{name} {sec:.3f}" for name, sec in sentb_fit.items()))
     log(f"WMF at the Netflix widths: {wmf['sweep_s'][0]:.4f} / {wmf['sweep_s'][1]:.4f} s per "
         f"sweep, {100 * wmf['bound_s'] / min(wmf['sweep_s']):.2f}% of the FLOP bound, peak "
         f"{wmf['peak_fit'] / 2**30:.3f} GiB")

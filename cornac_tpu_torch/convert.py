@@ -8,6 +8,7 @@ and plain values, and the port rebuilds its own model from them.
 from collections import OrderedDict
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 from scipy.sparse import csr_matrix
 
@@ -19,6 +20,8 @@ from .models.bpr import BPR, WBPR
 from .models.c2pf import C2PF
 from .models.causalrec import CausalRec
 from .models.cdl import CDL
+from .models.comparer import ComparERObj, ComparERSub
+from .models.companion import Companion
 from .models.convmf import ConvMF
 from .models.ctr import CTR
 from .models.cvae import CDR, CVAE
@@ -26,6 +29,7 @@ from .models.cvaecf import CVAECF
 from .models.dmrl import DMRL
 from .models.dnntsp import DNNTSP
 from .models.ease import EASE
+from .models.efm import EFM
 from .models.fm import FM
 from .models.fpmc import FPMC
 from .models.gcmc import GCMC
@@ -33,14 +37,18 @@ from .models.gru4rec import GRU4Rec
 from .models.hft import HFT
 from .models.hpf import HPF
 from .models.hrdr import HRDR
+from .models.hypar import HypAR
 from .models.ibpr import COE, IBPR, OnlineIBPR
 from .models.knn import ItemKNN, UserKNN
+from .models.lrppm import LRPPM
 from .models.mcf import MCF
 from .models.mf import MF
+from .models.mter import MTER
 from .models.narre import NARRE
 from .models.nmf import NMF
 from .models.pcrl import PCRL
 from .models.pmf import PMF
+from .models.recommender import Recommender
 from .models.review_utils import flatten
 from .models.sansa import SANSA
 from .models.sasrec import SASRec
@@ -49,6 +57,7 @@ from .models.skm import SKMeans
 from .models.sorec import SoRec
 from .models.tiger import TIGER
 from .models.transformer_rec import TransformerRec
+from .models.trirank import TriRank
 from .models.vbpr import AMR, VBPR
 from .models.vebpr import VEBPR
 from .models.vmf import VMF
@@ -319,6 +328,25 @@ _TEXT_MODELS = {
     "HFT": (HFT, ("k",)),
 }
 _PARAM_MODELS.update(_TEXT_MODELS)
+# the sentiment and explainable models: class name -> (class, the options it
+# is built with); ``params`` are the JAX model's ``init_params`` names
+# (HypAR's: its ``params`` pytree)
+_SENTIMENT_MODELS = {
+    "EFM": (EFM, ("num_explicit_factors", "num_latent_factors", "num_most_cared_aspects",
+                  "rating_scale", "alpha")),
+    "ComparERObj": (ComparERObj, ("num_explicit_factors", "num_latent_factors",
+                                  "num_most_cared_aspects", "rating_scale", "alpha")),
+    "MTER": (MTER, ()),
+    "ComparERSub": (ComparERSub, ()),
+    "Companion": (Companion, ()),
+    "LRPPM": (LRPPM, ("rating_scale", "alpha", "num_top_aspects")),
+    "TriRank": (TriRank, ("alpha", "beta", "gamma", "eta_U", "eta_P", "eta_A", "max_iter")),
+    "HypAR": (HypAR, ("stemming", "node_dim", "num_heads", "non_linear", "objective",
+                      "review_aggregator", "predictor", "preference_module", "combiner",
+                      "graph_type", "embedding_type", "learn_explainability",
+                      "learn_method")),
+}
+_PARAM_MODELS.update(_SENTIMENT_MODELS)
 # what a model scores with besides its parameters and options: Beacon's
 # correlation matrix (scipy sparse), DNNTSP's padded graph sizes (the JAX
 # model's ``_train_N`` and ``_train_T``), TIGER's host tables (``rqvae_params``
@@ -376,8 +404,18 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
     ``train_set``, the port dataset the model was fitted on (CVAECF's rating
     and social rows, GCMC's rating graph, whose node features are computed
     here, the visual models' item features, the review models' reviews,
-    over which their towers collapse). It scores as the model it was read
-    from.
+    over which their towers collapse). The sentiment and explainable models
+    take their JAX ``init_params`` names as ``params``: ``U1``, ``U2``,
+    ``V``, ``H1``, ``H2`` (EFM, ComparERObj; options
+    ``num_explicit_factors``, ``num_latent_factors``,
+    ``num_most_cared_aspects``, ``rating_scale``, ``alpha``); ``G1``,
+    ``G2``, ``G3``, ``U``, ``I``, ``A``, ``O`` (MTER, ComparERSub,
+    Companion); ``U``, ``I``, ``UA``, ``IA`` (LRPPM: ``rating_scale``,
+    ``alpha``, ``num_top_aspects``); ``R``, ``X``, ``Y`` (scipy) and ``p``,
+    ``a``, ``u`` (TriRank: ``alpha``, ``beta``, ``gamma``, ``eta_U``,
+    ``eta_P``, ``eta_A``, ``max_iter``); HypAR its ``params`` pytree, its
+    constructor's structural options and ``ao_feats``. All of them need
+    ``train_set``. It scores as the model it was read from.
     ``device``: where the model scores (default: the card)."""
     if cls_name not in _PARAM_MODELS:
         raise ValueError(f"cls_name must be one of {sorted(_PARAM_MODELS)}, got {cls_name!r}")
@@ -391,6 +429,8 @@ def model_from_params(cls_name, params, meta, device=None, train_set=None):
         return _side_model(cls_name, params, meta, device, train_set)
     if cls_name in _TEXT_MODELS:
         return _text_model(cls_name, params, meta, device, train_set)
+    if cls_name in _SENTIMENT_MODELS:
+        return _sentiment_model(cls_name, params, meta, device, train_set)
     model = cls(trainable=False, device=device, **{name: meta[name] for name in options})
     _snapshot(model, meta)
     dev = resolve_device(device)
@@ -501,6 +541,38 @@ def _text_model(cls_name, params, meta, device, train_set):
                      for n, a in flatten(params["cnn"]).items()}
     elif cls_name != "HFT":
         model.U, model.V = (np.asarray(params[n]) for n in ("U", "V"))
+    model.train_set = train_set
+    model.val_set = None
+    model.is_fitted = True
+    return model
+
+
+def _sentiment_model(cls_name, params, meta, device, train_set):
+    """``model_from_params`` for the sentiment and explainable models: the
+    model built unfitted from its ``init_params`` and fitted with
+    ``trainable=False`` on ``train_set``, which builds what it scores with
+    besides them (LRPPM's item-aspect quality, TriRank's rating rows, the
+    number of aspects), as the JAX model's fit builds it. HypAR builds its
+    graphs and takes the JAX model's aspect and opinion features
+    (``ao_feats`` in ``meta``; None for learned embeddings)."""
+    if train_set is None:
+        raise ValueError(f"{cls_name} needs the train_set it was fitted on")
+    cls, options = _SENTIMENT_MODELS[cls_name]
+    kwargs = {name: meta[name] for name in options}
+    if cls_name != "HypAR":
+        kwargs["init_params"] = {n: a if sp.issparse(a) else np.asarray(a)
+                                 for n, a in params.items()}
+    model = cls(verbose=False, device=device, **kwargs)
+    model.trainable = False  # TriRank's constructor, as the JAX package's, takes no trainable
+    if cls_name == "HypAR":
+        Recommender.fit(model, train_set)
+        _snapshot(model, meta)
+        model._create_graphs(train_set)
+        model.net = model.build_net(train_set, params, meta["ao_feats"], resolve_device(device))
+        model._cache_inference()
+    else:
+        model.fit(train_set)
+        _snapshot(model, meta)
     model.train_set = train_set
     model.val_set = None
     model.is_fitted = True

@@ -17,6 +17,8 @@ from .bpr import BPR, WBPR
 from .causalrec import CausalRec
 from .c2pf import C2PF
 from .cdl import CDL
+from .comparer import ComparERObj, ComparERSub
+from .companion import Companion
 from .convmf import ConvMF
 from .ctr import CTR
 from .cvae import CDR, CVAE
@@ -24,6 +26,7 @@ from .cvaecf import CVAECF
 from .dmrl import DMRL
 from .dnntsp import DNNTSP
 from .ease import EASE
+from .efm import EFM
 from .fpmc import FPMC
 from .gcmc import GCMC
 from .gru4rec import GRU4Rec
@@ -31,12 +34,15 @@ from .fm import FM
 from .hft import HFT
 from .hpf import HPF
 from .hrdr import HRDR
+from .hypar import HypAR
 from .ibpr import COE, IBPR, OnlineIBPR
 from .knn import ItemKNN, UserKNN
 from .lightgcn import NGCF, LightGCN
+from .lrppm import LRPPM
 from .mcf import MCF
 from .mf import MF, SVD
 from .mmmf import MMMF
+from .mter import MTER
 from .narre import NARRE
 from .ncf import GMF, MLP, NCFBase, NeuMF
 from .nmf import NMF
@@ -50,6 +56,7 @@ from .sorec import SoRec
 from .skm import SKMeans
 from .spop import SPop
 from .tiger import TIGER
+from .trirank import TriRank
 from .tiger_configs import (
     GRID_CONFIG,
     PAISCHER_CONFIG,
@@ -77,6 +84,9 @@ __all__ = [
     "CDL",
     "CDR",
     "COE",
+    "ComparERObj",
+    "ComparERSub",
+    "Companion",
     "ConvMF",
     "CTR",
     "CVAE",
@@ -84,6 +94,7 @@ __all__ = [
     "DMRL",
     "DNNTSP",
     "EASE",
+    "EFM",
     "FM",
     "FPMC",
     "GCMC",
@@ -95,10 +106,12 @@ __all__ = [
     "HFT",
     "HPF",
     "HRDR",
+    "HypAR",
     "IBPR",
     "is_ann_supported",
     "ItemKNN",
     "LightGCN",
+    "LRPPM",
     "MCF",
     "MEASURE_COSINE",
     "MEASURE_DOT",
@@ -107,6 +120,7 @@ __all__ = [
     "MLP",
     "MMMF",
     "MostPop",
+    "MTER",
     "NARRE",
     "NCFBase",
     "NeuMF",
@@ -133,6 +147,7 @@ __all__ = [
     "TIGER",
     "TPUExactANN",
     "TransformerRec",
+    "TriRank",
     "UPCF",
     "UserKNN",
     "VAECF",

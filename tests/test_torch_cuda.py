@@ -24,6 +24,8 @@ from cornac_tpu_torch.models import DNNTSP, TIFUKNN, UPCF, Beacon
 from cornac_tpu_torch.models import TIGER, BERT4Rec, TransformerRec
 from cornac_tpu_torch.models import AMR, DMRL, MCF, PCRL, VBPR, VMF, CausalRec, SoRec
 from cornac_tpu_torch.models import CDL, CDR, CVAE, HRDR, NARRE, ConvMF
+from cornac_tpu_torch.models import (EFM, LRPPM, MTER, Companion, ComparERObj, ComparERSub,
+                                     HypAR, TriRank)
 from scipy.sparse import coo_matrix
 
 from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS, accumulate_rows, accumulate_rows_torch
@@ -1423,4 +1425,152 @@ def test_text_model_epochs_never_sync_with_the_host(card):
     assert torch.isfinite(loss)
     for t in (*review[0][1].values(), *review[1][1].values(), *uv.values(), *sdae.values(),
               *cdr_p.values()):
+        assert torch.isfinite(t).all()
+
+
+def _sentiment_split():
+    """A small seeded RatioSplit of timestamped star ratings with one to
+    three seeded (aspect, opinion, polarity) tuples a rating."""
+    from cornac_tpu_torch.data import SentimentModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(12)
+    pairs = {(int(u), int(i)) for u, i in zip(rng.randint(120, size=2500),
+                                               rng.randint(150, size=2500))}
+    data = [(f"u{u}", f"i{i}", float(rng.randint(1, 6)), int(rng.randint(10**6)))
+            for u, i in sorted(pairs)]
+    lexicon = [(u, i, [(f"a{rng.randint(12)}", f"o{rng.randint(20)}", float(rng.choice([-1, 1])))
+                       for _ in range(rng.randint(1, 4))]) for u, i, _, _ in data]
+    return RatioSplit(data=data, fmt="UIRT", test_size=0.2, rating_threshold=3.0, seed=1,
+                      exclude_unknowns=True, verbose=False,
+                      sentiment=SentimentModality(data=lexicon)).train_set
+
+
+_TUCKER_KW = dict(n_user_factors=4, n_item_factors=4, n_aspect_factors=4, n_opinion_factors=4,
+                  n_element_samples=20, n_bpr_samples=50, max_iter=300)
+_SENTIMENT = [
+    (lambda **kw: EFM(num_explicit_factors=4, num_latent_factors=4, max_iter=30, **kw),
+     ("U1", "U2", "V", "H1", "H2")),
+    (lambda **kw: ComparERObj(num_explicit_factors=4, num_latent_factors=4, max_iter=30,
+                              min_user_freq=1, **kw), ("U1", "U2", "V", "H1", "H2")),
+    (lambda **kw: MTER(**_TUCKER_KW, **kw), ("G1", "G2", "G3", "U", "I", "A", "O")),
+    (lambda **kw: ComparERSub(**_TUCKER_KW, n_pair_samples=30, min_user_freq=1, **kw),
+     ("G1", "U", "I", "A")),
+    (lambda **kw: LRPPM(n_factors=4, n_samples=50, n_ranking_samples=60, max_iter=300, **kw),
+     ("U", "I", "UA", "IA")),
+    (lambda **kw: Companion(**_TUCKER_KW, n_aspect_ranking_samples=40,
+                            n_opinion_ranking_samples=40, **kw),
+     ("G1", "G2", "G3", "U", "I", "A", "O")),
+    (lambda **kw: HypAR(node_dim=8, num_heads=2, num_epochs=2, batch_size=64, num_neg_samples=4,
+                        model_selection="last", **kw), ()),
+]
+
+
+@pytest.mark.parametrize("make,attrs", _SENTIMENT)
+def test_sentiment_models_seeded_fits_on_the_card_are_identical(card, make, attrs):
+    """Two seeded fits on the card give the same bits (HypAR with the
+    aspect / opinion content vectors from one fixed svds start: scipy draws
+    it from fresh entropy otherwise), through accumulate_rows; TriRank's
+    scores (its fit is host scipy) are the same on the card as on the CPU."""
+    from cornac_tpu_torch.models.hypar import fixed_svds_start
+
+    train = _sentiment_split()
+    fits = []
+    before = ACCUMULATE_ROWS.launches
+    for _ in range(2):
+        with fixed_svds_start(0):
+            fits.append(make(seed=3, verbose=False).fit(train))
+    assert ACCUMULATE_ROWS.launches > before
+    a, b = fits
+    for attr in attrs:
+        assert np.array_equal(getattr(a, attr), getattr(b, attr)), attr
+    if isinstance(a, HypAR):
+        for key, p in a.params.items():
+            assert np.array_equal(p, b.params[key]), key
+    users = np.arange(10)
+    assert np.array_equal(a.score_batch(users), b.score_batch(users))
+    assert np.isfinite(a.score_batch(users)).all()
+    tri = TriRank(seed=3, max_iter=50, verbose=False).fit(train)
+    on_card = tri.score_batch(users)
+    tri.device, tri._tensors = "cpu", None
+    np.testing.assert_allclose(on_card, tri.score_batch(users), rtol=1e-10, atol=1e-12)
+
+
+def test_sentiment_iterations_never_sync_with_the_host(card):
+    """EFM's and ComparERObj's multiplicative updates, MTER's and
+    ComparERSub's, LRPPM's and Companion's sampled iterations (their draws
+    made on the card) and HypAR's steps never wait for the host. TriRank's
+    power iteration reads its convergence test once an iteration and the
+    host builds are host code, both as the JAX package designs them."""
+    from cornac_tpu_torch.models.companion import companion_draws, companion_iteration
+    from cornac_tpu_torch.models.efm import efm_device_inputs, efm_iteration
+    from cornac_tpu_torch.models.hypar import fixed_svds_start, hypar_draws
+    from cornac_tpu_torch.models.lrppm import LrppmData, aspect_membership, lrppm_draws
+    from cornac_tpu_torch.models.lrppm import lrppm_iteration
+    from cornac_tpu_torch.models.mter import mter_draws, mter_iteration
+    from cornac_tpu_torch.ops.csr_lookup import CsrLookup
+    from cornac_tpu_torch.ops.optim import adamw, step
+
+    train = _sentiment_split()
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    efm = ComparERObj(num_explicit_factors=4, num_latent_factors=4, min_user_freq=1, seed=3,
+                      device=card, trainable=False).fit(train)
+    efm.trainable = True
+    efm._init_tables()
+    A, X, Y = efm._build_matrices(train)
+    streams, counts, lambdas = efm_device_inputs(efm, A, X, Y, card)
+    pairs = efm._pairs(train, Y, card)
+    tables = tuple(torch.as_tensor(getattr(efm, n), device=card).clone()
+                   for n in ("U1", "U2", "V", "H1", "H2"))
+    sub = ComparERSub(**_TUCKER_KW, n_pair_samples=30, min_user_freq=1, seed=3, device=card,
+                      trainable=False).fit(train)
+    rating_matrix, uia, uao, iao = sub._build_data(train)
+    sub_pairs = sub._build_sub_pairs(train, uia)
+    sub_data = sub._device_data(train, rating_matrix, uia, uao, iao, sub_pairs, card)
+    sub_p, sub_s = sub._device_params(card)
+    comp = Companion(**_TUCKER_KW, seed=3, device=card, trainable=False).fit(train)
+    c_streams, c_mats = comp._host_streams(*comp._build_data(train))
+    comp_data = comp._device_data(train, c_streams, c_mats, card)
+    comp_p, comp_s = comp._device_params(card)
+    lr = LRPPM(n_factors=4, seed=3, device=card, trainable=False).fit(train)
+    l_uia, _ = lr._build_data(train)
+    X_u, X_i, X_a, X_l = lr._triples(l_uia)
+    rid, cid, rvals = train.uir_tuple
+    csr = train.csr_matrix.sorted_indices()
+    as_t = lambda a, dt=torch.int64: torch.as_tensor(np.asarray(a), device=card).to(dt)  # noqa
+    l_data = LrppmData(as_t(rid), as_t(cid), as_t(rvals, torch.float32), as_t(X_u), as_t(X_i),
+                       as_t(X_a), as_t(X_l, torch.float32), CsrLookup.build(csr, device=card),
+                       aspect_membership(csr, l_uia, lr.num_aspects, card), lr.num_aspects)
+    l_p = tuple(torch.as_tensor(np.asarray(t, np.float32), device=card).clone()
+                for t in (lr.U, lr.I, lr.UA, lr.IA))
+    with fixed_svds_start(0):
+        hyp = HypAR(node_dim=8, num_heads=2, batch_size=64, num_neg_samples=4,
+                    layer_dropout=0.1, seed=3, device=card, trainable=False).fit(train)
+    h_params = hyp.net.params
+    opt = adamw(0.01)
+    h_state = opt.init(h_params)
+    n_edges = len(hyp.edge_u)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            efm_iteration(tables, streams, counts, lambdas, pairs, 1)
+        draws = mter_draws(gen, 2, sub_data, 20, 50, 30, sub.num_items, card)
+        for t in range(2):
+            mter_iteration(sub_p, sub_s, sub_data, {k: v[t] for k, v in draws.items()}, 0.1, 0.1,
+                           10.0, 0.01)
+        draws = lrppm_draws(gen, 2, l_data, 50, 60, card)
+        for t in range(2):
+            lrppm_iteration(l_p, l_data, {k: v[t] for k, v in draws.items()}, 0.1, 0.01, 1.0)
+        draws = companion_draws(gen, 2, comp_data, (comp.num_items, comp.num_aspects,
+                                                    comp.num_opinions), comp._sizes(), card)
+        for t in range(2):
+            companion_iteration(comp_p, comp_s, comp_data, {k: v[t] for k, v in draws.items()},
+                                comp.n_user_factors, 0.5, 0.1, 10.0, 10.0, 10.0, 10.0, 10.0)
+        for draws in hypar_draws(gen, hyp, n_edges, 64, 2, card):
+            h_state = step(h_params, opt, h_state, hyp.net.loss_on(draws))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t in (*tables, *sub_p.values(), *l_p, *comp_p.values(), *h_params.values()):
         assert torch.isfinite(t).all()

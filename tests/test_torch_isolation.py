@@ -84,7 +84,9 @@ def test_port_imports_no_jax_and_no_jax_package(probe):
                  "eval_methods.next_basket_evaluation", "ops.rmsprop", "models.sorec",
                  "models.mcf", "models.vbpr", "models.causalrec", "models.vmf", "models.dmrl",
                  "models.pcrl", "models.review_utils", "models.narre", "models.hrdr",
-                 "models.cdl", "models.cvae", "models.convmf", "models.ctr", "models.hft"):
+                 "models.cdl", "models.cvae", "models.convmf", "models.ctr", "models.hft",
+                 "ops.csr_lookup", "models.efm", "models.comparer", "models.trirank",
+                 "models.mter", "models.lrppm", "models.companion", "models.hypar"):
         assert "cornac_tpu_torch." + name in probe["modules"]
     assert probe["leaked"] == []
 

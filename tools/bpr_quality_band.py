@@ -53,14 +53,15 @@ Recall@10, and the text and review models of ``TEXT_CONFIGS`` (``NARRE``,
 RMSE over the test ratings); their bands come from ten seeds, 123-132
 (five seeds misjudged GRU4Rec's MRR spread by a factor of two: 0.00054 over
 123-127, 0.00097 over 128-132). ``--package torch`` fits the port instead, on the CPU,
-to see where its fits fall. ``--bf16-products`` rounds both operands of
+to see where its fits fall (``--device cuda``: on the card, whose random
+streams are not the CPU's). ``--bf16-products`` rounds both operands of
 every float32 matrix product of the JAX package to bfloat16 and sums in
 float32: one bf16 pass, what a TPU's matrix unit does at JAX's default
 precision, which the CPU ignores (it computes such products in float32
 whatever the precision asked for).
 
     python tools/bpr_quality_band.py [--model BPR] [--seeds 123 124 125 126 127]
-                                     [--package torch] [--bf16-products]
+                                     [--package torch [--device cuda]] [--bf16-products]
 """
 
 import argparse
@@ -253,6 +254,58 @@ TEXT_CONFIGS = {
     "HFT": ("HFT", dict(k=10, max_iter=10, grad_iter=5, lambda_text=0.01, verbose=False)),
 }
 REVIEW_MODELS = ("NARRE", "HRDR")  # rating models: banded on RMSE too
+
+# the sentiment and explainable models on make_ml100k_like(7) with seeded
+# timestamps and seeded sentiment (``sentiment_split``): name -> (class
+# name, constructor arguments without the seed). EFM, MTER, LRPPM and
+# TriRank at their examples' settings, MTER, ComparERSub, LRPPM and
+# Companion at fewer iterations (500, 500, 1,000 and 300; the examples'
+# 10,000, 200,000, 20,000 and 500,000: their eager iterations share the
+# card's host with the other bench processes), HypAR at narrower widths (32 a node) and larger minibatches for
+# one epoch (its defaults otherwise), the ComparER models on the first
+# ``COMPARER_USERS`` users with consecutive purchases paired
+# (``enum_window=2``): the skyline builds, host Python in both packages,
+# take some minutes on all of them
+_TUCKER8 = dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8, n_opinion_factors=8)
+SENTIMENT_CONFIGS = {
+    "EFM": ("EFM", dict(num_explicit_factors=40, num_latent_factors=60,
+                        num_most_cared_aspects=15, rating_scale=5.0, alpha=0.85, max_iter=100)),
+    "ComparERObj": ("ComparERObj", dict(num_explicit_factors=40, num_latent_factors=60,
+                                        max_iter=100, enum_window=2)),
+    "MTER": ("MTER", dict(n_user_factors=15, n_item_factors=15, n_aspect_factors=12,
+                          n_opinion_factors=12, n_bpr_samples=1000, n_element_samples=50,
+                          lambda_reg=0.1, lambda_bpr=10, max_iter=500, lr=0.1)),
+    "ComparERSub": ("ComparERSub", dict(_TUCKER8, max_iter=500, lr=0.1, enum_window=2)),
+    "LRPPM": ("LRPPM", dict(n_factors=8, ld=1.0, reg=0.01, alpha=1.0, n_samples=200,
+                            n_ranking_samples=1000, max_iter=1000, lr=0.1)),
+    "Companion": ("Companion", dict(_TUCKER8, n_element_samples=50, n_bpr_samples=1000,
+                                    n_aspect_ranking_samples=1000,
+                                    n_opinion_ranking_samples=1000, max_iter=300, lr=0.5)),
+    "TriRank": ("TriRank", dict(max_iter=100, verbose=False)),
+    "HypAR": ("HypAR", dict(node_dim=32, batch_size=1024, num_epochs=1, verbose=False)),
+}
+SENTIMENT_RATING = ("EFM", "ComparERObj", "MTER", "ComparERSub", "LRPPM", "Companion")
+SENTIMENT_METRICS = ("AUC", "NDCG@10", "Recall@10")
+COMPARER_USERS = 150  # the ComparER models' users: u0 .. u149
+
+
+def sentiment_split(data, eval_methods, triples, name=None):
+    """The sentiment cell: ``RatioSplit(0.15, 4.0, seed=123)`` of
+    ``triples`` with seeded timestamps (``seq_bench_data.timed``) and seeded
+    sentiment over 20 aspects and 60 opinions
+    (``seq_bench_data.sentiment_lexicon``); for the ComparER models
+    (``name``), the first ``COMPARER_USERS`` users' ratings only."""
+    from seq_bench_data import sentiment_lexicon, timed
+
+    lexicon = sentiment_lexicon(triples, n_aspects=20, n_opinions=60)
+    quads = timed(triples)
+    if name in ("ComparERObj", "ComparERSub"):
+        keep = {f"u{u}" for u in range(COMPARER_USERS)}
+        lexicon = [row for row in lexicon if row[0] in keep]
+        quads = [row for row in quads if row[0] in keep]
+    return eval_methods.RatioSplit(data=quads, fmt="UIRT", test_size=0.15, rating_threshold=4.0,
+                                   exclude_unknowns=True, seed=123, verbose=False,
+                                   sentiment=data.SentimentModality(data=lexicon))
 TEXT_METRICS = ("AUC", "NDCG@10", "Recall@10")
 
 
@@ -420,10 +473,11 @@ def make_model(models, name, seed):
     """The configuration ``name`` of the package ``models`` with ``seed``
     (EASE takes none)."""
     table = next(t for t in (CONFIGS, GOLDEN_CONFIGS, SEQ_CONFIGS, GENERATIVE_CONFIGS,
-                             AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS) if name in t)
+                             AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS,
+                             SENTIMENT_CONFIGS) if name in t)
     cls, kwargs = table[name][:2]
-    seeded = (True if table in (AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS)
-              else table[name][2])
+    seeded = (True if table in (AUX_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS,
+                                SENTIMENT_CONFIGS) else table[name][2])
     if seeded is not None:
         kwargs = {**kwargs, "seed": seed}
     return getattr(models, cls)(**kwargs)
@@ -434,7 +488,7 @@ def main():
     parser.add_argument("--model", choices=sorted(CONFIGS) + sorted(GOLDEN_CONFIGS)
                         + sorted(SEQ_CONFIGS) + sorted(GENERATIVE_CONFIGS) + sorted(AUX_CONFIGS)
                         + sorted(BASKET_CONFIGS) + sorted(SIDE_CONFIGS)
-                        + sorted(TEXT_CONFIGS),
+                        + sorted(TEXT_CONFIGS) + sorted(SENTIMENT_CONFIGS),
                         default="BPR")
     parser.add_argument("--seeds", type=int, nargs="+", default=None,
                         help="default: 123-127; 123-132 for the next-item and next-basket "
@@ -444,15 +498,20 @@ def main():
                         help="SoRec, MCF, ConvMF, CTR, HFT: print the first seed's fit's "
                              "FINGERPRINT_TABLES as their first FINGERPRINT_ROWS rows and column "
                              "sums instead of a band")
+    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu",
+                        help="the port's device (--package torch)")
     parser.add_argument("--bf16-products", action="store_true",
                         help="JAX package only: every float32 matrix product in one bf16 pass")
     args = parser.parse_args()
     if args.bf16_products and args.package != "jax":
         parser.error("--bf16-products applies to the JAX package")
+    if args.device != "cpu" and args.package != "torch":
+        parser.error("--device applies to the port (--package torch)")
 
     if args.seeds is None:
         wide = any(args.model in t for t in (SEQ_CONFIGS, GENERATIVE_CONFIGS, AUX_CONFIGS,
-                                             BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS))
+                                             BASKET_CONFIGS, SIDE_CONFIGS, TEXT_CONFIGS,
+                                             SENTIMENT_CONFIGS))
         args.seeds = list(range(123, 133 if wide else 128))
 
     import bench
@@ -470,13 +529,13 @@ def main():
     else:
         import cornac_tpu_torch
 
-        cornac_tpu_torch.set_default_device("cpu")
+        cornac_tpu_torch.set_default_device(args.device)
         from cornac_tpu_torch import data, eval_methods, metrics, models
         from cornac_tpu_torch.eval_methods import RatioSplit
         from cornac_tpu_torch.eval_methods.base_method import ranking_eval, rating_eval
         from cornac_tpu_torch.metrics import AUC, MAE, NDCG, RMSE, Recall
 
-    summary = {"model": args.model, "package": args.package, "device": "cpu",
+    summary = {"model": args.model, "package": args.package, "device": args.device,
                "bf16_products": args.bf16_products}
     if args.model in GOLDEN_CONFIGS:
         seeded, kind = GOLDEN_CONFIGS[args.model][2:]
@@ -556,6 +615,23 @@ def main():
         for seed in args.seeds:
             result = split.evaluate(make_model(models, args.model, seed), text_metrics,
                                     user_based=False)[0]
+            runs.append({name: float(result.metric_avg_results[name]) for name in names})
+            print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
+        summary.update(seeds=args.seeds, **band_summary(runs, names))
+        print(json.dumps(summary))
+        return
+    if args.model in SENTIMENT_CONFIGS:
+        from cornac_tpu_torch.models.hypar import fixed_svds_start
+
+        split = sentiment_split(data, eval_methods, bench.make_ml100k_like(), args.model)
+        names = SENTIMENT_METRICS + (("RMSE",) if args.model in SENTIMENT_RATING else ())
+        runs = []
+        for seed in args.seeds:
+            chosen = [metrics.AUC(), metrics.NDCG(k=10), metrics.Recall(k=10)] + (
+                [metrics.RMSE()] if args.model in SENTIMENT_RATING else [])
+            with fixed_svds_start(0):  # HypAR's content vectors from one svds start
+                result = split.evaluate(make_model(models, args.model, seed), chosen,
+                                        user_based=False)[0]
             runs.append({name: float(result.metric_avg_results[name]) for name in names})
             print(json.dumps({"model": args.model, "seed": seed, **runs[-1]}), flush=True)
         summary.update(seeds=args.seeds, **band_summary(runs, names))

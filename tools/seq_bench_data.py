@@ -19,6 +19,12 @@ package.
   (a Zipf-like letter-only document of 50 words an item over a vocabulary
   of 400), and ``text_modalities`` the bench shape's item texts and
   per-rating reviews for the text and review models.
+- ``sentiment_lexicon``: seeded (aspect, opinion, polarity) tuples, one to
+  four a rating, over Zipf-skewed aspect and opinion vocabularies, the
+  polarity leaning with the rating (the Amazon sentiment files that
+  ``examples/efm_example.py`` and its kin read are downloads), and
+  ``timed`` the ratings with seeded timestamps (UIRT) for ComparER's
+  chronological pairs.
 - ``seeded_trust``: a user graph for ``make_ml100k_like(7)``'s users (the
   FilmTrust trust network that ``examples/cvaecf_filmtrust.py`` reads is not
   in the repository): each user trusts a few users, drawn with a bias toward
@@ -224,3 +230,37 @@ def text_modalities(triples, data, n_items=1682):
         review_text=data.ReviewModality(
             data=[(u, i, reviews[int(i[1:]) % len(reviews)]) for u, i, _ in triples],
             max_vocab=200))
+
+
+def sentiment_lexicon(triples, n_aspects=200, n_opinions=500, seed=17, skew=1.1):
+    """[(user, item, [(aspect, opinion, polarity), ...]), ...], one to four
+    tuples a rating of ``triples``: aspects ``a0``.. and opinions ``o0``..
+    drawn with probability proportional to 1 / (rank + 1) ** ``skew``; a
+    tuple's polarity is +1 with probability 0.8 for a rating of 4 or 5,
+    0.2 for 1 or 2 and 0.5 for 3, else -1."""
+    rng = np.random.RandomState(seed)
+    n = len(triples)
+    counts = rng.randint(1, 5, size=n)
+    total = int(counts.sum())
+
+    def zipf(m):
+        p = 1.0 / np.arange(1, m + 1) ** skew
+        return rng.choice(m, size=total, p=p / p.sum())
+
+    aspects, opinions = zipf(n_aspects), zipf(n_opinions)
+    ratings = np.repeat(np.asarray([r for _, _, r in triples], np.float64), counts)
+    p_pos = np.where(ratings >= 4, 0.8, np.where(ratings <= 2, 0.2, 0.5))
+    polarity = np.where(rng.rand(total) < p_pos, 1.0, -1.0)
+    ends = np.cumsum(counts)
+    out = []
+    for k, (u, i, _) in enumerate(triples):
+        lo = ends[k] - counts[k]
+        out.append((u, i, [(f"a{aspects[t]}", f"o{opinions[t]}", float(polarity[t]))
+                           for t in range(lo, ends[k])]))
+    return out
+
+
+def timed(triples, seed=19, span=10**7):
+    """``triples`` as UIRT tuples with seeded integer timestamps in [0, span)."""
+    stamps = np.random.RandomState(seed).randint(span, size=len(triples))
+    return [(u, i, r, int(t)) for (u, i, r), t in zip(triples, stamps)]
