@@ -62,6 +62,11 @@ Phases, each of which fails the run when it fails:
    standalone HTTP server on localhost (/recommend, /feedback, /evaluate),
    then ``recommend_batch`` for 8,192 users; every answer is checked
    against lists computed from the same vectors with the plain version;
+   then ``TPUExactANN(bpr, mesh=...)`` for those 8,192 users at k=100
+   through ``parallel.sharded.sharded_topk``, on the (data, model) mesh of
+   one rank over NCCL that ``make_mesh`` starts in this process (before
+   phase 8, after the bench processes are spawned, which never join it),
+   the plain index's ids and distances;
 9. KNN slice at the MovieLens 1M widths (6,040 users x 3,706 items,
    1,000,209 seeded whole-star ratings): RatioSplit -> Experiment with
    ItemKNN(k=50) and UserKNN(k=50) on Recall@10, NDCG@10 and AUC ->
@@ -93,7 +98,9 @@ Phases, each of which fails the run when it fails:
    R@10), timed after a one-epoch warm-up; AUC and NDCG@10 must fall in the
    band of the JAX package's CPU runs (``tools/bpr_quality_band.py``); a
    second fit with the same seed and verbose=True must give the same
-   factors, bit for bit; then one Experiment with BPR, MMMF, WBPR,
+   factors, bit for bit; ``RatioSplit(mesh=...)`` on that mesh evaluating
+   the fitted BPR, its AUC, NDCG@10 and Recall@5 equal to the plain split's
+   exactly; then one Experiment with BPR, MMMF, WBPR,
    MF(k=10, max_iter=20), BaselineOnly, GlobalAvg and MostPop on those
    metrics and RMSE, MAE;
 12. factor family at the bench shape: one Experiment with
@@ -120,7 +127,10 @@ Phases, each of which fails the run when it fails:
 13. trainer at full width (``benchmarks/scale_10m.py``'s configuration:
    100,000 users x 10,000 items, about 10M unique seeded pairs, so the
    membership test is the CSR binary search): BPR(k=32, batch_size=16384,
-   seed=123), one warm epoch, then 10 timed epochs; samples/s beside the
+   seed=123), one warm epoch, one epoch of ``BPR(mesh=...)`` on that mesh
+   held bit for bit to the plain 1-epoch fit (both fits' seconds printed,
+   the mesh epoch's as a 1-epoch minus a 0-epoch fit), then 10 timed
+   epochs; samples/s beside the
    byte bound of a sample, launches per minibatch and the device-busy
    share; then ``recommend_batch`` for 8,192 users at k=100 through
    fused_topk, every list held to the plain version;
@@ -161,11 +171,11 @@ Phases, each of which fails the run when it fails:
    arrays timed on the host, the membership structure and its bytes
    printed; the first minibatch's five accumulate_rows inputs held bit for
    bit to the plain version on the CPU and timed beside ``index_add_``; two
-   seeded 2-epoch fits bit for bit; the 10-epoch fit (the example's 50, cut
+   seeded 2-epoch fits bit for bit; the 6-epoch fit (the example's 50, cut
    for the run's time) timed (seconds per epoch, samples/s
    beside the byte bound of a sample, device events per minibatch and the
    busy share of one epoch, peak device memory); a fit with checkpoints
-   every 5 epochs stopped at 5 and resumed to 10, equal to the
+   every 3 epochs stopped at 3 and resumed to 6, equal to the
    uninterrupted one bit for bit; ranking_eval's AUC, NDCG@10 and Recall@10 over the first 4,096 test
    users (all of them while that takes 15 s or less; 26-30 s on the host,
    cut for the run's time); recommend_batch of 8,192 users at k = 100 through fused_topk
@@ -1264,7 +1274,7 @@ def check_lists(got, want, S, what):
     return relaxed
 
 
-def phase_slice(seed, work):
+def phase_slice(seed, work, mesh):
     import torch
 
     from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
@@ -1308,6 +1318,7 @@ def phase_slice(seed, work):
     finally:
         for s in servers:
             s.close()
+    launches += mesh_index_check(mesh, bpr, ann, batch_users, train)
 
     # ---- check every answer against the plain version ----
     dev = torch.device(DEV)
@@ -1344,6 +1355,56 @@ def phase_slice(seed, work):
     device_share(f"recommend_batch {SERVE_BATCH} users",
                  lambda: bpr.recommend_batch(batch_users, k=TOPK))
     return launches, bpr, users
+
+
+def start_mesh():
+    """The (data, model) mesh of one rank over NCCL that ``make_mesh``
+    starts in a process with no group (this process only: the spawned
+    bench processes never join it). Raises unless it is NCCL's."""
+    import torch.distributed as dist
+
+    from cornac_tpu_torch.parallel import make_mesh
+
+    import torch
+
+    t = time.perf_counter()
+    mesh = make_mesh()
+    if dist.get_backend() != "nccl" or tuple(mesh.mesh.shape) != (1, 1):
+        raise AssertionError(f"make_mesh gave {mesh} over {dist.get_backend()}")
+    for axis in ("data", "model"):  # NCCL makes a group's communicator at its first call
+        dist.all_reduce(torch.ones(1, device=DEV), group=mesh.get_group(axis))
+    torch.cuda.synchronize()
+    log(f"  world-size-1 NCCL group and (data, model) mesh {tuple(mesh.mesh.shape)}, both "
+        f"axes' communicators made: {time.perf_counter() - t:.3f} s")
+    return mesh
+
+
+def mesh_index_check(mesh, bpr, ann, batch_users, train):
+    """``TPUExactANN(bpr, mesh=...)`` (world size 1) at the serving widths:
+    the top-k of ``SERVE_BATCH`` users through ``sharded_topk``, the same
+    ids as the plain index's. Returns its fused_topk launches, which must
+    be more than none."""
+    from cornac_tpu_torch.models import TPUExactANN
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    q = bpr.get_user_vectors()[[train.uid_map[u] for u in batch_users]]
+    clock = Clock()
+    before = FUSED_TOPK.launches
+    sharded = TPUExactANN(bpr, mesh=mesh)
+    clock("TPUExactANN(mesh=...).build_index", sharded.build_index)
+    got, dist_got = clock("its knn_query, first", lambda: sharded.knn_query(q, TOPK))
+    clock("its knn_query, again", lambda: sharded.knn_query(q, TOPK))
+    launches = FUSED_TOPK.launches - before
+    want, dist_want = clock("the plain index's knn_query", lambda: ann.knn_query(q, TOPK))
+    clock.report("the sharded index")
+    if launches <= 0 or sharded._rows_per_shard != N_ITEMS:
+        raise AssertionError(f"the sharded index launched fused_topk {launches} times over "
+                             f"{sharded._rows_per_shard} rows a shard")
+    if not np.array_equal(got, want) or not np.array_equal(dist_got, dist_want):
+        raise AssertionError("TPUExactANN(mesh=...) differs from the plain index")
+    log(f"  TPUExactANN(mesh=...), world size 1, {SERVE_BATCH} users x {N_ITEMS:,} items, "
+        f"k={TOPK}: the plain index's ids and distances; fused_topk launches {launches}")
+    return launches
 
 
 def profile_call(fn, with_prof=False):
@@ -1630,7 +1691,7 @@ def epoch_profile(fit, n_batches, epochs):
                 top=top_ops(more[3]))
 
 
-def phase_trainer_bench(bench_data):
+def phase_trainer_bench(bench_data, mesh):
     """RatioSplit -> BPR.fit -> ranking_eval at the bench.py shape, the
     quality band, a verbose refit bit for bit, then an Experiment with the
     other trainers and the baselines. ``bench_data()`` gives
@@ -1656,6 +1717,7 @@ def phase_trainer_bench(bench_data):
     bpr = clock("BPR.fit", lambda: BPR(**BENCH_BPR).fit(train))
     quality = clock("ranking_eval (AUC, MAP, NDCG@10, P@10, R@10)",
                     lambda: ranking_quality(bpr, split))
+    mesh_eval = mesh_eval_check(clock, mesh, data, split, bpr)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         again = clock("BPR.fit, verbose=True",
@@ -1706,7 +1768,37 @@ def phase_trainer_bench(bench_data):
         f"({100 * prof['share']:.2f}%), {prof['launches_per_minibatch']:.1f} device events per "
         f"minibatch; top device ops: {prof['top']}")
     log(f"trainers at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
-    return launches, dict(quality=quality, train_s=train_s, test_s=test_s, **prof)
+    return launches, dict(quality=quality, train_s=train_s, test_s=test_s, mesh_eval=mesh_eval,
+                          **prof)
+
+
+def mesh_eval_check(clock, mesh, data, split, bpr):
+    """``RatioSplit(mesh=...)`` (world size 1) evaluating the fitted BPR
+    (frozen: ``init_params``, ``trainable=False``) at the bench shape: its
+    AUC, NDCG@10 and Recall@5 must equal the plain split's evaluation of
+    the same model exactly. Returns the sharded evaluation's seconds."""
+    from cornac_tpu_torch.eval_methods import RatioSplit
+    from cornac_tpu_torch.metrics import AUC, NDCG, Recall
+    from cornac_tpu_torch.models import BPR
+
+    def frozen():
+        return BPR(k=bpr.k, trainable=False, init_params={
+            "U": bpr.u_factors, "V": bpr.i_factors, "Bi": bpr.i_biases})
+
+    def evaluate(method):
+        res, _ = method.evaluate(frozen(), [AUC(), NDCG(k=10), Recall(k=5)], user_based=True,
+                                 show_validation=False)
+        return {k: res.metric_avg_results[k] for k in ("AUC", "NDCG@10", "Recall@5")}
+
+    msplit = clock("RatioSplit(0.2, 4.0, seed=123, mesh=...) (set-up)", lambda: RatioSplit(
+        data, test_size=0.2, rating_threshold=4.0, seed=123, verbose=False, mesh=mesh))
+    got = clock("RatioSplit(mesh=...).evaluate, world size 1", lambda: evaluate(msplit))
+    want = clock("RatioSplit.evaluate (the plain split)", lambda: evaluate(split))
+    if got != want:
+        raise AssertionError(f"RatioSplit(mesh=...) gave {got}, the plain split {want}")
+    log("  RatioSplit(mesh=...), world size 1, evaluating the fitted BPR: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in got.items()) + " (the plain evaluation's, exactly)")
+    return clock.seconds["RatioSplit(mesh=...).evaluate, world size 1"]
 
 
 def phase_canary(gen):
@@ -2551,7 +2643,7 @@ def sample_bytes(csr, k):
     return 8.0 + probe + 3 * 2 * (k + 1) * 4.0, probe
 
 
-def phase_trainer_full(seed):
+def phase_trainer_full(seed, mesh):
     """BPR at benchmarks/scale_10m.py's configuration: one warm epoch, ten
     timed, samples/s beside the byte bound, the busy share of an epoch;
     then recommend_batch for 8,192 users through fused_topk, held to the
@@ -2570,7 +2662,11 @@ def phase_trainer_full(seed):
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
     clock("BPR.fit, 1 epoch (warm)", lambda: BPR(max_iter=1, **kw).fit(ds))
-    clock("BPR.fit, 1 epoch", lambda: BPR(max_iter=1, **kw).fit(ds))
+    one = clock("BPR.fit, 1 epoch", lambda: BPR(max_iter=1, **kw).fit(ds))
+    sharded = clock("BPR(mesh=...).fit, 1 epoch, world size 1",
+                    lambda: BPR(max_iter=1, mesh=mesh, **kw).fit(ds))
+    clock("BPR(mesh=...).fit, 0 epochs, world size 1 (set-up)",
+          lambda: BPR(max_iter=0, mesh=mesh, **kw).fit(ds))
     model = clock("BPR.fit, 11 epochs", lambda: BPR(max_iter=11, **kw).fit(ds))
     rng = np.random.RandomState(seed + 3)
     users = rng.choice(FULL_USERS, SERVE_BATCH, replace=False)
@@ -2582,6 +2678,16 @@ def phase_trainer_full(seed):
         raise AssertionError("the full-width path did not launch accumulate_rows and fused_topk")
 
     # ---- check and measure ----
+    for name in ("u_factors", "i_factors", "i_biases"):
+        if not np.array_equal(getattr(sharded, name), getattr(one, name)):
+            raise AssertionError(f"BPR(mesh=...) differs from the plain fit in {name}")
+    mesh_fit_s = clock.seconds["BPR(mesh=...).fit, 1 epoch, world size 1"]
+    mesh_epoch_s = mesh_fit_s - clock.seconds["BPR(mesh=...).fit, 0 epochs, world size 1 (set-up)"]
+    log(f"  BPR(mesh=...) at world size 1 (NCCL), one epoch: the plain fit's factors bit for "
+        f"bit; {mesh_fit_s:.3f} s against the plain 1-epoch fit's "
+        f"{clock.seconds['BPR.fit, 1 epoch']:.3f} s (host clock, set-up included); the epoch "
+        f"alone (a 1-epoch minus a 0-epoch mesh fit) {mesh_epoch_s:.3f} s")
+    del one, sharded
     epoch_s = (clock.seconds["BPR.fit, 11 epochs"] - clock.seconds["BPR.fit, 1 epoch"]) / 10
     n_batches = -(-n // FULL_BATCH)
     per_sample, probe = sample_bytes(ds.csr_matrix, FULL_K)
@@ -2591,7 +2697,8 @@ def phase_trainer_full(seed):
     prof = epoch_profile(lambda e: BPR(max_iter=e, **kw).fit(ds), n_batches, 1)
     stats = dict(samples_per_s=n / epoch_s, epoch_s=epoch_s, bound_s=bound_s,
                  bytes_per_sample=per_sample, setup_s=clock.seconds["BPR.fit, 1 epoch"] - epoch_s,
-                 **prof)
+                 plain_fit_s=clock.seconds["BPR.fit, 1 epoch"], mesh_fit_s=mesh_fit_s,
+                 mesh_epoch_s=mesh_epoch_s, **prof)
     log(f"  BPR k={FULL_K} batch {FULL_BATCH} over {n:,} pairs ({FULL_USERS:,} users x "
         f"{FULL_ITEMS:,} items, membership by binary search): {epoch_s:.3f} s per epoch (10 "
         f"epochs: an 11-epoch fit minus a 1-epoch fit), {n / epoch_s / 1e6:.3f} M samples/s; "
@@ -3349,7 +3456,7 @@ def phase_accumulate_times(cases):
 # seeded, not the files
 # examples/sbpr_epinions.py's SBPR and examples/c2pf_example.py's C2PF
 SBPR_EPINIONS = dict(k=10, learning_rate=0.001, seed=123)
-SBPR_EPOCHS, SBPR_STOP = 10, 5  # the example's 50 cut for the run's time (20, 10 before)
+SBPR_EPOCHS, SBPR_STOP = 6, 3  # the example's 50 cut for the run's time (10, 5 and 20, 10 before)
 C2PF_OFFICE = dict(k=100, variant="c2pf", seed=123)
 C2PF_ITERS = 80
 C2PF_RTOL, C2PF_ATOL = 1e-4, 1e-6
@@ -7608,7 +7715,9 @@ def main():
     try:
         bench_data = pool.apply_async(make_ml100k_like)
         toys_data = pool.apply_async(toys_splits, (args.seed + 30,))
-        launches, bpr, users = phase_slice(args.seed, work)
+        mesh = start_mesh()  # after the pool: its processes never see the group
+        lap("the world-size-1 NCCL mesh")
+        launches, bpr, users = phase_slice(args.seed, work, mesh)
         lap("BPR serving slice")
         triples = bench_data.get()
         jobs = [("factor family", "phase_factor_bench", ())]
@@ -7671,9 +7780,9 @@ def main():
         toys_launches, toys = phase_sentiment_toys(toys_data.get)
         acc_cases.update(toys.pop("acc_cases"))  # timed with the others in phase 21
         lap("the sentiment models at Amazon Toys & Games")
-        bench_launches, bench = phase_trainer_bench(bench_data.get)
+        bench_launches, bench = phase_trainer_bench(bench_data.get, mesh)
         lap("trainers at the bench shape")
-        full_launches, full_fused, full = phase_trainer_full(args.seed)
+        full_launches, full_fused, full = phase_trainer_full(args.seed, mesh)
         lap("trainer at full width")
         t = time.perf_counter()
         netflix = netflix_dataset()
@@ -7687,6 +7796,10 @@ def main():
     finally:
         pool.terminate()
         pool.join()
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     rows = phase_times(bpr, users)
     hpf_rows = phase_times(hpf_model, hpf_users, (SERVE_BATCH,), "HPF at ML-10M")
     sbpr_rows = phase_times(sbpr_model, sbpr_users, (SERVE_BATCH,), "SBPR at Epinions")
@@ -7954,6 +8067,10 @@ def main():
         f"{bench['test_s']:.3f} s, busy {100 * bench['share']:.2f}%; full width "
         f"{full['samples_per_s'] / 1e6:.3f} M samples/s, {100 * full['bound_s'] / full['epoch_s']:.3f}% "
         f"of the byte bound, busy {100 * full['share']:.2f}%")
+    log(f"mesh, world size 1 (NCCL): BPR(mesh=...) 1-epoch fit {full['mesh_fit_s']:.3f} s, the "
+        f"plain one {full['plain_fit_s']:.3f} s (host clock, set-up included); the mesh epoch "
+        f"{full['mesh_epoch_s']:.3f} s, the plain one {full['epoch_s']:.3f} s; "
+        f"RatioSplit(mesh=...).evaluate {bench['mesh_eval']:.3f} s")
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

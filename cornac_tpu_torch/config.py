@@ -9,9 +9,15 @@ the port as follows:
 - ``matmul_precision``: ``torch.set_float32_matmul_precision``, "highest"
   and "float32" to "highest", "bfloat16" to "medium";
 - ``device_metrics_min_cells``: ``metrics.ranking.set_device_metrics_min_cells``;
-- ``data_parallel``, ``host_device_count``, ``coordinator_address``,
-  ``num_processes``, ``process_id`` and ``make_mesh``: the multi-device
-  runtime, not ported yet (ROADMAP.md A8): they raise;
+- ``coordinator_address``, ``num_processes``, ``process_id``:
+  ``parallel.init_distributed`` (a ``torch.distributed`` group at
+  ``tcp://<coordinator_address>``, NCCL on the card, gloo on the CPU);
+- ``data_parallel`` and ``make_mesh``: ``parallel.make_mesh``, the
+  (data, model) ``DeviceMesh``;
+- ``host_device_count``: the JAX package simulates N devices inside one
+  process; the port's counterpart is N gloo processes, one a rank, each
+  calling ``init_distributed`` (``torchrun --nproc-per-node N`` on the CPU),
+  so it raises rather than being ignored;
 - ``compilation_cache_dir``: XLA's persistent compilation cache, which has
   no counterpart in the port (its kernels are built once per checkout by
   nvcc): it raises rather than being ignored.
@@ -28,15 +34,13 @@ from typing import Optional
 
 _PRECISIONS = {"highest": "highest", "float32": "highest", "bfloat16": "medium"}
 _PLATFORMS = {"cpu": "cpu", "cuda": None, "gpu": None}  # None: the card, or raise
-_MULTI_DEVICE = ("data_parallel", "host_device_count", "coordinator_address", "num_processes",
-                 "process_id")
 
 
 @dataclasses.dataclass
 class RuntimeConfig:
     """Device-runtime knobs, applied process-wide by ``apply``."""
 
-    #: size of the mesh's data axis (multi-device: raises, ROADMAP.md A8)
+    #: size of the mesh's data axis (None = every rank on data)
     data_parallel: Optional[int] = None
     #: default float32 matmul precision: "highest" | "float32" | "bfloat16"
     matmul_precision: str = "highest"
@@ -44,9 +48,10 @@ class RuntimeConfig:
     compilation_cache_dir: Optional[str] = None
     #: the process's default device: "cpu", "cuda" (or "gpu"); None keeps it
     platform: Optional[str] = None
-    #: host-device count for simulated multi-chip runs (raises, A8)
+    #: host-device count for simulated multi-chip runs: no counterpart (raises)
     host_device_count: Optional[int] = None
-    #: multi-host coordinator "host:port" and this process's place (raise, A8)
+    #: multi-process: rank 0's "host:port", the number of ranks and this
+    #: process's rank start the ``torch.distributed`` group (None = one process)
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
@@ -60,13 +65,19 @@ class RuntimeConfig:
 
         from .device import set_default_device
         from .metrics.ranking import set_device_metrics_min_cells
+        from .parallel import init_distributed
 
-        given = [name for name in _MULTI_DEVICE if getattr(self, name) is not None]
-        if given:
+        if self.host_device_count is not None:
             raise NotImplementedError(
-                f"RuntimeConfig({', '.join(given)}): the multi-device runtime is not ported yet "
-                "(ROADMAP.md A8)"
+                "RuntimeConfig(host_device_count=...) makes the JAX package simulate N devices "
+                "inside one process; the port's counterpart is N gloo processes, one a rank, each "
+                "calling cornac_tpu_torch.parallel.init_distributed (e.g. torchrun "
+                "--nproc-per-node N with set_default_device('cpu'))"
             )
+        if self.coordinator_address is not None and (self.num_processes is None
+                                                     or self.process_id is None):
+            raise ValueError("RuntimeConfig(coordinator_address=...) needs num_processes and "
+                             "process_id")
         if self.compilation_cache_dir is not None:
             raise NotImplementedError(
                 "RuntimeConfig(compilation_cache_dir=...) configures XLA's persistent "
@@ -84,8 +95,14 @@ class RuntimeConfig:
         torch.set_float32_matmul_precision(_PRECISIONS[self.matmul_precision])
         if self.device_metrics_min_cells is not None:
             set_device_metrics_min_cells(self.device_metrics_min_cells)
+        if self.coordinator_address is not None:
+            init_distributed(coordinator_address=self.coordinator_address,
+                             num_processes=self.num_processes, process_id=self.process_id)
         return self
 
     def make_mesh(self):
-        raise NotImplementedError("RuntimeConfig.make_mesh: the multi-device runtime is not "
-                                  "ported yet (ROADMAP.md A8)")
+        """The (data, model) mesh with ``data_parallel`` ranks on data
+        (``parallel.make_mesh``)."""
+        from .parallel import make_mesh
+
+        return make_mesh(data_parallel=self.data_parallel)

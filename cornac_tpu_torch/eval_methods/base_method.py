@@ -9,8 +9,10 @@ tensor on the card to the fused metric program
 ``RankingContext``. ``BaseMethod`` builds train/test/val datasets over
 shared global ID maps, builds the modalities (features, text, images,
 graphs, sentiment, reviews) against them and runs timed fit + eval. Each
-modality slot takes the JAX package's class, checked on assignment. The
-multi-device ``mesh`` branch is not ported yet (ROADMAP.md A8).
+modality slot takes the JAX package's class, checked on assignment.
+``BaseMethod(mesh=...)`` (a ``parallel.make_mesh`` mesh) shards the fused
+metric program over the mesh, users over "data" and items over "model";
+every rank evaluates, and every rank gets the unsharded metrics.
 """
 
 import time
@@ -35,6 +37,7 @@ from ..metrics.ranking import (
     batch_eval_device,
     metric_device_specs,
 )
+from ..parallel.mesh import check_mesh
 from ..utils import get_rng
 
 
@@ -112,12 +115,14 @@ def ranking_eval(
     exclude_unknowns=True,
     verbose=False,
     user_batch_size=1024,
+    mesh=None,
 ):
     """Evaluate ranking metrics with batched device scoring.
 
     Positives are test items with rating >= threshold; negatives are all
     items minus train/val/test positives; candidates are their union; with
     ``exclude_unknowns`` the item space is truncated to train items.
+    ``mesh``: shard the fused metric program (``batch_eval_device``).
     """
     if len(metrics) == 0:
         return [], []
@@ -168,7 +173,7 @@ def ranking_eval(
             scores_dev = None if score_dev_fn is None else score_dev_fn(batch_users)
             if scores_dev is not None and scores_dev.shape[1] >= n_items:
                 values_mat = batch_eval_device(
-                    scores_dev[:, :n_items], pos_mask, cand_mask, fused_specs
+                    scores_dev[:, :n_items], pos_mask, cand_mask, fused_specs, mesh=mesh
                 )
         if values_mat is not None:
             for i, _ in enumerate(metrics):
@@ -226,10 +231,9 @@ class BaseMethod:
         verbose=False,
         **kwargs,
     ):
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "BaseMethod(mesh=...) is not ported yet (ROADMAP.md A8)"
-            )
+        self.mesh = kwargs.get("mesh", None)
+        if self.mesh is not None:
+            check_mesh(self.mesh)
         self.data = data
         self.fmt = fmt
         self.train_set = None
@@ -396,6 +400,7 @@ class BaseMethod:
         rating_metrics,
         ranking_metrics,
         verbose,
+        mesh=None,
     ):
         """Run rating + ranking evaluation and collect a :class:`Result`."""
         rat_avg, rat_user = rating_eval(
@@ -414,6 +419,7 @@ class BaseMethod:
             rating_threshold=rating_threshold,
             exclude_unknowns=exclude_unknowns,
             verbose=verbose,
+            mesh=mesh,
         )
         names = [mt.name for mt in rating_metrics + ranking_metrics]
         return Result(
@@ -438,6 +444,7 @@ class BaseMethod:
             ranking_metrics=ranking_metrics,
             user_based=user_based,
             verbose=self.verbose,
+            mesh=self.mesh,
         )
         return result, time.time() - start
 

@@ -214,6 +214,7 @@ class PropensityStratifiedEvaluation(BaseMethod):
                 model, self.ranking_metrics, self.train_set, test_set,
                 val_set=val_set, rating_threshold=self.rating_threshold,
                 exclude_unknowns=self.exclude_unknowns, verbose=self.verbose,
+                mesh=self.mesh,
             )
         else:
             rank_avg, rank_user = self._ips_ranking_eval(

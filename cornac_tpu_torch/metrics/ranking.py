@@ -12,7 +12,8 @@ metric, as in the JAX package:
 
 The JAX package's fused device program (``_fused_metrics_kernel``) is XLA
 built from ``jax.numpy``; here it is plain PyTorch on the scores' device
-(``batch_eval_device``), computing the same float32 quantities.
+(``batch_eval_device``), computing the same float32 quantities, sharded
+over a (data, model) mesh when given one.
 """
 
 import numpy as np
@@ -110,28 +111,18 @@ def _unpack_bits(bits, N):
     return bools.reshape(bits.shape[0], -1)[:, :N] != 0
 
 
-def _fused_metrics(scores, cand_bits, pos_idx, specs, dtype=torch.float32):
-    """(B, M) float32 metric values for a static tuple of (kind, k) specs:
-    the JAX package's ``_fused_metrics_kernel``.
-
-    Sort-free: every supported metric needs only per-positive quantities,
-    the rank of each positive (candidates scored above it, ties broken by
-    column index like the host stable argsort) and its strict-below tie
-    counts, so each positive slot costs one compare-and-count pass over
-    its row. The passes run one slot at a time, which bounds the memory at
-    (B, N) whatever the number of positives."""
-    B, N = scores.shape
-    P = pos_idx.shape[1]
-    dev = scores.device
-    cand_mask = _unpack_bits(cand_bits, N)
-    s = torch.where(cand_mask, scores.to(dtype), -torch.inf)
-
-    valid = pos_idx >= 0  # (B, P); padded slots are -1
-    safe_idx = pos_idx.clamp(min=0).long()
-    sp = s.gather(1, safe_idx)  # (B, P)
-
-    iota = torch.arange(N, device=dev)[None, :]
-    above = torch.empty((B, P), dtype=torch.int64, device=dev)
+def _rank_counts(s, cand_mask, sp, safe_idx, col0=0):
+    """Per-positive counts over a block of columns: (above, tie_lo, c_lt)
+    (B, P) int64, the candidates scored above each positive, those tied
+    with it at a smaller column, those scored below, and n_cand (B,).
+    ``s``: (B, n) scores of columns ``col0 .. col0 + n - 1``, ``-inf`` off
+    the candidates; ``sp``: (B, P) the positives' scores; ``safe_idx``: their
+    global columns. Integers, so blocks add up to the whole row's counts.
+    The passes run one slot at a time, which bounds the memory at (B, n)."""
+    B, n = s.shape
+    P = sp.shape[1]
+    iota = torch.arange(col0, col0 + n, device=s.device)[None, :]
+    above = torch.empty((B, P), dtype=torch.int64, device=s.device)
     tie_lo = torch.empty_like(above)
     c_lt = torch.empty_like(above)
     for p in range(P):
@@ -141,15 +132,47 @@ def _fused_metrics(scores, cand_bits, pos_idx, specs, dtype=torch.float32):
             (s == sp_p) & cand_mask & (iota < safe_idx[:, p : p + 1])
         ).sum(1)
         c_lt[:, p] = ((s < sp_p) & cand_mask).sum(1)
+    return above, tie_lo, c_lt, cand_mask.sum(1)
+
+
+def _fused_metrics(scores, cand_bits, pos_idx, specs, dtype=torch.float32, block=None):
+    """(B, M) float32 metric values for a static tuple of (kind, k) specs:
+    the JAX package's ``_fused_metrics_kernel``.
+
+    Sort-free: every supported metric needs only per-positive quantities,
+    the rank of each positive (candidates scored above it, ties broken by
+    column index like the host stable argsort) and its strict-below tie
+    counts, so each positive slot costs one compare-and-count pass over
+    its row (``_rank_counts``).
+
+    ``block``: ``(col0, col1, reduce)`` counts only columns ``col0:col1``
+    and passes the (B, 3P + 1) int64 counts to ``reduce``, which returns
+    the whole rows' counts (the mesh branch of ``batch_eval_device`` sums
+    them over the model axis)."""
+    B, N = scores.shape
+    dev = scores.device
+    cand_mask = _unpack_bits(cand_bits, N)
+    s = torch.where(cand_mask, scores.to(dtype), -torch.inf)
+
+    valid = pos_idx >= 0  # (B, P); padded slots are -1
+    safe_idx = pos_idx.clamp(min=0).long()
+    sp = s.gather(1, safe_idx)  # (B, P)
+    if block is None:
+        above, tie_lo, c_lt, n_cand = _rank_counts(s, cand_mask, sp, safe_idx)
+    else:
+        col0, col1, reduce = block
+        counts = _rank_counts(s[:, col0:col1], cand_mask[:, col0:col1], sp, safe_idx, col0)
+        counts = reduce(torch.cat([c.reshape(B, -1) for c in counts], 1))
+        above, tie_lo, c_lt, n_cand = counts.split([sp.shape[1]] * 3 + [1], 1)
+        n_cand = n_cand[:, 0]
     pos_ranks = torch.where(valid, above + tie_lo, _RANK_SENTINEL)
     p_lt = ((sp[:, None, :] < sp[:, :, None]) & valid[:, None, :]).sum(2)
 
     n_pos = valid.sum(1)
-    n_cand = cand_mask.sum(1)
     n_neg = n_cand - n_pos
 
     # shared ideal-prefix tables (indexed by a per-row count)
-    max_ideal = min(P, N)
+    max_ideal = min(sp.shape[1], N)
     ar = torch.arange(max_ideal, dtype=torch.float32, device=dev)
     zero = torch.zeros(1, dtype=torch.float32, device=dev)
     disc_cum = torch.cat([zero, torch.cumsum(1.0 / torch.log2(ar + 2.0), 0)])
@@ -231,16 +254,30 @@ def metric_device_specs(metrics):
     return tuple(specs)
 
 
-def batch_eval_device(scores_dev, pos_mask, cand_mask, specs, dtype=torch.float32):
+def batch_eval_device(scores_dev, pos_mask, cand_mask, specs, dtype=torch.float32, mesh=None):
     """Run the fused metric program: ``scores_dev`` is a (B, N) tensor
     (numpy goes to the default device), masks are host bool arrays;
     ``dtype`` is what the scores are compared in (float32, as the JAX
     package's fused program; float64 where the JAX package ranks on the
     host in float64, as its next-basket eval does).
     Returns a (B, M) float64 numpy array, the only device->host copy.
-    The JAX package's ``mesh`` branch comes with the multi-device slice."""
+
+    With ``mesh`` (``parallel.make_mesh``; every rank calls it with the
+    same scores and masks), the program runs sharded, users over the data
+    axis and items over the model axis, as the JAX package lays it out:
+    users are padded to the data size and items to 8 x the model size
+    (padded items are never candidates). Each rank counts the ranks and
+    ties of its (user block, item block), the counts are summed over
+    "model" and the metric rows gathered over "data". The counts are
+    integers, so every rank gets the unsharded result."""
     if not isinstance(scores_dev, torch.Tensor):
-        scores_dev = torch.as_tensor(np.asarray(scores_dev), device=default_device())
+        if mesh is None:
+            dev = default_device()
+        else:
+            from ..parallel.mesh import mesh_device
+
+            dev = mesh_device(mesh)
+        scores_dev = torch.as_tensor(np.asarray(scores_dev), device=dev)
     dev = scores_dev.device
 
     pos_mask = np.asarray(pos_mask, dtype=bool)
@@ -256,15 +293,39 @@ def batch_eval_device(scores_dev, pos_mask, cand_mask, specs, dtype=torch.float3
     pos_idx = np.full((B, P), -1, dtype=np.int32)
     pos_idx[rows, offs] = cols
 
-    cand_bits = np.packbits(np.asarray(cand_mask, dtype=bool), axis=1)
+    cand = np.asarray(cand_mask, dtype=bool)
+    if mesh is None:
+        out = _fused_metrics(
+            scores_dev,
+            torch.as_tensor(np.packbits(cand, axis=1), device=dev),
+            torch.as_tensor(pos_idx, device=dev),
+            specs,
+            dtype,
+        )
+        return out.cpu().numpy().astype(np.float64)
+
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
+    from ..parallel.sharded import all_sum, gather_batch
+
+    dsz, msz = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    N = cand.shape[1]
+    b_pad, n_pad = (-B) % dsz, (-N) % (8 * msz)
+    cand = np.pad(cand, ((0, b_pad), (0, n_pad)))
+    pos_idx = np.pad(pos_idx, ((0, b_pad), (0, 0)), constant_values=-1)
+    scores = torch.nn.functional.pad(scores_dev.to(torch.float32), (0, n_pad, 0, b_pad))
+    per_b, per_n = (B + b_pad) // dsz, (N + n_pad) // msz
+    lo = mesh.get_local_rank(DATA_AXIS) * per_b
+    col0 = mesh.get_local_rank(MODEL_AXIS) * per_n
     out = _fused_metrics(
-        scores_dev,
-        torch.as_tensor(cand_bits, device=dev),
-        torch.as_tensor(pos_idx, device=dev),
+        scores[lo:lo + per_b],
+        torch.as_tensor(np.packbits(cand[lo:lo + per_b], axis=1), device=dev),
+        torch.as_tensor(pos_idx[lo:lo + per_b], device=dev),
         specs,
         dtype,
+        block=(col0, col0 + per_n, lambda c: all_sum(mesh, c, MODEL_AXIS)),
     )
-    return out.cpu().numpy().astype(np.float64)
+    out = gather_batch(mesh, out, B + b_pad, per_b)
+    return out[:B].cpu().numpy().astype(np.float64)
 
 
 class RankingContext:

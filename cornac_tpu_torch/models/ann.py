@@ -2,8 +2,10 @@
 
 Port of ``cornac_tpu/models/ann.py::BaseANN`` and ``TPUExactANN``: exact
 top-k retrieval on the device, one fused score + top-k over the whole
-catalog, recall 1.0 by construction. The JAX package's ``mesh`` branches
-and the Annoy/Faiss/HNSWLib/ScaNN wrappers come in later slices.
+catalog, recall 1.0 by construction. With ``mesh`` the item table is
+row-sharded over the mesh's model axis and queries go through
+``parallel.sharded.sharded_topk``. The Annoy/Faiss/HNSWLib/ScaNN wrappers
+need packages of their own and are not ported.
 """
 
 import copy
@@ -13,6 +15,15 @@ import numpy as np
 import torch
 
 from ..ops.fused_topk import fused_topk
+from ..parallel.mesh import (
+    MODEL_AXIS,
+    axis_size,
+    check_mesh,
+    mesh_device,
+    pad_rows_to_multiple,
+    shard_tables,
+)
+from ..parallel.sharded import sharded_topk
 from .recommender import (
     MEASURE_COSINE,
     MEASURE_DOT,
@@ -136,29 +147,49 @@ class TPUExactANN(BaseANN):
     else the card). ``recall_target`` selects the JAX package's approximate
     mode; the port answers it with the same exact lists (recall 1.0, which
     meets every target; ``ops.fused_topk.fused_topk``).
+
+    ``mesh`` (``parallel.make_mesh``; every rank builds the index and asks
+    the same queries): the item table is padded to the model-axis size and
+    row-sharded over it, the padded rows with a bias of -3.0e38 so that
+    they never win, and a query of k up to a shard's rows goes through
+    ``sharded_topk``: each rank scores its rows with the fused kernel, and
+    the candidates are merged over the model axis.
     """
 
-    def __init__(self, model, name="TPUExactANN", verbose=False,
+    def __init__(self, model, name="TPUExactANN", verbose=False, mesh=None,
                  recall_target=None, device=None):
         self.recall_target = recall_target
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device if device is not None else getattr(model, "device", None)
         super().__init__(model=model, name=name, verbose=verbose)
         # device-resident index tensors: process-local, rebuilt on demand
         # after load() from the persisted item_vectors snapshot
-        self.ignored_attrs += ["_items_d", "_item_sq"]
+        self.ignored_attrs += ["_items_d", "_item_sq", "_items_sharded", "_bias_sharded",
+                               "_l2_bias_sharded"]
 
     def build_index(self):
         super().build_index()
         self._build_device_index()
 
     def _build_device_index(self):
-        items = torch.as_tensor(
-            np.asarray(self.item_vectors, np.float32), device=self._device()
-        )
+        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
+        items = torch.as_tensor(np.asarray(self.item_vectors, np.float32), device=dev)
         if self.measure == MEASURE_COSINE:
             items = items / items.norm(dim=1, keepdim=True).clamp(min=1e-12)
         self._items_d = items.contiguous()
         self._item_sq = (items**2).sum(1)
+        if self.mesh is not None:
+            shards = axis_size(self.mesh, MODEL_AXIS)
+            n = items.shape[0]
+            items_p = pad_rows_to_multiple(self._items_d, shards)
+            # padded rows must never win: their bias is -3.0e38
+            pad_bias = torch.zeros(items_p.shape[0], dtype=torch.float32, device=dev)
+            pad_bias[n:] = -3.0e38
+            l2_bias = pad_bias.clone()
+            l2_bias[:n] = -self._item_sq
+            self._items_sharded, self._bias_sharded, self._l2_bias_sharded = shard_tables(
+                self.mesh, items_p, pad_bias, l2_bias)
+            self._rows_per_shard = items_p.shape[0] // shards
 
     def knn_query(self, query, k):
         # fused score + top-k (ops/fused_topk.py): the CUDA kernel on the
@@ -169,6 +200,8 @@ class TPUExactANN(BaseANN):
         k = min(k, self._items_d.shape[0])
         if self.measure == MEASURE_COSINE:
             q = q / q.norm(dim=1, keepdim=True).clamp(min=1e-12)
+        if self.mesh is not None and k <= self._rows_per_shard:
+            return self._knn_query_sharded(q, k)
         if self.measure == MEASURE_L2:
             # -|q - v|^2 = (2q)·v - |v|^2 - |q|^2; the |q|^2 term is
             # constant per query so top-k on (2q)·v - |v|^2 is exact, and
@@ -183,3 +216,17 @@ class TPUExactANN(BaseANN):
                 q, self._items_d, k, recall_target=self.recall_target
             )
         return top_idx.cpu().numpy(), -top_scores.cpu().numpy()
+
+    def _knn_query_sharded(self, q, k):
+        """Retrieval over the sharded table: each rank scores its rows and
+        keeps a top-k, and the candidates are merged over the model axis
+        (``sharded_topk``). ``q`` is already normalised for the cosine."""
+        if self.measure == MEASURE_L2:
+            # -|q - v|^2 ranking via (2q)·v - |v|^2 (see knn_query)
+            s, i = sharded_topk(self.mesh, 2.0 * q, self._items_sharded, k,
+                                item_bias=self._l2_bias_sharded)
+            s = s - (q**2).sum(1, keepdim=True)
+        else:
+            s, i = sharded_topk(self.mesh, q, self._items_sharded, k,
+                                item_bias=self._bias_sharded)
+        return i.cpu().numpy(), -s.cpu().numpy()

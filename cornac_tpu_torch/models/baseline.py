@@ -5,14 +5,26 @@ Port of ``cornac_tpu/models/baseline.py``: ``GlobalAvg``, ``MostPop`` and
 model's device with the deterministic ``ops.accumulate.accumulate_rows``.
 As in the JAX package, ``BaselineOnly`` draws each epoch's permutation with
 numpy from its seed, so the two packages visit the ratings in the same
-order.
+order. ``BaselineOnly(mesh=...)`` row-shards the two bias tables over
+"model" and splits each minibatch over "data", keeping the single-device
+fit's bits, as MF's SGD branch does (``models/mf.py``).
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_broadcast_row
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import (
+    batch_slice,
+    gather_batch,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils import get_rng
 from ..utils.init_utils import zeros
 from .recommender import Recommender, pad_to_catalog
@@ -78,24 +90,54 @@ class MostPop(Recommender):
         ).astype(np.float64)
 
 
-def _bias_sgd_epoch(Bu, Bi, perm, mask, rid, cid, val, lr, reg, mu, batch_size):
+def _bias_updates(bu, bi, r, m, lr, reg, mu):
+    """(Bu's updates, Bi's updates, the errors) of a minibatch, or of a data
+    slice of one, from its fetched biases."""
+    err = (r - (mu + bu + bi)) * m
+    return lr * (err - reg * bu * m), lr * (err - reg * bi * m), err
+
+
+def _bias_step(Bu, Bi, u, i, r, m, lr, reg, mu):
+    """One minibatch of bias-only SGD, in place; returns its summed squared
+    error (a device scalar)."""
+    d_u, d_i, err = _bias_updates(Bu[u], Bi[i], r, m, lr, reg, mu)
+    accumulate_rows(Bu, u, d_u)
+    accumulate_rows(Bi, i, d_i)
+    return (err * err).sum()
+
+
+def _bias_step_sharded(mesh, Bu, Bi, u, i, r, m, lr, reg, mu):
+    """``_bias_step`` on a mesh: Bu and Bi are this rank's row shards, the
+    other arguments the whole minibatch's."""
+    B = u.shape[0]
+    lo, hi, per = batch_slice(mesh, B)
+    d_u, d_i, err = _bias_updates(row_shard_lookup(mesh, Bu, u[lo:hi]),
+                                  row_shard_lookup(mesh, Bi, i[lo:hi]), r[lo:hi], m[lo:hi], lr,
+                                  reg, mu)
+    rows = gather_batch(mesh, torch.stack([d_u, d_i, err], 1), B, per)
+    row_shard_scatter_add(mesh, Bu, u, rows[:, 0].contiguous())
+    row_shard_scatter_add(mesh, Bi, i, rows[:, 1].contiguous())
+    err = rows[:, 2].contiguous()
+    return (err * err).sum()
+
+
+def _bias_sgd_epoch(Bu, Bi, perm, mask, rid, cid, val, lr, reg, mu, batch_size, step=_bias_step):
     """One epoch of bias-only SGD (r ~ mu + bu + bi) over the ratings in the
     order ``perm`` (|R| padded to whole minibatches, ``mask`` 0 on the
-    padding), updating ``Bu`` and ``Bi`` in place. Returns half the summed
+    padding), updating ``Bu`` and ``Bi`` in place. ``step``: ``_bias_step``,
+    or ``_bias_step_sharded`` bound to a mesh. Returns half the summed
     squared error (a device scalar)."""
     loss = torch.zeros((), dtype=torch.float32, device=Bu.device)
     for s in range(0, perm.shape[0], batch_size):
         idx, m = perm[s:s + batch_size], mask[s:s + batch_size]
-        u, i = rid[idx], cid[idx]
-        err = (val[idx] - (mu + Bu[u] + Bi[i])) * m
-        loss += (err * err).sum()
-        accumulate_rows(Bu, u, lr * (err - reg * Bu[u] * m))
-        accumulate_rows(Bi, i, lr * (err - reg * Bi[i] * m))
+        loss += step(Bu, Bi, rid[idx], cid[idx], val[idx], m, lr, reg, mu)
     return 0.5 * loss
 
 
 class BaselineOnly(Recommender):
-    """r_ui ~ mu + b_u + b_i fitted by SGD (Koren, TKDD 2010)."""
+    """r_ui ~ mu + b_u + b_i fitted by SGD (Koren, TKDD 2010). ``mesh``: a
+    ``parallel.make_mesh`` mesh; every rank calls ``fit``, and the biases
+    equal the single-device fit's."""
 
     def __init__(
         self,
@@ -114,9 +156,7 @@ class BaselineOnly(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.max_iter = max_iter
         self.learning_rate = learning_rate
@@ -142,7 +182,8 @@ class BaselineOnly(Recommender):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rng = get_rng(self.seed)
         rid, cid, val = train_set.uir_tuple
         n = len(val)
@@ -156,12 +197,18 @@ class BaselineOnly(Recommender):
         # copies: the epochs update them in place
         Bu = torch.tensor(np.asarray(self.u_biases, np.float32), device=dev)
         Bi = torch.tensor(np.asarray(self.i_biases, np.float32), device=dev)
+        n_u, n_i = Bu.shape[0], Bi.shape[0]
+        step = _bias_step
+        if mesh is not None:
+            Bu, Bi = shard_tables(mesh, Bu, Bi)
+            step = functools.partial(_bias_step_sharded, mesh)
         mu = float(np.float32(self.global_mean))
         last_loss = 0.0
         for epoch in range(self.max_iter):
             perm = np.concatenate([rng.permutation(n), np.zeros(n_pad, np.int64)])
-            loss = _bias_sgd_epoch(Bu, Bi, torch.as_tensor(perm, device=dev), mask, rid_d,
-                                   cid_d, val_d, self.learning_rate, self.lambda_reg, mu, bsz)
+            loss = _bias_sgd_epoch(local_shard(Bu), local_shard(Bi),
+                                   torch.as_tensor(perm, device=dev), mask, rid_d, cid_d, val_d,
+                                   self.learning_rate, self.lambda_reg, mu, bsz, step)
             if not (self.verbose or self.early_stop):
                 continue
             loss = float(loss)
@@ -171,6 +218,8 @@ class BaselineOnly(Recommender):
                 break
             last_loss = loss
 
+        if mesh is not None:
+            Bu, Bi = Bu.full_tensor()[:n_u], Bi.full_tensor()[:n_i]
         self.u_biases = Bu.cpu().numpy()
         self.i_biases = Bi.cpu().numpy()
         return self

@@ -149,7 +149,7 @@ class Beacon(NextBasketRecommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if rnn_cell_type not in ("LSTM", "GRU", "RNN"):
             raise ValueError("rnn_cell_type must be LSTM, GRU, or RNN")
         self.mesh = mesh

@@ -17,13 +17,38 @@ the host inside an epoch. The JAX package's TPU layouts (the fused one-hot
 fetch with membership halfwords, the 64-column padding, the b+tree) change
 only the float summation order and are not copied; ``fused_fetch`` is
 accepted and ignored.
+
+``mesh`` (``parallel.make_mesh``) trains data- and model-parallel, one
+process a rank, and keeps the single-device fit's bits. The extended tables
+are row-sharded over "model" (padded to the shard count; padded rows are
+never drawn and are cut off). Every rank draws the same global stream, so
+the stream is the single-device fit's. The rank with data index d takes
+slice d of each minibatch (``parallel.sharded.batch_slice``), fetches its
+rows with ``row_shard_lookup`` and computes its slice's update rows with
+``_bpr_updates``, the single-device step's arithmetic. The update rows are
+all-gathered over "data" in slice order, which is the batch order, and each
+rank applies those of its rows with ``row_shard_scatter_add``: each row
+receives the single-device fit's float additions, in its order. The
+``correct`` counts of the slices are summed over "data". Every rank ends
+with the whole numpy factors.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.membership import build_membership
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import (
+    all_sum,
+    batch_slice,
+    gather_batch,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import uniform, zeros
@@ -74,13 +99,13 @@ def _bpr_draws(gen, n, n_total, batch_size, num_items, neg_population):
         yield pos_idx, neg_items
 
 
-def _bpr_step(U, V, u, i, j, m, lr, reg, gate, variant):
-    """One minibatch of SGD on the extended tables, in place. Returns the
-    number of valid triplets already ordered correctly (a device scalar)."""
-    wu, vi, vj = U[u], V[i], V[j]
+def _bpr_updates(wu, vi, vj, m, lr, reg, gate, variant):
+    """The update rows of a minibatch (or of a data slice of one) from its
+    fetched rows: (U's rows, V's rows for the positives, V's rows for the
+    negatives, the number of valid triplets already ordered correctly)."""
     diff = vi - vj
     x = (wu * diff).sum(1)
-    mf = m.to(U.dtype)
+    mf = m.to(wu.dtype)
     if variant == "hinge":
         # max-margin (MMMF): update only misordered pairs, with unit
         # magnitude and no regularisation otherwise
@@ -91,19 +116,48 @@ def _bpr_step(U, V, u, i, j, m, lr, reg, gate, variant):
         z = mf / (1.0 + torch.exp(x))  # d(-ln sigmoid(x))/dx
     z, upd = z[:, None], upd[:, None]
     zw = z * wu
-    accumulate_rows(U, u, lr * ((z * diff - reg * wu * upd) * gate))
-    accumulate_rows(V, torch.cat([i, j]),
-                    lr * torch.cat([zw - reg * vi * upd, -zw - reg * vj * upd]))
-    return ((x > 0) & m).sum()
+    return (lr * ((z * diff - reg * wu * upd) * gate), lr * (zw - reg * vi * upd),
+            lr * (-zw - reg * vj * upd), ((x > 0) & m).sum())
 
 
-def _bpr_epoch(U, V, draws, pairs, membership, n, lr, reg, batch_size, gate, variant):
+def _bpr_step(U, V, u, i, j, m, lr, reg, gate, variant):
+    """One minibatch of SGD on the extended tables, in place. Returns the
+    number of valid triplets already ordered correctly (a device scalar)."""
+    d_u, d_i, d_j, correct = _bpr_updates(U[u], V[i], V[j], m, lr, reg, gate, variant)
+    accumulate_rows(U, u, d_u)
+    accumulate_rows(V, torch.cat([i, j]), torch.cat([d_i, d_j]))
+    return correct
+
+
+def _bpr_step_sharded(mesh, U, V, u, i, j, m, lr, reg, gate, variant):
+    """``_bpr_step`` on a mesh: U and V are this rank's row shards, (u, i,
+    j, m) the whole minibatch. This rank computes the update rows of its
+    data slice; the slices are gathered back in batch order and each rank
+    applies those of its rows. Returns the slice's ``correct`` count."""
+    B = u.shape[0]
+    lo, hi, per = batch_slice(mesh, B)
+    wu = row_shard_lookup(mesh, U, u[lo:hi])
+    vij = row_shard_lookup(mesh, V, torch.cat([i[lo:hi], j[lo:hi]]))
+    d_u, d_i, d_j, correct = _bpr_updates(wu, vij[:hi - lo], vij[hi - lo:], m[lo:hi], lr, reg,
+                                          gate, variant)
+    k = d_u.shape[1]
+    rows = gather_batch(mesh, torch.cat([d_u, d_i, d_j], 1), B, per)
+    row_shard_scatter_add(mesh, U, u, rows[:, :k].contiguous())
+    row_shard_scatter_add(mesh, V, torch.cat([i, j]),
+                          torch.cat([rows[:, k:2 * k], rows[:, 2 * k:]]))
+    return correct
+
+
+def _bpr_epoch(U, V, draws, pairs, membership, n, lr, reg, batch_size, gate, variant,
+               step=_bpr_step):
     """One epoch of BPR on given draws, updating the extended tables U and V
     in place. ``draws``: (positive pair index, negative item) tensors, as
     ``_bpr_draws`` yields them, covering ``n_total`` (|R| padded to whole
     minibatches) samples; ``pairs``: (|R|, 2) int64 (user, item) rows.
     Samples past |R|, negatives equal to the positive and observed
-    negatives are skipped. Returns (correct, skipped) device scalars."""
+    negatives are skipped. ``step``: ``_bpr_step``, or the mesh's
+    ``_bpr_step_sharded`` bound to its mesh. Returns (correct, skipped)
+    device scalars."""
     correct = torch.zeros((), dtype=torch.int64, device=U.device)
     skipped = torch.zeros((), dtype=torch.int64, device=U.device)
     start = 0
@@ -114,8 +168,8 @@ def _bpr_epoch(U, V, draws, pairs, membership, n, lr, reg, batch_size, gate, var
         skipped += (padm & ~valid).sum()
         for s in range(0, pos_idx.shape[0], batch_size):
             sl = slice(s, s + batch_size)
-            correct += _bpr_step(U, V, users[sl], items[sl], neg_items[sl], valid[sl],
-                                 lr, reg, gate, variant)
+            correct += step(U, V, users[sl], items[sl], neg_items[sl], valid[sl],
+                            lr, reg, gate, variant)
         start += pos_idx.shape[0]
     return correct, skipped
 
@@ -127,7 +181,10 @@ class BPR(Recommender, ANNMixin):
     ``learning_rate``, ``lambda_reg``, ``use_bias``, ``init_params``
     ({'U','V','Bi'}), ``seed``, ``batch_size``. ``device``: where the model
     trains and scores (default: the card; ``"cpu"`` asks for the CPU).
-    ``mesh`` (multi-device training) is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``, the
+    tables are row-sharded over "model" and each minibatch split over
+    "data", and the factors equal the single-device fit's (module
+    docstring).
     """
 
     def __init__(
@@ -148,9 +205,7 @@ class BPR(Recommender, ANNMixin):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = int(k)
         self.max_iter = max_iter
@@ -186,8 +241,8 @@ class BPR(Recommender, ANNMixin):
         if self.i_biases is None or self.use_bias is False:
             self.i_biases = zeros(n_items, dtype=DTYPE)
 
-    def _neg_population(self, train_set):
-        """Device tensor of candidate negatives, or None for uniform."""
+    def _neg_population(self, train_set, device):
+        """Tensor of candidate negatives on ``device``, or None for uniform."""
         return None
 
     def fit(self, train_set, val_set=None):
@@ -196,25 +251,33 @@ class BPR(Recommender, ANNMixin):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rid, cid, _ = train_set.uir_tuple
         n = len(rid)
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)
         membership = build_membership(train_set.csr_matrix, device=dev)
-        neg_pop = self._neg_population(train_set)
+        neg_pop = self._neg_population(train_set, dev)
         U, V, gate = _extended_tables(self.u_factors, self.i_factors, self.i_biases,
                                       self.use_bias, dev)
+        n_u, n_i = U.shape[0], V.shape[0]
+        step = _bpr_step
+        if mesh is not None:
+            U, V = shard_tables(mesh, U, V)  # DTensors: what a checkpoint gathers
+            step = functools.partial(_bpr_step_sharded, mesh)
         seed = self.rng.randint(2**31)
         batch_size = min(self.batch_size, n)
         n_total = n + (-n) % batch_size
 
         def run_chunk(state, start, e):
-            U, V = state
+            U, V = (local_shard(t) for t in state)
             for epoch in range(start, start + e):
                 draws = _bpr_draws(epoch_generator(seed, epoch, dev), n, n_total, batch_size,
                                    train_set.num_items, neg_pop)
                 info = _bpr_epoch(U, V, draws, pairs, membership, n, self.learning_rate,
-                                  self.lambda_reg, batch_size, gate, self._variant)
+                                  self.lambda_reg, batch_size, gate, self._variant, step)
+            if mesh is not None:
+                info = (all_sum(mesh, info[0]), info[1])
             return state, info
 
         def report(done, info):
@@ -226,6 +289,8 @@ class BPR(Recommender, ANNMixin):
             )
 
         epoch_loop(self, self.max_iter, run_chunk, (U, V), on_report=report)
+        if mesh is not None:
+            U, V = U.full_tensor()[:n_u], V.full_tensor()[:n_i]
 
         k = self.k
         self.u_factors = U[:, :k].cpu().numpy()
@@ -334,8 +399,7 @@ class WBPR(BPR):
             device=device,
         )
 
-    def _neg_population(self, train_set):
+    def _neg_population(self, train_set, device):
         # uniform over the interaction item array: items in proportion to
         # their train-set frequency
-        return torch.as_tensor(np.asarray(train_set.uir_tuple[1], np.int64),
-                               device=self._device())
+        return torch.as_tensor(np.asarray(train_set.uir_tuple[1], np.int64), device=device)

@@ -151,7 +151,7 @@ class C2PF(Recommender, ANNMixin):
     ({'G_s', 'G_r', 'L_s', 'L_r', 'L2_s', 'L2_r', 'L3_s', 'L3_r', 'Theta',
     'Beta', 'Xi'}). The train set must carry the ``item_graph`` modality.
     ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet (ROADMAP.md A8).
+    ``mesh`` is not ported yet (ROADMAP.md A8 (b)).
     """
 
     def __init__(
@@ -172,7 +172,7 @@ class C2PF(Recommender, ANNMixin):
         name = variant.upper() if name is None else name
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.k = k
         self.max_iter = max_iter
         self.variant = variant

@@ -238,7 +238,7 @@ def companion_iteration(params, sgrads, data, draws, nu, lr, ld_reg, ld_bpr, ld_
 class Companion(MTER):
     """Comparative aspect/opinion ranking Tucker model. Parameters mirror
     the JAX package's; ``device``: where the model fits and scores (default:
-    the card); ``mesh`` is refused (ROADMAP.md A8)."""
+    the card); ``mesh`` is refused (ROADMAP.md A8 (d))."""
 
     def __init__(
         self,

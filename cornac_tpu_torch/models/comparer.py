@@ -88,7 +88,7 @@ def _csr_values(Y, rows, cols):
 
 class ComparERObj(EFM):
     """EFM with comparative constraints on objective aspect quality.
-    ``mesh`` is refused (ROADMAP.md A8)."""
+    ``mesh`` is refused (ROADMAP.md A8 (d))."""
 
     def __init__(
         self,
@@ -234,7 +234,7 @@ class ComparERObj(EFM):
 
 class ComparERSub(MTER):
     """MTER with comparative constraints on subjective aspect quality.
-    ``mesh`` is refused (ROADMAP.md A8)."""
+    ``mesh`` is refused (ROADMAP.md A8 (d))."""
 
     def __init__(
         self,

@@ -108,7 +108,7 @@ class CTR(_FactorScores):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.lambda_u = lambda_u
         self.lambda_v = lambda_v

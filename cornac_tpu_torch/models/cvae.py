@@ -153,7 +153,7 @@ class CVAE(_FactorScores):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.z_dim = z_dim
         self.n_epochs = n_epochs
         self.lambda_u = lambda_u
@@ -338,7 +338,7 @@ class CDR(_FactorScores):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.autoencoder_structure = (
             [200] if autoencoder_structure is None else list(autoencoder_structure))

@@ -131,7 +131,7 @@ class CVAECF(Recommender):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.z_dim = z_dim
         self.h_dim = h_dim
         self.autoencoder_structure = (

@@ -187,7 +187,7 @@ class DMRL(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.batch_size = batch_size
         self.learning_rate = learning_rate
         self.decay_c = decay_c

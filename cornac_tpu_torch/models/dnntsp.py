@@ -180,7 +180,7 @@ class DNNTSP(NextBasketRecommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss_type not in LOSSES:
             raise ValueError("Unknown loss_type: {}".format(loss_type))
         if optimizer not in ("adam", "sgd", "rmsprop"):

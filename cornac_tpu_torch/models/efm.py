@@ -155,7 +155,7 @@ class EFM(Recommender):
 
     Parameters mirror the JAX package's. ``device``: where the model fits
     and scores (default: the card). ``mesh`` is refused: the edge-parallel
-    fit waits for ROADMAP.md A8.
+    fit waits for ROADMAP.md A8 (d).
     """
 
     def __init__(
@@ -183,7 +183,7 @@ class EFM(Recommender):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.device = device
         self.num_threads = num_threads

@@ -308,7 +308,7 @@ class FM(Recommender):
     ``method`` ('sgd', 'sgda', 'als', 'mcmc'), ``batch_size``,
     ``init_params`` ({'w0', 'w', 'V'}), ``seed``. ``device``: where the
     model trains (default: the card). ``mesh`` is not ported yet
-    (ROADMAP.md A8).
+    (ROADMAP.md A8 (b)).
     """
 
     def __init__(
@@ -336,7 +336,7 @@ class FM(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.device = device
         self.num_threads = num_threads  # the JAX package's OpenMP knob, accepted and unused

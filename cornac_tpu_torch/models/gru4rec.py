@@ -159,7 +159,7 @@ class GRU4Rec(NextItemRecommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss not in SUPPORTED_LOSSES:
             raise ValueError(f"loss='{loss}' not supported; choose from {SUPPORTED_LOSSES}")
         if model_selection not in ("last", "best"):

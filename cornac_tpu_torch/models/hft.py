@@ -170,7 +170,7 @@ class HFT(Recommender, ANNMixin):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.k = k
         self.max_iter = max_iter

@@ -80,7 +80,7 @@ class HPF(Recommender, ANNMixin):
     ``hierarchical`` (False: PF), ``seed``, ``init_params``
     ({'Theta', 'Beta', 'G_s', 'G_r', 'L_s', 'L_r'}). ``device``: where the
     model trains and scores (default: the card). ``mesh`` is not ported
-    yet (ROADMAP.md A8).
+    yet (ROADMAP.md A8 (b)).
     """
 
     def __init__(
@@ -98,7 +98,7 @@ class HPF(Recommender, ANNMixin):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.device = device
         self.k = k

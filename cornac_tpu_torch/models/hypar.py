@@ -383,7 +383,7 @@ def hypar_draws(generator, model, n_edges, bsz, n_batches, device):
 class HypAR(Recommender):
     """Hypergraph attention-on-reviews recommender. Parameters mirror the
     JAX package's; ``device``: where the model fits and scores (default:
-    the card); ``mesh`` is refused (ROADMAP.md A8)."""
+    the card); ``mesh`` is refused (ROADMAP.md A8 (d))."""
 
     def __init__(
         self,
@@ -427,7 +427,7 @@ class HypAR(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         if objective not in ("ranking", "rating"):
             raise ValueError("objective must be 'ranking' or 'rating'")
         if combiner not in COMBINERS:

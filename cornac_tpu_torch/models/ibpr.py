@@ -90,7 +90,7 @@ class _TripletEmbedBase(Recommender, ANNMixin):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.k = k
         self.max_iter = max_iter
         self.learning_rate = learning_rate

@@ -12,7 +12,7 @@ items, uniformly with replacement, |R| rounded up to whole minibatches.
 The rows of the propagated and the ego tables are gathered with
 ``gather_rows``, so their gradients sum through ``accumulate_rows`` and a
 seeded fit gives the same bits on every run. Sharding the adjacency over a
-mesh waits for ROADMAP.md A8.
+mesh waits for ROADMAP.md A8 (b).
 """
 
 import numpy as np
@@ -94,7 +94,7 @@ class LightGCN(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.emb_size = emb_size
         self.num_epochs = num_epochs
         self.learning_rate = learning_rate

@@ -143,7 +143,7 @@ class LRPPM(Recommender):
     """Aspect-pair ranking tensor model with composite top-aspect scoring.
 
     Parameters mirror the JAX package's. ``device``: where the model fits
-    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8).
+    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8 (d)).
     """
 
     def __init__(
@@ -169,7 +169,7 @@ class LRPPM(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.device = device
         self.n_threads = n_threads

@@ -19,7 +19,23 @@ epoch's generator, one pair per minibatch after the permutation, as the JAX
 package folds the minibatch index into the epoch's key.
 
 SVD is MF with the biases on, as in the JAX package.
+
+``mesh`` (``parallel.make_mesh``) trains one process a rank and keeps the
+single-device fit's bits, as BPR's branch does (``models/bpr.py``). On the
+SGD path the extended tables are row-sharded over "model"; each rank draws
+the same permutation, computes the update rows of its data slice of each
+minibatch from rows fetched with ``row_shard_lookup``, and the slices'
+rows (and errors, for the loss) are all-gathered over "data" in batch
+order before ``row_shard_scatter_add``. On the general-optimizer path the
+parameters are replicated, as in the JAX package: each rank takes the
+gradient of its slice with respect to the gathered rows, the per-row
+gradients are all-gathered in batch order and summed into the tables'
+gradients by ``accumulate_rows`` as the single-device backward does, and
+every rank applies the same optimizer update; the reported loss is the
+whole minibatch's, computed on every rank.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -28,6 +44,14 @@ from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.dispatch import full_f32
 from ..ops.optim import apply_updates, make_optimizer
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import (
+    batch_slice,
+    gather_batch,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import normal, zeros
@@ -63,26 +87,70 @@ def _epoch_permutation(n, gen):
     return torch.sort(keys, stable=True).indices
 
 
-def _mf_epoch(U, V, perm, mask, pairs, val, lr, reg, mu, batch_size, u_gate, v_gate):
+def _mf_updates(pu, qi, r, m, lr, reg, mu, u_gate, v_gate):
+    """(U's update rows, V's update rows, the errors) of a minibatch, or of
+    a data slice of one, from its fetched rows."""
+    pred = (pu * qi).sum(1)
+    if mu is not None:
+        pred = pred + mu
+    err = (r - pred) * m
+    e, mm = err[:, None], m[:, None]
+    return lr * ((e * qi - reg * pu * mm) * u_gate), lr * ((e * pu - reg * qi * mm) * v_gate), err
+
+
+def _mf_step(U, V, u, i, r, m, lr, reg, mu, u_gate, v_gate):
+    """One SGD minibatch on the extended tables, in place; returns its
+    summed squared error (a device scalar)."""
+    d_u, d_v, err = _mf_updates(U[u], V[i], r, m, lr, reg, mu, u_gate, v_gate)
+    accumulate_rows(U, u, d_u)
+    accumulate_rows(V, i, d_v)
+    return (err * err).sum()
+
+
+def _mf_step_sharded(mesh, U, V, u, i, r, m, lr, reg, mu, u_gate, v_gate):
+    """``_mf_step`` on a mesh: U and V are this rank's row shards, the
+    other arguments the whole minibatch's (module docstring)."""
+    B = u.shape[0]
+    lo, hi, per = batch_slice(mesh, B)
+    d_u, d_v, err = _mf_updates(row_shard_lookup(mesh, U, u[lo:hi]),
+                                row_shard_lookup(mesh, V, i[lo:hi]), r[lo:hi], m[lo:hi], lr,
+                                reg, mu, u_gate, v_gate)
+    k = d_u.shape[1]
+    rows = gather_batch(mesh, torch.cat([d_u, d_v, err[:, None]], 1), B, per)
+    row_shard_scatter_add(mesh, U, u, rows[:, :k].contiguous())
+    row_shard_scatter_add(mesh, V, i, rows[:, k:2 * k].contiguous())
+    err = rows[:, 2 * k].contiguous()
+    return (err * err).sum()
+
+
+def _mf_epoch(U, V, perm, mask, pairs, val, lr, reg, mu, batch_size, u_gate, v_gate,
+              step=_mf_step):
     """One SGD epoch over the ratings in the order ``perm`` ((n_total,)
     int64, |R| padded to whole minibatches; ``mask`` (n_total,) float32 is
     0 on the padding), updating the extended tables in place. ``mu`` is the
-    global mean when the biases are on, else None. Returns half the summed
+    global mean when the biases are on, else None. ``step``: ``_mf_step``,
+    or ``_mf_step_sharded`` bound to a mesh. Returns half the summed
     squared error (a device scalar)."""
     loss = torch.zeros((), dtype=torch.float32, device=U.device)
     for s in range(0, perm.shape[0], batch_size):
         idx, m = perm[s:s + batch_size], mask[s:s + batch_size]
         u, i = pairs[idx].unbind(1)
-        pu, qi = U[u], V[i]
-        pred = (pu * qi).sum(1)
-        if mu is not None:
-            pred = pred + mu
-        err = (val[idx] - pred) * m
-        loss += (err * err).sum()
-        e, mm = err[:, None], m[:, None]
-        accumulate_rows(U, u, lr * ((e * qi - reg * pu * mm) * u_gate))
-        accumulate_rows(V, i, lr * ((e * pu - reg * qi * mm) * v_gate))
+        loss += step(U, V, u, i, val[idx], m, lr, reg, mu, u_gate, v_gate)
     return 0.5 * loss
+
+
+def _mf_optax_rows_loss(pu_raw, qi_raw, bu, bi, r, m, reg, mu, keep_u=None, keep_i=None):
+    """``_mf_optax_loss`` on rows already gathered: ``bu`` and ``bi`` are
+    None without the biases."""
+    pu = pu_raw if keep_u is None else pu_raw * keep_u
+    qi = qi_raw if keep_i is None else qi_raw * keep_i
+    pred = (pu * qi).sum(1)
+    if bu is not None:
+        pred = pred + mu + bu + bi
+    err = (r - pred) * m
+    mm = m[:, None]
+    reg_term = reg * ((pu_raw * pu_raw * mm).sum() + (qi_raw * qi_raw * mm).sum())
+    return 0.5 * (err * err).sum() + 0.5 * reg_term
 
 
 def _mf_optax_loss(params, u, i, r, m, reg, mu, use_bias, keep_u=None, keep_i=None):
@@ -91,26 +159,62 @@ def _mf_optax_loss(params, u, i, r, m, reg, mu, use_bias, keep_u=None, keep_i=No
     and ``keep_i`` are the dropout masks already divided by the keep rate
     (None without dropout); the L2 term reads the rows before dropout."""
     pu_raw, qi_raw = gather_rows(params["U"], u), gather_rows(params["V"], i)
-    pu = pu_raw if keep_u is None else pu_raw * keep_u
-    qi = qi_raw if keep_i is None else qi_raw * keep_i
-    pred = (pu * qi).sum(1)
+    bu = bi = None
     if use_bias:
-        pred = pred + mu + gather_rows(params["Bu"], u) + gather_rows(params["Bi"], i)
-    err = (r - pred) * m
-    mm = m[:, None]
-    reg_term = reg * ((pu_raw * pu_raw * mm).sum() + (qi_raw * qi_raw * mm).sum())
-    return 0.5 * (err * err).sum() + 0.5 * reg_term
+        bu, bi = gather_rows(params["Bu"], u), gather_rows(params["Bi"], i)
+    return _mf_optax_rows_loss(pu_raw, qi_raw, bu, bi, r, m, reg, mu, keep_u, keep_i)
+
+
+def _mf_optax_grads(params, u, i, r, m, reg, mu, use_bias, keep_u, keep_i):
+    """(the minibatch's loss, its gradients {"U", "V", "Bu", "Bi"})."""
+    names = ("U", "V", "Bu", "Bi")
+    loss = _mf_optax_loss(params, u, i, r, m, reg, mu, use_bias, keep_u, keep_i)
+    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    return loss, {n: torch.zeros_like(params[n]) if g is None else g
+                  for n, g in zip(names, grads)}
+
+
+def _mf_optax_grads_sharded(mesh, params, u, i, r, m, reg, mu, use_bias, keep_u, keep_i):
+    """``_mf_optax_grads`` on a mesh, the parameters replicated: this rank
+    takes the gradient of its data slice with respect to the gathered rows,
+    and the per-row gradients, all-gathered in batch order, are summed into
+    each table's gradient as ``gather_rows``'s backward sums them."""
+    B = u.shape[0]
+    lo, hi, per = batch_slice(mesh, B)
+    us, its = u[lo:hi], i[lo:hi]
+    rows = [params["U"][us], params["V"][its]]
+    if use_bias:
+        rows += [params["Bu"][us], params["Bi"][its]]
+    rows = [t.detach().requires_grad_() for t in rows]
+    bu, bi = rows[2:] if use_bias else (None, None)
+    keep = [None if t is None else t[lo:hi] for t in (keep_u, keep_i)]
+    loss = _mf_optax_rows_loss(rows[0], rows[1], bu, bi, r[lo:hi], m[lo:hi], reg, mu, *keep)
+    row_grads = torch.autograd.grad(loss, rows)
+    k = row_grads[0].shape[1]
+    flat = torch.cat([g.reshape(g.shape[0], -1) for g in row_grads], 1)
+    flat = gather_batch(mesh, flat, B, per)
+    grads = {"U": accumulate_rows(torch.zeros_like(params["U"]), u, flat[:, :k].contiguous()),
+             "V": accumulate_rows(torch.zeros_like(params["V"]), i,
+                                  flat[:, k:2 * k].contiguous())}
+    for col, (name, ids) in enumerate((("Bu", u), ("Bi", i))):
+        grads[name] = torch.zeros_like(params[name])
+        if use_bias:
+            accumulate_rows(grads[name], ids, flat[:, 2 * k + col].contiguous())
+    with torch.no_grad():
+        loss = _mf_optax_loss(params, u, i, r, m, reg, mu, use_bias, keep_u, keep_i)
+    return loss, grads
 
 
 def _mf_optax_epoch(params, opt, opt_state, perm, mask, pairs, val, reg, mu, batch_size,
-                    use_bias, dropout, gen):
+                    use_bias, dropout, gen, grads_fn=_mf_optax_grads):
     """One epoch of the general-optimizer path over the ratings in the order
     ``perm`` (padded to whole minibatches; ``mask`` 0 on the padding).
     ``params``: {"U", "V", "Bu", "Bi"} float32 tensors that require grad,
     updated in place by ``opt`` (``ops.optim``). With ``dropout`` > 0 each
     minibatch draws its user and item masks from ``gen``. Returns (the new
-    optimizer state, the epoch's summed loss as a device scalar)."""
-    names = ("U", "V", "Bu", "Bi")
+    optimizer state, the epoch's summed loss as a device scalar).
+    ``grads_fn``: ``_mf_optax_grads``, or ``_mf_optax_grads_sharded`` bound
+    to a mesh."""
     keep = 1.0 - dropout
     loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     for s in range(0, perm.shape[0], batch_size):
@@ -121,10 +225,7 @@ def _mf_optax_epoch(params, opt, opt_state, perm, mask, pairs, val, reg, mu, bat
             shape = (idx.shape[0], params["U"].shape[1])
             keep_u = (torch.rand(shape, generator=gen, device=gen.device) < keep) / keep
             keep_i = (torch.rand(shape, generator=gen, device=gen.device) < keep) / keep
-        loss = _mf_optax_loss(params, u, i, val[idx], m, reg, mu, use_bias, keep_u, keep_i)
-        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
-        grads = {n: torch.zeros_like(params[n]) if g is None else g
-                 for n, g in zip(names, grads)}
+        loss, grads = grads_fn(params, u, i, val[idx], m, reg, mu, use_bias, keep_u, keep_i)
         updates, opt_state = opt.update(grads, opt_state)
         apply_updates(params, updates)
         loss_sum += loss.detach()
@@ -150,7 +251,8 @@ class MF(Recommender, ANNMixin):
     (default: the card). ``optimizer``: ``"sgd"``, ``"adam"``,
     ``"rmsprop"`` or ``"adagrad"`` (optax's rules and defaults); with
     ``dropout`` > 0 the factors of each minibatch are dropped out at that
-    rate. ``mesh`` is not ported yet.
+    rate. ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    and the factors equal the single-device fit's (module docstring).
     """
 
     def __init__(
@@ -175,9 +277,7 @@ class MF(Recommender, ANNMixin):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         # the JAX package's backend selector: every value runs the same
@@ -229,7 +329,8 @@ class MF(Recommender, ANNMixin):
 
     def _fit(self, train_set):
         opt = make_optimizer(self.optimizer, self.learning_rate)  # raises on an unknown name
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rng = get_rng(self.seed)
         rid, cid, val = train_set.uir_tuple
         n = len(val)
@@ -253,12 +354,16 @@ class MF(Recommender, ANNMixin):
                       for name, a in (("U", self.u_factors), ("V", self.i_factors),
                                       ("Bu", self.u_biases), ("Bi", self.i_biases))}
 
+            grads_fn = (_mf_optax_grads if mesh is None
+                        else functools.partial(_mf_optax_grads_sharded, mesh))
+
             def run_optax(opt_state, start, e):
                 for epoch in range(start, start + e):
                     gen, perm = permutation(epoch)
                     opt_state, loss = _mf_optax_epoch(
                         params, opt, opt_state, perm, mask, pairs, val_d, self.lambda_reg,
-                        float(self.global_mean), bsz, self.use_bias, float(self.dropout), gen)
+                        float(self.global_mean), bsz, self.use_bias, float(self.dropout), gen,
+                        grads_fn)
                 return opt_state, self._epoch_info(loss, last)
 
             epoch_loop(self, self.max_iter, run_optax, opt.init(params),
@@ -271,16 +376,24 @@ class MF(Recommender, ANNMixin):
         U, V, u_gate, v_gate = _extended_tables(
             self.u_factors, self.i_factors, self.u_biases, self.i_biases, self.use_bias, dev)
         mu = float(self.global_mean) if self.use_bias else None
+        n_u, n_i = U.shape[0], V.shape[0]
+        step = _mf_step
+        if mesh is not None:
+            U, V = shard_tables(mesh, U, V)  # DTensors: what a checkpoint gathers
+            step = functools.partial(_mf_step_sharded, mesh)
 
         def run_chunk(state, start, e):
-            U, V = state
+            U, V = (local_shard(t) for t in state)
             for epoch in range(start, start + e):
                 loss = _mf_epoch(U, V, permutation(epoch)[1], mask, pairs, val_d,
-                                 self.learning_rate, self.lambda_reg, mu, bsz, u_gate, v_gate)
+                                 self.learning_rate, self.lambda_reg, mu, bsz, u_gate, v_gate,
+                                 step)
             return state, self._epoch_info(loss, last)
 
         epoch_loop(self, self.max_iter, run_chunk, (U, V), on_report=self._report,
                    max_chunk=max_chunk)
+        if mesh is not None:
+            U, V = U.full_tensor()[:n_u], V.full_tensor()[:n_i]
 
         k = self.k
         self.u_factors = U[:, :k].cpu().numpy()
@@ -388,7 +501,8 @@ class MF(Recommender, ANNMixin):
 
 class SVD(MF):
     """SVD-style MF: MF with the biases on (a named alias, as in the JAX
-    package)."""
+    package). It takes MF's ``mesh``, which the JAX package's SVD does not
+    pass on."""
 
     def __init__(
         self,
@@ -404,6 +518,7 @@ class SVD(MF):
         verbose=False,
         init_params=None,
         seed=None,
+        mesh=None,
         device=None,
     ):
         super().__init__(
@@ -420,5 +535,6 @@ class SVD(MF):
             verbose=verbose,
             init_params=init_params,
             seed=seed,
+            mesh=mesh,
             device=device,
         )

@@ -207,7 +207,7 @@ class MTER(Recommender):
     """Joint Tucker factorization of rating/attention/quality tensors.
 
     Parameters mirror the JAX package's. ``device``: where the model fits
-    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8).
+    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8 (d)).
     """
 
     def __init__(
@@ -234,7 +234,7 @@ class MTER(Recommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.device = device
         self.n_threads = n_threads

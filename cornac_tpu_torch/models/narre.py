@@ -55,7 +55,7 @@ class ReviewRegressor(Recommender, ANNMixin):
                batch_size, max_iter, optimizer, learning_rate, model_selection, user_based,
                init_params, seed, mesh, device):
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.embedding_size = embedding_size
         self.id_embedding_size = id_embedding_size
         self.n_factors = n_factors

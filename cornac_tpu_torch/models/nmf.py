@@ -80,7 +80,7 @@ class NMF(Recommender, ANNMixin):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.device = device
         self.num_threads = num_threads  # the JAX package's OpenMP knob, accepted and unused

@@ -200,7 +200,7 @@ class PCRL(Recommender, ANNMixin):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.z_dims = [300] if z_dims is None else list(z_dims)
         self.max_iter = max_iter

@@ -66,7 +66,7 @@ class PMF(Recommender, ANNMixin):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.device = device
         self.k = k

@@ -133,12 +133,19 @@ class Recommender:
         attribute when one was given, else the process default (the card)."""
         return resolve_device(getattr(self, "device", None))
 
+    #: attributes holding process-local handles (a ``DeviceMesh`` names
+    #: this process's group and ranks): never copied or persisted
+    _process_local_attrs = ("mesh",)
+
     def __deepcopy__(self, memo):
         cls = self.__class__
         result = cls.__new__(cls)
         ignored = set(self.ignored_attrs)
         for k, v in self.__dict__.items():
             if k in ignored:
+                continue
+            if k in self._process_local_attrs:
+                setattr(result, k, None)
                 continue
             setattr(result, k, copy.deepcopy(v))
         return result
@@ -153,21 +160,32 @@ class Recommender:
     def clone(self, new_params=None):
         """Fresh instance with (optionally overridden) constructor params."""
         overrides = new_params or {}
+
+        def current(name):
+            if name in self._process_local_attrs:  # share, don't copy
+                return getattr(self, name, None)
+            return copy.deepcopy(getattr(self, name))
+
         return self.__class__(
-            **{
-                n: overrides.get(n, copy.deepcopy(getattr(self, n)))
-                for n in self._get_init_params()
-            }
+            **{n: overrides.get(n, current(n)) for n in self._get_init_params()}
         )
 
     # ------------------------------------------------------------------ #
     # persistence
     # ------------------------------------------------------------------ #
     def save(self, save_dir=None, save_trainset=False, metadata=None):
-        """Pickle the model (minus data handles) plus a ``.meta`` JSON."""
+        """Pickle the model (minus data handles and the mesh) plus a
+        ``.meta`` JSON. Under a mesh every rank holds the same model: rank 0
+        writes it while the others wait, and every rank returns its path."""
         if save_dir is None:
             return
+        if getattr(self, "mesh", None) is not None:
+            from ..parallel.mesh import on_rank_zero
 
+            return on_rank_zero(lambda: self._save(save_dir, save_trainset, metadata))
+        return self._save(save_dir, save_trainset, metadata)
+
+    def _save(self, save_dir, save_trainset, metadata):
         def dump(obj, path):
             with open(path, "wb") as f:
                 pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)

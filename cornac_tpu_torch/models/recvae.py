@@ -129,7 +129,7 @@ class RecVAE(Recommender):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.hidden_dim = hidden_dim
         self.latent_dim = latent_dim

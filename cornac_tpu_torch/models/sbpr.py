@@ -174,6 +174,8 @@ class SBPR(BPR):
         mesh=None,
         device=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         super().__init__(
             name=name,
             k=k,

@@ -137,7 +137,7 @@ class SoRec(_StreamCoFactor):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.max_iter = max_iter
         self.learning_rate = learning_rate

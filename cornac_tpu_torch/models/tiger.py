@@ -363,7 +363,7 @@ class TIGER(NextItemRecommender):
     ):
         super().__init__(name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if scoring not in SUPPORTED_SCORING:
             raise ValueError("scoring='%s' not supported; choose from %s"
                              % (scoring, SUPPORTED_SCORING))

@@ -244,7 +244,7 @@ class TransformerRec(NextItemRecommender):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if backbone not in BACKBONES:
             raise ValueError(f"backbone must be one of {BACKBONES}")
         if objective not in OBJECTIVES:

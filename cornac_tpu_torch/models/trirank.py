@@ -73,7 +73,7 @@ def _allclose(a, b):
 class TriRank(Recommender):
     """Tripartite (user-item-aspect) smoothness ranking. ``device``: where
     the model scores (default: the card). ``mesh``, which the JAX package's
-    TriRank does not take, is refused (ROADMAP.md A8)."""
+    TriRank does not take, is refused (ROADMAP.md A8 (d))."""
 
     def __init__(
         self,
@@ -93,7 +93,7 @@ class TriRank(Recommender):
     ):
         super().__init__(name)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.alpha = alpha
         self.beta = beta

@@ -171,7 +171,7 @@ class VAECF(Recommender, ANNMixin):
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.k = k
         self.autoencoder_structure = (

@@ -144,7 +144,7 @@ class VBPR(Recommender, ANNMixin):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.mesh = mesh
         self.device = device
         self.k = k

@@ -99,6 +99,8 @@ class VEBPR(BPR):
         mesh=None,
         device=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         super().__init__(
             name=name,
             k=k,

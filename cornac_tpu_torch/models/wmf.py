@@ -16,7 +16,7 @@ The rows are bucketed by degree, as ``cornac_tpu/models/wmf.py``'s
 padded to its own largest degree and cut into chunks sized so that the
 (chunk, L, k) gather stays under a workspace budget, whatever the catalog's
 largest degree. The JAX package's other layout, every row padded to the
-largest degree, serves its mesh path and waits for it here (ROADMAP.md A8).
+largest degree, serves its mesh path and waits for it here (ROADMAP.md A8 (b)).
 """
 
 import numpy as np
@@ -151,7 +151,7 @@ class WMF(Recommender, ANNMixin):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8)")
+            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.device = device
         self.k = k

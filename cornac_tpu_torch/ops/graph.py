@@ -16,7 +16,7 @@ adjacency, chosen by :class:`NormAdjacency`:
 
 ``propagate_torch`` is the edge form's plain version, with ``index_add_``
 and autograd's own gather; on the card only the tests and ``chip_smoke.py``
-call it. Sharding the adjacency over a mesh waits for ROADMAP.md A8.
+call it. Sharding the adjacency over a mesh waits for ROADMAP.md A8 (b).
 """
 
 import numpy as np
@@ -119,7 +119,7 @@ class NormAdjacency:
         if mesh is not None:
             raise NotImplementedError(
                 "NormAdjacency(mesh=...), the adjacency sharded over a mesh, is not ported yet "
-                "(ROADMAP.md A8)")
+                "(ROADMAP.md A8 (b))")
         self.mesh = mesh
         self.num_users = train_set.num_users
         self.num_items = train_set.num_items

@@ -22,6 +22,11 @@ dicts, lists and tuples (``None`` leaves are kept out of the file).
 Restored into a template, every tensor leaf of the template is overwritten
 in place (``copy_``), so a trainer that holds its tables, parameters or
 optimizer moments in local variables continues from the restored values.
+
+A mesh fit (the JAX package's ``place=``) carries ``DTensor`` leaves: a
+save gathers each one whole (a collective, so every rank flattens) and
+rank 0 alone writes the file; on resume every rank reads it and copies its
+own rows back into its shard.
 """
 
 import os
@@ -29,6 +34,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import is_dtensor, on_rank_zero
 
 _STATE_FILE = "state.pt"
 _TMP_PREFIX = ".tmp-"
@@ -58,12 +65,28 @@ def _children(node):
     return None
 
 
+def _local_rows(template, saved):
+    """The part of ``saved`` (a whole tensor) that ``template``, a
+    ``DTensor``, holds on this rank: narrowed along each sharded dim by this
+    rank's coordinate on the mesh."""
+    local = template.to_local()
+    for mesh_dim, placement in enumerate(template.placements):
+        if placement.is_shard():
+            size = local.shape[placement.dim]
+            start = template.device_mesh.get_local_rank(mesh_dim) * size
+            saved = saved.narrow(placement.dim, start, size)
+    return local, saved
+
+
 def flatten_state(state, prefix=""):
-    """Flat ``{path: CPU tensor}`` of a state's leaves (``None`` skipped)."""
+    """Flat ``{path: CPU tensor}`` of a state's leaves (``None`` skipped).
+    A ``DTensor`` leaf is gathered whole, a collective over its mesh."""
     kids = _children(state)
     if kids is None:
         if state is None:
             return {}
+        if is_dtensor(state):
+            return {prefix: state.full_tensor().detach().cpu().clone()}
         if isinstance(state, torch.Tensor):
             return {prefix: state.detach().cpu().clone()}
         return {prefix: torch.as_tensor(np.asarray(state))}
@@ -84,6 +107,14 @@ def restore_into(template, flat, prefix=""):
         if template is None:
             return None
         saved = flat[prefix]
+        if is_dtensor(template):
+            if saved.shape != template.shape:
+                raise ValueError(f"checkpoint leaf {prefix!r} has shape {tuple(saved.shape)}, "
+                                 f"the state {tuple(template.shape)}")
+            local, saved = _local_rows(template, saved)
+            with torch.no_grad():
+                local.copy_(saved)
+            return template
         if isinstance(template, torch.Tensor):
             if saved.shape != template.shape:
                 raise ValueError(f"checkpoint leaf {prefix!r} has shape {tuple(saved.shape)}, "
@@ -220,9 +251,12 @@ def epoch_loop(model, total, run_chunk, state, on_report=None, max_chunk=None, r
     With checkpointing on (``Recommender.enable_checkpointing``), the carry
     and ``resident`` are saved every ``every`` epochs, at the end and at an
     early stop; with ``resume``, the newest checkpoint is restored into
-    them (in place) and the fit goes on from its epoch.
+    them (in place) and the fit goes on from its epoch. Under
+    ``model.mesh`` every rank runs the loop: each save gathers the sharded
+    leaves, rank 0 writes and the others wait; each rank restores its rows.
     """
     cfg = getattr(model, "_ckpt_cfg", None)
+    mesh = getattr(model, "mesh", None)
     verbose = bool(getattr(model, "verbose", False))
     mgr = None
     done = 0
@@ -250,7 +284,11 @@ def epoch_loop(model, total, run_chunk, state, on_report=None, max_chunk=None, r
         if verbose and on_report is not None:
             on_report(done, info)
         if mgr is not None and (done % cfg["every"] == 0 or done == total or stop):
-            mgr.save(done, {"carry": state, "resident": resident}, force=True)
+            flat = flatten_state({"carry": state, "resident": resident})
+            if mesh is None:
+                mgr.save(done, flat, force=True)
+            else:
+                on_rank_zero(lambda: mgr.save(done, flat, force=True))
         if stop:
             break
     return state

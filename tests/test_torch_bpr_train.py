@@ -206,9 +206,11 @@ def test_fit_leaves_init_params_untouched(use_bias):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BPR(mesh=object())
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MMMF(mesh=object())
 
 

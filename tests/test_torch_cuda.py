@@ -1574,3 +1574,51 @@ def test_sentiment_iterations_never_sync_with_the_host(card):
         torch.cuda.set_sync_debug_mode("default")
     for t in (*tables, *sub_p.values(), *l_p, *comp_p.values(), *h_params.values()):
         assert torch.isfinite(t).all()
+
+
+@pytest.fixture
+def world_one_mesh(card):
+    """A ("data", "model") mesh of one rank over NCCL, as ``make_mesh``
+    starts it in a process with no group; the group ends with the test."""
+    import torch.distributed as dist
+
+    from cornac_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.mesh.shape) == (1, 1)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cls", [BPR, MF])
+def test_world_one_mesh_fit_equals_the_plain_fit(world_one_mesh, card, cls):
+    rng = np.random.RandomState(2)
+    pairs = sorted({(rng.randint(300), rng.randint(200)) for _ in range(6000)})
+    train = Dataset.from_uir([(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs],
+                             seed=1)
+    plain = cls(max_iter=5, batch_size=512, seed=4, device=card).fit(train)
+    before = ACCUMULATE_ROWS.launches
+    sharded = cls(max_iter=5, batch_size=512, seed=4, mesh=world_one_mesh).fit(train)
+    assert ACCUMULATE_ROWS.launches > before
+    for name in ("u_factors", "i_factors", "u_biases", "i_biases"):
+        if hasattr(plain, name):
+            np.testing.assert_array_equal(getattr(sharded, name), getattr(plain, name))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_world_one_sharded_topk_equals_fused_topk(world_one_mesh, card, bias):
+    from cornac_tpu_torch.parallel import shard_rows
+    from cornac_tpu_torch.parallel.sharded import sharded_topk
+
+    rng = np.random.RandomState(9)
+    U, V, b = _on(card, rng.randn(300, 51).astype(np.float32),
+                  rng.randn(5000, 51).astype(np.float32),
+                  rng.randn(5000).astype(np.float32) if bias else None)
+    want = fused_topk(U, V, 100, bias=b)
+    before = FUSED_TOPK.launches
+    got = sharded_topk(world_one_mesh, U, shard_rows(world_one_mesh, V), 100,
+                       item_bias=None if b is None else shard_rows(world_one_mesh, b))
+    assert FUSED_TOPK.launches == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

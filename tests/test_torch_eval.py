@@ -108,7 +108,9 @@ def test_dataset_views_match_jax():
 
 def test_unported_options_raise():
     data = Reader().read(RATING_TXT, fmt="UIR")
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         RatioSplit(data=data, mesh=object())
     # the modality slots and checkpointed Experiments are ported now: a
     # slot refuses anything but its modality class

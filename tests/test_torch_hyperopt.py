@@ -10,9 +10,11 @@ JAX package's, on the CPU.
   ``Continuous.draw`` give the JAX package's values from one seeded stream;
   ``GridSearch`` refuses a ``Continuous`` domain with the same message.
 - ``RuntimeConfig``: every field, the ones that take effect (platform,
-  matmul precision, the device-metrics threshold) and each one that raises
-  (the multi-device fields and ``make_mesh``, naming ROADMAP.md A8; the
-  compilation cache, which has no counterpart).
+  matmul precision, the device-metrics threshold, the multi-device fields
+  and ``make_mesh``, which in a single process builds a mesh of one rank)
+  and each one that raises (``host_device_count`` and the compilation
+  cache, which have no counterpart; a coordinator without its process
+  count and rank).
 """
 
 import numpy as np
@@ -154,11 +156,34 @@ def test_runtime_config_applies_its_fields(restore_runtime):
 @pytest.mark.parametrize("field, value", [
     ("data_parallel", 4), ("host_device_count", 8), ("coordinator_address", "host:1234"),
     ("num_processes", 2), ("process_id", 0)])
-def test_runtime_config_multi_device_fields_raise(restore_runtime, field, value):
-    with pytest.raises(NotImplementedError, match="A8"):
-        RuntimeConfig(**{field: value}).apply()
-    with pytest.raises(NotImplementedError, match="A8"):
-        RuntimeConfig().make_mesh()
+def test_runtime_config_multi_device_fields_raise(restore_runtime, monkeypatch, field, value):
+    # the multi-device runtime is ported (tests/test_torch_parallel.py):
+    # each field takes effect, or raises where it has no counterpart or
+    # lacks its companions, before any process group starts
+    import torch.distributed as dist
+
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = RuntimeConfig(**{field: value})
+    if field == "host_device_count":
+        with pytest.raises(NotImplementedError, match="gloo processes"):
+            cfg.apply()
+    elif field == "coordinator_address":
+        with pytest.raises(ValueError, match="num_processes and process_id"):
+            cfg.apply()
+    else:  # no coordinator: nothing to join
+        assert cfg.apply() is cfg
+    assert not dist.is_initialized()
+    if field == "data_parallel":
+        with pytest.raises(ValueError, match="must divide device count 1"):
+            cfg.make_mesh()
+        assert not dist.is_initialized()
+    mesh = RuntimeConfig().make_mesh()  # one process: a group of one rank on the CPU
+    try:
+        assert mesh.device_type == "cpu" and mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.mesh.shape) == (1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_runtime_config_refusals(restore_runtime, tmp_path):
@@ -171,5 +196,5 @@ def test_runtime_config_refusals(restore_runtime, tmp_path):
     # a refused config changes nothing
     before = torch.get_float32_matmul_precision()
     with pytest.raises(NotImplementedError):
-        RuntimeConfig(matmul_precision="bfloat16", data_parallel=2).apply()
+        RuntimeConfig(matmul_precision="bfloat16", host_device_count=2).apply()
     assert torch.get_float32_matmul_precision() == before

@@ -139,8 +139,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="optimizer"):
         MF(max_iter=1, optimizer="lbfgs").fit(train)
     MF(optimizer="adam", trainable=False).fit(train)  # serving given factors needs no trainer
-    for cls in (MF, BaselineOnly):
-        with pytest.raises(NotImplementedError, match="A8"):
+    for cls in (MF, BaselineOnly):  # mesh= is ported (tests/test_torch_parallel.py)
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(mesh=object())
     with pytest.raises(ValueError):
         MF(backend="tensorflow")

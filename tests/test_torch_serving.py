@@ -220,10 +220,10 @@ def test_metric_sandbox(world):
 
 def test_trainer_not_ported(tmp_path):
     # the trainer itself is ported (tests/test_torch_bpr_train.py), and so
-    # is checkpointing (tests/test_torch_checkpoint.py); the parts of it
-    # still to port raise, naming their ROADMAP item
+    # are checkpointing (tests/test_torch_checkpoint.py) and the mesh
+    # (tests/test_torch_parallel.py), which takes a parallel.make_mesh mesh
     train = Dataset.from_uir([("u", "i", 1.0)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BPR(k=4, mesh=object())
     model = BPR(k=4, max_iter=1)
     assert model.enable_checkpointing(tmp_path / "ckpt", every=1) is model
