@@ -82,7 +82,10 @@ Phases, each of which fails the run when it fails:
    backward; the step's four outputs held bit for bit to the same step on
    the CPU (where accumulate_rows is its plain version), two calls bit for
    bit; times beside the plain version on the card (``index_add_``), four
-   cuSPARSE products and the bound;
+   cuSPARSE products and the bound; then ``NormAdjacency(mesh=...)`` on the
+   world-size-1 NCCL mesh (12 accumulate_rows launches): the 3-layer mean
+   forward and backward equal to the plain adjacency's, bit for bit, timed
+   beside it;
 10c. HPF at those widths (``examples/hpf_movielens.py``: k = 5, seed 123)
    on phase 10's train set: fits of 1 and 3 sweeps held to the same fits
    on the CPU (rtol 3e-5), the first sweep's two accumulate_rows inputs
@@ -139,6 +142,9 @@ Phases, each of which fails the run when it fails:
    one warm and two timed sweeps beside the FLOP bound, peak device
    memory, recommend_batch of 8,192 users at k=100, TPUExactANN with
    recall_target=0.95 and the bf16 route, each held to the plain version;
+   then one sweep of ``WMF(mesh=...)`` (k = 64) on the world-size-1 mesh,
+   which solves its share of the degree buckets' chunks, beside a plain
+   one-sweep fit, bit for bit; each fit's peak device memory;
 14b. VAECF at the Netflix widths (``benchmarks/vaecf_sparse_stream.py:38-39``:
    k=32, [100], batch 1,024, lr 0.001, seed 1) on phase 14's 20M pairs, in
    the index-resident mode: fits of 1 and of 4 epochs, seconds per steady
@@ -388,8 +394,8 @@ Phases, each of which fails the run when it fails:
    each over an assumed lexicon of 200 aspects and 500 opinions), after
    19c: the examples' split (RatioSplit(0.15), TriRank's 0.2) and settings
    (``TOYS_MODELS``): EFM and ComparERObj at 40 explicit and 60 latent
-   factors for 100 and 10 iterations (the examples' 100), MTER, ComparERSub, LRPPM and Companion
-   at 500 iterations each (the examples' 10,000, 200,000, 20,000 and
+   factors for 100 and 5 iterations (the examples' 100), MTER, ComparERSub, LRPPM and Companion
+   at 250 iterations each (the examples' 10,000, 200,000, 20,000 and
    500,000), TriRank's 100 power iterations, HypAR at its defaults for 12
    steps (its epoch has some 1,113); every host build timed; ms an iteration (a step) by CUDA
    events, device events a call and the busy share over 3 profiled (HypAR's
@@ -441,9 +447,23 @@ Phases, each of which fails the run when it fails:
    events around one call) and its host time, the canary's host time into
    its steps.
 
-Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i, 12j and 12k run in
-twelve spawned processes, eight at a time (the factor family, three groups of the neural
-family, the factor family's rest with the protocols, the modality layer's
+12l. the factor and neural families' ``mesh=`` (ROADMAP A8 (b)) at the
+   bench shape, in a thirteenth spawned process, on a world-size-1 NCCL
+   mesh of its own: PMF, NMF, WMF, IBPR, OnlineIBPR, COE, HPF, PF, FM-als
+   and FM-sgd at ``factor_configs``' and ``factor_rest_configs``' widths,
+   SBPR, VEBPR (seeded views) and the three C2PF at ``GOLDEN_CONFIGS``',
+   the neural family at ``neural_configs``', CVAECF and GCMC at
+   ``AUX_CONFIGS``', on ``RatioSplit(0.2, 4.0, seed=123)`` with
+   ``seq_bench_data.side_modalities``' graphs: each at one epoch or sweep
+   fitted with the mesh and without, the two bit for bit, each pair's
+   seconds;
+   the fitted models with vectors serving 256 users through fused_topk,
+   held to the plain version.
+
+Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i, 12j, 12k and 12l run in
+thirteen spawned processes, eight at a time (the factor family, three groups of the neural
+family, the factor family's rest with the protocols, the A8 (b) mesh fits,
+the modality layer's
 models with the checkpointed Experiment, the next-item models with CVAECF
 and GCMC, the next-basket models, the generative next-item models, the
 side-information models, the text and review models and the sentiment
@@ -454,7 +474,7 @@ process runs 8, then 17, 16c, 16 (beside them), 16b, then 9-15b in the order
 14b, then 21. The card time-slices between processes and they share the
 host's cores: the times of phases 17, 16c and 16 carry that load (their
 host-bound steps lose the host's share, Beacon's card-bound steps the
-card's slices as well), every other time runs alone, and the twelve
+card's slices as well), every other time runs alone, and the thirteen
 processes' own fit seconds and busy shares carry each other's load.
 
 The last three lines are the card's name and power limit, one JSON object
@@ -2724,6 +2744,208 @@ def phase_trainer_full(seed, mesh):
     return launches, fused, stats
 
 
+# ---------------------------------------------------------------------- #
+# the factor and neural families' mesh= (ROADMAP A8 (b)) at world size 1
+# ---------------------------------------------------------------------- #
+MESH_VIEWS = 50_000  # VEBPR's seeded views at the bench shape (the data has none)
+MESH_SERVED = 256  # users each mesh-fitted model with vectors serves through fused_topk
+
+
+def mesh_family_configs():
+    """(name, maker, depth attribute, fitted attributes or None for
+    ``fitted_arrays``) of every configuration whose class takes ``mesh=``
+    since A8 (b), at the widths of ``factor_configs``, ``factor_rest_configs``
+    and ``neural_configs`` (OnlineIBPR at IBPR's), of
+    ``bpr_quality_band.GOLDEN_CONFIGS`` (SBPR, VEBPR, the three C2PF) and
+    ``AUX_CONFIGS`` (CVAECF, GCMC); a fit's depth is set to one epoch or
+    sweep through the attribute after construction."""
+    from bpr_quality_band import AUX_CONFIGS, GOLDEN_CONFIGS
+
+    from cornac_tpu_torch import models as M
+
+    out = [(n, maker, "max_iter", attrs) for n, maker, attrs in factor_configs()
+           if n in ("PMF", "NMF", "WMF", "IBPR", "COE")]
+    out.insert(4, ("OnlineIBPR", lambda **kw: M.OnlineIBPR(k=10, max_iter=20, seed=123, **kw),
+                   "max_iter", ("U", "V")))
+    out += [(n, maker, "max_iter", attrs) for n, maker, attrs in factor_rest_configs()
+            if n in ("HPF", "PF", "FM-als", "FM-sgd")]
+    for name in ("SBPR", "VEBPR", "C2PF", "TC2PF", "RC2PF"):
+        cls, kw, seeded, _ = GOLDEN_CONFIGS[name]
+        attrs = (("Gs", "Gr", "Ls", "Lr", "L2s", "L2r", "L3s", "L3r", "Xi") if cls == "C2PF"
+                 else ("u_factors", "i_factors") + (("i_biases",) if name == "SBPR" else ()))
+        out.append((name, functools.partial(getattr(M, cls), seed=123, **kw), "max_iter",
+                    attrs))
+    out += [(n, maker, depth, None) for n, depth, maker in neural_configs()]
+    for name, depth in (("CVAECF", "n_epochs"), ("GCMC", "max_iter")):
+        cls, kw, _ = AUX_CONFIGS[name]
+        out.append((name, functools.partial(getattr(M, cls), seed=123, **kw), depth, None))
+    return out
+
+
+def mesh_family_data(data):
+    """(train set, VEBPR's purchase/view train set) at the bench shape:
+    ``RatioSplit(0.2, 4.0, seed=123)`` of ``make_ml100k_like(7)``'s triples
+    with ``seq_bench_data.side_modalities``' user graph (SBPR, CVAECF) and
+    item graph (C2PF), and ``PurchaseViewDataset.build`` of the triples with
+    ``MESH_VIEWS`` seeded (user, item) views over the same ids."""
+    from seq_bench_data import side_modalities
+
+    from cornac_tpu_torch import data as pdata
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    side = side_modalities(data, pdata)
+    split = RatioSplit(data, test_size=0.2, rating_threshold=4.0, seed=123, verbose=False,
+                       user_graph=side["user_graph"], item_graph=side["item_graph"])
+    rng = np.random.RandomState(77)
+    users = sorted({u for u, _, _ in data})
+    items = sorted({i for _, i, _ in data})
+    views = [(users[u], items[i], 1.0) for u, i in zip(rng.randint(len(users), size=MESH_VIEWS),
+                                                       rng.randint(len(items), size=MESH_VIEWS))]
+    return split.train_set, pdata.PurchaseViewDataset.build(data, views, seed=123)
+
+
+def phase_mesh_families(bench_data, mesh):
+    """Every A8 (b) configuration at the bench shape and its full width, one
+    epoch or sweep, fitted with ``mesh=`` (the world-size-1 NCCL mesh) and
+    without, counted; the two fits' arrays held bit for bit, each pair's
+    seconds printed; every mesh-fitted model with vectors serving
+    ``MESH_SERVED`` users through fused_topk, held to the plain version.
+    Returns (accumulate_rows launches, fused_topk launches, {name: (mesh s,
+    plain s)})."""
+    import torch
+
+    from cornac_tpu_torch.models.recommender import ANNMixin
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    data = clock("make_ml100k_like(seed=7) (set-up)", bench_data)
+    train, views = clock("the split with the side modalities, and the views (set-up)",
+                         lambda: mesh_family_data(data))
+    configs = mesh_family_configs()
+    fits = {}
+
+    def warm_up():  # the process's first DTensor and first all-gather, apart from PMF's fit
+        from cornac_tpu_torch.parallel import shard_tables
+        from cornac_tpu_torch.parallel.sharded import gather_batch, local_shard
+
+        table = local_shard(shard_tables(mesh, torch.zeros((8, 2), device=DEV)))
+        return gather_batch(mesh, table, 8, 8)
+
+    clock("the first DTensor and all-gather on the mesh (set-up)", warm_up)
+
+    def fit(name, maker, depth, mesh_):
+        model = maker(mesh=mesh_)
+        setattr(model, depth, 1)
+        return model.fit(views if name == "VEBPR" else train)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    for name, maker, depth, attrs in configs:
+        sharded = clock(f"{name} mesh", lambda: fit(name, maker, depth, mesh))
+        plain = clock(f"{name} plain", lambda: fit(name, maker, depth, None))
+        fits[name] = (sharded, plain, attrs)
+    relaxed = 0
+    served = []
+    users = np.arange(MESH_SERVED)
+    for name, (sharded, _, _) in fits.items():
+        # the models with vectors (VAECF's recommend_batch refuses k > 0)
+        if isinstance(sharded, ANNMixin) and name != "VAECF":
+            own = views if name == "VEBPR" else train
+            relaxed += clock(f"{name} serving", lambda: serve_factor_model(sharded, own, users))
+            served.append(name)
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the A8 (b) configurations at the bench shape, mesh and plain")
+    if launches <= 0 or fused < len(served):
+        raise AssertionError(f"the mesh fits launched accumulate_rows {launches} times and "
+                             f"fused_topk {fused} times for {len(served)} served models")
+
+    # ---- check what came out ----
+    seconds = {}
+    for name, (sharded, plain, attrs) in fits.items():
+        got = ({a: np.asarray(getattr(sharded, a)) for a in attrs} if attrs
+               else fitted_arrays(sharded))
+        want = ({a: np.asarray(getattr(plain, a)) for a in attrs} if attrs
+                else fitted_arrays(plain))
+        if set(got) != set(want) or not got:
+            raise AssertionError(f"{name}: the mesh fit holds {sorted(got)}, the plain "
+                                 f"{sorted(want)}")
+        for a in want:
+            if not np.isfinite(want[a]).all():
+                raise AssertionError(f"{name}: the plain fit's {a} is not finite")
+            if not np.array_equal(got[a], want[a]):
+                err = np.abs(np.asarray(got[a], np.float64) - want[a]).max()
+                raise AssertionError(f"{name}(mesh=...) differs from the plain fit in {a} "
+                                     f"(max |diff| {err:.3e})")
+        seconds[name] = (clock.seconds[f"{name} mesh"], clock.seconds[f"{name} plain"])
+    log("  the A8 (b) configurations, one epoch or sweep each at the bench shape, world size 1 "
+        "(NCCL): every mesh fit equal to the plain fit bit for bit; seconds, mesh / plain "
+        "(host clock): " + ", ".join(
+            f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in seconds.items()))
+    log(f"  {len(served)} mesh-fitted models ({', '.join(served)}) serving {MESH_SERVED} users "
+        f"at k=10: the plain version's lists (positions relaxed as near-ties: {relaxed}); "
+        f"accumulate_rows launches {launches}, fused_topk launches {fused}")
+    log(f"the A8 (b) mesh fits at the bench shape: ok in {sum(clock.seconds.values()):.1f} s")
+    del fits
+    torch.cuda.empty_cache()
+    return launches, fused, seconds
+
+
+def phase_mesh_bench(bench_data):
+    """Phase 12l, in a spawned process: ``phase_mesh_families`` on a
+    world-size-1 NCCL mesh of this process's own (``start_mesh``: a group
+    kept in memory, which no other process joins), ended with the phase."""
+    import torch.distributed as dist
+
+    mesh = start_mesh()
+    try:
+        return phase_mesh_families(bench_data, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_wmf_netflix(ds, mesh):
+    """WMF(mesh=...) at the Netflix widths (k = 64): one sweep on the
+    world-size-1 mesh (its share of the degree buckets' chunks, all of them
+    at world size 1) beside a plain one-sweep fit, held bit for bit; each
+    fit's peak device memory printed. Returns the two fits' seconds and
+    peaks."""
+    import torch
+
+    from cornac_tpu_torch.models import WMF
+
+    clock = Clock()
+    kw = dict(k=WMF_K, max_iter=1, seed=123, verbose=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sharded = clock("WMF(mesh=...).fit, 1 sweep (set-up included)",
+                    lambda: WMF(mesh=mesh, **kw).fit(ds))
+    peak_mesh = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    plain = clock("WMF.fit, 1 sweep (set-up included)", lambda: WMF(**kw).fit(ds))
+    peak_plain = torch.cuda.max_memory_allocated() - base
+    clock.report("WMF(mesh=...) at the Netflix widths")
+    for a in ("U", "V"):
+        if not np.isfinite(getattr(plain, a)).all():
+            raise AssertionError(f"the plain one-sweep WMF fit's {a} is not finite")
+        if not np.array_equal(getattr(sharded, a), getattr(plain, a)):
+            err = np.abs(getattr(sharded, a) - getattr(plain, a)).max()
+            raise AssertionError(f"WMF(mesh=...) at the Netflix widths differs from the plain "
+                                 f"fit in {a} (max |diff| {err:.3e})")
+    log(f"  WMF(mesh=...) k={WMF_K}, world size 1: one sweep equal to the plain one-sweep fit "
+        f"bit for bit; peak device memory above what the run held: mesh fit "
+        f"{peak_mesh / 2**30:.3f} GiB, plain fit {peak_plain / 2**30:.3f} GiB; seconds (host "
+        f"clock, set-up "
+        f"included): mesh {clock.seconds['WMF(mesh=...).fit, 1 sweep (set-up included)']:.3f},"
+        f" plain {clock.seconds['WMF.fit, 1 sweep (set-up included)']:.3f}")
+    del sharded, plain
+    torch.cuda.empty_cache()
+    return dict(mesh_s=clock.seconds["WMF(mesh=...).fit, 1 sweep (set-up included)"],
+                plain_s=clock.seconds["WMF.fit, 1 sweep (set-up included)"],
+                peak_mesh=peak_mesh, peak_plain=peak_plain)
+
+
 def neural_configs():
     """(band name, the depth's keyword, maker) of ``benchmarks/model_sweep.py``'s
     configurations of the neural family, with GMF and MLP at NeuMF's depth
@@ -2878,7 +3100,7 @@ def phase_neural_bench(bench_data, names):
     return launches, fused, fit_s, acc_err, prof
 
 
-def phase_lightgcn_ml10m(train, gen):
+def phase_lightgcn_ml10m(train, gen, mesh):
     """LightGCN's edge-form propagation at the ML-10M widths (69,878 users x
     10,677 items, 10,000,054 edges, d = 64), the adjacency as LightGCN.fit
     builds it (far past the dense budget): one step forward and backward
@@ -2888,7 +3110,9 @@ def phase_lightgcn_ml10m(train, gen):
     version (``index_add_`` in edge order), two calls bit for bit; times of
     the step and the 3 layers beside the plain version on the card
     (``index_add_``, atomic), four cuSPARSE products (the same function's
-    forward and backward as CSR x dense) and the bound."""
+    forward and backward as CSR x dense) and the bound. Then
+    ``NormAdjacency(mesh=...)`` on the world-size-1 NCCL mesh, counted: its
+    3-layer mean forward and backward equal to the plain adjacency's bits."""
     import torch
 
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
@@ -2968,13 +3192,38 @@ def phase_lightgcn_ml10m(train, gen):
     log(f"  the step's four outputs equal to the step on the CPU (accumulate_rows' plain "
         f"version), bit for bit; max |kernel - plain on the card (index_add_, atomic)| "
         f"{card_err:.3e}; two calls bit-identical; accumulate_rows launches {launches}")
-    log(f"LightGCN edge form at ML-10M: ok in {sum(clock.seconds.values()):.1f} s")
     del rows_u, rows_i
+
+    # ---- NormAdjacency(mesh=...), world size 1: the main path, counted ----
+    madj = clock("NormAdjacency(mesh=...) (set-up)", lambda: NormAdjacency(train, mesh=mesh))
+    ACCUMULATE_ROWS.launches = 0
+    sharded = clock("3 layers through NormAdjacency(mesh=...), forward and backward",
+                    lambda: fwd_bwd(lambda u, i: madj.lightgcn(u, i, 3)))
+    mesh_launches = ACCUMULATE_ROWS.launches
+    if mesh_launches != 12 or madj.dense is not None:
+        raise AssertionError(f"NormAdjacency(mesh=...) launched accumulate_rows {mesh_launches} "
+                             f"times (dense form: {madj.dense is not None}), want 12 on edges")
+    whole = fwd_bwd(layers)
+    for name, m_out, p_out in zip(("layer mean of users", "layer mean of items",
+                                   "gradient of users", "gradient of items"), sharded, whole):
+        if not torch.equal(m_out, p_out):
+            raise AssertionError(f"ML-10M 3 layers, {name}: NormAdjacency(mesh=...) differs from "
+                                 f"the plain adjacency, max |diff| "
+                                 f"{(m_out - p_out).abs().max().item():.3e}")
+    mesh_ms = time_ms(lambda: fwd_bwd(lambda u, i: madj.lightgcn(u, i, 3)), 3, 1)
+    log(f"  NormAdjacency(mesh=...), world size 1 (NCCL), the same {E:,} edges: 3 layers forward "
+        f"and backward equal to the plain adjacency's, bit for bit; {mesh_ms:.3f} ms against "
+        f"{layers_ms:.3f} (CUDA events); set-up "
+        f"{clock.seconds['NormAdjacency(mesh=...) (set-up)']:.3f} s against "
+        f"{clock.seconds['NormAdjacency (set-up)']:.3f} (host clock); accumulate_rows launches "
+        f"{mesh_launches}")
+    del madj, sharded, whole
+    log(f"LightGCN edge form at ML-10M: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, layers_ms=layers_ms,
-                          layers_plain_ms=layers_plain_ms, max_abs_err=max_err,
-                          card_plain_max_abs_err=card_err)
+    return launches + mesh_launches, dict(
+        mesh_ms=mesh_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, layers_ms=layers_ms, layers_plain_ms=layers_plain_ms,
+        max_abs_err=max_err, card_plain_max_abs_err=card_err)
 
 
 # examples/hpf_movielens.py's HPF (k = 5, 100 sweeps) on phase 10's train set
@@ -7043,22 +7292,22 @@ TOYS_MODELS = {
                         rating_scale=5.0, alpha=0.85, max_iter=100, seed=123), None),
     # at all users its comparative pair stream (tens of millions of
     # (pair, aspect) entries, summed in order into 200 aspect rows) takes
-    # some 0.25 s an iteration: 10 of the example's 100
+    # some 0.25-1.4 s an iteration: 5 of the example's 100
     "ComparERObj": ("ComparERObj", dict(num_explicit_factors=40, num_latent_factors=60,
-                                        seed=123), ("max_iter", 10, 100)),
+                                        seed=123), ("max_iter", 5, 100)),
     "MTER": ("MTER", dict(n_user_factors=15, n_item_factors=15, n_aspect_factors=12,
                           n_opinion_factors=12, n_bpr_samples=1000, n_element_samples=50,
                           lambda_reg=0.1, lambda_bpr=10, lr=0.1, seed=123),
-             ("max_iter", 500, 10_000)),
+             ("max_iter", 250, 10_000)),
     "ComparERSub": ("ComparERSub", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
-                                        lr=0.1, seed=123), ("max_iter", 500, 200_000)),
+                                        lr=0.1, seed=123), ("max_iter", 250, 200_000)),
     "LRPPM": ("LRPPM", dict(n_factors=8, ld=1.0, reg=0.01, alpha=1.0, n_samples=200,
-                            n_ranking_samples=1000, lr=0.1, seed=123), ("max_iter", 500, 20_000)),
+                            n_ranking_samples=1000, lr=0.1, seed=123), ("max_iter", 250, 20_000)),
     "Companion": ("Companion", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
                                     n_opinion_factors=8, n_element_samples=50, n_bpr_samples=1000,
                                     n_aspect_ranking_samples=1000,
                                     n_opinion_ranking_samples=1000, lr=0.5, seed=123),
-                  ("max_iter", 500, 500_000)),
+                  ("max_iter", 250, 500_000)),
     "TriRank": ("TriRank", dict(max_iter=100, seed=123, verbose=False), None),
     "HypAR": ("HypAR", dict(num_epochs=1, seed=123, verbose=False),
               ("steps", HYPAR_STEPS, "10 epochs")),
@@ -7070,7 +7319,7 @@ TOYS_PROBED = {"MTER": ("mter", "mter_iteration", False),
                "ComparERSub": ("mter", "mter_iteration", False),
                "LRPPM": ("lrppm", "lrppm_iteration", False),
                "Companion": ("companion", "companion_iteration", False)}
-SAMPLED_TIMED = (50, 450)  # CUDA events after iterations 50 and 450
+SAMPLED_TIMED = (50, 200)  # CUDA events after iterations 50 and 200
 HYPAR_TIMED = (3, 9)  # before steps 3 and 9
 TOYS_PROFILED = 3  # iterations profiled after the timed ones
 HYPAR_PROFILED = 2  # HypAR's steps profiled (some 600 device events each)
@@ -7178,7 +7427,7 @@ def phase_sentiment_toys(toys_data):
     its seconds); each model
     of ``TOYS_MODELS`` fitted at its depth, its host builds timed (``TOYS_HOST_BUILDS``); MTER's, ComparERSub's,
     LRPPM's and Companion's ms an iteration by CUDA events over iterations
-    51-450 and HypAR's a step over steps 3-8, each with its device
+    51-200 and HypAR's a step over steps 3-8, each with its device
     events a call and busy share over the ``TOYS_PROFILED`` after;
     NDCG@50 (and RMSE for the rating models) over the first
     ``TOYS_EVAL_USERS`` test users; the accumulate_rows inputs of
@@ -7707,7 +7956,7 @@ def main():
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     # bench.py's generator is pure Python (about 15 s): a second process
-    # makes the data while the serving slice runs. The twelve bench-shape
+    # makes the data while the serving slice runs. The thirteen bench-shape
     # processes run beside phases 17, 16c and 16, BENCH_WORKERS at a time,
     # and are collected (their logs printed) before 16b: the module's
     # docstring says why there
@@ -7724,6 +7973,7 @@ def main():
         jobs += [(f"neural family ({', '.join(names)})", "phase_neural_bench", (names,))
                  for names in NEURAL_GROUPS]
         jobs += [("factor family's rest and the protocols", "phase_factor_rest_bench", ()),
+                 ("the A8 (b) configurations' mesh fits", "phase_mesh_bench", ()),
                  ("the modality layer's models and checkpointed Experiments",
                   "phase_modality_bench", ()),
                  ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
@@ -7736,7 +7986,7 @@ def main():
         families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
                     for what, phase, extra in jobs]
         basket_launches, basket = phase_basket_tafeng(args.seed)
-        lap("the next-basket family at Ta Feng, beside the twelve bench-shape processes")
+        lap("the next-basket family at Ta Feng, beside the thirteen bench-shape processes")
         tiger_launches, tiger = phase_tiger_ml100k(bench_data.get)
         lap("TIGER at ML-100K, beside them")
         sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
@@ -7754,7 +8004,7 @@ def main():
         lap("KNN slice")
         ml10m_launches, W10, train10m = phase_knn_ml10m(args.seed)
         lap("related items")
-        lgcn_launches, lgcn = phase_lightgcn_ml10m(train10m, gen)
+        lgcn_launches, lgcn = phase_lightgcn_ml10m(train10m, gen, mesh)
         lap("LightGCN edge form at ML-10M")
         hpf_launches, hpf_fused, hpf_model, hpf_users, hpf = phase_hpf_ml10m(train10m, args.seed)
         del train10m
@@ -7790,6 +8040,8 @@ def main():
             f"{time.perf_counter() - t:.3f} s")
         wmf_fused, wmf = phase_wmf_full(args.seed, netflix)
         lap("WMF at the Netflix widths")
+        wmf_mesh = mesh_wmf_netflix(netflix, mesh)
+        lap("WMF(mesh=...) at the Netflix widths")
         vaecf = phase_vaecf_full(netflix, args.seed)
         del netflix
         lap("VAECF at the Netflix widths")
@@ -7832,6 +8084,7 @@ def main():
     sideb_launches, sideb_fit, sideb_acc_err = by_phase["phase_side_bench"]
     textb_launches, textb_fit, textb_acc_err = by_phase["phase_text_bench"]
     sentb_launches, sentb_fit, sentb_acc_err = by_phase["phase_sentiment_bench"]
+    a8b_launches, a8b_fused, a8b = by_phase["phase_mesh_bench"]
     kernels = [{
         "name": "fused_topk",
         "batch": B,
@@ -7839,7 +8092,7 @@ def main():
         "route": "cuda",
         "source": "cornac_tpu_torch/csrc/fused_topk.cu",
         "replaces": "cornac_tpu/ops/pallas_ranking.py:38",
-        "launches": (launches + full_fused + factor_fused + neural_fused + wmf_fused
+        "launches": (launches + full_fused + a8b_fused + factor_fused + neural_fused + wmf_fused
                      + hpf_fused + rest_fused + sbpr_fused + c2pf_fused + side_fused
                      + vbpr_fused + cloth_fused + cite_fused + music_fused + plot_fused
                      + probe_launches["fused_topk"]),
@@ -7919,8 +8172,9 @@ def main():
             "route": "cuda",
             "source": "cornac_tpu_torch/csrc/accumulate_rows.cu",
             "replaces": "cornac_tpu/ops/accumulate.py:26",
-            "launches": (bench_launches + full_launches + factor_launches + neural_launches
-                         + lgcn_launches + hpf_launches + rest_launches + sbpr_launches
+            "launches": (bench_launches + full_launches + a8b_launches + factor_launches
+                         + neural_launches + lgcn_launches + hpf_launches + rest_launches
+                         + sbpr_launches
                          + c2pf_launches + modal_launches + sasrec_launches + seqb_launches
                          + basket_launches + nbb_launches + tr_launches + tiger_launches
                          + genb_launches + side_launches + vbpr_launches + cloth_launches
@@ -8071,6 +8325,13 @@ def main():
         f"plain one {full['plain_fit_s']:.3f} s (host clock, set-up included); the mesh epoch "
         f"{full['mesh_epoch_s']:.3f} s, the plain one {full['epoch_s']:.3f} s; "
         f"RatioSplit(mesh=...).evaluate {bench['mesh_eval']:.3f} s")
+    log("A8 (b) mesh fits at the bench shape, world size 1, seconds mesh / plain (host clock): "
+        + ", ".join(f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in a8b.items())
+        + f"; WMF(mesh=...) at the Netflix widths {wmf_mesh['mesh_s']:.3f} s against the plain "
+        f"sweep's {wmf_mesh['plain_s']:.3f} s, peak {wmf_mesh['peak_mesh'] / 2**30:.3f} GiB against "
+        f"{wmf_mesh['peak_plain'] / 2**30:.3f}; "
+        f"NormAdjacency(mesh=...) at ML-10M, 3 layers {lgcn['mesh_ms']:.3f} ms against "
+        f"{lgcn['layers_ms']:.3f}")
     log(f"all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,14 @@ train set's ``user_feature`` / ``item_feature`` modality. As in the JAX
 package, the map is evaluated outside the differentiated loss, so no step
 moves it: it keeps its initial draw (``_trained``). Serving:
 ``recommend_batch`` ranks ``mu_theta · mu_betaᵀ`` through ``fused_topk``.
+
+``mesh`` (``parallel.make_mesh``) trains both sweeps data-parallel, as the
+JAX package does: the encoders, their Adam states and the latent tables are
+replicated, each rank takes the loss of its data slice of a batch's rows
+(``_sweep``), the gradients are summed over "data", and every rank
+refreshes the whole batch's latent rows. A slice need not divide the batch
+(``parallel.sharded.batch_slice``), so the rows are not padded to the data
+axis as the JAX package pads them.
 """
 
 import numpy as np
@@ -30,9 +38,12 @@ from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp
 from ..exception import ScoreException
 from ..ops.dense_scores import device_dot
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
+from .vaecf import batch_mean
 
 EPS = 1e-10
 LIKELIHOODS = ("bern", "gaus", "pois")
@@ -52,9 +63,11 @@ def _encode_side(side, x, act):
     return side.mu(h), torch.sigmoid(side.std(h))
 
 
-def _side_loss(side, x, other_table, noise, act, likelihood, kl_beta, mu_prior=0.0):
+def _side_loss(side, x, other_table, noise, act, likelihood, kl_beta, mu_prior=0.0, denom=None):
     """The JAX package's ``_side_loss`` with its standard-normal draw
-    ``noise`` (the shape of the means) given."""
+    ``noise`` (the shape of the means) given; ``denom``: the whole
+    minibatch's rows when ``x`` is a rank's data slice of it
+    (``vaecf.batch_mean``)."""
     mu, std = _encode_side(side, x, act)
     z = mu + noise * std
     x_ = torch.sigmoid(z @ other_table.T)
@@ -68,7 +81,7 @@ def _side_loss(side, x, other_table, noise, act, likelihood, kl_beta, mu_prior=0
     ll = torch.sum(ll, dim=1)
 
     kld = -0.5 * torch.sum(1 + 2.0 * torch.log(std) - (mu - mu_prior) ** 2 - std**2, dim=1)
-    return torch.mean(kl_beta * kld - ll)
+    return batch_mean(kl_beta * kld - ll, denom)
 
 
 def _padded(A, bsz, device):
@@ -87,24 +100,33 @@ def _trained(side):
 
 
 def _sweep(side, opt, state, data, n_batches, bsz, n_real, other_table, gen, act, likelihood,
-           kl_beta, feats=None):
+           kl_beta, feats=None, mesh=None):
     """One pass over a side's batches: an Adam step on each, then the
     batch's rows of the latent tables (sample, mean) from the updated
     encoder. ``feats``: the side's feature rows, padded as ``data``, when
     its prior is constrained (its KL centres on ``side.prior(features)``).
+    ``mesh``: each rank takes the loss of its data slice of a batch's rows
+    (and of its noise) over the batch's size, the gradients are summed over
+    "data", and every rank refreshes the whole batch's rows of the tables.
     Returns (state, table[:n_real], mu_table[:n_real])."""
     params = _trained(side)
     k = side.mu.b.shape[0]
     table = torch.zeros((n_batches * bsz, k), dtype=torch.float32, device=data.device)
     mu_table = torch.zeros_like(table)
+    part, denom = slice(None), None
+    if mesh is not None:  # this rank's data slice of every batch
+        part, denom = slice(*batch_slice(mesh, bsz)[:2]), bsz
     for b in range(n_batches):
         rows = slice(b * bsz, (b + 1) * bsz)
         x = data[rows]
         noise = torch.randn((bsz, k), generator=gen, device=data.device)
         with torch.no_grad():
             mu_prior = 0.0 if feats is None else side.prior(feats[rows])
-        loss = _side_loss(side, x, other_table, noise, act, likelihood, kl_beta, mu_prior)
-        state = step(params, opt, state, loss)
+        if feats is not None:
+            mu_prior = mu_prior[part]
+        loss = _side_loss(side, x[part], other_table, noise[part], act, likelihood, kl_beta,
+                          mu_prior, denom)
+        state = step(params, opt, state, loss, mesh)
         with torch.no_grad():
             mu, std = _encode_side(side, x, act)
             table[rows] = mu + torch.randn((bsz, k), generator=gen, device=data.device) * std
@@ -113,7 +135,9 @@ def _sweep(side, opt, state, data, n_batches, bsz, n_real, other_table, gen, act
 
 
 class BiVAECF(Recommender, ANNMixin):
-    """Dual VAEs over user rows and item columns with shared latent dim."""
+    """Dual VAEs over user rows and item columns with shared latent dim.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (module docstring)."""
 
     def __init__(
         self,
@@ -135,9 +159,7 @@ class BiVAECF(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.k = k
         self.encoder_structure = [20] if encoder_structure is None else list(encoder_structure)
         self.act_fn = act_fn
@@ -162,7 +184,7 @@ class BiVAECF(Recommender, ANNMixin):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device()
+        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
         n_users, n_items = train_set.num_users, train_set.num_items
         act = ACTIVATIONS[self.act_fn]
 
@@ -199,10 +221,10 @@ class BiVAECF(Recommender, ANNMixin):
         for epoch in range(self.n_epochs):
             state_i, beta, mu_beta = _sweep(item_side, opt_i, state_i, XT_d, nb_i, bsz_i,
                                             n_items, theta, epoch_generator(seed, epoch, dev, 0),
-                                            *common, if_d)
+                                            *common, if_d, self.mesh)
             state_u, theta, mu_theta = _sweep(user_side, opt_u, state_u, X_d, nb_u, bsz_u,
                                               n_users, beta, epoch_generator(seed, epoch, dev, 1),
-                                              *common, uf_d)
+                                              *common, uf_d, self.mesh)
             if self.verbose:
                 print("Epoch %d/%d done" % (epoch + 1, self.n_epochs))
 

@@ -18,6 +18,11 @@ product of ``get_user_vectors()`` and ``get_item_vectors()``, which is
 ``Theta . Beta`` for ``c2pf`` and ``tc2pf`` (no Xi) and
 ``Theta . (Beta + Xi)`` for ``rc2pf`` (Beta added), not by ``score``'s
 ``Theta . (Beta + Xi)`` and ``Theta . Xi`` (ROADMAP.md C).
+
+``mesh`` (``parallel.make_mesh``) splits both edge sets over "data" and
+keeps the Gamma tables whole on every rank, as the JAX package does; the
+per-edge rows are gathered back in edge order before each sum, so the
+posterior keeps the single-device bits (``_c2pf_cavi``).
 """
 
 import numpy as np
@@ -26,6 +31,8 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_dot, full_f32
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import data_parallel
 from ..utils import get_rng
 from .recommender import ANNMixin, MEASURE_DOT, Recommender
 
@@ -45,19 +52,33 @@ def _scatter(rows, ids, values):
     return accumulate_rows(values.new_zeros((rows,) + values.shape[1:]), ids, values)
 
 
-def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters):
+def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters, mesh=None):
     """``n_iters`` CAVI sweeps of one phase, as
     ``cornac_tpu/models/c2pf.py::_c2pf_cavi`` computes them on one device
     (its context-edge mask is all ones there). ``state``: dict of float32
     tensors G_s, G_r (users, k), L_s, L_r, L2_s, L2_r (items, k), l3_s,
     l3_r (context edges,), T3_r (items,); ru, ri, ci, cj int64, rx float32;
-    ``a_t``, ``b_t`` the kappa prior. Returns the new state."""
+    ``a_t``, ``b_t`` the kappa prior. Returns the new state.
+
+    ``mesh``: the state stays whole on every rank (replicated, as in the
+    JAX package) and both edge sets are split over "data": each rank
+    computes the per-edge rows of its slice of the rating and of the
+    context edges, and the slices are gathered back in edge order before
+    every sum (``data_parallel``), which keeps the single-device bits. The
+    column sums over the edges (``ctx_mass``) run whole on every rank."""
     d = state["L2_s"].shape[0]
     use_beta = variant != "rc2pf"
     s = dict(state)
+    n_r, n_c = ru.shape[0], ci.shape[0]
+
+    def on_ratings(fn, *rows):
+        return data_parallel(mesh, fn, n_r, ru, ri, *rows)
+
+    def on_context(fn, *rows):
+        return data_parallel(mesh, fn, n_c, ci, cj, *rows)
 
     def lb2_of(L2b, l3b):
-        return _scatter(d, ci, L2b[cj] * l3b[:, None])
+        return _scatter(d, ci, on_context(lambda ci_, cj_, l3b_: L2b[cj_] * l3b_[:, None], l3b))
 
     for _ in range(n_iters):
         G_s, G_r = s["G_s"], s["G_r"]
@@ -77,13 +98,18 @@ def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters):
         mix = (Lb + Lb2) if use_beta else Lb2
 
         def ratio():
-            dk = (Lt[ru] * mix[ri]).sum(1) + EPS
-            return rx / dk
+            return on_ratings(lambda ru_, ri_, rx_: rx_ / ((Lt[ru_] * mix[ri_]).sum(1) + EPS), rx)
+
+        def to_items(r_e):  # each rating's responsibility-weighted user row, summed by item
+            return _scatter(d, ri, on_ratings(lambda ru_, ri_, r_: r_[:, None] * Lt[ru_], r_e))
+
+        def context_rows(Lb_u):  # L2b[j] l3b Lb_u[i] of each context edge
+            return on_context(lambda ci_, cj_, l3b_: L2b[cj_] * l3b_[:, None] * Lb_u[ci_], l3b)
 
         # --- kappa (item influence) ---------------------------------------
         r_e = ratio()
-        Lb_u = _scatter(d, ri, r_e[:, None] * Lt[ru])
-        l3_s = a_t + (L2b[cj] * l3b[:, None] * Lb_u[ci]).sum(1)
+        Lb_u = to_items(r_e)
+        l3_s = a_t + context_rows(Lb_u).sum(1)
         SkU = (G_s / torch.clamp_min(G_r, EPS)).sum(0)
         X2m = L2_s / torch.clamp_min(L2_r, EPS)
         with full_f32():
@@ -102,7 +128,8 @@ def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters):
 
         # --- users ----------------------------------------------------------
         r_e = ratio()
-        G_s = AA + Lt * _scatter(G_s.shape[0], ru, r_e[:, None] * mix[ri])
+        G_s = AA + Lt * _scatter(G_s.shape[0], ru, on_ratings(
+            lambda ru_, ri_, r_: r_[:, None] * mix[ri_], r_e))
         ctx_mass = (X2m[cj] * km[:, None]).sum(0)
         if use_beta:
             g_rate = AA + (L_s / torch.clamp_min(L_r, EPS)).sum(0) + ctx_mass
@@ -115,11 +142,10 @@ def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters):
         Tm_sum = (G_s / torch.clamp_min(G_r, EPS)).sum(0)
         if use_beta:
             r_e = ratio()
-            L_s_new = AA + Lb * _scatter(d, ri, r_e[:, None] * Lt[ru])
+            L_s_new = AA + Lb * to_items(r_e)
             if variant == "tc2pf":
                 # tied: the context contribution folds into the same table
-                Lb_u = _scatter(d, ri, r_e[:, None] * Lt[ru])
-                L_s_new = L_s_new + _scatter(d, cj, L2b[cj] * l3b[:, None] * Lb_u[ci])
+                L_s_new = L_s_new + _scatter(d, cj, context_rows(to_items(r_e)))
                 Sj_d = _scatter(d, cj, km)
                 L_r = (AA + Tm_sum[None, :] * (1.0 + Sj_d[:, None])).expand(L_s.shape).contiguous()
             else:
@@ -131,8 +157,7 @@ def _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, a_t, b_t, variant, n_iters):
         # --- context (xi) ---------------------------------------------------
         if variant != "tc2pf":
             r_e = ratio()
-            Lb_u = _scatter(d, ri, r_e[:, None] * Lt[ru])
-            L2_s = AA + _scatter(d, cj, L2b[cj] * l3b[:, None] * Lb_u[ci])
+            L2_s = AA + _scatter(d, cj, context_rows(to_items(r_e)))
             Sj_d2 = _scatter(d, cj, km)
             L2_r = (AA + Sj_d2[:, None] * Tm_sum[None, :]).expand(L2_s.shape).contiguous()
         else:
@@ -151,7 +176,9 @@ class C2PF(Recommender, ANNMixin):
     ({'G_s', 'G_r', 'L_s', 'L_r', 'L2_s', 'L2_r', 'L3_s', 'L3_r', 'Theta',
     'Beta', 'Xi'}). The train set must carry the ``item_graph`` modality.
     ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet (ROADMAP.md A8 (b)).
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``, both
+    edge sets are split over "data" and the posterior equals the
+    single-device fit's (``_c2pf_cavi``).
     """
 
     def __init__(
@@ -171,13 +198,11 @@ class C2PF(Recommender, ANNMixin):
             raise ValueError("variant must be one of c2pf, tc2pf, rc2pf")
         name = variant.upper() if name is None else name
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.k = k
         self.max_iter = max_iter
         self.variant = variant
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -235,7 +260,8 @@ class C2PF(Recommender, ANNMixin):
         if getattr(train_set, "item_graph", None) is None:
             raise ValueError("C2PF requires an item_graph modality")
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         d = self.num_items
         u, i, x = train_set.uir_tuple
         ru, ri = (torch.as_tensor(np.asarray(a, np.int64), device=dev) for a in (u, i))
@@ -250,11 +276,11 @@ class C2PF(Recommender, ANNMixin):
                  for name, a in self._initial_state(len(gi)).items()}
         # phase 1: kappa held off by an enormous prior
         state = _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, 1e15, 1e15, self.variant,
-                           self.max_iter)
+                           self.max_iter, mesh)
         # phase 2: the real kappa prior, 0.2 * max_iter refinement sweeps
         bt = 5.0 if self.variant == "c2pf" else 4.0
         state = _c2pf_cavi(state, ru, ri, rx, ci, cj, util_sum, 2.0, bt, self.variant,
-                           max(1, int(0.2 * self.max_iter)))
+                           max(1, int(0.2 * self.max_iter)), mesh)
 
         km = state["l3_s"] / torch.clamp_min(state["l3_r"], EPS)
         X2m = state["L2_s"] / torch.clamp_min(state["L2_r"], EPS)

@@ -17,6 +17,15 @@ batch's reparameterisation noise comes from a ``torch.Generator`` seeded
 from (the fit's seed, the global epoch, the batch), where the JAX package
 folds the same indices into its key, so chunking and a resume from a
 checkpoint (``epoch_loop``) draw what an uninterrupted fit draws.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each user batch over all mesh axes: the batch size
+is rounded down to a multiple of the mesh's size (as the JAX package rounds
+it), the networks, Adam's state and the rating and social rows are
+replicated, every rank draws a batch's whole noise and takes the loss of
+its slice of the rows over the batch's size, and the gradients are summed
+over every rank before the same update on each: the single-device fit to
+float32 rounding, and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -25,9 +34,12 @@ import torch
 from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp, mlp
 from ..exception import ScoreException
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .recommender import Recommender
+from .vaecf import batch_mean
 
 EPS = 1e-10
 
@@ -65,9 +77,12 @@ def _decode(params, z, h, act, likelihood):
     return torch.sigmoid(out)
 
 
-def _cvae_loss(params, y, x, noise_z, noise_h, act, likelihood, beta, alpha_1, alpha_2):
+def _cvae_loss(params, y, x, noise_z, noise_h, act, likelihood, beta, alpha_1, alpha_2,
+               denom=None):
     """The JAX package's ``_cvae_loss`` with its two standard-normal draws
-    (the shapes of the z and h means) given."""
+    (the shapes of the z and h means) given; ``denom``: the whole
+    minibatch's rows when (y, x) are a rank's slice of it
+    (``vaecf.batch_mean``)."""
     mu_qz, logvar_qz = _branch(params.qz, y, act)
     mu_qhx, logvar_qhx = _branch(params.qhx, x, act)
     mu_qhy, logvar_qhy = _branch(params.qhy, y, act)
@@ -97,7 +112,7 @@ def _cvae_loss(params, y, x, noise_z, noise_h, act, likelihood, beta, alpha_1, a
         - ((mu_qhx - mu_qhy) ** 2 + torch.exp(logvar_qhx)) / torch.exp(logvar_qhy),
         dim=1,
     )
-    return torch.mean(beta * kld_z + alpha_1 * kld_hx + alpha_2 * kld_hy - ll)
+    return batch_mean(beta * kld_z + alpha_1 * kld_hx + alpha_2 * kld_hy - ll, denom)
 
 
 class CVAECF(Recommender):
@@ -106,6 +121,8 @@ class CVAECF(Recommender):
     Needs a ``user_graph`` modality on the eval method; its rows
     ``user_graph.matrix`` are the conditioning signal. ``device``: where it
     trains and scores (default: the card; ``"cpu"`` asks for the CPU).
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (module docstring).
     """
 
     def __init__(
@@ -130,8 +147,6 @@ class CVAECF(Recommender):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.z_dim = z_dim
         self.h_dim = h_dim
         self.autoencoder_structure = (
@@ -146,7 +161,7 @@ class CVAECF(Recommender):
         self.alpha_1 = alpha_1
         self.alpha_2 = alpha_2
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.use_gpu = use_gpu  # API parity; the device is ``device``
         self.device = device
 
@@ -171,7 +186,8 @@ class CVAECF(Recommender):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         n_items = self.r_mat.shape[1]
         if not hasattr(self, "params"):
             self.params = _init_cvae(rng, self.z_dim, self.h_dim,
@@ -184,6 +200,10 @@ class CVAECF(Recommender):
         opt = adam(self.learning_rate)
 
         bsz = min(self.batch_size, n_users)
+        lo, hi, denom = 0, bsz, None
+        if mesh is not None:  # the JAX package's rounding; this rank's slice over every rank
+            bsz = max(mesh.size(), bsz - bsz % mesh.size())
+            (lo, hi, _), denom = batch_slice(mesh, bsz, None), bsz
         n_pad = (-n_users) % bsz
         n_batches = (n_users + n_pad) // bsz
         Y = torch.zeros((n_users + n_pad, n_items), dtype=torch.float32, device=dev)
@@ -201,11 +221,14 @@ class CVAECF(Recommender):
                     gen = epoch_generator(seed, epoch, dev, b)
                     noise_z = torch.randn((bsz, self.z_dim), generator=gen, device=dev)
                     noise_h = torch.randn((bsz, self.h_dim), generator=gen, device=dev)
-                    rows = slice(b * bsz, (b + 1) * bsz)
-                    loss = _cvae_loss(self.params, Y[rows], X[rows], noise_z, noise_h, act,
-                                      self.likelihood, self.beta, self.alpha_1, self.alpha_2)
-                    opt_state = step(params, opt, opt_state, loss)
+                    rows = slice(b * bsz + lo, b * bsz + hi)
+                    loss = _cvae_loss(self.params, Y[rows], X[rows], noise_z[lo:hi],
+                                      noise_h[lo:hi], act, self.likelihood, self.beta,
+                                      self.alpha_1, self.alpha_2, denom)
+                    opt_state = step(params, opt, opt_state, loss, mesh, None)
                     loss_sum += loss.detach()
+                if mesh is not None:  # the slices' shares make the batches' losses
+                    all_sum(mesh, loss_sum, None)
             return opt_state, loss_sum
 
         def report(done, loss_sum):

@@ -27,6 +27,7 @@ Scoring (``_predict``, ``score``, ``score_batch``, ``score_pairs``) is the
 JAX package's host numpy code over the fitted tables.
 """
 
+import functools
 from collections import namedtuple
 
 import numpy as np
@@ -34,6 +35,14 @@ import torch
 
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import (
+    data_parallel,
+    gather_shards,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from ..utils.init_utils import normal, zeros
@@ -47,40 +56,65 @@ def _clip(g):
     return torch.clamp(g, -10.0, 10.0)
 
 
+def _fm_sgd_rows(wu, wi, Vu, Vi, w0, r, m, reg1, reg2, use_w0, use_w, use_v):
+    """The row-wise part of a minibatch (or of a data slice of one) from its
+    fetched rows: (the errors, the clipped ``w`` steps of u then i, the
+    clipped ``V`` steps of u then i) before the learning rate."""
+    pred = torch.zeros_like(r)
+    if use_w0:
+        pred = pred + w0
+    if use_w:
+        pred = pred + wu + wi
+    if use_v:
+        pred = pred + (Vu * Vi).sum(1)
+    e_ = (pred - r) * m
+    dw = torch.cat([e_ + reg1 * wu * m, e_ + reg1 * wi * m])
+    dV = torch.cat([e_[:, None] * Vi + reg2 * Vu * m[:, None],
+                    e_[:, None] * Vu + reg2 * Vi * m[:, None]])
+    return e_, _clip(dw).view(2, -1).T, _clip(dV).view(2, -1, Vu.shape[1]).transpose(0, 1)
+
+
 def _fm_sgd_epoch(w0, w, V, perm, rid, cid_off, val, pad_mask, lr, regs, batch_size, use_w0,
-                  use_w, use_v):
+                  use_w, use_v, mesh=None):
     """One SGD epoch, as an epoch of ``cornac_tpu/models/fm.py::_fm_sgd``:
     ``perm`` (n_total,) int64 holds the epoch's case indices (the JAX
     package draws ``permutation(fold_in(key, e), n_total) % n``),
     ``pad_mask`` (n_total,) float32 is 0 on the positions past n. w0 is a
     0-d float32 tensor, w (n_feat,) and V (n_feat, k2) float32, updated in
-    place. Returns (w0, w, V, the epoch's summed squared error)."""
+    place. Returns (w0, w, V, the epoch's summed squared error).
+
+    ``mesh``: w and V are this rank's row shards over "model"; each rank
+    computes the rows of its data slice of a minibatch from rows fetched
+    with ``row_shard_lookup``, the rows are gathered back in batch order
+    (``data_parallel``), w0 steps on the whole batch's error sum, and the
+    rows are added on the ranks that own them: the single-device bits."""
     reg0, reg1, reg2 = regs
+    if mesh is None:
+        lookup, scatter = (lambda t, ids: t[ids]), accumulate_rows
+    else:
+        lookup = functools.partial(row_shard_lookup, mesh)
+        scatter = functools.partial(row_shard_scatter_add, mesh)
+
+    def rows(u, i, r, m):
+        wui = lookup(w, torch.cat([u, i]))
+        Vui = lookup(V, torch.cat([u, i]))
+        return _fm_sgd_rows(*wui.chunk(2), *Vui.chunk(2), w0, r, m, reg1, reg2, use_w0, use_w,
+                            use_v)
+
     loss = torch.zeros((), dtype=torch.float32, device=w.device)
     for start in range(0, perm.shape[0], batch_size):
         idx = perm[start : start + batch_size]
         m = pad_mask[start : start + batch_size]
         u, i, r = rid[idx], cid_off[idx], val[idx]
-        pred = torch.zeros_like(r)
-        if use_w0:
-            pred = pred + w0
-        if use_w:
-            pred = pred + w[u] + w[i]
-        if use_v:
-            pred = pred + (V[u] * V[i]).sum(1)
-        e_ = (pred - r) * m
+        e_, dw, dV = data_parallel(mesh, rows, idx.shape[0], u, i, r, m)
         loss = loss + (e_ * e_).sum()
         if use_w0:
             w0 = w0 - lr * _clip(e_.sum() + reg0 * w0)
         ui = torch.cat([u, i])
         if use_w:
-            dw = torch.cat([e_ + reg1 * w[u] * m, e_ + reg1 * w[i] * m])
-            accumulate_rows(w, ui, -lr * _clip(dw))
+            scatter(w, ui, -lr * dw.T.reshape(-1))
         if use_v:
-            Vu, Vi = V[u], V[i]
-            dV = torch.cat([e_[:, None] * Vi + reg2 * Vu * m[:, None],
-                            e_[:, None] * Vu + reg2 * Vi * m[:, None]])
-            accumulate_rows(V, ui, -lr * _clip(dV))
+            scatter(V, ui, -lr * dV.transpose(0, 1).reshape(-1, dV.shape[2]))
     return w0, w, V, loss
 
 
@@ -307,8 +341,11 @@ class FM(Recommender):
     (``reg_all`` replaces the three when nonzero), ``init_stdev``,
     ``method`` ('sgd', 'sgda', 'als', 'mcmc'), ``batch_size``,
     ``init_params`` ({'w0', 'w', 'V'}), ``seed``. ``device``: where the
-    model trains (default: the card). ``mesh`` is not ported yet
-    (ROADMAP.md A8 (b)).
+    model trains (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit``. The SGD learners row-shard ``w`` and
+    ``V`` over "model" and split each minibatch over "data", and their
+    factors equal the single-device fit's (``_fm_sgd_epoch``); ``als`` and
+    ``mcmc`` accept the mesh and do not use it, as in the JAX package.
     """
 
     def __init__(
@@ -335,9 +372,7 @@ class FM(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.num_threads = num_threads  # the JAX package's OpenMP knob, accepted and unused
         self.k0 = k0
@@ -379,7 +414,8 @@ class FM(Recommender):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        mesh = self.mesh if self.method in ("sgd", "sgda") else None
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rid, cid, val = train_set.uir_tuple
         cid_off = np.asarray(cid, np.int64) + self.num_users  # the item block's offset
         f32 = [torch.tensor(np.asarray(a, np.float32), device=dev)
@@ -414,11 +450,17 @@ class FM(Recommender):
         cid_d = torch.as_tensor(cid_off, device=dev)
         pad_mask = (torch.arange(n_total, device=dev) < n).to(torch.float32)
         lr = float(np.float32(self.learning_rate))
+        if mesh is not None:
+            w_local, V_local = (local_shard(t) for t in shard_tables(mesh, w, V))
+        else:
+            w_local, V_local = w, V
         for e in range(self.max_iter):
             perm = torch.randperm(n_total, generator=epoch_generator(seed, e, dev),
                                   device=dev) % n
-            w0, w, V, _ = _fm_sgd_epoch(w0, w, V, perm, rid_d, cid_d, val_d, pad_mask, lr, regs,
-                                        batch_size, **self._flags())
+            w0, _, _, _ = _fm_sgd_epoch(w0, w_local, V_local, perm, rid_d, cid_d, val_d, pad_mask,
+                                        lr, regs, batch_size, **self._flags(), mesh=mesh)
+        if mesh is not None:
+            w, V = gather_shards(mesh, w_local)[:n_feat], gather_shards(mesh, V_local)[:n_feat]
         self.w0 = float(w0)
         self.w = w.cpu().numpy()
         self.V = V.cpu().numpy()

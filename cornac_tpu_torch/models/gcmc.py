@@ -18,6 +18,18 @@ is taken in edge order, never by atomics, so a seeded fit gives the same
 bits on every run. Dropout draws come from a ``torch.Generator`` keyed on
 (seed, global iteration), where the JAX package folds the iteration into
 its key.
+
+``mesh`` (``parallel.make_mesh``) splits the rating edges over "data", as
+the JAX package does, and replicates the parameters and the optimizer's
+state. Each rank passes the messages of its slice of the edges, the
+per-rating sums are summed over "data" (``all_sum_messages``), every rank
+draws the whole dropout masks, and takes the cross-entropy of its edges
+over the number of all edges. The gradients are summed over "data" before
+the clipping and the same update on each rank. A slice need not divide the
+edges, so none is padded (the JAX package pads with edges of label
+``n_ratings`` and weight 0). The sums take another order than the
+single-device fit's: the fit agrees with it to float32 rounding, and bit
+for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -28,9 +40,12 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.graph import scatter_rows
 from ..ops.optim import OPTIMIZERS
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, all_sum_messages, batch_slice, sum_grads
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .recommender import Recommender
+from .vaecf import batch_mean
 
 
 def _xavier(rng, shape):
@@ -63,25 +78,29 @@ def _init_gcmc(rng, n_users, n_items, n_ratings, agg_units, out_units,
     return Tree(**params)
 
 
-def _encode(params, graph, act, n_ratings, agg_accum, dropout, generator):
+def _encode(params, graph, act, n_ratings, agg_accum, dropout, generator, mesh=None):
     """One GCMC layer of per-rating bipartite message passing: (user
     features, item features). ``graph``: edge_u, edge_i (int64), edge_label
-    and the 1/sqrt(degree) norms ci_u, cj_u, ci_i, cj_i, on the device."""
+    and the 1/sqrt(degree) norms ci_u, cj_u, ci_i, cj_i, on the device.
+    ``mesh``: the edges are this rank's data slice of them, and each
+    rating's messages are summed over "data" before their norms."""
     eu, ei, lab = graph["edge_u"], graph["edge_i"], graph["edge_label"]
     n_users, n_items = params.Wu.shape[1], params.Wi.shape[1]
     cj_u = graph["cj_u"][eu][:, None]
     cj_i = graph["cj_i"][ei][:, None]
-
-    u_msgs, i_msgs = [], []
+    to_items, to_users = [], []
     for r in range(n_ratings):
         m = (lab == r).to(torch.float32)[:, None]
         # user -> item messages: rating r's rows of the source users
-        src_u = gather_rows(params.Wu[r], eu) * cj_u * m
-        i_msgs.append(scatter_rows(src_u, ei, n_items) * graph["ci_i"][:, None])
+        to_items.append(scatter_rows(gather_rows(params.Wu[r], eu) * cj_u * m, ei, n_items))
         # item -> user (the reverse edges)
-        src_i = gather_rows(params.Wi[r], ei) * cj_i * m
-        u_msgs.append(scatter_rows(src_i, eu, n_users) * graph["ci_u"][:, None])
-
+        to_users.append(scatter_rows(gather_rows(params.Wi[r], ei) * cj_i * m, eu, n_users))
+    if mesh is not None:  # every rating's sums over "data", in one collective
+        both = all_sum_messages(mesh, torch.cat(to_items + to_users))
+        to_items = list(both[:n_ratings * n_items].split(n_items))
+        to_users = list(both[n_ratings * n_items:].split(n_users))
+    i_msgs = [x * graph["ci_i"][:, None] for x in to_items]
+    u_msgs = [x * graph["ci_u"][:, None] for x in to_users]
     if agg_accum == "stack":
         ufeat = torch.cat(u_msgs, dim=1)
         ifeat = torch.cat(i_msgs, dim=1)
@@ -123,7 +142,8 @@ def _clip_by_global_norm(grads, max_norm):
 class GCMC(Recommender):
     """Graph convolutional matrix completion with rating-typed edges.
     ``device``: where it trains and scores (default: the card; ``"cpu"``
-    asks for the CPU)."""
+    asks for the CPU). ``mesh``: a ``parallel.make_mesh`` mesh; every rank
+    calls ``fit`` (module docstring)."""
 
     def __init__(
         self,
@@ -151,8 +171,6 @@ class GCMC(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.max_iter = max_iter
         self.learning_rate = learning_rate
         self.optimizer = optimizer
@@ -170,7 +188,7 @@ class GCMC(Recommender):
         self.train_decay_patience = train_decay_patience
         self.train_lr_decay_factor = train_lr_decay_factor
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         if gcn_agg_accum not in ("stack", "sum"):
             raise ValueError("gcn_agg_accum must be 'stack' or 'sum'")
@@ -200,7 +218,8 @@ class GCMC(Recommender):
         if self.activation_func not in ACTIVATIONS:
             raise ValueError("Supported act_fn: {}".format(list(ACTIVATIONS)))
         act = ACTIVATIONS[self.activation_func]
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
 
         self.graph = graph = self._build_graph(train_set, dev)
         n_ratings = len(self.rating_values)
@@ -226,6 +245,10 @@ class GCMC(Recommender):
         params = dict(self.params.named_parameters())
         opt_state = opt.init(params)
         lr = self.learning_rate
+        n_edges = graph["edge_u"].shape[0]
+        if mesh is not None:  # this rank's data slice of the edges
+            lo, hi, _ = batch_slice(mesh, n_edges)
+            graph = dict(graph, **{k: graph[k][lo:hi] for k in ("edge_u", "edge_i", "edge_label")})
         pu, pi, lab = graph["edge_u"], graph["edge_i"], graph["edge_label"]
         agg_accum, dropout = self.gcn_agg_accum, self.gcn_dropout
         values = torch.as_tensor(self.rating_values, dtype=torch.float32, device=dev)
@@ -233,11 +256,16 @@ class GCMC(Recommender):
 
         def train_step(t, opt_state, lr):
             gen = epoch_generator(seed, t, dev) if dropout > 0.0 else None
-            ufeat, ifeat = _encode(self.params, graph, act, n_ratings, agg_accum, dropout, gen)
+            ufeat, ifeat = _encode(self.params, graph, act, n_ratings, agg_accum, dropout, gen,
+                                   mesh)
             logits = _decode_pairs(self.params, ufeat, ifeat, pu, pi)
             ce = torch.logsumexp(logits, dim=1) - logits.gather(1, lab[:, None])[:, 0]
-            loss = torch.mean(ce)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            loss = batch_mean(ce, None if mesh is None else n_edges)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            if mesh is not None:  # the edge slices' shares make the gradients and the loss
+                grads = sum_grads(mesh, grads)
+                loss = all_sum(mesh, loss.detach().clone())
+            grads = dict(zip(params, grads))
             updates, opt_state = opt.update(
                 _clip_by_global_norm(grads, self.train_grad_clip), opt_state)
             with torch.no_grad():
@@ -249,7 +277,7 @@ class GCMC(Recommender):
 
         @torch.no_grad()
         def valid_rmse(vu, vi, vr):
-            ufeat, ifeat = _encode(self.params, graph, act, n_ratings, agg_accum, 0.0, None)
+            ufeat, ifeat = _encode(self.params, graph, act, n_ratings, agg_accum, 0.0, None, mesh)
             pred = torch.softmax(_decode_pairs(self.params, ufeat, ifeat, vu, vi), dim=1) @ values
             return float(torch.sqrt(torch.mean((pred - vr) ** 2)))
 

@@ -12,12 +12,16 @@ the host. ``hierarchical=False`` is plain Poisson factorization (PF). The
 initial tables are the JAX package's numpy Gamma draws, bit for bit.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_dot
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import data_parallel
 from ..utils import get_rng
 from ..utils.init_utils import gamma as gamma_init
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
@@ -25,17 +29,29 @@ from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
 EPS = 2.0**-52
 
 
+def _responsibilities(Lt, Lb, rid, cid, val):
+    """Each rating's share of its value over the k components."""
+    p = Lt[rid] * Lb[cid]
+    return p * (val / (p.sum(1) + EPS))[:, None]
+
+
 def _kappa_update(S, R, shape_hyper, rate_hyper):
     return shape_hyper / rate_hyper + (S / torch.clamp_min(R, EPS)).sum(1)
 
 
-def _hpf_cavi(G_s, G_r, L_s, L_r, K_r, T_r, rid, cid, val, n_iters, hierarchical):
+def _hpf_cavi(G_s, G_r, L_s, L_r, K_r, T_r, rid, cid, val, n_iters, hierarchical, mesh=None):
     """``n_iters`` CAVI sweeps, as ``cornac_tpu/models/hpf.py::_hpf_cavi``,
     on the device tensors given: the float32 tables G_* (num_users, k),
     L_* (num_items, k), K_r (num_users,), T_r (num_items,); rid, cid int64
     and val float32 (|R|,). Returns the new (G_s, G_r, L_s, L_r, K_r, T_r).
     The hierarchical rates are refreshed once before the first sweep, as
-    the JAX function does: a fit calls this once."""
+    the JAX function does: a fit calls this once.
+
+    ``mesh``: the tables stay whole on every rank (the variational state is
+    replicated, as in the JAX package) and the rating edges are split over
+    "data": each rank computes the responsibilities of its slice of the
+    edges, and the slices are gathered back in edge order before the two
+    sums (``data_parallel``), which keeps the single-device bits."""
     if hierarchical:
         a_, b_, c_ = 0.3, 0.3, 1.0
         k_dim = G_s.shape[1]
@@ -53,11 +69,9 @@ def _hpf_cavi(G_s, G_r, L_s, L_r, K_r, T_r, rid, cid, val, n_iters, hierarchical
         Lt = torch.exp(torch.special.digamma(G_s) - torch.log(torch.clamp_min(G_r, EPS)))
         Lb = torch.exp(torch.special.digamma(L_s) - torch.log(torch.clamp_min(L_r, EPS)))
 
-        # per-rating multinomial responsibilities
-        p = Lt[rid] * Lb[cid]  # (nnz, k)
-        denom = p.sum(1) + EPS
-        contrib = p * (val / denom)[:, None]
-        del p
+        # per-rating multinomial responsibilities, (nnz, k)
+        contrib = data_parallel(mesh, functools.partial(_responsibilities, Lt, Lb),
+                                val.shape[0], rid, cid, val)
 
         G_s = accumulate_rows(torch.full_like(G_s, a_), rid, contrib)
         G_r = (k_s / K_r)[:, None] + (L_s / torch.clamp_min(L_r, EPS)).sum(0)[None, :]
@@ -79,8 +93,10 @@ class HPF(Recommender, ANNMixin):
     Parameters mirror the JAX package: ``k``, ``max_iter``,
     ``hierarchical`` (False: PF), ``seed``, ``init_params``
     ({'Theta', 'Beta', 'G_s', 'G_r', 'L_s', 'L_r'}). ``device``: where the
-    model trains and scores (default: the card). ``mesh`` is not ported
-    yet (ROADMAP.md A8 (b)).
+    model trains and scores (default: the card). ``mesh``: a
+    ``parallel.make_mesh`` mesh; every rank calls ``fit``, the rating edges
+    are split over "data" and the posterior equals the single-device fit's
+    (``_hpf_cavi``).
     """
 
     def __init__(
@@ -97,9 +113,7 @@ class HPF(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         self.max_iter = max_iter
@@ -134,7 +148,7 @@ class HPF(Recommender, ANNMixin):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
         tables = [torch.tensor(np.asarray(t, np.float32), device=dev)
                   for t in self._initial_tables()]
         tables += [torch.ones(self.num_users, device=dev), torch.ones(self.num_items, device=dev)]
@@ -142,7 +156,8 @@ class HPF(Recommender, ANNMixin):
         edges = [torch.as_tensor(np.asarray(rid, np.int64), device=dev),
                  torch.as_tensor(np.asarray(cid, np.int64), device=dev),
                  torch.as_tensor(np.asarray(val, np.float32), device=dev)]
-        G_s, G_r, L_s, L_r, _, _ = _hpf_cavi(*tables, *edges, self.max_iter, self.hierarchical)
+        G_s, G_r, L_s, L_r, _, _ = _hpf_cavi(*tables, *edges, self.max_iter, self.hierarchical,
+                                             self.mesh)
 
         self.Gs, self.Gr = G_s.cpu().numpy(), G_r.cpu().numpy()
         self.Ls, self.Lr = L_s.cpu().numpy(), L_r.cpu().numpy()

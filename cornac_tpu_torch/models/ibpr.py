@@ -17,17 +17,29 @@ whose negative the user has observed (``ops.membership``). The gradients of
 the row gathers sum through the deterministic ``accumulate_rows``
 (``ops.accumulate.gather_rows``), so a seeded fit gives the same bits on
 every run. Nothing syncs with the host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each triplet minibatch over all mesh axes, and keeps
+the single-device fit's bits: the batch size is rounded down to a multiple
+of the mesh's size (the JAX package's rule), the tables and Adam's state
+are replicated, every rank draws the epoch's whole stream, and the
+gradients of each rank's slice are gathered per row and summed in batch
+order (``_triplet_grads_sharded``) before the same update on each rank.
 """
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..exception import ScoreException
-from ..ops.accumulate import gather_rows
+from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.dense_scores import device_dot, device_neg_l2
 from ..ops.membership import build_membership
 from ..ops.optim import adam, apply_updates
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, batch_slice, gather_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .bpr import _bpr_draws
@@ -44,22 +56,56 @@ def _euclid_dist(a, b):
     return torch.linalg.vector_norm(a - b + 1e-12, dim=1)
 
 
-def _triplet_loss(params, u, i, j, m, lamda, distance):
-    """The JAX package's ``loss_fn``: -Σ m·log σ(d(u, j) − d(u, i)) plus
-    lamda times the squared norms of the gathered rows (unmasked)."""
-    pu = gather_rows(params["U"], u)
-    v = gather_rows(params["V"], torch.cat([i, j]))
-    vi, vj = v[: i.shape[0]], v[i.shape[0]:]
+def _rows_loss(pu, v, m, lamda, distance):
+    """The JAX package's ``loss_fn`` on the gathered rows: pu (B, k) and v
+    (2B, k), the positives' rows then the negatives'."""
+    vi, vj = v[: pu.shape[0]], v[pu.shape[0]:]
     dist = _angular_dist if distance == "angular" else _euclid_dist
     core = -(F.logsigmoid(dist(pu, vj) - dist(pu, vi)) * m).sum()
     return core + lamda * ((pu * pu).sum() + (vi * vi).sum() + (vj * vj).sum())
 
 
-def _triplet_step(params, opt, opt_state, u, i, j, m, lamda, distance, update_items):
-    """One Adam step on the triplets (u, i, j) with mask ``m`` (float32),
-    updating ``params`` in place. Returns (the new state, the loss)."""
+def _triplet_loss(params, u, i, j, m, lamda, distance):
+    """The JAX package's ``loss_fn``: -Σ m·log σ(d(u, j) − d(u, i)) plus
+    lamda times the squared norms of the gathered rows (unmasked)."""
+    return _rows_loss(gather_rows(params["U"], u), gather_rows(params["V"], torch.cat([i, j])),
+                      m, lamda, distance)
+
+
+def _triplet_grads(params, u, i, j, m, lamda, distance):
+    """(the minibatch's loss, U's gradient, V's gradient)."""
     loss = _triplet_loss(params, u, i, j, m, lamda, distance)
-    gU, gV = torch.autograd.grad(loss, [params["U"], params["V"]])
+    return (loss, *torch.autograd.grad(loss, [params["U"], params["V"]]))
+
+
+def _triplet_grads_sharded(mesh, params, u, i, j, m, lamda, distance):
+    """``_triplet_grads`` on a mesh, the parameters replicated: this rank
+    takes the gradient of its slice of the minibatch (over every rank) with
+    respect to the gathered rows; the rows' gradients are all-gathered in
+    batch order and summed into the tables' gradients by ``accumulate_rows``
+    as ``gather_rows``'s backward sums them, so every rank holds the
+    single-device gradients. The loss is the sum of the slices' losses."""
+    B = u.shape[0]
+    lo, hi, per = batch_slice(mesh, B, None)
+    pu = params["U"][u[lo:hi]].detach().requires_grad_()
+    v = params["V"][torch.cat([i[lo:hi], j[lo:hi]])].detach().requires_grad_()
+    loss = _rows_loss(pu, v, m[lo:hi], lamda, distance)
+    g_u, g_v = torch.autograd.grad(loss, [pu, v])
+    k = g_u.shape[1]
+    rows = gather_batch(mesh, torch.cat([g_u, g_v[:hi - lo], g_v[hi - lo:]], 1), B, per, None)
+    gU = accumulate_rows(torch.zeros_like(params["U"]), u, rows[:, :k].contiguous())
+    gV = accumulate_rows(torch.zeros_like(params["V"]), torch.cat([i, j]),
+                         torch.cat([rows[:, k:2 * k], rows[:, 2 * k:]]))
+    return all_sum(mesh, loss.detach(), None), gU, gV
+
+
+def _triplet_step(params, opt, opt_state, u, i, j, m, lamda, distance, update_items,
+                  grads_fn=_triplet_grads):
+    """One Adam step on the triplets (u, i, j) with mask ``m`` (float32),
+    updating ``params`` in place. ``grads_fn``: ``_triplet_grads``, or
+    ``_triplet_grads_sharded`` bound to a mesh. Returns (the new state, the
+    loss)."""
+    loss, gU, gV = grads_fn(params, u, i, j, m, lamda, distance)
     if not update_items:
         gV = torch.zeros_like(gV)
     updates, opt_state = opt.update({"U": gU, "V": gV}, opt_state)
@@ -89,15 +135,13 @@ class _TripletEmbedBase(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.k = k
         self.max_iter = max_iter
         self.learning_rate = learning_rate
         self.lamda = lamda
         self.batch_size = batch_size
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -114,12 +158,17 @@ class _TripletEmbedBase(Recommender, ANNMixin):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rid, cid, _ = train_set.uir_tuple
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)
         membership = build_membership(train_set.csr_matrix, device=dev)
         n = len(rid)
         bsz = min(self.batch_size, n)
+        grads_fn = _triplet_grads
+        if mesh is not None:  # the JAX package's rounding to the mesh's size
+            bsz = max(mesh.size(), bsz - bsz % mesh.size())
+            grads_fn = functools.partial(_triplet_grads_sharded, mesh)
         n_batches = (n + bsz - 1) // bsz
         params = {name: torch.tensor(np.asarray(a, np.float32), device=dev, requires_grad=True)
                   for name, a in (("U", self.U), ("V", self.V))}
@@ -138,7 +187,7 @@ class _TripletEmbedBase(Recommender, ANNMixin):
                         sl = slice(s, s + bsz)
                         opt_state, loss = _triplet_step(
                             params, opt, opt_state, users[sl], pos[sl], negs[sl], valid[sl],
-                            self.lamda, self._distance, self._update_items)
+                            self.lamda, self._distance, self._update_items, grads_fn)
                         loss_sum += loss
             return opt_state, loss_sum
 

@@ -11,8 +11,17 @@ the global epoch index), the positive pairs' indices and then the negative
 items, uniformly with replacement, |R| rounded up to whole minibatches.
 The rows of the propagated and the ego tables are gathered with
 ``gather_rows``, so their gradients sum through ``accumulate_rows`` and a
-seeded fit gives the same bits on every run. Sharding the adjacency over a
-mesh waits for ROADMAP.md A8 (b).
+seeded fit gives the same bits on every run.
+
+``mesh`` (``parallel.make_mesh``) shards the adjacency over every rank
+(``NormAdjacency(mesh=)``: each rank propagates its part, the partial
+messages are summed) and trains the towers data-parallel, as the JAX
+package does: the embeddings (and NGCF's weights) and Adam's state are
+replicated, every rank draws the epoch's whole stream and takes the loss of
+its slice of each minibatch (over every rank) over the minibatch's size,
+and the gradients are summed over every rank before the same update on
+each. The sums take another order than the single-device fit's: the fit
+agrees with it to float32 rounding, and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -25,26 +34,32 @@ from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.graph import NormAdjacency
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import xavier_uniform
 from .recommender import Recommender, pad_to_catalog
+from .vaecf import batch_mean
 
 
-def _bpr_core(ue, ie, u, i, j):
-    """The propagated rows of the triplets and the mean softplus BPR loss."""
+def _bpr_core(ue, ie, u, i, j, denom=None):
+    """The propagated rows of the triplets and the mean softplus BPR loss
+    (over ``denom`` rows when the triplets are a rank's slice of a
+    minibatch of that many, ``vaecf.batch_mean``)."""
     pu, vi, vj = gather_rows(ue, u), gather_rows(ie, i), gather_rows(ie, j)
-    return pu, vi, vj, torch.mean(F.softplus(torch.sum(pu * (vj - vi), dim=1)))
+    return pu, vi, vj, batch_mean(F.softplus(torch.sum(pu * (vj - vi), dim=1)), denom)
 
 
-def lightgcn_loss(params, adj, num_layers, u, i, j, lambda_reg):
+def lightgcn_loss(params, adj, num_layers, u, i, j, lambda_reg, denom=None):
     """The JAX package's LightGCN ``loss_fn``: BPR on the propagated
-    embeddings plus L2 on the batch's ego embeddings."""
+    embeddings plus L2 on the batch's ego embeddings. ``denom``: the
+    minibatch's size when (u, i, j) are a rank's slice of it."""
     ue, ie = adj.lightgcn(params.user_emb, params.item_emb, num_layers)
-    _, _, _, bpr = _bpr_core(ue, ie, u, i, j)
+    _, _, _, bpr = _bpr_core(ue, ie, u, i, j, denom)
     reg = 0.5 * (torch.sum(gather_rows(params.user_emb, u) ** 2)
                  + torch.sum(gather_rows(params.item_emb, i) ** 2)
-                 + torch.sum(gather_rows(params.item_emb, j) ** 2)) / u.shape[0]
+                 + torch.sum(gather_rows(params.item_emb, j) ** 2)) / (denom or u.shape[0])
     return bpr + lambda_reg * reg
 
 
@@ -64,12 +79,12 @@ def ngcf_embeddings(params, adj):
     return torch.cat(ue_out, dim=1), torch.cat(ie_out, dim=1)
 
 
-def ngcf_loss(params, adj, u, i, j, lambda_reg):
+def ngcf_loss(params, adj, u, i, j, lambda_reg, denom=None):
     """The JAX package's NGCF ``loss_fn``: BPR plus L2 on the batch's
-    propagated rows."""
+    propagated rows. ``denom``: as ``lightgcn_loss``'s."""
     ue, ie = ngcf_embeddings(params, adj)
-    pu, vi, vj, bpr = _bpr_core(ue, ie, u, i, j)
-    reg = 0.5 * (torch.sum(pu**2) + torch.sum(vi**2) + torch.sum(vj**2)) / u.shape[0]
+    pu, vi, vj, bpr = _bpr_core(ue, ie, u, i, j, denom)
+    reg = 0.5 * (torch.sum(pu**2) + torch.sum(vi**2) + torch.sum(vj**2)) / (denom or u.shape[0])
     return bpr + lambda_reg * reg
 
 
@@ -93,8 +108,6 @@ class LightGCN(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         self.emb_size = emb_size
         self.num_epochs = num_epochs
         self.learning_rate = learning_rate
@@ -103,15 +116,15 @@ class LightGCN(Recommender):
         self.early_stopping = early_stopping
         self.lambda_reg = lambda_reg
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
     def _init_params(self, rng):
         return Tree(user_emb=xavier_uniform((self.total_users, self.emb_size), rng),
                     item_emb=xavier_uniform((self.total_items, self.emb_size), rng))
 
-    def _loss(self, params, u, i, j):
-        return lightgcn_loss(params, self._adj, self.num_layers, u, i, j, self.lambda_reg)
+    def _loss(self, params, u, i, j, denom=None):
+        return lightgcn_loss(params, self._adj, self.num_layers, u, i, j, self.lambda_reg, denom)
 
     @torch.no_grad()
     def _propagated(self, params):
@@ -123,12 +136,13 @@ class LightGCN(Recommender):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         if not hasattr(self, "params"):
             self.params = self._init_params(rng)
         self.params.to(dev)
         params = dict(self.params.named_parameters())
-        self._adj = NormAdjacency(train_set, device=dev)
+        self._adj = NormAdjacency(train_set, mesh=mesh, device=dev)
 
         rid, cid, _ = train_set.uir_tuple
         rid_d = torch.as_tensor(np.asarray(rid, np.int64), device=dev)
@@ -139,6 +153,10 @@ class LightGCN(Recommender):
         num_items = train_set.num_items
         opt = adam(self.learning_rate)
         seed = rng.randint(2**31)
+        lo, hi, denom = 0, bsz, None
+        if mesh is not None:  # this rank's slice of every minibatch, over every rank
+            lo, hi, _ = batch_slice(mesh, bsz, None)
+            denom = bsz
 
         def run_chunk(opt_state, start, e):
             for epoch in range(start, start + e):
@@ -147,10 +165,13 @@ class LightGCN(Recommender):
                 negs = torch.randint(num_items, (n_batches * bsz,), generator=gen, device=dev)
                 loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
                 for s in range(0, n_batches * bsz, bsz):
-                    idx = pos_idx[s:s + bsz]
-                    loss = self._loss(self.params, rid_d[idx], cid_d[idx], negs[s:s + bsz])
-                    opt_state = step(params, opt, opt_state, loss)
+                    idx = pos_idx[s + lo:s + hi]
+                    loss = self._loss(self.params, rid_d[idx], cid_d[idx], negs[s + lo:s + hi],
+                                      denom)
+                    opt_state = step(params, opt, opt_state, loss, mesh, None)
                     loss_sum += loss.detach()
+                if mesh is not None:  # the slices' shares make the minibatches' losses
+                    all_sum(mesh, loss_sum, None)
             stop = self.early_stopping is not None and self.early_stop(
                 train_set, val_set, **self.early_stopping)
             return opt_state, {"loss": loss_sum, "stop": stop}
@@ -252,8 +273,8 @@ class NGCF(LightGCN):
             W2.append(xavier_uniform((sizes[k], sizes[k + 1]), rng))
         return Tree(user_emb=user_emb, item_emb=item_emb, W1=W1, W2=W2)
 
-    def _loss(self, params, u, i, j):
-        return ngcf_loss(params, self._adj, u, i, j, self.lambda_reg)
+    def _loss(self, params, u, i, j, denom=None):
+        return ngcf_loss(params, self._adj, u, i, j, self.lambda_reg, denom)
 
     @torch.no_grad()
     def _propagated(self, params):

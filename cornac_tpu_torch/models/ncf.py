@@ -15,7 +15,22 @@ negatives. A negative that the user has observed is masked out of the loss
 ``accumulate_rows`` and a seeded fit gives the same bits on every run.
 (The JAX package folds its key per host chunk, so its stream depends on
 ``verbose``; the port's does not.)
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each minibatch over all mesh axes: the towers and
+the optimizer's state are replicated, every rank draws the epoch's whole
+stream, takes the loss of its slice of each minibatch over the
+minibatch's valid count (``_bce_loss``). The embedding rows' gradients are
+gathered back in batch order and summed as on one device
+(``parallel.sharded.slice_rows``); the dense layers' gradients are summed
+over every rank (``ops.optim.step``). ``reg``'s penalty of the embeddings
+adds its gradient on every rank, that of the dense layers on rank 0 alone.
+The sum over the ranks takes another order than the
+single-device backward, so the fit agrees with it to float32 rounding, and
+bit for bit on a mesh of one rank.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +40,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.membership import build_membership
 from ..ops.optim import make_optimizer, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, batch_slice, slice_rows
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import normal, xavier_uniform
@@ -33,15 +50,21 @@ from .recommender import Recommender, pad_to_catalog
 EPS = 1e-7
 
 
-def _bce_loss(forward, params, u, i, y, m, reg):
+def _bce_loss(forward, params, u, i, y, m, reg, m_all=None, penalised=None, counted=True):
     """Masked mean binary cross-entropy of ``forward``'s probabilities,
-    clipped to [EPS, 1 - EPS], plus ``reg`` times every parameter's sum of
-    squares."""
+    clipped to [EPS, 1 - EPS], plus ``reg`` times the sum of squares of the
+    tensors ``penalised`` (default: every parameter of ``params``). On a
+    mesh (u, i, y, m) are a rank's slice of the minibatch, ``m_all`` the
+    whole minibatch's mask, which counts the mean, and ``penalised`` the
+    rank's share of the penalty; with ``counted`` False the penalty adds its
+    gradient and not its value (``NCFBase.fit``)."""
     p = torch.clamp(forward(params, u, i), EPS, 1.0 - EPS)
     bce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
-    loss = torch.sum(bce * m) / torch.clamp_min(torch.sum(m), 1.0)
+    loss = torch.sum(bce * m) / torch.clamp_min(torch.sum(m if m_all is None else m_all), 1.0)
     if reg > 0:
-        loss = loss + reg * sum(torch.sum(x**2) for x in params.parameters())
+        penalty = reg * sum(torch.sum(x**2) for x in (
+            params.parameters() if penalised is None else penalised))
+        loss = loss + (penalty if counted else penalty - penalty.detach())
     return loss
 
 
@@ -89,9 +112,7 @@ class NCFBase(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.num_epochs = num_epochs
         self.batch_size = batch_size
         self.num_neg = num_neg
@@ -111,8 +132,9 @@ class NCFBase(Recommender):
     def _init_params(self, rng):
         raise NotImplementedError
 
-    def _forward(self, params, users, items):
-        """Sigmoid probability for (user, item) int64 index batches."""
+    def _forward(self, params, users, items, rows=gather_rows):
+        """Sigmoid probability for (user, item) int64 index batches;
+        ``rows(table, ids)`` gathers the embedding rows."""
         raise NotImplementedError
 
     def fit(self, train_set, val_set=None):
@@ -121,7 +143,8 @@ class NCFBase(Recommender):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         if not hasattr(self, "params"):
             self.params = self._init_params(rng)
         self.params.to(dev)
@@ -138,6 +161,18 @@ class NCFBase(Recommender):
         n_pad = (-n_total) % bsz
         n_batches = (n_total + n_pad) // bsz
         seed = rng.randint(2**31)
+        lo, hi, forward, whole, penalised, counted = 0, bsz, self._forward, (), None, True
+        if mesh is not None:  # this rank's slice of every minibatch, over every rank
+            lo, hi, _ = batch_slice(mesh, bsz, None)
+            forward = functools.partial(self._forward, rows=functools.partial(
+                slice_rows, mesh, axis=None))
+            # the embeddings' gradients are not summed over the ranks, so
+            # every rank adds the gradient of their penalty; rank 0 adds the
+            # whole penalty's value and the other tensors' gradients, which
+            # are summed
+            whole = [name for name in params if name.endswith("_emb")]
+            if mesh.get_rank() != 0:
+                penalised, counted = [params[name] for name in whole], False
 
         def run_chunk(opt_state, start, e):
             for epoch in range(start, start + e):
@@ -147,10 +182,17 @@ class NCFBase(Recommender):
                 loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
                 for s in range(0, n_batches * bsz, bsz):
                     sl = slice(s, s + bsz)
-                    loss = _bce_loss(self._forward, self.params, users[sl], items[sl],
-                                     labels[sl], valid[sl], self.reg)
-                    opt_state = step(params, opt, opt_state, loss)
+                    mine = slice(s + lo, s + hi)
+                    # the forward takes the whole minibatch's ids; on a mesh it
+                    # gathers this rank's rows (slice_rows)
+                    loss = _bce_loss(forward, self.params, users[sl], items[sl], labels[mine],
+                                     valid[mine], self.reg,
+                                     None if mesh is None else valid[sl], penalised,
+                                     counted)
+                    opt_state = step(params, opt, opt_state, loss, mesh, None, whole)
                     loss_sum += loss.detach()
+                if mesh is not None:  # the slices' shares make the minibatches' losses
+                    all_sum(mesh, loss_sum, None)
             stop = self.early_stopping is not None and self.early_stop(
                 train_set, val_set, **self.early_stopping)
             return opt_state, {"loss": loss_sum, "stop": stop}
@@ -241,9 +283,8 @@ def _mlp_tree(rng, num_users, num_items, layers):
                 logit=_logit(rng, layers[-1]))
 
 
-def _mlp_tower(params, users, items, act):
-    h = torch.cat([gather_rows(params.user_emb, users), gather_rows(params.item_emb, items)],
-                  dim=-1)
+def _mlp_tower(params, users, items, act, rows=gather_rows):
+    h = torch.cat([rows(params.user_emb, users), rows(params.item_emb, items)], dim=-1)
     for layer in params.mlp:
         h = act(layer(h))
     return h
@@ -279,8 +320,8 @@ class GMF(NCFBase):
     def _init_params(self, rng):
         return _gmf_tree(rng, self.num_users, self.num_items, self.num_factors)
 
-    def _forward(self, params, users, items):
-        h = gather_rows(params.user_emb, users) * gather_rows(params.item_emb, items)
+    def _forward(self, params, users, items, rows=gather_rows):
+        h = rows(params.user_emb, users) * rows(params.item_emb, items)
         return torch.sigmoid(params.logit(h)).reshape(-1)
 
 
@@ -316,8 +357,8 @@ class MLP(NCFBase):
     def _init_params(self, rng):
         return _mlp_tree(rng, self.num_users, self.num_items, self.layers)
 
-    def _forward(self, params, users, items):
-        h = _mlp_tower(params, users, items, ACTIVATIONS[self.act_fn])
+    def _forward(self, params, users, items, rows=gather_rows):
+        h = _mlp_tower(params, users, items, ACTIVATIONS[self.act_fn], rows)
         return torch.sigmoid(params.logit(h)).reshape(-1)
 
 
@@ -386,9 +427,9 @@ class NeuMF(NCFBase):
             logit=logit,
         )
 
-    def _forward(self, params, users, items):
-        h_gmf = gather_rows(params.gmf.user_emb, users) * gather_rows(params.gmf.item_emb, items)
-        h = _mlp_tower(params.mlp, users, items, ACTIVATIONS[self.act_fn])
+    def _forward(self, params, users, items, rows=gather_rows):
+        h_gmf = rows(params.gmf.user_emb, users) * rows(params.gmf.item_emb, items)
+        h = _mlp_tower(params.mlp, users, items, ACTIVATIONS[self.act_fn], rows)
         return torch.sigmoid(params.logit(torch.cat([h_gmf, h], dim=-1))).reshape(-1)
 
 

@@ -8,7 +8,15 @@ scatter-add goes through the deterministic ``ops.accumulate.accumulate_rows``,
 which sums in the order of the ratings, as XLA's CPU scatter does; from the
 same numpy initial factors a fit is the same in both packages up to the
 order of float32 sums inside the products.
+
+``mesh`` (``parallel.make_mesh``) trains one process a rank and keeps the
+single-device fit's bits: U, Bu and the user counts, and V, Bi and the item
+counts, are row-sharded over "model" and the ratings replicated, as in the
+JAX package, and each epoch's per-rating rows are split over "data"
+(``_nmf_epochs``).
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -16,32 +24,66 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dispatch import full_f32
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import (
+    data_parallel,
+    gather_shards,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils import get_rng
 from ..utils.init_utils import uniform, zeros
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
 
 
+def _nmf_rows(pu, qi, bu, bi, r, lr, lambda_bu, lambda_bi, mu, use_bias):
+    """The per-rating part of an epoch from the rating's fetched rows: the
+    rows of U's and V's numerators and denominators, then, with the
+    biases, the two bias steps."""
+    pred = (pu * qi).sum(1)
+    if use_bias:
+        pred = pred + mu + bu + bi
+    out = (r[:, None] * qi, pred[:, None] * qi, r[:, None] * pu, pred[:, None] * pu)
+    if use_bias:
+        err = r - pred
+        out += (lr * (err - lambda_bu * bu), lr * (err - lambda_bi * bi))
+    return out
+
+
 def _nmf_epochs(U, V, Bu, Bi, rid, cid, val, user_counts, item_counts, lr, lambda_u, lambda_v,
-                lambda_bu, lambda_bi, mu, n_epochs, use_bias):
+                lambda_bu, lambda_bi, mu, n_epochs, use_bias, mesh=None):
     """``n_epochs`` multiplicative-update epochs, as
     ``cornac_tpu/models/nmf.py::_nmf_fit``, on the device tensors given:
     U (num_users, k), V (num_items, k), Bu, Bi float32; rid, cid int64 and
     val float32 (|R|,); the counts of ratings per user and per item. Returns
-    the new (U, V, Bu, Bi)."""
+    the new (U, V, Bu, Bi).
+
+    ``mesh``: the tables and counts are this rank's row shards over
+    "model" and the ratings whole. Each rank fetches the rows of its data
+    slice of the ratings (``row_shard_lookup``), the per-rating rows are
+    gathered back in rating order (``data_parallel``) and each rank sums
+    those of its rows (``row_shard_scatter_add``): the single-device bits."""
     eps = 1e-9
+    if mesh is None:
+        lookup, scatter = (lambda t, ids: t[ids]), accumulate_rows
+    else:
+        lookup = functools.partial(row_shard_lookup, mesh)
+        scatter = functools.partial(row_shard_scatter_add, mesh)
+
+    def rows(r_, c_, v_):
+        return _nmf_rows(lookup(U, r_), lookup(V, c_), lookup(Bu, r_), lookup(Bi, c_), v_, lr,
+                         lambda_bu, lambda_bi, mu, use_bias)
+
     for _ in range(n_epochs):
-        pu, qi = U[rid], V[cid]
-        pred = (pu * qi).sum(1)
+        out = data_parallel(mesh, rows, val.shape[0], rid, cid, val)
         if use_bias:
-            pred = pred + mu + Bu[rid] + Bi[cid]
-        err = val - pred
-        if use_bias:
-            Bu = accumulate_rows(Bu.clone(), rid, lr * (err - lambda_bu * Bu[rid]))
-            Bi = accumulate_rows(Bi.clone(), cid, lr * (err - lambda_bi * Bi[cid]))
-        U_num = accumulate_rows(torch.zeros_like(U), rid, val[:, None] * qi)
-        U_den = accumulate_rows(torch.zeros_like(U), rid, pred[:, None] * qi)
-        V_num = accumulate_rows(torch.zeros_like(V), cid, val[:, None] * pu)
-        V_den = accumulate_rows(torch.zeros_like(V), cid, pred[:, None] * pu)
+            Bu = scatter(Bu.clone(), rid, out[4])
+            Bi = scatter(Bi.clone(), cid, out[5])
+        U_num, U_den, V_num, V_den = (
+            scatter(torch.zeros_like(T), ids, x)
+            for T, ids, x in ((U, rid, out[0]), (U, rid, out[1]), (V, cid, out[2]),
+                              (V, cid, out[3])))
         U = U * U_num / (U_den + user_counts[:, None] * lambda_u * U + eps)
         V = V * V_num / (V_den + item_counts[:, None] * lambda_v * V + eps)
     return U, V, Bu, Bi
@@ -55,7 +97,9 @@ class NMF(Recommender, ANNMixin):
     ``lambda_v``, ``lambda_bu``, ``lambda_bi`` (all replaced by
     ``lambda_reg`` when it is positive), ``use_bias``, ``init_params``
     ({'U','V','Bu','Bi','mu'}), ``seed``. ``device``: where the model trains
-    and scores (default: the card). ``mesh`` is not ported yet.
+    and scores (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit``, and the factors equal the single-device
+    fit's (module docstring).
     """
 
     def __init__(
@@ -79,9 +123,7 @@ class NMF(Recommender, ANNMixin):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.num_threads = num_threads  # the JAX package's OpenMP knob, accepted and unused
         self.k = k
@@ -127,19 +169,28 @@ class NMF(Recommender, ANNMixin):
         if not self.trainable:
             return self
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rid, cid, val = train_set.uir_tuple
         user_counts = np.bincount(rid, minlength=self.num_users).astype(np.float32)
         item_counts = np.bincount(cid, minlength=self.num_items).astype(np.float32)
         tables = [torch.tensor(np.asarray(a, np.float32), device=dev) for a in (
             self.u_factors, self.i_factors, self.u_biases, self.i_biases, val, user_counts,
             item_counts)]
+        n_u, n_i = tables[0].shape[0], tables[1].shape[0]
+        if mesh is not None:
+            # this rank's row shards of U, V, Bu, Bi and the two counts
+            tables = [local_shard(shard_tables(mesh, t)) if j != 4 else t
+                      for j, t in enumerate(tables)]
         ids = [torch.as_tensor(np.asarray(a, np.int64), device=dev) for a in (rid, cid)]
         U, V, Bu, Bi = _nmf_epochs(
             *tables[:4], *ids, *tables[4:], self.learning_rate, self.lambda_u, self.lambda_v,
             self.lambda_bu, self.lambda_bi, float(np.float32(self.global_mean)), self.max_iter,
-            self.use_bias,
+            self.use_bias, mesh,
         )
+        if mesh is not None:
+            U, Bu = (gather_shards(mesh, t)[:n_u] for t in (U, Bu))
+            V, Bi = (gather_shards(mesh, t)[:n_i] for t in (V, Bi))
         self.u_factors, self.i_factors, self.u_biases, self.i_biases = (
             t.cpu().numpy() for t in (U, V, Bu, Bi))
         return self

@@ -9,6 +9,12 @@ index) and runs the shared stream epoch ``ops.rmsprop.rmsprop_stream_epoch``
 (the RMSProp caches written back, the updates summed through the
 deterministic ``ops.accumulate.accumulate_rows``). Nothing syncs with the
 host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains one process a rank and keeps the
+single-device fit's bits: U, V and their RMSProp caches are row-sharded
+over "model", as in the JAX package, every rank draws the same
+permutation, and the stream epoch splits each minibatch over "data" and
+writes each row on the rank that owns it (``ops.rmsprop``).
 """
 
 import numpy as np
@@ -17,6 +23,8 @@ import torch
 from ..exception import ScoreException
 from ..ops.dispatch import full_f32
 from ..ops.rmsprop import rmsprop_stream_epoch, set_rows_last_wins  # noqa: F401
+from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.sharded import local_shard
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.common import scale, sigmoid
@@ -26,15 +34,16 @@ from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
 
 
 def _pmf_epoch(U, V, cache_u, cache_v, perm, mask, pairs, val, lr, reg, gamma, batch_size,
-               non_linear):
+               non_linear, mesh=None):
     """One RMSProp epoch over the ratings in the order ``perm`` ((n_total,)
     int64, |R| padded to whole minibatches; ``mask`` (n_total,) float32 is 0
     on the padding), updating the four tables in place: the shared stream
     epoch ``ops.rmsprop.rmsprop_stream_epoch`` with U and V at one learning
     rate, as ``cornac_tpu/models/pmf.py::_pmf_epochs`` runs it. Returns the
-    epoch's loss (a device scalar)."""
+    epoch's loss (a device scalar). With ``mesh`` the tables are this rank's
+    row shards."""
     return rmsprop_stream_epoch(U, V, cache_u, cache_v, perm, mask, pairs, val, lr, lr, reg,
-                                gamma, batch_size, non_linear)
+                                gamma, batch_size, non_linear, mesh)
 
 
 class PMF(Recommender, ANNMixin):
@@ -44,7 +53,9 @@ class PMF(Recommender, ANNMixin):
     ``learning_rate``, ``gamma`` (the caches' decay), ``lambda_reg``,
     ``variant`` (``"linear"`` or ``"non_linear"``), ``batch_size``,
     ``init_params`` ({'U','V'}), ``seed``. ``device``: where the model trains
-    and scores (default: the card). ``mesh`` is not ported yet.
+    and scores (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit``, and the factors equal the single-device
+    fit's (module docstring).
     """
 
     def __init__(
@@ -65,9 +76,7 @@ class PMF(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         self.max_iter = max_iter
@@ -104,7 +113,8 @@ class PMF(Recommender, ANNMixin):
         if self.variant == "non_linear" and [self.min_rating, self.max_rating] != [0, 1]:
             rat = scale(rat, 0.0, 1.0, self.min_rating, self.max_rating)
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         n = len(rat)
         bsz = min(self.batch_size, n)
         n_pad = (-n) % bsz
@@ -115,20 +125,24 @@ class PMF(Recommender, ANNMixin):
         U = torch.tensor(np.asarray(self.U, np.float32), device=dev)
         V = torch.tensor(np.asarray(self.V, np.float32), device=dev)
         state = (U, V, torch.zeros_like(U), torch.zeros_like(V))
+        if mesh is not None:
+            state = shard_tables(mesh, *state)  # DTensors: what a checkpoint gathers
         seed = rng.randint(2**31)
         non_linear = self.variant == "non_linear"
 
         def run_chunk(state, start, e):
             for epoch in range(start, start + e):
                 perm = _epoch_permutation(n, epoch_generator(seed, epoch, dev))
-                loss = _pmf_epoch(*state, torch.cat([perm, pad]), mask, pairs, val,
-                                  self.learning_rate, self.lambda_reg, self.gamma, bsz,
-                                  non_linear)
+                loss = _pmf_epoch(*(local_shard(t) for t in state), torch.cat([perm, pad]),
+                                  mask, pairs, val, self.learning_rate, self.lambda_reg,
+                                  self.gamma, bsz, non_linear, mesh)
             return state, loss
 
         epoch_loop(self, self.max_iter, run_chunk, state,
                    on_report=lambda done, loss: print("epoch %i, loss: %f" % (done - 1,
                                                                                float(loss))))
+        if mesh is not None:
+            U, V = state[0].full_tensor()[:U.shape[0]], state[1].full_tensor()[:V.shape[0]]
         self.U = U.cpu().numpy().astype(np.float64)
         self.V = V.cpu().numpy().astype(np.float64)
         return self

@@ -12,6 +12,11 @@ i-th encoder epoch, ``100 + i`` for the i-th decoder epoch, as the JAX
 package folds them into its keys); within it, every minibatch draws its
 dropout mask (encoder epochs) and then its noise. The losses take both as
 arguments, so the tests hand them the JAX package's draws.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel as VAECF does
+(``models/vaecf.py``): every rank draws a batch's whole mask and noise and
+takes the loss of its data slice of the rows over the batch's size; the
+gradients are summed over "data" and every rank applies the same update.
 """
 
 import copy
@@ -24,9 +29,12 @@ from torch import nn
 from ..engine.nn import Tree, init_dense
 from ..exception import ScoreException
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .recommender import Recommender, pad_to_catalog
+from .vaecf import batch_mean
 
 LOG2PI = float(np.log(2 * np.pi))
 _PRIOR_LOG_WEIGHTS = [float(np.log(w)) for w in (3 / 20, 3 / 4, 1 / 10)]
@@ -73,9 +81,11 @@ def _encode_ref(enc, x, dropout_rate, keep=None):
     return enc.mu(prev), enc.logvar(prev)
 
 
-def _recvae_loss(enc, dec, enc_old, x, keep, noise, dropout_rate, gamma, beta):
+def _recvae_loss(enc, dec, enc_old, x, keep, noise, dropout_rate, gamma, beta, denom=None):
     """The JAX package's ``RecVAE._loss``, with the dropout mask ``keep``
-    and the standard-normal draw ``noise`` (the shape of the means) given."""
+    and the standard-normal draw ``noise`` (the shape of the means) given.
+    ``denom``: the whole minibatch's rows when ``x`` is a rank's data slice
+    of it (``vaecf.batch_mean``)."""
     mu, logvar = _encode_ref(enc, x, dropout_rate, keep)
     std = torch.exp(0.5 * logvar)
     z = mu + 0.01 * noise * std
@@ -83,7 +93,7 @@ def _recvae_loss(enc, dec, enc_old, x, keep, noise, dropout_rate, gamma, beta):
 
     kl_weight = gamma * x.sum(dim=-1) if gamma else beta
 
-    mll = torch.mean(torch.sum(F.log_softmax(x_pred, dim=-1) * x, dim=-1))
+    mll = batch_mean(torch.sum(F.log_softmax(x_pred, dim=-1) * x, dim=-1), denom)
 
     # composite prior: N(0,1), old posterior, N(0, e^10)
     post_mu, post_logvar = _encode_ref(enc_old, x, 0.0)
@@ -92,7 +102,7 @@ def _recvae_loss(enc, dec, enc_old, x, keep, noise, dropout_rate, gamma, beta):
     unif = _log_norm_pdf(z, 0.0, torch.full_like(z, 10.0))
     w = _PRIOR_LOG_WEIGHTS
     prior = torch.logsumexp(torch.stack([stnd + w[0], post + w[1], unif + w[2]], dim=-1), dim=-1)
-    kld = torch.mean(torch.sum(_log_norm_pdf(z, mu, logvar) - prior, dim=-1) * kl_weight)
+    kld = batch_mean(torch.sum(_log_norm_pdf(z, mu, logvar) - prior, dim=-1) * kl_weight, denom)
     return -(mll - kld)
 
 
@@ -105,7 +115,9 @@ def _frozen(enc):
 
 
 class RecVAE(Recommender):
-    """VAE with composite prior and alternating optimization."""
+    """VAE with composite prior and alternating optimization. ``mesh``: a
+    ``parallel.make_mesh`` mesh; every rank calls ``fit`` (module
+    docstring)."""
 
     def __init__(
         self,
@@ -128,9 +140,7 @@ class RecVAE(Recommender):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.hidden_dim = hidden_dim
         self.latent_dim = latent_dim
         self.batch_size = batch_size
@@ -151,7 +161,8 @@ class RecVAE(Recommender):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         input_dim = train_set.num_items
         self.enc = _init_encoder(rng, input_dim, self.hidden_dim, self.latent_dim).to(dev)
         self.dec = init_dense(rng, self.latent_dim, input_dim).to(dev)
@@ -169,24 +180,27 @@ class RecVAE(Recommender):
         opt_enc, opt_dec = adam(self.lr), adam(self.lr)
         enc_state, dec_state = opt_enc.init(enc_params), opt_dec.init(dec_params)
         gamma, beta = self.gamma, self.beta
+        rows, denom = slice(None), None
+        if mesh is not None:  # this rank's data slice of every batch
+            rows, denom = slice(*batch_slice(mesh, bsz)[:2]), bsz
 
         def enc_epoch(state, enc_old, gen, dropout_rate):
             for b in range(n_batches):
                 x = X_d[b * bsz:(b + 1) * bsz]
                 keep = torch.rand(x.shape, generator=gen, device=dev) < 1.0 - dropout_rate
                 noise = torch.randn((bsz, self.latent_dim), generator=gen, device=dev)
-                loss = _recvae_loss(self.enc, self.dec, enc_old, x, keep, noise, dropout_rate,
-                                    gamma, beta)
-                state = step(enc_params, opt_enc, state, loss)
+                loss = _recvae_loss(self.enc, self.dec, enc_old, x[rows], keep[rows], noise[rows],
+                                    dropout_rate, gamma, beta, denom)
+                state = step(enc_params, opt_enc, state, loss, mesh)
             return state
 
         def dec_epoch(state, enc_old, gen):
             for b in range(n_batches):
                 x = X_d[b * bsz:(b + 1) * bsz]
                 noise = torch.randn((bsz, self.latent_dim), generator=gen, device=dev)
-                loss = _recvae_loss(self.enc, self.dec, enc_old, x, None, noise, 0.0, gamma,
-                                    beta)
-                state = step(dec_params, opt_dec, state, loss)
+                loss = _recvae_loss(self.enc, self.dec, enc_old, x[rows], None, noise[rows], 0.0,
+                                    gamma, beta, denom)
+                state = step(dec_params, opt_dec, state, loss, mesh)
             return state
 
         seed = rng.randint(2**31)

@@ -20,7 +20,18 @@ same update up to float32 rounding. The three bias scatters stay three
 calls in the JAX package's order, each reading the bias table the one
 before wrote (the reference's regularisation terms read ``Bi[j]`` after the
 update at ``i`` and ``Bi[k]`` after both).
+
+``mesh`` (``parallel.make_mesh``) trains one process a rank and keeps the
+single-device fit's bits, as BPR's branch does (``models/bpr.py``): U, V and
+Bi are row-sharded over "model", every rank draws the same triplets and
+middle-tier items, each computes the rows of its data slice of a minibatch
+from rows fetched with ``row_shard_lookup``, and the rows, gathered back in
+batch order, are added on the ranks that own them (``row_shard_scatter_add``).
+The three bias steps stay three calls in order, each reading the bias
+table the one before wrote.
 """
+
+import functools
 
 import numpy as np
 import scipy.sparse as sp
@@ -28,6 +39,13 @@ import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.membership import build_membership
+from ..parallel.mesh import mesh_device, shard_tables
+from ..parallel.sharded import (
+    data_parallel,
+    local_shard,
+    row_shard_lookup,
+    row_shard_scatter_add,
+)
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from . import bpr as _bpr
 from .bpr import BPR
@@ -84,13 +102,14 @@ def middle_tier(ids, indptr, users, tier):
     return torch.clamp_max(pos, ids.shape[0] - 1), count > 0
 
 
-def _sbpr_step(U, V, Bi, u, i, j, k, m, hs, cnt, lr, lbd_u, lbd_v, lbd_b, use_bias):
-    """One minibatch of SBPR's SGD, in place, as
-    ``cornac_tpu/models/sbpr.py::_sbpr_epochs``' body computes it."""
-    m = m.to(U.dtype)
-    s_uk = 1.0 / (1.0 + cnt.to(U.dtype))
-    wu, vi, vj, vk = U[u], V[i], V[j], V[k]
-    bi, bj, bk = Bi[i], Bi[j], Bi[k]
+def _sbpr_rows(wu, vi, vj, vk, bi, bj, bk, m, hs, cnt, lbd_u, lbd_v):
+    """The row-wise part of a minibatch (or of a data slice of one) from its
+    fetched rows: (U's update rows, V's rows for i, j and k before the
+    learning rate, and the bias steps' gradient terms for i, j and k with
+    their masks), as ``cornac_tpu/models/sbpr.py::_sbpr_epochs``' body
+    computes them."""
+    m = m.to(wu.dtype)
+    s_uk = 1.0 / (1.0 + cnt.to(wu.dtype))
 
     # plain-BPR branch
     x_ij = bi - bj + (wu * (vi - vj)).sum(1)
@@ -108,24 +127,46 @@ def _sbpr_step(U, V, Bi, u, i, j, k, m, hs, cnt, lr, lbd_u, lbd_v, lbd_b, use_bi
     dVi = (z_ij + zs)[:, None] * wu - lbd_v * vi * m[:, None]
     dVj = (-z_ij - z_kj)[:, None] * wu - lbd_v * vj * m[:, None]
     dVk = (z_kj - zs)[:, None] * wu - lbd_v * vk * mh[:, None]
+    return dU, dVi, dVj, dVk, z_ij + zs, -z_ij - z_kj, z_kj - zs, m, mh
 
-    accumulate_rows(U, u, lr * dU)
+
+def _sbpr_step(U, V, Bi, u, i, j, k, m, hs, cnt, lr, lbd_u, lbd_v, lbd_b, use_bias, mesh=None):
+    """One minibatch of SBPR's SGD, in place. ``mesh``: U, V and Bi are this
+    rank's row shards over "model"; each rank fetches and computes the rows
+    of its data slice, which are gathered back in batch order, and each
+    row's updates are added on the rank that owns it."""
+    if mesh is None:
+        lookup, scatter = (lambda t, ids: t[ids]), accumulate_rows
+    else:
+        lookup = functools.partial(row_shard_lookup, mesh)
+        scatter = functools.partial(row_shard_scatter_add, mesh)
+
+    def rows(u, i, j, k, m, hs, cnt):
+        v = lookup(V, torch.cat([i, j, k]))
+        b = lookup(Bi, torch.cat([i, j, k]))
+        return _sbpr_rows(lookup(U, u), *v.chunk(3), *b.chunk(3), m, hs, cnt, lbd_u, lbd_v)
+
+    dU, dVi, dVj, dVk, gi, gj, gk, mf, mh = data_parallel(mesh, rows, u.shape[0], u, i, j, k,
+                                                          m, hs, cnt)
+    scatter(U, u, lr * dU)
     # one call over [i; j; k] in place of the reference's three scatters
-    accumulate_rows(V, torch.cat([i, j, k]), lr * torch.cat([dVi, dVj, dVk]))
+    scatter(V, torch.cat([i, j, k]), lr * torch.cat([dVi, dVj, dVk]))
     if use_bias:
         # three calls in order: each regularisation term reads the table
         # the call before updated
-        accumulate_rows(Bi, i, lr * (z_ij + zs - lbd_b * Bi[i] * m))
-        accumulate_rows(Bi, j, lr * (-z_ij - z_kj - lbd_b * Bi[j] * m))
-        accumulate_rows(Bi, k, lr * (z_kj - zs - lbd_b * Bi[k] * mh))
+        scatter(Bi, i, lr * (gi - lbd_b * lookup(Bi, i) * mf))
+        scatter(Bi, j, lr * (gj - lbd_b * lookup(Bi, j) * mf))
+        scatter(Bi, k, lr * (gk - lbd_b * lookup(Bi, k) * mh))
 
 
-def _sbpr_epoch(U, V, Bi, draws, pairs, membership, social, n, hyper, batch_size, use_bias):
+def _sbpr_epoch(U, V, Bi, draws, pairs, membership, social, n, hyper, batch_size, use_bias,
+                mesh=None):
     """One epoch of SBPR on given draws (``_tier_draws``' tuples covering
     |R| padded to whole minibatches), updating U, V and Bi in place.
     ``social``: (ids, counts, indptr) int64 tensors of ``social_items``;
     ``hyper``: (lr, lambda_u, lambda_v, lambda_b). Samples past |R|,
     observed negatives and negatives equal to the social item are skipped.
+    ``mesh``: U, V and Bi are this rank's row shards (``_sbpr_step``).
     Returns the number skipped (a device scalar)."""
     soc_ids, soc_counts, soc_indptr = social
     skipped = torch.zeros((), dtype=torch.int64, device=U.device)
@@ -140,7 +181,7 @@ def _sbpr_epoch(U, V, Bi, draws, pairs, membership, social, n, hyper, batch_size
         for s in range(0, pos_idx.shape[0], batch_size):
             sl = slice(s, s + batch_size)
             _sbpr_step(U, V, Bi, users[sl], items[sl], negs[sl], soc_item[sl], valid[sl],
-                       hs[sl], soc_cnt[sl], *hyper, use_bias)
+                       hs[sl], soc_cnt[sl], *hyper, use_bias, mesh)
         start += pos_idx.shape[0]
     return skipped
 
@@ -153,6 +194,8 @@ class SBPR(BPR):
     ``use_bias``, ``batch_size``, ``init_params`` ({'U','V','Bi'}),
     ``seed``. The train set must carry the ``user_graph`` modality.
     ``device``: where the model trains and scores (default: the card).
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``, and
+    the factors equal the single-device fit's (module docstring).
     """
 
     def __init__(
@@ -174,8 +217,6 @@ class SBPR(BPR):
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
         super().__init__(
             name=name,
             k=k,
@@ -217,15 +258,18 @@ class SBPR(BPR):
             soc_ids = np.zeros(1, dtype=np.int32)
             soc_counts = np.zeros(1, dtype=np.int32)
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         rid, cid, _ = train_set.uir_tuple
         n = len(rid)
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)
         membership = build_membership(train_set.csr_matrix, device=dev)
         social = tuple(torch.as_tensor(np.asarray(a, np.int64), device=dev)
                        for a in (soc_ids, soc_counts, soc_indptr))
-        U, V, Bi = (torch.tensor(np.asarray(a, np.float32), device=dev)
-                    for a in (self.u_factors, self.i_factors, self.i_biases))
+        tables = tuple(torch.tensor(np.asarray(a, np.float32), device=dev)
+                       for a in (self.u_factors, self.i_factors, self.i_biases))
+        if mesh is not None:
+            tables = shard_tables(mesh, *tables)  # DTensors: what a checkpoint gathers
         hyper = (self.learning_rate, self.lambda_u, self.lambda_v, self.lambda_b)
         seed = self.rng.randint(2**31)
         batch_size = min(self.batch_size, n)
@@ -235,15 +279,20 @@ class SBPR(BPR):
             for epoch in range(start, start + e):
                 draws = _tier_draws(epoch_generator(seed, epoch, dev), n, n_total, batch_size,
                                     train_set.num_items)
-                skipped = _sbpr_epoch(*state, draws, pairs, membership, social, n, hyper,
-                                      batch_size, self.use_bias)
+                skipped = _sbpr_epoch(*(local_shard(t) for t in state), draws, pairs,
+                                      membership, social, n, hyper, batch_size, self.use_bias,
+                                      mesh)
             return state, skipped
 
-        epoch_loop(self, self.max_iter, run_chunk, (U, V, Bi),
+        epoch_loop(self, self.max_iter, run_chunk, tables,
                    on_report=lambda done, skipped: print(
                        "Epoch %d/%d, skipped: %.2f%%"
                        % (done, self.max_iter, 100.0 * int(skipped) / n)))
 
+        U, V, Bi = tables
+        if mesh is not None:
+            n_u, n_i = len(self.u_factors), len(self.i_factors)
+            U, V, Bi = U.full_tensor()[:n_u], V.full_tensor()[:n_i], Bi.full_tensor()[:n_i]
         self.u_factors = U.cpu().numpy()
         self.i_factors = V.cpu().numpy()
         self.i_biases = Bi.cpu().numpy()

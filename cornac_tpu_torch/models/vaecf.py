@@ -24,6 +24,17 @@ The three give the same bits: a batch's rows are the same in each, and its
 noise comes from a ``torch.Generator`` seeded from (the fit's seed, the
 global epoch, the batch index), whatever the mode or the host's chunking of
 the epochs (the JAX package folds the same two indices into its key).
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel, one process a rank,
+as the JAX package does: the parameters and Adam's state are replicated,
+every rank fetches a batch and draws its whole noise, and computes the loss
+of its data slice of the batch's rows over the whole batch's size
+(``batch_mean``); the gradients are summed over "data" (``ops.optim.step``)
+and every rank applies the same update. Above the dense budget a mesh
+streams the batches' coordinate windows (never index-resident, as in the
+JAX package). The sum over the ranks takes another order than the
+single-device backward, so the fit agrees with it to float32 rounding,
+and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -32,6 +43,8 @@ import torch
 from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp, mlp
 from ..exception import ScoreException
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.sharded import all_sum, batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
@@ -72,9 +85,17 @@ def _decode(vae, z, act, likelihood):
     return torch.sigmoid(h)
 
 
-def _vae_loss(vae, x, noise, act, likelihood, beta):
+def batch_mean(terms, denom=None):
+    """The mean of a minibatch's per-row ``terms``, or, on a mesh, the sum
+    of a data slice's terms over the whole minibatch's ``denom`` rows (this
+    rank's share of the mean; its gradient is the mean's, 1 / denom a
+    term)."""
+    return torch.mean(terms) if denom is None else terms.sum() / denom
+
+
+def _vae_loss(vae, x, noise, act, likelihood, beta, denom=None):
     """The JAX package's ``_vae_loss`` with its standard-normal draw
-    ``noise`` (the shape of the means) given."""
+    ``noise`` (the shape of the means) given; ``denom``: ``batch_mean``'s."""
     mu, logvar = _encode(vae, x, act)
     std = torch.exp(0.5 * logvar)
     z = mu + noise * std
@@ -91,7 +112,7 @@ def _vae_loss(vae, x, noise, act, likelihood, beta):
     ll = torch.sum(ll, dim=1)
 
     kld = -0.5 * torch.sum(1 + logvar - mu**2 - torch.exp(logvar), dim=1)
-    return torch.mean(beta * kld - ll)
+    return batch_mean(beta * kld - ll, denom)
 
 
 def _densify(cols, rows, b, bsz, data_dim):
@@ -102,11 +123,12 @@ def _densify(cols, rows, b, bsz, data_dim):
     return x
 
 
-def batch_source(r_mat, bsz, device):
+def batch_source(r_mat, bsz, device, index_resident=True):
     """(mode, fetch) for the fit's minibatches: ``fetch(b)`` gives batch
     b's dense (bsz, items) block on ``device``, and ``mode`` is
     ``"resident"``, ``"index-resident"`` or ``"streamed"`` (see the module's
-    docstring)."""
+    docstring). ``index_resident=False`` streams whatever does not fit the
+    dense budget, as the JAX package's mesh fit does."""
     n_users, data_dim = r_mat.shape
     n_pad = (-n_users) % bsz
     n_batches = (n_users + n_pad) // bsz
@@ -123,7 +145,7 @@ def batch_source(r_mat, bsz, device):
     counts = np.bincount(rows // bsz, minlength=n_batches)
     starts = np.concatenate(([0], np.cumsum(counts[:-1]))).tolist()
     counts = counts.tolist()
-    if 8 * cols.size <= _SPARSE_RESIDENT_BYTES:
+    if index_resident and 8 * cols.size <= _SPARSE_RESIDENT_BYTES:
         cols_d = torch.as_tensor(cols, device=device)
         rows_d = torch.as_tensor(rows, device=device)
 
@@ -148,7 +170,8 @@ class VAECF(Recommender, ANNMixin):
     ``autoencoder_structure`` hidden sizes, ``act_fn``, ``likelihood``
     (mult/bern/gaus/pois), ``n_epochs``, ``batch_size``, ``learning_rate``,
     ``beta`` KL weight, ``seed``; ``device`` where it trains and scores
-    (default: the card).
+    (default: the card). ``mesh``: a ``parallel.make_mesh`` mesh; every
+    rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -170,9 +193,7 @@ class VAECF(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.k = k
         self.autoencoder_structure = (
             [20] if autoencoder_structure is None else autoencoder_structure
@@ -200,7 +221,8 @@ class VAECF(Recommender, ANNMixin):
 
         rng = get_rng(self.seed)
         self.r_mat = train_set.matrix
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
 
         data_dim = self.r_mat.shape[1]
         if not hasattr(self, "params"):
@@ -214,8 +236,11 @@ class VAECF(Recommender, ANNMixin):
         n_users = self.r_mat.shape[0]
         bsz = min(self.batch_size, n_users)
         n_batches = -(-n_users // bsz)
-        self.data_mode, fetch = batch_source(self.r_mat, bsz, dev)
+        self.data_mode, fetch = batch_source(self.r_mat, bsz, dev, index_resident=mesh is None)
         seed = rng.randint(2**31)
+        rows, denom = slice(None), None
+        if mesh is not None:  # this rank's data slice of every batch
+            rows, denom = slice(*batch_slice(mesh, bsz)[:2]), bsz
 
         def run_chunk(opt_state, start, e):
             for epoch in range(start, start + e):
@@ -224,10 +249,12 @@ class VAECF(Recommender, ANNMixin):
                 for b in range(n_batches):
                     noise = torch.randn((bsz, self.k), generator=epoch_generator(
                         seed, epoch, dev, b), device=dev)
-                    loss = _vae_loss(self.params, fetch(b), noise, act, self.likelihood,
-                                     self.beta)
-                    opt_state = step(params, opt, opt_state, loss)
+                    loss = _vae_loss(self.params, fetch(b)[rows], noise[rows], act,
+                                     self.likelihood, self.beta, denom)
+                    opt_state = step(params, opt, opt_state, loss, mesh)
                     loss_sum += loss.detach()
+            if mesh is not None:  # the slices' shares make the whole batches' losses
+                all_sum(mesh, loss_sum)
             return opt_state, loss_sum
 
         def report(done, loss_sum):

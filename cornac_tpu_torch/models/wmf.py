@@ -15,8 +15,16 @@ The rows are bucketed by degree, as ``cornac_tpu/models/wmf.py``'s
 ``_bucketed_csr``: entities sorted by degree and bucketed, each bucket
 padded to its own largest degree and cut into chunks sized so that the
 (chunk, L, k) gather stays under a workspace budget, whatever the catalog's
-largest degree. The JAX package's other layout, every row padded to the
-largest degree, serves its mesh path and waits for it here (ROADMAP.md A8 (b)).
+largest degree.
+
+``mesh`` (``parallel.make_mesh``) solves the same buckets across the
+ranks: every rank builds the layout, the chunks of every bucket are dealt
+out round robin over the ranks in global rank order, each rank solves its
+chunks with the opposite table whole, and the solved rows are all-gathered
+and written into the side's table between half sweeps
+(``_solve_side_shared``). A chunk's solve is the same computation on a
+rank as on one device, so a mesh fit equals the single-device fit bit for
+bit, and each rank holds only its share of the layout on the device.
 """
 
 import numpy as np
@@ -24,6 +32,7 @@ import torch
 
 from ..exception import ScoreException
 from ..ops.dispatch import full_f32
+from ..parallel.mesh import check_mesh, mesh_device
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_loop
 from ..utils.init_utils import xavier_uniform
@@ -99,6 +108,41 @@ def _bucketed_csr(csr, k, device, budget=None):
     return groups
 
 
+def _rank_share(groups, n, mesh, device):
+    """This rank's share of the ``_bucketed_csr`` chunks (built on the
+    host), every bucket's chunks dealt round robin over the mesh's ranks in
+    global rank order: ([(idx, val, mask)] of its chunks on ``device``, the
+    entity ids of every rank's solved rows in rank order on ``device``, each
+    rank's padded with id n to the largest share's ``rows``, ``rows``)."""
+    world, rank = mesh.size(), torch.distributed.get_rank()
+    chunks = [(idx[j], val[j], mask[j], ids.view(idx.shape[0], -1)[j])
+              for idx, val, mask, ids in groups for j in range(idx.shape[0])]
+    shares = [[c[3] for c in chunks[r::world]] for r in range(world)]
+    rows = max(sum(len(ids) for ids in share) for share in shares)
+    where = torch.cat([torch.cat(share + [torch.full((rows - sum(len(ids) for ids in share),),
+                                                     n, dtype=torch.int64)])
+                       for share in shares])
+    mine = [tuple(t.to(device) for t in c[:3]) for c in chunks[rank::world]]
+    return mine, where.to(device), rows
+
+
+def _solve_side_shared(mesh, F_other, share, a, b, lamb, n_out):
+    """Re-solve every entity of one side on a mesh: this rank solves its
+    chunks (``_rank_share``) with the whole opposite table, and the solved
+    rows of every rank are all-gathered and written to their entities.
+    Returns (n_out, k)."""
+    from ..parallel.sharded import gather_batch
+
+    chunks, where, rows = share
+    G = _gram(F_other)
+    k = F_other.shape[1]
+    sols = [_solve_chunk(F_other, G, *rows_of, a, b, lamb) for rows_of in chunks]
+    mine = torch.cat(sols + [F_other.new_zeros((rows - sum(x.shape[0] for x in sols), k))])
+    out = torch.zeros((n_out + 1, k), dtype=F_other.dtype, device=F_other.device)
+    out[where] = gather_batch(mesh, mine, where.shape[0], rows, axis=None)
+    return out[:n_out]
+
+
 def _solve_side_bucketed(F_other, groups, a, b, lamb, n_out):
     """Re-solve every entity of one side from its ``_bucketed_csr``
     buckets. Returns (n_out, k)."""
@@ -127,8 +171,9 @@ class WMF(Recommender, ANNMixin):
     ``a`` and ``b`` (the confidences of observed and unobserved entries),
     ``max_iter`` (ALS sweeps), ``init_params`` ({'U','V'}), ``seed``;
     ``learning_rate`` and ``batch_size`` are kept for the API and not read
-    by the single-device solver. ``device``: where the model trains and
-    scores (default: the card). ``mesh`` is not ported yet.
+    by the solver. ``device``: where the model trains and scores (default:
+    the card). ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls
+    ``fit`` and solves its share of the buckets' chunks (module docstring).
     """
 
     def __init__(
@@ -150,9 +195,7 @@ class WMF(Recommender, ANNMixin):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         self.lambda_u = lambda_u
@@ -180,17 +223,28 @@ class WMF(Recommender, ANNMixin):
         if self.V is None:
             self.V = xavier_uniform((self.num_items, self.k), rng)
 
-        dev = self._device()
+        mesh = self.mesh
+        dev = self._device() if mesh is None else mesh_device(mesh)
         csr = train_set.csr_matrix
-        u_groups = _bucketed_csr(csr, self.k, dev)
-        i_groups = _bucketed_csr(csr.T.tocsr(), self.k, dev)
         state = tuple(torch.tensor(np.asarray(x, np.float32), device=dev)
                       for x in (self.U, self.V))
-        consts = tuple(float(np.float32(x)) for x in (self.a, self.b, self.lambda_u,
+        a, b, lu, li = (float(np.float32(x)) for x in (self.a, self.b, self.lambda_u,
                                                       self.lambda_v))
+        groups = [_bucketed_csr(m, self.k, dev if mesh is None else "cpu")
+                  for m in (csr, csr.T.tocsr())]
+        if mesh is None:
+            def run_chunk(state, start, e):
+                return _als_sweeps_bucketed(*state, *groups, a, b, lu, li, e), None
+        else:
+            u_share, i_share = (_rank_share(g, n, mesh, dev)
+                                for g, n in zip(groups, (self.num_users, self.num_items)))
 
-        def run_chunk(state, start, e):
-            return _als_sweeps_bucketed(*state, u_groups, i_groups, *consts, e), None
+            def run_chunk(state, start, e):
+                U, V = state
+                for _ in range(e):
+                    U = _solve_side_shared(mesh, V, u_share, a, b, lu, U.shape[0])
+                    V = _solve_side_shared(mesh, U, i_share, a, b, li, V.shape[0])
+                return (U, V), None
 
         U, V = epoch_loop(self, self.max_iter, run_chunk, state,
                           on_report=lambda done, _: print("ALS sweep %d/%d"

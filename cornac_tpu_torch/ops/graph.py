@@ -16,13 +16,25 @@ adjacency, chosen by :class:`NormAdjacency`:
 
 ``propagate_torch`` is the edge form's plain version, with ``index_add_``
 and autograd's own gather; on the card only the tests and ``chip_smoke.py``
-call it. Sharding the adjacency over a mesh waits for ROADMAP.md A8 (b).
+call it.
+
+``NormAdjacency(mesh=)`` shards the adjacency over every rank of a
+``parallel.make_mesh`` mesh, as the JAX package shards it over every mesh
+axis. The edge form splits the edge list into contiguous parts, one a rank
+in global rank order (uneven parts, so no padding edge is needed); the
+dense form splits the user rows into blocks, one a rank. Each rank
+propagates its part, and the partial messages are summed over the ranks
+(``parallel.sharded.all_sum_messages``, whose gradient is again that sum,
+so every rank's loss reaches every rank's edges). The messages equal the
+plain adjacency's up to the order of the float32 sums, and bit for bit on a
+mesh of one rank.
 """
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import check_mesh, mesh_device
 from .accumulate import accumulate_rows, gather_rows
 from .dispatch import full_f32
 
@@ -43,11 +55,15 @@ def _degree_norm(train_set):
 def build_norm_edges(train_set, device=None):
     """(users int64, items int64, norm float32) edge tensors on ``device``
     (default: the card) with symmetric-normalized weights."""
-    dev = resolve_device(device)
-    u, i, norm = _degree_norm(train_set)
-    return (torch.as_tensor(np.asarray(u, np.int64), device=dev),
-            torch.as_tensor(np.asarray(i, np.int64), device=dev),
-            torch.as_tensor(norm.astype(np.float32), device=dev))
+    return _edge_tensors(*_degree_norm(train_set), resolve_device(device))
+
+
+def _edge_tensors(u, i, norm, device):
+    """(users int64, items int64, norm float32) tensors on ``device`` of
+    the numpy edges (u, i, norm)."""
+    return (torch.as_tensor(np.asarray(u, np.int64), device=device),
+            torch.as_tensor(np.asarray(i, np.int64), device=device),
+            torch.as_tensor(norm.astype(np.float32), device=device))
 
 
 class _ScatterRows(torch.autograd.Function):
@@ -113,31 +129,55 @@ def lightgcn_embeddings(user_emb, item_emb, edge_u, edge_i, edge_norm, num_layer
 class NormAdjacency:
     """Symmetric-normalized bipartite adjacency on ``device`` (default: the
     card), dense within ``budget_elems`` cells, else as edges (see the
-    module's docstring)."""
+    module's docstring). ``mesh``: a ``parallel.make_mesh`` mesh; each rank
+    holds its part and ``propagate`` sums the ranks' messages (every rank
+    calls it)."""
 
     def __init__(self, train_set, budget_elems=DENSE_ADJ_BUDGET, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "NormAdjacency(mesh=...), the adjacency sharded over a mesh, is not ported yet "
-                "(ROADMAP.md A8 (b))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.num_users = train_set.num_users
         self.num_items = train_set.num_items
-        dev = resolve_device(device)
-        self.edge_u, self.edge_i, self.edge_norm = build_norm_edges(train_set, dev)
+        dev = resolve_device(device) if mesh is None else mesh_device(mesh)
+        u, i, norm = _degree_norm(train_set)
+        self.rows = slice(0, self.num_users)  # this rank's block of the dense form's rows
         self.dense = None
         if self.num_users * self.num_items <= budget_elems:
-            A = np.zeros((self.num_users, self.num_items), np.float32)
-            u, i, norm = _degree_norm(train_set)
-            np.add.at(A, (u, i), norm)
+            if mesh is not None:  # the rank's block of user rows
+                per = -(-self.num_users // mesh.size())
+                start = min(self.num_users, per * torch.distributed.get_rank())
+                self.rows = slice(start, min(self.num_users, start + per))
+            keep = (u >= self.rows.start) & (u < self.rows.stop)
+            A = np.zeros((self.rows.stop - self.rows.start, self.num_items), np.float32)
+            np.add.at(A, (u[keep] - self.rows.start, i[keep]), norm[keep])
             self.dense = torch.as_tensor(A, device=dev)
+        elif mesh is not None:  # the rank's part of the edges
+            per = -(-len(u) // mesh.size())
+            start = min(len(u), per * torch.distributed.get_rank())
+            u, i, norm = (a[start:start + per] for a in (u, i, norm))
+        self.edge_u, self.edge_i, self.edge_norm = _edge_tensors(u, i, norm, dev)
 
     def propagate(self, user_emb, item_emb):
         """One propagation step: (messages to users, messages to items)."""
+        if self.mesh is None:
+            if self.dense is not None:
+                with full_f32():
+                    return self.dense @ item_emb, self.dense.T @ user_emb
+            return propagate(user_emb, item_emb, self.edge_u, self.edge_i, self.edge_norm)
+        from ..parallel.sharded import all_sum_messages
+
         if self.dense is not None:
+            to_users = user_emb.new_zeros(user_emb.shape)
             with full_f32():
-                return self.dense @ item_emb, self.dense.T @ user_emb
-        return propagate(user_emb, item_emb, self.edge_u, self.edge_i, self.edge_norm)
+                block = self.dense @ item_emb
+                to_items = self.dense.T @ user_emb[self.rows]
+            to_users = torch.cat([to_users[:self.rows.start], block, to_users[self.rows.stop:]])
+        elif self.edge_u.shape[0]:
+            to_users, to_items = propagate(user_emb, item_emb, self.edge_u, self.edge_i,
+                                           self.edge_norm)
+        else:  # a rank past the last edge
+            to_users, to_items = user_emb * 0.0, item_emb * 0.0
+        both = all_sum_messages(self.mesh, torch.cat([to_users, to_items]), None)
+        return both[:self.num_users], both[self.num_users:]
 
     def lightgcn(self, user_emb, item_emb, num_layers):
         """Mean of layer-0..K embeddings under LightGCN propagation."""

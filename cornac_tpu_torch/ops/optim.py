@@ -231,12 +231,24 @@ def apply_updates(params, updates):
     return params
 
 
-def step(params, opt, state, loss):
+def step(params, opt, state, loss, mesh=None, axis="data", whole=()):
     """One step of ``opt`` on ``loss``: its gradients with respect to every
     tensor of ``params`` (a dict; a tensor the loss does not reach gets
     zeros, as ``jax.grad`` gives it), the optimizer's update, applied in
-    place. Returns the new state."""
-    grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+    place. Returns the new state.
+
+    ``mesh`` (``parallel.make_mesh``): ``loss`` is this rank's share of the
+    minibatch's loss (its data slice's terms over the whole minibatch's
+    size), the gradients are summed over ``axis`` ("data", or None for
+    every rank) and every rank applies the same update to its replica.
+    ``whole``: names of ``params`` whose gradients are already the whole
+    minibatch's on every rank (``parallel.sharded.slice_rows``), which are
+    not summed."""
+    grads = list(torch.autograd.grad(loss, list(params.values()), materialize_grads=True))
+    if mesh is not None:  # one sum over the ranks for every gradient
+        from ..parallel.sharded import sum_grads
+
+        grads = sum_grads(mesh, grads, axis, {j for j, name in enumerate(params) if name in whole})
     updates, state = opt.update(dict(zip(params, grads)), state, params)
     apply_updates(params, updates)
     return state

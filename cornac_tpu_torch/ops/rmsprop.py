@@ -33,8 +33,34 @@ def set_rows_last_wins(table, ids, values):
     return table
 
 
+def _rmsprop_rows(pa, pb, old_a, old_b, v, m, lr_a, lr_b, reg, gamma, non_linear):
+    """The row-wise part of a minibatch from its fetched rows: (A's new
+    cache rows, B's new cache rows, A's update rows, B's update rows, each
+    position's loss term), a padded position keeping its old cache rows and
+    adding nothing."""
+    eps = 1e-8
+    sc = (pa * pb).sum(1)
+    if non_linear:
+        sg = torch.sigmoid(torch.clamp(sc, -6.0, 6.0))
+        e = v - sg
+        we = e * sg * (1.0 - sg)
+    else:
+        e = v - sc
+        we = e
+    we = we * m
+    terms = (e * e + reg * ((pa * pa).sum(1) + (pb * pb).sum(1))) * m
+    mm = m[:, None]
+    ga = we[:, None] * pb - reg * pa * mm
+    gb = we[:, None] * pa - reg * pb * mm
+    ca = gamma * old_a + (1 - gamma) * ga * ga
+    cb = gamma * old_b + (1 - gamma) * gb * gb
+    return (torch.where(mm > 0, ca, old_a), torch.where(mm > 0, cb, old_b),
+            lr_a * ga / (torch.sqrt(ca) + eps) * mm, lr_b * gb / (torch.sqrt(cb) + eps) * mm,
+            terms)
+
+
 def rmsprop_stream_epoch(A, B, cache_a, cache_b, perm, mask, pairs, vals, lr_a, lr_b, reg, gamma,
-                         batch_size, non_linear=True):
+                         batch_size, non_linear=True, mesh=None):
     """One RMSProp epoch over the observations in the order ``perm``
     ((n_total,) int64, the stream padded to whole minibatches; ``mask``
     (n_total,) float32 is 0 on the padding), updating the four tables in
@@ -46,34 +72,47 @@ def rmsprop_stream_epoch(A, B, cache_a, cache_b, perm, mask, pairs, vals, lr_a, 
     score clipped to [-6, 6] before the sigmoid; each position writes its
     new cache row, a padded position the old one, the last position of a
     row winning; the factor updates use each position's own new cache
-    value and sum through ``accumulate_rows`` in batch order."""
-    eps = 1e-8
+    value and sum through ``accumulate_rows`` in batch order.
+
+    ``mesh`` (``parallel.make_mesh``): the four tables are this rank's row
+    shards over "model". Each rank fetches the rows of its data slice of a
+    minibatch (``row_shard_lookup``), computes their cache rows, update
+    rows and loss terms, and the slices are gathered back in batch order
+    (``data_parallel``); each rank then writes the cache rows it owns
+    (``row_shard_set_last_wins``) and adds the update rows it owns
+    (``row_shard_scatter_add``): the single-device epoch's bits."""
+    from ..parallel.sharded import (
+        data_parallel,
+        row_shard_lookup,
+        row_shard_scatter_add,
+        row_shard_set_last_wins,
+    )
+
     loss = torch.zeros((), dtype=torch.float32, device=A.device)
     for s in range(0, perm.shape[0], batch_size):
         idx, m = perm[s:s + batch_size], mask[s:s + batch_size]
         r, c = pairs[idx].unbind(1)
         v = vals[idx]
-        pa, pb = A[r], B[c]
-        sc = (pa * pb).sum(1)
-        if non_linear:
-            sg = torch.sigmoid(torch.clamp(sc, -6.0, 6.0))
-            e = v - sg
-            we = e * sg * (1.0 - sg)
+        if mesh is None:
+            new_a, new_b, upd_a, upd_b, terms = _rmsprop_rows(
+                A[r], B[c], cache_a[r], cache_b[c], v, m, lr_a, lr_b, reg, gamma, non_linear)
+            set_rows_last_wins(cache_a, r, new_a)
+            set_rows_last_wins(cache_b, c, new_b)
+            accumulate_rows(A, r, upd_a)
+            accumulate_rows(B, c, upd_b)
         else:
-            e = v - sc
-            we = e
-        we = we * m
-        loss += ((e * e + reg * ((pa * pa).sum(1) + (pb * pb).sum(1))) * m).sum()
-        mm = m[:, None]
-        ga = we[:, None] * pb - reg * pa * mm
-        gb = we[:, None] * pa - reg * pb * mm
-        old_a, old_b = cache_a[r], cache_b[c]
-        ca = gamma * old_a + (1 - gamma) * ga * ga
-        cb = gamma * old_b + (1 - gamma) * gb * gb
-        set_rows_last_wins(cache_a, r, torch.where(mm > 0, ca, old_a))
-        set_rows_last_wins(cache_b, c, torch.where(mm > 0, cb, old_b))
-        accumulate_rows(A, r, lr_a * ga / (torch.sqrt(ca) + eps) * mm)
-        accumulate_rows(B, c, lr_b * gb / (torch.sqrt(cb) + eps) * mm)
+            def rows(r, c, v, m):
+                pa, ca = (row_shard_lookup(mesh, t, r) for t in (A, cache_a))
+                pb, cb = (row_shard_lookup(mesh, t, c) for t in (B, cache_b))
+                return _rmsprop_rows(pa, pb, ca, cb, v, m, lr_a, lr_b, reg, gamma, non_linear)
+
+            new_a, new_b, upd_a, upd_b, terms = data_parallel(mesh, rows, idx.shape[0], r, c, v,
+                                                              m)
+            row_shard_set_last_wins(mesh, cache_a, r, new_a)
+            row_shard_set_last_wins(mesh, cache_b, c, new_b)
+            row_shard_scatter_add(mesh, A, r, upd_a)
+            row_shard_scatter_add(mesh, B, c, upd_b)
+        loss += terms.sum()
     return loss
 
 

@@ -31,6 +31,20 @@ rank of the mesh (SPMD) and issues its collectives explicitly:
   holds the fits bit for bit on every layout, one thread a rank). A slice
   starts at a multiple of ``SLICE_ROWS`` rows, so that CPU vector loops
   meet each element at the same place of a vector as in the whole batch.
+  ``axis=None`` splits over every rank of the mesh instead (the JAX
+  package's ``P(("data", "model"))``), in global rank order.
+* ``data_parallel``: a function of a minibatch's rows run on this rank's
+  slice, its outputs gathered back in batch order: the row-wise part of a
+  step, written once for both the single-device and the mesh fit.
+* ``slice_rows``: a replicated table's rows at this rank's slice of a
+  minibatch, whose gradient is summed in batch order as on one device.
+* ``row_shard_set_last_wins``: ``set_rows_last_wins`` on a row-sharded
+  table, the RMSProp caches' write.
+* ``sum_grads``: a list of gradients summed over the ranks in one
+  all-reduce.
+* ``all_sum_messages``: a sum over the ranks whose gradient is again that
+  sum, for the partial messages of a sharded graph (``ops.graph``, GCMC):
+  every rank's loss reaches every rank's edges.
 """
 
 import numpy as np
@@ -58,6 +72,13 @@ def local_shard(table):
 
 def _first_row(mesh, rows):
     return mesh.get_local_rank(MODEL_AXIS) * rows
+
+
+def gather_shards(mesh, shard):
+    """The whole table (its rows padded to the shard count) of which
+    ``shard`` is this rank's row shard over "model", on every rank: the
+    shards all-gathered in model-rank order."""
+    return _all_gather(local_shard(shard), mesh.get_group(MODEL_AXIS), axis_size(mesh, MODEL_AXIS))
 
 
 def row_shard_lookup(mesh, table, ids):
@@ -138,29 +159,145 @@ def pad_rows_for_mesh(x, mesh, fill=0.0):
     return np.concatenate([np.asarray(x), block]), n
 
 
-def batch_slice(mesh, n):
+def _split(mesh, axis):
+    """(parts, this rank's index, process group) of ``axis``, or of the
+    whole mesh when ``axis`` is None: a ``make_mesh`` mesh spans the group
+    in rank order, so its flat index is the global rank."""
+    if axis is None:
+        return mesh.size(), dist.get_rank(), dist.group.WORLD
+    return axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis)
+
+
+def batch_slice(mesh, n, axis=DATA_AXIS):
     """(start, stop, rows a slice) of this rank's slice of an n-row
-    minibatch along the data axis: slices of equal size, a multiple of
-    ``SLICE_ROWS``, in data-rank order; the last ones may be short or
-    empty."""
-    parts = axis_size(mesh, DATA_AXIS)
+    minibatch along ``axis`` (None: every rank of the mesh): slices of equal
+    size, a multiple of ``SLICE_ROWS``, in rank order; the last ones may be
+    short or empty."""
+    parts, index, _ = _split(mesh, axis)
     per = -(-(-(-n // parts)) // SLICE_ROWS) * SLICE_ROWS
-    start = min(mesh.get_local_rank(DATA_AXIS) * per, n)
+    start = min(index * per, n)
     return start, min(start + per, n), per
 
 
-def gather_batch(mesh, x, n, per):
+def gather_batch(mesh, x, n, per, axis=DATA_AXIS):
     """The n-row whole of a minibatch whose slices (``batch_slice``) the
-    ranks of the data group hold: this rank's slice ``x`` is padded to
-    ``per`` rows, the slices are all-gathered in data-rank order, which is
-    the batch's order, and the padding is cut off."""
-    parts = axis_size(mesh, DATA_AXIS)
+    ranks of ``axis`` hold: this rank's slice ``x`` is padded to ``per``
+    rows, the slices are all-gathered in rank order, which is the batch's
+    order, and the padding is cut off."""
+    parts, _, group = _split(mesh, axis)
     x = pad_rows_to_multiple(x, per) if x.shape[0] else x.new_zeros((per,) + tuple(x.shape[1:]))
-    return _all_gather(x, mesh.get_group(DATA_AXIS), parts)[:n]
+    return _all_gather(x, group, parts)[:n]
+
+
+def data_parallel(mesh, fn, n, *rows, axis=DATA_AXIS):
+    """``fn(*rows)`` on the n-row minibatch ``rows``, computed slice-wise on
+    a mesh. ``fn`` is row-wise (row p of each output depends on row p of
+    the inputs alone) and returns one float tensor or a tuple of them. With
+    ``mesh`` None it runs on the whole batch; else each rank runs it on its
+    ``batch_slice`` and the outputs are gathered back in batch order, so
+    every rank holds the single-device outputs, bit for bit."""
+    if mesh is None:
+        return fn(*rows)
+    lo, hi, per = batch_slice(mesh, n, axis)
+    out = fn(*(r[lo:hi] for r in rows))
+    single = isinstance(out, torch.Tensor)
+    outs = (out,) if single else tuple(out)
+    widths = [int(np.prod(o.shape[1:], dtype=np.int64)) for o in outs]
+    flat = torch.cat([o.reshape(o.shape[0], w) for o, w in zip(outs, widths)], 1)
+    whole = gather_batch(mesh, flat, n, per, axis)
+    # contiguous, as the outputs of a whole batch's row-wise ops are: a
+    # reduction over a strided view may add in another order on the card
+    res = [part.reshape((n,) + tuple(o.shape[1:])).contiguous()
+           for o, part in zip(outs, whole.split(widths, 1))]
+    return res[0] if single else tuple(res)
+
+
+class _SliceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mesh, axis):
+        lo, hi, ctx.per = batch_slice(mesh, ids.shape[0], axis)
+        ctx.mesh, ctx.axis, ctx.shape = mesh, axis, table.shape
+        ctx.save_for_backward(ids)
+        return table[ids[lo:hi]]
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..ops.accumulate import accumulate_rows
+
+        (ids,) = ctx.saved_tensors
+        whole = gather_batch(ctx.mesh, grad.contiguous(), ids.shape[0], ctx.per, ctx.axis)
+        return accumulate_rows(grad.new_zeros(ctx.shape), ids, whole), None, None, None
+
+
+def slice_rows(mesh, table, ids, axis=DATA_AXIS):
+    """The rows of a replicated table at this rank's ``batch_slice`` of the
+    minibatch's ids ``ids`` (all of them, the same on every rank), whose
+    gradient is the whole minibatch's: the slices' row gradients are
+    gathered back in batch order and summed into the table by
+    ``accumulate_rows``, as ``ops.accumulate.gather_rows``'s backward sums
+    the single-device batch. Every rank then holds the same table gradient,
+    which needs no sum over the ranks (``ops.optim.step``'s ``whole``)."""
+    return _SliceRows.apply(table, ids, mesh, axis)
 
 
 def all_sum(mesh, value, axis=DATA_AXIS):
-    """Sum a tensor over the ranks of ``axis``'s group, in place; returns
-    it. The sharded trainers add their counts of a data slice with it."""
-    dist.all_reduce(value, group=mesh.get_group(axis))
+    """Sum a tensor over the ranks of ``axis``'s group (None: every rank),
+    in place; returns it. The sharded trainers add their counts of a data
+    slice, and their gradients, with it."""
+    dist.all_reduce(value, group=_split(mesh, axis)[2])
     return value
+
+
+def sum_grads(mesh, grads, axis=DATA_AXIS, keep=()):
+    """The tensors ``grads`` (a list) summed over ``axis``'s ranks (None:
+    every rank) in one all-reduce of their concatenation, but for the
+    positions in ``keep``, which are returned as they are. The data-parallel
+    trainers sum their gradients with it (``ops.optim.step``, GCMC)."""
+    grads = list(grads)
+    summed = [j for j in range(len(grads)) if j not in keep]
+    flat = all_sum(mesh, torch.cat([grads[j].reshape(-1) for j in summed]), axis)
+    for j, part in zip(summed, flat.split([grads[j].numel() for j in summed])):
+        grads[j] = part.view(grads[j].shape)
+    return grads
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_sum(mesh, x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_sum(ctx.mesh, grad.clone(), ctx.axis), None, None
+
+
+def all_sum_messages(mesh, x, axis=DATA_AXIS):
+    """The sum of every rank's ``x`` over ``axis`` (None: every rank), with
+    autograd: its gradient is the sum of the ranks' gradients, so a
+    message built from one rank's share of the edges receives the
+    gradient of every rank's loss."""
+    return _AllSum.apply(x, mesh, axis)
+
+
+def row_shard_set_last_wins(mesh, table, ids, values):
+    """``ops.rmsprop.set_rows_last_wins`` on a model-axis row-sharded
+    table: each rank writes the rows it owns (ids shifted by the shard's
+    first row), the last batch position of a row winning, as on one device.
+    A position whose row another rank owns writes again a row the batch
+    writes here, with its value, or row 0 with its own value when the batch
+    writes none here, so that nothing waits for the host to count them.
+    Returns ``table``."""
+    local = local_shard(table)
+    rows = local.shape[0]
+    at = ids.long() - _first_row(mesh, rows)
+    owned = (at >= 0) & (at < rows)
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    last = torch.full((rows + 1,), -1, dtype=torch.int64, device=ids.device)
+    last.scatter_reduce_(0, torch.where(owned, at, rows), pos, reduce="amax")
+    last = last[:rows]
+    at = torch.where(owned, at, last.argmax())  # a written row, or row 0
+    src = last[at]
+    written = (src >= 0).view((-1,) + (1,) * (values.dim() - 1))
+    local[at] = torch.where(written, values[src.clamp_min(0)], local[at])
+    return table

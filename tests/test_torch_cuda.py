@@ -1622,3 +1622,38 @@ def test_world_one_sharded_topk_equals_fused_topk(world_one_mesh, card, bias):
                        item_bias=None if b is None else shard_rows(world_one_mesh, b))
     assert FUSED_TOPK.launches == before + 1
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+# one model of each pattern of the factor and neural families' mesh=: the
+# sharded RMSProp stream (PMF), sharded edges over replicated state (HPF),
+# data-parallel autograd (VAECF) and the sharded adjacency (LightGCN)
+WORLD_ONE_FAMILIES = {
+    "PMF": (lambda **kw: PMF(k=8, max_iter=5, seed=4, **kw), ("U", "V")),
+    "HPF": (lambda **kw: HPF(k=5, max_iter=5, seed=4, **kw), ("Gs", "Gr", "Ls", "Lr")),
+    "VAECF": (lambda **kw: VAECF(k=8, autoencoder_structure=[16], n_epochs=3, batch_size=64,
+                                 seed=4, **kw), None),
+    "LightGCN": (lambda **kw: LightGCN(emb_size=8, num_epochs=3, batch_size=512, seed=4, **kw),
+                 ("U", "V")),
+}
+
+
+@pytest.mark.parametrize("name", list(WORLD_ONE_FAMILIES))
+def test_world_one_family_fit_equals_the_plain_fit(world_one_mesh, card, name):
+    rng = np.random.RandomState(3)
+    pairs = sorted({(rng.randint(300), rng.randint(200)) for _ in range(6000)})
+    train = Dataset.from_uir([(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs],
+                             seed=1)
+    make, attrs = WORLD_ONE_FAMILIES[name]
+    plain = make(device=card).fit(train)
+    before = ACCUMULATE_ROWS.launches
+    sharded = make(mesh=world_one_mesh).fit(train)
+    if name != "VAECF":  # its step sums no rows
+        assert ACCUMULATE_ROWS.launches > before
+    if attrs is None:
+        want = {n: p.detach().cpu().numpy() for n, p in plain.params.named_parameters()}
+        got = {n: p.detach().cpu().numpy() for n, p in sharded.params.named_parameters()}
+    else:
+        want, got = ({a: np.asarray(getattr(m, a)) for a in attrs} for m in (plain, sharded))
+    assert want and set(got) == set(want)
+    for n in want:
+        np.testing.assert_array_equal(got[n], want[n], err_msg=f"{name} {n}")

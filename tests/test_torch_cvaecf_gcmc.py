@@ -11,7 +11,7 @@
 - Bits: seeded refits (GCMC with a validation set, through early stopping
   and the learning-rate decay), and CVAECF stopped and resumed from its
   checkpoints gives the uninterrupted fit.
-- Refusals: ``mesh=`` (ROADMAP.md A8).
+- Refusals: ``mesh=`` other than a ``parallel.make_mesh`` mesh.
 """
 
 import numpy as np
@@ -255,5 +255,7 @@ def test_gcmc_refits_with_early_stopping_give_the_same_bits():
 
 @pytest.mark.parametrize("name", ["CVAECF", "GCMC"])
 def test_mesh_is_refused(name):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_models.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(tmodels, name)(mesh=object())

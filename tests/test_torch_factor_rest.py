@@ -234,8 +234,10 @@ def pm_metric(model, split, name):
 
 
 def test_mesh_raises():
+    # mesh= is ported (tests/test_torch_parallel_models.py): anything but a
+    # parallel.make_mesh mesh is refused
     for make in (lambda: P.HPF(mesh=object()), lambda: P.FM(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make()
 
 

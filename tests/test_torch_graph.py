@@ -13,7 +13,7 @@ the CPU.
 - Scoring on the same embeddings against JAX.
 - Short fits: a seeded fit twice (once verbose) gives the same bits, in
   both forms.
-- ``mesh=`` raises naming ROADMAP.md A8.
+- ``mesh=`` refuses anything but a ``parallel.make_mesh`` mesh.
 """
 
 import contextlib
@@ -209,8 +209,10 @@ def test_seeded_fits_are_identical(cls, budget, monkeypatch):
 
 def test_refusals_name_their_roadmap_items():
     _, train = _both()
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_models.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         graph.NormAdjacency(train, mesh=object(), device="cpu")
     for cls in (LightGCN, NGCF):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(mesh=object())

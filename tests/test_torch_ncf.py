@@ -194,8 +194,8 @@ def test_early_stopping_watches_validation_ndcg():
 
 
 def test_refusals():
-    for cls in (GMF, MLP, NeuMF):
-        with pytest.raises(NotImplementedError, match="A8"):
+    for cls in (GMF, MLP, NeuMF):  # mesh= is ported (tests/test_torch_parallel_models.py)
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(mesh=object())
     with pytest.raises(ValueError):
         GMF(backend="mxnet")

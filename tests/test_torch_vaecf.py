@@ -17,7 +17,7 @@
   after both encoders, one loss and its gradients with the priors' means
   on the JAX package's noise within rtol 1e-5 / atol 1e-6, and a short
   fit that, like the JAX package's, leaves the maps as drawn.
-- Refusals: ``mesh=`` (ROADMAP.md A8).
+- Refusals: ``mesh=`` other than a ``parallel.make_mesh`` mesh.
 - Short fits: a seeded fit twice (once verbose) gives the same bits.
 
 Whole fits are held on quality on the card (``chip_smoke.py``): the random
@@ -367,9 +367,11 @@ def test_bivaecf_constrained_priors_match_jax():
 
 
 def test_refusals_name_their_roadmap_items():
+    # mesh= is ported (tests/test_torch_parallel_models.py): anything but a
+    # parallel.make_mesh mesh is refused
     for make in (lambda: VAECF(mesh=object()), lambda: RecVAE(mesh=object()),
                  lambda: BiVAECF(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make()
     with pytest.raises(ValueError):
         VAECF(likelihood="nope")
