@@ -210,7 +210,8 @@ Phases, each of which fails the run when it fails:
    982,961 clicks, 43,097 items, 60,858 test sessions, mean length 5.12,
    each session its own user), after the serving slice:
    ``NextItemEvaluation.from_splits(fmt="USIT", exclude_unknowns=True,
-   mode="last")``; a fit of 1 epoch (the example's 10 cut to 1, to keep
+   mode="last")``; a fit of 1 epoch over the first half of the train
+   sessions (the example's 10 epochs over all of them cut to that, to keep
    the whole run inside its time limit): ms a step from CUDA events over
    its steady steps, the steady epoch and training sequences per second
    from it, beside the bound of a step, its last 5 steps profiled (device
@@ -395,7 +396,7 @@ Phases, each of which fails the run when it fails:
    19c: the examples' split (RatioSplit(0.15), TriRank's 0.2) and settings
    (``TOYS_MODELS``): EFM and ComparERObj at 40 explicit and 60 latent
    factors for 100 and 5 iterations (the examples' 100), MTER, ComparERSub, LRPPM and Companion
-   at 250 iterations each (the examples' 10,000, 200,000, 20,000 and
+   at 150 iterations each (the examples' 10,000, 200,000, 20,000 and
    500,000), TriRank's 100 power iterations, HypAR at its defaults for 12
    steps (its epoch has some 1,113); every host build timed; ms an iteration (a step) by CUDA
    events, device events a call and the busy share over 3 profiled (HypAR's
@@ -458,11 +459,25 @@ Phases, each of which fails the run when it fails:
    fitted with the mesh and without, the two bit for bit, each pair's
    seconds;
    the fitted models with vectors serving 256 users through fused_topk,
-   held to the plain version.
+   held to the plain version. Then (``phase_mesh_seq_side``) the A8 (c)
+   configurations and the side-information half of A8 (d) at the bench
+   shapes of 12f, 12g, 12h and 12i (``MESH_SEQ_SIDE``: FPMC, GRU4Rec,
+   SASRec, BERT4Rec, a gpt2/clm TransformerRec, TIGER-rkmeans, Beacon,
+   DNNTSP, SoRec, MCF, VBPR, AMR, CausalRec, VMF, DMRL and PCRL), one epoch
+   or iteration each with the mesh and without, bit for bit, each pair's
+   seconds; SASRec and DNNTSP fitted and scored by
+   ``NextItemEvaluation(mesh=)`` and ``NextBasketEvaluation(mesh=)``, the
+   plain protocols' metrics; 64 histories' scores of each next-item and
+   basket model on the mesh equal to the plain model's; the side models
+   with vectors serving 256 users through fused_topk. Phases 16, 16b,
+   16c, 17, 18, 18b and 18c each end with one mesh/plain pair of each of
+   their A8 (c) or side-information models at their full widths on the
+   main process's mesh, a few minibatches of the phase's rows over its
+   whole catalog, bit for bit (``full_width_pair``).
 
 Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i, 12j, 12k and 12l run in
 thirteen spawned processes, eight at a time (the factor family, three groups of the neural
-family, the factor family's rest with the protocols, the A8 (b) mesh fits,
+family, the factor family's rest with the protocols, the mesh fits,
 the modality layer's
 models with the checkpointed Experiment, the next-item models with CVAECF
 and GCMC, the next-basket models, the generative next-item models, the
@@ -2749,6 +2764,9 @@ def phase_trainer_full(seed, mesh):
 # ---------------------------------------------------------------------- #
 MESH_VIEWS = 50_000  # VEBPR's seeded views at the bench shape (the data has none)
 MESH_SERVED = 256  # users each mesh-fitted model with vectors serves through fused_topk
+# the pairs fitted on the first half of the train ratings (the whole user
+# and item tables), cut in PR 18 for the run's time: the longest of 12l's
+MESH_HALVED = ("IBPR", "OnlineIBPR", "GMF", "MLP", "NeuMF")
 
 
 def mesh_family_configs():
@@ -2806,7 +2824,8 @@ def mesh_family_data(data):
 
 def phase_mesh_families(bench_data, mesh):
     """Every A8 (b) configuration at the bench shape and its full width, one
-    epoch or sweep, fitted with ``mesh=`` (the world-size-1 NCCL mesh) and
+    epoch or sweep (``MESH_HALVED``'s over the first half of the train
+    ratings), fitted with ``mesh=`` (the world-size-1 NCCL mesh) and
     without, counted; the two fits' arrays held bit for bit, each pair's
     seconds printed; every mesh-fitted model with vectors serving
     ``MESH_SERVED`` users through fused_topk, held to the plain version.
@@ -2822,6 +2841,8 @@ def phase_mesh_families(bench_data, mesh):
     data = clock("make_ml100k_like(seed=7) (set-up)", bench_data)
     train, views = clock("the split with the side modalities, and the views (set-up)",
                          lambda: mesh_family_data(data))
+    half = clock("the first half of the train ratings (set-up)",
+                 lambda: rating_prefix(train, train.num_ratings // 2))
     configs = mesh_family_configs()
     fits = {}
 
@@ -2837,7 +2858,7 @@ def phase_mesh_families(bench_data, mesh):
     def fit(name, maker, depth, mesh_):
         model = maker(mesh=mesh_)
         setattr(model, depth, 1)
-        return model.fit(views if name == "VEBPR" else train)
+        return model.fit(views if name == "VEBPR" else half if name in MESH_HALVED else train)
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
@@ -2891,15 +2912,258 @@ def phase_mesh_families(bench_data, mesh):
     return launches, fused, seconds
 
 
+# the A8 (c) configurations and the side-information half of A8 (d) at
+# their bench shapes (phases 12f, 12g, 12h and 12i): name -> (cell, the
+# depth's attribute); each fitted one epoch or iteration, with mesh= and
+# without. FPMC's plain fit takes the general path (fused_path False), as
+# its mesh fit does; SASRec and DNNTSP are fitted by their protocols'
+# evaluate, with mesh= and without
+MESH_SEQ_SIDE = {
+    "FPMC": ("sessions", "n_epochs"), "GRU4Rec": ("sessions", "n_epochs"),
+    "SASRec": ("sessions", "n_epochs"), "BERT4Rec": ("sessions", "n_epochs"),
+    "TransformerRec-clm": ("sessions", "n_epochs"), "TIGER-rkmeans": ("sessions", "n_epochs"),
+    "Beacon": ("baskets", "n_epochs"), "DNNTSP": ("baskets", "n_epochs"),
+    "SoRec": ("side", "max_iter"), "MCF": ("side", "max_iter"), "VBPR": ("side", "n_epochs"),
+    "AMR": ("side", "n_epochs"), "CausalRec": ("side", "n_epochs"), "VMF": ("side", "n_epochs"),
+    "DMRL": ("side", "epochs"), "PCRL": ("side", "max_iter"),
+}
+MESH_EVALUATED = ("SASRec", "DNNTSP")
+MESH_PAIR_STEPS = 4  # minibatches of a mesh/plain pair at a phase's full widths
+MESH_HISTORIES = 64  # histories each next-item and basket model scores on the mesh and off it
+# the fitted tables a model keeps outside a module's parameters
+MESH_TABLES = ("U", "V", "Z", "P", "E", "Q", "beta_item", "gamma_user", "gamma_item",
+               "theta_user", "theta_item", "ind_theta_item", "visual_bias", "emb_matrix",
+               "beta_prime", "Gs", "Gr", "Ls", "Lr", "Theta", "Beta")
+
+
+def model_arrays(model):
+    """A fitted model's state as {name: numpy array}: ``fitted_arrays``,
+    the tensors of a dict of parameters, and the tables of
+    ``MESH_TABLES`` it keeps."""
+    out = fitted_arrays(model)
+    if isinstance(getattr(model, "params", None), dict):
+        out.update({f"params.{n}": t.detach().cpu().numpy() for n, t in model.params.items()})
+    for attr in MESH_TABLES:
+        if isinstance(getattr(model, attr, None), np.ndarray):
+            out[attr] = getattr(model, attr)
+    return out
+
+
+def held_bits(what, got, want):
+    """Raise unless the fitted states ``got`` and ``want`` (``model_arrays``)
+    hold the same arrays bit for bit, each finite."""
+    if set(got) != set(want) or not got:
+        raise AssertionError(f"{what}: the mesh fit holds {sorted(got)}, the plain "
+                             f"{sorted(want)}")
+    for a in want:
+        if not np.isfinite(want[a]).all():
+            raise AssertionError(f"{what}: the plain fit's {a} is not finite")
+        if not np.array_equal(got[a], want[a]):
+            err = np.abs(np.asarray(got[a], np.float64) - want[a]).max()
+            raise AssertionError(f"{what}: the mesh fit differs from the plain fit in {a} (max "
+                                 f"|diff| {err:.3e})")
+
+
+def rating_prefix(train, n):
+    """The first ``n`` ratings of ``train`` as a Dataset over its whole user
+    and item maps (the full catalog: the tables keep their widths), its
+    modalities attached."""
+    from cornac_tpu_torch.data import Dataset
+
+    u, i, r = (np.asarray(a)[:n] for a in train.uir_tuple)
+    rows = [(train.user_ids[a], train.item_ids[b], float(c)) for a, b, c in zip(u, i, r)]
+    sub = Dataset.build(rows, global_uid_map=copy.copy(train.uid_map),
+                        global_iid_map=copy.copy(train.iid_map), seed=123)
+    sub.add_modalities(**{attr: getattr(train, attr) for attr in train._MODALITY_ATTRS})
+    return sub
+
+
+def full_width_pair(what, make, data, mesh):
+    """One mesh/plain pair at a phase's full widths: ``make(mesh=...)``
+    fitted on ``data`` (a prefix of the phase's rows, a few minibatches, over
+    its whole catalog) with the main process's world-size-1 mesh and
+    without, counted, the two fitted states held bit for bit
+    (``model_arrays``). Returns (accumulate_rows launches, mesh s, plain
+    s)."""
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+
+    clock = Clock()
+    ACCUMULATE_ROWS.launches = 0
+    sharded = clock("mesh", lambda: make(mesh=mesh).fit(data))
+    plain = clock("plain", lambda: make().fit(data))
+    launches = ACCUMULATE_ROWS.launches
+    held_bits(f"{what}(mesh=...) at the full widths", model_arrays(sharded), model_arrays(plain))
+    m, p = clock.seconds["mesh"], clock.seconds["plain"]
+    log(f"  {what}(mesh=...) at the full widths on a prefix of the rows, world size 1 (NCCL): "
+        f"the plain fit's state bit for bit; seconds (host clock, set-up included) mesh {m:.3f}, "
+        f"plain {p:.3f}; accumulate_rows launches {launches}")
+    return launches, m, p
+
+
+def mesh_seq_side_model(name, mesh=None, **extra):
+    """The bench configuration ``name`` (``bpr_quality_band``'s tables) at
+    seed 123, with ``mesh``."""
+    from bpr_quality_band import BASKET_CONFIGS, GENERATIVE_CONFIGS, SEQ_CONFIGS, SIDE_CONFIGS
+
+    from cornac_tpu_torch import models as M
+
+    table = next(t for t in (SEQ_CONFIGS, GENERATIVE_CONFIGS, BASKET_CONFIGS, SIDE_CONFIGS)
+                 if name in t)
+    cls, kw = table[name][:2]
+    model = getattr(M, cls)(**kw, seed=123, mesh=mesh, **extra)
+    if name == "FPMC":
+        model.fused_path = False  # the plain fit on the general path, as a mesh fit takes
+    return model
+
+
+def seq_side_cells(bench_data, mesh):
+    """The three cells of ``MESH_SEQ_SIDE``: ({cell: (protocol or split
+    with ``mesh``, the same without)}, {cell: metrics}). ``seq_eval``'s
+    sessions (with ``session_features``) under ``NextItemEvaluation``,
+    ``basket_eval``'s baskets under ``NextBasketEvaluation``, each built
+    twice from one draw of the data, and ``side_split``'s ratings with the
+    side modalities (no protocol runs there)."""
+    from bpr_quality_band import side_split
+    from seq_bench_data import gen_baskets, gen_sessions, session_features, session_split
+
+    from cornac_tpu_torch import data as pdata, eval_methods as pe, metrics as pm
+
+    train, test = session_split(gen_sessions())
+    feats, ids = session_features()
+    baskets = gen_baskets()
+
+    def protocols(mesh_):
+        return (pe.NextItemEvaluation.from_splits(
+            train_data=train, test_data=test, fmt="USIT", exclude_unknowns=True, seed=123,
+            mode="next", item_feature=pdata.FeatureModality(features=feats, ids=ids),
+            mesh=mesh_),
+            pe.NextBasketEvaluation(data=baskets, test_size=0.2, fmt="UBI", seed=123,
+                                    mesh=mesh_))
+
+    (sessions, basket_ev), (plain_sessions, plain_baskets) = protocols(mesh), protocols(None)
+    side = side_split(pdata, pe, bench_data())
+    metrics = {"sessions": [pm.MRR(), pm.HitRatio(k=20), pm.NDCG(k=20)],
+               "baskets": [pm.Recall(k=10), pm.Recall(k=50), pm.HitRatio(k=10)]}
+    return {"sessions": (sessions, plain_sessions), "baskets": (basket_ev, plain_baskets),
+            "side": (side, side)}, metrics
+
+
+def phase_mesh_seq_side(bench_data, mesh):
+    """The A8 (c) configurations and the side-information half of A8 (d)
+    at their bench shapes, one epoch or iteration each, fitted with
+    ``mesh=`` (the world-size-1 NCCL mesh) and without, counted: every
+    pair's fitted state held bit for bit and its seconds printed; SASRec and
+    DNNTSP fitted and scored by ``NextItemEvaluation(mesh=)`` and
+    ``NextBasketEvaluation(mesh=)`` against the plain protocols, the metrics
+    equal; the next-item and basket models' ``score_history_batch`` /
+    ``score_baskets_batch`` on the mesh (the histories split over its
+    ranks) equal to the plain models'; the mesh-fitted models with vectors
+    serving ``MESH_SERVED`` users through fused_topk, held to the plain
+    version. Returns (accumulate_rows launches, fused_topk launches, {name:
+    (mesh s, plain s)})."""
+    import torch
+
+    from cornac_tpu_torch.models.recommender import ANNMixin
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    cells, metrics = clock("the three cells, each protocol with mesh= and without (set-up)",
+                           lambda: seq_side_cells(bench_data, mesh))
+    rng = np.random.RandomState(12)
+    n_items = {kind: cells[kind][0].train_set.num_items for kind in ("sessions", "baskets")}
+    histories = {"sessions": [list(rng.randint(0, n_items["sessions"], size=rng.randint(1, 8)))
+                              for _ in range(MESH_HISTORIES)],
+                 "baskets": [[list(rng.choice(n_items["baskets"], size=rng.randint(1, 4),
+                                              replace=False)) for _ in range(rng.randint(1, 5))]
+                             for _ in range(MESH_HISTORIES)]}
+
+    def fit(name, mesh_):
+        kind, depth = MESH_SEQ_SIDE[name]
+        model = mesh_seq_side_model(name, mesh_)
+        setattr(model, depth, 1)
+        cell = cells[kind][0 if mesh_ is not None else 1]
+        if name in MESH_EVALUATED:  # the protocol fits it, then scores the test split
+            return model, cell.evaluate(model, metrics[kind], user_based=False)[0]
+        return model.fit(cell.train_set), None
+
+    def scores(model, kind):
+        hs = histories[kind]
+        if kind == "sessions":
+            return model.score_history_batch(np.zeros(len(hs), int), hs)
+        return model.score_baskets_batch(np.zeros(len(hs), int), hs)
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    fits, served, relaxed = {}, [], 0
+    for name, (kind, _) in MESH_SEQ_SIDE.items():
+        sharded, result = clock(f"{name} mesh", lambda: fit(name, mesh))
+        plain, plain_result = clock(f"{name} plain", lambda: fit(name, None))
+        got = want = None
+        if kind != "side":
+            got = clock(f"{name} scoring, mesh", lambda: scores(sharded, kind))
+            want = scores(plain, kind)
+        fits[name] = (sharded, plain, result, plain_result, got, want)
+    for name, (sharded, *_) in fits.items():
+        if isinstance(sharded, ANNMixin):
+            train = cells["side"][0].train_set
+            relaxed += clock(f"{name} serving", lambda: serve_factor_model(
+                sharded, train, np.arange(MESH_SERVED)))
+            served.append(name)
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the A8 (c) and side-information configurations at the bench shape, mesh and "
+                 "plain")
+    if launches <= 0 or fused < len(served):
+        raise AssertionError(f"the mesh fits launched accumulate_rows {launches} times and "
+                             f"fused_topk {fused} times for {len(served)} served models")
+
+    # ---- check what came out ----
+    seconds = {}
+    for name, (sharded, plain, result, plain_result, got, want) in fits.items():
+        held_bits(f"{name}(mesh=...)", model_arrays(sharded), model_arrays(plain))
+        if got is not None and not (np.isfinite(want).all() and np.array_equal(got, want)):
+            raise AssertionError(f"{name}: the scores on the mesh differ from the plain "
+                                 f"model's")
+        if result is not None:
+            keep = [m.name for m in metrics[MESH_SEQ_SIDE[name][0]]]
+            mesh_vals = {m: result.metric_avg_results[m] for m in keep}
+            plain_vals = {m: plain_result.metric_avg_results[m] for m in keep}
+            if mesh_vals != plain_vals or not all(np.isfinite(v) for v in mesh_vals.values()):
+                raise AssertionError(f"{name}: the protocol with mesh= gave {mesh_vals}, the "
+                                     f"plain one {plain_vals}")
+            log(f"  {name}: the protocol with mesh= (the model fitted and scored on the mesh) "
+                f"gives the plain protocol's metrics, " + ", ".join(
+                    f"{m} {v:.6f}" for m, v in mesh_vals.items()))
+        seconds[name] = (clock.seconds[f"{name} mesh"], clock.seconds[f"{name} plain"])
+    log("  the A8 (c) and side-information configurations, one epoch or iteration each at the "
+        "bench shape, world size 1 (NCCL): every mesh fit equal to the plain fit bit for bit, "
+        f"the next-item and basket models' scores of {MESH_HISTORIES} histories on the mesh equal "
+        "to the plain models'; seconds, mesh / plain (host clock): " + ", ".join(
+            f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in seconds.items()))
+    log(f"  {len(served)} mesh-fitted models ({', '.join(served)}) serving {MESH_SERVED} users "
+        f"at k=10: the plain version's lists (positions relaxed as near-ties: {relaxed}); "
+        f"accumulate_rows launches {launches}, fused_topk launches {fused}")
+    log(f"the A8 (c) and side-information mesh fits at the bench shape: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    del fits
+    torch.cuda.empty_cache()
+    return launches, fused, seconds
+
+
 def phase_mesh_bench(bench_data):
-    """Phase 12l, in a spawned process: ``phase_mesh_families`` on a
-    world-size-1 NCCL mesh of this process's own (``start_mesh``: a group
-    kept in memory, which no other process joins), ended with the phase."""
+    """Phase 12l, in a spawned process: ``phase_mesh_families`` and
+    ``phase_mesh_seq_side`` on a world-size-1 NCCL mesh of this process's
+    own (``start_mesh``: a group kept in memory, which no other process
+    joins), ended with the phase. Returns (accumulate_rows launches,
+    fused_topk launches, {name: (mesh s, plain s)}), the two phases'
+    summed."""
     import torch.distributed as dist
 
     mesh = start_mesh()
     try:
-        return phase_mesh_families(bench_data, mesh)
+        launches, fused, seconds = phase_mesh_families(bench_data, mesh)
+        more, more_fused, more_seconds = phase_mesh_seq_side(bench_data, mesh)
+        return launches + more, fused + more_fused, {**seconds, **more_seconds}
     finally:
         dist.destroy_process_group()
 
@@ -4218,6 +4482,9 @@ SASREC_EPOCHS, SASREC_STOP = 2, 1
 SASREC_TIMED_FROM = 100  # the steps after the first 100 are timed
 SASREC_PROFILED_STEPS = 5
 SASREC_SUBSET_SESSIONS = 3_200  # the subset's train sessions (about 100 steps an epoch)
+# the timed fit's train sessions: the first half of them (some 2,100 steps),
+# cut from all 131,127 in PR 18 to pay for the mesh checks' time
+SASREC_FIT_SESSIONS = 65_600
 SEQ_BLOCK = 100  # items a block of the transitions holds
 
 
@@ -4306,11 +4573,12 @@ def sasrec_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
     return 3.0 * fwd, 7 * 4.0 * n_params + BL * (8 + 8 + 4)
 
 
-def phase_sasrec_diginetica(seed, work):
+def phase_sasrec_diginetica(seed, work, mesh):
     """Phase 16, SASRec at the Diginetica counts (``diginetica_like``): the
     last 60,858 sessions test, through ``NextItemEvaluation.from_splits(
     fmt="USIT", exclude_unknowns=True, mode="last")``. A fit of 1 epoch
-    over every train session: ms a step from CUDA events over the steps
+    over the first ``SASREC_FIT_SESSIONS`` train sessions (half of them,
+    the whole item table): ms a step from CUDA events over the steps
     after the first ``SASREC_TIMED_FROM``, the steady epoch and training
     sequences per second from it, beside the bound of a step, and its last
     ``SASREC_PROFILED_STEPS`` steps profiled (device events a step, busy
@@ -4323,8 +4591,11 @@ def phase_sasrec_diginetica(seed, work):
     widths (the item table of all 43,097 items, about 100 steps an epoch):
     a 2-epoch fit's epoch-1 checkpoint must equal a second seeded fit of 1
     epoch bit for bit, and that fit, resumed to 2 from its checkpoint, the
-    uninterrupted one. Returns (accumulate_rows launches, the stats, the
-    NextItemEvaluation, which phase 16b reuses)."""
+    uninterrupted one. One ``SASRec(mesh=...)`` fit on the main process's
+    mesh beside a plain one, on the first ``MESH_PAIR_STEPS`` steps'
+    sessions, held bit for bit (``full_width_pair``). Returns
+    (accumulate_rows launches, the stats, the NextItemEvaluation, which
+    phase 16b reuses)."""
     import shutil
 
     import torch
@@ -4347,15 +4618,17 @@ def phase_sasrec_diginetica(seed, work):
         exclude_unknowns=True, seed=123, mode="last"))
     del rows
     train, test = ev.train_set, ev.test_set
-    _, _, _, mask = build_session_examples(train, SASREC_DIGINETICA["max_len"])
+    fit_set = clock(f"the first {SASREC_FIT_SESSIONS:,} train sessions (set-up)",
+                    lambda: session_subset(train, SASREC_FIT_SESSIONS, train.iid_map))
+    _, _, _, mask = build_session_examples(fit_set, SASREC_DIGINETICA["max_len"])
     n_train = mask.shape[0]
     bsz = sessions_per_batch(SASREC_DIGINETICA["batch_size"], mask, n_train)
     steps = -(-n_train // bsz)
     log(f"  {n_sessions:,} sessions ({DIGI_CLICKS:,} clicks, lengths {int(lengths.min())}-"
         f"{int(lengths.max())}, mean {lengths.mean():.3f}); train {train.num_sessions:,} "
-        f"sessions over {train.num_items:,} items; test {test.num_sessions:,} sessions; "
-        f"{bsz} sessions a step ({SASREC_DIGINETICA['batch_size']} events), {steps:,} steps an "
-        f"epoch")
+        f"sessions over {train.num_items:,} items, the fit on the first {n_train:,}; test "
+        f"{test.num_sessions:,} sessions; {bsz} sessions a step "
+        f"({SASREC_DIGINETICA['batch_size']} events), {steps:,} steps an epoch")
     ck_dir = work / "sasrec_checkpoints"
     shutil.rmtree(ck_dir, ignore_errors=True)
 
@@ -4374,7 +4647,7 @@ def phase_sasrec_diginetica(seed, work):
     with recording_first_calls([], 3) as first, timed_calls(
             SASRec, "loss_fn", SASREC_TIMED_FROM, last, {}, profiled=SASREC_PROFILED_STEPS,
             at_start=True) as timed:
-        model = clock(f"SASRec.fit, {SASREC_STOP} epoch", lambda: fit(SASREC_STOP, train))
+        model = clock(f"SASRec.fit, {SASREC_STOP} epoch", lambda: fit(SASREC_STOP, fit_set))
     peak = torch.cuda.max_memory_allocated() - held
     metrics = [MRR(), HitRatio(k=20), NDCG(k=20)]
     result = clock("NextItemEvaluation over the test sessions", lambda: ev.eval(
@@ -4470,12 +4743,16 @@ def phase_sasrec_diginetica(seed, work):
     log(f"  NextItemEvaluation (mode last, {test.num_sessions:,} test sessions): MRR "
         f"{vals['MRR']:.6f}, HitRatio@20 {vals['HitRatio@20']:.6f}, NDCG@20 {vals['NDCG@20']:.6f} "
         f"in {eval_s:.3f} s; accumulate_rows launches {launches}")
+    del straight, stopped, resumed
+    pair = full_width_pair("SASRec", lambda **kw: SASRec(n_epochs=1, **SASREC_DIGINETICA, **kw),
+                           session_subset(train, MESH_PAIR_STEPS * bsz, train.iid_map), mesh)
     log(f"SASRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
     shutil.rmtree(ck_dir, ignore_errors=True)
-    del model, straight, stopped, resumed
+    del model
     torch.cuda.empty_cache()
-    return launches, dict(epoch_s=epoch_s, seq_per_s=n_train / epoch_s,
-                          step_ms=step_ms, step_bound_ms=1e3 * step_bound_s,
+    return launches + pair[0], dict(mesh_pairs={"SASRec": pair[1:]}, epoch_s=epoch_s,
+                          seq_per_s=n_train / epoch_s, step_ms=step_ms,
+                          step_bound_ms=1e3 * step_bound_s,
                           bound_by=bound_by, steps=steps, peak=peak,
                           metrics={m.name: vals[m.name] for m in metrics}, eval_s=eval_s,
                           acc=acc_rows, max_abs_err=acc_err, **prof), ev
@@ -4524,7 +4801,7 @@ def transformer_step_bound(bsz, L, d, n_blocks, n_neg, vocab):
     return 3.0 * fwd, 7 * 4.0 * n_params + BL * (8 + 8 + 4)
 
 
-def phase_transformer_diginetica(ev):
+def phase_transformer_diginetica(ev, mesh):
     """Phase 16b, TransformerRec at the Diginetica widths on phase 16's
     NextItemEvaluation ``ev``: BERT4Rec and a gpt2/clm TransformerRec at
     ``examples/transformer_rec_diginetica.py``'s settings, trained on the
@@ -4538,8 +4815,10 @@ def phase_transformer_diginetica(ev):
     step's five accumulate_rows inputs held bit for bit to the plain
     version on the CPU and timed beside ``index_add_``, and one epoch over
     the first 640 sessions profiled (a fit of 1 epoch minus a fit of
-    none: device events a step, busy share). Returns (accumulate_rows
-    launches, {model: stats})."""
+    none: device events a step, busy share). Each model fitted with the
+    main process's mesh beside a plain fit on the first 256 sessions (two
+    steps), held bit for bit (``full_width_pair``). Returns
+    (accumulate_rows launches, {model: stats})."""
     import shutil
 
     import torch
@@ -4561,9 +4840,9 @@ def phase_transformer_diginetica(ev):
     few = session_subset(train_full, 256, train_full.iid_map)
     profiled = session_subset(train_full, TRANSFORMER_PROFILED_SESSIONS, train_full.iid_map)
 
-    def make(name, epochs):
+    def make(name, epochs, **extra):
         cls, kw = TRANSFORMER_MODELS[name]
-        return getattr(models, cls)(n_epochs=epochs, **TRANSFORMER_DIGINETICA, **kw)
+        return getattr(models, cls)(n_epochs=epochs, **TRANSFORMER_DIGINETICA, **kw, **extra)
 
     ck_dir = ROOT / "build" / "chip_smoke" / "transformer_checkpoints"
 
@@ -4665,6 +4944,10 @@ def phase_transformer_diginetica(ev):
             f"{acc_err:.3e}); 64 histories' scores within {score_err:.3e} of float64 on the CPU")
     clock.report("TransformerRec at Diginetica")
     log(f"  accumulate_rows launches {launches}")
+    for name in TRANSFORMER_MODELS:
+        pair = full_width_pair(name, functools.partial(make, name, 1), few, mesh)
+        launches += pair[0]
+        stats[name]["mesh_pair"] = pair[1:]
     log(f"TransformerRec at Diginetica: ok in {sum(clock.seconds.values()):.1f} s")
     shutil.rmtree(ck_dir, ignore_errors=True)
     del fits, firsts
@@ -4681,6 +4964,9 @@ def phase_transformer_diginetica(ev):
 TIGER_EXAMPLE = dict(tokenizer="rqvae", rqvae_num_levels=3, rqvae_codebook_size=256,
                      d_model=128, d_ff=1024, seed=123)
 TIGER_EPOCHS = 1  # the example's 20, cut for the run's time
+# the mesh/plain pair's cut: some 1,000 examples (four steps of 256), the
+# RQ-VAE's 200 epochs cut to 2 (it is single-program on a mesh too)
+TIGER_MESH_USERS, TIGER_MESH_RQVAE_EPOCHS = 10, 2
 TIGER_TIMED_FROM = 40  # seq2seq steps of warm-up before the steps timed
 TIGER_FEATURES = 512  # TfidfVectorizer(max_features=512) over the plots
 TIGER_PROFILE_STEPS = 4  # seq2seq steps profiled (some 6,600 device events)
@@ -4727,7 +5013,7 @@ def timed_epochs(seconds):
         yield seconds
 
 
-def phase_tiger_ml100k(bench_data):
+def phase_tiger_ml100k(bench_data, mesh):
     """Phase 16c, TIGER at ``examples/tiger_example.py``'s settings:
     ``NextItemEvaluation.leave_last_out(seed=123)`` of ``make_ml100k_like(7)``
     with the generation order as timestamps and seeded TF-IDF-like item
@@ -4747,8 +5033,11 @@ def phase_tiger_ml100k(bench_data):
     first RQ-VAE step's three and the first seq2seq step's two
     accumulate_rows inputs held bit for bit to the plain version on the CPU
     and timed beside ``index_add_``; 4 seq2seq steps profiled (device
-    events a step, busy share). Returns (accumulate_rows launches,
-    stats)."""
+    events a step, busy share). One ``TIGER(mesh=...)`` fit on the main
+    process's mesh beside a plain one, at the example's widths on the first
+    ``TIGER_MESH_USERS`` users' sessions (a few seq2seq steps) with the
+    RQ-VAE's epochs cut to ``TIGER_MESH_RQVAE_EPOCHS``, held bit for bit
+    (``full_width_pair``). Returns (accumulate_rows launches, stats)."""
     import torch
 
     from cornac_tpu_torch.data import FeatureModality
@@ -4905,11 +5194,17 @@ def phase_tiger_ml100k(bench_data):
         f"scores over 256 items within {exact_err:.3e}; the first steps' accumulate_rows "
         f"inputs equal to the plain version on the CPU, bit for bit (max |err| {acc_err:.3e}); "
         f"accumulate_rows launches {launches}")
-    log(f"TIGER at ML-100K: ok in {sum(clock.seconds.values()):.1f} s")
     restarts, collisions = model.rqvae_restarts, model.level_sizes[-1]
     del model, cpu, params, state
+    few = session_subset(ev.train_set, TIGER_MESH_USERS, ev.train_set.iid_map)
+    few.add_modalities(item_feature=ev.train_set.item_feature)
+    pair = full_width_pair("TIGER", lambda **kw: TIGER(
+        n_epochs=1, **{**TIGER_EXAMPLE, "rqvae_n_epochs": TIGER_MESH_RQVAE_EPOCHS}, **kw), few,
+        mesh)
+    log(f"TIGER at ML-100K: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, dict(rq_s=rq_s, restarts=restarts, collisions=collisions, epoch_s=epoch_s,
+    return launches + pair[0], dict(mesh_pair=pair[1:], rq_s=rq_s, restarts=restarts,
+                          collisions=collisions, epoch_s=epoch_s,
                           step_ms=step_ms, step_bound_ms=1e3 * bound_s,
                           bound_by=bound_by, share=share,
                           launches_per_minibatch=n_events / TIGER_PROFILE_STEPS, peak=peak,
@@ -5380,6 +5675,7 @@ TAFENG_MODELS = {
     "DNNTSP": ("DNNTSP", dict(emb_dim=32, loss_type="bpr", lr=0.001, batch_size=64, seed=123)),
 }
 BASKET_EPOCHS = 1  # the examples' 15 (Beacon) and 30 (DNNTSP) cut to 1
+TAFENG_MESH_USERS = 256  # the mesh pairs' users: some 8 Beacon and 4 DNNTSP steps
 BASKET_TIMED_FROM = 100  # the steps after the first 100 are timed
 BASKET_PROFILED_STEPS = 5  # the fit's last steps, profiled
 # the host loops of the family, timed on their own during the fits
@@ -5437,7 +5733,7 @@ def dnntsp_step_bound(B, T, N, E, n):
     return 3.0 * fwd, 7 * 4.0 * n_params + 4.0 * B * T * N * N + 12.0 * B * n
 
 
-def phase_basket_tafeng(seed):
+def phase_basket_tafeng(seed, mesh):
     """Phase 17, the next-basket family at the Ta Feng counts
     (``tools/seq_bench_data.py::tafeng_like``: 32,266 customers, 23,812
     products, about 817,741 purchase lines): ``NextBasketEvaluation(
@@ -5453,12 +5749,16 @@ def phase_basket_tafeng(seed):
     busy share); the first step's three accumulate_rows inputs of DNNTSP's
     fit held bit for bit to the plain version on the CPU; 8 histories'
     scores of each held to a float64 scoring of the same parameters. The
-    family's host loops are timed on their own. Returns (accumulate_rows
-    launches, the stats)."""
+    family's host loops are timed on their own. Beacon and DNNTSP each
+    fitted with the main process's mesh beside a plain fit, on the first
+    ``TAFENG_MESH_USERS`` users' baskets over the whole catalog, held bit
+    for bit (``full_width_pair``). Returns (accumulate_rows launches, the
+    stats)."""
     import torch
 
     import cornac_tpu_torch.metrics as pmetrics
     from cornac_tpu_torch import models
+    from cornac_tpu_torch.data import BasketDataset
     from cornac_tpu_torch.eval_methods import NextBasketEvaluation
     from cornac_tpu_torch.models import beacon as beacon_mod, dnntsp as dnntsp_mod
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
@@ -5469,6 +5769,8 @@ def phase_basket_tafeng(seed):
     ev = clock("NextBasketEvaluation (the user split, UBIT)", lambda: NextBasketEvaluation(
         data=rows, fmt="UBIT", test_size=0.2, seed=123))
     n_lines = len(rows)
+    # the rows are in user order: the first users' baskets, for the mesh pairs
+    prefix = rows[:next(k for k, r in enumerate(rows) if int(r[0][1:]) >= TAFENG_MESH_USERS)]
     del rows
     train, test = ev.train_set, ev.test_set
     metrics = [pmetrics.Recall(k=10), pmetrics.Recall(k=50), pmetrics.HitRatio(k=10)]
@@ -5606,10 +5908,19 @@ def phase_basket_tafeng(seed):
         f"CPU, bit for bit (max |err| {acc_err:.3e}); 8 histories' scores within "
         + ", ".join(f"{k} {v:.3e}" for k, v in score_err.items())
         + f" of float64; accumulate_rows launches {launches}")
+    del results, beacon, dnntsp
+    few = BasketDataset.build(prefix, fmt="UBIT", global_iid_map=copy.copy(train.iid_map),
+                              seed=123)
+    pairs = {}
+    for name in ("Beacon", "DNNTSP"):
+        pair = full_width_pair(name, functools.partial(make, name, n_epochs=1), few, mesh)
+        launches += pair[0]
+        pairs[name] = pair[1:]
     log(f"the next-basket family at Ta Feng: ok in {sum(clock.seconds.values()):.1f} s")
-    del results, ev, beacon, dnntsp
+    del ev
     torch.cuda.empty_cache()
-    return launches, dict(stats=stats, metrics=vals, peaks=peaks, T=T, acc=acc_rows,
+    return launches, dict(mesh_pairs=pairs, stats=stats, metrics=vals, peaks=peaks, T=T,
+                          acc=acc_rows,
                           max_abs_err=acc_err, loops=loops,
                           seconds=sum(clock.seconds.values()))
 
@@ -5992,7 +6303,7 @@ def vbpr_step_bound(n_params, bsz, f_dim, k2):
     return flops, 28.0 * n_params + 4.0 * 2 * bsz * f_dim + 8.0 * 3 * bsz
 
 
-def phase_vbpr_tradesy(seed):
+def phase_vbpr_tradesy(seed, mesh):
     """Phase 18, VBPR at the Tradesy counts (``examples/vbpr_tradesy.py``'s
     split and settings; seeded feedback, seeded 4,096-wide features):
     RatioSplit(0.1, 0.5) with ``ImageModality(normalized=True)``, the split
@@ -6003,9 +6314,12 @@ def phase_vbpr_tradesy(seed):
     first 4,096 test users, and over the others too unless all of them
     would take more than 30 s;
     recommend_batch of 8,192 users at k = 100 through fused_topk (d = 31),
-    every list held to the plain version. Returns (accumulate_rows
-    launches, fused_topk launches, the model, the users served, the
-    stats)."""
+    every list held to the plain version; one ``VBPR(mesh=...)`` fit on the
+    main process's mesh beside a plain one, on the first
+    ``MESH_PAIR_STEPS`` minibatches' ratings over the whole catalog and its
+    features, held bit for bit (``full_width_pair``). Returns
+    (accumulate_rows launches, fused_topk launches, the model, the users
+    served, the stats)."""
     import torch
 
     from cornac_tpu_torch.data import ImageModality
@@ -6116,10 +6430,14 @@ def phase_vbpr_tradesy(seed):
         f"band at this size); recommend_batch ({SERVE_BATCH} users, k={TOPK}, d="
         f"{model.k + model.k2 + 1}) equal to the plain version (positions relaxed as near-ties: "
         f"{relaxed}); fused_topk launches {fused}, accumulate_rows launches {launches}")
+    pair = full_width_pair("VBPR", lambda **kw: VBPR(n_epochs=1, verbose=False, **VBPR_TRADESY,
+                                                     **kw),
+                           rating_prefix(train, MESH_PAIR_STEPS * bsz), mesh)
     log(f"VBPR at Tradesy: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, fused, model, users, dict(
-        epoch_s=epoch_s, step_ms=step_ms, bound_ms=bound_ms, bound_by=bound_by, share=share,
+    return launches + pair[0], fused, model, users, dict(
+        mesh_pair=pair[1:], epoch_s=epoch_s, step_ms=step_ms, bound_ms=bound_ms,
+        bound_by=bound_by, share=share,
         launches_per_step=events_n / VBPR_PROFILED_STEPS, peak=peak, quality=quality,
         evaluated=evaluated, n_test_users=len(test_users),
         split_s=clock.seconds["RatioSplit(0.1) with ImageModality(normalized=True)"])
@@ -6152,7 +6470,7 @@ def timed_stream_epochs(module, stamps):
         yield stamps
 
 
-def phase_side_published(epinions, office):
+def phase_side_published(epinions, office, mesh):
     """Phase 18b, on data already built: SoRec (``examples/sorec_filmtrust.py``'s
     settings, 2 epochs) on phase 15's Epinions split with its trust graph,
     each epoch timed, MAE and RMSE, a second seeded fit bit for bit; MCF
@@ -6160,8 +6478,11 @@ def phase_side_published(epinions, office):
     (``examples/pcrl_example.py``: 60) on phase 15b's Amazon Office split
     with its item graph, fits timed, Precision, Recall and NDCG@10; each of
     the three serving 1,024 users at k = 100 through fused_topk, every list
-    held to the plain version. Returns (accumulate_rows launches, fused_topk
-    launches, the stats)."""
+    held to the plain version. Each of the three fitted with the main
+    process's mesh beside a plain fit, one epoch or iteration on the first
+    ``MESH_PAIR_STEPS`` minibatches' ratings over the whole catalog (PCRL's
+    item batches over every item), held bit for bit (``full_width_pair``).
+    Returns (accumulate_rows launches, fused_topk launches, the stats)."""
     import io
 
     import torch
@@ -6258,24 +6579,37 @@ def phase_side_published(epinions, office):
     log(f"  recommend_batch ({SERVED_USERS} users each, k={TOPK}) equal to the plain version "
         f"(positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}, "
         f"accumulate_rows launches {launches}")
+    pairs = {}
+    for name, make, train, bsz in (
+            ("SoRec", lambda **kw: SoRec(max_iter=1, **SOREC_EPINIONS, **kw), ep_train,
+             SOREC_EPINIONS["batch_size"]),
+            ("MCF", lambda **kw: MCF(**{**MCF_OFFICE, "max_iter": 1}, **kw), of_train, 1024),
+            ("PCRL", lambda **kw: PCRL(**{**PCRL_OFFICE, "max_iter": 1}, **kw), of_train, 1024)):
+        pair = full_width_pair(name, make, rating_prefix(train, MESH_PAIR_STEPS * bsz), mesh)
+        launches += pair[0]
+        pairs[name] = pair[1:]
     log(f"SoRec, MCF and PCRL on the published splits: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
     return launches, fused, dict(
-        sorec_epoch_s=epoch_s, sorec_errors=errors, quality=quality, sorec_share=share,
+        mesh_pairs=pairs, sorec_epoch_s=epoch_s, sorec_errors=errors, quality=quality,
+        sorec_share=share,
         sorec_events=per_step, sorec_step_ms=wall_ms / SOREC_PROFILED_STEPS,
         mcf_s=clock.seconds[f"MCF.fit, {MCF_OFFICE['max_iter']} iterations"],
         pcrl_s=clock.seconds[f"PCRL.fit, {PCRL_OFFICE['max_iter']} iterations"])
 
 
-def phase_clothing(seed):
+def phase_clothing(seed, mesh):
     """Phase 18c, at the Amazon Clothing counts (seeded ratings, seeded
     4,096-wide features, a seeded corpus): AMR, CausalRec and VMF on
     RatioSplit(0.1, 0.5) with the image modality, DMRL on RatioSplit(0.2,
     0.5) with the text (TF-IDF over the corpus' count matrix) and image
     modalities, each at its example's settings with its epochs cut
     (``CLOTHING_MODELS``), through ``evaluate`` (fit and metric seconds);
-    AMR serving 1,024 users through fused_topk, held to the plain version.
-    Returns (accumulate_rows launches, fused_topk launches, the stats)."""
+    AMR serving 1,024 users through fused_topk, held to the plain version;
+    each model fitted with the main process's mesh beside a plain fit, one
+    epoch on the first ``MESH_PAIR_STEPS`` minibatches' ratings over the
+    whole catalog, held bit for bit (``full_width_pair``). Returns
+    (accumulate_rows launches, fused_topk launches, the stats)."""
     import torch
 
     import cornac_tpu_torch.metrics as pmetrics
@@ -6333,9 +6667,17 @@ def phase_clothing(seed):
         f"terms (TF-IDF over the count matrix); AMR's recommend_batch ({SERVED_USERS} users, "
         f"k={TOPK}) equal to the plain version (positions relaxed as near-ties: {relaxed}); "
         f"fused_topk launches {fused}, accumulate_rows launches {launches}")
+    pairs = {}
+    for name, (cls, kw, (arg, _, _), _) in CLOTHING_MODELS.items():
+        train = (textual if name == "DMRL" else visual).train_set
+        pair = full_width_pair(name, functools.partial(getattr(models, cls), seed=123,
+                                                       **{arg: 1}, **kw),
+                               rating_prefix(train, MESH_PAIR_STEPS * kw["batch_size"]), mesh)
+        launches += pair[0]
+        pairs[name] = pair[1:]
     log(f"the Clothing models: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, fused, dict(results=results, seconds=dict(clock.seconds))
+    return launches, fused, dict(mesh_pairs=pairs, results=results, seconds=dict(clock.seconds))
 
 
 @contextlib.contextmanager
@@ -7298,16 +7640,16 @@ TOYS_MODELS = {
     "MTER": ("MTER", dict(n_user_factors=15, n_item_factors=15, n_aspect_factors=12,
                           n_opinion_factors=12, n_bpr_samples=1000, n_element_samples=50,
                           lambda_reg=0.1, lambda_bpr=10, lr=0.1, seed=123),
-             ("max_iter", 250, 10_000)),
+             ("max_iter", 150, 10_000)),
     "ComparERSub": ("ComparERSub", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
-                                        lr=0.1, seed=123), ("max_iter", 250, 200_000)),
+                                        lr=0.1, seed=123), ("max_iter", 150, 200_000)),
     "LRPPM": ("LRPPM", dict(n_factors=8, ld=1.0, reg=0.01, alpha=1.0, n_samples=200,
-                            n_ranking_samples=1000, lr=0.1, seed=123), ("max_iter", 250, 20_000)),
+                            n_ranking_samples=1000, lr=0.1, seed=123), ("max_iter", 150, 20_000)),
     "Companion": ("Companion", dict(n_user_factors=8, n_item_factors=8, n_aspect_factors=8,
                                     n_opinion_factors=8, n_element_samples=50, n_bpr_samples=1000,
                                     n_aspect_ranking_samples=1000,
                                     n_opinion_ranking_samples=1000, lr=0.5, seed=123),
-                  ("max_iter", 250, 500_000)),
+                  ("max_iter", 150, 500_000)),
     "TriRank": ("TriRank", dict(max_iter=100, seed=123, verbose=False), None),
     "HypAR": ("HypAR", dict(num_epochs=1, seed=123, verbose=False),
               ("steps", HYPAR_STEPS, "10 epochs")),
@@ -7319,7 +7661,7 @@ TOYS_PROBED = {"MTER": ("mter", "mter_iteration", False),
                "ComparERSub": ("mter", "mter_iteration", False),
                "LRPPM": ("lrppm", "lrppm_iteration", False),
                "Companion": ("companion", "companion_iteration", False)}
-SAMPLED_TIMED = (50, 200)  # CUDA events after iterations 50 and 200
+SAMPLED_TIMED = (50, 130)  # CUDA events after iterations 50 and 130
 HYPAR_TIMED = (3, 9)  # before steps 3 and 9
 TOYS_PROFILED = 3  # iterations profiled after the timed ones
 HYPAR_PROFILED = 2  # HypAR's steps profiled (some 600 device events each)
@@ -7427,7 +7769,7 @@ def phase_sentiment_toys(toys_data):
     its seconds); each model
     of ``TOYS_MODELS`` fitted at its depth, its host builds timed (``TOYS_HOST_BUILDS``); MTER's, ComparERSub's,
     LRPPM's and Companion's ms an iteration by CUDA events over iterations
-    51-200 and HypAR's a step over steps 3-8, each with its device
+    51-130 and HypAR's a step over steps 3-8, each with its device
     events a call and busy share over the ``TOYS_PROFILED`` after;
     NDCG@50 (and RMSE for the rating models) over the first
     ``TOYS_EVAL_USERS`` test users; the accumulate_rows inputs of
@@ -7878,8 +8220,8 @@ def run_captured(phase, triples, *args):
     """In a spawned process: the phase function ``phase`` of this script
     on ``triples`` (``make_ml100k_like(7)``, made once by the parent) and
     ``args``, its log captured, at a lower CPU priority than the parent's
-    phases beside it. Returns (log, result); a failure raises with the log
-    and the traceback."""
+    phases beside it. Returns (log, result, the wall-clock time it ended);
+    a failure raises with the log and the traceback."""
     import io
     import traceback
 
@@ -7892,7 +8234,7 @@ def run_captured(phase, triples, *args):
     except Exception:
         raise RuntimeError(f"{phase}{args} failed:\n{out.getvalue()}{traceback.format_exc()}"
                            ) from None
-    return out.getvalue(), result
+    return out.getvalue(), result, time.time()
 
 
 def build_all():
@@ -7931,7 +8273,7 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
-    t_start = time.perf_counter()
+    t_start, t_wall = time.perf_counter(), time.time()
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -7973,7 +8315,8 @@ def main():
         jobs += [(f"neural family ({', '.join(names)})", "phase_neural_bench", (names,))
                  for names in NEURAL_GROUPS]
         jobs += [("factor family's rest and the protocols", "phase_factor_rest_bench", ()),
-                 ("the A8 (b) configurations' mesh fits", "phase_mesh_bench", ()),
+                 ("the mesh fits (A8 (b), A8 (c), the side-information models)",
+                  "phase_mesh_bench", ()),
                  ("the modality layer's models and checkpointed Experiments",
                   "phase_modality_bench", ()),
                  ("the next-item models, CVAECF and GCMC", "phase_seq_bench", ()),
@@ -7985,19 +8328,20 @@ def main():
                  ("the side-information models", "phase_side_bench", ())]
         families = [(what, pool.apply_async(run_captured, (phase, triples, *extra)))
                     for what, phase, extra in jobs]
-        basket_launches, basket = phase_basket_tafeng(args.seed)
+        basket_launches, basket = phase_basket_tafeng(args.seed, mesh)
         lap("the next-basket family at Ta Feng, beside the thirteen bench-shape processes")
-        tiger_launches, tiger = phase_tiger_ml100k(bench_data.get)
+        tiger_launches, tiger = phase_tiger_ml100k(bench_data.get, mesh)
         lap("TIGER at ML-100K, beside them")
-        sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work)
+        sasrec_launches, sasrec, digi_ev = phase_sasrec_diginetica(args.seed, work, mesh)
         lap("SASRec at Diginetica, beside them")
         done = []
         for what, job in families:
-            text, result = job.get(timeout=FAMILY_TIMEOUT)
+            text, result, ended = job.get(timeout=FAMILY_TIMEOUT)
             log(text.rstrip())
-            lap(f"{what} at the bench shape, in its own process")
+            lap(f"{what} at the bench shape, in its own process (ended at "
+                f"{ended - t_wall:.1f} s)")
             done.append(result)
-        tr_launches, transformer = phase_transformer_diginetica(digi_ev)
+        tr_launches, transformer = phase_transformer_diginetica(digi_ev, mesh)
         del digi_ev
         lap("TransformerRec at Diginetica")
         knn_launches, W_items, W_users = phase_knn_ml1m(args.seed, work)
@@ -8015,11 +8359,12 @@ def main():
         c2pf_launches, c2pf_fused, c2pf_model, c2pf_users, c2pf = phase_c2pf_office(args.seed)
         lap("C2PF at Amazon Office")
         side_launches, side_fused, side = phase_side_published(sbpr.pop("split"),
-                                                               c2pf.pop("split"))
+                                                               c2pf.pop("split"), mesh)
         lap("SoRec at Epinions, MCF and PCRL at Amazon Office")
-        vbpr_launches, vbpr_fused, vbpr_model, vbpr_users, vbpr = phase_vbpr_tradesy(args.seed)
+        vbpr_launches, vbpr_fused, vbpr_model, vbpr_users, vbpr = phase_vbpr_tradesy(args.seed,
+                                                                                     mesh)
         lap("VBPR at Tradesy")
-        cloth_launches, cloth_fused, cloth = phase_clothing(args.seed)
+        cloth_launches, cloth_fused, cloth = phase_clothing(args.seed, mesh)
         lap("the Clothing models")
         cite_launches, cite_fused, cite = phase_citeulike(args.seed)
         lap("the CiteULike models")
@@ -8325,7 +8670,14 @@ def main():
         f"plain one {full['plain_fit_s']:.3f} s (host clock, set-up included); the mesh epoch "
         f"{full['mesh_epoch_s']:.3f} s, the plain one {full['epoch_s']:.3f} s; "
         f"RatioSplit(mesh=...).evaluate {bench['mesh_eval']:.3f} s")
-    log("A8 (b) mesh fits at the bench shape, world size 1, seconds mesh / plain (host clock): "
+    full_pairs = {**sasrec["mesh_pairs"], **basket["mesh_pairs"], "TIGER": tiger["mesh_pair"],
+                  **{n: st["mesh_pair"] for n, st in transformer.items()},
+                  "VBPR": vbpr["mesh_pair"], **side["mesh_pairs"], **cloth["mesh_pairs"]}
+    log("A8 (c) and side-information mesh fits at the full widths on a prefix of the rows, "
+        "world size 1, seconds mesh / plain (host clock, set-up included): " + ", ".join(
+            f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in full_pairs.items()))
+    log("A8 (b), (c) and side-information mesh fits at the bench shape, world size 1, seconds "
+        "mesh / plain (host clock): "
         + ", ".join(f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in a8b.items())
         + f"; WMF(mesh=...) at the Netflix widths {wmf_mesh['mesh_s']:.3f} s against the plain "
         f"sweep's {wmf_mesh['plain_s']:.3f} s, peak {wmf_mesh['peak_mesh'] / 2**30:.3f} GiB against "

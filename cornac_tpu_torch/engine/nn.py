@@ -86,19 +86,24 @@ def layer_norm(x, g, b, eps=1e-8):
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
-def make_drop(dropout, generator):
+def make_drop(dropout, generator, share=None):
     """Inverted-dropout closure ``drop(x, i)``: keeps each entry with
     probability ``1 - dropout`` (draws from ``generator``, in call order)
     and scales by its inverse; the identity when the rate is 0 or no
     generator is given (inference). ``i`` names the call site, as the JAX
     package folds it into its key; here the generator's order of calls,
-    fixed by the model, separates the sites."""
+    fixed by the model, separates the sites. ``share``
+    (``parallel.sharded.Share``): ``x`` holds a rank's rows of a batch, and
+    each mask is drawn for the whole batch and cut to them, as a JAX mask
+    is drawn for the global array."""
 
     def drop(x, i):
         if dropout <= 0.0 or generator is None:
             return x
         keep = 1.0 - dropout
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        u = (torch.rand(x.shape, generator=generator, device=x.device) if share is None
+             else share.draw(x.shape, generator, x.device))
+        mask = u < keep
         return x * mask / keep
 
     return drop
@@ -130,14 +135,15 @@ def block_attention(blk, q_in, kv_in, attn_mask, n_heads, drop, di):
     values from ``kv_in``; ``attn_mask`` (B, Lq, Lk) bool. Masked logits
     are -1e9, so a fully masked query row softmaxes to uniform weights."""
     B, L, d = kv_in.shape
+    Lq = q_in.shape[1]
     head_dim = d // n_heads
-    Q = (q_in @ blk.Wq).reshape(B, -1, n_heads, head_dim)
+    Q = (q_in @ blk.Wq).reshape(B, Lq, n_heads, head_dim)
     K = (kv_in @ blk.Wk).reshape(B, L, n_heads, head_dim)
     V = (kv_in @ blk.Wv).reshape(B, L, n_heads, head_dim)
     logits = torch.einsum("blhd,bmhd->bhlm", Q, K) / float(np.sqrt(head_dim))
     logits = torch.where(attn_mask[:, None, :, :], logits, -1e9)
     attn = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bhlm,bmhd->blhd", attn, V).reshape(B, -1, d)
+    ctx = torch.einsum("bhlm,bmhd->blhd", attn, V).reshape(B, Lq, d)
     return drop(ctx @ blk.Wo, di)
 
 

@@ -147,9 +147,6 @@ class NextBasketEvaluation(RatioSplit):
         **kwargs,
     ):
         assert fmt.startswith("U")
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "NextBasketEvaluation(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         data_size = len(set(u for (u, *_rest) in data))  # split by users
 
         super().__init__(

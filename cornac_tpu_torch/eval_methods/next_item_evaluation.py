@@ -150,9 +150,6 @@ class NextItemEvaluation(BaseMethod):
         # constructor performs no split — the from_splits/from_timestamps/
         # leave_last_out classmethods do — so they are stored, not acted on.
         self.test_size, self.val_size = test_size, val_size
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "NextItemEvaluation(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         super().__init__(
             data=data, fmt=fmt, seed=seed, verbose=verbose,
             exclude_unknowns=exclude_unknowns, **kwargs,

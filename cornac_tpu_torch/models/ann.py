@@ -19,7 +19,6 @@ from ..parallel.mesh import (
     MODEL_AXIS,
     axis_size,
     check_mesh,
-    mesh_device,
     pad_rows_to_multiple,
     shard_tables,
 )
@@ -172,7 +171,7 @@ class TPUExactANN(BaseANN):
         self._build_device_index()
 
     def _build_device_index(self):
-        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
+        dev = self._device()
         items = torch.as_tensor(np.asarray(self.item_vectors, np.float32), device=dev)
         if self.measure == MEASURE_COSINE:
             items = items / items.norm(dim=1, keepdim=True).clamp(min=1e-12)

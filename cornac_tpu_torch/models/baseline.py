@@ -17,7 +17,7 @@ import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_broadcast_row
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import (
     batch_slice,
     gather_batch,
@@ -183,7 +183,7 @@ class BaselineOnly(Recommender):
             return self
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rng = get_rng(self.seed)
         rid, cid, val = train_set.uir_tuple
         n = len(val)

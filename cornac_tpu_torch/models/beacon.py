@@ -18,6 +18,14 @@ matrix A is dense on the model's device, and ``X @ A`` and ``probs @ A`` are
 computes them. Every epoch draws its permutation and then each step's
 dropout mask from one generator keyed on (seed, epoch): the same
 distributions as the JAX package's threefry draws, another stream.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank:
+each rank draws the whole stream, encodes its rows of a minibatch (their
+dropout mask cut from the whole minibatch's) and sums their loss terms
+over the whole minibatch's count (``vaecf.batch_mean``), and
+``ops.optim.step`` sums the gradients. ``score_baskets_batch`` splits the
+sequences over the ranks when their padded count divides the mesh, as the
+JAX package shards them.
 """
 
 from collections import Counter
@@ -29,11 +37,14 @@ import torch
 from ..engine.nn import Tree
 from ..ops.dispatch import full_f32
 from ..ops.optim import rmsprop, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, split_scoring
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .knn import dense_f32
 from .recommender import NextBasketRecommender
 from .seq_utils import pad_batch_rows
+from .vaecf import batch_mean
 
 EPS = 1e-8
 
@@ -103,9 +114,11 @@ def beacon_logits(params, A, ids, lengths, alpha, units, cell_type, drop=None, k
     return (1.0 - alpha) * probs + alpha * corr
 
 
-def beacon_loss(logits, y):
+def beacon_loss(logits, y, denom=None):
     """The positive-weighted loss (the JAX package's ``Beacon._loss``); the
-    row maximum and minimum share their gradient among ties, as JAX's do."""
+    row maximum and minimum share their gradient among ties, as JAX's do.
+    ``denom``: on a mesh, the whole minibatch's count of terms, of which
+    these rows are a rank's share (``vaecf.batch_mean``)."""
     sig = torch.sigmoid(logits)
     neg_y = 1.0 - y
     pos_logits = y * logits
@@ -116,7 +129,7 @@ def beacon_loss(logits, y):
     pos_weight = (nb_neg / nb_pos)[:, None]
     loss = y * -torch.log(sig + EPS) * pos_weight + neg_y * -torch.log(
         1.0 - torch.sigmoid(logits - pos_min) + EPS)
-    return torch.mean(loss + EPS)
+    return batch_mean(loss + EPS, denom)
 
 
 class Beacon(NextBasketRecommender):
@@ -148,11 +161,9 @@ class Beacon(NextBasketRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if rnn_cell_type not in ("LSTM", "GRU", "RNN"):
             raise ValueError("rnn_cell_type must be LSTM, GRU, or RNN")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.emb_dim = emb_dim
         self.rnn_unit = rnn_unit
         self.alpha = alpha
@@ -248,9 +259,13 @@ class Beacon(NextBasketRecommender):
         return beacon_logits(self.params, self._A(), ids, lengths, self.alpha,
                              self.rnn_unit, self.rnn_cell_type, drop, 1.0 - self.dropout_rate)
 
-    def loss_on(self, ids, lengths, y, drop):
-        """One minibatch's loss on the given dropout mask (or None)."""
-        return beacon_loss(self.logits(ids, lengths, drop), y)
+    def loss_on(self, ids, lengths, y, drop, share=None):
+        """One minibatch's loss on the given dropout mask (or None), all the
+        whole minibatch's; ``share`` (``parallel.sharded.Share``): this
+        rank's share of it."""
+        mine = (lambda x: x) if share is None else share.take
+        logits = self.logits(mine(ids), mine(lengths), None if drop is None else mine(drop))
+        return beacon_loss(logits, mine(y), None if share is None else share.n * y.shape[1])
 
     def _drop_mask(self, generator, shape, device):
         """The dropout mask of a step (None without dropout): a Bernoulli of
@@ -320,6 +335,8 @@ class Beacon(NextBasketRecommender):
         opt_state = opt.init(params)
         seed = rng.randint(2**31)
         drop_shape = (bsz, self.max_seq_length, self.emb_dim)
+        mesh = self.mesh
+        share = None if mesh is None else Share(mesh, bsz)
 
         for e in range(self.n_epochs):
             gen = epoch_generator(seed, e, dev)
@@ -328,9 +345,11 @@ class Beacon(NextBasketRecommender):
             for b in range(n_batches):
                 idx = perm[b * bsz:(b + 1) * bsz]
                 loss = self.loss_on(ids_d[idx], len_d[idx], y_d[idx],
-                                    self._drop_mask(gen, drop_shape, dev))
-                opt_state = step(params, opt, opt_state, loss)
+                                    self._drop_mask(gen, drop_shape, dev), share)
+                opt_state = step(params, opt, opt_state, loss, mesh, None)
                 loss_sum += loss.detach()
+            if mesh is not None:  # the ranks' shares make the minibatches' losses
+                all_sum(mesh, loss_sum, None)
             if self.verbose:
                 print("Epoch %d/%d, loss: %.4f"
                       % (e + 1, self.n_epochs, float(loss_sum) / n_batches))
@@ -351,7 +370,11 @@ class Beacon(NextBasketRecommender):
                 [ids, np.full(ids.shape[:2] + (width_pad,), self.total_items, np.int64)], axis=2)
         (ids, lengths), B = pad_batch_rows([ids, lengths])
         dev = self._A().device
+        ids_d, len_d = torch.as_tensor(ids, device=dev), torch.as_tensor(lengths, device=dev)
+
+        def scores(ids, lengths):
+            return torch.sigmoid(self.logits(ids, lengths))
+
         with torch.no_grad():
-            scores = torch.sigmoid(self.logits(torch.as_tensor(ids, device=dev),
-                                               torch.as_tensor(lengths, device=dev)))
-        return scores.cpu().numpy().astype(np.float64)[:B]
+            out = split_scoring(self.mesh, scores, ids.shape[0], ids_d, len_d)
+        return out.cpu().numpy().astype(np.float64)[:B]

@@ -38,7 +38,7 @@ from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp
 from ..exception import ScoreException
 from ..ops.dense_scores import device_dot
 from ..ops.optim import adam, step
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
@@ -184,7 +184,7 @@ class BiVAECF(Recommender, ANNMixin):
             return self
 
         rng = get_rng(self.seed)
-        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
+        dev = self._device()
         n_users, n_items = train_set.num_users, train_set.num_items
         act = ACTIVATIONS[self.act_fn]
 

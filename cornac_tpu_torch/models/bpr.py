@@ -40,7 +40,7 @@ import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.membership import build_membership
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import (
     all_sum,
     batch_slice,
@@ -252,7 +252,7 @@ class BPR(Recommender, ANNMixin):
             return self
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rid, cid, _ = train_set.uir_tuple
         n = len(rid)
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)

@@ -31,7 +31,7 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_dot, full_f32
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import data_parallel
 from ..utils import get_rng
 from .recommender import ANNMixin, MEASURE_DOT, Recommender
@@ -261,7 +261,7 @@ class C2PF(Recommender, ANNMixin):
             raise ValueError("C2PF requires an item_graph modality")
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         d = self.num_items
         u, i, x = train_set.uir_tuple
         ru, ri = (torch.as_tensor(np.asarray(a, np.int64), device=dev) for a in (u, i))

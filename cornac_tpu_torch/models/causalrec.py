@@ -12,6 +12,12 @@ draws them; a negative the user has observed is masked out of the
 likelihood (``ops.membership``), not dropped. The item features stay on
 the model's device; the gradients of the row gathers sum through
 ``accumulate_rows``. Nothing syncs with the host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank,
+the minibatch rounded down to a multiple of the mesh's size as in the JAX
+package: every rank draws the whole stream and sums the terms of its rows
+of each minibatch (the visual projections' penalty on rank 0 alone), and
+``ops.optim.step`` sums the gradients.
 """
 
 import numpy as np
@@ -22,6 +28,8 @@ from ..ops.accumulate import gather_rows
 from ..ops.dispatch import full_f32
 from ..ops.membership import build_membership
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import xavier_uniform, zeros
@@ -47,10 +55,12 @@ def visual(params, feat, which, tanh):
     return torch.tanh(h @ params[which + "2"])
 
 
-def causalrec_loss(params, F, u, i, j, mvalid, hyper, tanh):
+def causalrec_loss(params, F, u, i, j, mvalid, hyper, tanh, dense=True):
     """The JAX package's ``loss_fn`` on the triplets (u, i, j) with the
     float32 mask ``mvalid`` (0 where the negative was observed). ``hyper``:
-    (lambda_w, lambda_b, lambda_e)."""
+    (lambda_w, lambda_b, lambda_e). With ``dense`` False (a rank of a mesh
+    but the first) the visual projections' penalty is left out: every
+    other term is a sum over the rows."""
     lw, lb, le = hyper
     B = u.shape[0]
     ij = torch.cat([i, j])
@@ -67,28 +77,33 @@ def causalrec_loss(params, F, u, i, j, mvalid, hyper, tanh):
     ll_m = (log_sigmoid(m[:B] - m[B:]) * mvalid).sum()
     ll_n = (log_sigmoid(nb[:B] - nb[B:]) * mvalid).sum()
     names = ["E", "Bp", "E_ind"] + (["E2", "E_ind2"] if tanh == 2 else [])
-    l2_e = sum(0.5 * (params[name] ** 2).sum() for name in names)
     reg = (0.5 * lw * ((gu * gu).sum() + (gi[:B] * gi[:B]).sum() + (gi[B:] * gi[B:]).sum()
                        + (tu * tu).sum())
-           + 0.5 * lb * (bi[:B] * bi[:B]).sum() + 0.5 * lb / 10 * (bi[B:] * bi[B:]).sum()
-           + le * l2_e)
+           + 0.5 * lb * (bi[:B] * bi[:B]).sum() + 0.5 * lb / 10 * (bi[B:] * bi[B:]).sum())
+    if dense:
+        reg = reg + le * sum(0.5 * (params[name] ** 2).sum() for name in names)
     return -ll + reg - ll_m - ll_n
 
 
 def causalrec_epoch(params, opt, opt_state, draws, pairs, membership, F, hyper, batch_size,
-                    tanh):
+                    tanh, mesh=None):
     """One epoch of Adam steps on the draws (``vbpr_draws``' pair), the
     observed negatives masked, updating ``params`` in place. Returns (the
-    new state, the summed loss, a device scalar)."""
+    new state, the summed loss, a device scalar). ``mesh``: each rank takes
+    its share of every minibatch (module docstring)."""
     pos_idx, negs = draws
     users, pos = pairs[pos_idx].unbind(1)
     valid = (~membership.query(users, negs)).to(torch.float32)
     loss_sum = torch.zeros((), dtype=torch.float32, device=pairs.device)
+    share = Share(mesh, batch_size)
     for s in range(0, pos_idx.shape[0], batch_size):
         sl = slice(s, s + batch_size)
-        loss = causalrec_loss(params, F, users[sl], pos[sl], negs[sl], valid[sl], hyper, tanh)
-        opt_state = step(params, opt, opt_state, loss)
+        loss = causalrec_loss(params, F, *(share.take(a[sl]) for a in (users, pos, negs, valid)),
+                              hyper, tanh, share.first)
+        opt_state = step(params, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     return opt_state, loss_sum
 
 
@@ -101,7 +116,8 @@ class CausalRec(Recommender):
     features' mean), ``tanh`` (0, 1 or 2), ``lambda_2`` (the weight of the
     removed bias), ``use_gpu`` (kept for the signature), ``init_params``,
     ``seed``. ``device``: where the model trains (default: the card).
-    ``mesh`` is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (module docstring).
     """
 
     def __init__(
@@ -127,8 +143,6 @@ class CausalRec(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.k2 = k2
         self.n_epochs = n_epochs
@@ -142,7 +156,7 @@ class CausalRec(Recommender):
         self.lambda_2 = lambda_2
         self.use_gpu = use_gpu
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.init_params = {} if init_params is None else init_params
 
@@ -184,7 +198,7 @@ class CausalRec(Recommender):
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)
         membership = build_membership(train_set.csr_matrix, device=dev)
         n = len(rid)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_batches = (n + bsz - 1) // bsz
         num_items = train_set.num_items
         hyper = (self.lambda_w, self.lambda_b, self.lambda_e)
@@ -196,7 +210,8 @@ class CausalRec(Recommender):
                 draws = vbpr_draws(epoch_generator(seed, epoch, dev), n, n_batches * bsz,
                                    num_items)
                 opt_state, loss_sum = causalrec_epoch(params, opt, opt_state, draws, pairs,
-                                                      membership, F, hyper, bsz, self.tanh)
+                                                      membership, F, hyper, bsz, self.tanh,
+                                                      self.mesh)
             return opt_state, loss_sum
 
         epoch_loop(self, self.n_epochs, run_chunk, opt.init(params), resident=params,

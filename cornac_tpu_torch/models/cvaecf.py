@@ -34,8 +34,8 @@ import torch
 from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp, mlp
 from ..exception import ScoreException
 from ..ops.optim import adam, step
-from ..parallel.mesh import check_mesh, mesh_device
-from ..parallel.sharded import all_sum, batch_slice
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import all_sum, batch_slice, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .recommender import Recommender
@@ -187,7 +187,7 @@ class CVAECF(Recommender):
 
         rng = get_rng(self.seed)
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         n_items = self.r_mat.shape[1]
         if not hasattr(self, "params"):
             self.params = _init_cvae(rng, self.z_dim, self.h_dim,
@@ -199,10 +199,9 @@ class CVAECF(Recommender):
         act = ACTIVATIONS[self.act_fn]
         opt = adam(self.learning_rate)
 
-        bsz = min(self.batch_size, n_users)
+        bsz = round_batch(mesh, min(self.batch_size, n_users))
         lo, hi, denom = 0, bsz, None
-        if mesh is not None:  # the JAX package's rounding; this rank's slice over every rank
-            bsz = max(mesh.size(), bsz - bsz % mesh.size())
+        if mesh is not None:  # this rank's slice over every rank
             (lo, hi, _), denom = batch_slice(mesh, bsz, None), bsz
         n_pad = (-n_users) % bsz
         n_batches = (n_users + n_pad) // bsz

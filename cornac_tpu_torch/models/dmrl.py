@@ -26,6 +26,14 @@ present) — slots here are per-modality; the reference hardcodes
 ``decay_c=1e-3`` in fit regardless of the constructor argument — here the
 constructor argument is honored; distance correlation runs over all factor
 pairs i<j (the reference's loop bounds skip the last factor).
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank,
+the minibatch rounded down to a multiple of the mesh's size as in the JAX
+package: every rank draws the whole stream (the negatives and keep masks
+of the whole minibatch), sums the ranking terms of its rows, and
+``ops.optim.step`` sums the gradients. The distance correlation couples
+every row of a minibatch, so rank 0 adds it over the whole minibatch's
+first slot, which it encodes once more.
 """
 
 import numpy as np
@@ -35,6 +43,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.dispatch import full_f32
 from ..ops.optim import adamw, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .mf import _epoch_permutation
@@ -135,18 +145,29 @@ def dist_corr_pairs(chunks):
     return (cov(C[ia], C[ib]) / torch.sqrt(torch.clamp_min(own[ia] * own[ib], 0.0) + EPS)).sum()
 
 
-def dmrl_loss(params, u, pos, draws, text, image, F, fs, keep, decay_c):
+def dmrl_loss(params, u, pos, draws, text, image, F, fs, keep, decay_c, share=None):
     """The JAX package's ``loss_fn`` on the users ``u`` and positives
     ``pos`` with the step's draws ``(negatives (B, num_neg), keep masks or
     None)``: the summed softplus of the hardest negative's margin, plus
     ``decay_c`` times the mean distance correlation of the factor pairs of
     every chunk in the first sample slot (the JAX package computes every
-    slot and keeps the first), all pairs in one batch (``dist_corr_pairs``)."""
+    slot and keeps the first), all pairs in one batch (``dist_corr_pairs``).
+    ``share`` (``parallel.sharded.Share``): the minibatch and its draws are
+    whole, and this rank takes the terms of its rows; the first rank adds
+    the distance correlation, encoding every row's first slot."""
     neg, masks = draws
     items = torch.cat([pos[:, None], neg], dim=1)
-    ratings, chunks = dmrl_forward(params, u, items, masks, text, image, F, fs, keep)
+    mine = (lambda x: x) if share is None else share.take
+    ratings, chunks = dmrl_forward(params, mine(u), mine(items), None if masks is None else
+                                   {k: mine(m) for k, m in masks.items()},
+                                   text, image, F, fs, keep)
     loss = softplus(-(ratings[:, 0] - ratings[:, 1:].max(1).values)).sum()
-    if decay_c > 0:
+    if decay_c > 0 and share is not None and not share.whole:
+        # every row's first slot, on the rank that adds the correlation
+        chunks = None if not share.first else dmrl_forward(
+            params, u, pos[:, None], None if masks is None else
+            {k: m[:, :1] for k, m in masks.items()}, text, image, F, fs, keep)[1]
+    if decay_c > 0 and chunks is not None:
         cor = dist_corr_pairs(torch.stack([c[:, 0] for c in chunks.values()]))
         loss = loss + decay_c * (cor / ((F + 1.0) * F / 2.0))
     return loss
@@ -161,7 +182,8 @@ class DMRL(Recommender):
     ``image_dim`` (kept for the signature: the widths come from the
     modalities), ``dropout``, ``num_neg``, ``num_factors``,
     ``log_metrics``, ``seed``. ``device``: where the model trains and
-    scores (default: the card). ``mesh`` is not ported yet.
+    scores (default: the card). ``mesh``: a ``parallel.make_mesh`` mesh;
+    every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -186,8 +208,6 @@ class DMRL(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.batch_size = batch_size
         self.learning_rate = learning_rate
         self.decay_c = decay_c
@@ -201,7 +221,7 @@ class DMRL(Recommender):
         self.num_factors = num_factors
         self.log_metrics = log_metrics
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         if embedding_dim % num_factors != 0:
             raise ValueError("embedding_dim must be divisible by num_factors")
@@ -274,22 +294,28 @@ class DMRL(Recommender):
         return neg, {name: (torch.rand(shape, generator=gen, device=dev) < keep).to(torch.float32)
                      for name, shape in self.mask_shapes(B).items()}
 
-    def loss_on(self, params, u, pos, draws):
-        """The loss of a step (``dmrl_loss``) on this model's modalities."""
+    def loss_on(self, params, u, pos, draws, share=None):
+        """The loss of a step (``dmrl_loss``) on this model's modalities;
+        ``share``: this rank's share of it."""
         F = self.num_factors
         return dmrl_loss(params, u, pos, draws, self._text, self._image, F,
-                         self.embedding_dim // F, 1.0 - self.dropout, self.decay_c)
+                         self.embedding_dim // F, 1.0 - self.dropout, self.decay_c, share)
 
     def epoch(self, params, opt, opt_state, order, pairs, step_draws, batch_size):
         """One epoch of AdamW steps in the order ``order``, each step's draws
         from ``step_draws(B)``, updating ``params`` in place. Returns (the
-        new state, the summed loss)."""
+        new state, the summed loss). On the model's mesh, each rank takes
+        its share of every minibatch (module docstring)."""
+        mesh = getattr(self, "mesh", None)
+        share = None if mesh is None else Share(mesh, batch_size)
         loss_sum = torch.zeros((), dtype=torch.float32, device=pairs.device)
         for s in range(0, order.shape[0], batch_size):
             u, pos = pairs[order[s:s + batch_size]].unbind(1)
-            loss = self.loss_on(params, u, pos, step_draws(u.shape[0]))
-            opt_state = step(params, opt, opt_state, loss)
+            loss = self.loss_on(params, u, pos, step_draws(u.shape[0]), share)
+            opt_state = step(params, opt, opt_state, loss, mesh, None)
             loss_sum += loss.detach()
+        if mesh is not None:  # the ranks' shares make the minibatches' losses
+            all_sum(mesh, loss_sum, None)
         return opt_state, loss_sum
 
     def fit(self, train_set, val_set=None):
@@ -311,7 +337,7 @@ class DMRL(Recommender):
         uid, iid, _ = train_set.uir_tuple
         n = len(uid)
         pairs = torch.as_tensor(np.stack([uid, iid], axis=1).astype(np.int64), device=dev)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_total = n + ((-n) % bsz)
         opt = adamw(self.learning_rate, b1=0.9, b2=0.999, weight_decay=self.decay_r)
         seed = rng.randint(2**31)

@@ -18,6 +18,16 @@ Determinism on the card: the gathers of embedding and gate rows go through
 does the gather of the negatives' scores. Every epoch draws its permutation
 and then each step's negatives from one generator keyed on (seed, epoch):
 the JAX package's distributions, another stream.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank:
+each rank draws the whole stream, runs its rows of a minibatch (their
+negatives cut from the whole minibatch's draw), and the batch statistics
+of the graph convolutions are the whole minibatch's, summed over the ranks
+forward and backward (``Share.sum``); the loss is the rank's share of the
+minibatch's, and ``ops.optim.step`` sums the gradients.
+``score_baskets_batch`` splits the graph blocks over the ranks when their
+padded count divides the mesh, with the statistics of the whole scored
+batch, as the JAX package shards them.
 """
 
 import numpy as np
@@ -27,10 +37,13 @@ import torch.nn.functional as F
 from ..engine.nn import Tree
 from ..ops.accumulate import gather_rows
 from ..ops.optim import adam, adamw, rmsprop, sgd, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, data_parallel
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .recommender import NextBasketRecommender
 from .seq_utils import pad_batch_rows
+from .vaecf import batch_mean
 
 BN_EPS = 1e-5
 N_HEADS = 4
@@ -62,9 +75,12 @@ def _init_params(rng, n_items, E):
     )
 
 
-def dnntsp_scores(params, node_ids, node_mask, W, lengths):
+def dnntsp_scores(params, node_ids, node_mask, W, lengths, share=None):
     """(B, items) scores of the graph blocks: node_ids (B, N) int64,
-    node_mask (B, N) bool, W (B, T, N, N) float32, lengths (B,)."""
+    node_mask (B, N) bool, W (B, T, N, N) float32, lengths (B,).
+    ``share`` (``parallel.sharded.Share``, on a mesh): the blocks are a
+    rank's rows of a batch, and the batch statistics the whole batch's,
+    the ranks' partial sums summed (a collective every rank calls)."""
     B, N = node_ids.shape
     T = W.shape[1]
     E = params.emb.shape[1]
@@ -80,12 +96,13 @@ def dnntsp_scores(params, node_ids, node_mask, W, lengths):
     # batch statistics over the valid (B, T, N) cells: a node's mask holds
     # at every step, padded steps included
     m = maskf[:, None, :, None] * torch.ones((1, T, 1, 1), device=W.device)
-    cnt = torch.clamp(torch.sum(m), min=1.0)
+    whole = (lambda x: x) if share is None else share.sum
+    cnt = torch.clamp(whole(torch.sum(m)), min=1.0)
     for l in range(len(params.gcn_w)):
         msg = torch.matmul(W, x)
         msg = msg @ params.gcn_w[l] + params.gcn_b[l]
-        mean = torch.sum(msg * m, dim=(0, 1, 2)) / cnt
-        var = torch.sum(((msg - mean) * m) ** 2, dim=(0, 1, 2)) / cnt
+        mean = whole(torch.sum(msg * m, dim=(0, 1, 2))) / cnt
+        var = whole(torch.sum(((msg - mean) * m) ** 2, dim=(0, 1, 2))) / cnt
         msg = (msg - mean) / torch.sqrt(var + BN_EPS)
         msg = msg * params.bn_scale[l] + params.bn_offset[l]
         x = torch.relu(msg) * maskf[:, None, :, None]
@@ -136,9 +153,13 @@ def take_columns(scores, cols):
     return gather_rows(scores.reshape(B * n, 1), flat).reshape(cols.shape)
 
 
-def dnntsp_loss(loss_type, scores, yb, neg=None, cls_w=None):
+def dnntsp_loss(loss_type, scores, yb, neg=None, cls_w=None, rows=None):
     """The JAX package's losses of one minibatch; ``neg`` (B, items) the
-    ``bpr`` negatives, ``cls_w`` (items,) the ``weight_mse`` weights."""
+    ``bpr`` negatives, ``cls_w`` (items,) the ``weight_mse`` weights.
+    ``rows``: on a mesh, the whole minibatch's rows, of which these are a
+    rank's share (its terms over the whole minibatch's count,
+    ``vaecf.batch_mean``; ``bpr`` is a sum already)."""
+    cells = None if rows is None else rows * yb.shape[1]
     if loss_type == "bpr":
         neg_scores = take_columns(scores, neg)
         diff = scores - neg_scores
@@ -147,10 +168,10 @@ def dnntsp_loss(loss_type, scores, yb, neg=None, cls_w=None):
             torch.sum(valid, dim=1), min=1.0)
         return torch.sum(per_user)
     if loss_type == "weight_mse":
-        return torch.mean(torch.sum(cls_w[None] * (scores - yb) ** 2, dim=1))
+        return batch_mean(torch.sum(cls_w[None] * (scores - yb) ** 2, dim=1), rows)
     if loss_type == "multi_label_soft_margin":
-        return torch.mean(-(yb * F.logsigmoid(scores) + (1 - yb) * F.logsigmoid(-scores)))
-    return torch.mean((scores - yb) ** 2)
+        return batch_mean(-(yb * F.logsigmoid(scores) + (1 - yb) * F.logsigmoid(-scores)), cells)
+    return batch_mean((scores - yb) ** 2, cells)
 
 
 class DNNTSP(NextBasketRecommender):
@@ -179,15 +200,13 @@ class DNNTSP(NextBasketRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss_type not in LOSSES:
             raise ValueError("Unknown loss_type: {}".format(loss_type))
         if optimizer not in ("adam", "sgd", "rmsprop"):
             raise ValueError("Unknown optimizer: {}".format(optimizer))
         if emb_dim % N_HEADS != 0:
             raise ValueError("emb_dim must be divisible by %d heads" % N_HEADS)
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.emb_dim = emb_dim
         self.loss_type = loss_type
         self.optimizer = optimizer
@@ -238,11 +257,15 @@ class DNNTSP(NextBasketRecommender):
     def _blocks(self, packed, device):
         return [torch.as_tensor(a, device=device) for a in packed]
 
-    def loss_on(self, blocks, yb, neg=None, cls_w=None):
+    def loss_on(self, blocks, yb, neg=None, cls_w=None, share=None):
         """One minibatch's loss: ``blocks`` its graph blocks (tensors),
-        ``neg`` its ``bpr`` negatives (B, items) int64."""
-        scores = dnntsp_scores(self.params, *blocks)
-        return dnntsp_loss(self.loss_type, scores, yb, neg, cls_w)
+        ``neg`` its ``bpr`` negatives (B, items) int64, all the whole
+        minibatch's; ``share`` (``parallel.sharded.Share``): this rank's
+        share of it."""
+        mine = (lambda x: x) if share is None else share.take
+        scores = dnntsp_scores(self.params, *(mine(a) for a in blocks), share=share)
+        return dnntsp_loss(self.loss_type, scores, mine(yb), None if neg is None else mine(neg),
+                           cls_w, None if share is None else share.n)
 
     def _make_optimizer(self):
         if self.optimizer == "adam":
@@ -300,6 +323,8 @@ class DNNTSP(NextBasketRecommender):
         opt = self._make_optimizer()
         opt_state = opt.init(params)
         seed = rng.randint(2**31)
+        mesh = self.mesh
+        share = None if mesh is None else Share(mesh, bsz)
 
         for e in range(self.n_epochs):
             gen = epoch_generator(seed, e, dev)
@@ -310,9 +335,11 @@ class DNNTSP(NextBasketRecommender):
                 neg = None
                 if self.loss_type == "bpr":
                     neg = torch.randint(0, n, (bsz, n), generator=gen, device=dev)
-                loss = self.loss_on([a[idx] for a in blocks], y_d[idx], neg, cls_w)
-                opt_state = step(params, opt, opt_state, loss)
+                loss = self.loss_on([a[idx] for a in blocks], y_d[idx], neg, cls_w, share)
+                opt_state = step(params, opt, opt_state, loss, mesh, None)
                 loss_sum += loss.detach()
+            if mesh is not None:  # the ranks' shares make the minibatches' losses
+                all_sum(mesh, loss_sum, None)
             if self.verbose:
                 print("Epoch %d/%d, loss: %.4f"
                       % (e + 1, self.n_epochs, float(loss_sum) / n_batches))
@@ -335,6 +362,16 @@ class DNNTSP(NextBasketRecommender):
     def score_baskets_batch(self, user_indices, histories):
         packed, B = self._scoring_blocks(histories)
         dev = self.params.emb.device
+        blocks = self._blocks(packed, dev)
+        n = blocks[0].shape[0]
         with torch.no_grad():
-            scores = dnntsp_scores(self.params, *self._blocks(packed, dev))
+            if self.mesh is not None and n % self.mesh.size() == 0:
+                # the blocks split over the ranks, the statistics the whole
+                # batch's, each rank's scores gathered
+                share = Share(self.mesh, n)
+                scores = data_parallel(
+                    self.mesh, lambda *rows: dnntsp_scores(self.params, *rows, share=share),
+                    n, *blocks, axis=None)
+            else:
+                scores = dnntsp_scores(self.params, *blocks)
         return scores.cpu().numpy().astype(np.float64)[:B]

@@ -35,7 +35,7 @@ import torch
 
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import (
     data_parallel,
     gather_shards,
@@ -415,7 +415,7 @@ class FM(Recommender):
             return self
 
         mesh = self.mesh if self.method in ("sgd", "sgda") else None
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rid, cid, val = train_set.uir_tuple
         cid_off = np.asarray(cid, np.int64) + self.num_users  # the item block's offset
         f32 = [torch.tensor(np.asarray(a, np.float32), device=dev)

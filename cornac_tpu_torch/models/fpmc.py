@@ -19,6 +19,15 @@ Draws (the epoch's transitions and negatives, or its permutation and
 shared negatives) come from a ``torch.Generator`` keyed on (seed, epoch),
 where the JAX package folds the epoch into its key: the same distributions,
 another stream.
+
+``mesh`` (``parallel.make_mesh``) takes the general path whatever the loss
+(the per-sample SGD epoch is single-device; setting the attribute
+``fused_path`` to False sends a plain fit there too, the JAX package's
+switch for comparing the two), its minibatch rounded down to a multiple of
+the mesh's size: every rank draws the whole stream, computes the states
+of its rows of a minibatch against every column's target
+(``seq_utils.batch_loss``' ``share``), and ``ops.optim.step`` sums the
+tables' gradients over the ranks.
 """
 
 import numpy as np
@@ -26,6 +35,8 @@ import torch
 
 from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.optim import adagrad_m, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from ..utils.init_utils import normal
@@ -79,17 +90,21 @@ def _fpmc_epoch(params, users, prevs, nexts, pos_idx, neg_items, n, lr, reg, bat
     return loss_sum
 
 
-def _general_loss(params, u, p, t, m, negs, loss_kind, reg, bpreg, elu_param):
+def _general_loss(params, u, p, t, m, negs, loss_kind, reg, bpreg, elu_param, share=None):
     """The general path's loss on one minibatch of transitions (u, p, t)
-    with mask m and shared negatives ``negs``."""
-    vu = gather_rows(params["V_UI"], u)
-    vl = gather_rows(params["V_LI"], p)
+    with mask m and shared negatives ``negs``; ``share``
+    (``parallel.sharded.Share``): this rank's share of it, the states of
+    its rows."""
+    mine = (lambda x: x) if share is None else share.take
+    vu = gather_rows(params["V_UI"], mine(u))
+    vl = gather_rows(params["V_LI"], mine(p))
     state = torch.cat([vu, vl], dim=1)[:, None, :]
     out_emb = torch.cat([params["V_IU"], params["V_IL"]], dim=1)
     loss = batch_loss(loss_kind, state, out_emb, None, t[:, None], m[:, None], negs,
-                      bpreg=bpreg, elu_param=elu_param)
+                      bpreg=bpreg, elu_param=elu_param, share=share)
     if reg > 0:
-        loss = loss + reg * (torch.sum(vu**2 * m[:, None]) + torch.sum(vl**2 * m[:, None])
+        mm = mine(m)[:, None]
+        loss = loss + reg * (torch.sum(vu**2 * mm) + torch.sum(vl**2 * mm)
                              ) / torch.clamp(torch.sum(m), min=1.0)
     return loss
 
@@ -137,8 +152,6 @@ class FPMC(NextItemRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss not in SUPPORTED_LOSSES:
             raise ValueError(f"loss='{loss}' not supported; choose from {SUPPORTED_LOSSES}")
         if model_selection not in ("last", "best"):
@@ -162,7 +175,7 @@ class FPMC(NextItemRecommender):
         self.val_metric = val_metric
         self.batch_size = batch_size
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.rng = get_rng(seed)
 
     def fit(self, train_set, val_set=None):
@@ -192,7 +205,10 @@ class FPMC(NextItemRecommender):
             for name, rows in zip(TABLES, shapes)
         }
 
-        if self.loss == "bpr" and self.momentum == 0.0:
+        # the per-sample SGD epoch is single-device: a mesh fit takes the
+        # general path, and fused_path = False sends a plain fit there too
+        if (self.loss == "bpr" and self.momentum == 0.0 and self.mesh is None
+                and getattr(self, "fused_path", True)):
             n = len(users)
             bsz = min(self.batch_size, n)
             n_total = n + (-n) % bsz
@@ -214,8 +230,9 @@ class FPMC(NextItemRecommender):
         """The ``batch_loss`` family over transitions (in-batch and sampled
         negatives through the concatenated tables), adagrad."""
         dev = self._device()
+        mesh = self.mesh
         n = len(users)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(mesh, min(self.batch_size, n))
         n_pad = (-n) % bsz
         arrays = [np.concatenate([np.asarray(a, np.int64), np.zeros(n_pad, np.int64)])
                   for a in (users, prevs, nexts)]
@@ -230,6 +247,7 @@ class FPMC(NextItemRecommender):
         opt_state = opt.init(params)
         cum_probs = neg_sampling_table(train_set, self.sample_alpha, self.num_items, dev)
         seed = self.rng.randint(2**31)
+        share = Share(mesh, bsz)
 
         def run_epoch(epoch, opt_state):
             gen = epoch_generator(seed, epoch, dev)
@@ -239,9 +257,12 @@ class FPMC(NextItemRecommender):
                 idx = order[b * bsz:(b + 1) * bsz]
                 negs = sample_negatives(gen, cum_probs, (self.n_sample,))
                 loss = _general_loss(params, u_d[idx], p_d[idx], t_d[idx], m_d[idx], negs,
-                                     self.loss, self.lambda_reg, self.bpreg, self.elu_param)
-                opt_state = step(params, opt, opt_state, loss)
+                                     self.loss, self.lambda_reg, self.bpreg, self.elu_param,
+                                     share)
+                opt_state = step(params, opt, opt_state, loss, mesh, None)
                 loss_sum += loss.detach()
+            if mesh is not None:  # the ranks' shares make the minibatches' losses
+                all_sum(mesh, loss_sum, None)
             return opt_state, loss_sum
 
         select_best = self.model_selection == "best" and val_set is not None

@@ -40,7 +40,7 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.graph import scatter_rows
 from ..ops.optim import OPTIMIZERS
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import all_sum, all_sum_messages, batch_slice, sum_grads
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
@@ -219,7 +219,7 @@ class GCMC(Recommender):
             raise ValueError("Supported act_fn: {}".format(list(ACTIVATIONS)))
         act = ACTIVATIONS[self.activation_func]
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
 
         self.graph = graph = self._build_graph(train_set, dev)
         n_ratings = len(self.rating_values)

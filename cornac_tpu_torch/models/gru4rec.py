@@ -16,6 +16,12 @@ of the recurrence; each step is then two matmuls (``h @ [U_z | U_r]`` and
 carries through unchanged (left-padded inference histories). The input
 embedding's rows are gathered through ``gather_rows``, so their gradient
 sums in batch order (``accumulate_rows``).
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank
+(``seq_utils.fit_sessions``): each rank runs the recurrence over its rows
+of a batch, their dropout masks cut from the whole batch's, and
+``score_history_batch`` splits the histories over the ranks when their
+padded count divides the mesh, as the JAX package shards them.
 """
 
 import numpy as np
@@ -24,6 +30,8 @@ import torch
 from ..engine.nn import Tree
 from ..ops.accumulate import gather_rows
 from ..ops.optim import adagrad_m
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import split_scoring
 from ..utils import get_rng
 from ..utils.init_utils import xavier_uniform
 from .recommender import NextItemRecommender
@@ -84,7 +92,7 @@ def _gru_states(params, seq, step_mask=None, drop_masks=None):
     "hidden": [(B, L, H_i)]} inverted-dropout masks."""
     emb_table = params.emb if hasattr(params, "emb") else params.out_emb
     B, L = seq.shape
-    x = gather_rows(emb_table, seq.reshape(-1)).reshape(B, L, -1)
+    x = gather_rows(emb_table, seq.reshape(-1)).reshape(B, L, emb_table.shape[1])
     if step_mask is None:
         step_mask = torch.ones(seq.shape, dtype=torch.float32, device=seq.device)
     if drop_masks is not None:
@@ -158,8 +166,6 @@ class GRU4Rec(NextItemRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss not in SUPPORTED_LOSSES:
             raise ValueError(f"loss='{loss}' not supported; choose from {SUPPORTED_LOSSES}")
         if model_selection not in ("last", "best"):
@@ -188,7 +194,7 @@ class GRU4Rec(NextItemRecommender):
         self.val_metric = val_metric
         self.max_len = max_len
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.rng = get_rng(seed)
 
     def _emb_dim(self):
@@ -213,20 +219,29 @@ class GRU4Rec(NextItemRecommender):
         return {"embed": mask(p_embed, self._emb_dim()),
                 "hidden": [mask(p_hidden, h) for h in self.layers]}
 
-    def loss_fn(self, seq, tgt, m, generator, cum_probs, log_p0=None):
+    def loss_fn(self, seq, tgt, m, generator, cum_probs, log_p0=None, share=None):
         """One batch's loss: its dropout masks, then its shared negatives,
-        drawn from ``generator``."""
+        drawn from ``generator``; with a ``share`` (``fit_sessions``), this
+        rank's share of it."""
         drop = self._drop_masks(generator, seq.shape[0], seq.shape[1], seq.device)
         negs = sample_negatives(generator, cum_probs, (self.n_sample,))
-        return self.loss_on(seq, tgt, m, drop, negs, log_p0)
+        return self.loss_on(seq, tgt, m, drop, negs, log_p0, share)
 
-    def loss_on(self, seq, tgt, m, drop, negs, log_p0=None):
+    def loss_on(self, seq, tgt, m, drop, negs, log_p0=None, share=None):
         """One batch's loss on given draws: the dropout masks ``drop`` (or
-        None) and the shared negatives ``negs``."""
-        states = _gru_states(self.params, seq, step_mask=m, drop_masks=drop)
+        None) and the shared negatives ``negs``, all the whole batch's;
+        ``share``: the states of this rank's rows only."""
+        if share is not None and not share.whole:
+            seq_m, m_m = share.take(seq), share.take(m)
+            if drop is not None:
+                drop = {"embed": share.take(drop["embed"]),
+                        "hidden": [share.take(h) for h in drop["hidden"]]}
+        else:
+            seq_m, m_m = seq, m
+        states = _gru_states(self.params, seq_m, step_mask=m_m, drop_masks=drop)
         return batch_loss(self.loss, states, self.params.out_emb, self.params.out_b, tgt, m,
                           negs, logq=self.logq, log_p0=log_p0, sample_alpha=self.sample_alpha,
-                          bpreg=self.bpreg, elu_param=self.elu_param)
+                          bpreg=self.bpreg, elu_param=self.elu_param, share=share)
 
     def fit(self, train_set, val_set=None):
         super().fit(train_set, val_set)
@@ -261,8 +276,8 @@ class GRU4Rec(NextItemRecommender):
                 np.log(counts / max(counts.sum(), 1.0) + 1e-24).astype(np.float32), device=dev)
 
         fit_sessions(self, adagrad_m(self.learning_rate, self.momentum), inputs, targets, mask,
-                     bsz, lambda seq, tgt, m, gen: self.loss_fn(seq, tgt, m, gen, cum_probs,
-                                                                log_p0),
+                     bsz, lambda seq, tgt, m, gen, share: self.loss_fn(
+                         seq, tgt, m, gen, cum_probs, log_p0, share),
                      train_set, val_set)
         return self
 
@@ -276,7 +291,11 @@ class GRU4Rec(NextItemRecommender):
         dev = self.params.out_emb.device
         seq = torch.as_tensor(padded, dtype=torch.int64, device=dev)
         m = torch.as_tensor(step_mask, device=dev)
-        return _gru_states(self.params, seq, m)[:B, -1, :]
+
+        def last_states(seq, m):
+            return _gru_states(self.params, seq, m)[:, -1, :]
+
+        return split_scoring(self.mesh, last_states, seq.shape[0], seq, m)[:B]
 
     def score(self, user_idx, history_items, **kwargs):
         return self.score_history_batch([user_idx], [list(history_items)])[0]

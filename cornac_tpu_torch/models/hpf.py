@@ -20,7 +20,7 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dense_scores import device_dot
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import data_parallel
 from ..utils import get_rng
 from ..utils.init_utils import gamma as gamma_init
@@ -148,7 +148,7 @@ class HPF(Recommender, ANNMixin):
         if not self.trainable:
             return self
 
-        dev = self._device() if self.mesh is None else mesh_device(self.mesh)
+        dev = self._device()
         tables = [torch.tensor(np.asarray(t, np.float32), device=dev)
                   for t in self._initial_tables()]
         tables += [torch.ones(self.num_users, device=dev), torch.ones(self.num_items, device=dev)]

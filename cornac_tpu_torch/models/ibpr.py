@@ -38,8 +38,8 @@ from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.dense_scores import device_dot, device_neg_l2
 from ..ops.membership import build_membership
 from ..ops.optim import adam, apply_updates
-from ..parallel.mesh import check_mesh, mesh_device
-from ..parallel.sharded import all_sum, batch_slice, gather_batch
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import all_sum, batch_slice, gather_batch, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from .bpr import _bpr_draws
@@ -159,15 +159,14 @@ class _TripletEmbedBase(Recommender, ANNMixin):
             return self
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rid, cid, _ = train_set.uir_tuple
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)
         membership = build_membership(train_set.csr_matrix, device=dev)
         n = len(rid)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(mesh, min(self.batch_size, n))
         grads_fn = _triplet_grads
-        if mesh is not None:  # the JAX package's rounding to the mesh's size
-            bsz = max(mesh.size(), bsz - bsz % mesh.size())
+        if mesh is not None:
             grads_fn = functools.partial(_triplet_grads_sharded, mesh)
         n_batches = (n + bsz - 1) // bsz
         params = {name: torch.tensor(np.asarray(a, np.float32), device=dev, requires_grad=True)

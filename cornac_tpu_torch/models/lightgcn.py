@@ -34,7 +34,7 @@ from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.graph import NormAdjacency
 from ..ops.optim import adam, step
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import all_sum, batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
@@ -137,7 +137,7 @@ class LightGCN(Recommender):
 
         rng = get_rng(self.seed)
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         if not hasattr(self, "params"):
             self.params = self._init_params(rng)
         self.params.to(dev)

@@ -5,14 +5,14 @@ Port of ``cornac_tpu/models/mcf.py``: the ratings (U, V) and the item-item
 network (V, Z) co-factorised with a shared item table. Each epoch runs the
 item-graph stream (V, Z) and then the rating stream (U, V) through the
 shared RMSProp stream epoch (``ops.rmsprop``), in orders the fit's numpy
-generator draws, as the JAX package's fit draws them. Scoring is SoRec's.
+generator draws, as the JAX package's fit draws them. Scoring is SoRec's,
+and so is ``mesh`` (``models/sorec.py``): the tables and caches row-sharded
+over "model", the single-device fit's bits on every layout.
 """
-
-import numpy as np
-import torch
 
 from ..exception import ScoreException
 from ..ops.rmsprop import run_stream_epoch
+from ..parallel.mesh import check_mesh
 from ..utils import get_rng
 from .recommender import Recommender
 from .sorec import _StreamCoFactor, scaled_ratings, stream_tensors
@@ -25,7 +25,8 @@ class MCF(_StreamCoFactor):
     ``learning_rate``, ``gamma`` (the caches' decay), ``lamda`` (the
     regularisation), ``batch_size``, ``init_params`` ({'U', 'V', 'Z'}),
     ``seed``. ``device``: where the model trains and scores (default: the
-    card). ``mesh`` is not ported yet.
+    card). ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls
+    ``fit``, and the factors equal the single-device fit's.
     """
 
     def __init__(
@@ -45,8 +46,6 @@ class MCF(_StreamCoFactor):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.max_iter = max_iter
         self.learning_rate = learning_rate
@@ -54,7 +53,7 @@ class MCF(_StreamCoFactor):
         self.lamda = lamda
         self.batch_size = batch_size
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -79,19 +78,20 @@ class MCF(_StreamCoFactor):
         dev = U.device
         net = stream_tensors(net_iid, net_jid, net_val, dev)
         rat = stream_tensors(rat_uid, rat_iid, rat_val, dev)
-        cu, cv, cz = (torch.zeros_like(t) for t in (U, V, Z))
+        rows = [t.shape[0] for t in (U, V, Z)]
+        (U, V, Z), (cu, cv, cz) = self._stream_state(U, V, Z)
         lr, reg = self.learning_rate, self.lamda
         for epoch in range(self.max_iter):
             loss = 0.0
             if len(net_val) > 0:
                 loss = run_stream_epoch(V, Z, cv, cz, *net, rng, lr, lr, reg, self.gamma,
-                                        self.batch_size)
+                                        self.batch_size, mesh=self.mesh)
             loss = loss + run_stream_epoch(U, V, cu, cv, *rat, rng, lr, lr, reg, self.gamma,
-                                           self.batch_size)
+                                           self.batch_size, mesh=self.mesh)
             if self.verbose:
                 print("epoch %i, loss: %f" % (epoch, float(loss)))
 
-        self._store(U, V, Z)
+        self._store_state((U, V, Z), rows)
         return self
 
     def score(self, user_idx, item_idx=None):

@@ -44,7 +44,7 @@ from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows, gather_rows
 from ..ops.dispatch import full_f32
 from ..ops.optim import apply_updates, make_optimizer
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import (
     batch_slice,
     gather_batch,
@@ -330,7 +330,7 @@ class MF(Recommender, ANNMixin):
     def _fit(self, train_set):
         opt = make_optimizer(self.optimizer, self.learning_rate)  # raises on an unknown name
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rng = get_rng(self.seed)
         rid, cid, val = train_set.uir_tuple
         n = len(val)

@@ -40,7 +40,7 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.membership import build_membership
 from ..ops.optim import make_optimizer, step
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import all_sum, batch_slice, slice_rows
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
@@ -144,7 +144,7 @@ class NCFBase(Recommender):
 
         rng = get_rng(self.seed)
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         if not hasattr(self, "params"):
             self.params = self._init_params(rng)
         self.params.to(dev)

@@ -24,7 +24,7 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.dispatch import full_f32
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import (
     data_parallel,
     gather_shards,
@@ -170,7 +170,7 @@ class NMF(Recommender, ANNMixin):
             return self
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rid, cid, val = train_set.uir_tuple
         user_counts = np.bincount(rid, minlength=self.num_users).astype(np.float32)
         item_counts = np.bincount(cid, minlength=self.num_items).astype(np.float32)

@@ -18,7 +18,20 @@ takes its draws from one ``torch.Generator`` seeded from (the fit's seed,
 the epoch index): for each minibatch, when ``w_determinist`` is false, the
 generator's weight noise layer by layer, then the Gamma draw.
 The PF sweep's scatters sum through ``accumulate_rows``.
+
+``mesh`` (``parallel.make_mesh``): the Gamma tables and the nets are
+replicated, as in the JAX package. The PF sweep's rating edges are split
+over "data": each rank computes its slice's per-edge terms and the slices
+are gathered back in edge order before the sums (``data_parallel``), as
+HPF's sweep keeps the single-device bits. The network's item batches,
+rounded down to a multiple of the mesh's size as in the JAX package, are
+data-parallel over every rank: a rank infers its rows, the Gamma draw is
+made for the whole batch (the ranks' shape parameters gathered) and cut,
+the rank's terms are taken over the whole batch's size, and
+``ops.optim.step`` sums the gradients.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -26,9 +39,12 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.optim import rmsprop, step
+from ..parallel.mesh import DATA_AXIS, check_mesh
+from ..parallel.sharded import Share, all_sum, data_parallel, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .recommender import ANNMixin, MEASURE_DOT, Recommender, pad_to_catalog
+from .vaecf import batch_mean
 from .vbpr import softplus
 
 EPS = 1e-10
@@ -114,59 +130,84 @@ def gamma_draw(gen):
     return lambda alpha: torch._standard_gamma(alpha.detach(), generator=gen)
 
 
-def elbo_loss(params, C, Zik, Tk, draw, noise):
+def elbo_loss(params, C, Zik, Tk, draw, noise, share=None):
     """The JAX package's ``_elbo_loss``: minus the mean of the Poisson
     log-likelihood of the context rows ``C`` and the Gamma-Gamma KL against
     the prior Gamma(AA + Zik, BB + Tk), plus the weights' Gaussian KL over
     the batch when ``noise`` is given. ``draw(alpha)`` gives the standard
-    Gamma draw the sample is made of."""
+    Gamma draw the sample is made of. ``share``
+    (``parallel.sharded.Share``): ``C`` and ``Zik`` are a rank's rows of a
+    batch, the draw is made for the whole batch (the ranks' ``alpha``
+    gathered) and cut, and the loss is the rank's share (the weights' KL on
+    the first rank)."""
     alpha, beta = inference(params, C)
-    z = ReparamGamma.apply(alpha, draw(alpha)) / beta
+    if share is None:
+        sample = draw(alpha)
+    else:
+        sample = share.take(draw(share.gather(alpha.detach())))
+    z = ReparamGamma.apply(alpha, sample) / beta
     X_g = generate(params, z, noise)
     ll = (C * torch.log(EPS + X_g) - X_g).sum(1)
     kl = ((alpha - AA - Zik) * torch.digamma(alpha) - torch.lgamma(alpha)
           + (AA + Zik) * torch.log(beta) + alpha * (Tk + BB - beta) / beta)
-    loss = -torch.mean(ll - kl.sum(1))
-    if noise is not None:
+    loss = -batch_mean(ll - kl.sum(1), None if share is None else share.n)
+    if noise is not None and (share is None or share.first):
         kl_w = sum((-0.5 * (W ** 2).sum(1)).sum() for W in _layers(params, "gen"))
-        loss = loss + kl_w / C.shape[0]
+        loss = loss + kl_w / (C.shape[0] if share is None else share.n)
     return loss
 
 
-def pf_sweep(G_s, G_r, L_s, L_r, rid, cid, val):
-    """One Poisson-factorization coordinate sweep (the reference's ``pf_``):
-    the users' new Gamma parameters, the items' sufficient statistics Zik
-    and the users' mass Tk. The scatters sum through ``accumulate_rows``."""
-    Lt = torch.exp(torch.digamma(G_s) - torch.log(torch.clamp_min(G_r, EPS)))
-    Lb = torch.exp(torch.digamma(L_s) - torch.log(torch.clamp_min(L_r, EPS)))
+def _edge_terms(Lt, Lb, rid, cid, val):
+    """Each rating edge's terms of the two sums: ratio * Lb[cid] (into its
+    user) and ratio * Lt[rid] (into its item)."""
     lt_e, lb_e = Lt[rid], Lb[cid]
     ratio = val / ((lt_e * lb_e).sum(1) + EPS)
-    G_s_new = AA + Lt * accumulate_rows(torch.zeros_like(G_s), rid, ratio[:, None] * lb_e)
+    return ratio[:, None] * lb_e, ratio[:, None] * lt_e
+
+
+def pf_sweep(G_s, G_r, L_s, L_r, rid, cid, val, mesh=None):
+    """One Poisson-factorization coordinate sweep (the reference's ``pf_``):
+    the users' new Gamma parameters, the items' sufficient statistics Zik
+    and the users' mass Tk. The scatters sum through ``accumulate_rows``.
+    ``mesh``: the edges' terms are computed slice-wise over "data" and
+    gathered back in edge order (``data_parallel``), the same bits."""
+    Lt = torch.exp(torch.digamma(G_s) - torch.log(torch.clamp_min(G_r, EPS)))
+    Lb = torch.exp(torch.digamma(L_s) - torch.log(torch.clamp_min(L_r, EPS)))
+    to_users, to_items = data_parallel(mesh, functools.partial(_edge_terms, Lt, Lb),
+                                       val.shape[0], rid, cid, val, axis=DATA_AXIS)
+    G_s_new = AA + Lt * accumulate_rows(torch.zeros_like(G_s), rid, to_users)
     G_r_new = ((L_s / torch.clamp_min(L_r, EPS)).sum(0)[None, :] + AA).expand_as(G_s)
-    Zik = Lb * accumulate_rows(torch.zeros_like(L_s), cid, ratio[:, None] * lt_e)
+    Zik = Lb * accumulate_rows(torch.zeros_like(L_s), cid, to_items)
     Tk = (G_s_new / torch.clamp_min(G_r_new, EPS)).sum(0)
     return G_s_new, G_r_new.contiguous(), Zik, Tk
 
 
-def pcrl_epoch(params, opt, opt_state, tables, ratings, C, bsz, draws):
+def pcrl_epoch(params, opt, opt_state, tables, ratings, C, bsz, draws, mesh=None):
     """One epoch: the PF sweep, RMSProp steps over the context rows in
     minibatches of ``bsz`` (``C`` padded to whole minibatches), then the
     items' Gamma parameters from the network. ``draws(b)`` gives minibatch
     b's (draw function, weight noise or None). Returns (the new state, the
-    new tables (G_s, G_r, L_s, L_r), the summed loss)."""
+    new tables (G_s, G_r, L_s, L_r), the summed loss). ``mesh``: the sweep's
+    edges split over "data", each minibatch over every rank (module
+    docstring)."""
     G_s, G_r, L_s, L_r = tables
     d, k = L_s.shape
-    G_s, G_r, Zik, Tk = pf_sweep(G_s, G_r, L_s, L_r, *ratings)
+    G_s, G_r, Zik, Tk = pf_sweep(G_s, G_r, L_s, L_r, *ratings, mesh=mesh)
     n_pad = C.shape[0] - d
     if n_pad:
         Zik = torch.cat([Zik, Zik.new_zeros((n_pad, k))])
     loss_sum = torch.zeros((), dtype=torch.float32, device=C.device)
+    share = None if mesh is None else Share(mesh, bsz)
     for b in range(C.shape[0] // bsz):
-        sl = slice(b * bsz, (b + 1) * bsz)
+        rows = slice(b * bsz, (b + 1) * bsz)
+        if share is not None:
+            rows = slice(rows.start + share.lo, rows.start + share.hi)
         draw, noise = draws(b)
-        loss = elbo_loss(params, C[sl], Zik[sl], Tk[None, :], draw, noise)
-        opt_state = step(params, opt, opt_state, loss)
+        loss = elbo_loss(params, C[rows], Zik[rows], Tk[None, :], draw, noise, share)
+        opt_state = step(params, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     with torch.no_grad():
         alpha, beta = inference(params, C)
     return opt_state, (G_s, G_r, alpha[:d].contiguous(), beta[:d].contiguous()), loss_sum
@@ -179,7 +220,8 @@ class PCRL(Recommender, ANNMixin):
     widths), ``max_iter``, ``batch_size``, ``learning_rate``,
     ``w_determinist`` (no weight noise), ``init_params`` ({'G_s', 'G_r',
     'L_s', 'L_r'}), ``seed``. ``device``: where the model trains and
-    scores (default: the card). ``mesh`` is not ported yet.
+    scores (default: the card). ``mesh``: a ``parallel.make_mesh`` mesh;
+    every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -199,8 +241,6 @@ class PCRL(Recommender, ANNMixin):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.z_dims = [300] if z_dims is None else list(z_dims)
         self.max_iter = max_iter
@@ -208,7 +248,7 @@ class PCRL(Recommender, ANNMixin):
         self.learning_rate = learning_rate
         self.w_determinist = w_determinist
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -259,7 +299,7 @@ class PCRL(Recommender, ANNMixin):
                   for name, W in flat_params(init_nets(rng, c_dim, self.z_dims, k)).items()}
         opt = rmsprop(self.learning_rate)
         opt_state = opt.init(params)
-        bsz = min(self.batch_size, d)
+        bsz = round_batch(self.mesh, min(self.batch_size, d))
         n_pad = (-d) % bsz
         C = torch.as_tensor(C_np, device=dev)
         if n_pad:
@@ -268,11 +308,11 @@ class PCRL(Recommender, ANNMixin):
         for it in range(self.max_iter):
             gen = epoch_generator(seed, it, dev)
             opt_state, tables, loss = pcrl_epoch(params, opt, opt_state, tables, ratings, C, bsz,
-                                                 self.draws(gen, params))
+                                                 self.draws(gen, params), self.mesh)
             if self.verbose:
                 print("epoch %d, Train Loss: %f" % (it, float(loss)))
         # the final user update against the learned item representation
-        G_s, G_r, _, _ = pf_sweep(*tables, *ratings)
+        G_s, G_r, _, _ = pf_sweep(*tables, *ratings, mesh=self.mesh)
 
         self.params = {name: t.detach() for name, t in params.items()}
         self.Gs, self.Gr = G_s.cpu().numpy(), G_r.cpu().numpy()

@@ -23,7 +23,7 @@ import torch
 from ..exception import ScoreException
 from ..ops.dispatch import full_f32
 from ..ops.rmsprop import rmsprop_stream_epoch, set_rows_last_wins  # noqa: F401
-from ..parallel.mesh import check_mesh, mesh_device, shard_tables
+from ..parallel.mesh import check_mesh, shard_tables
 from ..parallel.sharded import local_shard
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
@@ -114,7 +114,7 @@ class PMF(Recommender, ANNMixin):
             rat = scale(rat, 0.0, 1.0, self.min_rating, self.max_rating)
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         n = len(rat)
         bsz = min(self.batch_size, n)
         n_pad = (-n) % bsz

@@ -129,8 +129,13 @@ class Recommender:
         self.wait = 0
 
     def _device(self):
-        """The ``torch.device`` this model computes on: its ``device``
-        attribute when one was given, else the process default (the card)."""
+        """The ``torch.device`` this model computes on: this rank's device
+        of its ``mesh`` when it has one, else its ``device`` attribute when
+        one was given, else the process default (the card)."""
+        if getattr(self, "mesh", None) is not None:
+            from ..parallel.mesh import mesh_device
+
+            return mesh_device(self.mesh)
         return resolve_device(getattr(self, "device", None))
 
     #: attributes holding process-local handles (a ``DeviceMesh`` names

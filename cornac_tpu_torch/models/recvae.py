@@ -29,7 +29,7 @@ from torch import nn
 from ..engine.nn import Tree, init_dense
 from ..exception import ScoreException
 from ..ops.optim import adam, step
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
@@ -162,7 +162,7 @@ class RecVAE(Recommender):
 
         rng = get_rng(self.seed)
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         input_dim = train_set.num_items
         self.enc = _init_encoder(rng, input_dim, self.hidden_dim, self.latent_dim).to(dev)
         self.dec = init_dense(rng, self.latent_dim, input_dim).to(dev)

@@ -18,6 +18,12 @@ again; a final layer norm. Attention is matmul, mask, softmax, matmul, as
 the JAX package writes it. The embedding's rows are gathered through
 ``gather_rows``, so their gradient sums in batch order
 (``accumulate_rows``).
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank
+(``seq_utils.fit_sessions``): each rank computes the states of its rows of
+a batch, its dropout masks cut from the whole batch's, and
+``score_history_batch`` splits the histories over the ranks when their
+padded count divides the mesh, as the JAX package shards them.
 """
 
 import numpy as np
@@ -34,6 +40,8 @@ from ..engine.nn import (
 )
 from ..ops.accumulate import gather_rows
 from ..ops.optim import adam
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import split_scoring
 from ..utils import get_rng
 from ..utils.init_utils import xavier_uniform
 from .recommender import NextItemRecommender
@@ -72,11 +80,12 @@ def _init_sasrec(rng, vocab, d, n_layers, max_len, use_pos_emb, use_biases):
     return Tree(**params)
 
 
-def _sasrec_states(params, seq, pad_id, n_heads, dropout=0.0, generator=None):
+def _sasrec_states(params, seq, pad_id, n_heads, dropout=0.0, generator=None, share=None):
     """(B, L, d) causal-transformer states of ``seq`` (B, L); padded
     positions attend nowhere and are zeroed. ``dropout`` with a
     ``generator`` (training) drops the embedded input and each block's
-    attention and feed-forward outputs, in that order."""
+    attention and feed-forward outputs, in that order; ``share``: ``seq``
+    is a rank's rows of a batch, the masks drawn for the whole batch."""
     B, L = seq.shape
     d = params.emb.shape[1]
     key_mask = seq != pad_id  # (B, L)
@@ -87,7 +96,7 @@ def _sasrec_states(params, seq, pad_id, n_heads, dropout=0.0, generator=None):
         h = h + params.pos[None, :, :]
     h = h * keep
 
-    drop = make_drop(dropout, generator)
+    drop = make_drop(dropout, generator, share)
     h = drop(h, 0)
 
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=seq.device))
@@ -157,8 +166,6 @@ class SASRec(NextItemRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if loss not in SUPPORTED_LOSSES:
             raise ValueError(f"loss='{loss}' not supported; choose from {SUPPORTED_LOSSES}")
         if model_selection not in ("last", "best"):
@@ -189,20 +196,22 @@ class SASRec(NextItemRecommender):
         self.n_layers = n_layers
         self.n_heads = n_heads
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.rng = get_rng(seed)
         assert embedding_dim % self.num_heads == 0
 
-    def loss_fn(self, seq, tgt, m, generator, cum_probs):
+    def loss_fn(self, seq, tgt, m, generator, cum_probs, share=None):
         """One batch's loss: its dropout masks, then its shared negatives,
-        drawn from ``generator``."""
+        drawn from ``generator``; with a ``share`` (``fit_sessions``), this
+        rank's share of it."""
         params = self.params
-        states = _sasrec_states(params, seq, self.num_items, self.num_heads,
-                                dropout=float(self.dropout), generator=generator)
+        states = _sasrec_states(params, seq if share is None else share.take(seq),
+                                self.num_items, self.num_heads, dropout=float(self.dropout),
+                                generator=generator, share=share)
         negs = sample_negatives(generator, cum_probs, (self.n_sample,))
         loss = batch_loss(self.loss, states, params.emb, getattr(params, "out_b", None), tgt,
-                          m, negs, bpreg=self.bpreg, elu_param=self.elu_param)
-        if self.l2_reg > 0:
+                          m, negs, bpreg=self.bpreg, elu_param=self.elu_param, share=share)
+        if self.l2_reg > 0 and (share is None or share.first):
             tables = [params.emb] + ([params.pos] if hasattr(params, "pos") else [])
             loss = loss + self.l2_reg * sum(torch.sum(p**2) for p in tables)
         return loss
@@ -244,7 +253,8 @@ class SASRec(NextItemRecommender):
 
         cum_probs = neg_sampling_table(train_set, self.sample_alpha, vocab, dev)
         fit_sessions(self, adam(self.learning_rate, b1=0.9, b2=0.98), inputs, targets, mask,
-                     bsz, lambda seq, tgt, m, gen: self.loss_fn(seq, tgt, m, gen, cum_probs),
+                     bsz, lambda seq, tgt, m, gen, share: self.loss_fn(seq, tgt, m, gen, cum_probs,
+                                                                       share),
                      train_set, val_set)
         return self
 
@@ -258,7 +268,11 @@ class SASRec(NextItemRecommender):
         padded, _ = pad_histories(histories, self.max_len, pad_value=pad_id)
         (padded,), B = pad_batch_rows([padded])
         seq = torch.as_tensor(padded, dtype=torch.int64, device=self.params.emb.device)
-        return _sasrec_scores(self.params, seq, pad_id, self.num_heads, self.num_items)[:B]
+
+        def scores(rows):
+            return _sasrec_scores(self.params, rows, pad_id, self.num_heads, self.num_items)
+
+        return split_scoring(self.mesh, scores, seq.shape[0], seq)[:B]
 
     def score_history_batch(self, user_indices, histories):
         scores = self.score_history_batch_device(user_indices, histories)

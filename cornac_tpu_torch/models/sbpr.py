@@ -39,7 +39,7 @@ import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.membership import build_membership
-from ..parallel.mesh import mesh_device, shard_tables
+from ..parallel.mesh import shard_tables
 from ..parallel.sharded import (
     data_parallel,
     local_shard,
@@ -259,7 +259,7 @@ class SBPR(BPR):
             soc_counts = np.zeros(1, dtype=np.int32)
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         rid, cid, _ = train_set.uir_tuple
         n = len(rid)
         pairs = torch.as_tensor(np.stack([rid, cid], axis=1).astype(np.int64), device=dev)

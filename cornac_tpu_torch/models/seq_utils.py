@@ -177,6 +177,7 @@ def batch_loss(
     sample_alpha=0.5,
     bpreg=1.0,
     elu_param=0.5,
+    share=None,
 ):
     """The reference's loss family over a padded session batch.
 
@@ -184,8 +185,16 @@ def batch_loss(
     same step | shared sampled negatives], the positive on the diagonal of
     the first block; one draw of negatives serves all L steps. states
     (B, L, H); targets, mask (B, L); neg_ids (N,). Returns the mean loss
-    over valid positions (a 0-d tensor)."""
-    B, L, H = states.shape
+    over valid positions (a 0-d tensor).
+
+    ``share`` (``parallel.sharded.Share``): on a mesh ``states`` holds this
+    rank's rows of the batch, while ``targets`` and ``mask`` stay the whole
+    batch's, since every row is scored against every column's target: the
+    rank's rows' terms summed over the whole batch's count, its share of
+    the mean."""
+    B, L = targets.shape
+    H = states.shape[-1]
+    take = (lambda x: x) if share is None else share.take
     targets = targets.long()
     neg_ids = neg_ids.long()
     flat_t = targets.reshape(-1)
@@ -213,24 +222,27 @@ def batch_loss(
         sc_neg = sc_neg - logq * sample_alpha * log_p0[neg_ids][None, None, :]
 
     col_valid = by_col(mask).expand(sc_in.shape)
-    pos = torch.einsum("bth,bth->bt", states, tgt_emb)
+    pos = torch.einsum("bth,bth->bt", states, take(tgt_emb))
     if tgt_bias is not None:
-        pos = pos + tgt_bias
+        pos = pos + take(tgt_bias)
     if use_logq:
-        pos = pos - logq * lp_t
+        pos = pos - logq * take(lp_t)
+    count = torch.clamp(torch.sum(mask), min=1.0)  # the whole batch's valid positions
+    mask = take(mask)
 
     neg_inf = -1e30
     if loss_kind in ("cross-entropy", "xe_softmax", "softmax", "ce"):
         # every sampled column is valid: only the in-batch block is masked
         masked = torch.cat([torch.where(col_valid > 0, sc_in, neg_inf), sc_neg], dim=-1)
         per_pos = torch.logsumexp(masked, dim=-1) - pos
-        return torch.sum(per_pos * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(per_pos * mask) / count
 
     scores = torch.cat([sc_in, sc_neg], dim=-1)  # (B, L, B + N)
     valid = torch.cat([col_valid, torch.ones_like(sc_neg)], dim=-1)
     diag = torch.cat(
-        [torch.eye(B, dtype=torch.bool, device=states.device),
-         torch.zeros((B, sc_neg.shape[-1]), dtype=torch.bool, device=states.device)], dim=-1,
+        [take(torch.eye(B, dtype=torch.bool, device=states.device)),
+         torch.zeros((states.shape[0], sc_neg.shape[-1]), dtype=torch.bool,
+                     device=states.device)], dim=-1,
     )[:, None, :].expand(scores.shape)
     if loss_kind == "bpr":
         off = valid * (~diag)
@@ -259,7 +271,7 @@ def batch_loss(
     else:
         raise ValueError(f"unknown loss {loss_kind!r}")
 
-    return torch.sum(per_pos * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(per_pos * mask) / count
 
 
 def val_score(model, train_set, val_set, metric="recall", k=20):
@@ -293,18 +305,28 @@ def fit_sessions(model, opt, inputs, targets, mask, bsz, loss_fn, train_set, val
     ``model.params`` (a module on the model's device) in place.
 
     ``inputs``, ``targets``, ``mask``: (n, L) numpy rows, n a multiple of
-    ``bsz``; ``loss_fn(seq, tgt, m, generator)`` the loss of one batch,
-    its draws (dropout, negatives) from ``generator``. Each epoch draws a
+    ``bsz``; ``loss_fn(seq, tgt, m, generator, share)`` the loss of one
+    batch, its draws (dropout, negatives) from ``generator``, ``share`` the
+    ``parallel.sharded.Share`` of the batch this rank computes. Each epoch draws a
     permutation of the rows and then every batch's draws from one
     generator keyed on (seed, global epoch), so neither the host's chunking
     nor a resume from a checkpoint changes the stream. ``epoch_loop`` runs
     the epochs; with ``model_selection='best'`` and a validation set, every
     ``val_eval_every`` epochs the validation metric is taken and the best
     parameters so far ride in the checkpointed state, and the fit ends on
-    them. The reported loss is the last epoch's sum."""
+    them. The reported loss is the last epoch's sum.
+
+    ``model.mesh`` (``parallel.make_mesh``): every rank draws the epoch's
+    whole stream and holds each whole batch; it computes the states of its
+    rows (``Share`` over every rank, as the JAX package shards a batch
+    over all mesh axes) against every column's target, and
+    ``ops.optim.step`` sums the gradients over the ranks, so every rank
+    applies the same update to its replica."""
     from ..ops.optim import step
+    from ..parallel.sharded import Share, all_sum
     from ..utils.checkpoint import epoch_generator, epoch_loop
 
+    mesh = getattr(model, "mesh", None)
     dev = model._device()
     params = dict(model.params.named_parameters())
     inputs_d = torch.as_tensor(inputs, dtype=torch.int64, device=dev)
@@ -312,6 +334,7 @@ def fit_sessions(model, opt, inputs, targets, mask, bsz, loss_fn, train_set, val
     mask_d = torch.as_tensor(mask, dtype=torch.float32, device=dev)
     n_rows = inputs_d.shape[0]
     n_batches = n_rows // bsz
+    share = Share(mesh, bsz)
     seed = model.rng.randint(2**31)
     select_best = model.model_selection == "best" and val_set is not None
 
@@ -323,9 +346,11 @@ def fit_sessions(model, opt, inputs, targets, mask, bsz, loss_fn, train_set, val
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for b in range(n_batches):
                 idx = order[b * bsz:(b + 1) * bsz]
-                loss = loss_fn(inputs_d[idx], targets_d[idx], mask_d[idx], gen)
-                opt_state = step(params, opt, opt_state, loss)
+                loss = loss_fn(inputs_d[idx], targets_d[idx], mask_d[idx], gen, share)
+                opt_state = step(params, opt, opt_state, loss, mesh, None)
                 loss_sum += loss.detach()
+        if mesh is not None:  # the ranks' shares make the batches' losses
+            all_sum(mesh, loss_sum, None)
         state = dict(state, opt=opt_state)
         info = {"loss": loss_sum}
         if select_best:

@@ -10,6 +10,13 @@ the JAX package's fit draws them: a seeded fit visits the same
 observations in the same minibatches in either package. The tables stay on
 the model's device for the whole fit; nothing syncs with the host inside an
 epoch unless ``verbose`` asks for the loss.
+
+``mesh`` (``parallel.make_mesh``) row-shards U, V, Z and their RMSProp
+caches over "model", as in the JAX package, and runs both streams through
+the stream epoch's ``mesh`` path (``ops.rmsprop``: each minibatch split
+over "data", each row written on the rank that owns it): the
+single-device fit's bits on every layout, as PMF keeps them. MCF
+(``models/mcf.py``) shares this.
 """
 
 import numpy as np
@@ -18,6 +25,7 @@ import torch
 from ..exception import ScoreException
 from ..ops.dense_scores import device_dot
 from ..ops.rmsprop import run_stream_epoch
+from ..parallel.mesh import check_mesh, shard_tables
 from ..utils import get_rng
 from ..utils.common import scale, sigmoid
 from ..utils.init_utils import normal
@@ -104,6 +112,24 @@ class _StreamCoFactor(Recommender, ANNMixin):
     def _store(self, U, V, Z):
         self.U, self.V, self.Z = (t.cpu().numpy().astype(np.float64) for t in (U, V, Z))
 
+    def _stream_state(self, U, V, Z):
+        """The tables and their zero caches, each row-sharded over "model"
+        on a mesh (``DTensor``s, padded to the shard count): (tables,
+        caches)."""
+        tables = [U, V, Z]
+        caches = [torch.zeros_like(t) for t in tables]
+        if self.mesh is not None:
+            tables = list(shard_tables(self.mesh, *tables))
+            caches = list(shard_tables(self.mesh, *caches))
+        return tables, caches
+
+    def _store_state(self, tables, rows):
+        """Keep the fitted tables, the padding rows of their shards cut
+        (``rows``: each table's own rows)."""
+        if self.mesh is not None:
+            tables = [t.full_tensor()[:n] for t, n in zip(tables, rows)]
+        self._store(*tables)
+
 
 class SoRec(_StreamCoFactor):
     """Co-factorise the rating matrix (U, V) and the social adjacency
@@ -114,7 +140,8 @@ class SoRec(_StreamCoFactor):
     ``lambda_reg``, ``gamma`` (the caches' decay), ``weight_link``,
     ``batch_size``, ``init_params`` ({'U', 'V', 'Z'}), ``seed``.
     ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``, and
+    the factors equal the single-device fit's (module docstring).
     """
 
     def __init__(
@@ -136,8 +163,6 @@ class SoRec(_StreamCoFactor):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.max_iter = max_iter
         self.learning_rate = learning_rate
@@ -147,7 +172,7 @@ class SoRec(_StreamCoFactor):
         self.weight_link = weight_link
         self.batch_size = batch_size
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -172,20 +197,22 @@ class SoRec(_StreamCoFactor):
         dev = U.device
         net = stream_tensors(net_uid, net_jid, net_val, dev)
         rat = stream_tensors(rat_uid, rat_iid, rat_val, dev)
-        cu, cv, cz = (torch.zeros_like(t) for t in (U, V, Z))
+        rows = [t.shape[0] for t in (U, V, Z)]
+        (U, V, Z), (cu, cv, cz) = self._stream_state(U, V, Z)
         lr, reg = self.learning_rate, self.lambda_reg
         for epoch in range(self.max_iter):
             loss = 0.0
             if len(net_val) > 0:
                 # the trust stream: both tables move at lambda_c * lr
                 loss = run_stream_epoch(U, Z, cu, cz, *net, rng, self.lambda_c * lr,
-                                        self.lambda_c * lr, reg, self.gamma, self.batch_size)
+                                        self.lambda_c * lr, reg, self.gamma, self.batch_size,
+                                        mesh=self.mesh)
             loss = loss + run_stream_epoch(U, V, cu, cv, *rat, rng, lr, lr, reg, self.gamma,
-                                           self.batch_size)
+                                           self.batch_size, mesh=self.mesh)
             if self.verbose:
                 print("epoch %i, loss: %f" % (epoch, float(loss)))
 
-        self._store(U, V, Z)
+        self._store_state((U, V, Z), rows)
         return self
 
     def score(self, user_idx, item_idx=None):

@@ -20,6 +20,14 @@ differentiated lookup (a codebook row, a token embedding) goes through
 ``gather_rows``, so its gradient sums in batch order (``accumulate_rows``)
 and a seeded fit keeps its bits on the card. ``used`` (the codes an RQ-VAE
 epoch chose) is read once an epoch, after the epoch, for the restarts.
+
+``mesh`` (``parallel.make_mesh``) trains the seq2seq data-parallel over
+every rank, its minibatch rounded down to a multiple of the mesh's size as
+in the JAX package: each rank encodes and decodes its rows of a minibatch,
+takes their cross entropy over the whole minibatch's size
+(``vaecf.batch_mean``), and ``ops.optim.step`` sums the gradients. The
+tokenizers (the RQ-VAE or residual k-means) stay single-program, each
+rank fitting the same one, and the beam pruning stays on the host.
 """
 
 from collections import defaultdict
@@ -31,9 +39,12 @@ import torch.nn.functional as F
 from ..engine.nn import Dense, Tree
 from ..ops.accumulate import gather_rows
 from ..ops.optim import adamw, step, warmup_cosine_decay_schedule
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.init_utils import xavier_uniform
 from .recommender import NextItemRecommender
+from .vaecf import batch_mean
 
 SUPPORTED_SCORING = ("beam", "exact")
 SUPPORTED_TOKENIZERS = ("rqvae", "rkmeans")
@@ -181,7 +192,8 @@ def _ffn(blk, h):
 
 def _embed_tokens(params, tokens):
     shape = tokens.shape
-    return gather_rows(params.tok_emb, tokens.reshape(-1)).reshape(*shape, -1)
+    return gather_rows(params.tok_emb, tokens.reshape(-1)).reshape(*shape,
+                                                                   params.tok_emb.shape[1])
 
 
 def _encoder(params, tokens, n_heads):
@@ -226,15 +238,17 @@ def _dec_emb(params, offsets, prefix):
     return torch.cat([bos, _embed_tokens(params, prefix + offsets[None, :level])], dim=1)
 
 
-def _seq2seq_loss(params, offsets, enc_tokens, target, n_heads):
+def _seq2seq_loss(params, offsets, enc_tokens, target, n_heads, denom=None):
     """The per-level cross entropy of the target semantic IDs, summed over
-    the levels, each the batch mean."""
+    the levels, each the batch mean; on a mesh the rows are a rank's share
+    of a minibatch of ``denom`` rows (``vaecf.batch_mean``)."""
     enc_out, enc_mask = _encoder(params, enc_tokens, n_heads)
     h = _decoder(params, _dec_emb(params, offsets, target[:, :-1]), enc_out, enc_mask, n_heads)
     loss = 0.0
     for level, head in enumerate(params.heads):
         logits = h[:, level] @ head
-        loss = loss + torch.mean(F.cross_entropy(logits, target[:, level], reduction="none"))
+        loss = loss + batch_mean(F.cross_entropy(logits, target[:, level], reduction="none"),
+                                 denom)
     return loss
 
 
@@ -282,19 +296,23 @@ def _epoch_perm(seed, epoch, n_total, n, device):
     return torch.randperm(n_total, generator=gen, device=device) % n
 
 
-def _train_epoch(params, opt, opt_state, batch_loss, perm, bsz):
+def _train_epoch(params, opt, opt_state, batch_loss, perm, bsz, mesh=None):
     """One epoch of ``opt`` steps over ``perm``'s batches of ``bsz`` rows:
     ``batch_loss(idx)`` gives a batch's loss (and optionally an auxiliary
-    output, collected). Returns (state, loss sum, the auxiliaries)."""
+    output, collected). Returns (state, loss sum, the auxiliaries). With
+    ``mesh`` the loss is a rank's share of the batch's, the gradients and
+    the loss sum summed over every rank."""
     named = dict(params.named_parameters())
     loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     aux = []
     for b in range(perm.shape[0] // bsz):
         out = batch_loss(perm[b * bsz:(b + 1) * bsz])
         loss, extra = out if isinstance(out, tuple) else (out, None)
-        opt_state = step(named, opt, opt_state, loss)
+        opt_state = step(named, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
         aux.append(extra)
+    if mesh is not None:
+        all_sum(mesh, loss_sum, None)
     return opt_state, loss_sum, aux
 
 
@@ -362,8 +380,6 @@ class TIGER(NextItemRecommender):
         mesh=None,
     ):
         super().__init__(name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if scoring not in SUPPORTED_SCORING:
             raise ValueError("scoring='%s' not supported; choose from %s"
                              % (scoring, SUPPORTED_SCORING))
@@ -410,7 +426,7 @@ class TIGER(NextItemRecommender):
         self.scoring_batch_size = scoring_batch_size
         self.device = None if device == "auto" else device
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.rng = get_rng(seed)
 
     # ------------------------------------------------------- features
@@ -594,9 +610,11 @@ class TIGER(NextItemRecommender):
         tgt_d = torch.as_tensor(self.sid_table[outs], device=dev)
         offsets_d = torch.as_tensor(self.offsets, device=dev)
         n = len(hists)
-        bsz = min(self.batch_size, n)
+        mesh = self.mesh
+        bsz = round_batch(mesh, min(self.batch_size, n))
         n_total = n + ((-n) % bsz)
         n_batches = n_total // bsz
+        share = Share(mesh, bsz)
         opt = self._optimizer(max(1, n_batches * self.n_epochs))
         params = self.params
         named = dict(params.named_parameters())
@@ -605,13 +623,16 @@ class TIGER(NextItemRecommender):
         select_best = self.model_selection == "best" and val_set is not None
 
         def batch_loss(idx):
-            return _seq2seq_loss(params, offsets_d, enc_d[idx], tgt_d[idx], n_heads)
+            idx = share.take(idx)
+            return _seq2seq_loss(params, offsets_d, enc_d[idx], tgt_d[idx], n_heads,
+                                 None if mesh is None else bsz)
 
         def run_chunk(state, start, e):
             opt_state = state["opt"]
             for epoch in range(start, start + e):
                 perm = _epoch_perm(seed, epoch, n_total, n, dev)
-                opt_state, loss, _ = _train_epoch(params, opt, opt_state, batch_loss, perm, bsz)
+                opt_state, loss, _ = _train_epoch(params, opt, opt_state, batch_loss, perm, bsz,
+                                                  mesh)
                 if self.verbose:
                     print("TIGER epoch %d/%d loss %.4f"
                           % (epoch + 1, self.n_epochs, float(loss) / n_batches))

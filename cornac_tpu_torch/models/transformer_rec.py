@@ -24,6 +24,14 @@ package's on its own draws. The item embedding's rows are gathered through
 ``gather_rows``, so their gradient sums in batch order (``accumulate_rows``)
 and a seeded fit keeps its bits on the card. Attention is matmul, mask,
 softmax, matmul, as the JAX package writes it.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank
+(``seq_utils.fit_sessions``), a step's minibatch rounded down to a
+multiple of the mesh's size as in the JAX package: every draw is made for
+the whole batch (the Cloze masks, plm's orders, the dropout masks, rtd's
+corruption), each rank encodes its rows of it and scores them against
+every column's target, and ``score_history_batch`` splits the histories
+over the ranks when their padded count divides the mesh.
 """
 
 import numpy as np
@@ -38,6 +46,8 @@ from ..engine.nn import (
 )
 from ..ops.accumulate import gather_rows
 from ..ops.optim import adam
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import round_batch, split_scoring
 from ..utils import get_rng
 from ..utils.init_utils import xavier_uniform
 from .recommender import NextItemRecommender
@@ -96,7 +106,8 @@ def _drop_fn(dropout, masks):
 
 def _embed(params, seq):
     B, L = seq.shape
-    return gather_rows(params.emb, seq.reshape(-1)).reshape(B, L, -1) + params.pos[None, :, :]
+    d = params.emb.shape[1]
+    return gather_rows(params.emb, seq.reshape(-1)).reshape(B, L, d) + params.pos[None, :, :]
 
 
 def _encode(params, seq, pad_id, n_heads, causal, dropout=0.0, drop_masks=None):
@@ -243,8 +254,6 @@ class TransformerRec(NextItemRecommender):
         mesh=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (c))")
         if backbone not in BACKBONES:
             raise ValueError(f"backbone must be one of {BACKBONES}")
         if objective not in OBJECTIVES:
@@ -289,7 +298,7 @@ class TransformerRec(NextItemRecommender):
         self.n_layers = n_layers
         self.n_heads = n_heads
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.rng = get_rng(seed)
         assert embedding_dim % self.num_heads == 0
 
@@ -326,30 +335,38 @@ class TransformerRec(NextItemRecommender):
         return out
 
     # ------------------------------------------------------------- loss
-    def _position_loss(self, states, labels, sel, negs):
+    def _position_loss(self, states, labels, sel, negs, share=None):
         params = self.params
         return batch_loss(self.loss, states, params.emb, params.out_b, labels,
                           sel.to(torch.float32), negs, bpreg=self.bpreg,
-                          elu_param=self.elu_param)
+                          elu_param=self.elu_param, share=share)
 
-    def loss_on(self, seq, tgt, m, draws):
+    def loss_on(self, seq, tgt, m, draws, share=None):
         """One batch's loss on given draws (``draws``' keys as it makes
         them; rtd may carry ``"sampled"``, the corrupting items, in place of
-        ``"corrupt_u"``)."""
+        ``"corrupt_u"``). ``share`` (``parallel.sharded.Share``): the batch
+        and the draws stay whole, and this rank encodes its rows of them,
+        its share of the loss."""
         params = self.params
         pad_id, n_heads = self.num_items, self.num_heads
         dropout = float(self.dropout)
         valid = (m > 0) & (seq != pad_id)
         objective = self.objective
+        mine = (lambda x: x) if share is None else share.take
+
+        def masks(key):
+            drawn = draws.get(key)
+            return None if drawn is None else [mine(x) for x in drawn]
+
         if objective == "clm":
-            states = _encode(params, seq, pad_id, n_heads, True, dropout, draws.get("drop"))
-            loss = self._position_loss(states, tgt, m > 0, draws["negs"])
+            states = _encode(params, mine(seq), pad_id, n_heads, True, dropout, masks("drop"))
+            loss = self._position_loss(states, tgt, m > 0, draws["negs"], share)
         elif objective in ("mlm", "rtd"):
             is_masked = _bernoulli_mask(draws["mask_u"], valid, self.mask_prob)
             model_in = torch.where(is_masked, self.num_items + 1, seq)
-            states = _encode(params, model_in, pad_id, n_heads, False, dropout,
-                             draws.get("drop"))
-            loss = self._position_loss(states, seq, is_masked, draws["negs"])
+            states = _encode(params, mine(model_in), pad_id, n_heads, False, dropout,
+                             masks("drop"))
+            loss = self._position_loss(states, seq, is_masked, draws["negs"], share)
             if objective == "rtd":
                 sampled = draws.get("sampled")
                 if sampled is None:
@@ -358,26 +375,30 @@ class TransformerRec(NextItemRecommender):
                     vocab = self.num_items
                     with torch.no_grad():
                         logits = states @ params.emb[:vocab].T + params.out_b[:vocab]
-                        gumbel = draws["corrupt_u"].clamp(min=_TINY).log().neg_().log_().neg_()
+                        gumbel = mine(draws["corrupt_u"]).clamp(min=_TINY).log().neg_().log_(
+                        ).neg_()
                         sampled = torch.argmax(logits.add_(gumbel), dim=-1)
                         del logits, gumbel
-                corrupted = torch.where(is_masked, sampled, seq)
+                else:
+                    sampled = mine(sampled)
+                corrupted = torch.where(mine(is_masked), sampled, mine(seq))
                 disc_states = _encode(params, corrupted, pad_id, n_heads, False, dropout,
-                                      draws.get("drop_disc"))
+                                      masks("drop_disc"))
                 disc_logits = (disc_states @ params.disc_w).squeeze(-1) + params.disc_b
-                disc_labels = (corrupted != seq).to(torch.float32)
+                disc_labels = (corrupted != mine(seq)).to(torch.float32)
                 bce = (torch.clamp(disc_logits, min=0) - disc_logits * disc_labels
                        + torch.log1p(torch.exp(-torch.abs(disc_logits))))
                 vf = valid.to(torch.float32)
-                disc_loss = torch.sum(bce * vf) / torch.clamp(torch.sum(vf), min=1.0)
+                count = torch.clamp(torch.sum(vf), min=1.0)  # the whole batch's
+                disc_loss = torch.sum(bce * mine(vf)) / count
                 loss = loss + self.rtd_lambda * disc_loss
         else:  # plm
             is_target = _bernoulli_mask(draws["mask_u"], valid, self.mask_prob)
             allowed = _perm_allowed(is_target, draws["order_u"])
-            g = _encode_two_stream(params, seq, pad_id, n_heads, allowed, is_target, dropout,
-                                   draws.get("drop"))
-            loss = self._position_loss(g, seq, is_target, draws["negs"])
-        if self.l2_reg > 0:
+            g = _encode_two_stream(params, mine(seq), pad_id, n_heads, mine(allowed),
+                                   mine(is_target), dropout, masks("drop"))
+            loss = self._position_loss(g, seq, is_target, draws["negs"], share)
+        if self.l2_reg > 0 and (share is None or share.first):
             loss = loss + self.l2_reg * (torch.sum(params.emb ** 2) + torch.sum(params.pos ** 2))
         return loss
 
@@ -408,7 +429,7 @@ class TransformerRec(NextItemRecommender):
                 only_last[rows, last_pos] = mask[rows, last_pos]
                 mask = only_last
         n = inputs.shape[0]
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_pad = (-n) % bsz
         if n_pad:
             inputs = np.concatenate([inputs, np.full((n_pad, L), pad_id, np.int32)])
@@ -431,8 +452,8 @@ class TransformerRec(NextItemRecommender):
         inputs, targets, mask, bsz = self.training_rows(train_set)
         cum_probs = neg_sampling_table(train_set, self.sample_alpha, vocab, dev)
 
-        def loss_fn(seq, tgt, m, gen):
-            return self.loss_on(seq, tgt, m, self.draws(gen, *seq.shape, dev, cum_probs))
+        def loss_fn(seq, tgt, m, gen, share):
+            return self.loss_on(seq, tgt, m, self.draws(gen, *seq.shape, dev, cum_probs), share)
 
         fit_sessions(self, adam(self.learning_rate), inputs, targets, mask, bsz, loss_fn,
                      train_set, val_set)
@@ -458,9 +479,12 @@ class TransformerRec(NextItemRecommender):
         padded, _ = pad_histories(histories, self.max_len, pad_value=pad_id)
         (padded,), B = pad_batch_rows([padded])
         seq = torch.as_tensor(padded, dtype=torch.int64, device=self.params.emb.device)
-        logits = _encode_scores(self.params, seq, pad_id, self.num_heads,
-                                self.backbone == "gpt2", self.num_items)
-        return logits[:B]
+
+        def scores(rows):
+            return _encode_scores(self.params, rows, pad_id, self.num_heads,
+                                  self.backbone == "gpt2", self.num_items)
+
+        return split_scoring(self.mesh, scores, seq.shape[0], seq)[:B]
 
 
 class BERT4Rec(TransformerRec):

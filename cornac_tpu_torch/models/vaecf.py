@@ -43,7 +43,7 @@ import torch
 from ..engine.nn import ACTIVATIONS, Tree, init_dense, init_mlp, mlp
 from ..exception import ScoreException
 from ..ops.optim import adam, step
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..parallel.sharded import all_sum, batch_slice
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
@@ -222,7 +222,7 @@ class VAECF(Recommender, ANNMixin):
         rng = get_rng(self.seed)
         self.r_mat = train_set.matrix
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
 
         data_dim = self.r_mat.shape[1]
         if not hasattr(self, "params"):

@@ -16,6 +16,14 @@ seeded fit gives the same bits on every run. AMR's FGSM perturbation is the
 sign of the inner gradient with respect to the gathered features, taken
 with ``torch.autograd.grad`` and used detached: in the JAX package the sign
 carries no gradient either. Nothing syncs with the host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each minibatch over all mesh axes: every rank draws
+the epoch's whole stream and takes the loss of its rows of each minibatch
+over the whole minibatch's size (the visual projections' penalty on rank 0
+alone), and ``ops.optim.step`` sums the gradients, so every rank applies
+the same Adam update to its replica. AMR's FGSM sign is a row's own: the
+gradient of the mean with respect to a row's features is that row's.
 """
 
 import numpy as np
@@ -26,10 +34,13 @@ from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.dispatch import full_f32
 from ..ops.optim import adam, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import xavier_uniform, zeros
 from .recommender import ANNMixin, MEASURE_DOT, Recommender
+from .vaecf import batch_mean
 
 TABLES = ("Bi", "Gu", "Gi", "Tu", "E", "Bp")
 
@@ -60,21 +71,26 @@ def _pair_scores(params, gu, tu, rows, feat, count):
             + (tu.repeat(reps, 1) * theta).sum(1))
 
 
-def vbpr_loss(params, F, u, i, j, hyper, adversarial):
+def vbpr_loss(params, F, u, i, j, hyper, adversarial, share=None):
     """The JAX package's ``loss_fn`` on the triplets (u, i, j): the mean
     softplus BPR loss (plus ``lambda_adv`` times the loss on the FGSM-
     perturbed features, for AMR) and the regulariser over the gathered rows
     (and E, Bp times ``lambda_e``), divided by the batch size. ``hyper``:
-    (lambda_w, lambda_b, lambda_e, lambda_adv, epsilon_adv)."""
+    (lambda_w, lambda_b, lambda_e, lambda_adv, epsilon_adv). ``share``
+    (``parallel.sharded.Share``): (u, i, j) are a rank's rows of a
+    minibatch of ``share.n``, and the loss is its share of the
+    minibatch's."""
     lw, lb, le, adv_lambda, adv_eps = hyper
     B = u.shape[0]
+    whole = B if share is None else share.n
+    denom = None if share is None else whole
     ij = torch.cat([i, j])
     gu, tu = gather_rows(params["Gu"], u), gather_rows(params["Tu"], u)
     rows = (gather_rows(params["Bi"], ij), gather_rows(params["Gi"], ij))
 
     def core(feat):
         x = _pair_scores(params, gu, tu, rows, feat, B)
-        return torch.mean(softplus(-(x[:B] - x[B:])))
+        return batch_mean(softplus(-(x[:B] - x[B:])), denom)
 
     feat = F[ij]
     if adversarial:
@@ -88,23 +104,32 @@ def vbpr_loss(params, F, u, i, j, hyper, adversarial):
     gi, bi = rows[1], rows[0]
     reg = (lw * ((gu * gu).sum() + (gi[:B] * gi[:B]).sum() + (gi[B:] * gi[B:]).sum()
                  + (tu * tu).sum())
-           + lb * (bi[:B] * bi[:B]).sum() + lb * (bi[B:] * bi[B:]).sum()
-           + le * ((params["E"] ** 2).sum() + (params["Bp"] ** 2).sum()))
-    return loss + reg / B
+           + lb * (bi[:B] * bi[:B]).sum() + lb * (bi[B:] * bi[B:]).sum())
+    if share is None or share.first:
+        reg = reg + le * ((params["E"] ** 2).sum() + (params["Bp"] ** 2).sum())
+    return loss + reg / whole
 
 
-def vbpr_epoch(params, opt, opt_state, draws, pairs, F, hyper, batch_size, adversarial):
+def vbpr_epoch(params, opt, opt_state, draws, pairs, F, hyper, batch_size, adversarial,
+               mesh=None):
     """One epoch of Adam steps on the draws (``vbpr_draws``' pair), updating
     ``params`` in place. Returns (the new state, the summed loss, a device
-    scalar)."""
+    scalar). ``mesh``: each rank takes its share of every minibatch
+    (module docstring)."""
     pos_idx, negs = draws
     users, items = pairs[pos_idx].unbind(1)
     loss_sum = torch.zeros((), dtype=torch.float32, device=pairs.device)
+    share = None if mesh is None else Share(mesh, batch_size)
     for s in range(0, pos_idx.shape[0], batch_size):
         sl = slice(s, s + batch_size)
-        loss = vbpr_loss(params, F, users[sl], items[sl], negs[sl], hyper, adversarial)
-        opt_state = step(params, opt, opt_state, loss)
+        u, i, j = users[sl], items[sl], negs[sl]
+        if share is not None:
+            u, i, j = share.take(u), share.take(i), share.take(j)
+        loss = vbpr_loss(params, F, u, i, j, hyper, adversarial, share)
+        opt_state = step(params, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     return opt_state, loss_sum
 
 
@@ -116,7 +141,8 @@ class VBPR(Recommender, ANNMixin):
     ``lambda_b``, ``lambda_e``, ``use_gpu`` (kept for the signature),
     ``init_params`` ({'Bi', 'Gu', 'Gi', 'Tu', 'E', 'Bp'}), ``seed``.
     ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (module docstring).
     """
 
     _adversarial = False
@@ -143,9 +169,7 @@ class VBPR(Recommender, ANNMixin):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         self.k2 = k2
@@ -219,7 +243,7 @@ class VBPR(Recommender, ANNMixin):
                 draws = vbpr_draws(epoch_generator(seed, epoch, dev), n, n_batches * bsz,
                                    num_items)
                 opt_state, loss_sum = vbpr_epoch(params, opt, opt_state, draws, pairs, F, hyper,
-                                                 bsz, self._adversarial)
+                                                 bsz, self._adversarial, self.mesh)
             return opt_state, loss_sum
 
         epoch_loop(self, self.n_epochs, run_chunk, opt.init(params), resident=params,

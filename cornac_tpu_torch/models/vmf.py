@@ -9,6 +9,12 @@ fit's seed, the global epoch index), as the JAX package takes its order
 from its key. The item features stay on the model's device; the gradients
 of the row gathers sum through ``accumulate_rows``. Nothing syncs with the
 host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank,
+the minibatch rounded down to a multiple of the mesh's size as in the JAX
+package: every rank draws the whole order and sums the terms of its rows
+of each minibatch (E's penalty on rank 0 alone), and ``ops.optim.step``
+sums the gradients.
 """
 
 import numpy as np
@@ -17,6 +23,8 @@ import torch
 from ..exception import CornacException, ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.optim import rmsprop, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.common import scale
@@ -32,33 +40,40 @@ def vmf_order(gen, n, n_total):
     return _epoch_permutation(n_total, gen) % n
 
 
-def vmf_loss(params, F, u, i, r, hyper):
+def vmf_loss(params, F, u, i, r, hyper, dense=True):
     """The JAX package's ``loss_fn``: half the squared error of the sigmoid
     prediction and the halved L2 terms. ``hyper``: (lambda_u, lambda_v,
-    lambda_p, lambda_e)."""
+    lambda_p, lambda_e). With ``dense`` False (a rank of a mesh but the
+    first) E's penalty is left out: every other term is a sum over the
+    rows."""
     lu, lv, lp, le = hyper
     U_u, V_i, P_u = (gather_rows(params["U"], u), gather_rows(params["V"], i),
                      gather_rows(params["P"], u))
     vis = F[i] @ params["E"]
     pred = torch.sigmoid((U_u * V_i).sum(1) + (P_u * vis).sum(1))
     loss = 0.5 * ((r - pred) ** 2).sum()
-    reg = (lu * 0.5 * (U_u ** 2).sum() + lv * 0.5 * (V_i ** 2).sum()
-           + lp * 0.5 * (P_u ** 2).sum() + le * 0.5 * (params["E"] ** 2).sum())
+    reg = lu * 0.5 * (U_u ** 2).sum() + lv * 0.5 * (V_i ** 2).sum() + lp * 0.5 * (P_u ** 2).sum()
+    if dense:
+        reg = reg + le * 0.5 * (params["E"] ** 2).sum()
     return loss + reg
 
 
-def vmf_epoch(params, opt, opt_state, order, triples, F, hyper, batch_size):
+def vmf_epoch(params, opt, opt_state, order, triples, F, hyper, batch_size, mesh=None):
     """One epoch of RMSProp steps in the order ``order``, updating
     ``params`` in place. ``triples``: ((n, 2) int64 pairs, (n,) float32
-    scaled ratings). Returns (the new state, the summed loss)."""
+    scaled ratings). Returns (the new state, the summed loss). ``mesh``:
+    each rank takes its share of every minibatch (module docstring)."""
     pairs, rat = triples
     loss_sum = torch.zeros((), dtype=torch.float32, device=pairs.device)
+    share = Share(mesh, batch_size)
     for s in range(0, order.shape[0], batch_size):
-        idx = order[s:s + batch_size]
+        idx = share.take(order[s:s + batch_size])
         u, i = pairs[idx].unbind(1)
-        loss = vmf_loss(params, F, u, i, rat[idx], hyper)
-        opt_state = step(params, opt, opt_state, loss)
+        loss = vmf_loss(params, F, u, i, rat[idx], hyper, share.first)
+        opt_state = step(params, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     return opt_state, loss_sum
 
 
@@ -70,7 +85,8 @@ class VMF(Recommender):
     decay), ``lambda_u``, ``lambda_v``, ``lambda_p``, ``lambda_e``,
     ``use_gpu`` (kept for the signature), ``init_params`` ({'U', 'V', 'P',
     'E'}), ``seed``. ``device``: where the model trains (default: the
-    card). ``mesh`` is not ported yet.
+    card). ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls
+    ``fit`` (module docstring).
     """
 
     def __init__(
@@ -95,8 +111,6 @@ class VMF(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.d = d
         self.n_epochs = n_epochs
@@ -109,7 +123,7 @@ class VMF(Recommender):
         self.lambda_e = lambda_e
         self.use_gpu = use_gpu
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.init_params = {} if init_params is None else init_params
 
@@ -140,7 +154,7 @@ class VMF(Recommender):
         triples = (pairs, torch.as_tensor(np.asarray(rat, np.float32), device=dev))
         F = torch.as_tensor(features, device=dev)
         n = len(rid)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_batches = (n + bsz - 1) // bsz
         hyper = (self.lambda_u, self.lambda_v, self.lambda_p, self.lambda_e)
         opt = rmsprop(self.learning_rate, decay=self.gamma)
@@ -150,7 +164,7 @@ class VMF(Recommender):
             for epoch in range(start, start + e):
                 order = vmf_order(epoch_generator(seed, epoch, dev), n, n_batches * bsz)
                 opt_state, loss_sum = vmf_epoch(params, opt, opt_state, order, triples, F,
-                                                hyper, bsz)
+                                                hyper, bsz, self.mesh)
             return opt_state, loss_sum
 
         epoch_loop(self, self.n_epochs, run_chunk, opt.init(params), resident=params,

@@ -32,7 +32,7 @@ import torch
 
 from ..exception import ScoreException
 from ..ops.dispatch import full_f32
-from ..parallel.mesh import check_mesh, mesh_device
+from ..parallel.mesh import check_mesh
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_loop
 from ..utils.init_utils import xavier_uniform
@@ -224,7 +224,7 @@ class WMF(Recommender, ANNMixin):
             self.V = xavier_uniform((self.num_items, self.k), rng)
 
         mesh = self.mesh
-        dev = self._device() if mesh is None else mesh_device(mesh)
+        dev = self._device()
         csr = train_set.csr_matrix
         state = tuple(torch.tensor(np.asarray(x, np.float32), device=dev)
                       for x in (self.U, self.V))

@@ -135,10 +135,15 @@ def stream_order(n, batch_size, rng, device):
 
 
 def run_stream_epoch(A, B, cache_a, cache_b, pairs, vals, rng, lr_a, lr_b, reg, gamma,
-                     batch_size=1024, non_linear=True):
+                     batch_size=1024, non_linear=True, mesh=None):
     """One epoch of the stream (``pairs``, ``vals``) in the order the numpy
     generator ``rng`` draws (``stream_order``), updating the tables in
-    place. Returns the epoch's loss (a device scalar)."""
-    perm, mask, bsz = stream_order(pairs.shape[0], batch_size, rng, A.device)
+    place. Returns the epoch's loss (a device scalar). ``mesh``: the four
+    tables are row-sharded over "model" (``DTensor``s, or this rank's
+    shards), as ``rmsprop_stream_epoch`` takes them."""
+    from ..parallel.sharded import local_shard
+
+    A, B, cache_a, cache_b = (local_shard(t) for t in (A, B, cache_a, cache_b))
+    perm, mask, bsz = stream_order(pairs.shape[0], batch_size, rng, pairs.device)
     return rmsprop_stream_epoch(A, B, cache_a, cache_b, perm, mask, pairs, vals, lr_a, lr_b, reg,
-                                gamma, bsz, non_linear)
+                                gamma, bsz, non_linear, mesh)

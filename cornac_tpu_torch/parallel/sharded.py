@@ -35,7 +35,10 @@ rank of the mesh (SPMD) and issues its collectives explicitly:
   package's ``P(("data", "model"))``), in global rank order.
 * ``data_parallel``: a function of a minibatch's rows run on this rank's
   slice, its outputs gathered back in batch order: the row-wise part of a
-  step, written once for both the single-device and the mesh fit.
+  step, written once for both the single-device and the mesh fit;
+  ``split_scoring`` runs a scorer that way over every rank when the ranks divide
+  the batch.
+* ``round_batch``: the JAX package's rounding of a sharded minibatch.
 * ``slice_rows``: a replicated table's rows at this rank's slice of a
   minibatch, whose gradient is summed in batch order as on one device.
 * ``row_shard_set_last_wins``: ``set_rows_last_wins`` on a row-sharded
@@ -45,6 +48,10 @@ rank of the mesh (SPMD) and issues its collectives explicitly:
 * ``all_sum_messages``: a sum over the ranks whose gradient is again that
   sum, for the partial messages of a sharded graph (``ops.graph``, GCMC):
   every rank's loss reaches every rank's edges.
+* ``Share``: this rank's rows of a minibatch split over every rank, for
+  the losses that couple a minibatch's rows (a mean over the whole batch,
+  an in-batch block that scores every row against every column, batch
+  statistics, draws made for the whole batch).
 """
 
 import numpy as np
@@ -212,6 +219,26 @@ def data_parallel(mesh, fn, n, *rows, axis=DATA_AXIS):
     return res[0] if single else tuple(res)
 
 
+def round_batch(mesh, bsz):
+    """A minibatch size rounded down to a multiple of the mesh's ranks, at
+    least one row a rank, as the JAX package rounds the minibatches it
+    shards over every device; ``bsz`` itself without a mesh."""
+    if mesh is None:
+        return bsz
+    return max(mesh.size(), bsz - bsz % mesh.size())
+
+
+def split_scoring(mesh, fn, n, *rows):
+    """``fn(*rows)`` on an n-row scoring batch, split over every rank
+    (``data_parallel`` with ``axis=None``) when there is a mesh and its
+    ranks divide n, as the JAX package shards an inference batch over the
+    mesh; on the whole batch otherwise. A collective every rank calls on a
+    mesh."""
+    if mesh is not None and n % mesh.size() == 0:
+        return data_parallel(mesh, fn, n, *rows, axis=None)
+    return fn(*rows)
+
+
 class _SliceRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, mesh, axis):
@@ -301,3 +328,56 @@ def row_shard_set_last_wins(mesh, table, ids, values):
     written = (src >= 0).view((-1,) + (1,) * (values.dim() - 1))
     local[at] = torch.where(written, values[src.clamp_min(0)], local[at])
     return table
+
+
+class Share:
+    """This rank's share of an n-row minibatch that a data-parallel fit
+    splits over every rank of ``mesh`` (``batch_slice`` with ``axis=None``,
+    the JAX package's ``P(("data", "model"))``): the rows ``lo:hi``; with
+    ``mesh`` None, the whole batch.
+
+    For the losses that couple a minibatch's rows: every rank holds the
+    whole minibatch and computes the terms of its own rows over the whole
+    batch's count (``n`` rows, or the whole mask's sum), and ``first``
+    (global rank 0, or no mesh) adds the terms that belong to no row, such
+    as a dense table's penalty, once; ``ops.optim.step(mesh=, axis=None)``
+    then sums the gradients. Random draws are made for the whole batch and
+    cut (``draw``), so that every layout draws one stream. Where the share
+    is the whole batch (no mesh, or a mesh of one rank) ``take`` gives the
+    tensor itself, and the fit runs the single-device operations."""
+
+    def __init__(self, mesh, n):
+        self.mesh, self.n = mesh, int(n)
+        if mesh is None:
+            self.lo, self.hi, self.per, self.first = 0, self.n, self.n, True
+        else:
+            self.lo, self.hi, self.per = batch_slice(mesh, self.n, None)
+            self.first = dist.get_rank() == 0
+
+    @property
+    def whole(self):
+        """Whether this rank holds every row of the batch."""
+        return self.lo == 0 and self.hi == self.n
+
+    def take(self, x):
+        """This rank's rows of ``x``, whose leading dimension is the batch
+        (``x`` itself where they are all of them)."""
+        return x if self.whole else x[self.lo:self.hi]
+
+    def draw(self, shape, generator, device):
+        """``torch.rand`` of a (rows, ...) shape, drawn for the whole batch
+        (n rows) and cut to this rank's rows."""
+        return self.take(torch.rand((self.n,) + tuple(shape[1:]), generator=generator,
+                                    device=device))
+
+    def gather(self, x):
+        """The whole batch of a row-wise tensor of which ``x`` holds this
+        rank's rows, on every rank (no gradient); a collective that every
+        rank calls on a mesh."""
+        return x if self.mesh is None else gather_batch(self.mesh, x, self.n, self.per, None)
+
+    def sum(self, x):
+        """``x`` summed over every rank, its gradient summed again
+        (``all_sum_messages``): a whole-batch statistic from the ranks'
+        partial sums; ``x`` itself without a mesh."""
+        return x if self.mesh is None else all_sum_messages(self.mesh, x, None)

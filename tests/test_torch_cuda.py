@@ -1657,3 +1657,69 @@ def test_world_one_family_fit_equals_the_plain_fit(world_one_mesh, card, name):
     assert want and set(got) == set(want)
     for n in want:
         np.testing.assert_array_equal(got[n], want[n], err_msg=f"{name} {n}")
+
+
+def _world_one_sessions():
+    """Seeded sessions (3 to 7 of 60 items each) for SASRec."""
+    from cornac_tpu_torch.data import SequentialDataset
+
+    rng = np.random.RandomState(5)
+    return SequentialDataset.build([(f"s{s}", f"i{rng.randint(60)}", t) for s in range(600)
+                                    for t in range(rng.randint(3, 8))])
+
+
+def _world_one_baskets():
+    """Seeded baskets (300 users, 3 to 5 baskets of 1 to 3 of 20 items) for
+    DNNTSP."""
+    from cornac_tpu_torch.data import BasketDataset
+
+    rng = np.random.RandomState(6)
+    return BasketDataset.build([(f"u{u}", f"b{u * 10 + b}", f"i{i}") for u in range(300)
+                                for b in range(rng.randint(3, 6))
+                                for i in rng.choice(20, size=rng.randint(1, 4), replace=False)])
+
+
+def _world_one_social():
+    """Seeded star ratings with a trust graph for SoRec."""
+    from cornac_tpu_torch.data import GraphModality
+    from cornac_tpu_torch.eval_methods import RatioSplit
+
+    rng = np.random.RandomState(31)
+    pairs = sorted({(rng.randint(300), rng.randint(40)) for _ in range(3000)})
+    trust = sorted({(f"u{rng.randint(300)}", f"u{rng.randint(300)}", 1.0) for _ in range(900)})
+    return RatioSplit(data=[(f"u{u}", f"i{i}", float(rng.randint(1, 6))) for u, i in pairs],
+                      test_size=0.2, rating_threshold=2.5, seed=123,
+                      user_graph=GraphModality(data=trust)).train_set
+
+
+# one model of each pattern of A8 (c) and the side-information models'
+# mesh=: a row-coupled sequence loss with dropout (SASRec), batch
+# statistics summed over the ranks (DNNTSP) and the sharded RMSProp streams
+# (SoRec)
+WORLD_ONE_SEQ_SIDE = {
+    "SASRec": (lambda **kw: SASRec(embedding_dim=16, n_epochs=2, batch_size=1024, n_sample=64,
+                                   max_len=10, seed=7, **kw), _world_one_sessions, None),
+    "DNNTSP": (lambda **kw: DNNTSP(emb_dim=16, n_epochs=2, batch_size=128, seed=7, **kw),
+               _world_one_baskets, None),
+    "SoRec": (lambda **kw: SoRec(k=8, max_iter=5, batch_size=256, seed=7, **kw),
+              _world_one_social, ("U", "V", "Z")),
+}
+
+
+@pytest.mark.parametrize("name", list(WORLD_ONE_SEQ_SIDE))
+def test_world_one_seq_side_fit_equals_the_plain_fit(world_one_mesh, card, name):
+    make, data, attrs = WORLD_ONE_SEQ_SIDE[name]
+    train = data()
+    plain = make(device=card).fit(train)
+    before = ACCUMULATE_ROWS.launches
+    sharded = make(mesh=world_one_mesh).fit(train)
+    assert ACCUMULATE_ROWS.launches > before
+    if attrs is None:
+        want = {n: p.detach().cpu().numpy() for n, p in plain.params.named_parameters()}
+        got = {n: p.detach().cpu().numpy() for n, p in sharded.params.named_parameters()}
+    else:
+        want, got = ({a: np.asarray(getattr(m, a)) for a in attrs} for m in (plain, sharded))
+    assert want and set(got) == set(want)
+    for n in want:
+        assert np.isfinite(want[n]).all()
+        np.testing.assert_array_equal(got[n], want[n], err_msg=f"{name} {n}")

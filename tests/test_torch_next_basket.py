@@ -16,7 +16,7 @@
   optimiser on its own permutation and negatives, each against the JAX
   package's own fit; ``adamw`` against optax at rtol 1e-6.
 - Bits: the initial parameters, seeded refits, the node-update scatter
-  whatever the order of its adds; refusals of ``mesh=`` (ROADMAP.md A8).
+  whatever the order of its adds; refusals of a ``mesh=`` that is no mesh.
 
 Whole fits draw other streams than JAX's and are held on quality on the
 card (``chip_smoke.py`` process 12g, bands from ``tools/quality_bands.py``).
@@ -535,7 +535,9 @@ def test_seeded_refits_are_identical(evals, name):
                                   lambda: tmodels.DNNTSP(mesh=object()),
                                   lambda: teval.NextBasketEvaluation(data=ROWS, mesh=object())])
 def test_mesh_is_refused(make):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_sequences.py): anything but
+    # a parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make()
 
 

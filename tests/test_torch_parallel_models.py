@@ -5,7 +5,7 @@ and, for the deterministic fits, the JAX package's mesh fits.
 The module-scoped fixture ``ranks`` starts this file as a script four
 times (``python tests/test_torch_parallel_models.py <rank> <port>
 <outdir>``), one process a rank with one thread, joined by
-``init_distributed`` at ``tcp://127.0.0.1``. The ranks share out the
+``init_distributed`` at ``tcp://127.0.0.1`` (``tests/gloo_ranks.py``). The ranks share out the
 single-device fits of the cases; then every rank fits each case on the (data, model) layouts
 (4, 1), (2, 2) and (1, 4), and rank 0 writes the results. The JAX side runs
 in the pytest process on conftest's 8 virtual CPU devices, each reference
@@ -45,21 +45,16 @@ multiples of the mesh size, which the JAX package's rounding leaves as
 they are.
 """
 
-import datetime
 import functools
 import os
-import pickle
-import socket
-import subprocess
 import sys
 import time
 
 import numpy as np
 import pytest
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD = 4
-LAYOUTS = {"4x1": 4, "2x2": 2, "1x4": 1}  # name: data_parallel
+from gloo_ranks import LAYOUTS, WORLD, gather_shares, join_group, spawn_ranks, write_results
+
 AUTOGRAD = dict(rtol=5e-4, atol=5e-5)  # tests/test_parallel.py's VAE and misc tolerance
 NEURAL = dict(rtol=2e-4, atol=2e-5)  # tests/test_parallel.py:605-631's
 
@@ -197,10 +192,9 @@ ARRAYS = {
     "WMF": ("U", "V"),
 }
 JAX_HELD = ("NMF", "NMF-bias", "WMF", "HPF", "PF", "C2PF", "TC2PF", "RC2PF")
-REFUSING = {  # A8 (c) and (d) constructors, each still refusing mesh=
-    "FPMC": "(c)", "GRU4Rec": "(c)", "SASRec": "(c)", "Beacon": "(c)", "DNNTSP": "(c)",
-    "SoRec": "(d)", "MCF": "(d)", "VBPR": "(d)", "CausalRec": "(d)", "NARRE": "(d)",
-    "EFM": "(d)", "HypAR": "(d)",
+REFUSING = {  # A8 (d)'s text, review and sentiment constructors, each still refusing mesh=
+    "NARRE": "(d)", "ConvMF": "(d)", "EFM": "(d)", "MTER": "(d)", "TriRank": "(d)",
+    "HypAR": "(d)",
 }
 
 
@@ -275,19 +269,13 @@ def _adjacency_case(mesh, train, dense):
 
 
 def _rank_main(rank, port, outdir):
-    import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
-    sys.path.insert(0, ROOT)
-    import cornac_tpu_torch
+    join_group(rank, port)
     import cornac_tpu_torch.models as P
     from cornac_tpu_torch import data as pdata, eval_methods as peval
-    from cornac_tpu_torch.parallel import init_distributed, make_mesh
+    from cornac_tpu_torch.parallel import make_mesh
 
-    cornac_tpu_torch.set_default_device("cpu")
-    init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=WORLD,
-                     process_id=rank, timeout=datetime.timedelta(seconds=120))
     only = os.environ.get("PARALLEL_MODEL_CASES")
     names = [n for n in CASES if only is None or n in only.split(",")]
     out = {}
@@ -305,10 +293,7 @@ def _rank_main(rank, port, outdir):
     if rank == 0:
         for dense in (True, False):
             plain["adj", "plain", dense] = _adjacency_case(None, train_of("wide"), dense)
-    shares = [None] * WORLD
-    dist.all_gather_object(shares, plain)
-    for share in shares:
-        out.update(share)
+    out.update(gather_shares(plain))
     for layout, dp in LAYOUTS.items():
         mesh = make_mesh(data_parallel=dp)
         for name in names:
@@ -330,10 +315,7 @@ def _rank_main(rank, port, outdir):
             except NotImplementedError as e:
                 refusals[cls] = str(e)
         out["refusals"] = refusals
-        with open(os.path.join(outdir, "results.pkl"), "wb") as f:
-            pickle.dump(out, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    write_results(outdir, out)
 
 
 # ---------------------------------------------------------------------- #
@@ -341,30 +323,7 @@ def _rank_main(rank, port, outdir):
 # ---------------------------------------------------------------------- #
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    outdir = tmp_path_factory.mktemp("ranks")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(port),
-                               str(outdir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT)
-             for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-3000:]}"
-    with open(outdir / "results.pkl", "rb") as f:
-        return pickle.load(f)
+    return spawn_ranks(__file__, tmp_path_factory.mktemp("ranks"))
 
 
 @functools.lru_cache(maxsize=None)

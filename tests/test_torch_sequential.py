@@ -20,7 +20,7 @@
   point, the trials within 1e-4.
 - Bits: seeded refits, and GRU4Rec and SASRec stopped and resumed from
   their checkpoints give the uninterrupted fit.
-- Refusals: ``mesh=`` (ROADMAP.md A8).
+- Refusals: ``mesh=`` other than a ``parallel.make_mesh`` mesh.
 
 Whole fits draw other streams than JAX's and are held on quality on the
 card (``chip_smoke.py`` phase 12f, bands from ``tools/quality_bands.py``).
@@ -611,7 +611,9 @@ def test_resumed_fit_equals_uninterrupted(tmp_path, evals, name):
 
 @pytest.mark.parametrize("name", ["FPMC", "GRU4Rec", "SASRec"])
 def test_mesh_is_refused(name):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_sequences.py): anything but
+    # a parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(tmodels, name)(mesh=object())
 
 

@@ -19,7 +19,7 @@ package's, on the CPU.
   about lr each carry from one epoch to the next).
 - ``convert.model_from_params``: a JAX fit's tables carried into the port
   give its ``score``, ``score_batch``, ``score_pairs`` and ``recommend``.
-- ``mesh=`` refused with a message naming ROADMAP A8.
+- a ``mesh=`` that is no ``parallel.make_mesh`` mesh refused.
 """
 
 import math
@@ -217,5 +217,7 @@ def test_scores_through_convert_match_jax(splits, name, kw):
 
 @pytest.mark.parametrize("cls", [P.SoRec, P.MCF])
 def test_mesh_is_refused(cls):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_side.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cls(mesh=object())

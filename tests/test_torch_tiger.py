@@ -27,7 +27,7 @@ features; for the semantic IDs, some rows repeated so that codes collide).
   (``model_from_params``), the beams' items the same.
 - Bits: seeded fits in one run and in one-epoch chunks, a fit stopped and
   resumed from its checkpoints.
-- Refusals: the constructors' errors, ``mesh=``; ``device="auto"`` means
+- Refusals: the constructors' errors, a ``mesh=`` that is no mesh; ``device="auto"`` means
   the card, or raise.
 """
 
@@ -432,7 +432,9 @@ def test_features_are_required(evals):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_sequences.py): anything but
+    # a parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmodels.TIGER(mesh=object())
 
 

@@ -22,7 +22,7 @@ the sessions of ``test_torch_sequential``).
   and draws against the JAX package's 1-epoch fit.
 - Within 1e-6: a JAX fit carried into the port (``model_from_params``)
   scores histories as the JAX model does, each objective.
-- Refusals: the constructors' errors, ``mesh=`` (ROADMAP.md A8).
+- Refusals: the constructors' errors, a ``mesh=`` that is no mesh.
 """
 
 import itertools
@@ -403,7 +403,9 @@ def test_constructor_errors_match_the_jax_package():
 
 @pytest.mark.parametrize("cls", ["TransformerRec", "BERT4Rec"])
 def test_mesh_is_refused(cls):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_sequences.py): anything but
+    # a parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(tmodels, cls)(mesh=object())
 
 

@@ -25,7 +25,7 @@ item features, a seeded item corpus and a seeded item graph.
 - ``score``, ``score_batch``, ``score_pairs`` and ``recommend`` on the same
   parameters, carried across by ``convert.model_from_params`` (rtol 1e-5:
   the projected features are computed on the model's device in float32).
-- DMRL's TF-IDF fallback equal to the JAX package's; ``mesh=`` refused.
+- DMRL's TF-IDF fallback equal to the JAX package's; a ``mesh=`` that is no mesh refused.
 """
 
 import os
@@ -483,5 +483,7 @@ def test_scores_through_convert_match_jax(splits, name):
 
 @pytest.mark.parametrize("cls", [P.VBPR, P.AMR, P.CausalRec, P.VMF, P.DMRL, P.PCRL])
 def test_mesh_is_refused(cls):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_side.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cls(mesh=object())
