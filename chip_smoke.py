@@ -177,11 +177,11 @@ Phases, each of which fails the run when it fails:
    arrays timed on the host, the membership structure and its bytes
    printed; the first minibatch's five accumulate_rows inputs held bit for
    bit to the plain version on the CPU and timed beside ``index_add_``; two
-   seeded 2-epoch fits bit for bit; the 6-epoch fit (the example's 50, cut
+   seeded 2-epoch fits bit for bit; the 4-epoch fit (the example's 50, cut
    for the run's time) timed (seconds per epoch, samples/s
    beside the byte bound of a sample, device events per minibatch and the
    busy share of one epoch, peak device memory); a fit with checkpoints
-   every 3 epochs stopped at 3 and resumed to 6, equal to the
+   every 2 epochs stopped at 2 and resumed to 4, equal to the
    uninterrupted one bit for bit; ranking_eval's AUC, NDCG@10 and Recall@10 over the first 4,096 test
    users (all of them while that takes 15 s or less; 26-30 s on the host,
    cut for the run's time); recommend_batch of 8,192 users at k = 100 through fused_topk
@@ -316,7 +316,8 @@ Phases, each of which fails the run when it fails:
    seeded binary feedback; seeded 4,096-wide non-negative visual features,
    made on the card, 2.72 GB there during the fit), ``examples/
    vbpr_tradesy.py``'s split and settings (k = 10, k2 = 20, batch 100, lr
-   0.005, lambda_w 1, lambda_b 0.01), 1 of its 50 epochs: the split with
+   0.005, lambda_w 1, lambda_b 0.01), 1 of its 50 epochs over the first
+   half of the train feedback: the split with
    ``ImageModality(normalized=True)`` timed on the host, the steps after the
    first 100 timed with CUDA events beside the bound of a step (Adam's 28 B
    a parameter and the triplets' feature rows), 20 steps profiled (device
@@ -348,9 +349,10 @@ Phases, each of which fails the run when it fails:
    204,986 seeded pairs with mild skews, the largest degrees in the
    hundreds, a seeded abstract an item), after 18c: the four CiteULike
    examples' split (RatioSplit(0.2, 0.5) with ``TextModality(max_vocab=8000,
-   max_doc_freq=0.5)``, timed on the host) and settings, CDL at 2 of its 30
-   epochs, CDR at 1 of 30, CVAE at 2 of 30 and CTR at 2 of its 50
-   iterations (``CITEULIKE_MODELS``), each fit timed with its peak device
+   max_doc_freq=0.5)``, timed on the host) and settings, CDL at 1 of its 30
+   epochs, CDR at 1 of 30 over the first half of the train pairs, CVAE at 1
+   of 30 and CTR at 1 of its 50 iterations (``CITEULIKE_MODELS``), each fit
+   timed with its peak device
    memory, NDCG@100 and Recall@300 over the first 2,048 test users (all of
    them while that takes 15 s or less), each serving 1,024 users at k = 100
    through fused_topk, held to the plain version;
@@ -360,7 +362,8 @@ Phases, each of which fails the run when it fails:
    ``hrdr_example.py``'s split (RatioSplit(0.2) with
    ``ReviewModality(max_vocab=4000, max_doc_freq=0.5)``) and settings
    (embedding 100, ids 32, 32 factors, attention 16, 64 filters of width 3,
-   L 50, R 32, batch 64, Adam), 1 of their 10 epochs each: the steps after
+   L 50, R 32, batch 64, Adam), 1 of their 10 epochs each over the first
+   half of the train ratings: the steps after
    the first 100 timed with CUDA events beside the bound of a step (the text
    CNN's FLOPs forward and backward, Adam's bytes), the first step's
    word-table gradient held bit for bit to the plain version on the CPU and
@@ -473,7 +476,19 @@ Phases, each of which fails the run when it fails:
    16c, 17, 18, 18b and 18c each end with one mesh/plain pair of each of
    their A8 (c) or side-information models at their full widths on the
    main process's mesh, a few minibatches of the phase's rows over its
-   whole catalog, bit for bit (``full_width_pair``).
+   whole catalog, bit for bit (``full_width_pair``). Then
+   (``phase_mesh_text_sentiment``) the text, review and sentiment models
+   (the rest of A8 (d)) at the bench shapes of 12j and 12k
+   (``MESH_TEXT_SENTIMENT``), one epoch, sweep or a few iterations each with
+   the mesh and without: EFM, ComparERObj, MTER, ComparERSub, LRPPM,
+   Companion, CTR, CDL, CDR, CVAE, ConvMF, NARRE, HRDR and HypAR bit for
+   bit (at world size 1 a share of a minibatch is the whole of it, and the
+   fit runs the plain operations); CDL, CDR, CVAE, CTR, NARRE and HRDR
+   serving 256 users through fused_topk. Phases 19, 19b, 19c and 20 each
+   end with one mesh/plain pair of each of their models (but HFT and
+   TriRank, which take no mesh) at their full widths, bit for bit
+   (``full_width_pair``; phase 20's on two iterations or steps with the
+   phase's own host builds, ``reused_builds``).
 
 Phases 12, 12b, 12c-12d, 12e, 12f, 12g, 12h, 12i, 12j, 12k and 12l run in
 thirteen spawned processes, eight at a time (the factor family, three groups of the neural
@@ -2933,16 +2948,20 @@ MESH_HISTORIES = 64  # histories each next-item and basket model scores on the m
 # the fitted tables a model keeps outside a module's parameters
 MESH_TABLES = ("U", "V", "Z", "P", "E", "Q", "beta_item", "gamma_user", "gamma_item",
                "theta_user", "theta_item", "ind_theta_item", "visual_bias", "emb_matrix",
-               "beta_prime", "Gs", "Gr", "Ls", "Lr", "Theta", "Beta")
+               "beta_prime", "Gs", "Gr", "Ls", "Lr", "Theta", "Beta", "theta", "beta", "U1",
+               "U2", "H1", "H2", "G1", "G2", "G3", "I", "A", "O", "UA", "IA")
 
 
 def model_arrays(model):
     """A fitted model's state as {name: numpy array}: ``fitted_arrays``,
-    the tensors of a dict of parameters, and the tables of
-    ``MESH_TABLES`` it keeps."""
+    the arrays of its dicts of parameters (``params``, the text models'
+    ``vae``, ``cnn`` and ``sdae``), and the tables of ``MESH_TABLES`` it
+    keeps."""
     out = fitted_arrays(model)
-    if isinstance(getattr(model, "params", None), dict):
-        out.update({f"params.{n}": t.detach().cpu().numpy() for n, t in model.params.items()})
+    for tree in ("params", "vae", "cnn", "sdae"):
+        if isinstance(getattr(model, tree, None), dict):
+            out.update({f"{tree}.{n}": t.detach().cpu().numpy() if hasattr(t, "detach") else
+                        np.asarray(t) for n, t in getattr(model, tree).items()})
     for attr in MESH_TABLES:
         if isinstance(getattr(model, attr, None), np.ndarray):
             out[attr] = getattr(model, attr)
@@ -2951,7 +2970,7 @@ def model_arrays(model):
 
 def held_bits(what, got, want):
     """Raise unless the fitted states ``got`` and ``want`` (``model_arrays``)
-    hold the same arrays bit for bit, each finite."""
+    hold the same arrays, bit for bit, each finite."""
     if set(got) != set(want) or not got:
         raise AssertionError(f"{what}: the mesh fit holds {sorted(got)}, the plain "
                              f"{sorted(want)}")
@@ -2959,9 +2978,9 @@ def held_bits(what, got, want):
         if not np.isfinite(want[a]).all():
             raise AssertionError(f"{what}: the plain fit's {a} is not finite")
         if not np.array_equal(got[a], want[a]):
-            err = np.abs(np.asarray(got[a], np.float64) - want[a]).max()
+            err = float(np.abs(np.asarray(got[a], np.float64) - want[a]).max())
             raise AssertionError(f"{what}: the mesh fit differs from the plain fit in {a} (max "
-                                 f"|diff| {err:.3e})")
+                                 f"|diff| {err:.3e}), held bit for bit")
 
 
 def rating_prefix(train, n):
@@ -2978,13 +2997,13 @@ def rating_prefix(train, n):
     return sub
 
 
-def full_width_pair(what, make, data, mesh):
+def full_width_pair(what, make, data, mesh, on="on a prefix of the rows"):
     """One mesh/plain pair at a phase's full widths: ``make(mesh=...)``
     fitted on ``data`` (a prefix of the phase's rows, a few minibatches, over
     its whole catalog) with the main process's world-size-1 mesh and
     without, counted, the two fitted states held bit for bit
-    (``model_arrays``). Returns (accumulate_rows launches, mesh s, plain
-    s)."""
+    (``model_arrays``); ``on`` says what the pair fits for the log. Returns
+    (accumulate_rows launches, mesh s, plain s)."""
     from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
 
     clock = Clock()
@@ -2994,9 +3013,9 @@ def full_width_pair(what, make, data, mesh):
     launches = ACCUMULATE_ROWS.launches
     held_bits(f"{what}(mesh=...) at the full widths", model_arrays(sharded), model_arrays(plain))
     m, p = clock.seconds["mesh"], clock.seconds["plain"]
-    log(f"  {what}(mesh=...) at the full widths on a prefix of the rows, world size 1 (NCCL): "
-        f"the plain fit's state bit for bit; seconds (host clock, set-up included) mesh {m:.3f}, "
-        f"plain {p:.3f}; accumulate_rows launches {launches}")
+    log(f"  {what}(mesh=...) at the full widths {on}, world size 1 (NCCL): "
+        f"the plain fit's state bit for bit; seconds (host clock, set-up included) mesh "
+        f"{m:.3f}, plain {p:.3f}; accumulate_rows launches {launches}")
     return launches, m, p
 
 
@@ -3150,20 +3169,134 @@ def phase_mesh_seq_side(bench_data, mesh):
     return launches, fused, seconds
 
 
+# the text, review and sentiment models (the rest of A8 (d)) at their bench
+# shapes (12j, 12k): name -> (cell, the depth's attribute, the depth). One
+# epoch or sweep, or a few of the sampled iterations, each
+MESH_TEXT_SENTIMENT = {
+    "CDL": ("text", "max_iter", 1), "CDR": ("text", "max_iter", 1),
+    "CVAE": ("text", "n_epochs", 1), "ConvMF": ("text", "n_epochs", 1),
+    "CTR": ("text", "max_iter", 1), "NARRE": ("text", "max_iter", 1),
+    "HRDR": ("text", "max_iter", 1), "EFM": ("sentiment", "max_iter", 5),
+    "ComparERObj": ("comparer", "max_iter", 5), "MTER": ("sentiment", "max_iter", 20),
+    "ComparERSub": ("comparer", "max_iter", 20), "LRPPM": ("sentiment", "max_iter", 20),
+    "Companion": ("sentiment", "max_iter", 20), "HypAR": ("sentiment", "num_epochs", 1),
+}
+# cut for the run's time: the pairs of the models whose minibatches are the
+# ratings fit on the first 1 / MESH_TEXT_SHARE of the train ratings (the
+# whole catalog), HypAR's on MESH_HYPAR_STEPS of its epoch's steps
+MESH_TEXT_CUT, MESH_TEXT_SHARE, MESH_HYPAR_STEPS = ("CDR", "NARRE", "HRDR"), 4, 8
+
+
+def mesh_text_sentiment_model(name, mesh=None, **extra):
+    """The bench configuration ``name`` (``bpr_quality_band``'s
+    ``TEXT_CONFIGS`` and ``SENTIMENT_CONFIGS``) at seed 123, with ``mesh``,
+    at the depth of ``MESH_TEXT_SENTIMENT``."""
+    from bpr_quality_band import SENTIMENT_CONFIGS, TEXT_CONFIGS
+
+    from cornac_tpu_torch import models as M
+
+    cls, kw = {**TEXT_CONFIGS, **SENTIMENT_CONFIGS}[name]
+    _, depth, value = MESH_TEXT_SENTIMENT[name]
+    return getattr(M, cls)(**{**kw, depth: value}, seed=123, mesh=mesh, **extra)
+
+
+def phase_mesh_text_sentiment(bench_data, mesh):
+    """The text, review and sentiment models (the rest of A8 (d)) at the
+    bench shapes of 12j and 12k (``make_ml100k_like(7)`` with
+    ``seq_bench_data.text_modalities``, and with seeded timestamps and
+    sentiment, the ComparER models on its first users), one epoch or sweep
+    or a few iterations each (``MESH_TEXT_SENTIMENT``; ``MESH_TEXT_CUT``'s
+    over a part of the ratings, HypAR's over a few steps), the two fits of
+    a pair building the host data once (``reused_builds``), fitted with
+    ``mesh=`` (the world-size-1 NCCL mesh) and without, counted: the
+    fitted state held bit for bit; each pair's seconds printed; the
+    mesh-fitted models with vectors serving ``MESH_SERVED`` users through
+    fused_topk, held to the plain version. Returns (accumulate_rows
+    launches, fused_topk launches, {name: (mesh s, plain s)})."""
+    import torch
+
+    import cornac_tpu_torch.data as pdata
+    import cornac_tpu_torch.eval_methods as peval
+    import cornac_tpu_torch.models.hypar as hypar_mod
+    from bpr_quality_band import sentiment_split, text_split
+    from cornac_tpu_torch.models.hypar import fixed_svds_start
+    from cornac_tpu_torch.models.recommender import ANNMixin
+    from cornac_tpu_torch.ops.accumulate import ACCUMULATE_ROWS
+    from cornac_tpu_torch.ops.fused_topk import FUSED_TOPK
+
+    clock = Clock()
+    triples = bench_data()
+    cells = clock("the text, sentiment and ComparER splits (set-up)", lambda: {
+        "text": text_split(pdata, peval, triples).train_set,
+        "sentiment": sentiment_split(pdata, peval, triples).train_set,
+        "comparer": sentiment_split(pdata, peval, triples, "ComparERObj").train_set})
+    text = cells["text"]
+    cells["text cut"] = rating_prefix(text, text.num_ratings // MESH_TEXT_SHARE)
+
+    def fit(name, mesh_):
+        cell = MESH_TEXT_SENTIMENT[name][0]
+        with limited_steps(hypar_mod, MESH_HYPAR_STEPS), fixed_svds_start(0):
+            return mesh_text_sentiment_model(name, mesh_).fit(
+                cells["text cut" if name in MESH_TEXT_CUT else cell])
+
+    # ---- the main path, counted ----
+    ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
+    fits, served, relaxed = {}, [], 0
+    with reused_builds(SENTIMENT_BUILDS, {}):  # a pair's two fits build once
+        for name in MESH_TEXT_SENTIMENT:
+            fits[name] = (clock(f"{name} mesh", lambda: fit(name, mesh)),
+                          clock(f"{name} plain", lambda: fit(name, None)))
+    for name, (sharded, _) in fits.items():
+        if isinstance(sharded, ANNMixin):
+            relaxed += clock(f"{name} serving", lambda: serve_factor_model(
+                sharded, text, np.arange(MESH_SERVED)))
+            served.append(name)
+    launches, fused = ACCUMULATE_ROWS.launches, FUSED_TOPK.launches
+    clock.report("the text, review and sentiment configurations at the bench shape, mesh and "
+                 "plain")
+    if launches <= 0 or fused < len(served):
+        raise AssertionError(f"the mesh fits launched accumulate_rows {launches} times and "
+                             f"fused_topk {fused} times for {len(served)} served models")
+
+    # ---- check what came out ----
+    seconds = {}
+    for name, (sharded, plain) in fits.items():
+        held_bits(f"{name}(mesh=...)", model_arrays(sharded), model_arrays(plain))
+        seconds[name] = (clock.seconds[f"{name} mesh"], clock.seconds[f"{name} plain"])
+    log("  the text, review and sentiment configurations at the bench shape, world size 1 "
+        "(NCCL): equal to the plain fits bit for bit; seconds, mesh / plain (host clock): "
+        + ", ".join(
+            f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in seconds.items()))
+    log(f"  {len(served)} mesh-fitted models ({', '.join(served)}) serving {MESH_SERVED} users "
+        f"at k=10: the plain version's lists (positions relaxed as near-ties: {relaxed}); "
+        f"accumulate_rows launches {launches}, fused_topk launches {fused}")
+    log(f"the text, review and sentiment mesh fits at the bench shape: ok in "
+        f"{sum(clock.seconds.values()):.1f} s")
+    del fits
+    torch.cuda.empty_cache()
+    return launches, fused, seconds
+
+
 def phase_mesh_bench(bench_data):
-    """Phase 12l, in a spawned process: ``phase_mesh_families`` and
-    ``phase_mesh_seq_side`` on a world-size-1 NCCL mesh of this process's
-    own (``start_mesh``: a group kept in memory, which no other process
-    joins), ended with the phase. Returns (accumulate_rows launches,
-    fused_topk launches, {name: (mesh s, plain s)}), the two phases'
-    summed."""
+    """Phase 12l, in a spawned process: ``phase_mesh_families``,
+    ``phase_mesh_seq_side`` and ``phase_mesh_text_sentiment`` on a
+    world-size-1 NCCL mesh of this process's own (``start_mesh``: a group
+    kept in memory, which no other process joins), ended with the phase;
+    two CPU threads.
+    Returns (accumulate_rows launches, fused_topk launches, {name: (mesh s,
+    plain s)}), the three phases' summed."""
+    import torch
     import torch.distributed as dist
 
+    torch.set_num_threads(2)  # beside phase 16's host-bound steps, as 12j and 12k
     mesh = start_mesh()
     try:
-        launches, fused, seconds = phase_mesh_families(bench_data, mesh)
-        more, more_fused, more_seconds = phase_mesh_seq_side(bench_data, mesh)
-        return launches + more, fused + more_fused, {**seconds, **more_seconds}
+        launches, fused, seconds = 0, 0, {}
+        for phase in (phase_mesh_families, phase_mesh_seq_side, phase_mesh_text_sentiment):
+            more, more_fused, more_seconds = phase(bench_data, mesh)
+            launches, fused, seconds = launches + more, fused + more_fused, {**seconds,
+                                                                             **more_seconds}
+        return launches, fused, seconds
     finally:
         dist.destroy_process_group()
 
@@ -3969,7 +4102,8 @@ def phase_accumulate_times(cases):
 # seeded, not the files
 # examples/sbpr_epinions.py's SBPR and examples/c2pf_example.py's C2PF
 SBPR_EPINIONS = dict(k=10, learning_rate=0.001, seed=123)
-SBPR_EPOCHS, SBPR_STOP = 6, 3  # the example's 50 cut for the run's time (10, 5 and 20, 10 before)
+# the example's 50 cut for the run's time (6 and 3, 10 and 5, 20 and 10 before)
+SBPR_EPOCHS, SBPR_STOP = 4, 2
 C2PF_OFFICE = dict(k=100, variant="c2pf", seed=123)
 C2PF_ITERS = 80
 C2PF_RTOL, C2PF_ATOL = 1e-4, 1e-6
@@ -5689,10 +5823,12 @@ def timed_methods(methods, seconds):
     host seconds to ``seconds[(class name, method)]``."""
     from cornac_tpu_torch import models
 
+    # each class's own method, taken before any is swapped: a subclass
+    # (ComparERObj of EFM) must not add its seconds to its parent's
+    reals = {key: getattr(getattr(models, key[0]), key[1]) for key in methods}
     with contextlib.ExitStack() as stack:
-        for cls_name, name in methods:
+        for (cls_name, name), real in reals.items():
             cls = getattr(models, cls_name)
-            real = getattr(cls, name)
 
             def timed(*args, _real=real, _key=(cls_name, name), **kwargs):
                 t = time.perf_counter()
@@ -6135,6 +6271,9 @@ def phase_basket_bench(bench_data):
 VBPR_TRADESY = dict(k=10, k2=20, batch_size=100, learning_rate=0.005, lambda_w=1, lambda_b=0.01,
                     lambda_e=0.0, seed=123)
 VBPR_EPOCHS = 1
+# the timed fit runs over the first 1 / VBPR_FIT_SHARE of the train
+# feedback, cut for the run's time (the whole train set before)
+VBPR_FIT_SHARE = 2
 VBPR_TIMED_FROM = 100  # the steps after the first 100 are timed
 VBPR_PROFILED_STEPS = 20
 EVAL_SUBSET_USERS, EVAL_BUDGET_S = 4_096, 10.0
@@ -6307,8 +6446,10 @@ def phase_vbpr_tradesy(seed, mesh):
     """Phase 18, VBPR at the Tradesy counts (``examples/vbpr_tradesy.py``'s
     split and settings; seeded feedback, seeded 4,096-wide features):
     RatioSplit(0.1, 0.5) with ``ImageModality(normalized=True)``, the split
-    timed on the host; a fit of ``VBPR_EPOCHS`` epoch, the steps after the
-    first 100 timed with CUDA events (ms a step beside the bound of a step),
+    timed on the host; a fit of ``VBPR_EPOCHS`` epoch over the first 1 /
+    ``VBPR_FIT_SHARE`` of the train feedback (the whole catalog), the steps
+    after the first 100 timed with CUDA events (ms a step beside the bound
+    of a step),
     ``VBPR_PROFILED_STEPS`` steps profiled (device events a step, busy
     share), peak device memory; ranking_eval's AUC and Recall@50 over the
     first 4,096 test users, and over the others too unless all of them
@@ -6344,10 +6485,13 @@ def phase_vbpr_tradesy(seed, mesh):
     del feats, feedback
     train = split.train_set
     n, bsz = train.num_ratings, VBPR_TRADESY["batch_size"]
-    n_batches = -(-n // bsz)
-    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {n:,} train feedback, "
-        f"{n_batches:,} steps an epoch; features {train.item_image.features.shape}, "
-        f"{train.item_image.features.nbytes / 2**30:.2f} GiB")
+    fit_set = clock(f"the first 1/{VBPR_FIT_SHARE} of the train feedback (set-up)",
+                    lambda: rating_prefix(train, n // VBPR_FIT_SHARE))
+    n_fit = fit_set.num_ratings
+    n_batches = -(-n_fit // bsz)
+    log(f"  {train.num_users:,} train users x {train.num_items:,} items, {n:,} train feedback; "
+        f"the fit over the first {n_fit:,}, {n_batches:,} steps an epoch; features "
+        f"{train.item_image.features.shape}, {train.item_image.features.nbytes / 2**30:.2f} GiB")
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
@@ -6356,7 +6500,7 @@ def phase_vbpr_tradesy(seed, mesh):
     held = torch.cuda.memory_allocated()
     with timed_calls(vbpr_mod, "step", VBPR_TIMED_FROM, VBPR_EPOCHS * n_batches, {}) as timed:
         model = clock(f"VBPR.fit, {VBPR_EPOCHS} epoch", lambda: VBPR(
-            n_epochs=VBPR_EPOCHS, verbose=False, **VBPR_TRADESY).fit(train))
+            n_epochs=VBPR_EPOCHS, verbose=False, **VBPR_TRADESY).fit(fit_set))
     peak = torch.cuda.max_memory_allocated() - held
     if timed["count"] != VBPR_EPOCHS * n_batches:
         raise AssertionError(f"VBPR took {timed['count']} steps, not {VBPR_EPOCHS * n_batches}")
@@ -6414,7 +6558,7 @@ def phase_vbpr_tradesy(seed, mesh):
     bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
     bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
     epoch_s = clock.seconds[f"VBPR.fit, {VBPR_EPOCHS} epoch"] / VBPR_EPOCHS
-    log(f"  VBPR k={model.k} k2={model.k2} over {n:,} feedback: {epoch_s:.3f} s an epoch (host "
+    log(f"  VBPR k={model.k} k2={model.k2} over {n_fit:,} feedback: {epoch_s:.3f} s an epoch (host "
         f"clock, the fit's set-up and the features' copy to the card included), {step_ms:.3f} ms "
         f"a step (CUDA events over steps {VBPR_TIMED_FROM + 1}-{VBPR_EPOCHS * n_batches}) "
         f"against a {bound_ms:.4f} ms bound ({bound_by}: {n_params:,} parameters x 28 B + "
@@ -6879,6 +7023,9 @@ REVIEW_MUSIC = dict(embedding_size=100, id_embedding_size=32, n_factors=32, atte
                     n_filters=64, max_text_length=50, max_num_review=32, batch_size=64,
                     seed=123, verbose=False)
 REVIEW_EPOCHS = 1
+# the timed fits run over the first 1 / REVIEW_FIT_SHARE of the train
+# ratings, cut for the run's time (the whole train set before)
+REVIEW_FIT_SHARE = 2
 REVIEW_TIMED_FROM = 100  # the steps after the first 100 are timed
 REVIEW_PROFILED_STEPS = 5  # as 16b profiles 5: the profiler takes about 1 ms an event
 # the four CiteULike examples' settings (cdl_example.py, cdr_example.py,
@@ -6887,14 +7034,18 @@ REVIEW_PROFILED_STEPS = 5  # as 16b profiles 5: the profiler takes about 1 ms an
 CITEULIKE_MODELS = {
     "CDL": ("CDL", dict(k=50, autoencoder_structure=[200], batch_size=128, lambda_u=0.1,
                         lambda_v=1, lambda_w=1e-4, lambda_n=1000, seed=123, verbose=False),
-            ("max_iter", 2, 30)),
+            ("max_iter", 1, 30)),
     "CDR": ("CDR", dict(k=50, autoencoder_structure=[200], batch_size=128, lambda_u=0.01,
                         lambda_v=0.1, lambda_w=1e-4, lambda_n=5, seed=123, verbose=False),
             ("max_iter", 1, 30)),
     "CVAE": ("CVAE", dict(z_dim=50, vae_layers=(200, 100), seed=123, verbose=False),
-             ("n_epochs", 2, 30)),
-    "CTR": ("CTR", dict(k=50, lambda_v=1, seed=123, verbose=False), ("max_iter", 2, 50)),
+             ("n_epochs", 1, 30)),
+    "CTR": ("CTR", dict(k=50, lambda_v=1, seed=123, verbose=False), ("max_iter", 1, 50)),
 }
+# cut for the run's time: CDL, CVAE and CTR from 2 to 1 iteration
+# or epoch, CDR's fit over the first half of the train pairs (its epoch's
+# minibatches are the pairs; the others' are the items)
+CITEULIKE_HALVED = ("CDR",)
 CITEULIKE_EVAL_USERS, CITEULIKE_EVAL_BUDGET_S = 2_048, 15.0
 # conv_mf_example.py's and hft_example.py's settings on make_ml100k_like(7)
 # with seeded plots (HFT's 40 iterations cut to 8: some 0.5 s an iteration on
@@ -6977,7 +7128,7 @@ def review_step_bound(model, n_params):
     return flops, 28.0 * n_params + 2 * 2 * 4.0 * B * R * L * E
 
 
-def phase_review_music(seed):
+def phase_review_music(seed, mesh):
     """Phase 19b, NARRE and HRDR at the Amazon Digital Music counts
     (``examples/narre_example.py``'s and ``hrdr_example.py``'s split and
     settings; seeded ratings and reviews): RatioSplit(0.2) with
@@ -6990,8 +7141,10 @@ def phase_review_music(seed):
     steps profiled on the fit's review packs (device events a step, busy
     share), peak device memory; MAE and RMSE over the test ratings, NDCG@10 over the
     test users; recommend_batch of 1,024 users at k = 100 through
-    fused_topk, held to the plain version. Returns (accumulate_rows
-    launches, fused_topk launches, the stats)."""
+    fused_topk, held to the plain version; then one mesh/plain pair of each
+    on the world-size-1 ``mesh`` (``full_width_pair``: one epoch over the
+    first ``MESH_PAIR_STEPS`` minibatches of ratings). Returns
+    (accumulate_rows launches, fused_topk launches, the stats)."""
     import torch
 
     from cornac_tpu_torch import models
@@ -7019,12 +7172,15 @@ def phase_review_music(seed):
     del ratings, reviews
     train = split.train_set
     n, bsz = train.num_ratings, REVIEW_MUSIC["batch_size"]
-    n_batches = -(-n // bsz)
+    fit_set = clock(f"the first 1/{REVIEW_FIT_SHARE} of the train ratings (set-up)",
+                    lambda: rating_prefix(train, n // REVIEW_FIT_SHARE))
+    n_batches = -(-fit_set.num_ratings // bsz)
     users = np.random.RandomState(seed + 21).choice(train.num_users, SERVED_USERS,
                                                     replace=False)
     log(f"  {train.num_users:,} train users x {train.num_items:,} items, {n:,} train ratings "
-        f"({n / train.num_users:.1f} a user, {n / train.num_items:.1f} an item), "
-        f"{n_batches:,} steps an epoch; vocabulary {train.review_text.vocab.size:,} tokens")
+        f"({n / train.num_users:.1f} a user, {n / train.num_items:.1f} an item); the fits over "
+        f"the first {fit_set.num_ratings:,}, {n_batches:,} steps an epoch; vocabulary "
+        f"{train.review_text.vocab.size:,} tokens")
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
@@ -7038,7 +7194,7 @@ def phase_review_music(seed):
                          {}) as timed, \
                 recording_first_calls(first, 10), kept_review_packs(narre_mod, packs):
             model = clock(f"{name}.fit, {REVIEW_EPOCHS} epoch", lambda: getattr(models, name)(
-                max_iter=REVIEW_EPOCHS, **REVIEW_MUSIC).fit(train))
+                max_iter=REVIEW_EPOCHS, **REVIEW_MUSIC).fit(fit_set))
         peak = torch.cuda.max_memory_allocated() - held
         if timed["count"] != REVIEW_EPOCHS * n_batches:
             raise AssertionError(f"{name} took {timed['count']} steps, not "
@@ -7144,9 +7300,17 @@ def phase_review_music(seed):
             f"{st['relaxed']})")
     clock.report("NARRE and HRDR at Digital Music")
     log(f"  fused_topk launches {fused}, accumulate_rows launches {launches}")
+    pairs = {}
+    prefix = rating_prefix(train, MESH_PAIR_STEPS * bsz)
+    for name in ("NARRE", "HRDR"):
+        pair = full_width_pair(name, functools.partial(getattr(models, name), max_iter=1,
+                                                       **REVIEW_MUSIC), prefix, mesh)
+        launches += pair[0]
+        pairs[name] = pair[1:]
     log(f"NARRE and HRDR at Digital Music: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, fused, dict(stats=stats, max_abs_err=acc_err, seconds=dict(clock.seconds))
+    return launches, fused, dict(stats=stats, max_abs_err=acc_err, seconds=dict(clock.seconds),
+                                 mesh_pairs=pairs)
 
 
 @contextlib.contextmanager
@@ -7196,16 +7360,19 @@ def evaluate_in_budget(model, metrics, train, test, threshold, clock, what,
     return [sum(d.values()) / len(d) for d in per_user], len(per_user[0]), len(test_users)
 
 
-def phase_citeulike(seed):
+def phase_citeulike(seed, mesh):
     """Phase 19, CDL, CDR, CVAE and CTR at citeulike-a's counts (the four
     CiteULike examples' split and settings; seeded pairs and abstracts):
     RatioSplit(0.2, 0.5) with ``TextModality(max_vocab=8000,
     max_doc_freq=0.5)``, the split timed on the host; each model fitted at
-    its cut depth (``CITEULIKE_MODELS``), timed, peak device memory; NDCG@100
+    its cut depth (``CITEULIKE_MODELS``; ``CITEULIKE_HALVED``'s on the first
+    half of the train pairs), timed, peak device memory; NDCG@100
     and Recall@300 over the test users (``evaluate_in_budget``); each
     serving 1,024 users at k = 100 through fused_topk, held to the plain
-    version. Returns (accumulate_rows launches, fused_topk launches, the
-    stats)."""
+    version; then one mesh/plain pair of each on the world-size-1 ``mesh``
+    (``full_width_pair``: one epoch or iteration over the first
+    ``MESH_PAIR_STEPS`` minibatches of ratings and the whole catalog).
+    Returns (accumulate_rows launches, fused_topk launches, the stats)."""
     import torch
 
     from cornac_tpu_torch import models
@@ -7235,6 +7402,8 @@ def phase_citeulike(seed):
     users = np.random.RandomState(seed + 20).choice(train.num_users, SERVED_USERS,
                                                     replace=False)
     metrics = [NDCG(k=100), Recall(k=300)]
+    half = clock("the first half of the train pairs (set-up)",
+                 lambda: rating_prefix(train, train.num_ratings // 2))
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = FUSED_TOPK.launches = 0
@@ -7244,7 +7413,8 @@ def phase_citeulike(seed):
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         label = f"{name}.fit, {arg} {depth}"
-        model = clock(label, lambda: getattr(models, cls)(**{arg: depth}, **kw).fit(train))
+        fit_set = half if name in CITEULIKE_HALVED else train
+        model = clock(label, lambda: getattr(models, cls)(**{arg: depth}, **kw).fit(fit_set))
         peak = torch.cuda.max_memory_allocated() - held
         quality, evaluated, n_test = evaluate_in_budget(model, metrics, train, split.test_set,
                                                         0.5, clock, name)
@@ -7255,7 +7425,9 @@ def phase_citeulike(seed):
             raise AssertionError(f"{name} at CiteULike: non-finite factors or metrics")
         stats[name] = dict(fit_s=clock.seconds[label], peak=peak, quality=quality,
                            evaluated=evaluated, relaxed=relaxed)
-        log(f"  {name} ({arg} {depth}, the example's {full}): fit {clock.seconds[label]:.3f} s "
+        log(f"  {name} ({arg} {depth}, the example's {full}"
+            + (", the first half of the train pairs" if name in CITEULIKE_HALVED else "")
+            + f"): fit {clock.seconds[label]:.3f} s "
             f"(host clock), peak device memory {peak / 2**30:.3f} GiB; NDCG@100 {quality[0]:.6f}, "
             f"Recall@300 {quality[1]:.6f} over {evaluated:,} of {n_test:,} test users (no band "
             f"at this size); recommend_batch ({SERVED_USERS} users, k={TOPK}) equal to the plain "
@@ -7267,12 +7439,19 @@ def phase_citeulike(seed):
         raise AssertionError(f"19 launched accumulate_rows {launches} and fused_topk {fused} "
                              f"times")
     log(f"  fused_topk launches {fused}, accumulate_rows launches {launches}")
+    pairs = {}
+    prefix = rating_prefix(train, MESH_PAIR_STEPS * 128)
+    for name, (cls, kw, (arg, _, _)) in CITEULIKE_MODELS.items():
+        pair = full_width_pair(name, functools.partial(getattr(models, cls), **{**kw, arg: 1}),
+                               prefix, mesh)
+        launches += pair[0]
+        pairs[name] = pair[1:]
     log(f"the CiteULike models: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
-    return launches, fused, dict(stats=stats, seconds=dict(clock.seconds))
+    return launches, fused, dict(stats=stats, seconds=dict(clock.seconds), mesh_pairs=pairs)
 
 
-def phase_plots(bench_data, seed):
+def phase_plots(bench_data, seed, mesh):
     """Phase 19c, ConvMF and HFT at ``conv_mf_example.py``'s and
     ``hft_example.py``'s settings on ``make_ml100k_like(7)`` (built already)
     with seeded plots for its 1,682 items (``PLOT_MODELS``; HFT's
@@ -7280,8 +7459,10 @@ def phase_plots(bench_data, seed):
     (RMSE, Precision@10, Recall@10, NDCG@10 for ConvMF; MAE, RMSE for HFT),
     fit seconds; the first CNN step's embedding gradient held bit for bit to
     the plain version on the CPU and timed; HFT serving every train user (at
-    most 1,024) at k = 100 through fused_topk, held to the plain version.
-    Returns
+    most 1,024) at k = 100 through fused_topk, held to the plain version;
+    then one ConvMF mesh/plain pair on the world-size-1 ``mesh``
+    (``full_width_pair``: one epoch of ALS and one of the CNN on its
+    split's train set; HFT takes no mesh, as in the JAX package). Returns
     (accumulate_rows launches, fused_topk launches, the stats)."""
     import torch
 
@@ -7342,9 +7523,14 @@ def phase_plots(bench_data, seed):
     log(f"  HFT's recommend_batch ({len(users)} users, k={TOPK}) equal to the plain version "
         f"(positions relaxed as near-ties: {relaxed}); fused_topk launches {fused}, "
         f"accumulate_rows launches {launches}")
+    cls, kw = PLOT_MODELS["ConvMF"][:2]
+    pair = full_width_pair("ConvMF", functools.partial(getattr(models, cls), **{
+        **kw, "n_epochs": 1, "cnn_epochs": 1}), fitted["ConvMF"][1].train_set, mesh,
+        "one epoch and one CNN epoch on the train set")
+    launches += pair[0]
     log(f"ConvMF and HFT on ML-100K plots: ok in {sum(clock.seconds.values()):.1f} s")
     return launches, fused, dict(results=results, embedding_rows=rows, max_abs_err=err,
-                                 seconds=dict(clock.seconds))
+                                 seconds=dict(clock.seconds), mesh_pairs={"ConvMF": pair[1:]})
 
 
 def review_witness(name, train, card=DEV):
@@ -7681,6 +7867,44 @@ TOYS_HOST_BUILDS = (("EFM", "_build_matrices"), ("ComparERObj", "_build_matrices
                     ("HypAR", "_create_graphs"), ("HypAR", "_ao_content_embeddings"))
 
 
+# the host builds of the sentiment models that take a mesh, which a pair's
+# fits on one train set make once (``reused_builds``: phase 20's pairs take
+# its fits', 12l's mesh fit's serve its plain fit)
+SENTIMENT_BUILDS = tuple(b for b in TOYS_HOST_BUILDS if b[0] != "TriRank")
+TOYS_PAIR_DEPTH = 2  # iterations (HypAR: steps) of each mesh/plain pair at Toys
+
+
+@contextlib.contextmanager
+def reused_builds(methods, kept):
+    """While open, each (class name, method) of the port's models builds
+    once: its first call's result, and the attributes the call set on its
+    model, are kept in ``kept`` (a dict, which may outlive the context and
+    open another), and every later call on that class hands them to the
+    new model without building again. For fits of one train set (phase
+    20's mesh pairs after its fits)."""
+    from cornac_tpu_torch import models
+
+    # each class's own method, taken before any is swapped: a subclass
+    # (ComparERObj of EFM) must not find its parent's wrapper
+    reals = {key: getattr(getattr(models, key[0]), key[1]) for key in methods}
+    with contextlib.ExitStack() as stack:
+        for (cls_name, name), real in reals.items():
+            cls = getattr(models, cls_name)
+
+            def reused(model, *args, _real=real, _key=(cls_name, name), **kwargs):
+                if _key not in kept:
+                    before = dict(vars(model))
+                    out = _real(model, *args, **kwargs)
+                    kept[_key] = (out, {k: v for k, v in vars(model).items()
+                                        if k not in before or before[k] is not v})
+                out, attrs = kept[_key]
+                vars(model).update(attrs)
+                return out
+
+            stack.enter_context(swapped(cls, name, reused))
+        yield kept
+
+
 def toys_like(seed):
     """Seeded data at the Amazon Toys & Games 5-core counts: star ratings
     over Zipf-like users and items with seeded timestamps (UIRT), and one to
@@ -7760,7 +7984,7 @@ def evaluate_head(model, train, test, users, rating):
     return out
 
 
-def phase_sentiment_toys(toys_data):
+def phase_sentiment_toys(toys_data, mesh):
     """Phase 20, the sentiment and explainable models at the Amazon Toys &
     Games 5-core counts (seeded ratings with timestamps and seeded
     sentiment over an assumed lexicon, ``toys_like``): the examples' split,
@@ -7774,7 +7998,11 @@ def phase_sentiment_toys(toys_data):
     NDCG@50 (and RMSE for the rating models) over the first
     ``TOYS_EVAL_USERS`` test users; the accumulate_rows inputs of
     ``TOYS_RECORDED``, recorded from the fits, held bit for bit to the plain
-    version on the CPU and returned (``acc_cases``) for the times phase.
+    version on the CPU and returned (``acc_cases``) for the times phase;
+    then one mesh/plain pair of each model but TriRank (which takes no
+    mesh, as in the JAX package) on the world-size-1 ``mesh``
+    (``full_width_pair``: ``TOYS_PAIR_DEPTH`` iterations or steps on the
+    whole train set, its host builds the fits' own, ``reused_builds``).
     Returns (accumulate_rows launches, the stats)."""
     import torch
 
@@ -7800,8 +8028,8 @@ def phase_sentiment_toys(toys_data):
 
     # ---- the main path, counted ----
     ACCUMULATE_ROWS.launches = 0
-    stats, host_s, recorded = {}, {}, {}
-    with timed_methods(TOYS_HOST_BUILDS, host_s):
+    stats, host_s, recorded, builds = {}, {}, {}, {}
+    with reused_builds(SENTIMENT_BUILDS, builds), timed_methods(TOYS_HOST_BUILDS, host_s):
         for name, (cls, kw, depth) in TOYS_MODELS.items():
             sp = split_tri if name == "TriRank" else split
             kwargs = dict(kw)
@@ -7883,10 +8111,29 @@ def phase_sentiment_toys(toys_data):
         acc_cases[label] = (table, ids, upd, per_call, device_ms, kept, err, card_err)
     del recorded
     log(f"  accumulate_rows launches {launches}")
+    pairs = {}
+    for name, (cls, kw, _) in TOYS_MODELS.items():
+        if name == "TriRank":
+            continue
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(reused_builds(SENTIMENT_BUILDS, builds))
+            if name == "HypAR":
+                stack.enter_context(limited_steps(hypar_mod, TOYS_PAIR_DEPTH))
+                stack.enter_context(hypar_mod.fixed_svds_start(0))
+                make = functools.partial(getattr(models, cls), **kw)
+            else:
+                make = functools.partial(getattr(models, cls),
+                                         **{**kw, "max_iter": TOYS_PAIR_DEPTH})
+            pair = full_width_pair(name, make, train, mesh,
+                                   f"{TOYS_PAIR_DEPTH} iterations or steps on the train set")
+        launches += pair[0]
+        pairs[name] = pair[1:]
+    del builds
     log(f"the sentiment models at Toys: ok in {sum(clock.seconds.values()):.1f} s")
     torch.cuda.empty_cache()
     return launches, dict(stats=stats, host_s={f"{c}.{m}": s for (c, m), s in host_s.items()},
-                          seconds=dict(clock.seconds), max_abs_err=acc_err, acc_cases=acc_cases)
+                          seconds=dict(clock.seconds), max_abs_err=acc_err, acc_cases=acc_cases,
+                          mesh_pairs=pairs)
 
 
 SENTIMENT_WITNESS_TOL = 1e-5  # |card step - CPU step on the card's gradients|, of a table's largest
@@ -8366,13 +8613,13 @@ def main():
         lap("VBPR at Tradesy")
         cloth_launches, cloth_fused, cloth = phase_clothing(args.seed, mesh)
         lap("the Clothing models")
-        cite_launches, cite_fused, cite = phase_citeulike(args.seed)
+        cite_launches, cite_fused, cite = phase_citeulike(args.seed, mesh)
         lap("the CiteULike models")
-        music_launches, music_fused, music = phase_review_music(args.seed)
+        music_launches, music_fused, music = phase_review_music(args.seed, mesh)
         lap("NARRE and HRDR at Digital Music")
-        plot_launches, plot_fused, plots = phase_plots(bench_data.get, args.seed)
+        plot_launches, plot_fused, plots = phase_plots(bench_data.get, args.seed, mesh)
         lap("ConvMF and HFT on ML-100K plots")
-        toys_launches, toys = phase_sentiment_toys(toys_data.get)
+        toys_launches, toys = phase_sentiment_toys(toys_data.get, mesh)
         acc_cases.update(toys.pop("acc_cases"))  # timed with the others in phase 21
         lap("the sentiment models at Amazon Toys & Games")
         bench_launches, bench = phase_trainer_bench(bench_data.get, mesh)
@@ -8672,11 +8919,13 @@ def main():
         f"RatioSplit(mesh=...).evaluate {bench['mesh_eval']:.3f} s")
     full_pairs = {**sasrec["mesh_pairs"], **basket["mesh_pairs"], "TIGER": tiger["mesh_pair"],
                   **{n: st["mesh_pair"] for n, st in transformer.items()},
-                  "VBPR": vbpr["mesh_pair"], **side["mesh_pairs"], **cloth["mesh_pairs"]}
-    log("A8 (c) and side-information mesh fits at the full widths on a prefix of the rows, "
-        "world size 1, seconds mesh / plain (host clock, set-up included): " + ", ".join(
-            f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in full_pairs.items()))
-    log("A8 (b), (c) and side-information mesh fits at the bench shape, world size 1, seconds "
+                  "VBPR": vbpr["mesh_pair"],
+                  **side["mesh_pairs"], **cloth["mesh_pairs"], **cite["mesh_pairs"],
+                  **music["mesh_pairs"], **plots["mesh_pairs"], **toys["mesh_pairs"]}
+    log("A8 (c) and (d) mesh fits at the full widths on a prefix of the rows (or a few "
+        "iterations), world size 1, seconds mesh / plain (host clock, set-up included): "
+        + ", ".join(f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in full_pairs.items()))
+    log("A8 (b), (c) and (d) mesh fits at the bench shape, world size 1, seconds "
         "mesh / plain (host clock): "
         + ", ".join(f"{n} {m:.3f} / {p:.3f}" for n, (m, p) in a8b.items())
         + f"; WMF(mesh=...) at the Netflix widths {wmf_mesh['mesh_s']:.3f} s against the plain "

@@ -16,6 +16,16 @@ modulo their number), then each step's Bernoulli keep mask of the
 corruption, which the loss takes as an argument, so a test can hand it
 the JAX key's own. The gradient of the item-factor gather sums through
 ``accumulate_rows``. Nothing syncs with the host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each item minibatch over all mesh axes: the
+minibatch is rounded down to a multiple of the mesh's size, every rank
+draws the whole minibatch's keep mask and takes its rows
+(``parallel.sharded.Share``), the terms of no row (U's penalty, the
+weights') on rank 0, and both steps' gradients are summed over every rank
+(``parallel.sharded.sum_grads``). The sums take another order than one
+device's backward, so the fit agrees with the plain fit to float32
+rounding, and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -26,6 +36,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.optim import adam, apply_updates
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch, sum_grads
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from ..utils.init_utils import xavier_uniform
@@ -109,50 +121,71 @@ def require_text(train_set):
         raise ValueError("this model needs the item_text modality attached to the eval method")
 
 
-def cdl_loss(params, sdae, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas):
+def cdl_loss(params, sdae, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas,
+             penalised=True):
     """The JAX package's ``loss_fn`` for the minibatch of items ``ids``:
     0.5 sum C (R - U V_b^T)^2 + lambda_u/2 |U|^2 + lambda_v/2 |V_b - z|^2 +
     lambda_n/2 |recon - x|^2 + lambda_w/2 sum |W|^2, where z encodes the
     corrupted text and recon decodes z. ``params`` holds U and V, ``sdae``
-    the autoencoder; ``R_rows``, ``C_rows`` (B, users)."""
+    the autoencoder; ``R_rows``, ``C_rows`` (B, users). The terms of no
+    row (U's and the weights' penalties) are left out where ``penalised``
+    is false (a rank's share of a minibatch other than the first)."""
     lam_u, lam_v, lam_w, lam_n = lambdas
     U, Vb = params["U"], gather_rows(params["V"], ids)
     z = run_mlp(sdae, "enc", x_corrupt, act)
     recon = run_mlp(sdae, "dec", z, act, last_act=False)
     pred = Vb @ U.T  # (B, users)
-    return (0.5 * (C_rows * (R_rows - pred) ** 2).sum() + 0.5 * lam_u * (U ** 2).sum()
-            + 0.5 * lam_v * ((Vb - z) ** 2).sum() + 0.5 * lam_n * ((recon - x_clean) ** 2).sum()
+    cf = 0.5 * (C_rows * (R_rows - pred) ** 2).sum()
+    coupled = 0.5 * lam_v * ((Vb - z) ** 2).sum()
+    recon_loss = 0.5 * lam_n * ((recon - x_clean) ** 2).sum()
+    if not penalised:
+        return cf + coupled + recon_loss
+    return (cf + 0.5 * lam_u * (U ** 2).sum() + coupled + recon_loss
             + 0.5 * lam_w * weight_norm(sdae, ("enc", "dec")))
 
 
-def cdl_epoch(params, sdae, opts, states, order, data, step_draws, batch_size, act, lambdas):
+def cdl_epoch(params, sdae, opts, states, order, data, step_draws, batch_size, act, lambdas,
+              mesh=None):
     """One epoch over the items in the order ``order`` ((n_total,) int64):
     each minibatch's Adam step on (U, V) with the autoencoder fixed, then
     on the autoencoder at the new (U, V), ``params`` and ``sdae`` updated in
     place. ``data`` = (text, R rows, C rows), each (items, ...);
     ``step_draws(shape)`` gives a step's (B, vocab) keep mask. Returns (the
     two optimizer states, the summed loss of the second steps, a device
-    scalar)."""
+    scalar). ``mesh``: each rank takes its share of every minibatch
+    (module docstring)."""
     opt_cf, opt_ae = opts
     state_cf, state_ae = states
     text, R_t, C_t = data
     loss_sum = torch.zeros((), dtype=torch.float32, device=order.device)
+    share = Share(mesh, batch_size)
+
+    def grads_of(loss, tensors):
+        grads = torch.autograd.grad(loss, tensors, materialize_grads=True)
+        return grads if mesh is None else sum_grads(mesh, grads, None)
+
     for s in range(0, order.shape[0], batch_size):
-        ids = order[s: s + batch_size]
+        whole = order[s: s + batch_size]
+        mask = share.take(step_draws((whole.shape[0], text.shape[1])))
+        ids = share.take(whole)
         x_clean = text[ids]
-        x_corrupt = x_clean * step_draws(x_clean.shape)
+        x_corrupt = x_clean * mask
         R_rows, C_rows = R_t[ids], C_t[ids]
         frozen = {k: p.detach() for k, p in sdae.items()}
-        loss = cdl_loss(params, frozen, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas)
-        grads = torch.autograd.grad(loss, [params["U"], params["V"]])
+        loss = cdl_loss(params, frozen, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas,
+                        share.first)
+        grads = grads_of(loss, [params["U"], params["V"]])
         updates, state_cf = opt_cf.update(dict(zip(("U", "V"), grads)), state_cf, params)
         apply_updates(params, updates)
         fixed = {k: p.detach() for k, p in params.items()}
-        loss = cdl_loss(fixed, sdae, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas)
-        grads = torch.autograd.grad(loss, list(sdae.values()), materialize_grads=True)
+        loss = cdl_loss(fixed, sdae, ids, x_corrupt, x_clean, R_rows, C_rows, act, lambdas,
+                        share.first)
+        grads = grads_of(loss, list(sdae.values()))
         updates, state_ae = opt_ae.update(dict(zip(sdae, grads)), state_ae, sdae)
         apply_updates(sdae, updates)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     return (state_cf, state_ae), loss_sum
 
 
@@ -206,7 +239,8 @@ class CDL(_FactorScores):
     there), ``batch_size``, ``max_iter``, ``init_params`` ({'U', 'V'}),
     ``seed`` (the generator is made here, so a second fit goes on drawing
     from it). ``device``: where the model trains and scores (default: the
-    card). ``mesh`` is not ported yet.
+    card). ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls
+    ``fit`` (module docstring).
     """
 
     def __init__(
@@ -235,9 +269,7 @@ class CDL(_FactorScores):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.k = k
         self.autoencoder_structure = (
@@ -294,7 +326,7 @@ class CDL(_FactorScores):
         states = (opts[0].init(params), opts[1].init(sdae))
         act = ACTIVATIONS[self.act_fn]
         lambdas = (self.lambda_u, self.lambda_v, self.lambda_w, self.lambda_n)
-        bsz = min(self.batch_size, self.num_items)
+        bsz = round_batch(self.mesh, min(self.batch_size, self.num_items))
         n_total = self.num_items + (-self.num_items) % bsz
         keep = 1.0 - self.corruption_rate
         seed = rng.randint(2**31)
@@ -302,7 +334,7 @@ class CDL(_FactorScores):
             gen = epoch_generator(seed, it, dev)
             order = _epoch_permutation(n_total, gen) % self.num_items
             states, loss_sum = cdl_epoch(params, sdae, opts, states, order, data,
-                                         keep_mask_draws(gen, keep), bsz, act, lambdas)
+                                         keep_mask_draws(gen, keep), bsz, act, lambdas, self.mesh)
             if self.verbose:
                 print("Iter %d/%d, loss: %.2f" % (it + 1, self.max_iter,
                                                   float(loss_sum) / n_total))

@@ -20,6 +20,14 @@ position, aspect) -> score (``_PairAspectLookup``), (element row, opinion)
 ``torch.einsum``, as they are XLA in the JAX package; every table's row
 gradient is one ``accumulate_rows`` call over its updates in the JAX
 package's order.
+
+``mesh`` (``parallel.make_mesh``): MTER's design (``mter.py``). The tables
+and AdaGrad's sums are replicated, every rank draws the whole streams, the
+four sample counts are rounded down to a multiple of the mesh's size (at
+least its size) as in the JAX package, a rank computes the weights and
+update rows of its samples (``data_parallel`` over every rank), and every rank sums
+the core gradients over the whole stream from the gathered weights: every
+layout gives the single-device fit's bits.
 """
 
 import itertools
@@ -30,15 +38,19 @@ import torch
 
 from ..ops.accumulate import accumulate_rows
 from ..ops.csr_lookup import CsrLookup
+from ..parallel.sharded import data_parallel, round_batch
 from ..utils.init_utils import uniform
-from .mter import MTER, NAMES, _pair_ratings, _tucker3, adagrad_project, run_iterations
+from .mter import (
+    MTER,
+    NAMES,
+    _core_grad,
+    _pair_ratings,
+    _row_grads,
+    _tucker3,
+    adagrad_project,
+    run_iterations,
+)
 from .recommender import Recommender
-
-
-def _split_pred(G, Uu, Ii, Aa, Oo):
-    """Stacked-tensor prediction: user half + item half, as one contraction
-    of the stacked tensor with the user and item rows side by side."""
-    return _tucker3(G, torch.cat([Uu, Ii], 1), Aa, Oo)
 
 
 class _PairAspectLookup:
@@ -93,10 +105,22 @@ def companion_draws(generator, n_iters, data, counts, sizes, device):
             for name, what, size in DRAW_ORDER}
 
 
+def _stacked_rows(G, w, UI, Aa, Oo, nu):
+    """A stacked opinion tensor stream's row gradients (U, I, A, O), each
+    contraction over both halves at once (``UI``: the user and item rows
+    side by side); ``Oo`` is the opinions' rows, or their difference from
+    the negatives' for a ranking stream."""
+    g_ui, g_a, g_o = _row_grads(G, UI, Aa, Oo, w)
+    return g_ui[:, :nu].contiguous(), g_ui[:, nu:].contiguous(), g_a, g_o
+
+
 def companion_iteration(params, sgrads, data, draws, nu, lr, ld_reg, ld_bpr, ld_p, ld_a, ld_y,
-                        ld_z):
+                        ld_z, mesh=None):
     """One iteration of the JAX package's ``_companion_fit`` on one
-    iteration's ``draws``, in place on ``params`` and ``sgrads``."""
+    iteration's ``draws``, in place on ``params`` and ``sgrads``. ``mesh``:
+    each stream's samples split over every rank (module docstring). Each
+    stream's table rows are gathered once, whole: the core gradients read
+    them all, and a rank's split reads its slice."""
     G1, U, I, A, O = params["G1"], params["U"], params["I"], params["A"], params["O"]
     n_aspects = A.shape[0] - 1
     ids = {"U": [], "I": [], "A": [], "O": []}
@@ -107,119 +131,127 @@ def companion_iteration(params, sgrads, data, draws, nu, lr, ld_reg, ld_bpr, ld_
         ids[name].append(idx)
         upd[name].append(g)
 
-    def g1_grads(w, u, i, a, Uu, Ii, Aa):
-        """G1-stream gradient: d(pred)/dθ scaled by w."""
-        core["G1"].append(torch.einsum("s,sp,sq,sr->pqr", w, Uu, Ii, Aa))
-        add("U", u, torch.einsum("s,sq,sr,pqr->sp", w, Ii, Aa, G1))
-        add("I", i, torch.einsum("s,sp,sr,pqr->sq", w, Uu, Aa, G1))
-        add("A", a, torch.einsum("s,sp,sq,pqr->sr", w, Uu, Ii, G1))
-
-    def stacked_grads(gname, w, u, i, a, o, Uu, Ii, Aa, Oo, o_j=None):
-        """A stacked opinion tensor stream's gradients (G2 or G3), each
-        contraction over both halves at once (the user and item rows side
-        by side); ``Oo`` is the opinions' rows, or their difference from
-        the negatives' (``o_j``) for a ranking stream."""
-        G = params[gname]
-        UI = torch.cat([Uu, Ii], 1)
-        core[gname].append(torch.einsum("s,sp,sq,sr->pqr", w, UI, Aa, Oo))
-        g_ui = torch.einsum("s,sq,sr,pqr->sp", w, Aa, Oo, G)
-        add("U", u, g_ui[:, :nu].contiguous())
-        add("I", i, g_ui[:, nu:].contiguous())
-        add("A", a, torch.einsum("s,sp,sr,pqr->sq", w, UI, Oo, G))
-        g_o = torch.einsum("s,sp,sq,pqr->sr", w, UI, Aa, G)
-        add("O", o, g_o)
-        if o_j is not None:
-            add("O", o_j, -g_o)
-
     X, X_u, X_i, X_a = data.X
+
     # element reconstruction streams
+    def element_rows(x, Uu, Ii, Aa):
+        w = 2.0 * (_tucker3(G1, Uu, Ii, Aa) - x)
+        return (w,) + _row_grads(G1, Uu, Ii, Aa, w)
+
     s1 = draws["s1"]
     u, i, a = X_u[s1], X_i[s1], X_a[s1]
     Uu, Ii, Aa = U[u], I[i], A[a]
-    g1_grads(2.0 * (_tucker3(G1, Uu, Ii, Aa) - X[s1]), u, i, a, Uu, Ii, Aa)
-    for gname, stream, key in (("G2", data.YP, "s2"), ("G3", data.YN, "s3")):
-        Yv, Yu, Yi, Ya, Yo = stream
-        s = draws[key]
+    w, g_u, g_i, g_a = data_parallel(mesh, element_rows, u.shape[0], X[s1], Uu, Ii, Aa,
+                                     axis=None)
+    core["G1"].append(_core_grad(w, Uu, Ii, Aa))
+    add("U", u, g_u), add("I", i, g_i), add("A", a, g_a)
+
+    def stacked(gname, stream, s, rows, *extra, o_j=None):
+        """A stacked opinion stream: ``rows(*extra, UI, Aa, Oo[, Oj, Oo -
+        Oj])`` gives its weights and row gradients (the rank's slice on a
+        mesh); its core gradient and update rows added."""
+        _, Yu, Yi, Ya, Yo = stream
         u, i, a, o = Yu[s], Yi[s], Ya[s], Yo[s]
-        Uu, Ii, Aa, Oo = U[u], I[i], A[a], O[o]
-        pred = _split_pred(params[gname], Uu, Ii, Aa, Oo)
-        stacked_grads(gname, 2.0 * (pred - Yv[s]), u, i, a, o, Uu, Ii, Aa, Oo)
+        UI, Aa, Oo = torch.cat([U[u], I[i]], 1), A[a], O[o]
+        factors = (UI, Aa, Oo) if o_j is None else (UI, Aa, Oo, O[o_j])
+        if o_j is not None:
+            factors += (Oo - factors[3],)
+        w, g_u, g_i, g_a, g_o = data_parallel(mesh, rows, u.shape[0], *extra, *factors,
+                                              axis=None)
+        core[gname].append(_core_grad(w, UI, Aa, factors[-1]))
+        add("U", u, g_u), add("I", i, g_i), add("A", a, g_a), add("O", o, g_o)
+        if o_j is not None:
+            add("O", o_j, -g_o)
+
+    for gname, stream, key in (("G2", data.YP, "s2"), ("G3", data.YN, "s3")):
+        G = params[gname]
+
+        def opinion_rows(y, UI, Aa, Oo, G=G):
+            w = 2.0 * (_tucker3(G, UI, Aa, Oo) - y)
+            return (w,) + _stacked_rows(G, w, UI, Aa, Oo, nu)
+
+        s = draws[key]
+        stacked(gname, stream, s, opinion_rows, stream[0][s])
 
     # overall-rating BPR
-    pos = draws["pos"]
-    u, i, j = data.rat_users[pos], data.rat_items[pos], draws["j"]
-    found, j_rating, i_rating = _pair_ratings(data.rating_lookup, u, i, j)
-    s = torch.where(found & (i_rating < j_rating), -1.0, 1.0)
-    valid = ~(found & (i_rating == j_rating))
+    def bpr_rows(u, i, j, Uu, Ii, Ij, i_ij):
+        found, j_rating, i_rating = _pair_ratings(data.rating_lookup, u, i, j)
+        s = torch.where(found & (i_rating < j_rating), -1.0, 1.0)
+        valid = ~(found & (i_rating == j_rating))
+        Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
+        pred = (_tucker3(G1, Uu, Ii, Aov) - _tucker3(G1, Uu, Ij, Aov)) * s
+        del_bpr = ld_bpr * (1.0 / (1.0 + torch.exp(pred))) * s * valid
+        return (del_bpr, -torch.einsum("s,sq,sr,pqr->sp", del_bpr, i_ij, Aov, G1),
+                torch.einsum("s,sp,sr,pqr->sq", del_bpr, Uu, Aov, G1))
+
+    pos, j = draws["pos"], draws["j"]
+    u, i = data.rat_users[pos], data.rat_items[pos]
     Uu, Ii, Ij = U[u], I[i], I[j]
-    Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
-    pred = (_tucker3(G1, Uu, Ii, Aov) - _tucker3(G1, Uu, Ij, Aov)) * s
-    del_bpr = ld_bpr * (1.0 / (1.0 + torch.exp(pred))) * s * valid
     i_ij = Ii - Ij
+    del_bpr, g_u, g_i = data_parallel(mesh, bpr_rows, u.shape[0], u, i, j, Uu, Ii, Ij, i_ij,
+                                       axis=None)
+    Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
     core["G1"].append(-torch.einsum("s,sp,sq,sr->pqr", del_bpr, Uu, i_ij, Aov))
-    add("U", u, -torch.einsum("s,sq,sr,pqr->sp", del_bpr, i_ij, Aov, G1))
-    g_i = torch.einsum("s,sp,sr,pqr->sq", del_bpr, Uu, Aov, G1)
+    add("U", u, g_u)
     add("I", i, -g_i), add("I", j, g_i)
     add("A", torch.full((1,), n_aspects, dtype=torch.int64, device=A.device),
         -torch.einsum("s,sp,sq,pqr->r", del_bpr, Uu, i_ij, G1)[None, :])
 
-    # the two aspect-ranking streams' lookups, each one call over both
-    sp_, si = draws["sp"], draws["si"]
+    # the two aspect-ranking streams (against a random aspect, ld_p, and
+    # against a random item, ld_a), their lookups one call over both
+    def aspect_rows(u, i, a_j, u2, i_j, a2, x, x2, Uu, Ii, Aa, Aj, a_diff, Uu2, Ii2, Ij2, Aa2,
+                    i_diff):
+        n = u.shape[0]
+        _, pos = data.uia_lookup.query_pair(torch.cat([u, u2]), torch.cat([i, i_j]))
+        found_a, score_a, _ = data.uia_lookup.query_aspect(pos, torch.cat([a_j, a2]))
+
+        found_j, j_score = found_a[:n], score_a[:n]
+        s = torch.where(found_j & (x < j_score), -1.0, 1.0)
+        valid = ~(found_j & (x == j_score))
+        pred = (_tucker3(G1, Uu, Ii, Aa) - _tucker3(G1, Uu, Ii, Aj)) * s
+        w = -ld_p * (1.0 / (1.0 + torch.exp(pred))) * s * valid
+
+        found_ja, j_score = found_a[n:], score_a[n:]
+        s = torch.where(found_ja & (x2 < j_score), -1.0, 1.0)
+        valid = ~(found_ja & (x2 == j_score))
+        pred = (_tucker3(G1, Uu2, Ii2, Aa2) - _tucker3(G1, Uu2, Ij2, Aa2)) * s
+        w2 = -ld_a * (1.0 / (1.0 + torch.exp(pred))) * s * valid
+        return ((w,) + _row_grads(G1, Uu, Ii, a_diff, w)
+                + (w2,) + _row_grads(G1, Uu2, i_diff, Aa2, w2))
+
+    sp_, a_j, si, i_j = draws["sp"], draws["a_j"], draws["si"], draws["i_j"]
     u, i, a = X_u[sp_], X_i[sp_], X_a[sp_]
-    a_j = draws["a_j"]
     u2, i2, a2 = X_u[si], X_i[si], X_a[si]
-    i_j = draws["i_j"]
-    n = u.shape[0]
-    _, pos = data.uia_lookup.query_pair(torch.cat([u, u2]), torch.cat([i, i_j]))
-    found_a, score_a, _ = data.uia_lookup.query_aspect(pos, torch.cat([a_j, a2]))
-
-    # aspect ranking against a random aspect (ld_p)
-    found_j, j_score = found_a[:n], score_a[:n]
-    i_score = X[sp_]
-    s = torch.where(found_j & (i_score < j_score), -1.0, 1.0)
-    valid = ~(found_j & (i_score == j_score))
     Uu, Ii, Aa, Aj = U[u], I[i], A[a], A[a_j]
-    pred = (_tucker3(G1, Uu, Ii, Aa) - _tucker3(G1, Uu, Ii, Aj)) * s
-    w = -ld_p * (1.0 / (1.0 + torch.exp(pred))) * s * valid
-    a_diff = Aa - Aj
-    core["G1"].append(torch.einsum("s,sp,sq,sr->pqr", w, Uu, Ii, a_diff))
-    add("U", u, torch.einsum("s,sq,sr,pqr->sp", w, Ii, a_diff, G1))
-    add("I", i, torch.einsum("s,sp,sr,pqr->sq", w, Uu, a_diff, G1))
-    g_a = torch.einsum("s,sp,sq,pqr->sr", w, Uu, Ii, G1)
+    Uu2, Aa2, Ii2, Ij2 = U[u2], A[a2], I[i2], I[i_j]
+    a_diff, i_diff = Aa - Aj, Ii2 - Ij2
+    w, g_u, g_i, g_a, w2, g_u2, g_i2, g_a2 = data_parallel(
+        mesh, aspect_rows, u.shape[0], u, i, a_j, u2, i_j, a2, X[sp_], X[si], Uu, Ii, Aa, Aj,
+        a_diff, Uu2, Ii2, Ij2, Aa2, i_diff, axis=None)
+    core["G1"].append(_core_grad(w, Uu, Ii, a_diff))
+    add("U", u, g_u), add("I", i, g_i)
     add("A", a, g_a), add("A", a_j, -g_a)
-
-    # aspect ranking against a random item (ld_a)
-    u, i, a = u2, i2, a2
-    found_ja, j_score = found_a[n:], score_a[n:]
-    i_score = X[si]
-    s = torch.where(found_ja & (i_score < j_score), -1.0, 1.0)
-    valid = ~(found_ja & (i_score == j_score))
-    Uu, Aa, Ii, Ij = U[u], A[a], I[i], I[i_j]
-    pred = (_tucker3(G1, Uu, Ii, Aa) - _tucker3(G1, Uu, Ij, Aa)) * s
-    w = -ld_a * (1.0 / (1.0 + torch.exp(pred))) * s * valid
-    i_diff = Ii - Ij
-    core["G1"].append(torch.einsum("s,sp,sq,sr->pqr", w, Uu, i_diff, Aa))
-    add("U", u, torch.einsum("s,sq,sr,pqr->sp", w, i_diff, Aa, G1))
-    g_i = torch.einsum("s,sp,sr,pqr->sq", w, Uu, Aa, G1)
-    add("I", i, g_i), add("I", i_j, -g_i)
-    add("A", a, torch.einsum("s,sp,sq,pqr->sr", w, Uu, i_diff, G1))
+    core["G1"].append(_core_grad(w2, Uu2, i_diff, Aa2))
+    add("U", u2, g_u2)
+    add("I", i2, g_i2), add("I", i_j, -g_i2)
+    add("A", a2, g_a2)
 
     # opinion ranking streams (ld_y positive, ld_z negative)
     for gname, stream, lookup, ld, so_key, oj_key in (
             ("G2", data.YP, data.pos_op_lookup, ld_y, "so_P", "oj_P"),
             ("G3", data.YN, data.neg_op_lookup, ld_z, "so_N", "oj_N")):
-        Yv, Yu, Yi, Ya, Yo = stream
-        so, o_j = draws[so_key], draws[oj_key]
-        u, i, a, o = Yu[so], Yi[so], Ya[so], Yo[so]
-        found_o, j_score = lookup.query(so, o_j)
-        i_score = Yv[so]
-        s = torch.where(found_o & (i_score < j_score), -1.0, 1.0)
-        valid = ~(found_o & (i_score == j_score))
         G = params[gname]
-        Uu, Ii, Aa, Oo, Oj = U[u], I[i], A[a], O[o], O[o_j]
-        pred = (_split_pred(G, Uu, Ii, Aa, Oo) - _split_pred(G, Uu, Ii, Aa, Oj)) * s
-        w = -ld * (1.0 / (1.0 + torch.exp(pred))) * s * valid
-        stacked_grads(gname, w, u, i, a, o, Uu, Ii, Aa, Oo - Oj, o_j)
+
+        def ranking_rows(so, o_j, y, UI, Aa, Oo, Oj, o_diff, G=G, lookup=lookup, ld=ld):
+            found_o, j_score = lookup.query(so, o_j)
+            s = torch.where(found_o & (y < j_score), -1.0, 1.0)
+            valid = ~(found_o & (y == j_score))
+            pred = (_tucker3(G, UI, Aa, Oo) - _tucker3(G, UI, Aa, Oj)) * s
+            w = -ld * (1.0 / (1.0 + torch.exp(pred))) * s * valid
+            return (w,) + _stacked_rows(G, w, UI, Aa, o_diff, nu)
+
+        so, o_j = draws[so_key], draws[oj_key]
+        stacked(gname, stream, so, ranking_rows, so, o_j, stream[0][so], o_j=o_j)
 
     grads = {}
     for name, parts in core.items():
@@ -238,7 +270,8 @@ def companion_iteration(params, sgrads, data, draws, nu, lr, ld_reg, ld_bpr, ld_
 class Companion(MTER):
     """Comparative aspect/opinion ranking Tucker model. Parameters mirror
     the JAX package's; ``device``: where the model fits and scores (default:
-    the card); ``mesh`` is refused (ROADMAP.md A8 (d))."""
+    the card); ``mesh``: a ``parallel.make_mesh`` mesh, every rank calling
+    ``fit`` (module docstring)."""
 
     def __init__(
         self,
@@ -453,9 +486,12 @@ class Companion(MTER):
                              rating, _PairAspectLookup(rating, uia_csr), pos_csr, neg_csr)
 
     def _sizes(self):
-        return {"n_el": self.n_element_samples, "n_bpr": self.n_bpr_samples,
-                "n_asp_rank": self.n_aspect_ranking_samples,
-                "n_op_rank": self.n_opinion_ranking_samples}
+        """The per-iteration sample counts, rounded on a mesh as the JAX
+        package rounds them (``mter.py``)."""
+        return {k: round_batch(self.mesh, n) for k, n in (
+            ("n_el", self.n_element_samples), ("n_bpr", self.n_bpr_samples),
+            ("n_asp_rank", self.n_aspect_ranking_samples),
+            ("n_op_rank", self.n_opinion_ranking_samples))}
 
     def fit(self, train_set, val_set=None):
         Recommender.fit(self, train_set, val_set)
@@ -480,7 +516,7 @@ class Companion(MTER):
                 self.max_iter,
                 lambda g, n: companion_draws(g, n, data, counts, self._sizes(), dev),
                 lambda d: companion_iteration(params, sgrads, data, d, self.n_user_factors,
-                                              *lams),
+                                              *lams, self.mesh),
                 gen)
         for name in NAMES:
             setattr(self, name, params[name].cpu().numpy().astype(np.float64))

@@ -88,7 +88,8 @@ def _csr_values(Y, rows, cols):
 
 class ComparERObj(EFM):
     """EFM with comparative constraints on objective aspect quality.
-    ``mesh`` is refused (ROADMAP.md A8 (d))."""
+    ``mesh``: EFM's edge split, the pair stream split as the observation
+    streams are (``efm.efm_iteration``)."""
 
     def __init__(
         self,
@@ -234,7 +235,8 @@ class ComparERObj(EFM):
 
 class ComparERSub(MTER):
     """MTER with comparative constraints on subjective aspect quality.
-    ``mesh`` is refused (ROADMAP.md A8 (d))."""
+    ``mesh``: MTER's split of the sampled streams, the pair samples split as
+    the others are (``mter.mter_iteration``)."""
 
     def __init__(
         self,

@@ -12,6 +12,15 @@ not ``conv1d``, so its weight gradient is deterministic. The CNN's order is
 whole minibatches, as the JAX package draws it, so a port fit follows the
 JAX fit itself. The gradient of the embedding gather sums through
 ``accumulate_rows``.
+
+``mesh`` (``parallel.make_mesh``), as in the JAX package: the ALS rows are
+split over "data" (each row is its own k x k solve, so the slices give the
+plain solves' bits), and the CNN's minibatches, rounded down to a multiple
+of the data axis, are data-parallel over "data": each rank takes the loss
+of its data slice and ``ops.optim.step`` sums the gradients over "data".
+That sum takes another order than one device's backward, so the CNN agrees
+with the plain fit to float32 rounding, and bit for bit on a mesh of one
+rank.
 """
 
 import numpy as np
@@ -21,6 +30,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.optim import adam, step
+from ..parallel.mesh import DATA_AXIS, check_mesh
+from ..parallel.sharded import batch_slice, data_parallel, round_batch
 from ..utils import get_rng
 from .cdl import dense_arrays, require_text
 from .cvae import host_order, padded_layouts
@@ -49,38 +60,47 @@ def cnn_forward(params, docs, filter_sizes):
     """(B, L) token ids -> (B, out_dim) document vectors: the embeddings'
     VALID convolutions, ReLU, the maximum over the positions, then
     tanh(fc1), tanh(fc2)."""
-    x = gather_rows(params["emb"], docs.reshape(-1)).reshape(docs.shape + (-1,))
+    E = params["emb"].shape[1]  # explicit widths: a rank's share may hold no documents
+    x = gather_rows(params["emb"], docs.reshape(-1)).reshape(docs.shape + (E,))
     feats = []
     for j, fs in enumerate(filter_sizes):
         w = params[f"convs.{j}.w"]
         win = windows(x, fs)
-        y = win.reshape(*win.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + params[
+        y = win.reshape(*win.shape[:-2], fs * E) @ w.reshape(-1, w.shape[-1]) + params[
             f"convs.{j}.b"]
         feats.append(torch.amax(torch.relu(y), dim=1))
     h = torch.tanh(torch.cat(feats, dim=1) @ params["fc1.w"] + params["fc1.b"])
     return torch.tanh(h @ params["fc2.w"] + params["fc2.b"])
 
 
-def als_users(V, pad, lambda_u):
-    """Each user's ridge solve over its observed items."""
-    pad_idx, pad_val, pad_mask = pad
-    Vs = V[pad_idx] * pad_mask[:, :, None]
-    A = torch.einsum("blk,blm->bkm", Vs, Vs) + lambda_u * torch.eye(V.shape[1],
-                                                                     device=V.device)[None]
-    rhs = torch.einsum("blk,bl->bk", Vs, pad_val * pad_mask)
-    return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+def als_users(V, pad, lambda_u, mesh=None):
+    """Each user's ridge solve over its observed items. ``mesh``: the rows
+    are split over "data" and gathered back (``data_parallel``)."""
+    eye = torch.eye(V.shape[1], device=V.device)[None]
+
+    def solve(pad_idx, pad_val, pad_mask):
+        Vs = V[pad_idx] * pad_mask[:, :, None]
+        A = torch.einsum("blk,blm->bkm", Vs, Vs) + lambda_u * eye
+        rhs = torch.einsum("blk,bl->bk", Vs, pad_val * pad_mask)
+        return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+
+    return data_parallel(mesh, solve, pad[0].shape[0], *pad)
 
 
-def als_items(U, theta, weights, pad, lambda_v):
+def als_items(U, theta, weights, pad, lambda_v, mesh=None):
     """Each item's ridge solve over its observed users, pulled toward its
-    document vector ``theta`` with weight ``lambda_v * weights``."""
-    pad_idx, pad_val, pad_mask = pad
-    Us = U[pad_idx] * pad_mask[:, :, None]
-    lw = lambda_v * weights
-    A = torch.einsum("blk,blm->bkm", Us, Us) + lw[:, None, None] * torch.eye(
-        U.shape[1], device=U.device)[None]
-    rhs = torch.einsum("blk,bl->bk", Us, pad_val * pad_mask) + lw[:, None] * theta
-    return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+    document vector ``theta`` with weight ``lambda_v * weights``. ``mesh``:
+    as ``als_users``."""
+    eye = torch.eye(U.shape[1], device=U.device)[None]
+
+    def solve(pad_idx, pad_val, pad_mask, theta_rows, weight_rows):
+        Us = U[pad_idx] * pad_mask[:, :, None]
+        lw = lambda_v * weight_rows
+        A = torch.einsum("blk,blm->bkm", Us, Us) + lw[:, None, None] * eye
+        rhs = torch.einsum("blk,bl->bk", Us, pad_val * pad_mask) + lw[:, None] * theta_rows
+        return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+
+    return data_parallel(mesh, solve, pad[0].shape[0], *pad, theta, weights)
 
 
 def cnn_loss(cnn, docs, target, weight, filter_sizes):
@@ -97,7 +117,9 @@ class ConvMF(Recommender):
     ``max_len``, ``filter_sizes``, ``num_filters``, ``hidden_dim``,
     ``dropout_rate`` (unused, as there), ``give_item_weight``,
     ``init_params`` ({'U', 'V', 'W'}), ``seed``. ``device``: where the model
-    trains and scores (default: the card). ``mesh`` is not ported yet.
+    trains and scores (default: the card). ``mesh``: a
+    ``parallel.make_mesh`` mesh; every rank calls ``fit`` (module
+    docstring).
     """
 
     def __init__(
@@ -125,8 +147,6 @@ class ConvMF(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.n_epochs = n_epochs
         self.cnn_epochs = cnn_epochs
@@ -142,7 +162,7 @@ class ConvMF(Recommender):
         self.dropout_rate = dropout_rate
         self.give_item_weight = give_item_weight
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -159,9 +179,11 @@ class ConvMF(Recommender):
 
     def cnn_step(self, cnn, opt, opt_state, docs, target, weight):
         """One Adam step of the CNN's regression, ``cnn`` updated in place.
-        Returns (the new state, the loss)."""
+        Returns (the new state, the loss). On a mesh the rows are this
+        rank's data slice of the minibatch, the gradients summed over
+        "data"."""
         loss = cnn_loss(cnn, docs, target, weight, self.filter_sizes)
-        return step(cnn, opt, opt_state, loss), loss.detach()
+        return step(cnn, opt, opt_state, loss, self.mesh), loss.detach()
 
     def fit(self, train_set, val_set=None):
         Recommender.fit(self, train_set, val_set)
@@ -195,18 +217,20 @@ class ConvMF(Recommender):
         docs_d = torch.as_tensor(docs, device=dev)
         V = torch.as_tensor(np.asarray(self.V, np.float32), device=dev)
         theta = self.encode(cnn, docs_d)
-        bsz = min(self.cnn_bs, self.num_items)
+        mesh = self.mesh
+        bsz = round_batch(mesh, min(self.cnn_bs, self.num_items), DATA_AXIS)
+        rows = slice(None) if mesh is None else slice(*batch_slice(mesh, bsz)[:2])
         for epoch in range(self.n_epochs):
             with torch.no_grad():
-                U = als_users(V, u_pad, self.lambda_u)
-                V = als_items(U, theta, weights, i_pad, self.lambda_v)
+                U = als_users(V, u_pad, self.lambda_u, mesh)
+                V = als_items(U, theta, weights, i_pad, self.lambda_v, mesh)
             for _ in range(self.cnn_epochs):
                 order = rng.permutation(self.num_items)
                 starts = range(0, self.num_items, bsz)
                 ids = host_order(np.concatenate([np.resize(order[s: s + bsz], bsz)
                                                  for s in starts]), dev)
                 for b in range(len(starts)):
-                    idx = ids[b * bsz: (b + 1) * bsz]
+                    idx = ids[b * bsz: (b + 1) * bsz][rows]
                     opt_state, _ = self.cnn_step(cnn, opt, opt_state, docs_d[idx], V[idx],
                                                  weights[idx])
             theta = self.encode(cnn, docs_d)

@@ -9,11 +9,17 @@ over the items in float64 (per-item responsibilities and a projected
 gradient step on the simplex with backtracking), as in the JAX package, so
 each iteration copies V to the host once. The whole fit follows the JAX
 fit.
+
+``mesh`` (``parallel.make_mesh``), as in the JAX package: the ALS rows are
+split over "data" (``weighted_als(mesh=)``); each row is its own k x k
+solve, so every layout gives the plain fit's bits. The LDA step stays on
+the host, the same on every rank.
 """
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import check_mesh
 from ..utils import get_rng
 from .cdl import _FactorScores, require_text
 from .cvae import padded_layouts, weighted_als
@@ -86,7 +92,8 @@ class CTR(_FactorScores):
     Parameters mirror the JAX package: ``k``, ``lambda_u``, ``lambda_v``,
     ``eta``, ``a``, ``b``, ``max_iter``, ``init_params`` ({'U', 'V'}),
     ``seed``. ``device``: where the ALS solves run and the model scores
-    (default: the card). ``mesh`` is not ported yet.
+    (default: the card). ``mesh``: a ``parallel.make_mesh`` mesh; every
+    rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -107,8 +114,6 @@ class CTR(_FactorScores):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.lambda_u = lambda_u
         self.lambda_v = lambda_v
@@ -117,7 +122,7 @@ class CTR(_FactorScores):
         self.b = b
         self.max_iter = max_iter
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
 
         self.init_params = {} if init_params is None else init_params
@@ -148,9 +153,11 @@ class CTR(_FactorScores):
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
         for it in range(self.max_iter):
-            U = weighted_als(on_dev(self.V), u_pad, self.a, self.b, self.lambda_u)
+            U = weighted_als(on_dev(self.V), u_pad, self.a, self.b, self.lambda_u,
+                             mesh=self.mesh)
             self.U = U.cpu().numpy().astype(np.float64)
-            V = weighted_als(U, i_pad, self.a, self.b, self.lambda_v, prior=on_dev(theta))
+            V = weighted_als(U, i_pad, self.a, self.b, self.lambda_v, prior=on_dev(theta),
+                             mesh=self.mesh)
             self.V = V.cpu().numpy().astype(np.float64)
             beta = lda_step(theta, beta, self.V, bow, self.lambda_v, self.eta)
             if self.verbose:

@@ -18,6 +18,21 @@ Port of ``cornac_tpu/models/cvae.py``:
   step's Bernoulli keep mask of the corruption, which the loss takes as an
   argument. The gradients of the factor gathers sum through
   ``accumulate_rows``; nothing syncs with the host inside an epoch.
+
+``mesh`` (``parallel.make_mesh``), as in the JAX package: CVAE's ALS rows
+are split over "data" (``weighted_als(mesh=)``: each row is its own k x k
+solve, so the slices give the plain solves' bits), and its VAE steps are
+data-parallel over "data", the minibatch rounded down to a multiple of the
+data axis: every rank draws the whole minibatch's noise, takes its data
+slice's terms (the weights' penalty on the first rank of the slice's
+group) and ``ops.optim.step`` sums the gradients over "data". CDR's
+pairwise minibatches, rounded down to a multiple of the mesh's size, are
+split over every rank (``parallel.sharded.Share``): each rank takes its
+rows of the whole minibatch's draws (keep masks drawn for the whole
+minibatch), the penalty on the weights on rank 0, and the gradients are
+summed over every rank. The sums over the ranks take another order than
+one device's backward, so the autograd phases agree with the plain fit to
+float32 rounding, and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -27,6 +42,15 @@ from ..engine.nn import ACTIVATIONS
 from ..ops.accumulate import gather_rows
 from ..ops.membership import build_membership
 from ..ops.optim import adam, step
+from ..parallel.mesh import DATA_AXIS, check_mesh
+from ..parallel.sharded import (
+    Share,
+    all_sum,
+    batch_slice,
+    data_group_first,
+    data_parallel,
+    round_batch,
+)
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator, epoch_loop
 from ..utils.init_utils import xavier_uniform
@@ -65,21 +89,27 @@ def padded_layouts(csr, device):
                  for m in (csr, csc))
 
 
-def weighted_als(other, pad, a, b, lam, prior=None):
+def weighted_als(other, pad, a, b, lam, prior=None, mesh=None):
     """One side of confidence-weighted ALS: each row's k x k system
     ``b G + (a - b) sum_j v_j v_j^T + lam I`` (G = other^T other, the sum
     over the row's observed entries) against ``a sum_j r_j v_j`` (+ ``lam
-    prior``), solved in one batched LU (``solve_ex``: no sync)."""
-    pad_idx, pad_val, pad_mask = pad
+    prior``), solved in one batched LU (``solve_ex``: no sync). ``mesh``:
+    the rows are split over "data" and gathered back (``data_parallel``)."""
     k = other.shape[1]
     G = other.T @ other
-    Os = other[pad_idx] * pad_mask[:, :, None]
-    A = b * G[None] + (a - b) * torch.einsum("blk,blm->bkm", Os, Os)
-    A = A + lam * torch.eye(k, device=other.device)[None]
-    rhs = a * torch.einsum("blk,bl->bk", Os, pad_val * pad_mask)
-    if prior is not None:
-        rhs = rhs + lam * prior
-    return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+    eye = torch.eye(k, device=other.device)[None]
+
+    def solve(pad_idx, pad_val, pad_mask, *prior_rows):
+        Os = other[pad_idx] * pad_mask[:, :, None]
+        A = b * G[None] + (a - b) * torch.einsum("blk,blm->bkm", Os, Os)
+        A = A + lam * eye
+        rhs = a * torch.einsum("blk,bl->bk", Os, pad_val * pad_mask)
+        if prior_rows:
+            rhs = rhs + lam * prior_rows[0]
+        return torch.linalg.solve_ex(A, rhs[..., None])[0][..., 0]
+
+    rows = tuple(pad) + (() if prior is None else (prior,))
+    return data_parallel(mesh, solve, pad[0].shape[0], *rows)
 
 
 def host_order(ids, device):
@@ -96,12 +126,14 @@ def vae_encode(vae, x, act):
     return (h @ vae["mu.w"] + vae["mu.b"], h @ vae["logvar.w"] + vae["logvar.b"])
 
 
-def cvae_loss(vae, x, v_target, noise, act, loss_type, lambdas):
+def cvae_loss(vae, x, v_target, noise, act, loss_type, lambdas, penalised=True):
     """The JAX package's VAE loss on the items' texts ``x`` with the item
     factors ``v_target``: the generation loss (rmse on the sigmoid or
     cross-entropy on the logits), the KL term, the coupling
     lambda_v / lambda_r / 2 |v - mu|^2 and lambda_w |W|^2 over the encoder
-    and decoder; ``noise`` the reparameterisation's standard normals."""
+    and decoder (left out where ``penalised`` is false: a rank's share of
+    a minibatch other than the first); ``noise`` the reparameterisation's
+    standard normals."""
     lam_v, lam_r, lam_w = lambdas
     mu, logvar = vae_encode(vae, x, act)
     z = mu + torch.exp(0.5 * logvar) * noise
@@ -113,7 +145,8 @@ def cvae_loss(vae, x, v_target, noise, act, loss_type, lambdas):
                + torch.log1p(torch.exp(-logits.abs()))).sum()
     latent = -0.5 * (1 + logvar - mu ** 2 - torch.exp(logvar)).sum()
     couple = lam_v / lam_r * 0.5 * ((v_target - mu) ** 2).sum()
-    return gen + latent + couple + lam_w * weight_norm(vae, ("enc", "dec"))
+    loss = gen + latent + couple
+    return loss + lam_w * weight_norm(vae, ("enc", "dec")) if penalised else loss
 
 
 class CVAE(_FactorScores):
@@ -124,7 +157,8 @@ class CVAE(_FactorScores):
     ``b``, ``input_dim``, ``vae_layers``, ``act_fn``, ``loss_type`` ('rmse'
     or 'cross-entropy'), ``batch_size``, ``init_params`` ({'U', 'V'}),
     ``seed``. ``device``: where the model trains and scores (default: the
-    card). ``mesh`` is not ported yet.
+    card). ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls
+    ``fit`` (module docstring).
     """
 
     def __init__(
@@ -152,8 +186,6 @@ class CVAE(_FactorScores):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.z_dim = z_dim
         self.n_epochs = n_epochs
         self.lambda_u = lambda_u
@@ -168,7 +200,7 @@ class CVAE(_FactorScores):
         self.act_fn = act_fn
         self.loss_type = loss_type
         self.batch_size = batch_size
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.seed = seed
         if loss_type not in ("rmse", "cross-entropy"):
@@ -190,32 +222,37 @@ class CVAE(_FactorScores):
     def step(self, vae, opt, opt_state, x, v_target, noise):
         """One Adam step of the VAE on the items' texts ``x``, the factors
         ``v_target`` and the noise ``noise``, ``vae`` updated in place.
-        Returns (the new state, the loss)."""
+        Returns (the new state, the loss). On a mesh the rows are this
+        rank's data slice of the minibatch, and the gradients are summed
+        over "data"."""
+        mesh = self.mesh
         loss = cvae_loss(vae, x, v_target, noise, ACTIVATIONS[self.act_fn], self.loss_type,
-                         (self.lambda_v, self.lambda_r, self.lambda_w))
-        return step(vae, opt, opt_state, loss), loss.detach()
+                         (self.lambda_v, self.lambda_r, self.lambda_w), data_group_first(mesh))
+        return step(vae, opt, opt_state, loss, mesh), loss.detach()
 
     def epoch(self, vae, opt, opt_state, V, text, pads, order, step_noise):
         """One epoch: (U, V) by ALS (V pulled toward the VAE's latent means
         of the texts), then Adam steps of the VAE over the items in the
         order ``order`` (numpy), tiled to whole minibatches, the noise of
         the step at position s from ``step_noise(s, shape)``. ``vae`` is
-        updated in place. Returns (U, V, the new state)."""
-        act = ACTIVATIONS[self.act_fn]
+        updated in place. Returns (U, V, the new state). On a mesh the ALS
+        rows and each minibatch are split over "data" (module docstring)."""
+        act, mesh = ACTIVATIONS[self.act_fn], self.mesh
         with torch.no_grad():
             z_mu = vae_encode(vae, text, act)[0]
-            U = weighted_als(V, pads[0], self.a, self.b, self.lambda_u)
-            V = weighted_als(U, pads[1], self.a, self.b, self.lambda_v, prior=z_mu)
-        bsz = min(self.batch_size, len(order))
+            U = weighted_als(V, pads[0], self.a, self.b, self.lambda_u, mesh=mesh)
+            V = weighted_als(U, pads[1], self.a, self.b, self.lambda_v, prior=z_mu, mesh=mesh)
+        bsz = round_batch(mesh, min(self.batch_size, len(order)), DATA_AXIS)
         starts = range(0, len(order), bsz)
         # ids tiled to whole minibatches (stable shapes, as in the JAX
         # package), the epoch's at once
         ids = host_order(np.concatenate([np.resize(order[s: s + bsz], bsz) for s in starts]),
                          V.device)
+        rows = slice(None) if mesh is None else slice(*batch_slice(mesh, bsz)[:2])
         for b, s in enumerate(starts):
-            idx = ids[b * bsz: (b + 1) * bsz]
+            idx = ids[b * bsz: (b + 1) * bsz][rows]
             opt_state, _ = self.step(vae, opt, opt_state, text[idx], V[idx],
-                                     step_noise(s, (bsz, self.z_dim)))
+                                     step_noise(s, (bsz, self.z_dim))[rows])
         return U, V, opt_state
 
     def fit(self, train_set, val_set=None):
@@ -263,10 +300,12 @@ def cdr_draws(gen, n, n_total, num_items):
     return pos_idx, negs
 
 
-def cdr_loss(p, text, u, i, j, m, keep_mask, act, lambdas):
+def cdr_loss(p, text, u, i, j, m, keep_mask, act, lambdas, penalised=True):
     """The JAX package's CDR loss on the triplets (u, i, j) with the
     validity weights ``m`` (0 where j is observed for u) and the
-    corruption's keep mask ``keep_mask`` (B, vocab)."""
+    corruption's keep mask ``keep_mask`` (B, vocab); the weights' penalty
+    left out where ``penalised`` is false (a rank's share of a minibatch
+    other than the first)."""
     lam_u, lam_v, lam_w, lam_n = lambdas
     B = u.shape[0]
     x = text[i]
@@ -276,28 +315,34 @@ def cdr_loss(p, text, u, i, j, m, keep_mask, act, lambdas):
     v = gather_rows(p["V"], torch.cat([i, j]))
     vi, vj = v[:B], v[B:]
     diff = (pu * (vi - vj)).sum(1)
-    return (0.5 * (((1.0 - diff) ** 2) * m).sum() + 0.5 * lam_u * (pu ** 2).sum()
-            + 0.5 * lam_v * ((vi - z) ** 2).sum() + 0.5 * lam_n * ((recon - x) ** 2).sum()
-            + 0.5 * lam_w * weight_norm(p, ("enc", "dec")))
+    loss = (0.5 * (((1.0 - diff) ** 2) * m).sum() + 0.5 * lam_u * (pu ** 2).sum()
+            + 0.5 * lam_v * ((vi - z) ** 2).sum() + 0.5 * lam_n * ((recon - x) ** 2).sum())
+    return loss + 0.5 * lam_w * weight_norm(p, ("enc", "dec")) if penalised else loss
 
 
-def cdr_epoch(params, opt, opt_state, draws, data, step_draws, batch_size, act, lambdas):
+def cdr_epoch(params, opt, opt_state, draws, data, step_draws, batch_size, act, lambdas,
+              mesh=None):
     """One epoch of Adam steps on the draws (``cdr_draws``' pair), ``params``
     updated in place. ``data`` = (text, pairs (n, 2), membership);
     ``step_draws(shape)`` gives a step's keep mask. Returns (the new state,
-    the summed loss, a device scalar)."""
+    the summed loss, a device scalar). ``mesh``: each rank takes its share
+    of every minibatch (module docstring)."""
     text, pairs, membership = data
     pos_idx, negs = draws
     users, pos = pairs[pos_idx].unbind(1)
     valid = (~membership.query(users, negs)).to(torch.float32)
     loss_sum = torch.zeros((), dtype=torch.float32, device=negs.device)
+    share = Share(mesh, batch_size)
     for s in range(0, negs.shape[0], batch_size):
         sl = slice(s, s + batch_size)
         u = users[sl]
-        loss = cdr_loss(params, text, u, pos[sl], negs[sl], valid[sl],
-                        step_draws((u.shape[0], text.shape[1])), act, lambdas)
-        opt_state = step(params, opt, opt_state, loss)
+        keep = share.take(step_draws((u.shape[0], text.shape[1])))
+        loss = cdr_loss(params, text, share.take(u), share.take(pos[sl]), share.take(negs[sl]),
+                        share.take(valid[sl]), keep, act, lambdas, share.first)
+        opt_state = step(params, opt, opt_state, loss, mesh, None)
         loss_sum += loss.detach()
+    if mesh is not None:  # the ranks' shares make the minibatches' losses
+        all_sum(mesh, loss_sum, None)
     return opt_state, loss_sum
 
 
@@ -310,7 +355,8 @@ class CDR(_FactorScores):
     ``dropout_rate`` (unused, as there), ``batch_size``, ``max_iter``,
     ``init_params`` ({'U', 'V'}), ``seed`` (the generator is made here).
     ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (module docstring).
     """
 
     def __init__(
@@ -337,8 +383,6 @@ class CDR(_FactorScores):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.k = k
         self.autoencoder_structure = (
             [200] if autoencoder_structure is None else list(autoencoder_structure))
@@ -354,7 +398,7 @@ class CDR(_FactorScores):
         self.batch_size = batch_size
         self.max_iter = max_iter
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.rng = get_rng(seed)
 
@@ -388,7 +432,7 @@ class CDR(_FactorScores):
         data = (torch.as_tensor(text, device=dev), pairs,
                 build_membership(train_set.csr_matrix, device=dev))
         n = len(rid)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_batches = (n + bsz - 1) // bsz
         num_items = train_set.num_items
         act = ACTIVATIONS[self.act_fn]
@@ -402,7 +446,8 @@ class CDR(_FactorScores):
                 gen = epoch_generator(seed, epoch, dev)
                 draws = cdr_draws(gen, n, n_batches * bsz, num_items)
                 opt_state, loss_sum = cdr_epoch(params, opt, opt_state, draws, data,
-                                                keep_mask_draws(gen, keep), bsz, act, lambdas)
+                                                keep_mask_draws(gen, keep), bsz, act, lambdas,
+                                                self.mesh)
             return opt_state, loss_sum
 
         epoch_loop(self, self.max_iter, run_chunk, opt.init(params), resident=params,

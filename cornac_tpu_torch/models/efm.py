@@ -12,6 +12,18 @@ JAX package's chained scatter-adds, and the same bits on every run.
 ``ComparERObj`` adds its comparative pair stream (``pairs``) to the same
 loop.
 
+``mesh`` (``parallel.make_mesh``): edge parallelism, as in the JAX package.
+The tables are replicated and every observation stream (and ComparERObj's
+pairs) is split over every rank: each rank computes its edges' numerator
+and denominator rows, the rows are gathered back in stream order
+(``data_parallel`` over every rank), and every rank applies them with the same single
+``accumulate_rows`` call a table, so the fit is the single-device fit bit
+for bit on every layout. Of ComparERObj's pairs, whose stream can hold tens
+of millions of (pair, aspect) entries, the ranks gather each entry's
+weight (one number, its sigmoid and gate) and every rank forms the rows
+from it. The JAX package pads the streams to a multiple of
+the mesh's size with masked rows; the port's slices need no padding.
+
 Ranking uses the paper's composite score over the user's most-cared
 aspects, which the JAX package computes on the host in float64; the port
 computes it on the model's device in float64 (``_composite_scores``).
@@ -25,6 +37,8 @@ import torch
 
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import data_parallel
 from ..utils import get_rng
 from ..utils.init_utils import uniform
 from .recommender import Recommender, pad_to_catalog
@@ -38,7 +52,7 @@ def _sums(n_rows, ids, updates):
     return accumulate_rows(updates.new_zeros((n_rows, updates.shape[1])), ids, updates)
 
 
-def efm_iteration(tables, streams, counts, lambdas, pairs=None, model_type=0):
+def efm_iteration(tables, streams, counts, lambdas, pairs=None, model_type=0, mesh=None):
     """One multiplicative update of (U1, U2, V, H1, H2), in place.
 
     ``streams``: ((A_u, A_i, A_v), (X_u, X_a, X_v), (Y_i, Y_a, Y_v)), ids
@@ -46,7 +60,8 @@ def efm_iteration(tables, streams, counts, lambdas, pairs=None, model_type=0):
     user, X by aspect, Y by item, Y by aspect), float32; ``lambdas``:
     (x, y, u, h, v); ``pairs``: ComparERObj's (early, late, aspect, weight)
     or None; ``model_type``: its gate code (0 Finer, 1 Dominant, 2
-    Around)."""
+    Around); ``mesh``: each stream's edges split over every rank (module
+    docstring)."""
     U1, U2, V, H1, H2 = tables
     (A_u, A_i, A_v), (X_u, X_a, X_v), (Y_i, Y_a, Y_v) = streams
     A_uc, A_ic, X_uc, X_ac, Y_ic, Y_ac = counts
@@ -55,51 +70,63 @@ def efm_iteration(tables, streams, counts, lambdas, pairs=None, model_type=0):
 
     pair_U2 = pair_V = None
     if pairs is not None:
+        def pair_weights(U2e, U2l, Vp, p_w):
+            s_i = torch.sum(U2e * Vp, dim=1)
+            s_j = torch.sum(U2l * Vp, dim=1)
+            z = 1.0 / (1.0 + torch.exp(s_j - s_i))
+            grad = p_w * z
+            if model_type == 1:
+                grad = grad * (s_i < s_j).to(torch.float32)
+            elif model_type == 2:
+                grad = grad * (s_i > s_j).to(torch.float32)
+            return grad
+
+        # the pairs' weights from the ranks' slices; their rows (three
+        # tables' rows a pair, over a stream of up to tens of millions of
+        # (pair, aspect) entries) are formed from the weights on every rank
         p_early, p_late, p_asp, p_w = pairs
-        Vp = V[p_asp]
-        s_i = torch.sum(U2[p_early] * Vp, dim=1)
-        s_j = torch.sum(U2[p_late] * Vp, dim=1)
-        z = 1.0 / (1.0 + torch.exp(s_j - s_i))
-        grad = p_w * z
-        if model_type == 1:
-            grad = grad * (s_i < s_j).to(torch.float32)
-        elif model_type == 2:
-            grad = grad * (s_i > s_j).to(torch.float32)
-        g = grad[:, None]
+        U2e, U2l, Vp = U2[p_early], U2[p_late], V[p_asp]
+        g = data_parallel(mesh, pair_weights, p_w.shape[0], U2e, U2l, Vp, p_w, axis=None)[:, None]
         # (den, num) of U2 at the early and late items, of V at the aspect
         pair_den_U2 = _sums(U2.shape[0], p_early, g * Vp)
         pair_num_U2 = _sums(U2.shape[0], p_late, g * Vp)
-        pair_VV = _sums(V.shape[0], p_asp, torch.cat([g * U2[p_early], g * U2[p_late]], 1))
+        pair_VV = _sums(V.shape[0], p_asp, torch.cat([g * U2e, g * U2l], 1))
         pair_U2 = (pair_num_U2, pair_den_U2)
         pair_V = (pair_VV[:, k1:], pair_VV[:, :k1])
 
-    # ratings stream: A ~ U1 U2^T + H1 H2^T
-    U1a, U2a, H1a, H2a = U1[A_u], U2[A_i], H1[A_u], H2[A_i]
-    pred_A = torch.sum(U1a * U2a, dim=1) + torch.sum(H1a * H2a, dim=1)
-    av, pa = A_v[:, None], pred_A[:, None]
-    # attention stream: X ~ U1 V^T
-    U1x, Vx = U1[X_u], V[X_a]
-    pred_X = torch.sum(U1x * Vx, dim=1)
-    xv, px = (lambda_x * X_v)[:, None], (lambda_x * pred_X)[:, None]
-    # quality stream: Y ~ U2 V^T
-    U2y, Vy = U2[Y_i], V[Y_a]
-    pred_Y = torch.sum(U2y * Vy, dim=1)
-    yv, py = (lambda_y * Y_v)[:, None], (lambda_y * pred_Y)[:, None]
+    def rating_rows(A_u, A_i, A_v):  # A ~ U1 U2^T + H1 H2^T
+        U1a, U2a, H1a, H2a = U1[A_u], U2[A_i], H1[A_u], H2[A_i]
+        pred_A = torch.sum(U1a * U2a, dim=1) + torch.sum(H1a * H2a, dim=1)
+        av, pa = A_v[:, None], pred_A[:, None]
+        return (torch.cat([av * U2a, pa * U2a], 1), torch.cat([av * U1a, pa * U1a], 1),
+                torch.cat([av * H2a, pa * H2a], 1), torch.cat([av * H1a, pa * H1a], 1))
+
+    def attention_rows(X_u, X_a, X_v):  # X ~ U1 V^T
+        U1x, Vx = U1[X_u], V[X_a]
+        pred_X = torch.sum(U1x * Vx, dim=1)
+        xv, px = (lambda_x * X_v)[:, None], (lambda_x * pred_X)[:, None]
+        return torch.cat([xv * Vx, px * Vx], 1), torch.cat([xv * U1x, px * U1x], 1)
+
+    def quality_rows(Y_i, Y_a, Y_v):  # Y ~ U2 V^T
+        U2y, Vy = U2[Y_i], V[Y_a]
+        pred_Y = torch.sum(U2y * Vy, dim=1)
+        yv, py = (lambda_y * Y_v)[:, None], (lambda_y * pred_Y)[:, None]
+        return torch.cat([yv * Vy, py * Vy], 1), torch.cat([yv * U2y, py * U2y], 1)
+
+    A_U1, A_U2, A_H1, A_H2 = data_parallel(mesh, rating_rows, A_u.shape[0], A_u, A_i, A_v,
+                                           axis=None)
+    X_U1, X_V = data_parallel(mesh, attention_rows, X_u.shape[0], X_u, X_a, X_v, axis=None)
+    Y_U2, Y_V = data_parallel(mesh, quality_rows, Y_i.shape[0], Y_i, Y_a, Y_v, axis=None)
 
     # (num | den) of each table, its streams' updates in the JAX order
     U1_nd = accumulate_rows(U1.new_zeros((U1.shape[0], 2 * k1)), torch.cat([A_u, X_u]),
-                            torch.cat([torch.cat([av * U2a, pa * U2a], 1),
-                                       torch.cat([xv * Vx, px * Vx], 1)]))
+                            torch.cat([A_U1, X_U1]))
     U2_nd = accumulate_rows(U2.new_zeros((U2.shape[0], 2 * k1)), torch.cat([A_i, Y_i]),
-                            torch.cat([torch.cat([av * U1a, pa * U1a], 1),
-                                       torch.cat([yv * Vy, py * Vy], 1)]))
-    H1_nd = accumulate_rows(H1.new_zeros((H1.shape[0], 2 * k2)), A_u,
-                            torch.cat([av * H2a, pa * H2a], 1))
-    H2_nd = accumulate_rows(H2.new_zeros((H2.shape[0], 2 * k2)), A_i,
-                            torch.cat([av * H1a, pa * H1a], 1))
+                            torch.cat([A_U2, Y_U2]))
+    H1_nd = accumulate_rows(H1.new_zeros((H1.shape[0], 2 * k2)), A_u, A_H1)
+    H2_nd = accumulate_rows(H2.new_zeros((H2.shape[0], 2 * k2)), A_i, A_H2)
     V_nd = accumulate_rows(V.new_zeros((V.shape[0], 2 * k1)), torch.cat([X_a, Y_a]),
-                           torch.cat([torch.cat([xv * U1x, px * U1x], 1),
-                                      torch.cat([yv * U2y, py * U2y], 1)]))
+                           torch.cat([X_V, Y_V]))
 
     V_num, V_den = V_nd[:, :k1], V_nd[:, k1:]
     U2_num, U2_den = U2_nd[:, :k1], U2_nd[:, k1:]
@@ -117,11 +144,11 @@ def efm_iteration(tables, streams, counts, lambdas, pairs=None, model_type=0):
     return tables
 
 
-def efm_fit(tables, streams, counts, lambdas, n_iters, pairs=None, model_type=0):
+def efm_fit(tables, streams, counts, lambdas, n_iters, pairs=None, model_type=0, mesh=None):
     """``n_iters`` of ``efm_iteration`` (the JAX package's ``_efm_fit``),
     in place; returns the tables."""
     for _ in range(n_iters):
-        efm_iteration(tables, streams, counts, lambdas, pairs, model_type)
+        efm_iteration(tables, streams, counts, lambdas, pairs, model_type, mesh)
     return tables
 
 
@@ -154,8 +181,8 @@ class EFM(Recommender):
     """Explicit factor model with aspect-level explanations.
 
     Parameters mirror the JAX package's. ``device``: where the model fits
-    and scores (default: the card). ``mesh`` is refused: the edge-parallel
-    fit waits for ROADMAP.md A8 (d).
+    and scores (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -182,9 +209,7 @@ class EFM(Recommender):
         device=None,
     ):
         Recommender.__init__(self, name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.num_threads = num_threads
         self.num_explicit_factors = num_explicit_factors
@@ -308,7 +333,7 @@ class EFM(Recommender):
                        .clone() for n in ("U1", "U2", "V", "H1", "H2"))
         with torch.no_grad():
             efm_fit(tables, streams, counts, lambdas, self.max_iter, pairs,
-                    getattr(self, "_gate", 0))
+                    getattr(self, "_gate", 0), self.mesh)
         self.U1, self.U2, self.V, self.H1, self.H2 = (
             t.cpu().numpy().astype(np.float64) for t in tables)
         return self

@@ -170,7 +170,9 @@ class HFT(Recommender, ANNMixin):
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
+            raise NotImplementedError(
+                f"{name}(mesh=...) is refused: the JAX package's HFT constructor "
+                "(cornac_tpu.models.HFT) takes no mesh")
         self.mesh = mesh
         self.k = k
         self.max_iter = max_iter

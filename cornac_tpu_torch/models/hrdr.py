@@ -9,7 +9,10 @@ statistics in training (biased variance, eps ``BN_EPS``, keras' default)
 and, outside training, statistics over every entity of the side
 (``_population_bn_stats``), as the JAX package does. Training, draws,
 gradients and scoring are NARRE's (``narre.ReviewRegressor``); the rating
-rows are the dense train matrix, resident on the model's device.
+rows are the dense train matrix, resident on the model's device. On a
+mesh (NARRE's) the batch statistics are the whole minibatch's: each rank's
+sums over its rows are summed over the ranks, forward and backward
+(``Share.sum``).
 """
 
 import numpy as np
@@ -30,9 +33,16 @@ from .review_utils import (
 BN_EPS = 1e-3  # keras BatchNormalization default epsilon
 
 
-def _bn_train(x, scale, offset):
-    mean = x.mean(dim=0)
-    var = ((x - mean) ** 2).mean(dim=0)
+def _bn_train(x, scale, offset, share=None):
+    """Batch normalisation with the batch's statistics; ``share``
+    (``parallel.sharded.Share``): ``x`` is a rank's rows of a minibatch,
+    and the statistics are the whole minibatch's."""
+    if share is None:
+        mean = x.mean(dim=0)
+        var = ((x - mean) ** 2).mean(dim=0)
+    else:
+        mean = share.sum(x.sum(dim=0)) / share.n
+        var = share.sum(((x - mean) ** 2).sum(dim=0)) / share.n
     return (x - mean) / torch.sqrt(var + BN_EPS) * scale + offset
 
 
@@ -48,7 +58,8 @@ class HRDR(ReviewRegressor):
     ``n_user_mlp_factors``, ``n_item_mlp_factors`` (the rating MLPs' first
     widths). The rating MLP's output is ``n_filters * len(kernel_sizes)``
     wide. ``device``: where the model trains and scores (default: the card).
-    ``mesh`` is not ported yet.
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls ``fit``
+    (``narre``'s module docstring).
     """
 
     def __init__(
@@ -131,11 +142,11 @@ class HRDR(ReviewRegressor):
         h = torch.relu(apply_dense(params, side + "_mlp2", h))
         return torch.relu(apply_dense(params, side + "_mlp3", h))
 
-    def _rating_mlp(self, params, rows, side, bn_stats):
+    def _rating_mlp(self, params, rows, side, bn_stats, share=None):
         h = self._rating_mlp_prebn(params, rows, side)
         scale, offset = params[side + "_bn_scale"], params[side + "_bn_offset"]
         if bn_stats is None:
-            return _bn_train(h, scale, offset)
+            return _bn_train(h, scale, offset, share)
         return _bn_eval(h, bn_stats, scale, offset)
 
     def _population_bn_stats(self, params, t, side):
@@ -148,28 +159,29 @@ class HRDR(ReviewRegressor):
         return (self._population_bn_stats(params, t, "u"),
                 self._population_bn_stats(params, t, "i"))
 
-    def _tower(self, params, t, side, idx, mask, bn_stats):
+    def _tower(self, params, t, side, idx, mask, bn_stats, share=None):
         """(rating_h, o) of the side for entities ``idx``: the rating MLP
         over their rating rows, the CNN over each review, attention driven
         by the rating MLP, the attended sum (dropped out by ``mask``),
         projected."""
         emb, cnt = self._words(params, side, t, idx)
         h = text_cnn(params, "cnn_" + side, emb, self.kernel_sizes)  # (B, R, FK)
-        rating_h = self._rating_mlp(params, t[side + "_rows"][idx], side, bn_stats)
+        rating_h = self._rating_mlp(params, t[side + "_rows"][idx], side, bn_stats, share)
         a = apply_dense(params, f"att_{side}2", torch.relu(
             apply_dense(params, f"att_{side}1", h * rating_h[:, None, :])))
         att = masked_attention(a, cnt, self.max_num_review)
         o = self._dropout((att * h).sum(1), mask)
         return rating_h, apply_dense(params, "o" + side, o)
 
-    def _predict(self, params, t, u, i, masks, stats=None):
+    def _predict(self, params, t, u, i, masks, stats=None, share=None):
         """(predictions (B,), pu, qi) for the pairs (u, i); ``masks`` the
         towers' keep masks or None, ``stats`` the population statistics of
-        both sides (None: the batch's)."""
+        both sides (None: the batch's; ``share``: the whole minibatch's, of
+        which (u, i) are a rank's rows)."""
         mu_, mi_ = (None, None) if masks is None else masks
         su, si = (None, None) if stats is None else stats
-        ur_h, ou = self._tower(params, t, "u", u, mu_, su)
-        ir_h, oi = self._tower(params, t, "i", i, mi_, si)
+        ur_h, ou = self._tower(params, t, "u", u, mu_, su, share)
+        ir_h, oi = self._tower(params, t, "i", i, mi_, si, share)
         pu = torch.cat([ur_h, ou, gather_rows(params["user_emb"], u)], dim=-1)
         qi = torch.cat([ir_h, oi, gather_rows(params["item_emb"], i)], dim=-1)
         pred = (apply_dense(params, "W1", pu * qi)[:, 0] + gather_rows(params["bu"], u)

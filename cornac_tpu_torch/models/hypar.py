@@ -30,6 +30,19 @@ the full graph.
   dropout masks, negatives and explainability negatives, in the JAX
   package's order) from one ``torch.Generator``; ``loss_on`` takes a step's
   draws, so the tests feed it the JAX key's own.
+- ``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank,
+  as the JAX package shards each edge minibatch over all mesh axes: the
+  minibatch is rounded down to a multiple of the mesh's size, the
+  parameters and AdamW's state are replicated, and every rank draws the
+  whole step's draws. The hypergraph convolution and the review attention
+  over every review and node are whole-graph work: every rank computes the
+  node embeddings whole, as GSPMD replicates the same graph work in the
+  JAX package, and only the per-example loss splits, each rank taking its
+  rows of the minibatch (``parallel.sharded.Share``) over the whole
+  minibatch's count; ``ops.optim.step`` sums the gradients over every
+  rank. The sum takes another order than one device's backward, so a fit
+  agrees with the plain fit to float32 rounding, and bit for bit on a mesh
+  of one rank.
 """
 
 import contextlib
@@ -43,9 +56,12 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.graph import NormAdjacency, scatter_rows
 from ..ops.optim import adamw, step as optim_step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from .recommender import Recommender, pad_to_catalog
 from .review_utils import flatten
+from .vaecf import batch_mean
 
 COMBINERS = (
     "add", "mul", "bi-interaction", "concat", "review-only", "self", "self-only"
@@ -311,25 +327,35 @@ class HypARNet(torch.nn.Module):
             h_ui = self._dense(h_ui, f"mlp_ui.{li}", _leaky_relu)
         return torch.sum(h_ui * h_ao * self.p("r")[s], dim=-1)
 
-    def loss_on(self, draws):
+    def loss_on(self, draws, share=None):
         """The JAX fit's ``loss_fn`` on one step's ``draws`` (``idx``, the
         edges; ``neg``, (B, n_neg) negative items for the ranking objective;
-        ``aos_neg``, (B,) for the explainability loss; the dropout masks)."""
+        ``aos_neg``, (B,) for the explainability loss; the dropout masks).
+        ``share`` (``parallel.sharded.Share``): the node embeddings are the
+        whole graph's, the loss this rank's rows of the minibatch over the
+        whole minibatch's count."""
         m, g = self.m, self.graph
-        idx = draws["idx"]
+        take = (lambda x: x) if share is None else share.take
+
+        def mean(x):  # over the whole minibatch's rows (and negatives)
+            return torch.mean(x) if share is None else batch_mean(
+                x, share.n * int(np.prod(x.shape[1:], dtype=np.int64)))
+
+        idx = take(draws["idx"])
         node_rep, e_star = self.node_embeddings(draws)
         u, i, r = g.eu[idx], g.ei[idx], g.er[idx]
         pred = self.predict_pairs(e_star, u, i)
         if m.objective == "ranking":
-            n_neg = draws["neg"].shape[1]
+            neg = take(draws["neg"])
+            n_neg = neg.shape[1]
             pred_j = self.predict_pairs(e_star, u.repeat_interleave(n_neg),
-                                        draws["neg"].reshape(-1)).reshape(-1, n_neg)
-            loss = torch.mean(_softplus(-(pred[:, None] - pred_j)))
+                                        neg.reshape(-1)).reshape(-1, n_neg)
+            loss = mean(_softplus(-(pred[:, None] - pred_j)))
         else:
-            loss = torch.mean((pred - r) ** 2)
+            loss = mean((pred - r) ** 2)
         if m.learn_explainability:
             pa = g.pos_aos[idx]
-            na = g.aos[draws["aos_neg"]]
+            na = g.aos[take(draws["aos_neg"])]
             last = node_rep.shape[0] - 1
 
             def rows(ids):
@@ -341,7 +367,7 @@ class HypARNet(torch.nn.Module):
             u_emb, i_emb = gather_rows(e_star, u), gather_rows(e_star, i)
             s_i = self.aos_score(u_emb, i_emb, rows(pa[:, 0]), rows(pa[:, 1]), pa[:, 2])
             s_j = self.aos_score(u_emb, i_emb, rows(na[:, 0]), rows(na[:, 1]), na[:, 2])
-            loss = loss + m.learn_weight * torch.mean(_softplus(-(s_i - s_j)))
+            loss = loss + m.learn_weight * mean(_softplus(-(s_i - s_j)))
         return loss
 
 
@@ -383,7 +409,8 @@ def hypar_draws(generator, model, n_edges, bsz, n_batches, device):
 class HypAR(Recommender):
     """Hypergraph attention-on-reviews recommender. Parameters mirror the
     JAX package's; ``device``: where the model fits and scores (default:
-    the card); ``mesh`` is refused (ROADMAP.md A8 (d))."""
+    the card); ``mesh``: a ``parallel.make_mesh`` mesh, every rank calling
+    ``fit`` (module docstring)."""
 
     def __init__(
         self,
@@ -426,8 +453,6 @@ class HypAR(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         if objective not in ("ranking", "rating"):
             raise ValueError("objective must be 'ranking' or 'rating'")
         if combiner not in COMBINERS:
@@ -448,7 +473,7 @@ class HypAR(Recommender):
             raise ValueError(
                 "eval_interval should be a divisor of early_stopping"
             )
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.use_cuda = use_cuda
         self.stemming = stemming
@@ -733,7 +758,8 @@ class HypAR(Recommender):
             return self
 
         n_edges = len(self.edge_u)
-        bsz = min(self.batch_size, n_edges)
+        mesh = self.mesh
+        bsz = round_batch(mesh, min(self.batch_size, n_edges))
         n_total = n_edges + ((-n_edges) % bsz)
         n_batches = n_total // bsz
         opt = adamw(self.learning_rate, weight_decay=self.weight_decay)
@@ -744,12 +770,15 @@ class HypAR(Recommender):
         gen.manual_seed(int(rng.randint(2**31)))
         select_best = self.model_selection == "best" and val_set is not None
         best_score, best_params, since_best = -np.inf, None, 0
+        share = None if mesh is None else Share(mesh, bsz)
         for e in range(self.num_epochs):
             loss_sum = torch.zeros((), device=dev)
             for draws in hypar_draws(gen, self, n_edges, bsz, n_batches, dev):
-                loss = self.net.loss_on(draws)
-                opt_state = optim_step(params, opt, opt_state, loss)
+                loss = self.net.loss_on(draws, share)
+                opt_state = optim_step(params, opt, opt_state, loss, mesh, None)
                 loss_sum = loss_sum + loss.detach()
+            if mesh is not None:  # the ranks' shares make the minibatches' losses
+                all_sum(mesh, loss_sum, None)
             if self.verbose:
                 print("Epoch %d/%d, loss: %.4f"
                       % (e + 1, self.num_epochs, float(loss_sum) / n_batches))

@@ -17,6 +17,14 @@ package does: the (user, item) pair's nnz position in the rating CSR
 package's chained ``.at[].add``: the update touches only the entries whose
 summed gradient is not exactly 0, so the sums must carry the same bits.
 
+``mesh`` (``parallel.make_mesh``): MTER's design (``mter.py``). The
+tables are replicated, every rank draws the whole streams, each
+per-iteration sample count is rounded down to a multiple of the mesh's
+size (at least its size) as in the JAX package, a rank computes the update
+rows of its samples (``data_parallel`` over every rank) and the slices are gathered
+back in stream order into the one ``accumulate_rows`` call a table: every
+layout gives the single-device fit's bits.
+
 Ranking uses the paper's top-aspect composite score, which the JAX package
 computes on the host in float64; the port computes it on the model's
 device in float64.
@@ -32,6 +40,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.csr_lookup import CsrLookup
 from ..ops.membership import Membership
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import data_parallel, round_batch
 from ..utils import get_rng
 from ..utils.init_utils import uniform
 from .mter import run_iterations
@@ -68,45 +78,47 @@ def _apply(tables, grads, lr, reg):
     torch._foreach_clamp_min_(list(tables), 0.0)
 
 
-def lrppm_iteration(params, data, draws, lr, reg, ld):
+def lrppm_iteration(params, data, draws, lr, reg, ld, mesh=None):
     """One iteration of the JAX package's ``_lrppm_fit`` on one iteration's
-    ``draws``, in place on ``params`` (U, I, UA, IA)."""
+    ``draws``, in place on ``params`` (U, I, UA, IA). ``mesh``: each
+    stream's samples split over every rank (module docstring)."""
     U, I, UA, IA = params
 
-    # rating stream: r ~ U.I
-    s = draws["s"]
-    u1, i1, r = data.rid[s], data.cid[s], data.rvals[s]
-    Uu1, Ii1 = U[u1], I[i1]
-    e = 2.0 * (torch.sum(Uu1 * Ii1, dim=1) - r)
+    def rating_rows(u1, i1, r):  # r ~ U.I
+        Uu1, Ii1 = U[u1], I[i1]
+        e = 2.0 * (torch.sum(Uu1 * Ii1, dim=1) - r)
+        return e[:, None] * Ii1, e[:, None] * Uu1
 
-    # aspect-pair ranking stream
-    s2 = draws["s2"]
+    def ranking_rows(u, i, a, a_neg, x_l):  # the aspect-pair ranking stream
+        # skip when (u, i, a_neg) is an observed aspect triple: the pair's
+        # nnz position in the rating CSR, then a_neg in that row of the
+        # aspect CSR
+        _, r_ui, pair_pos = data.lookup.query_position(u, i)
+        observed = data.aspects.query(pair_pos, a_neg)
+        valid = (~observed) & (a_neg != a)
+        Uu, Ii = U[u], I[i]
+        UAa, UAn, IAa, IAn = UA[a], UA[a_neg], IA[a], IA[a_neg]
+        ui = torch.sum(Uu * Ii, dim=1)
+
+        def aspect_score(ua, ia):
+            return torch.sum(Uu * ua, dim=1) + torch.sum(Ii * ia, dim=1) + ui
+
+        pred = aspect_score(UAa, IAa) - aspect_score(UAn, IAn)
+        z = (ld * valid / (1.0 + torch.exp(pred)))[:, None]
+        # weighted rating refit on the sampled (u, i) pairs (their ratings
+        # came with their positions above)
+        del_rating = (2.0 * x_l * (r_ui - ui))[:, None]
+        zU, zI = z * Uu, z * Ii
+        return (-z * (UAa - UAn), del_rating * Ii, -z * (IAa - IAn), del_rating * Uu, zU, zI)
+
+    s, s2, a_neg = draws["s"], draws["s2"], draws["a_neg"]
+    u1, i1 = data.rid[s], data.cid[s]
     u, i, a = data.X_u[s2], data.X_i[s2], data.X_a[s2]
-    a_neg = draws["a_neg"]
-    # skip when (u, i, a_neg) is an observed aspect triple: the pair's nnz
-    # position in the rating CSR, then a_neg in that row of the aspect CSR
-    _, r_ui, pair_pos = data.lookup.query_position(u, i)
-    observed = data.aspects.query(pair_pos, a_neg)
-    valid = (~observed) & (a_neg != a)
-    Uu, Ii = U[u], I[i]
-    UAa, UAn, IAa, IAn = UA[a], UA[a_neg], IA[a], IA[a_neg]
-    ui = torch.sum(Uu * Ii, dim=1)
-
-    def aspect_score(ua, ia):
-        return torch.sum(Uu * ua, dim=1) + torch.sum(Ii * ia, dim=1) + ui
-
-    pred = aspect_score(UAa, IAa) - aspect_score(UAn, IAn)
-    z = (ld * valid / (1.0 + torch.exp(pred)))[:, None]
-
-    # weighted rating refit on the sampled (u, i) pairs (their ratings came
-    # with their positions above)
-    del_rating = (2.0 * data.X_l[s2] * (r_ui - ui))[:, None]
-
-    zU, zI = z * Uu, z * Ii
-    dU = accumulate_rows(torch.zeros_like(U), torch.cat([u1, u, u]),
-                         torch.cat([e[:, None] * Ii1, -z * (UAa - UAn), del_rating * Ii]))
-    dI = accumulate_rows(torch.zeros_like(I), torch.cat([i1, i, i]),
-                         torch.cat([e[:, None] * Uu1, -z * (IAa - IAn), del_rating * Uu]))
+    e_I, e_U = data_parallel(mesh, rating_rows, u1.shape[0], u1, i1, data.rvals[s], axis=None)
+    z_UA, rU, z_IA, rI, zU, zI = data_parallel(mesh, ranking_rows, u.shape[0], u, i, a, a_neg,
+                                               data.X_l[s2], axis=None)
+    dU = accumulate_rows(torch.zeros_like(U), torch.cat([u1, u, u]), torch.cat([e_I, z_UA, rU]))
+    dI = accumulate_rows(torch.zeros_like(I), torch.cat([i1, i, i]), torch.cat([e_U, z_IA, rI]))
     dUA = accumulate_rows(torch.zeros_like(UA), torch.cat([a, a_neg]), torch.cat([-zU, zU]))
     dIA = accumulate_rows(torch.zeros_like(IA), torch.cat([a, a_neg]), torch.cat([-zI, zI]))
     _apply(params, (dU, dI, dUA, dIA), lr, reg)
@@ -143,7 +155,8 @@ class LRPPM(Recommender):
     """Aspect-pair ranking tensor model with composite top-aspect scoring.
 
     Parameters mirror the JAX package's. ``device``: where the model fits
-    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8 (d)).
+    and scores (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -168,9 +181,7 @@ class LRPPM(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.n_threads = n_threads
         self.rating_scale = rating_scale
@@ -279,11 +290,13 @@ class LRPPM(Recommender):
         params = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev).clone()
                        for t in (self.U, self.I, self.UA, self.IA))
         lr, reg, ld = (float(np.float32(v)) for v in (self.lr, self.reg, self.ld))
+        mesh = self.mesh
+        n_s, n_r = (round_batch(mesh, n) for n in (self.n_samples, self.n_ranking_samples))
         with torch.no_grad():
             run_iterations(
                 self.max_iter,
-                lambda g, n: lrppm_draws(g, n, data, self.n_samples, self.n_ranking_samples, dev),
-                lambda d: lrppm_iteration(params, data, d, lr, reg, ld), gen)
+                lambda g, n: lrppm_draws(g, n, data, n_s, n_r, dev),
+                lambda d: lrppm_iteration(params, data, d, lr, reg, ld, mesh), gen)
         self.U, self.I, self.UA, self.IA = (t.cpu().numpy().astype(np.float64) for t in params)
         return self
 

@@ -24,6 +24,20 @@ updates, concatenated in the order of the JAX package's chained
 ``.at[].add`` (X, YU, YI, BPR, pairs): the same sums in the same order, so
 the ``g != 0`` gate and the AdaGrad sums see the same bits on every run.
 The BPR pair-order reversal reads ratings through ``CsrLookup``.
+
+``mesh`` (``parallel.make_mesh``), as in the JAX package: the tables and
+AdaGrad's sums are replicated, every rank draws the whole of each
+iteration's streams, and each stream's samples are split over every rank.
+Each per-iteration sample count is rounded down to a multiple of the
+mesh's size, and to at least the mesh's size, as the JAX package rounds
+it, so a mesh fit draws the JAX mesh fit's counts. A rank computes the
+weights and the update rows of its samples; the slices are gathered back
+in stream order (``data_parallel``) into the one ``accumulate_rows`` call a
+table, and every rank sums the core tensors' gradients over the whole
+stream from the gathered weights: every layout gives the single-device
+fit's bits. Each stream's table rows are gathered once, whole, on every
+rank (the core gradients read them all), and a rank reads its slice of
+them.
 """
 
 import itertools
@@ -36,6 +50,8 @@ import torch
 from ..exception import ScoreException
 from ..ops.accumulate import accumulate_rows
 from ..ops.csr_lookup import CsrLookup
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import data_parallel, round_batch
 from ..utils import get_rng
 from ..utils.init_utils import uniform
 from .recommender import Recommender, pad_to_catalog
@@ -56,12 +72,16 @@ def _tucker3(G, u, i, a):
     return torch.einsum("sp,sq,sr,pqr->s", u, i, a, G)
 
 
-def _stream(G, t1, t2, t3, e):
-    """A Tucker stream's gradients: (gG, g1, g2, g3) of weights ``e``."""
-    return (torch.einsum("s,sp,sq,sr->pqr", e, t1, t2, t3),
-            torch.einsum("s,sq,sr,pqr->sp", e, t2, t3, G),
-            torch.einsum("s,sp,sr,pqr->sq", e, t1, t3, G),
-            torch.einsum("s,sp,sq,pqr->sr", e, t1, t2, G))
+def _core_grad(w, t1, t2, t3):
+    """A Tucker stream's core gradient: sum_s w_s t1_s x t2_s x t3_s."""
+    return torch.einsum("s,sp,sq,sr->pqr", w, t1, t2, t3)
+
+
+def _row_grads(G, t1, t2, t3, w):
+    """A Tucker stream's row gradients (g1, g2, g3) of weights ``w``."""
+    return (torch.einsum("s,sq,sr,pqr->sp", w, t2, t3, G),
+            torch.einsum("s,sp,sr,pqr->sq", w, t1, t3, G),
+            torch.einsum("s,sp,sq,pqr->sr", w, t1, t2, G))
 
 
 def _pair_ratings(lookup, u, i, j):
@@ -109,10 +129,11 @@ def adagrad_project(params, sgrads, grads, lr, ld_reg):
     torch._foreach_clamp_min_(p, 0.0)
 
 
-def mter_iteration(params, sgrads, data, draws, lr, ld_reg, ld_bpr, ld_d=0.0):
+def mter_iteration(params, sgrads, data, draws, lr, ld_reg, ld_bpr, ld_d=0.0, mesh=None):
     """One iteration of the JAX package's ``_mter_fit`` on one iteration's
     ``draws`` (a dict of (n,) tensors as ``mter_draws`` makes them), in
-    place on the dicts ``params`` and ``sgrads``."""
+    place on the dicts ``params`` and ``sgrads``. ``mesh``: each stream's
+    samples split over every rank (module docstring)."""
     G1, G2, G3 = params["G1"], params["G2"], params["G3"]
     U, I, A, O = params["U"], params["I"], params["A"], params["O"]
     n_aspects = A.shape[0] - 1
@@ -123,44 +144,52 @@ def mter_iteration(params, sgrads, data, draws, lr, ld_reg, ld_bpr, ld_d=0.0):
         ids[name].append(idx)
         upd[name].append(g)
 
+    def tensor_stream(G, values, index, names, s):
+        """A sampled tensor-reconstruction stream on the tables ``names``:
+        each table's ids and update rows added; returns its core
+        gradient."""
+        idx = [a[s] for a in index]
+        t = [params[n][i] for n, i in zip(names, idx)]
+
+        def rows(v, *t_):
+            e = 2.0 * (_tucker3(G, *t_) - v)
+            return (e,) + _row_grads(G, *t_, e)
+
+        e, *grads = data_parallel(mesh, rows, t[0].shape[0], values[s], *t, axis=None)
+        for name, i, g in zip(names, idx, grads):
+            add(name, i, g)
+        return _core_grad(e, *t)
+
     # three sampled tensor-reconstruction streams
-    s1 = draws["s1"]
-    u, i, a = data.X_u[s1], data.X_i[s1], data.X_a[s1]
-    t1, t2, t3 = U[u], I[i], A[a]
-    e = 2.0 * (_tucker3(G1, t1, t2, t3) - data.X[s1])
-    gG1, g1, g2, g3 = _stream(G1, t1, t2, t3, e)
-    add("U", u, g1), add("I", i, g2), add("A", a, g3)
-
-    s2 = draws["s2"]
-    u, a, o = data.YU_u[s2], data.YU_a[s2], data.YU_o[s2]
-    t1, t2, t3 = U[u], A[a], O[o]
-    e = 2.0 * (_tucker3(G2, t1, t2, t3) - data.YU[s2])
-    gG2, g1, g2, g3 = _stream(G2, t1, t2, t3, e)
-    add("U", u, g1), add("A", a, g2), add("O", o, g3)
-
-    s3 = draws["s3"]
-    i, a, o = data.YI_i[s3], data.YI_a[s3], data.YI_o[s3]
-    t1, t2, t3 = I[i], A[a], O[o]
-    e = 2.0 * (_tucker3(G3, t1, t2, t3) - data.YI[s3])
-    gG3, g1, g2, g3 = _stream(G3, t1, t2, t3, e)
-    add("I", i, g1), add("A", a, g2), add("O", o, g3)
+    gG1 = tensor_stream(G1, data.X, (data.X_u, data.X_i, data.X_a), ("U", "I", "A"),
+                        draws["s1"])
+    gG2 = tensor_stream(G2, data.YU, (data.YU_u, data.YU_a, data.YU_o), ("U", "A", "O"),
+                        draws["s2"])
+    gG3 = tensor_stream(G3, data.YI, (data.YI_i, data.YI_a, data.YI_o), ("I", "A", "O"),
+                        draws["s3"])
 
     # BPR stream on the overall-rating slice (aspect index n_aspects)
-    pos = draws["pos"]
-    u, i, j = data.rat_users[pos], data.rat_items[pos], draws["j"]
-    found, j_rating, i_rating = _pair_ratings(data.lookup, u, i, j)
-    # unobserved j: s = +1; observed with a lower rating: s = -1; equal: skip
-    s = torch.where(found & (i_rating < j_rating), -1.0, 1.0)
-    valid = ~(found & (i_rating == j_rating))
+    def bpr_rows(u, i, j, Uu, Ii, Ij, i_ij):
+        found, j_rating, i_rating = _pair_ratings(data.lookup, u, i, j)
+        # unobserved j: s = +1; observed with a lower rating: s = -1; equal: skip
+        s = torch.where(found & (i_rating < j_rating), -1.0, 1.0)
+        valid = ~(found & (i_rating == j_rating))
+        Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
+        pred = (_tucker3(G1, Uu, Ii, Aov) - _tucker3(G1, Uu, Ij, Aov)) * s
+        z = 1.0 / (1.0 + torch.exp(pred))
+        del_bpr = ld_bpr * z * s * valid
+        return (del_bpr, -torch.einsum("s,sq,sr,pqr->sp", del_bpr, i_ij, Aov, G1),
+                torch.einsum("s,sp,sr,pqr->sq", del_bpr, Uu, Aov, G1))
+
+    pos, j = draws["pos"], draws["j"]
+    u, i = data.rat_users[pos], data.rat_items[pos]
     Uu, Ii, Ij = U[u], I[i], I[j]
-    Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
-    pred = (_tucker3(G1, Uu, Ii, Aov) - _tucker3(G1, Uu, Ij, Aov)) * s
-    z = 1.0 / (1.0 + torch.exp(pred))
-    del_bpr = ld_bpr * z * s * valid
     i_ij = Ii - Ij
+    del_bpr, g_u, g_i = data_parallel(mesh, bpr_rows, u.shape[0], u, i, j, Uu, Ii, Ij, i_ij,
+                                       axis=None)
+    Aov = A[n_aspects].expand(u.shape[0], A.shape[1])
     gG1 = gG1 - torch.einsum("s,sp,sq,sr->pqr", del_bpr, Uu, i_ij, Aov)
-    add("U", u, -torch.einsum("s,sq,sr,pqr->sp", del_bpr, i_ij, Aov, G1))
-    g_i = torch.einsum("s,sp,sr,pqr->sq", del_bpr, Uu, Aov, G1)
+    add("U", u, g_u)
     add("I", i, -g_i), add("I", j, g_i)
     add("A", torch.full((1,), n_aspects, dtype=torch.int64, device=A.device),
         -torch.einsum("s,sp,sq,pqr->r", del_bpr, Uu, i_ij, G1)[None, :])
@@ -169,18 +198,22 @@ def mter_iteration(params, sgrads, data, draws, lr, ld_reg, ld_bpr, ld_d=0.0):
         # comparative aspect-BPR stream (ComparERSub): for a sampled chrono
         # pair (u, earlier i, later j, aspect a), push score(u, j, a) above
         # score(u, i, a)
-        p_u, p_early, p_late, p_asp = data.pairs
-        sp_ = draws["sp"]
-        pu_, pe_, pl_, pa_ = p_u[sp_], p_early[sp_], p_late[sp_], p_asp[sp_]
+        def pair_rows(pu, pi, pj, pa, a_ji):
+            pred_p = _tucker3(G1, pu, pj, pa) - _tucker3(G1, pu, pi, pa)
+            del_p = ld_d * (1.0 / (1.0 + torch.exp(pred_p)))
+            return (del_p, -torch.einsum("s,sq,sr,pqr->sp", del_p, a_ji, pa, G1),
+                    torch.einsum("s,sp,sr,pqr->sq", del_p, pu, pa, G1),
+                    -torch.einsum("s,sp,sq,pqr->sr", del_p, pu, a_ji, G1))
+
+        pu_, pe_, pl_, pa_ = (p[draws["sp"]] for p in data.pairs)
         pu, pi, pj, pa = U[pu_], I[pe_], I[pl_], A[pa_]
-        pred_p = _tucker3(G1, pu, pj, pa) - _tucker3(G1, pu, pi, pa)
-        del_p = ld_d * (1.0 / (1.0 + torch.exp(pred_p)))
         a_ji = pj - pi
+        del_p, g_u, g_pi, g_a = data_parallel(mesh, pair_rows, pu.shape[0], pu, pi, pj, pa,
+                                               a_ji, axis=None)
         gG1 = gG1 - torch.einsum("s,sp,sq,sr->pqr", del_p, pu, a_ji, pa)
-        add("U", pu_, -torch.einsum("s,sq,sr,pqr->sp", del_p, a_ji, pa, G1))
-        g_pi = torch.einsum("s,sp,sr,pqr->sq", del_p, pu, pa, G1)
+        add("U", pu_, g_u)
         add("I", pl_, -g_pi), add("I", pe_, g_pi)
-        add("A", pa_, -torch.einsum("s,sp,sq,pqr->sr", del_p, pu, a_ji, G1))
+        add("A", pa_, g_a)
 
     grads = {"G1": gG1, "G2": gG2, "G3": gG3}
     for name in ("U", "I", "A", "O"):
@@ -207,7 +240,8 @@ class MTER(Recommender):
     """Joint Tucker factorization of rating/attention/quality tensors.
 
     Parameters mirror the JAX package's. ``device``: where the model fits
-    and scores (default: the card). ``mesh`` is refused (ROADMAP.md A8 (d)).
+    and scores (default: the card). ``mesh``: a ``parallel.make_mesh``
+    mesh; every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -233,9 +267,7 @@ class MTER(Recommender):
         device=None,
     ):
         super().__init__(name=name, trainable=trainable, verbose=verbose)
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.n_threads = n_threads
         self.rating_scale = rating_scale
@@ -367,18 +399,24 @@ class MTER(Recommender):
 
     def _fit_sampled(self, data, dev, n_pair=0, ld_d=0.0):
         """The sampled iterations from the initial tables: the generator is
-        seeded where the JAX package draws its key."""
+        seeded where the JAX package draws its key; on a mesh the sample
+        counts are rounded as the JAX package rounds them (module
+        docstring)."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(self.rng.randint(2**31)))
         params, sgrads = self._device_params(dev)
         lr, ld_reg, ld_bpr, ld_d = (float(np.float32(v)) for v in (
             self.lr, self.lambda_reg, self.lambda_bpr, ld_d))
+        mesh = self.mesh
+        n_el, n_bpr = (round_batch(mesh, n) for n in (self.n_element_samples,
+                                                      self.n_bpr_samples))
+        n_pair = round_batch(mesh, n_pair) if n_pair else 0
         with torch.no_grad():
             run_iterations(
                 self.max_iter,
-                lambda g, n: mter_draws(g, n, data, self.n_element_samples, self.n_bpr_samples,
-                                        n_pair, self.num_items, dev),
-                lambda d: mter_iteration(params, sgrads, data, d, lr, ld_reg, ld_bpr, ld_d),
+                lambda g, n: mter_draws(g, n, data, n_el, n_bpr, n_pair, self.num_items, dev),
+                lambda d: mter_iteration(params, sgrads, data, d, lr, ld_reg, ld_bpr, ld_d,
+                                         mesh),
                 gen)
         for name in NAMES:
             setattr(self, name, params[name].cpu().numpy().astype(np.float64))

@@ -17,6 +17,20 @@ empty review slots (``review_utils.empty_slot_ids``), whose gradient is
 exactly 0. Nothing syncs with the host inside an epoch. After the fit the
 towers collapse into factor tables (P = user_emb + X, Q = item_emb + Y), so
 scoring is one product.
+
+``mesh`` (``parallel.make_mesh``) trains data-parallel over every rank, as
+the JAX package shards each minibatch over all mesh axes: the parameters,
+the optimizer's state and the review packs are replicated, the minibatch
+is rounded down to a multiple of the mesh's size, and each rank takes its
+rows (``parallel.sharded.Share``) with its rows of the dropout masks drawn
+for the whole minibatch, its squared errors over the whole minibatch's
+count, and ``ops.optim.step`` sums the gradients over every rank. A rank's
+gathers sum its rows' gradients in batch order (``accumulate_rows``, the
+empty review slots dropped, as on one device). HRDR's batch normalisation
+takes the whole minibatch's statistics, the ranks' partial sums summed
+forward and backward (``Share.sum``). The sums over the ranks take another
+order than one device's backward, so a fit agrees with the plain fit to
+float32 rounding, and bit for bit on a mesh of one rank.
 """
 
 import numpy as np
@@ -26,6 +40,8 @@ from ..exception import ScoreException
 from ..ops.accumulate import gather_rows
 from ..ops.dense_scores import device_dot
 from ..ops.optim import adam, rmsprop, step
+from ..parallel.mesh import check_mesh
+from ..parallel.sharded import Share, all_sum, round_batch
 from ..utils import get_rng
 from ..utils.checkpoint import epoch_generator
 from .mf import _epoch_permutation
@@ -40,6 +56,7 @@ from .review_utils import (
     masked_attention,
     text_cnn,
 )
+from .vaecf import batch_mean
 
 CACHE_ROWS = 256  # entities a tower runs at once when it caches or validates
 
@@ -54,8 +71,6 @@ class ReviewRegressor(Recommender, ANNMixin):
                kernel_sizes, n_filters, dropout_rate, max_text_length, max_num_review,
                batch_size, max_iter, optimizer, learning_rate, model_selection, user_based,
                init_params, seed, mesh, device):
-        if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
         self.embedding_size = embedding_size
         self.id_embedding_size = id_embedding_size
         self.n_factors = n_factors
@@ -72,7 +87,7 @@ class ReviewRegressor(Recommender, ANNMixin):
         self.model_selection = model_selection
         self.user_based = user_based
         self.seed = seed
-        self.mesh = mesh
+        self.mesh = None if mesh is None else check_mesh(mesh)
         self.device = device
         self.init_params = {} if init_params is None else init_params
         self.losses = {"train_losses": [], "val_losses": []}
@@ -125,25 +140,40 @@ class ReviewRegressor(Recommender, ANNMixin):
     def _dropout(self, o, mask):
         return o if mask is None else o * mask / (1.0 - self.dropout_rate)
 
-    def loss_on(self, params, t, u, i, r, masks):
+    def loss_on(self, params, t, u, i, r, masks, share=None):
         """The mean squared error of the predictions for (u, i) against
-        ``r`` with the keep masks ``masks`` (None: no dropout)."""
-        pred = self._predict(params, t, u, i, masks)[0]
-        return torch.mean((pred - r) ** 2)
+        ``r`` with the keep masks ``masks`` (None: no dropout). ``share``
+        (``parallel.sharded.Share``): (u, i, r, masks) are a rank's rows of
+        a minibatch, and the loss is its share of the minibatch's mean."""
+        if share is None:
+            return torch.mean((self._predict(params, t, u, i, masks)[0] - r) ** 2)
+        pred = self._predict(params, t, u, i, masks, share=share)[0]
+        return batch_mean((pred - r) ** 2, share.n)
 
     def epoch(self, params, opt, opt_state, t, order, data, step_draws, batch_size):
         """One epoch of optimizer steps in the order ``order`` ((n_total,)
         int64 indices into the ratings ``data`` = (users, items, values)),
         each step's keep masks from ``step_draws(B)``, updating ``params`` in
-        place. Returns (the new state, the summed loss, a device scalar)."""
+        place. Returns (the new state, the summed loss, a device scalar).
+        On a mesh each rank takes its share of every minibatch (module
+        docstring)."""
         users, items, values = data
         loss_sum = torch.zeros((), dtype=torch.float32, device=order.device)
+        mesh = self.mesh
+        share = None if mesh is None else Share(mesh, batch_size)
         for s in range(0, order.shape[0], batch_size):
             idx = order[s: s + batch_size]
-            loss = self.loss_on(params, t, users[idx], items[idx], values[idx],
-                                step_draws(idx.shape[0]))
-            opt_state = step(params, opt, opt_state, loss)
+            masks = step_draws(idx.shape[0])
+            if share is None:  # loss_on's six arguments, as callers wrap it
+                loss = self.loss_on(params, t, users[idx], items[idx], values[idx], masks)
+            else:
+                idx = share.take(idx)
+                masks = None if masks is None else tuple(share.take(m) for m in masks)
+                loss = self.loss_on(params, t, users[idx], items[idx], values[idx], masks, share)
+            opt_state = step(params, opt, opt_state, loss, mesh, None)
             loss_sum += loss.detach()
+        if mesh is not None:  # the ranks' shares make the minibatches' losses
+            all_sum(mesh, loss_sum, None)
         return opt_state, loss_sum
 
     def fit(self, train_set, val_set=None):
@@ -161,7 +191,7 @@ class ReviewRegressor(Recommender, ANNMixin):
         t = self._tensors(train_set, dev)
         uid, iid, rating = train_set.uir_tuple
         n = len(uid)
-        bsz = min(self.batch_size, n)
+        bsz = round_batch(self.mesh, min(self.batch_size, n))
         n_total = n + (-n) % bsz
         n_batches = n_total // bsz
         data = (torch.as_tensor(np.asarray(uid, np.int64), device=dev),
@@ -292,7 +322,8 @@ class NARRE(ReviewRegressor):
     or 'rmsprop'), ``learning_rate``, ``model_selection`` ('last' or
     'best'), ``user_based``, ``init_params`` ({'pretrained_word_embeddings':
     {token: vector}}), ``seed``. ``device``: where the model trains and
-    scores (default: the card). ``mesh`` is not ported yet.
+    scores (default: the card). ``mesh``: a ``parallel.make_mesh`` mesh;
+    every rank calls ``fit`` (module docstring).
     """
 
     def __init__(
@@ -373,7 +404,8 @@ class NARRE(ReviewRegressor):
         ids = t[side + "_ids"][idx]
         partner = params["iid_emb" if side == "u" else "uid_emb"]
         grad_ids = empty_slot_ids(ids, cnt, partner.shape[0]).reshape(-1)
-        p = gather_rows(partner, ids.reshape(-1), grad_ids).reshape(ids.shape + (-1,))
+        p = gather_rows(partner, ids.reshape(-1), grad_ids).reshape(
+            ids.shape + (partner.shape[1],))
         a_in = torch.cat([h, p], dim=-1)
         a = apply_dense(params, f"att_{side}2",
                         torch.relu(apply_dense(params, f"att_{side}1", a_in)))
@@ -381,9 +413,11 @@ class NARRE(ReviewRegressor):
         o = self._dropout((att * h).sum(1), mask)
         return apply_dense(params, "Xu" if side == "u" else "Yi", o)
 
-    def _predict(self, params, t, u, i, masks, stats=None):
+    def _predict(self, params, t, u, i, masks, stats=None, share=None):
         """(predictions (B,),) for the pairs (u, i); ``masks`` the two
-        towers' keep masks or None."""
+        towers' keep masks or None. A pair's prediction is its own, so a
+        rank's share of a minibatch needs nothing of the others'
+        (``share``)."""
         mu_, mi_ = (None, None) if masks is None else masks
         Xu = self._tower(params, t, "u", u, mu_)
         Yi = self._tower(params, t, "i", i, mi_)

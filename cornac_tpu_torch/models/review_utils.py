@@ -65,8 +65,9 @@ def text_cnn(params, prefix, emb, kernel_sizes):
     for j, ks in enumerate(kernel_sizes):
         w = params[f"{prefix}.{j}.w"]
         win = windows(emb, ks)
-        h = win.reshape(*win.shape[:-2], -1) @ w.reshape(-1, w.shape[-1]) + params[
-            f"{prefix}.{j}.b"]
+        # explicit widths: a rank's share of a minibatch may hold no rows
+        win = win.reshape(*win.shape[:-2], ks * emb.shape[-1])
+        h = win @ w.reshape(-1, w.shape[-1]) + params[f"{prefix}.{j}.b"]
         outs.append(torch.amax(torch.relu(h), dim=-2))
     return torch.cat(outs, dim=-1)
 

@@ -73,7 +73,7 @@ def _allclose(a, b):
 class TriRank(Recommender):
     """Tripartite (user-item-aspect) smoothness ranking. ``device``: where
     the model scores (default: the card). ``mesh``, which the JAX package's
-    TriRank does not take, is refused (ROADMAP.md A8 (d))."""
+    TriRank does not take, is refused."""
 
     def __init__(
         self,
@@ -93,7 +93,9 @@ class TriRank(Recommender):
     ):
         super().__init__(name)
         if mesh is not None:
-            raise NotImplementedError(f"{name}(mesh=...) is not ported yet (ROADMAP.md A8 (d))")
+            raise NotImplementedError(
+                f"{name}(mesh=...) is refused: the JAX package's TriRank constructor "
+                "(cornac_tpu.models.TriRank) takes no mesh")
         self.mesh = mesh
         self.alpha = alpha
         self.beta = beta

@@ -38,7 +38,8 @@ rank of the mesh (SPMD) and issues its collectives explicitly:
   step, written once for both the single-device and the mesh fit;
   ``split_scoring`` runs a scorer that way over every rank when the ranks divide
   the batch.
-* ``round_batch``: the JAX package's rounding of a sharded minibatch.
+* ``round_batch``: the JAX package's rounding of a minibatch sharded over
+  every rank, or over one axis (CVAE's and ConvMF's over "data").
 * ``slice_rows``: a replicated table's rows at this rank's slice of a
   minibatch, whose gradient is summed in batch order as on one device.
 * ``row_shard_set_last_wins``: ``set_rows_last_wins`` on a row-sharded
@@ -52,6 +53,9 @@ rank of the mesh (SPMD) and issues its collectives explicitly:
   the losses that couple a minibatch's rows (a mean over the whole batch,
   an in-batch block that scores every row against every column, batch
   statistics, draws made for the whole batch).
+* ``data_group_first``: whether this rank is the first of its "data" group,
+  the rank that adds a loss's terms of no row where a minibatch is split
+  over "data" alone (CVAE's VAE), as ``Share.first`` does over every rank.
 """
 
 import numpy as np
@@ -219,13 +223,15 @@ def data_parallel(mesh, fn, n, *rows, axis=DATA_AXIS):
     return res[0] if single else tuple(res)
 
 
-def round_batch(mesh, bsz):
-    """A minibatch size rounded down to a multiple of the mesh's ranks, at
-    least one row a rank, as the JAX package rounds the minibatches it
-    shards over every device; ``bsz`` itself without a mesh."""
+def round_batch(mesh, bsz, axis=None):
+    """A minibatch size rounded down to a multiple of the ranks of ``axis``
+    (None: every rank of the mesh), at least one row a rank, as the JAX
+    package rounds the minibatches it shards; ``bsz`` itself without a
+    mesh."""
     if mesh is None:
         return bsz
-    return max(mesh.size(), bsz - bsz % mesh.size())
+    parts = mesh.size() if axis is None else axis_size(mesh, axis)
+    return max(parts, bsz - bsz % parts)
 
 
 def split_scoring(mesh, fn, n, *rows):
@@ -328,6 +334,12 @@ def row_shard_set_last_wins(mesh, table, ids, values):
     written = (src >= 0).view((-1,) + (1,) * (values.dim() - 1))
     local[at] = torch.where(written, values[src.clamp_min(0)], local[at])
     return table
+
+
+def data_group_first(mesh):
+    """Whether this rank is the first of its "data" group (or there is no
+    mesh): the rank that adds a data-parallel loss's terms of no row."""
+    return mesh is None or mesh.get_local_rank(DATA_AXIS) == 0
 
 
 class Share:

@@ -7,6 +7,7 @@ without the suite's ``conftest.py``:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import importlib
 import warnings
 
 import numpy as np
@@ -1719,6 +1720,77 @@ def test_world_one_seq_side_fit_equals_the_plain_fit(world_one_mesh, card, name)
         got = {n: p.detach().cpu().numpy() for n, p in sharded.params.named_parameters()}
     else:
         want, got = ({a: np.asarray(getattr(m, a)) for a in attrs} for m in (plain, sharded))
+    assert want and set(got) == set(want)
+    for n in want:
+        assert np.isfinite(want[n]).all()
+        np.testing.assert_array_equal(got[n], want[n], err_msg=f"{name} {n}")
+
+
+# one model of each pattern of the text, review and sentiment models' mesh=
+# (the rest of A8 (d)): a review tower over a rank's share of the
+# minibatch (NARRE), ALS rows split over "data" with a data-parallel neural
+# phase (CVAE, whose VAE gathers no rows, and ConvMF, whose CNN does), the
+# edge split of the multiplicative updates (EFM), the split sampled streams
+# (MTER) and the whole-graph forward with the loss's rows split (HypAR);
+# the data are the four-rank CPU tests' own
+def _world_one_text(kind):
+    from test_torch_parallel_text import _split
+
+    from cornac_tpu_torch import data as pdata, eval_methods as peval
+
+    return _split((pdata, peval), kind)
+
+
+def _world_one_sentiment():
+    from test_torch_parallel_sentiment import _split
+
+    from cornac_tpu_torch import data as pdata, eval_methods as peval
+
+    return _split((pdata, peval))
+
+
+def _four_rank_case(cls, module, name):
+    """``cls`` at the settings of case ``name`` of the four-rank CPU test
+    file ``module``."""
+    def make(**kw):
+        return cls(**importlib.import_module(module).CASES[name][1], **kw)
+    return make
+
+
+WORLD_ONE_TEXT_SENTIMENT = {
+    "NARRE": (_four_rank_case(NARRE, "test_torch_parallel_text", "NARRE"),
+              lambda: _world_one_text("reviews")),
+    "CVAE": (_four_rank_case(CVAE, "test_torch_parallel_text", "CVAE"),
+             lambda: _world_one_text("text")),
+    "ConvMF": (_four_rank_case(ConvMF, "test_torch_parallel_text", "ConvMF"),
+               lambda: _world_one_text("text")),
+    "EFM": (_four_rank_case(EFM, "test_torch_parallel_sentiment", "EFM"), _world_one_sentiment),
+    "MTER": (_four_rank_case(MTER, "test_torch_parallel_sentiment", "MTER"),
+             _world_one_sentiment),
+    "HypAR": (_four_rank_case(HypAR, "test_torch_parallel_sentiment", "HypAR"),
+              _world_one_sentiment),
+}
+
+
+@pytest.mark.parametrize("name", list(WORLD_ONE_TEXT_SENTIMENT))
+def test_world_one_text_sentiment_fit_equals_the_plain_fit(world_one_mesh, card, name):
+    import os
+    import sys
+
+    from cornac_tpu_torch.models.hypar import fixed_svds_start
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import model_arrays
+
+    make, data = WORLD_ONE_TEXT_SENTIMENT[name]
+    train = data()
+    with fixed_svds_start(0):
+        plain = make(device=card).fit(train)
+        before = ACCUMULATE_ROWS.launches
+        sharded = make(mesh=world_one_mesh).fit(train)
+    if name != "CVAE":  # its ALS and VAE sum no rows
+        assert ACCUMULATE_ROWS.launches > before
+    want, got = model_arrays(plain), model_arrays(sharded)
     assert want and set(got) == set(want)
     for n in want:
         assert np.isfinite(want[n]).all()

@@ -447,7 +447,9 @@ def test_fit_best_model_selection_and_refit_bits(splits, name):
 
 @pytest.mark.parametrize("cls", [P.NARRE, P.HRDR])
 def test_mesh_is_refused(cls):
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh= is ported (tests/test_torch_parallel_text.py): anything but a
+    # parallel.make_mesh mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cls(mesh=object())
 
 
